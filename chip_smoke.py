@@ -5,29 +5,40 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result line):
   1. device  — the card's name and power limit;
-  2. build   — compile csrc/*.cu for sm_90a and load the library;
-  3. kernels — every kernel of the serving path at the llama3-8B shapes it
-               gets there, held against its plain PyTorch version on the
-               same inputs, timed with CUDA events (median of 20, L2
+  2. build   — compile csrc/*.cu for sm_90a (one nvcc per source, all
+               started together) and load the library;
+  3. kernels — every kernel of the serving paths at the llama3-8B shapes
+               they get there, held against its plain PyTorch version on
+               the same inputs, timed with CUDA events (median of 20, L2
                flushed before each call), beside its bound on this card and
                one PyTorch library call where one computes the same
-               function;
+               function; and the load-time repack on the card against the
+               CPU repack, bit for bit;
   4. serving — the full llama3-8B W4A8 model (32 layers, random weights
                from a seed) serves 3 requests through LlamaContext: prefill
                64 tokens, then 32 greedy tokens; every kernel's launch count
                must rise during this phase;
-  5. parity  — full width, 2 layers: the port on the card against the port
-               on the CPU (plain versions), prefill plus 4 greedy steps.
+  5. gguf    — a full-width 32-layer llama3-8B GGUF file with the Q4_K_M
+               type mix (random wire blocks from a seed) is written to a
+               temporary directory, loaded with load_gguf_model in the w4
+               and in the int8 mode, and each serves 3 requests as in 4;
+               every kernel of the mode must be launched;
+  6. parity  — full width, 2 layers: the port on the card against the port
+               on the CPU (plain versions), prefill plus 4 greedy steps, for
+               the synthetic W4A8 model and for a GGUF file in both modes.
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import functools
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -75,10 +86,55 @@ def time_ms(torch, fn, flush) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def w4_bytes(w, streamed: bool = True) -> int:
-    """Bytes of a W4 fold that a kernel reads: the decode kernels stream
-    codes + compact planes; the prefill kernel codes + g_scale/g_min."""
-    names = ("codes", "aux.q6", "aux.dd") if streamed else ("codes", "g_scale", "g_min")
+def err_of(got, ref) -> dict:
+    got, ref = got.float(), ref.float()
+    a = (got - ref).abs().max().item()
+    return {"abs": a, "rel": a / max(ref.abs().max().item(), 1e-30)}
+
+
+def report_row(results, kernel, shape, err, tol, ms, plain_ms, nbytes, ops, kind,
+               library_ms) -> None:
+    """A timed comparison of a kernel with its plain version."""
+    bms, by = bound(nbytes, ops, kind)
+    row = {"kernel": kernel, "shape": shape, "max_abs_err": err["abs"],
+           "max_rel_err": err["rel"], "tol_rel": tol, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bms, "bound_by": by, "library_ms": library_ms}
+    log(json.dumps(row))
+    if not err["rel"] <= tol:
+        raise AssertionError(f"{kernel} {shape}: rel err {err['rel']} > {tol}")
+    results.setdefault(kernel, []).append(row)
+
+
+def check_row(results, kernel, shape, got, ref, tol) -> None:
+    """An untimed comparison: the instantiations the serving runs may not
+    reach (fold flavors, batch-row buckets, activations)."""
+    err = err_of(got, ref)
+    row = {"kernel": kernel, "shape": shape, "max_abs_err": err["abs"],
+           "max_rel_err": err["rel"], "tol_rel": tol, "timed": False}
+    log(json.dumps(row))
+    if not err["rel"] <= tol:
+        raise AssertionError(f"{kernel} {shape}: rel err {err['rel']} > {tol}")
+    results.setdefault(kernel, []).append(row)
+
+
+def codes_equal(torch, x) -> None:
+    """The prologue's int8 activation codes, scales and sums (q8.cu) are
+    bit-equal to the plain quantizer's."""
+    from llama_kotlin_tpu_torch.ops.cuda import qmm_w4
+
+    a, b = qmm_w4.quantize_q8_cuda(x), qmm_w4.quantize_q8(x)
+    if not all(torch.equal(p, q) for p, q in zip(a, b)):
+        raise AssertionError("activation codes differ from the plain quantizer")
+
+
+W4_STREAMED = ("codes", "aux.q6", "aux.dd")
+FOLD_PLANES = ("codes", "g_scale", "g_min")
+
+
+def nbytes(w, names=FOLD_PLANES) -> int:
+    """Bytes of a weight that a kernel reads: the W4 decode kernels stream
+    codes + compact planes (W4_STREAMED); kernel 4 and the int8-code
+    kernels read codes + g_scale (+ g_min)."""
     ts = w.tensors()
     return sum(ts[n].numel() * ts[n].element_size() for n in names if n in ts)
 
@@ -101,31 +157,8 @@ def kernel_phase(torch, results: dict) -> None:
         "qkv": (6144, E), "o": (E, E), "lm_head": (V, E),
         "gate_up": (2 * F, E), "down": (E, F)}.items()}
 
-    def report(kernel, shape, err, tol, ms, plain_ms, nbytes, ops, kind, library_ms):
-        bms, by = bound(nbytes, ops, kind)
-        row = {"kernel": kernel, "shape": shape, "max_abs_err": err["abs"],
-               "max_rel_err": err["rel"], "tol_rel": tol, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bms, "bound_by": by, "library_ms": library_ms}
-        log(json.dumps(row))
-        if not err["rel"] <= tol:
-            raise AssertionError(f"{kernel} {shape}: rel err {err['rel']} > {tol}")
-        results.setdefault(kernel, []).append(row)
-
-    def check(kernel, shape, got, ref, tol):
-        """An untimed comparison: the instantiations the serving run may not
-        reach (fold flavors, batch-row buckets, activations)."""
-        err = err_of(got, ref)
-        row = {"kernel": kernel, "shape": shape, "max_abs_err": err["abs"],
-               "max_rel_err": err["rel"], "tol_rel": tol, "timed": False}
-        log(json.dumps(row))
-        if not err["rel"] <= tol:
-            raise AssertionError(f"{kernel} {shape}: rel err {err['rel']} > {tol}")
-        results.setdefault(kernel, []).append(row)
-
-    def err_of(got, ref):
-        got, ref = got.float(), ref.float()
-        a = (got - ref).abs().max().item()
-        return {"abs": a, "rel": a / max(ref.abs().max().item(), 1e-30)}
+    report = functools.partial(report_row, results)
+    check = functools.partial(check_row, results)
 
     # kernel 1: W4A8 decode matmul — qkv, o, lm_head at b = 1 and 32.
     # tol: both sides take exact integer partials; f32 order of the scale
@@ -137,14 +170,12 @@ def kernel_phase(torch, results: dict) -> None:
             x = torch.randn((b, k), generator=gen, device=dev) * 0.7
             got = qmm_w4.qmm_w4_matmul(x, wt)
             ref = qmm_w4.qmm_w4_plain(x, wt)
-            k8, ksx, ksum = qmm_w4.quantize_q8_cuda(x)
-            p8, psx, psum = qmm_w4.quantize_q8(x)
-            if not (torch.equal(k8, p8) and torch.equal(ksx, psx) and torch.equal(ksum, psum)):
-                raise AssertionError("activation codes differ from the plain quantizer")
+            codes_equal(torch, x)
             report("qmm_w4", f"{name} n={n} k={k} b={b}", err_of(got, ref), 1e-4,
                    time_ms(torch, lambda: qmm_w4.qmm_w4_matmul(x, wt), flush),
                    time_ms(torch, lambda: qmm_w4.qmm_w4_plain(x, wt), flush),
-                   b * k * 4 + w4_bytes(wt) + b * n * 4, 2 * b * n * k, "int8", None)
+                   b * k * 4 + nbytes(wt, W4_STREAMED) + b * n * 4, 2 * b * n * k, "int8",
+                   None)
 
     # kernel 1, every flavor (legacy and sym read g_scale/g_min and undo the
     # hi nibble's bias) at every batch-row bucket (b = 3, 5, 9, 17 run the
@@ -168,7 +199,7 @@ def kernel_phase(torch, results: dict) -> None:
                    flush),
            time_ms(torch, lambda: qmm_w4_ffn.qmm_w4_ffn_plain(x, w["gate_up"], w["down"],
                                                             "silu"), flush),
-           E * 4 + w4_bytes(w["gate_up"]) + w4_bytes(w["down"]) + E * 4,
+           E * 4 + nbytes(w["gate_up"], W4_STREAMED) + nbytes(w["down"], W4_STREAMED) + E * 4,
            2 * (2 * F * E + E * F), "int8", None)
 
     # kernel 2 at the other batch-row buckets, with gelu, and on legacy and
@@ -223,9 +254,9 @@ def kernel_phase(torch, results: dict) -> None:
                2 * nt * H * D * 2 + 2 * KV * vis_cells * D * 2 + nt * n_vis,
                4 * D * n_pairs, "bf16", time_ms(torch, lib, flush))
 
-    # kernel 4: prefill dequant matmul at 64 rows — qkv, gate|up, down.
+    # kernel 4: prefill dequant matmul at 64 rows — qkv, gate|up, down, o.
     # tol: identical bf16 operands, f32 accumulation order only
-    for name in ("qkv", "gate_up", "down"):
+    for name in ("qkv", "gate_up", "down", "o"):
         wt = w[name]
         n, k = wt.shape
         xb = (torch.randn((64, k), generator=gen, device=dev) * 0.7).to(torch.bfloat16)
@@ -235,40 +266,163 @@ def kernel_phase(torch, results: dict) -> None:
         report("qmm", f"{name} n={n} k={k} m=64", err_of(got, ref), 1e-3,
                time_ms(torch, lambda: qmm.qmm(xb, wt), flush),
                time_ms(torch, lambda: qmm.qmm_plain(xb, wt), flush),
-               64 * k * 2 + w4_bytes(wt, streamed=False) + 64 * n * 4, 2 * 64 * n * k,
+               64 * k * 2 + nbytes(wt) + 64 * n * 4, 2 * 64 * n * k,
                "bf16", time_ms(torch, lambda: torch.matmul(xb, wb.T), flush))
         del wb
     del w, flush
     torch.cuda.empty_cache()
 
 
-def serving_phase(torch, n_layer: int = 32) -> dict:
-    """3 requests on the full llama3-8B W4A8 model; returns launch counts."""
+def w8_kernel_phase(torch, results: dict) -> None:
+    """Kernels 5 and 6 and kernel 4's 8-bit branch at the llama3-8B shapes
+    the Q4_K_M file gives them, on layouts repacked on the card from random
+    wire blocks; and the card's repack against the CPU's, bit for bit."""
     import numpy as np
 
-    from llama_kotlin_tpu_torch.models.synthetic import preset_config, synthetic_params_device
-    from llama_kotlin_tpu_torch.ops.cuda import flash, qmm, qmm_w4, qmm_w4_ffn
+    from llama_kotlin_tpu_torch.models.synthetic import wire_blocks
+    from llama_kotlin_tpu_torch.ops.cuda import qmm, qmm_int8, qmm_w8
+    from llama_kotlin_tpu_torch.quant import fold, repack
+    from llama_kotlin_tpu_torch.quant.formats import GGMLQuantType as Q
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+    flush = torch.zeros(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    report = functools.partial(report_row, results)
+    check = functools.partial(check_row, results)
+    rng = np.random.default_rng(99)
+    E, F, V, KVD = 4096, 14336, 128256, 1024
+
+    def wire(qtype, n, k):
+        return torch.from_numpy(wire_blocks(rng, qtype, n, k))
+
+    # the load-time conversions on the card against the CPU's: one Q4_K and
+    # one Q6_K tensor through their fold (W4, W8) and through Q8F
+    for qtype, (n, k), fold_fn in ((Q.Q4_K, (E, E), fold.fold_to_w4),
+                                   (Q.Q6_K, (E, F), fold.fold_to_w8)):
+        data = wire(qtype, n, k)
+        for what, fn in (("fold", lambda d: fold_fn(repack.repack(d, qtype, n, k))),
+                         ("q8f", lambda d: repack.repack_q8flat(d, qtype, n, k))):
+            g, c = fn(data.to(dev)), fn(data)
+            same = (g.tensors().keys() == c.tensors().keys() and all(
+                t.dtype == c.tensors()[name].dtype and torch.equal(t.cpu(), c.tensors()[name])
+                for name, t in g.tensors().items()))
+            log(json.dumps({"phase": "repack", "qtype": qtype.name, "shape": [n, k],
+                            "layout": g.flavor, "tensors": sorted(g.tensors()),
+                            "bit_equal_to_cpu": same}))
+            if not same:
+                raise AssertionError(f"card repack of {qtype.name} ({what}) differs from the CPU's")
+        del data, g, c
+
+    def w8(qtype, n, k):
+        return fold.fold_to_w8(repack.repack(wire(qtype, n, k).to(dev), qtype, n, k))
+
+    # kernel 5: W8 decode matmul on q6_K folds (group 16) — lm_head at b = 1
+    # and 32, ffn_down and attn_v at b = 1.  tol: exact integer partials on
+    # both sides; the f32 order of the group sum differs
+    w = {"lm_head": w8(Q.Q6_K, V, E), "down": w8(Q.Q6_K, E, F), "attn_v": w8(Q.Q6_K, KVD, E)}
+    for name, b in (("lm_head", 1), ("lm_head", 32), ("down", 1), ("attn_v", 1)):
+        wt = w[name]
+        n, k = wt.shape
+        x = torch.randn((b, k), generator=gen, device=dev) * 0.7
+        codes_equal(torch, x)
+        report("qmm_w8", f"{name} n={n} k={k} b={b} group=16",
+               err_of(qmm_w8.qmm_w8_matmul(x, wt), qmm_w8.qmm_w8_plain(x, wt)), 1e-4,
+               time_ms(torch, lambda: qmm_w8.qmm_w8_matmul(x, wt), flush),
+               time_ms(torch, lambda: qmm_w8.qmm_w8_plain(x, wt), flush),
+               b * k * 4 + nbytes(wt) + b * n * 4, 2 * b * n * k, "int8", None)
+
+    # kernel 4's 8-bit branch: prefill rows over the W8 fold, m = 64.
+    # tol: identical bf16 operands (w = code * s_eff), f32 accumulation order
+    for name in ("down", "attn_v"):
+        wt = w[name]
+        n, k = wt.shape
+        xb = (torch.randn((64, k), generator=gen, device=dev) * 0.7).to(torch.bfloat16)
+        wb = qmm.dequantize_bf16(wt)
+        report("qmm", f"8-bit {name} n={n} k={k} m=64 group=16",
+               err_of(qmm.qmm(xb, wt), qmm.qmm_plain(xb, wt)), 1e-3,
+               time_ms(torch, lambda: qmm.qmm(xb, wt), flush),
+               time_ms(torch, lambda: qmm.qmm_plain(xb, wt), flush),
+               64 * k * 2 + nbytes(wt) + 64 * n * 4, 2 * 64 * n * k, "bf16",
+               time_ms(torch, lambda: torch.matmul(xb, wb.T), flush))
+        del wb
+    del w
+
+    # kernel 5 at every batch-row bucket on a q8_0-sourced fold (group 32),
+    # and on a fold with mins (Q4_K folded to W8: the min term's matmul);
+    # kernel 4's 8-bit branch on both (its group-32 and with-mins instances)
+    extra = {"q8_0": w8(Q.Q8_0, E, E), "q4_K-mins": w8(Q.Q4_K, E, E)}
+    for src, wt in extra.items():
+        for b in ((1, 2, 3, 5, 9, 17, 32) if src == "q8_0" else (1, 5, 32)):
+            x = torch.randn((b, E), generator=gen, device=dev) * 0.7
+            check("qmm_w8", f"{src} group={wt.group_size} n={E} b={b}",
+                  qmm_w8.qmm_w8_matmul(x, wt), qmm_w8.qmm_w8_plain(x, wt), 1e-4)
+        xb = (torch.randn((100, E), generator=gen, device=dev) * 0.7).to(torch.bfloat16)
+        check("qmm", f"8-bit {src} group={wt.group_size} m=100", qmm.qmm(xb, wt),
+              qmm.qmm_plain(xb, wt), 1e-3)
+    del extra
+
+    # kernel 6: the Q8F matmul — qkv, gate|up, down, lm_head at b = 1 and
+    # m = 64 (the GEMV and the tensor-core GEMM).  tol: exact superblock
+    # partials on both sides; the f32 order of the superblock sum differs
+    w = {"qkv": (Q.Q4_K, 6144, E), "gate_up": (Q.Q4_K, 2 * F, E), "down": (Q.Q6_K, E, F),
+         "lm_head": (Q.Q6_K, V, E)}
+    w = {name: repack.repack_q8flat(wire(qt, n, k).to(dev), qt, n, k)
+         for name, (qt, n, k) in w.items()}
+    for name, wt in w.items():
+        n, k = wt.shape
+        for b in (1, 64):
+            x = torch.randn((b, k), generator=gen, device=dev) * 0.7
+            codes_equal(torch, x)
+            report("qmm_int8", f"{name} n={n} k={k} b={b}",
+                   err_of(qmm_int8.qmm_int8(x, wt), qmm_int8.qmm_int8_plain(x, wt)), 1e-4,
+                   time_ms(torch, lambda: qmm_int8.qmm_int8(x, wt), flush),
+                   time_ms(torch, lambda: qmm_int8.qmm_int8_plain(x, wt), flush),
+                   b * k * 4 + nbytes(wt) + b * n * 4, 2 * b * n * k, "int8", None)
+    # kernel 6 at 300 rows (partial row tiles), at other GEMV buckets, and at
+    # k = 768 (the GEMV's half-live last step)
+    x = torch.randn((300, E), generator=gen, device=dev) * 0.7
+    check("qmm_int8", "qkv b=300", qmm_int8.qmm_int8(x, w["qkv"]),
+          qmm_int8.qmm_int8_plain(x, w["qkv"]), 1e-4)
+    w768 = repack.repack_q8flat(wire(Q.Q8_0, 1024, 768).to(dev), Q.Q8_0, 1024, 768)
+    for b in (3, 17, 70):
+        x = torch.randn((b, 768), generator=gen, device=dev) * 0.7
+        check("qmm_int8", f"n=1024 k=768 b={b}", qmm_int8.qmm_int8(x, w768),
+              qmm_int8.qmm_int8_plain(x, w768), 1e-4)
+    del w, w768, flush
+    torch.cuda.empty_cache()
+
+
+def streamed_bytes(params) -> int:
+    """Weight bytes a decode step streams: every matrix but the embedding
+    (kept on the host path only through its gathered rows), in the layout
+    its decode kernel reads — W4: codes + compact planes; W8: codes +
+    s_eff (+ m_eff); Q8F: codes + scales."""
+    def one(w):
+        return nbytes(w, W4_STREAMED if w.flavor in ("compact", "legacy", "sym") else FOLD_PLANES)
+    out = params.get("output") if params.get("output") is not None else params["tok_embd"]
+    return one(out) + sum(one(v) for lp in params["layers"] for v in lp.values()
+                          if hasattr(v, "codes"))
+
+
+def serve(torch, cfg, params, mods, phase: str, n_prompt: int = 64, n_new: int = 32):
+    """3 requests through LlamaContext: prefill n_prompt tokens, then
+    n_new greedy tokens (the first from the prefill).  The launch counts of
+    `mods` are set to 0 first; returns (the counts just after the run, the
+    context), and logs each request's launches per prefill and per decode
+    token."""
+    import numpy as np
+
     from llama_kotlin_tpu_torch.runtime.batch import Batch
     from llama_kotlin_tpu_torch.runtime.context import LlamaContext
     from llama_kotlin_tpu_torch.runtime.generate import generate_loop
 
-    cfg = preset_config("llama3-8b", n_layer=n_layer)
-    t0 = time.perf_counter()
-    params = synthetic_params_device(cfg, seed=0, device="cuda")
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    w_bytes = sum(w4_bytes(v) for k, v in params.items() if k in ("output",))
-    w_bytes += sum(w4_bytes(v) for lp in params["layers"] for v in lp.values()
-                   if hasattr(v, "codes"))
-    log(json.dumps({"phase": "serving", "model": "llama3-8b", "n_layer": n_layer,
-                    "weights_build_s": build_s, "w_bytes_per_tok": w_bytes,
-                    "w_floor_ms_per_tok": w_bytes / HBM_BYTES_S * 1e3}))
     ctx = LlamaContext(cfg, params, n_cells=1024, buckets=(8, 16, 32, 64, 128, 256, 512),
                        device="cuda")
-    n_prompt, n_new = 64, 32
-    mods = (qmm_w4, qmm_w4_ffn, flash, qmm)
+    name = lambda m: m.__name__.rsplit(".", 1)[1]
     for m in mods:
         m.LAUNCHES = 0
+    snap = lambda: {name(m): m.LAUNCHES for m in mods}
     outs = []
     for r in range(3):
         # request 2 replays request 0's prompt: greedy tokens must repeat
@@ -276,12 +430,14 @@ def serving_phase(torch, n_layer: int = 32) -> dict:
         prompt = np.random.default_rng(seed).integers(0, cfg.vocab_size, n_prompt).astype(np.int32)
         ctx.clear()
         torch.cuda.synchronize()
+        c0 = snap()
         t0 = time.perf_counter()
         assert ctx.decode(Batch.single(prompt)) == 0
         logits = ctx.logits_device()
         first = torch.argmax(logits[:1], dim=-1).to(torch.int32)
         torch.cuda.synchronize()
         ttft_ms = (time.perf_counter() - t0) * 1e3
+        c1 = snap()
         if not bool(torch.isfinite(logits).all()):
             raise AssertionError("non-finite prefill logits")
         # decode as the JAX bench does: slots reserved, every cell visible
@@ -297,28 +453,95 @@ def serving_phase(torch, n_layer: int = 32) -> dict:
             torch.from_numpy(slots.reshape(-1, 1)).to("cuda"), n_new - 1)
         toks = [int(first[0])] + [int(t) for t in out[:, 0].cpu().numpy()]
         dt = time.perf_counter() - t1
+        c2 = snap()
         if not bool(torch.isfinite(last).all()) or not all(0 <= t < cfg.vocab_size for t in toks):
             raise AssertionError("bad decode output")
         outs.append(toks)
-        log(json.dumps({"request": r, "prompt_tokens": n_prompt, "ttft_ms": ttft_ms,
-                        "decode_tokens": n_new - 1, "decode_tok_s": (n_new - 1) / dt,
-                        "decode_ms_per_tok": dt / (n_new - 1) * 1e3, "tokens": toks}))
+        log(json.dumps({"phase": phase, "request": r, "prompt_tokens": n_prompt,
+                        "ttft_ms": ttft_ms, "decode_tokens": n_new - 1,
+                        "decode_tok_s": (n_new - 1) / dt,
+                        "decode_ms_per_tok": dt / (n_new - 1) * 1e3,
+                        "launches_per_prefill": {k: c1[k] - c0[k] for k in c0},
+                        "launches_per_decode_token": {k: (c2[k] - c1[k]) / (n_new - 1)
+                                                      for k in c0},
+                        "tokens": toks}))
     if outs[2] != outs[0]:
         raise AssertionError("greedy tokens differ between identical requests")
     if outs[1] == outs[0]:
         raise AssertionError("two different prompts gave the same greedy tokens: "
                              "the token checks would carry no signal")
-    counts = {m.__name__.rsplit(".", 1)[1]: m.LAUNCHES for m in mods}
-    log(json.dumps({"phase": "serving", "launches": counts}))
+    counts = snap()
+    log(json.dumps({"phase": phase, "launches": counts}))
     if not all(counts.values()):
         raise AssertionError(f"a kernel of the path was never launched: {counts}")
-    profile_decode(torch, ctx, cfg)
+    return counts, ctx
+
+
+def serving_phase(torch, n_layer: int = 32) -> dict:
+    """3 requests on the full llama3-8B W4A8 model; returns launch counts."""
+    from llama_kotlin_tpu_torch.models.synthetic import preset_config, synthetic_params_device
+    from llama_kotlin_tpu_torch.ops.cuda import flash, qmm, qmm_w4, qmm_w4_ffn
+
+    cfg = preset_config("llama3-8b", n_layer=n_layer)
+    t0 = time.perf_counter()
+    params = synthetic_params_device(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    w_bytes = streamed_bytes(params)
+    log(json.dumps({"phase": "serving", "model": "llama3-8b", "n_layer": n_layer,
+                    "weights_build_s": build_s, "w_bytes_per_tok": w_bytes,
+                    "w_floor_ms_per_tok": w_bytes / HBM_BYTES_S * 1e3}))
+    counts, ctx = serve(torch, cfg, params, (qmm_w4, qmm_w4_ffn, flash, qmm), "serving")
+    profile_decode(torch, ctx, cfg, "serving")
     del ctx, params
     torch.cuda.empty_cache()
     return counts
 
 
-def profile_decode(torch, ctx, cfg, n_steps: int = 8) -> None:
+def gguf_phase(torch, tmpdir: Path) -> dict:
+    """The slice's path: a full-width 32-layer llama3-8B file with the
+    Q4_K_M type mix, loaded by load_gguf_model in each fast mode on the
+    card, serves 3 requests.  Returns {mode: launch counts}."""
+    from llama_kotlin_tpu_torch.models.loader import load_gguf_model
+    from llama_kotlin_tpu_torch.models.synthetic import preset_config, synthetic_gguf
+    from llama_kotlin_tpu_torch.ops.cuda import flash, qmm, qmm_int8, qmm_w4, qmm_w4_ffn, qmm_w8
+
+    path = tmpdir / "llama3-8b-q4_k_m.gguf"
+    t0 = time.perf_counter()
+    size = synthetic_gguf(path, preset_config("llama3-8b"), seed=7)
+    log(json.dumps({"phase": "gguf", "file_bytes": size,
+                    "write_s": time.perf_counter() - t0}))
+    mode_mods = {"w4": (qmm_w4, qmm_w4_ffn, flash, qmm, qmm_w8), "int8": (flash, qmm_int8)}
+    counts = {}
+    for mode, mods in mode_mods.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cfg, params, f = load_gguf_model(path, fast_mode=mode, fuse=True)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        f.close()
+        w_bytes = streamed_bytes(params)
+        layouts = sorted({(key, getattr(v, "flavor", None)) for lp in params["layers"]
+                          for key, v in lp.items() if hasattr(v, "codes")})
+        log(json.dumps({"phase": f"gguf_{mode}", "n_layer": cfg.n_layer, "load_s": load_s,
+                        "w_bytes_per_tok": w_bytes,
+                        "w_floor_ms_per_tok": w_bytes / HBM_BYTES_S * 1e3,
+                        "device_bytes": torch.cuda.memory_allocated(),
+                        "layouts": layouts}))
+        qmm.LAUNCHES_W8 = 0
+        counts[mode], ctx = serve(torch, cfg, params, mods, f"gguf_{mode}")
+        if mode == "w4":
+            log(json.dumps({"phase": "gguf_w4", "qmm_8bit_branch_launches": qmm.LAUNCHES_W8}))
+            if not qmm.LAUNCHES_W8:
+                raise AssertionError("kernel 4's 8-bit branch was never launched")
+        profile_decode(torch, ctx, cfg, f"gguf_{mode}")
+        del ctx, params
+        torch.cuda.empty_cache()
+    path.unlink()
+    return counts
+
+
+def profile_decode(torch, ctx, cfg, label: str, n_steps: int = 8) -> None:
     """Where a decode step's time goes: a torch.profiler trace of n_steps
     greedy steps after a 64-token prefill.  Device busy time is the sum of
     the kernels' device times (one stream, so they do not overlap); the
@@ -358,7 +581,7 @@ def profile_decode(torch, ctx, cfg, n_steps: int = 8) -> None:
     busy = sum(r[0] for r in rows)
     rows.sort(reverse=True)
     log(json.dumps({
-        "phase": "profile", "decode_steps": n_steps,
+        "phase": "profile", "path": label, "decode_steps": n_steps,
         "wall_ms_per_step": wall_ms / n_steps,
         "device_busy_ms_per_step": busy / n_steps if rows else "not measured",
         "device_idle_share": 1.0 - busy / wall_ms if rows else "not measured",
@@ -423,6 +646,72 @@ def parity_phase(torch) -> None:
         raise AssertionError("card and CPU disagree")
 
 
+def gguf_parity_phase(torch, tmpdir: Path) -> None:
+    """Full width, 2 layers of the Q4_K_M profile (layer 0 all Q4_K, layer 1
+    with Q6_K attn_v and ffn_down, Q6_K output), each fast mode: the file
+    loaded on the card against the same file loaded on the CPU (the CPU
+    repack and the plain versions).  The card decodes greedily (prefill of
+    64 tokens + 4 steps); the CPU takes the card's tokens, so one near-tie
+    cannot send the two down different paths, and its greedy token must
+    equal the card's wherever the CPU's top-2 gap exceeds twice the
+    tolerance.  The CPU also runs with one thread: the spread of two
+    correct runs, the yardstick for the card's error."""
+    import numpy as np
+
+    from llama_kotlin_tpu_torch.models.loader import load_gguf_model
+    from llama_kotlin_tpu_torch.models.synthetic import preset_config, synthetic_gguf
+    from llama_kotlin_tpu_torch.runtime.batch import Batch
+    from llama_kotlin_tpu_torch.runtime.context import LlamaContext
+
+    path = tmpdir / "llama3-8b-2layer-q4_k_m.gguf"
+    synthetic_gguf(path, preset_config("llama3-8b", n_layer=2), seed=8)
+    prompt = np.random.default_rng(4).integers(0, 128256, 64).astype(np.int32)
+    n_threads = torch.get_num_threads()
+    # tol: as in parity_phase, the int8 re-quantization of every matmul
+    # input and the bf16 residual stream amplify f32 last-bit differences:
+    # on these zero-mean Q4_K_M weights the CPU at one thread differs from
+    # itself at eight by up to 2.6e-2 of max|logits| (cpu_thread_spread);
+    # 5e-2 is twice that, ~0.25 logit std (logit_std_rel ~0.2), where a
+    # wiring fault moves logits by about one std
+    tol = 5e-2
+    for mode in ("w4", "int8"):
+        res = {}
+        toks = None
+        for run in ("cuda", "cpu", "cpu_1thread"):
+            dev = "cuda" if run == "cuda" else "cpu"
+            torch.set_num_threads(1 if run == "cpu_1thread" else n_threads)
+            cfg, params, f = load_gguf_model(path, fast_mode=mode, fuse=True, device=dev)
+            f.close()
+            ctx = LlamaContext(cfg, params, n_cells=1024, buckets=(8, 16, 32, 64), device=dev)
+            assert ctx.decode(Batch.single(prompt)) == 0
+            logits = [ctx.get_logits()[-1]]
+            if toks is None:  # the card's greedy run sets the tokens
+                toks = [int(np.argmax(logits[-1]))]
+            for i in range(4):
+                assert ctx.decode(Batch.single([toks[i]], pos0=64 + i)) == 0
+                logits.append(ctx.get_logits()[-1])
+                if run == "cuda":
+                    toks.append(int(np.argmax(logits[-1])))
+            res[run] = logits
+            del ctx, params
+        torch.set_num_threads(n_threads)
+        gl, cl, c1 = res["cuda"], res["cpu"], res["cpu_1thread"]
+        errs = [float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(gl, cl)]
+        gaps = [float((np.sort(b)[-1] - np.sort(b)[-2]) / np.abs(b).max()) for b in cl]
+        ct = [int(np.argmax(b)) for b in cl]
+        decided = [g > 2 * tol for g in gaps]
+        log(json.dumps({"phase": f"gguf_parity_{mode}", "n_layer": 2, "tokens_cuda": toks,
+                        "tokens_cpu_forced": ct, "rel_logit_err": errs,
+                        "cpu_thread_spread_rel": [float(np.abs(a - b).max() / np.abs(b).max())
+                                                  for a, b in zip(c1, cl)],
+                        "top2_gap_rel": gaps,
+                        "logit_std_rel": [float(b.std() / np.abs(b).max()) for b in cl],
+                        "tol_rel": tol}))
+        if not max(errs) <= tol or any(d and a != b for d, a, b in zip(decided, toks, ct)):
+            raise AssertionError(f"card and CPU disagree ({mode})")
+    path.unlink()
+
+
 def main() -> int:
     try:
         import torch
@@ -461,24 +750,35 @@ def main() -> int:
             print(ln, file=sys.stderr)
         results: dict = {}
         kernel_phase(torch, results)
-        counts = serving_phase(torch)
-        parity_phase(torch)
+        w8_kernel_phase(torch, results)
+        by_path = {"serving": serving_phase(torch)}
+        tmpdir = Path(tempfile.mkdtemp(prefix="lk_gguf_"))
+        try:
+            for mode, c in gguf_phase(torch, tmpdir).items():
+                by_path[f"gguf_{mode}"] = c
+            parity_phase(torch)
+            gguf_parity_phase(torch, tmpdir)
+        finally:
+            shutil.rmtree(tmpdir, ignore_errors=True)
     except Exception:
         traceback.print_exc()
         return 1
-    meta = {
+    meta = {  # kernel: (source, replaced Pallas kernel, index of the reported timed row)
         "qmm_w4": ("csrc/qmm_w4.cu", "llama_kotlin_tpu/ops/pallas/qmm_w4.py:290", 0),
         "qmm_w4_ffn": ("csrc/qmm_w4_ffn.cu", "llama_kotlin_tpu/ops/pallas/qmm_w4_ffn.py:155", 0),
         "flash": ("csrc/flash.cu", "llama_kotlin_tpu/ops/pallas/flash.py:160", 0),
         "qmm": ("csrc/qmm.cu", "llama_kotlin_tpu/ops/pallas/qmm.py:192", 1),
+        "qmm_w8": ("csrc/qmm_w8.cu", "llama_kotlin_tpu/ops/pallas/qmm_w8.py:144", 0),
+        "qmm_int8": ("csrc/qmm_int8.cu", "llama_kotlin_tpu/ops/pallas/qmm_int8.py:41", 2),
     }
     kernels = []
     for kname, (src, replaces, pick) in meta.items():
-        row = results[kname][pick]
+        row = [r for r in results[kname] if "ms" in r][pick]
+        launches = {p: c[kname] for p, c in by_path.items() if kname in c}
         kernels.append({"name": kname, "route": "cuda",
                         "source": "llama_kotlin_tpu_torch/" + src, "replaces": replaces,
-                        "launches": counts[kname], "max_abs_err": max(
-                            r["max_abs_err"] for r in results[kname]),
+                        "launches": sum(launches.values()), "launches_by_path": launches,
+                        "max_abs_err": max(r["max_abs_err"] for r in results[kname]),
                         "ms": row["ms"], "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"], "shape": row["shape"]})

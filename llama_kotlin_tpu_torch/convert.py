@@ -1,10 +1,10 @@
 """Weight transfer from the JAX package's params to the port's.
 
 ``params_from_numpy(tree, device)`` takes the JAX package's nested params
-dict with every array already ``np.asarray``'d.  A QTensor arrives as any
-object (or dict) carrying the JAX field names; the port never imports the
-JAX class.  Both sides then compute on identical weights, which is what the
-parity tests need.
+dict with every array already ``np.asarray``'d.  A QTensor (W4 fold, W8
+fold or Q8F) arrives as any object (or dict) carrying the JAX field names;
+the port never imports the JAX class.  Both sides then compute on identical
+weights, which is what the parity tests need.
 """
 
 from __future__ import annotations
@@ -39,14 +39,37 @@ def _tensor(a, device, dtype=None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype) if dtype else t.to(device)
 
 
+def _int8_from_numpy(obj, aux: dict, dev) -> QTensor:
+    """A JAX W8 fold (its transposed ``scw`` plane is g_scale again, so it
+    is dropped) or Q8F tensor -> the port's layout."""
+    gs = int(_field(obj, "group_size"))
+    if "scw" in aux and gs in (16, 32) and "precise" not in aux:
+        flavor = "w8"
+    elif not aux and gs == 256 and _field(obj, "g_min") is None \
+            and _field(obj, "sb_scale") is None:
+        flavor = "q8f"
+    else:
+        raise ValueError(f"unrecognised 8-bit layout (group {gs}, aux {sorted(aux)})")
+    g_min = _field(obj, "g_min")
+    return QTensor(codes=_tensor(_field(obj, "codes"), dev, torch.int8),
+                   g_scale=_tensor(_field(obj, "g_scale"), dev, torch.float32),
+                   g_min=None if g_min is None else _tensor(g_min, dev, torch.float32),
+                   sb_scale=None, sb_min=None, qtype=GGMLQuantType(int(_field(obj, "qtype"))),
+                   bits=8, group_size=gs, code_offset=int(_field(obj, "code_offset")),
+                   shape=tuple(int(v) for v in _field(obj, "shape")), aux={"flavor": flavor})
+
+
 def qtensor_from_numpy(obj, device: DeviceLike = None) -> QTensor:
-    """One JAX-side W4 QTensor (numpy leaves) -> the port's QTensor."""
+    """One JAX-side served QTensor (numpy leaves: a W4 or W8 fold, or Q8F)
+    -> the port's QTensor."""
     dev = resolve_device(device)
     aux = dict(_field(obj, "aux") or {})
+    if _field(obj, "bits") == 8 and not _field(obj, "hi_signed"):
+        return _int8_from_numpy(obj, aux, dev)
     if (not _field(obj, "hi_signed") or _field(obj, "bits") != 4
             or _field(obj, "group_size") != 32):
-        raise ValueError("the port serves the W4 fold only (hi_signed, 4-bit, "
-                         "group 32)")
+        raise ValueError("the port serves the W4 fold (hi_signed, 4-bit, group 32), "
+                         "the W8 fold and Q8F")
     if "precise" in aux:
         raise ValueError("W4X precise folds are not ported yet")
     codes = _tensor(_field(obj, "codes"), dev)

@@ -1,5 +1,5 @@
-// Kernel 4: fused dequantize-matmul for prefill rows over a W4 fold,
-// y[M, N] = x[M, K] @ W^T in f32 with bf16 operands.
+// Kernel 4: fused dequantize-matmul for prefill rows over a W4 fold (and,
+// below, over a W8 fold), y[M, N] = x[M, K] @ W^T in f32 with bf16 operands.
 //
 // Replaces llama_kotlin_tpu/ops/pallas/qmm.py::qmm on the W4 fold (entry
 // qmm_pallas_or_none): w = plane * g_scale - g_min per element, with
@@ -118,5 +118,108 @@ LK_API int lk_w4_dequant_gemm(const __nv_bfloat16* x, const uint8_t* codes, cons
   if (M <= 0 || N <= 0 || K <= 0 || K % 256) return (int)cudaErrorInvalidValue;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   w4_dequant_gemm_kernel<<<grid, 128, 0, stream>>>(x, codes, gs, gm, y, M, N, K);
+  return (int)cudaGetLastError();
+}
+
+// The 8-bit branch (the JAX qmm with bits == 8, which serves the W8 fold
+// at prefill): w = code * s_eff[n, g] (- m_eff[n, g] for formats with
+// mins), formed in f32 without contraction and rounded to bf16, as the JAX
+// dequantization gives it.  Same tiling as the W4 branch; a thread's 32
+// codes are one 32-group or two 16-groups.  Bound at 64 rows: bytes
+// (~10 bits per weight streamed against 128 flops per weight).
+template <int GS, bool HAS_MIN>
+__global__ void __launch_bounds__(128)
+w8_dequant_gemm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ codes,
+                       const float* __restrict__ gs, const float* __restrict__ gm,
+                       float* __restrict__ y, int M, int N, int K) {
+  __shared__ __align__(32) __nv_bfloat16 xs[BM][LDS];
+  __shared__ __align__(32) __nv_bfloat16 ws[BN][LDS];
+  __shared__ __align__(32) float cs[BM][LDC];
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int G = K / GS;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    for (int idx = tid; idx < BM * BK / 8; idx += 128) {
+      const int r = idx / (BK / 8), c = (idx % (BK / 8)) * 8;
+      uint4 val = make_uint4(0, 0, 0, 0);
+      if (m0 + r < M) val = *reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * K + k0 + c);
+      *reinterpret_cast<uint4*>(&xs[r][c]) = val;
+    }
+    {
+      const int r = tid >> 1, half = tid & 1, n = n0 + r;
+      const int e0 = k0 + half * 32;  // first element of the thread's 32
+      __nv_bfloat16* dst = &ws[r][half * 32];
+      if (n < N) {
+        const int8_t* src = codes + (size_t)n * K + e0;
+        const int4 c0 = __ldg(reinterpret_cast<const int4*>(src));
+        const int4 c1 = __ldg(reinterpret_cast<const int4*>(src + 16));
+        const int words[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+#pragma unroll
+        for (int wi = 0; wi < 8; ++wi) {
+          const int g = (e0 + wi * 4) / GS;
+          const float sc = __ldg(gs + (size_t)n * G + g);
+          const float mn = HAS_MIN ? __ldg(gm + (size_t)n * G + g) : 0.f;
+#pragma unroll
+          for (int bi = 0; bi < 4; ++bi) {
+            const float q = (float)(int8_t)((words[wi] >> (8 * bi)) & 0xFF);
+            float w = __fmul_rn(q, sc);
+            if (HAS_MIN) w = __fsub_rn(w, mn);
+            dst[wi * 4 + bi] = __float2bfloat16_rn(w);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dst[i] = __float2bfloat16_rn(0.f);
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(a[i], &xs[wm + 16 * i][kk], LDS);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(b[j], &ws[wn + 16 * j][kk], LDS);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(&cs[wm + 16 * i][wn + 16 * j], acc[i][j], LDC,
+                              wmma::mem_row_major);
+  __syncthreads();
+  for (int idx = tid; idx < BM * BN; idx += 128) {
+    const int r = idx / BN, c = idx % BN;
+    if (m0 + r < M && n0 + c < N) y[(size_t)(m0 + r) * N + n0 + c] = cs[r][c];
+  }
+}
+
+// x [M, K] bf16 (K = the fold's k_pad, zero-padded); codes [N, K] int8;
+// g_scale [N, K/group] f32, g_min the same or NULL; y [M, N] f32.
+LK_API int lk_w8_dequant_gemm(const __nv_bfloat16* x, const int8_t* codes, const float* gs,
+                              const float* gm, float* y, int M, int N, int K, int group,
+                              cudaStream_t stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % BK || (group != 16 && group != 32))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  if (group == 16 && gm) w8_dequant_gemm_kernel<16, true><<<grid, 128, 0, stream>>>(x, codes, gs, gm, y, M, N, K);
+  else if (group == 16) w8_dequant_gemm_kernel<16, false><<<grid, 128, 0, stream>>>(x, codes, gs, gm, y, M, N, K);
+  else if (gm) w8_dequant_gemm_kernel<32, true><<<grid, 128, 0, stream>>>(x, codes, gs, gm, y, M, N, K);
+  else w8_dequant_gemm_kernel<32, false><<<grid, 128, 0, stream>>>(x, codes, gs, gm, y, M, N, K);
   return (int)cudaGetLastError();
 }

@@ -4,11 +4,12 @@
 One ubatch step over a flat token list: each token carries (pos, seq) and
 a cache slot, attention visibility comes from the cell metadata
 (``ops/attention.py``), and every layer writes its K/V rows into the cache
-IN PLACE before attending over it.  Weights are W4 folds; the matmuls go
-through ``ops/qmatmul.py`` and so through the port's kernels.  The
-params are in the serving layout (``wqkv_fused``, ``ffn_gateup_fused``,
-an untied ``output``); the unfused layouts of real checkpoints come with
-the GGUF loader.
+IN PLACE before attending over it.  Weights are W4 or W8 folds or Q8F
+tensors; the matmuls go through ``ops/qmatmul.py`` and so through the
+port's kernels.  Projections come fused (``wqkv_fused``,
+``ffn_gateup_fused``) or split (``wq``/``wk``/``wv``, ``ffn_gate``/
+``ffn_up``), as ``models/loader.py`` leaves them; a missing ``output``
+ties to ``tok_embd``.
 
 Padded rows of a bucket carry a slot past the real cells: the context gives
 the cache one scratch cell there (the JAX forward drops those writes with
@@ -37,21 +38,30 @@ def _qkv(lp: dict, x: torch.Tensor, cfg: ModelConfig):
     nt = x.shape[0]
     qd = cfg.n_head * cfg.head_dim
     kvd = cfg.n_head_kv * cfg.head_dim
-    y = qmatmul(x, lp["wqkv_fused"])
-    q, k, v = y[:, :qd], y[:, qd:qd + kvd], y[:, qd + kvd:]
+    if "wqkv_fused" in lp:
+        y = qmatmul(x, lp["wqkv_fused"])
+        q, k, v = y[:, :qd], y[:, qd:qd + kvd], y[:, qd + kvd:]
+    else:  # split projections (unfused load, or a layer whose layouts differ)
+        q, k, v = (qmatmul(x, lp[name]) for name in ("wq", "wk", "wv"))
     return (q.reshape(nt, cfg.n_head, cfg.head_dim),
             k.reshape(nt, cfg.n_head_kv, cfg.head_dim),
             v.reshape(nt, cfg.n_head_kv, cfg.head_dim))
 
 
 def _ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Gated FFN: kernel 2 for decode rows, else gate|up and down matmuls."""
-    down = qmm_ffn(x, lp["ffn_gateup_fused"], lp["ffn_down"], act=cfg.act)
-    if down is not None:
-        return down
-    y = qmatmul(x, lp["ffn_gateup_fused"])
-    gate, up = y[:, :cfg.n_ff], y[:, cfg.n_ff:]
-    return qmatmul((ACTIVATIONS[cfg.act](gate) * up).to(COMPUTE_DTYPE), lp["ffn_down"])
+    """Gated FFN: kernel 2 for decode rows when it takes the layouts, else
+    gate|up (fused or separate) and down matmuls.  Plain gated FFN only:
+    the port loads no FFN biases or scales."""
+    act = ACTIVATIONS[cfg.act]
+    if "ffn_gateup_fused" in lp:
+        down = qmm_ffn(x, lp["ffn_gateup_fused"], lp["ffn_down"], act=cfg.act)
+        if down is not None:
+            return down
+        y = qmatmul(x, lp["ffn_gateup_fused"])
+        gate, up = y[:, :cfg.n_ff], y[:, cfg.n_ff:]
+    else:
+        gate, up = qmatmul(x, lp["ffn_gate"]), qmatmul(x, lp["ffn_up"])
+    return qmatmul((act(gate) * up).to(COMPUTE_DTYPE), lp["ffn_down"])
 
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -87,5 +97,8 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         h = h + _ffn(lp, x, cfg).to(h.dtype)
     h_out = rms_norm(h[out_ids.to(torch.long)], params["output_norm"], cfg.rms_eps,
                      cfg.norm_weight_offset)
-    logits = qmatmul(h_out, params["output"]).to(torch.float32)
+    out_w = params.get("output")
+    if out_w is None:
+        out_w = params["tok_embd"]  # tied embeddings
+    logits = qmatmul(h_out, out_w).to(torch.float32)
     return logits, h_out.to(torch.float32)

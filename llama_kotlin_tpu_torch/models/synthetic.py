@@ -4,11 +4,14 @@
 ``synthetic_w4`` draws from a numpy Generator in the same order as the JAX
 package's generator, so the same seed gives the same weights on both sides.
 ``synthetic_params_device`` draws every large tensor on the device from a
-seeded ``torch.Generator`` — no multi-GB host build.
+seeded ``torch.Generator`` — no multi-GB host build.  ``synthetic_gguf``
+writes a llama GGUF file of random wire blocks (the Q4_K_M type mix by
+default) for the loader to read.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
@@ -18,6 +21,7 @@ from llama_kotlin_tpu_torch.device import DeviceLike, resolve_device
 from llama_kotlin_tpu_torch.models.config import ModelConfig
 from llama_kotlin_tpu_torch.quant.fold import (ALIGN_W4, GROUP, compact_planes,
                                                w4_from_parts)
+from llama_kotlin_tpu_torch.quant.formats import TYPE_TRAITS, GGMLQuantType
 from llama_kotlin_tpu_torch.quant.qtensor import SPAN, QTensor
 
 PRESETS = {
@@ -134,6 +138,113 @@ def synthetic_params_device(cfg: ModelConfig, seed: int = 0,
             "wqkv_fused": w(qdim + 2 * kvdim, E), "wo": w(E, qdim),
             "ffn_gateup_fused": w(2 * F, E), "ffn_down": w(E, F)})
     return params
+
+
+# -- GGUF files of random wire blocks -----------------------------------------
+
+def _f16_bytes(a: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(a, "<f2").view(np.uint8).reshape(a.shape + (2,))
+
+
+def _pack_scale_min_k4(sc: np.ndarray, mn: np.ndarray) -> np.ndarray:
+    """(8 scales, 8 mins) of 6 bits -> the 12 packed bytes of a Q4_K block."""
+    out = np.empty(sc.shape[:-1] + (12,), np.uint8)
+    out[..., 0:4] = (sc[..., :4] & 63) | ((sc[..., 4:] >> 4) << 6)
+    out[..., 4:8] = (mn[..., :4] & 63) | ((mn[..., 4:] >> 4) << 6)
+    out[..., 8:12] = (sc[..., 4:] & 0x0F) | ((mn[..., 4:] & 0x0F) << 4)
+    return out
+
+
+def wire_blocks(rng: np.random.Generator, qtype: GGMLQuantType, n: int, k: int) -> np.ndarray:
+    """Random wire bytes of an [n, k] tensor, flat uint8, with weights of
+    std ~0.01-0.04 around zero:
+
+    * Q4_K: zero-mean groups.  m6 = sc6 and dmin = 7.5 d, with d a power of
+      two so 7.5 d is exact in f16; the uniform 4-bit codes then centre on
+      7.5 (independent mins give every row a mean, and greedy decoding one
+      token whatever the prompt);
+    * Q6_K: signed 6-bit-range group scales symmetric about 0;
+    * Q8_0: uniform int8 codes under f16 scales."""
+    nb = n * k // TYPE_TRAITS[qtype].block_size
+    u8 = lambda *shape: rng.integers(0, 256, shape, dtype=np.uint8)
+    if qtype == GGMLQuantType.Q4_K:
+        d = np.where(rng.random(nb) < 0.5, 2.0 ** -14, 2.0 ** -13)
+        sc = rng.integers(0, 64, (nb, 8), dtype=np.uint8)
+        blocks = [_f16_bytes(d), _f16_bytes(7.5 * d), _pack_scale_min_k4(sc, sc), u8(nb, 128)]
+    elif qtype == GGMLQuantType.Q6_K:
+        sc = rng.integers(-31, 32, (nb, 16), dtype=np.int8).view(np.uint8)
+        d = rng.uniform(2.0 ** -14, 2.0 ** -13, nb)
+        blocks = [u8(nb, 128), u8(nb, 64), sc, _f16_bytes(d)]
+    elif qtype == GGMLQuantType.Q8_0:
+        codes = rng.integers(-127, 128, (nb, 32), dtype=np.int8).view(np.uint8)
+        blocks = [_f16_bytes(rng.uniform(2.0 ** -13, 2.0 ** -11, nb)), codes]
+    else:
+        raise NotImplementedError(f"random {GGMLQuantType(qtype).name} blocks")
+    return np.concatenate([b.reshape(nb, -1) for b in blocks], axis=1).reshape(-1)
+
+
+def q4_k_m_layer_types(n_layer: int) -> list[dict]:
+    """llama.cpp's Q4_K_M choice per layer: attn_v and ffn_down take Q6_K
+    where use_more_bits(i, n) holds (the first and last eighth of the
+    layers and every third one between), Q4_K elsewhere."""
+    def more(i):
+        return i < n_layer // 8 or i >= 7 * n_layer // 8 or (i - n_layer // 8) % 3 == 2
+    return [{"attn_v": GGMLQuantType.Q6_K if more(i) else GGMLQuantType.Q4_K,
+             "ffn_down": GGMLQuantType.Q6_K if more(i) else GGMLQuantType.Q4_K}
+            for i in range(n_layer)]
+
+
+def synthetic_gguf(path, cfg: ModelConfig, seed: int = 0,
+                   layer_types: Optional[list] = None) -> int:
+    """Write a llama GGUF of random wire blocks for `cfg`: every matrix Q4_K
+    but those `layer_types` names (default: the Q4_K_M profile, q4_k_m_layer_types)
+    and `output` (Q6_K, as in Q4_K_M); norms F32 near 1.  Each tensor is
+    drawn from one numpy Generator as the writer streams it, so a full 8B
+    file never sits whole in host memory.  Returns the file's size."""
+    from llama_kotlin_tpu_torch.gguf.writer import GGUFWriter
+
+    rng = np.random.default_rng(seed)
+    layer_types = q4_k_m_layer_types(cfg.n_layer) if layer_types is None else layer_types
+    E, F, V = cfg.n_embd, cfg.n_ff, cfg.vocab_size
+    qd, kvd = cfg.n_head * cfg.head_dim, cfg.n_head_kv * cfg.head_dim
+    w = GGUFWriter()
+    for key, value in (
+            ("general.architecture", "llama"), ("general.name", cfg.name or "synthetic"),
+            ("general.file_type", np.uint32(15)),  # LLAMA_FTYPE_MOSTLY_Q4_K_M
+            ("llama.vocab_size", np.uint32(V)),
+            ("llama.context_length", np.uint32(cfg.n_ctx_train)),
+            ("llama.embedding_length", np.uint32(E)), ("llama.block_count", np.uint32(cfg.n_layer)),
+            ("llama.feed_forward_length", np.uint32(F)),
+            ("llama.attention.head_count", np.uint32(cfg.n_head)),
+            ("llama.attention.head_count_kv", np.uint32(cfg.n_head_kv)),
+            ("llama.rope.dimension_count", np.uint32(cfg.rope_dim)),
+            ("llama.rope.freq_base", np.float32(cfg.rope_freq_base)),
+            ("llama.attention.layer_norm_rms_epsilon", np.float32(cfg.rms_eps))):
+        w.add_kv(key, value)
+
+    def matrix(name, n, k, qtype):
+        w.add_tensor_stream(name, (k, n), qtype, lambda: wire_blocks(rng, qtype, n, k))
+
+    def norm(name):
+        w.add_tensor_stream(name, (E,), GGMLQuantType.F32,
+                            lambda: (1.0 + 0.01 * rng.standard_normal(E)).astype("<f4"))
+
+    matrix("token_embd.weight", V, E, GGMLQuantType.Q4_K)
+    for i, types in enumerate(layer_types):
+        b = f"blk.{i}."
+        norm(b + "attn_norm.weight")
+        matrix(b + "attn_q.weight", qd, E, GGMLQuantType.Q4_K)
+        matrix(b + "attn_k.weight", kvd, E, GGMLQuantType.Q4_K)
+        matrix(b + "attn_v.weight", kvd, E, types["attn_v"])
+        matrix(b + "attn_output.weight", E, qd, GGMLQuantType.Q4_K)
+        norm(b + "ffn_norm.weight")
+        matrix(b + "ffn_gate.weight", F, E, GGMLQuantType.Q4_K)
+        matrix(b + "ffn_up.weight", F, E, GGMLQuantType.Q4_K)
+        matrix(b + "ffn_down.weight", E, F, types["ffn_down"])
+    norm("output_norm.weight")
+    matrix("output.weight", V, E, GGMLQuantType.Q6_K)
+    w.write(path)
+    return os.path.getsize(path)
 
 
 def params_to(params, device: DeviceLike):

@@ -1,11 +1,13 @@
-"""Kernel 4: fused dequantize-matmul for prefill rows over a W4 fold
+"""Kernel 4: fused dequantize-matmul for prefill rows over a W4 or W8 fold
 (``csrc/qmm.cu``).
 
-Replaces ``llama_kotlin_tpu/ops/pallas/qmm.py::qmm`` on the W4 fold (entry
-``qmm_pallas_or_none``): y = x W^T with w = plane * g_scale - g_min formed
-in f32 and rounded to bf16, x in bf16, f32 accumulation — the operands the
-Pallas kernel feeds its dot.  Bound on the H100: bytes at 64 rows; the
-dequantized tile lives only in shared memory.  See the CUDA source.
+Replaces ``llama_kotlin_tpu/ops/pallas/qmm.py::qmm`` on the W4 fold and,
+in its ``bits == 8`` branch, on the W8 fold (entry ``qmm_pallas_or_none``):
+y = x W^T with w = plane * g_scale - g_min (W4) or code * s_eff (- m_eff)
+(W8) formed in f32 and rounded to bf16, x in bf16, f32 accumulation — the
+operands the Pallas kernel feeds its dot.  Bound on the H100: bytes at 64
+rows; the dequantized tile lives only in shared memory.  See the CUDA
+source.
 
 ``qmm`` launches the kernel for CUDA tensors and runs ``qmm_plain`` for CPU
 tensors.
@@ -20,10 +22,12 @@ import torch
 from llama_kotlin_tpu_torch.device import is_cuda, require
 from llama_kotlin_tpu_torch.ops.cuda import _build
 from llama_kotlin_tpu_torch.ops.cuda.qmm_w4 import check_w4_on
-from llama_kotlin_tpu_torch.quant.fold import is_w4
+from llama_kotlin_tpu_torch.ops.cuda.qmm_w8 import check_int8_on
+from llama_kotlin_tpu_torch.quant.fold import is_w4, is_w8
 from llama_kotlin_tpu_torch.quant.qtensor import QTensor, dequantize
 
-LAUNCHES = 0  # kernel launches made by qmm
+LAUNCHES = 0  # kernel launches made by qmm (both branches)
+LAUNCHES_W8 = 0  # of which on the 8-bit branch
 PLAIN_CHUNK = 8192  # output rows per step of the plain version
 
 
@@ -44,9 +48,10 @@ def qmm_plain(x: torch.Tensor, w: QTensor) -> torch.Tensor:
 
 
 def qmm(x: torch.Tensor, w: QTensor) -> torch.Tensor:
-    """x [..., k] @ W4 w^T -> [..., n] f32 (any number of rows)."""
-    global LAUNCHES
-    require(is_w4(w), "qmm needs a W4 fold")
+    """x [..., k] @ (W4 or W8) w^T -> [..., n] f32 (any number of rows)."""
+    global LAUNCHES, LAUNCHES_W8
+    w8 = is_w8(w)
+    require(is_w4(w) or w8, "qmm needs a W4 or W8 fold")
     n, k = w.shape
     lead = x.shape[:-1]
     m = math.prod(lead)
@@ -54,14 +59,20 @@ def qmm(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     x2 = x.reshape(m, k)
     if not is_cuda(x2):
         return qmm_plain(x2, w).reshape(*lead, n)
-    check_w4_on(w, x2.device)
+    (check_int8_on if w8 else check_w4_on)(w, x2.device)
     xb = x2.to(torch.bfloat16)
     if w.k_pad != k:
         xb = torch.nn.functional.pad(xb, (0, w.k_pad - k))
     xb = xb.contiguous()
     y = torch.empty((m, n), dtype=torch.float32, device=x2.device)
-    _build.check(_build.lib().lk_w4_dequant_gemm(
-        xb.data_ptr(), w.codes.data_ptr(), w.g_scale.data_ptr(), w.g_min.data_ptr(),
-        y.data_ptr(), m, n, w.k_pad, _build.stream()), "lk_w4_dequant_gemm")
+    if w8:
+        _build.check(_build.lib().lk_w8_dequant_gemm(
+            xb.data_ptr(), w.codes.data_ptr(), w.g_scale.data_ptr(), _build.ptr(w.g_min),
+            y.data_ptr(), m, n, w.k_pad, w.group_size, _build.stream()), "lk_w8_dequant_gemm")
+        LAUNCHES_W8 += 1
+    else:
+        _build.check(_build.lib().lk_w4_dequant_gemm(
+            xb.data_ptr(), w.codes.data_ptr(), w.g_scale.data_ptr(), w.g_min.data_ptr(),
+            y.data_ptr(), m, n, w.k_pad, _build.stream()), "lk_w4_dequant_gemm")
     LAUNCHES += 1
     return y.reshape(*lead, n)

@@ -39,6 +39,17 @@ def qmm_w4_ffn_plain(x: torch.Tensor, gu: QTensor, dn: QTensor, act: str) -> tor
     return qmm_w4_plain(h, dn)
 
 
+def ffn_eligible(gu, dn, act: str) -> bool:
+    """Kernel 2 takes these weights: both W4 folds of the same
+    compact / non-compact flavor, at shapes it tiles (mirrors the JAX
+    qmm_w4_ffn_or_none's refusals)."""
+    try:
+        _check_shapes(gu, dn, act)
+    except ValueError:
+        return False
+    return True
+
+
 def _check_shapes(gu: QTensor, dn: QTensor, act: str) -> None:
     require(is_w4(gu) and is_w4(dn), "qmm_w4_ffn_matmul needs W4 folds")
     require(act in ACTS, f"activation {act!r} not in {sorted(ACTS)}")

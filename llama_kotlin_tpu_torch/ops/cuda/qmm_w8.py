@@ -1,0 +1,106 @@
+"""Kernel 5: W8A8 matmul for decode rows over the W8 fold
+(``csrc/qmm_w8.cu``, prologue ``csrc/q8.cu``).
+
+Replaces ``llama_kotlin_tpu/ops/pallas/qmm_w8.py::qmm_w8`` (entry
+``qmm_w8_matmul``): raw f32 activations are quantized to int8 per
+256-element superblock by the same quantizer as kernel 1, multiplied
+against the fold's int8 codes with exact integer partials per 16- or
+32-group, and each partial is scaled as (p * s_eff[n, g]) * sx[b, s] in
+f32.  Formats with mins subtract x_g . m_eff outside the kernel with one
+``torch.matmul`` over the sx-scaled group sums, as the JAX entry does.
+Bound on the H100: bytes (the weight stream, 10 bits per weight at
+group 16); see the CUDA source for the design.
+
+``qmm_w8_matmul`` launches the kernel for CUDA tensors and runs
+``qmm_w8_plain`` — the same function in plain PyTorch — for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from llama_kotlin_tpu_torch.device import is_cuda, require
+from llama_kotlin_tpu_torch.ops.cuda import _build
+from llama_kotlin_tpu_torch.ops.cuda.qmm_w4 import MAX_ROWS, quantize_q8, quantize_q8_cuda
+from llama_kotlin_tpu_torch.quant.fold import is_w8
+from llama_kotlin_tpu_torch.quant.qtensor import SPAN, QTensor
+
+LAUNCHES = 0  # kernel launches made by qmm_w8_matmul
+PLAIN_CHUNK = 8192  # output rows per step of the plain version
+
+
+def w8_dot_plain(x8: torch.Tensor, sx: torch.Tensor, w: QTensor) -> torch.Tensor:
+    """The kernel's arithmetic on quantized activations: y [b, n] =
+    sum_g (P_g * s_g) * sx, P_g the exact integer partial of group g."""
+    b, k_pad = x8.shape
+    gs = w.group_size
+    G = k_pad // gs
+    xg = x8.to(torch.float32).reshape(b, G, gs).transpose(0, 1)  # [G, b, gs]
+    sxg = sx.repeat_interleave(SPAN // gs, dim=1).T[:, :, None]  # [G, b, 1]
+    outs = []
+    for r0 in range(0, w.n, PLAIN_CHUNK):
+        rows = slice(r0, min(r0 + PLAIN_CHUNK, w.n))
+        q = w.codes[rows].to(torch.float32)
+        q = q.reshape(q.shape[0], G, gs).permute(1, 2, 0)  # [G, gs, r]
+        p = torch.bmm(xg, q)  # [G, b, r] exact integers (< 2^24)
+        outs.append((p * w.g_scale[rows].T[:, None, :] * sxg).sum(dim=0))
+    return torch.cat(outs, dim=1)
+
+
+def min_term(x8: torch.Tensor, sx: torch.Tensor, w: QTensor) -> torch.Tensor:
+    """sum_g (sx * sum_{c in g} x8) * m_eff[n, g]: the mins' share, one
+    matmul outside the kernel (formats with mins only)."""
+    b, k_pad = x8.shape
+    gs = w.group_size
+    xg = x8.reshape(b, k_pad // gs, gs).sum(dim=-1, dtype=torch.int32).to(torch.float32)
+    xg = xg * sx.repeat_interleave(SPAN // gs, dim=1)
+    return torch.matmul(xg, w.g_min.T)
+
+
+def qmm_w8_plain(x: torch.Tensor, w: QTensor) -> torch.Tensor:
+    """Plain version of the whole wrapper: x [b, k_pad] f32 -> [b, n] f32."""
+    x8, sx, _ = quantize_q8(x)
+    y = w8_dot_plain(x8, sx, w)
+    return y - min_term(x8, sx, w) if w.g_min is not None else y
+
+
+def check_int8_on(w: QTensor, device: torch.device) -> None:
+    """Every tensor of an int8-code layout (W8 fold, Q8F) lies on `device`,
+    contiguous and 16-byte aligned, in the dtypes the kernels read."""
+    for name, t in w.tensors().items():
+        require(t.device == device, f"{w.flavor} {name} on {t.device}, not {device}")
+        require(t.is_contiguous() and t.data_ptr() % 16 == 0,
+                f"{w.flavor} {name} is not contiguous and 16-byte aligned")
+    require(w.codes.dtype == torch.int8 and w.g_scale.dtype == torch.float32,
+            f"{w.flavor} codes must be int8 and g_scale f32")
+    require(w.g_min is None or w.g_min.dtype == torch.float32, f"{w.flavor} g_min must be f32")
+
+
+def qmm_w8_matmul(x: torch.Tensor, w: QTensor) -> torch.Tensor:
+    """x [..., k] (float) @ W8 w^T -> [..., n] f32, for at most 32 rows."""
+    global LAUNCHES
+    require(is_w8(w), "qmm_w8_matmul needs a W8 fold")
+    n, k = w.shape
+    k_pad = w.k_pad
+    lead = x.shape[:-1]
+    b = math.prod(lead)
+    require(x.shape[-1] == k, f"x has k={x.shape[-1]}, weight k={k}")
+    require(1 <= b <= MAX_ROWS, f"{b} rows: kernel 5 takes 1..{MAX_ROWS}")
+    x2 = x.reshape(b, k).to(torch.float32)
+    if k_pad != k:
+        x2 = torch.nn.functional.pad(x2, (0, k_pad - k))
+    if not is_cuda(x2):
+        return qmm_w8_plain(x2, w).reshape(*lead, n)
+    x2 = x2.contiguous()
+    check_int8_on(w, x2.device)
+    x8, sx, _ = quantize_q8_cuda(x2)
+    y = torch.empty((b, n), dtype=torch.float32, device=x2.device)
+    _build.check(_build.lib().lk_w8_gemv(
+        x8.data_ptr(), sx.data_ptr(), b, w.codes.data_ptr(), w.g_scale.data_ptr(),
+        n, k_pad, w.group_size, y.data_ptr(), _build.stream()), "lk_w8_gemv")
+    LAUNCHES += 1
+    if w.g_min is not None:
+        y = y - min_term(x8, sx, w)
+    return y.reshape(*lead, n)

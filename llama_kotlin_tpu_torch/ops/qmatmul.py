@@ -1,10 +1,18 @@
-"""Quantized matmul y = x @ W^T for the port's W4 folds (port of
-``llama_kotlin_tpu/ops/qmatmul.py``, the single-device W4 branches).
+"""Quantized matmul y = x @ W^T for the port's served layouts (port of
+``llama_kotlin_tpu/ops/qmatmul.py``, the single-device kernel dispatch of
+``_pallas_dispatch``).
 
-Routing is by shape: at most 32 rows go to kernel 1 (W4A8,
-``ops/cuda/qmm_w4.py``), more rows to kernel 4 (dequant GEMM,
-``ops/cuda/qmm.py``).  ``qmm_ffn`` sends decode rows through kernel 2.
-Any other weight raises: the port has no library stand-in.
+Routing is by layout and rows:
+
+* W4 fold: at most 32 rows -> kernel 1 (``ops/cuda/qmm_w4.py``), more rows
+  -> kernel 4 (``ops/cuda/qmm.py``);
+* W8 fold: at most 32 rows -> kernel 5 (``ops/cuda/qmm_w8.py``), more rows
+  -> kernel 4's 8-bit branch;
+* Q8F: kernel 6 (``ops/cuda/qmm_int8.py``) at every row count.
+
+``qmm_ffn`` sends decode rows through kernel 2 when gate|up and down are
+both W4 folds it takes.  Any other weight raises: the port has no library
+stand-in.
 """
 
 from __future__ import annotations
@@ -15,9 +23,11 @@ from typing import Optional
 import torch
 
 from llama_kotlin_tpu_torch.ops.cuda.qmm import qmm
+from llama_kotlin_tpu_torch.ops.cuda.qmm_int8 import qmm_int8
 from llama_kotlin_tpu_torch.ops.cuda.qmm_w4 import MAX_ROWS, qmm_w4_matmul
-from llama_kotlin_tpu_torch.ops.cuda.qmm_w4_ffn import qmm_w4_ffn_matmul
-from llama_kotlin_tpu_torch.quant.fold import is_w4
+from llama_kotlin_tpu_torch.ops.cuda.qmm_w4_ffn import ffn_eligible, qmm_w4_ffn_matmul
+from llama_kotlin_tpu_torch.ops.cuda.qmm_w8 import qmm_w8_matmul
+from llama_kotlin_tpu_torch.quant.fold import is_q8f, is_w4, is_w8
 from llama_kotlin_tpu_torch.quant.qtensor import QTensor, dequantize
 
 
@@ -27,18 +37,23 @@ def _rows(x: torch.Tensor) -> int:
 
 def qmatmul(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     """x [..., k] @ w[n, k]^T -> [..., n] f32."""
-    if not is_w4(w):
-        raise TypeError(f"qmatmul serves W4 folds only, got {type(w).__name__}")
-    if _rows(x) <= MAX_ROWS:
-        return qmm_w4_matmul(x, w)
-    return qmm(x, w)
+    if is_w4(w):
+        return qmm_w4_matmul(x, w) if _rows(x) <= MAX_ROWS else qmm(x, w)
+    if is_w8(w):
+        return qmm_w8_matmul(x, w) if _rows(x) <= MAX_ROWS else qmm(x, w)
+    if is_q8f(w):
+        return qmm_int8(x, w)
+    raise TypeError(f"no kernel serves this weight ({type(w).__name__}, "
+                    f"layout {getattr(w, 'flavor', None)!r})")
 
 
 def qmm_ffn(x: torch.Tensor, gu: QTensor, dn: QTensor,
             act: str = "silu") -> Optional[torch.Tensor]:
-    """Fused gated FFN on kernel 2 for decode rows; None for more rows (the
-    caller then runs gate|up and down through qmatmul)."""
-    if _rows(x) > MAX_ROWS:
+    """Fused gated FFN on kernel 2 for decode rows; None when the rows or
+    the layouts are not kernel 2's (the caller then runs gate|up and down
+    through qmatmul).  A W8 or Q8F down projection declines: kernel 2
+    would read its int8 codes as nibbles."""
+    if _rows(x) > MAX_ROWS or not ffn_eligible(gu, dn, act):
         return None
     return qmm_w4_ffn_matmul(x, gu, dn, act=act)
 

@@ -1,6 +1,6 @@
-"""The W4 (W4A8) weight fold, subset served by the port.
+"""The fast-mode weight folds: W4 (W4A8) and W8.
 
-Codes and the f32 ``g_scale``/``g_min`` planes are the JAX package's
+W4 codes and the f32 ``g_scale``/``g_min`` planes are the JAX package's
 (``llama_kotlin_tpu/quant/fold.py``): plane-packed nibbles with a pre-signed
 high nibble, s_eff per 32-group, and m_adj (m_eff on lo groups,
 m_eff - 8*s_eff on hi groups).  The streamed aux planes are the port's own,
@@ -21,6 +21,13 @@ lane axis):
 
 The JAX package's TPU workarounds — the block-diagonal activation layout
 and the (32, 128)-tile guards on the compact fold — are not needed here.
+
+W8 (``fold_to_w8``, every group-16/32 format the W4 fold does not take:
+q6_K, q8_0): int8 element-order codes [n, k_pad], the exact f32 effective
+scale s_eff per group in ``g_scale`` [n, G] (the JAX fold also keeps it
+transposed as ``aux["scw"]`` for the TPU; the port's kernel reads it per
+output row) and the f32 m_eff in ``g_min`` for formats with mins.  10 bits
+per weight streamed at group 16.
 """
 
 from __future__ import annotations
@@ -29,15 +36,24 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from llama_kotlin_tpu_torch.quant.formats import GGMLQuantType
-from llama_kotlin_tpu_torch.quant.qtensor import QTensor, SPAN
+from llama_kotlin_tpu_torch.quant.qtensor import (QTensor, SPAN, effective_scales,
+                                                  unpack_codes)
 
 GROUP = 32  # W4 group size (= Q4_K group)
-# k-alignment of the W4 fold: the contraction dim pads up to a multiple of
-# 1024 with zero scales (kept from the JAX fold so folds are identical)
+# k-alignment of the folds: the contraction dim pads up to a multiple of
+# 1024 (W4) or 512 (W8) with zero scales, kept from the JAX folds so the
+# folds are identical
 ALIGN_W4 = 1024
+ALIGN_W8 = 512
 FLAVORS = ("compact", "legacy", "sym")
+
+
+def _pad_cols(a: Optional[torch.Tensor], cols: int):
+    """Zero-pad [n, C] by `cols` extra columns (None passes through)."""
+    return a if a is None or cols == 0 else F.pad(a, (0, cols))
 
 
 def _plane_group_perm(n_groups: int, hi: bool) -> np.ndarray:
@@ -101,8 +117,76 @@ def w4_from_parts(packed: torch.Tensor, s_eff: torch.Tensor, m_adj: torch.Tensor
         hi_signed=True, aux=aux)
 
 
+def fold_to_w4(qt: QTensor) -> QTensor:
+    """A repacked 4-bit group-32 QTensor (Q4_K) -> the W4 fold, on its
+    device.  Takes the compact flavor under the JAX fold's rule (6-bit
+    integer scale/min codes under superblock scales, and k a multiple of
+    2048 after padding to 1024), else the legacy flavor."""
+    if qt.bits != 4 or qt.group_size != GROUP:
+        raise ValueError(f"fold_to_w4 needs 4-bit group-32 codes, got "
+                         f"bits={qt.bits} group={qt.group_size}")
+    if qt.hi_signed:
+        return qt
+    n, k = qt.shape
+    codes = unpack_codes(qt)  # [n, k_pad] element order
+    s_eff, m_eff = effective_scales(qt)  # Q4_K has mins
+    compact = bool(
+        qt.code_offset == 0 and qt.sb_scale is not None and qt.sb_min is not None and qt.g_min is not None
+        and not qt.g_scale.is_floating_point() and not qt.g_min.is_floating_point()
+        and (k + (-k % ALIGN_W4)) // 2 % 1024 == 0)
+    pad = -qt.k_pad % ALIGN_W4
+    codes = _pad_cols(codes, pad)
+    s_eff = _pad_cols(s_eff, pad // GROUP)
+    m_eff = _pad_cols(m_eff, pad // GROUP)
+    off = float(qt.code_offset)
+    is_lo = (torch.arange(s_eff.shape[1], device=s_eff.device) % 8) < 4
+    bias = torch.where(is_lo, torch.full_like(s_eff[0], off), torch.full_like(s_eff[0], off - 8))
+    m_adj = m_eff + bias * s_eff
+    el = codes.reshape(n, -1, 2, SPAN // 2)
+    packed = (el[:, :, 0].to(torch.uint8) | (((el[:, :, 1] - 8) & 0xF).to(torch.uint8) << 4))
+    parts = None
+    if compact:
+        parts = compact_planes(_pad_cols(qt.g_scale, pad // GROUP),
+                               _pad_cols(qt.g_min, pad // GROUP),
+                               _pad_cols(qt.sb_scale.to(torch.float32), pad // SPAN),
+                               _pad_cols(qt.sb_min.to(torch.float32), pad // SPAN))
+    return w4_from_parts(packed.reshape(n, -1), s_eff, m_adj, (n, k), qtype=qt.qtype,
+                         compact_parts=parts)
+
+
+def fold_to_w8(qt: QTensor) -> QTensor:
+    """A repacked group-16/32 QTensor (q6_K, q8_0; 4-bit sources unpack) ->
+    the W8 fold: int8 element-order codes, exact f32 s_eff (and m_eff) per
+    group, k padded to 512."""
+    if qt.aux is not None:
+        return qt  # already folded
+    n, k = qt.shape
+    gs = qt.group_size
+    if gs not in (16, 32):
+        raise ValueError(f"fold_to_w8: group_size {gs} unsupported (need 16/32)")
+    codes = unpack_codes(qt) - qt.code_offset  # int8 range for every ported repack
+    s_eff, m_eff = effective_scales(qt)
+    pad = -codes.shape[-1] % ALIGN_W8
+    return QTensor(codes=_pad_cols(codes, pad).to(torch.int8).contiguous(),
+                   g_scale=_pad_cols(s_eff, pad // gs).contiguous(),
+                   g_min=None if m_eff is None else _pad_cols(m_eff, pad // gs).contiguous(),
+                   sb_scale=None, sb_min=None, qtype=qt.qtype, bits=8, group_size=gs,
+                   code_offset=0, shape=(n, k), hi_signed=False, aux={"flavor": "w8"})
+
+
 def is_w4(w) -> bool:
     """A W4 fold the port's kernels serve."""
     return (isinstance(w, QTensor) and w.hi_signed and w.bits == 4
-            and w.group_size == GROUP and w.aux is not None
-            and w.aux.get("flavor") in FLAVORS)
+            and w.group_size == GROUP and w.flavor in FLAVORS)
+
+
+def is_w8(w) -> bool:
+    """A W8 fold (kernel 5 for decode rows, kernel 4's 8-bit branch else)."""
+    return (isinstance(w, QTensor) and w.flavor == "w8" and w.bits == 8
+            and w.group_size in (16, 32) and w.sb_scale is None)
+
+
+def is_q8f(w) -> bool:
+    """A Q8F tensor (kernel 6 at every row count)."""
+    return (isinstance(w, QTensor) and w.flavor == "q8f" and w.bits == 8
+            and w.group_size == SPAN and w.g_min is None and w.sb_scale is None)

@@ -28,7 +28,9 @@ from llama_kotlin_tpu.runtime.kv_cache import CellMetadata as JaxCellMetadata
 
 from llama_kotlin_tpu_torch.convert import params_from_numpy
 from llama_kotlin_tpu_torch.models.config import ModelConfig
-from llama_kotlin_tpu_torch.models.synthetic import preset_config, synthetic_params_device
+from llama_kotlin_tpu_torch.models.loader import load_gguf_model
+from llama_kotlin_tpu_torch.models.synthetic import (preset_config, synthetic_gguf,
+                                                     synthetic_params_device)
 from llama_kotlin_tpu_torch.ops.norms import rms_norm
 from llama_kotlin_tpu_torch.ops.rope import RopeParams, apply_rope
 from llama_kotlin_tpu_torch.runtime.batch import Batch
@@ -139,9 +141,11 @@ def test_port_imports_no_jax():
     """Importing the port and running a CPU forward leaves neither jax nor
     the JAX package in sys.modules."""
     code = textwrap.dedent("""
-        import sys
+        import sys, tempfile, os
         import numpy as np
-        from llama_kotlin_tpu_torch.models.synthetic import preset_config, synthetic_params_device
+        from llama_kotlin_tpu_torch.models.synthetic import (preset_config, synthetic_gguf,
+                                                             synthetic_params_device)
+        from llama_kotlin_tpu_torch.models.loader import load_gguf_model
         from llama_kotlin_tpu_torch.runtime.context import LlamaContext
         from llama_kotlin_tpu_torch.runtime.batch import Batch
         cfg = preset_config("test-tiny", n_layer=1)
@@ -149,6 +153,17 @@ def test_port_imports_no_jax():
                            device="cpu")
         assert ctx.decode(Batch.single(np.arange(5, dtype=np.int32))) == 0
         assert np.isfinite(ctx.get_logits()).all()
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "m.gguf")
+            synthetic_gguf(path, cfg, seed=1)
+            for mode in ("w4", "int8"):
+                gcfg, params, f = load_gguf_model(path, fast_mode=mode, fuse=True,
+                                                  device="cpu")
+                ctx = LlamaContext(gcfg, params, n_cells=128, device="cpu")
+                assert ctx.decode(Batch.single(np.arange(5, dtype=np.int32))) == 0
+                assert np.isfinite(ctx.get_logits()).all()
+                del params, ctx
+                f.close()
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith(("jax.", "llama_kotlin_tpu."))
                or m == "llama_kotlin_tpu"]
@@ -180,11 +195,17 @@ def test_port_sources_import_no_jax():
                 assert top not in ("jax", "jaxlib", "llama_kotlin_tpu"), (path, name)
 
 
-def test_entry_points_need_cuda_or_cpu(monkeypatch):
+def test_entry_points_need_cuda_or_cpu(monkeypatch, tmp_path):
     """Without CUDA an entry point called without device= raises; it never
     runs on the CPU unasked."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = preset_config("test-tiny", n_layer=1)
+    synthetic_gguf(tmp_path / "m.gguf", cfg, seed=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_gguf_model(tmp_path / "m.gguf", fast_mode="w4")
+    gcfg, gparams, f = load_gguf_model(tmp_path / "m.gguf", fast_mode="int8", device="cpu")
+    assert gparams["output"].codes.device.type == "cpu"
+    f.close()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         synthetic_params_device(cfg)
     params = synthetic_params_device(cfg, device="cpu")
