@@ -8,24 +8,30 @@ Phases (any failure exits non-zero and prints no result line):
   2. build   — compile csrc/*.cu for sm_90a (one nvcc per source, all
                started together) and load the library;
   3. kernels — every kernel of the serving paths at the llama3-8B shapes
-               they get there, held against its plain PyTorch version on
-               the same inputs, timed with CUDA events (median of 20, L2
-               flushed before each call), beside its bound on this card and
-               one PyTorch library call where one computes the same
-               function; and the load-time repack on the card against the
-               CPU repack, bit for bit;
+               they get there (kernels 3 and 9 also on an int8 cache),
+               held against its plain PyTorch version on the same inputs,
+               timed with CUDA events (median of 20, L2 flushed before each
+               call), beside its bound on this card and one PyTorch library
+               call where one computes the same function; and the
+               load-time repack and the KV row quantizer on the card
+               against the CPU's, bit for bit;
   4. serving — the full llama3-8B W4A8 model (32 layers, random weights
                from a seed) serves 3 requests through LlamaContext: prefill
-               64 tokens, then 32 greedy tokens; every kernel's launch count
-               must rise during this phase;
+               64 tokens, then 32 greedy tokens; on the unrolled path with
+               a bf16 cache, then stacked with a bf16 and a q8_0 cache and
+               unrolled with a q8_0 cache; every kernel of each path must
+               launch (kernel 9 once a layer and step, kernel 3 never, on
+               the stacked path);
   5. gguf    — a full-width 32-layer llama3-8B GGUF file with the Q4_K_M
                type mix (random wire blocks from a seed) is written to a
                temporary directory, loaded with load_gguf_model in the w4
-               and in the int8 mode, and each serves 3 requests as in 4;
-               every kernel of the mode must be launched;
+               and in the int8 mode, and each serves 3 requests as in 4
+               (unrolled, bf16 cache), the int8 mode also stacked with a
+               q8_0 cache; every kernel of the path must be launched;
   6. parity  — full width, 2 layers: the port on the card against the port
                on the CPU (plain versions), prefill plus 4 greedy steps, for
-               the synthetic W4A8 model and for a GGUF file in both modes.
+               the synthetic W4A8 model (unrolled bf16 cache, stacked and
+               unrolled q8_0 cache) and for a GGUF file in both modes.
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -125,6 +131,21 @@ def codes_equal(torch, x) -> None:
     a, b = qmm_w4.quantize_q8_cuda(x), qmm_w4.quantize_q8(x)
     if not all(torch.equal(p, q) for p, q in zip(a, b)):
         raise AssertionError("activation codes differ from the plain quantizer")
+
+
+def sdpa_call(torch, q, k, v, mask, scale):
+    """The library yardstick for attention: one scaled_dot_product_attention
+    call on q [nt, H, D] and prebuilt bf16 K/V [KV, cells, D] under a
+    boolean mask [nt, cells]; returns it as a callable."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs, ks, vs, bmask = q.transpose(0, 1)[None], k[None], v[None], mask.bool()
+    try:  # enable_gqa needs torch >= 2.5; else expand the kv heads once
+        sdpa(qs, ks, vs, attn_mask=bmask, scale=scale, enable_gqa=True)
+        return lambda: sdpa(qs, ks, vs, attn_mask=bmask, scale=scale, enable_gqa=True)
+    except TypeError:
+        rep = q.shape[1] // k.shape[0]
+        ke, ve = (t.repeat_interleave(rep, dim=1) for t in (ks, vs))
+        return lambda: sdpa(qs, ke, ve, attn_mask=bmask, scale=scale)
 
 
 W4_STREAMED = ("codes", "aux.q6", "aux.dd")
@@ -233,16 +254,7 @@ def kernel_phase(torch, results: dict) -> None:
         scale = D ** -0.5
         got = flash.flash_attention(q, kc, vc, mask, scale=scale, layer=1)
         ref = flash.flash_attention_plain(q, kc, vc, mask, scale=scale, layer=1)
-        qs = q.transpose(0, 1)[None]
-        ks, vs = kc[1, :, :n_vis][None], vc[1, :, :n_vis][None]
-        bmask = mask.bool()
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        try:  # enable_gqa needs torch >= 2.5; else expand the kv heads once
-            sdpa(qs, ks, vs, attn_mask=bmask, scale=scale, enable_gqa=True)
-            lib = lambda: sdpa(qs, ks, vs, attn_mask=bmask, scale=scale, enable_gqa=True)
-        except TypeError:
-            ke, ve = (t.repeat_interleave(H // KV, dim=1) for t in (ks, vs))
-            lib = lambda: sdpa(qs, ke, ve, attn_mask=bmask, scale=scale)
+        lib = sdpa_call(torch, q, kc[1, :, :n_vis], vc[1, :, :n_vis], mask, scale)
         vis_cells = int(mask.any(dim=0).sum().item())
         n_pairs = int(mask.sum().item()) * H
         report("flash", f"nt={nt} n_vis={n_vis} live={live}", err_of(got, ref), 1e-2,
@@ -393,6 +405,97 @@ def w8_kernel_phase(torch, results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def kv_kernel_phase(torch, results: dict) -> None:
+    """The int8 KV cache's kernels at the llama3-8B shapes: kernel 3's int8
+    branch and kernel 9 (bf16 and int8 cache) on layer 31 of a
+    [32, 8, 1025, 128] cache, decode (nt = 1) and a 64-token prefill chunk,
+    1024 visible cells; and the card's quantize_rows against the CPU's, bit
+    for bit."""
+    from llama_kotlin_tpu_torch.ops.cuda import flash, flash_stacked
+    from llama_kotlin_tpu_torch.runtime.kv_cache import dequantize_cache_layer, quantize_rows
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(777)
+    flush = torch.zeros(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    report = functools.partial(report_row, results)
+    L, H, KV, D, cells, n_vis, li = 32, 32, 8, 128, 1025, 1024, 31
+    scale = D ** -0.5
+
+    # quantize_rows: random rows (f32 and bf16), a zero row, and rows whose
+    # amax is 127 (scale exactly 1) full of .5 ties
+    x = torch.randn((8, 64, D), generator=gen, device=dev) * 3.0
+    x[0, 0] = 0.0
+    x[1, :, :] = torch.randint(-254, 255, (64, D), generator=gen, device=dev) / 2.0
+    x[1, :, 0] = 127.0
+    for xx in (x, x.to(torch.bfloat16)):
+        (gc, gs), (cc, cs) = quantize_rows(xx), quantize_rows(xx.cpu())
+        same = torch.equal(gc.cpu(), cc) and torch.equal(gs.cpu().view(torch.int32),
+                                                         cs.view(torch.int32))
+        log(json.dumps({"phase": "quantize_rows", "dtype": str(xx.dtype), "rows": gs.numel(),
+                        "bit_equal_to_cpu": same}))
+        if not same:
+            raise AssertionError("the card's quantize_rows differs from the CPU's")
+
+    kb = torch.randn((L, KV, cells, D), generator=gen, device=dev).to(torch.bfloat16)
+    vb = torch.randn((L, KV, cells, D), generator=gen, device=dev).to(torch.bfloat16)
+    k8, ks = quantize_rows(kb)
+    v8, vs = quantize_rows(vb)
+    caches = {"bf16": (kb, vb, None, None), "int8": (k8, v8, ks, vs)}
+    # decode: one token at position 1000 over cells 0..1000; prefill: 64
+    # tokens at positions 960..1023, causal, cells 0..1023 (cell c holds
+    # position c; the step's own tokens sit in the last cells)
+    for nt, p0 in ((1, 1000), (64, 960)):
+        q = torch.randn((nt, H, D), generator=gen, device=dev).to(torch.bfloat16)
+        tpos = torch.arange(p0, p0 + nt, device=dev)
+        cpos = torch.arange(n_vis, device=dev)
+        mask = (cpos[None, :] <= tpos[:, None]).to(torch.int8)
+        mask_cells = (cpos[None, :] < p0).to(torch.int8).expand(nt, n_vis).contiguous()
+        mask_new = (tpos[None, :] <= tpos[:, None]).to(torch.int8)
+        new_k = torch.randn((nt, KV, D), generator=gen, device=dev).to(torch.bfloat16)
+        new_v = torch.randn((nt, KV, D), generator=gen, device=dev).to(torch.bfloat16)
+        for kind, (k, v, ksc, vsc) in caches.items():
+            elem = k.element_size() * D + (4 if ksc is not None else 0)  # a row + its scale
+            kf, vf = (k[li, :, :n_vis], v[li, :, :n_vis]) if ksc is None else (
+                dequantize_cache_layer(k[li, :, :n_vis], ksc[li, :, :n_vis], torch.bfloat16),
+                dequantize_cache_layer(v[li, :, :n_vis], vsc[li, :, :n_vis], torch.bfloat16))
+            kw = dict(scale=scale, k_scale=ksc, v_scale=vsc)
+            # kernel 3 on this cache.  tol: bf16 outputs, f32 online-softmax
+            # reassociation (~2 bf16 ulps), as for the bf16 rows above
+            args = (q, k, v, mask)
+            vis = int(mask.any(dim=0).sum().item())
+            report("flash", f"{kind} cache nt={nt} n_vis={n_vis} layer={li}",
+                   err_of(flash.flash_attention(*args, layer=li, **kw),
+                          flash.flash_attention_plain(*args, layer=li, **kw)), 1e-2,
+                   time_ms(torch, lambda: flash.flash_attention(*args, layer=li, **kw), flush),
+                   time_ms(torch, lambda: flash.flash_attention_plain(*args, layer=li, **kw),
+                           flush),
+                   2 * nt * H * D * 2 + 2 * KV * vis * elem + nt * n_vis,
+                   4 * D * int(mask.sum().item()) * H, "bf16",
+                   time_ms(torch, sdpa_call(torch, q, kf, vf, mask, scale), flush))
+            # kernel 9: the same step on the stacked path (the step's own
+            # cells masked out of the cache, its rows merged fresh)
+            sargs = (q, k, v, li, new_k, new_v, mask_cells, mask_new)
+            vis = int(mask_cells.any(dim=0).sum().item())
+            lib = sdpa_call(torch, q, torch.cat([kf, new_k.transpose(0, 1)], dim=1),
+                            torch.cat([vf, new_v.transpose(0, 1)], dim=1),
+                            torch.cat([mask_cells, mask_new], dim=1), scale)
+            report("flash_stacked", f"{kind} cache nt={nt} n_vis={n_vis} layer={li}",
+                   err_of(flash_stacked.flash_attention_stacked(*sargs, **kw),
+                          flash_stacked.flash_attention_stacked_plain(*sargs, **kw)), 1e-2,
+                   time_ms(torch, lambda: flash_stacked.flash_attention_stacked(*sargs, **kw),
+                           flush),
+                   time_ms(torch, lambda: flash_stacked.flash_attention_stacked_plain(*sargs,
+                                                                                      **kw),
+                           flush),
+                   2 * nt * H * D * 2 + 2 * KV * vis * elem + 2 * nt * KV * D * 2
+                   + nt * (n_vis + nt),
+                   4 * D * int(mask_cells.sum().item() + mask_new.sum().item()) * H, "bf16",
+                   time_ms(torch, lib, flush))
+    del caches, kb, vb, k8, v8, ks, vs, flush
+    torch.cuda.empty_cache()
+
+
 def streamed_bytes(params) -> int:
     """Weight bytes a decode step streams: every matrix but the embedding
     (kept on the host path only through its gathered rows), in the layout
@@ -405,12 +508,18 @@ def streamed_bytes(params) -> int:
                           if hasattr(v, "codes"))
 
 
-def serve(torch, cfg, params, mods, phase: str, n_prompt: int = 64, n_new: int = 32):
-    """3 requests through LlamaContext: prefill n_prompt tokens, then
-    n_new greedy tokens (the first from the prefill).  The launch counts of
-    `mods` are set to 0 first; returns (the counts just after the run, the
-    context), and logs each request's launches per prefill and per decode
-    token."""
+def mod_name(m) -> str:
+    return m.__name__.rsplit(".", 1)[1]
+
+
+def serve(torch, cfg, params, mods, phase: str, n_prompt: int = 64, n_new: int = 32,
+          never=(), **ctx_kw):
+    """3 requests through LlamaContext(**ctx_kw): prefill n_prompt tokens,
+    then n_new greedy tokens (the first from the prefill).  The launch
+    counts of `mods` (which must all launch) and `never` (which must not)
+    are set to 0 first; returns (the counts of `mods` just after the run,
+    the context), and logs each request's launches per prefill and per
+    decode token."""
     import numpy as np
 
     from llama_kotlin_tpu_torch.runtime.batch import Batch
@@ -418,11 +527,10 @@ def serve(torch, cfg, params, mods, phase: str, n_prompt: int = 64, n_new: int =
     from llama_kotlin_tpu_torch.runtime.generate import generate_loop
 
     ctx = LlamaContext(cfg, params, n_cells=1024, buckets=(8, 16, 32, 64, 128, 256, 512),
-                       device="cuda")
-    name = lambda m: m.__name__.rsplit(".", 1)[1]
-    for m in mods:
+                       device="cuda", **ctx_kw)
+    for m in mods + never:
         m.LAUNCHES = 0
-    snap = lambda: {name(m): m.LAUNCHES for m in mods}
+    snap = lambda: {mod_name(m): m.LAUNCHES for m in mods + never}
     outs = []
     for r in range(3):
         # request 2 replays request 0's prompt: greedy tokens must repeat
@@ -457,7 +565,8 @@ def serve(torch, cfg, params, mods, phase: str, n_prompt: int = 64, n_new: int =
         if not bool(torch.isfinite(last).all()) or not all(0 <= t < cfg.vocab_size for t in toks):
             raise AssertionError("bad decode output")
         outs.append(toks)
-        log(json.dumps({"phase": phase, "request": r, "prompt_tokens": n_prompt,
+        log(json.dumps({"phase": phase, "context": ctx_kw, "request": r,
+                        "prompt_tokens": n_prompt,
                         "ttft_ms": ttft_ms, "decode_tokens": n_new - 1,
                         "decode_tok_s": (n_new - 1) / dt,
                         "decode_ms_per_tok": dt / (n_new - 1) * 1e3,
@@ -472,13 +581,16 @@ def serve(torch, cfg, params, mods, phase: str, n_prompt: int = 64, n_new: int =
                              "the token checks would carry no signal")
     counts = snap()
     log(json.dumps({"phase": phase, "launches": counts}))
-    if not all(counts.values()):
+    if not all(counts[mod_name(m)] for m in mods):
         raise AssertionError(f"a kernel of the path was never launched: {counts}")
+    if any(counts.pop(mod_name(m)) for m in never):
+        raise AssertionError(f"a kernel off the path was launched: {counts}")
     return counts, ctx
 
 
 def serving_phase(torch, n_layer: int = 32) -> dict:
-    """3 requests on the full llama3-8B W4A8 model; returns launch counts."""
+    """3 requests on the full llama3-8B W4A8 model in each configuration;
+    returns {path: launch counts}."""
     from llama_kotlin_tpu_torch.models.synthetic import preset_config, synthetic_params_device
     from llama_kotlin_tpu_torch.ops.cuda import flash, qmm, qmm_w4, qmm_w4_ffn
 
@@ -491,20 +603,61 @@ def serving_phase(torch, n_layer: int = 32) -> dict:
     log(json.dumps({"phase": "serving", "model": "llama3-8b", "n_layer": n_layer,
                     "weights_build_s": build_s, "w_bytes_per_tok": w_bytes,
                     "w_floor_ms_per_tok": w_bytes / HBM_BYTES_S * 1e3}))
-    counts, ctx = serve(torch, cfg, params, (qmm_w4, qmm_w4_ffn, flash, qmm), "serving")
+    counts, ctx = serve(torch, cfg, params, (qmm_w4, qmm_w4_ffn, flash, qmm), "serving",
+                        prefer_unrolled=True)
     profile_decode(torch, ctx, cfg, "serving")
-    del ctx, params
+    del ctx
+    by_path = {"serving": counts}
+    by_path.update(kv_serving(torch, cfg, params, "serving", (qmm_w4, qmm_w4_ffn, qmm)))
+    del params
     torch.cuda.empty_cache()
-    return counts
+    return by_path
+
+
+def kv_serving(torch, cfg, params, label: str, mods) -> dict:
+    """The same params served in the configurations the int8 KV cache and
+    the stacked path add: the default (stacked) context with a bf16 and
+    with a q8_0 cache, and the unrolled one with a q8_0 cache.  A stacked
+    run must launch kernel 9 once per layer and step and kernel 3 never;
+    the unrolled q8_0 run must launch kernel 3's int8 branch.  Returns
+    {path: launch counts}."""
+    from llama_kotlin_tpu_torch.ops.cuda import flash, flash_stacked
+
+    t0 = time.perf_counter()
+    by_path = {}
+    for path, kw in ((f"{label}_stacked_bf16", {}),
+                     (f"{label}_stacked_q8_0", dict(kv_quant="q8_0")),
+                     (f"{label}_unrolled_q8_0", dict(kv_quant="q8_0", prefer_unrolled=True))):
+        stacked = not kw.get("prefer_unrolled")
+        flash.LAUNCHES_INT8 = 0
+        counts, ctx = serve(torch, cfg, params, mods + ((flash_stacked,) if stacked else (flash,)),
+                            path, never=(flash,) if stacked else (flash_stacked,), **kw)
+        if stacked != ("layers_stacked" in ctx.params):
+            raise AssertionError(f"{path}: the context did not take the expected path")
+        # 3 requests of one prefill and 31 decode steps, each step one launch a layer
+        if stacked and counts["flash_stacked"] != 3 * 32 * cfg.n_layer:
+            raise AssertionError(f"{path}: kernel 9 launched {counts['flash_stacked']} times")
+        if not stacked and not flash.LAUNCHES_INT8:
+            raise AssertionError(f"{path}: kernel 3's int8 branch was never launched")
+        log(json.dumps({"phase": path, "flash_int8_launches": flash.LAUNCHES_INT8}))
+        profile_decode(torch, ctx, cfg, path)
+        by_path[path] = counts
+        del ctx
+        torch.cuda.empty_cache()
+    log(json.dumps({"phase": "timing", "function": "kv_serving",
+                    "seconds": time.perf_counter() - t0}))
+    return by_path
 
 
 def gguf_phase(torch, tmpdir: Path) -> dict:
-    """The slice's path: a full-width 32-layer llama3-8B file with the
-    Q4_K_M type mix, loaded by load_gguf_model in each fast mode on the
-    card, serves 3 requests.  Returns {mode: launch counts}."""
+    """A full-width 32-layer llama3-8B file with the Q4_K_M type mix, loaded
+    by load_gguf_model in each fast mode on the card, serves 3 requests on
+    the unrolled path; the int8-mode params again on the default (stacked)
+    context with a q8_0 cache.  Returns {path: launch counts}."""
     from llama_kotlin_tpu_torch.models.loader import load_gguf_model
     from llama_kotlin_tpu_torch.models.synthetic import preset_config, synthetic_gguf
-    from llama_kotlin_tpu_torch.ops.cuda import flash, qmm, qmm_int8, qmm_w4, qmm_w4_ffn, qmm_w8
+    from llama_kotlin_tpu_torch.ops.cuda import (flash, flash_stacked, qmm, qmm_int8, qmm_w4,
+                                                 qmm_w4_ffn, qmm_w8)
 
     path = tmpdir / "llama3-8b-q4_k_m.gguf"
     t0 = time.perf_counter()
@@ -529,13 +682,24 @@ def gguf_phase(torch, tmpdir: Path) -> dict:
                         "device_bytes": torch.cuda.memory_allocated(),
                         "layouts": layouts}))
         qmm.LAUNCHES_W8 = 0
-        counts[mode], ctx = serve(torch, cfg, params, mods, f"gguf_{mode}")
+        counts[mode], ctx = serve(torch, cfg, params, mods, f"gguf_{mode}", prefer_unrolled=True)
         if mode == "w4":
             log(json.dumps({"phase": "gguf_w4", "qmm_8bit_branch_launches": qmm.LAUNCHES_W8}))
             if not qmm.LAUNCHES_W8:
                 raise AssertionError("kernel 4's 8-bit branch was never launched")
         profile_decode(torch, ctx, cfg, f"gguf_{mode}")
-        del ctx, params
+        del ctx
+        torch.cuda.empty_cache()
+        if mode == "int8":
+            # the default context with the int8 cache: the uniform Q8F layers
+            # stack, so kernels 6 and 9 serve it and kernel 3 never launches
+            counts["int8_stacked_q8_0"], ctx = serve(
+                torch, cfg, params, (qmm_int8, flash_stacked), "gguf_int8_stacked_q8_0",
+                never=(flash,), kv_quant="q8_0")
+            if "layers_stacked" not in ctx.params:
+                raise AssertionError("the int8-mode file did not stack")
+            del ctx
+        del params
         torch.cuda.empty_cache()
     path.unlink()
     return counts
@@ -591,9 +755,11 @@ def profile_decode(torch, ctx, cfg, label: str, n_steps: int = 8) -> None:
 
 
 def parity_phase(torch) -> None:
-    """Full width, 2 layers: card vs CPU, prefill + 4 greedy steps.  The CPU
-    also runs with one thread: its other reduction order gives the spread
-    of two correct runs, the yardstick for the card's error."""
+    """Full width, 2 layers: card vs CPU, prefill + 4 greedy steps, on the
+    unrolled path with a bf16 cache; then the int8 cache on the stacked and
+    on the unrolled path (card_vs_cpu).  The CPU also runs with one thread:
+    its other reduction order gives the spread of two correct runs, the
+    yardstick for the card's error."""
     import numpy as np
 
     from llama_kotlin_tpu_torch.models.synthetic import (params_to, preset_config,
@@ -611,7 +777,8 @@ def parity_phase(torch) -> None:
         dev = "cuda" if run == "cuda" else "cpu"
         torch.set_num_threads(1 if run == "cpu_1thread" else n_threads)
         p = params if dev == "cuda" else cpu_params
-        ctx = LlamaContext(cfg, p, n_cells=1024, buckets=(8, 16, 32, 64), device=dev)
+        ctx = LlamaContext(cfg, p, n_cells=1024, buckets=(8, 16, 32, 64), prefer_unrolled=True,
+                           device=dev)
         assert ctx.decode(Batch.single(prompt)) == 0
         logits = [ctx.get_logits()[-1]]
         toks = [int(np.argmax(logits[-1]))]
@@ -644,29 +811,75 @@ def parity_phase(torch) -> None:
                     "tol_rel": tol}))
     if gt != ct or not max(errs) <= tol:
         raise AssertionError("card and CPU disagree")
+    for label, kw in (("parity_stacked_q8_0", {}), ("parity_unrolled_q8_0",
+                                                     dict(prefer_unrolled=True))):
+        card_vs_cpu(torch, label, lambda dev: LlamaContext(
+            cfg, params if dev == "cuda" else cpu_params, n_cells=1024, buckets=(8, 16, 32, 64),
+            kv_quant="q8_0", device=dev, **kw), prompt, tol, spread=False)
+
+
+def card_vs_cpu(torch, label: str, build, prompt, tol: float, spread: bool = True) -> None:
+    """One context on the card against the same on the CPU (the plain
+    versions), full width: build(device) gives the context.  The card
+    decodes greedily (prefill + 4 steps); the CPU takes the card's tokens,
+    so one near-tie cannot send the two down different paths, and its
+    greedy token must equal the card's wherever the CPU's top-2 gap exceeds
+    twice the tolerance.  With `spread` the CPU also runs with one thread:
+    the spread of two correct runs, the yardstick for the card's error."""
+    import numpy as np
+
+    from llama_kotlin_tpu_torch.runtime.batch import Batch
+
+    n = len(prompt)
+    n_threads = torch.get_num_threads()
+    res, toks = {}, None
+    for run in ("cuda", "cpu", "cpu_1thread")[:3 if spread else 2]:
+        dev = "cuda" if run == "cuda" else "cpu"
+        torch.set_num_threads(1 if run == "cpu_1thread" else n_threads)
+        ctx = build(dev)
+        assert ctx.decode(Batch.single(prompt)) == 0
+        logits = [ctx.get_logits()[-1]]
+        if toks is None:  # the card's greedy run sets the tokens
+            toks = [int(np.argmax(logits[-1]))]
+        for i in range(4):
+            assert ctx.decode(Batch.single([toks[i]], pos0=n + i)) == 0
+            logits.append(ctx.get_logits()[-1])
+            if run == "cuda":
+                toks.append(int(np.argmax(logits[-1])))
+        res[run] = logits
+        del ctx
+    torch.set_num_threads(n_threads)
+    gl, cl = res["cuda"], res["cpu"]
+    errs = [float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(gl, cl)]
+    gaps = [float((np.sort(b)[-1] - np.sort(b)[-2]) / np.abs(b).max()) for b in cl]
+    ct = [int(np.argmax(b)) for b in cl]
+    decided = [g > 2 * tol for g in gaps]
+    log(json.dumps({"phase": label, "n_layer": 2, "tokens_cuda": toks,
+                    "tokens_cpu_forced": ct, "rel_logit_err": errs,
+                    "cpu_thread_spread_rel": [float(np.abs(a - b).max() / np.abs(b).max())
+                                              for a, b in zip(res["cpu_1thread"], cl)]
+                    if spread else "not run: see the bf16 run of the same model",
+                    "top2_gap_rel": gaps,
+                    "logit_std_rel": [float(b.std() / np.abs(b).max()) for b in cl],
+                    "tol_rel": tol}))
+    if not max(errs) <= tol or any(d and a != b for d, a, b in zip(decided, toks, ct)):
+        raise AssertionError(f"card and CPU disagree ({label})")
 
 
 def gguf_parity_phase(torch, tmpdir: Path) -> None:
     """Full width, 2 layers of the Q4_K_M profile (layer 0 all Q4_K, layer 1
-    with Q6_K attn_v and ffn_down, Q6_K output), each fast mode: the file
-    loaded on the card against the same file loaded on the CPU (the CPU
-    repack and the plain versions).  The card decodes greedily (prefill of
-    64 tokens + 4 steps); the CPU takes the card's tokens, so one near-tie
-    cannot send the two down different paths, and its greedy token must
-    equal the card's wherever the CPU's top-2 gap exceeds twice the
-    tolerance.  The CPU also runs with one thread: the spread of two
-    correct runs, the yardstick for the card's error."""
+    with Q6_K attn_v and ffn_down, Q6_K output), each fast mode on the
+    unrolled path: the file loaded on the card against the same file loaded
+    on the CPU (the CPU repack and the plain versions), by card_vs_cpu."""
     import numpy as np
 
     from llama_kotlin_tpu_torch.models.loader import load_gguf_model
     from llama_kotlin_tpu_torch.models.synthetic import preset_config, synthetic_gguf
-    from llama_kotlin_tpu_torch.runtime.batch import Batch
     from llama_kotlin_tpu_torch.runtime.context import LlamaContext
 
     path = tmpdir / "llama3-8b-2layer-q4_k_m.gguf"
     synthetic_gguf(path, preset_config("llama3-8b", n_layer=2), seed=8)
     prompt = np.random.default_rng(4).integers(0, 128256, 64).astype(np.int32)
-    n_threads = torch.get_num_threads()
     # tol: as in parity_phase, the int8 re-quantization of every matmul
     # input and the bf16 residual stream amplify f32 last-bit differences:
     # on these zero-mean Q4_K_M weights the CPU at one thread differs from
@@ -675,40 +888,13 @@ def gguf_parity_phase(torch, tmpdir: Path) -> None:
     # wiring fault moves logits by about one std
     tol = 5e-2
     for mode in ("w4", "int8"):
-        res = {}
-        toks = None
-        for run in ("cuda", "cpu", "cpu_1thread"):
-            dev = "cuda" if run == "cuda" else "cpu"
-            torch.set_num_threads(1 if run == "cpu_1thread" else n_threads)
+        def build(dev, mode=mode):
             cfg, params, f = load_gguf_model(path, fast_mode=mode, fuse=True, device=dev)
             f.close()
-            ctx = LlamaContext(cfg, params, n_cells=1024, buckets=(8, 16, 32, 64), device=dev)
-            assert ctx.decode(Batch.single(prompt)) == 0
-            logits = [ctx.get_logits()[-1]]
-            if toks is None:  # the card's greedy run sets the tokens
-                toks = [int(np.argmax(logits[-1]))]
-            for i in range(4):
-                assert ctx.decode(Batch.single([toks[i]], pos0=64 + i)) == 0
-                logits.append(ctx.get_logits()[-1])
-                if run == "cuda":
-                    toks.append(int(np.argmax(logits[-1])))
-            res[run] = logits
-            del ctx, params
-        torch.set_num_threads(n_threads)
-        gl, cl, c1 = res["cuda"], res["cpu"], res["cpu_1thread"]
-        errs = [float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(gl, cl)]
-        gaps = [float((np.sort(b)[-1] - np.sort(b)[-2]) / np.abs(b).max()) for b in cl]
-        ct = [int(np.argmax(b)) for b in cl]
-        decided = [g > 2 * tol for g in gaps]
-        log(json.dumps({"phase": f"gguf_parity_{mode}", "n_layer": 2, "tokens_cuda": toks,
-                        "tokens_cpu_forced": ct, "rel_logit_err": errs,
-                        "cpu_thread_spread_rel": [float(np.abs(a - b).max() / np.abs(b).max())
-                                                  for a, b in zip(c1, cl)],
-                        "top2_gap_rel": gaps,
-                        "logit_std_rel": [float(b.std() / np.abs(b).max()) for b in cl],
-                        "tol_rel": tol}))
-        if not max(errs) <= tol or any(d and a != b for d, a, b in zip(decided, toks, ct)):
-            raise AssertionError(f"card and CPU disagree ({mode})")
+            return LlamaContext(cfg, params, n_cells=1024, buckets=(8, 16, 32, 64),
+                                prefer_unrolled=True, device=dev)
+
+        card_vs_cpu(torch, f"gguf_parity_{mode}", build, prompt, tol)
     path.unlink()
 
 
@@ -749,39 +935,55 @@ def main() -> int:
         for ln in ptxas:
             print(ln, file=sys.stderr)
         results: dict = {}
-        kernel_phase(torch, results)
-        w8_kernel_phase(torch, results)
-        by_path = {"serving": serving_phase(torch)}
+
+        def timed(fn, *args):
+            t = time.perf_counter()
+            out = fn(*args)
+            log(json.dumps({"phase": "timing", "function": fn.__name__,
+                            "seconds": time.perf_counter() - t}))
+            return out
+
+        timed(kernel_phase, torch, results)
+        timed(w8_kernel_phase, torch, results)
+        timed(kv_kernel_phase, torch, results)
+        by_path = timed(serving_phase, torch)
         tmpdir = Path(tempfile.mkdtemp(prefix="lk_gguf_"))
         try:
-            for mode, c in gguf_phase(torch, tmpdir).items():
+            for mode, c in timed(gguf_phase, torch, tmpdir).items():
                 by_path[f"gguf_{mode}"] = c
-            parity_phase(torch)
-            gguf_parity_phase(torch, tmpdir)
+            timed(parity_phase, torch)
+            timed(gguf_parity_phase, torch, tmpdir)
         finally:
             shutil.rmtree(tmpdir, ignore_errors=True)
     except Exception:
         traceback.print_exc()
         return 1
-    meta = {  # kernel: (source, replaced Pallas kernel, index of the reported timed row)
-        "qmm_w4": ("csrc/qmm_w4.cu", "llama_kotlin_tpu/ops/pallas/qmm_w4.py:290", 0),
-        "qmm_w4_ffn": ("csrc/qmm_w4_ffn.cu", "llama_kotlin_tpu/ops/pallas/qmm_w4_ffn.py:155", 0),
-        "flash": ("csrc/flash.cu", "llama_kotlin_tpu/ops/pallas/flash.py:160", 0),
-        "qmm": ("csrc/qmm.cu", "llama_kotlin_tpu/ops/pallas/qmm.py:192", 1),
-        "qmm_w8": ("csrc/qmm_w8.cu", "llama_kotlin_tpu/ops/pallas/qmm_w8.py:144", 0),
-        "qmm_int8": ("csrc/qmm_int8.cu", "llama_kotlin_tpu/ops/pallas/qmm_int8.py:41", 2),
+    # kernel: (source, replaced Pallas kernel, index of the reported timed
+    # row, index of the int8-cache decode row or None)
+    meta = {
+        "qmm_w4": ("csrc/qmm_w4.cu", "llama_kotlin_tpu/ops/pallas/qmm_w4.py:290", 0, None),
+        "qmm_w4_ffn": ("csrc/qmm_w4_ffn.cu", "llama_kotlin_tpu/ops/pallas/qmm_w4_ffn.py:155",
+                       0, None),
+        "flash": ("csrc/flash.cu", "llama_kotlin_tpu/ops/pallas/flash.py:160", 0, 3),
+        "qmm": ("csrc/qmm.cu", "llama_kotlin_tpu/ops/pallas/qmm.py:192", 1, None),
+        "qmm_w8": ("csrc/qmm_w8.cu", "llama_kotlin_tpu/ops/pallas/qmm_w8.py:144", 0, None),
+        "qmm_int8": ("csrc/qmm_int8.cu", "llama_kotlin_tpu/ops/pallas/qmm_int8.py:41", 2, None),
+        "flash_stacked": ("csrc/flash_stacked.cu",
+                          "llama_kotlin_tpu/ops/pallas/flash_stacked.py:94", 0, 1),
     }
+    timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     kernels = []
-    for kname, (src, replaces, pick) in meta.items():
-        row = [r for r in results[kname] if "ms" in r][pick]
+    for kname, (src, replaces, pick, pick8) in meta.items():
+        rows = [r for r in results[kname] if "ms" in r]
         launches = {p: c[kname] for p, c in by_path.items() if kname in c}
-        kernels.append({"name": kname, "route": "cuda",
-                        "source": "llama_kotlin_tpu_torch/" + src, "replaces": replaces,
-                        "launches": sum(launches.values()), "launches_by_path": launches,
-                        "max_abs_err": max(r["max_abs_err"] for r in results[kname]),
-                        "ms": row["ms"], "plain_ms": row["plain_ms"],
-                        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                        "library_ms": row["library_ms"], "shape": row["shape"]})
+        entry = {"name": kname, "route": "cuda", "source": "llama_kotlin_tpu_torch/" + src,
+                 "replaces": replaces, "launches": sum(launches.values()),
+                 "launches_by_path": launches,
+                 "max_abs_err": max(r["max_abs_err"] for r in results[kname]),
+                 **{k: rows[pick][k] for k in timing}}
+        if pick8 is not None:
+            entry["int8"] = {k: rows[pick8][k] for k in timing + ("max_abs_err",)}
+        kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

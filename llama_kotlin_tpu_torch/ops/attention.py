@@ -8,14 +8,20 @@ visibility is computed on the device from that metadata:
                     and cell_pos[c] >= 0 and cell_pos[c] <= token_pos[t]
 
 The forward pass attends through kernel 3 (``ops/cuda/flash.py::
-flash_attention``, which takes CPU tensors to its plain version);
-``attention_reference`` is the plain masked softmax that version is built
-on.
+flash_attention``) or kernel 9 (``ops/cuda/flash_stacked.py``), which take
+CPU tensors to their plain versions; ``attention_reference`` is the plain
+masked softmax those are built on, and ``cache_attention_reference`` the
+JAX package's route over a bf16 or int8 cache (dequantize, then the
+reference).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+from llama_kotlin_tpu_torch.runtime.kv_cache import dequantize_cache_layer
 
 NEG_INF = -1e30
 
@@ -52,4 +58,25 @@ def attention_reference(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.T
     probs = torch.where(any_visible, probs, torch.zeros_like(probs))
     out = torch.einsum("tgrc,gcd->tgrd", probs, vf)
     return out.reshape(nt, n_head, v_cache.shape[-1]).to(q.dtype)
+
+
+def cache_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              mask: torch.Tensor, *, scale: float, logit_softcap: float = 0.0,
+                              k_scale: Optional[torch.Tensor] = None,
+                              v_scale: Optional[torch.Tensor] = None,
+                              layer: Optional[int] = None) -> torch.Tensor:
+    """The plain route over the cell cache: the layer's visible prefix
+    (mask [nt, n_vis]), dequantized to f32 when k_scale/v_scale mark an int8
+    cache, then attention_reference.  k/v [L, KV, cells, D] with `layer`
+    (scales [L, KV, cells]), or [KV, cells, D] without."""
+    n_vis = mask.shape[1]
+    if layer is not None:
+        k, v = k[layer], v[layer]
+        if k_scale is not None:
+            k_scale, v_scale = k_scale[layer], v_scale[layer]
+    k, v = k[:, :n_vis], v[:, :n_vis]
+    if k_scale is not None:
+        k = dequantize_cache_layer(k, k_scale[:, :n_vis])
+        v = dequantize_cache_layer(v, v_scale[:, :n_vis])
+    return attention_reference(q, k, v, mask, scale=scale, logit_softcap=logit_softcap)
 

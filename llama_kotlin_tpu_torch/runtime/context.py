@@ -5,6 +5,11 @@ Per ubatch: the host finds cache slots and commits the metadata, pads the
 token arrays to a bucket size, picks the attended cell prefix from the
 visibility buckets, and runs the forward pass on the device.  Logits stay
 on the device until ``get_logits`` reads them.
+
+As in the JAX package, the context stacks the layers by default
+(``prefer_unrolled=False``) when they are uniform, and keeps them unrolled
+otherwise; ``kv_quant`` picks the cache: False (bf16) or True/"q8_0"
+(int8 codes with per-row scales).
 """
 
 from __future__ import annotations
@@ -29,10 +34,12 @@ class LlamaContext:
     def __init__(self, cfg: ModelConfig, params: dict, *, n_cells: int = 4096,
                  n_ubatch: int = 512, n_seq_max: int = 32,
                  buckets: tuple[int, ...] = DEFAULT_BUCKETS,
+                 kv_quant=False, prefer_unrolled: bool = False,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.params = params
+        self.prefer_unrolled = prefer_unrolled
+        self.params = self._prepare_params(params)
         self.n_cells = n_cells
         self.n_ubatch = n_ubatch
         self.n_seq_max = n_seq_max
@@ -41,7 +48,7 @@ class LlamaContext:
         # one scratch cell past the real ones receives the padded rows'
         # writes; attention never reads it (n_vis <= n_cells)
         self.cache = KVCache.create(cfg.n_layer, n_cells + 1, cfg.n_head_kv,
-                                    cfg.head_dim, device=self.device)
+                                    cfg.head_dim, device=self.device, quantized=kv_quant)
         # used-prefix attention bucketing: attend over a bucketed prefix of
         # the cells instead of every allocated cell
         self.vis_buckets: tuple[int, ...] = (n_cells,)
@@ -51,6 +58,18 @@ class LlamaContext:
             self.vis_buckets = tuple(vb) + (n_cells,)
         self._logits: Optional[torch.Tensor] = None
         self._logits_rows: Optional[np.ndarray] = None
+
+    def _prepare_params(self, params: dict) -> dict:
+        """Stacked layers unless prefer_unrolled, or the layers are not
+        uniform (the JAX package's rule and fallback)."""
+        if self.prefer_unrolled:
+            return params
+        if "layers" in params and llama_model.can_stack(params, self.cfg):
+            try:
+                return llama_model.stack_layers(params)
+            except (ValueError, TypeError):
+                pass  # non-uniform layers: keep the unrolled path
+        return params
 
     def n_vis_for_span(self) -> int:
         """Smallest visibility bucket covering every live cell."""

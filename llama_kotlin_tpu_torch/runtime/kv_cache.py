@@ -1,10 +1,12 @@
 """Unified multi-sequence KV cell cache (port of
-``llama_kotlin_tpu/runtime/kv_cache.py``, the bf16 cache).
+``llama_kotlin_tpu/runtime/kv_cache.py``: the bf16 and the int8 cache).
 
 - Device side: dense K/V tensors [n_layer, n_kv_head, cells, head_dim],
-  head-major, which is what the flash kernel reads.  The forward pass
-  writes new rows IN PLACE (``index_copy_``), where the JAX package threads
-  a new array through the step.
+  head-major, which is what the flash kernels read: bf16 rows, or int8 codes
+  with one f32 scale per cached row in [n_layer, n_kv_head, cells] planes
+  (``quantized="q8_0"``).  The forward pass writes new rows IN PLACE
+  (``index_copy_``), where the JAX package threads a new array through the
+  step.
 - Host side: CellMetadata keeps (pos, seq-bitmask) per cell in numpy with
   the slot allocator and the sequence operations; each step ships two
   small int32 copies to the device.
@@ -20,19 +22,62 @@ import torch
 
 from llama_kotlin_tpu_torch.device import DeviceLike, resolve_device
 
+
 @dataclass
 class KVCache:
-    k: torch.Tensor  # [n_layer, n_kv_head, cells, head_dim]
+    k: torch.Tensor  # [n_layer, n_kv_head, cells, head_dim] bf16, or int8 codes
     v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None  # [n_layer, n_kv_head, cells] f32
+    v_scale: Optional[torch.Tensor] = None
+    kv_bits: int = 8  # 8 for the bf16 cache too, as in the JAX package
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
     @staticmethod
     def create(n_layer: int, cells: int, n_kv_head: int, head_dim: int,
-               device: DeviceLike = None) -> "KVCache":
-        """A zeroed bf16 cache (the flash kernel reads bf16 K/V only)."""
+               device: DeviceLike = None, quantized=False) -> "KVCache":
+        """A zeroed cache.  quantized: False = bf16 rows; True or "q8_0" =
+        int8 codes with per-row f32 scales.  The packed int4 cache ("q4_0")
+        is not ported yet (ROADMAP.md, the int4 KV cache item)."""
+        if quantized == "q4_0":
+            raise NotImplementedError(
+                "the q4_0 (packed int4) KV cache is not ported yet: it comes with "
+                "kernel 3's packed branch (ROADMAP.md, the int4 KV cache item)")
+        if quantized not in (False, True, "q8_0"):
+            raise ValueError(f"unknown KV cache type {quantized!r}")
         dev = resolve_device(device)
         shape = (n_layer, n_kv_head, cells, head_dim)
-        return KVCache(k=torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-                       v=torch.zeros(shape, dtype=torch.bfloat16, device=dev))
+        dtype = torch.int8 if quantized else torch.bfloat16
+        planes = (lambda: torch.zeros(shape[:3], dtype=torch.float32, device=dev)) \
+            if quantized else (lambda: None)
+        return KVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
+                       v=torch.zeros(shape, dtype=dtype, device=dev),
+                       k_scale=planes(), v_scale=planes())
+
+
+def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 quantization over the last axis: (codes int8
+    [..., d], scale f32 [...]), bit for bit the JAX package's.  Both
+    divisions take a tensor divisor: PyTorch's CUDA division by a Python
+    scalar multiplies by its reciprocal, which can differ in the last bit
+    and so change a code on the card only.  torch.round, like jnp.round,
+    rounds half to even."""
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=-1)
+    scale = amax / torch.full_like(amax, 127.0)
+    live = scale > 0
+    safe = torch.where(live, scale, torch.ones_like(scale))
+    inv = torch.where(live, torch.ones_like(scale) / safe, torch.zeros_like(scale))
+    codes = torch.clamp(torch.round(xf * inv[..., None]), -127, 127).to(torch.int8)
+    return codes, scale
+
+
+def dequantize_cache_layer(codes: torch.Tensor, scale: torch.Tensor,
+                           dtype=torch.float32) -> torch.Tensor:
+    """codes [KV, cells, D] int8 + scale [KV, cells] -> float [KV, cells, D]."""
+    return (codes.to(torch.float32) * scale[..., None]).to(dtype)
 
 
 class CellMetadata:

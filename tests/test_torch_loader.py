@@ -153,7 +153,8 @@ def test_gguf_serving_matches_jax(loaded, mode, monkeypatch):
     monkeypatch.setenv("LKTPU_FORCE_PALLAS_INTERPRET", "1")
     prompt = np.random.default_rng(17).integers(0, CFG.vocab_size, N_PROMPT).astype(np.int32)
     jt, jl = _steps(JaxContext(jcfg, jp, n_cells=N_CELLS, prefer_unrolled=True), JaxBatch, prompt)
-    pl = _forced_steps(LlamaContext(cfg, pp, n_cells=N_CELLS, device="cpu"), prompt, jt)
+    pl = _forced_steps(LlamaContext(cfg, pp, n_cells=N_CELLS, prefer_unrolled=True, device="cpu"),
+                       prompt, jt)
     assert len(set(jt)) > 1  # the zero-mean weights give tokens that vary
     tol, decided = 4e-2, 0
     for tok, a, b in zip(jt, pl, jl):

@@ -79,7 +79,7 @@ def test_serving_path_matches_jax(models, monkeypatch):
     prompt = np.random.default_rng(7).integers(0, CFG["vocab_size"], N_PROMPT).astype(np.int32)
     jctx = JaxContext(jcfg, jp, n_cells=N_CELLS, prefer_unrolled=True)
     jt, jl = _steps(jctx, JaxBatch, prompt)
-    pctx = LlamaContext(cfg, pp, n_cells=N_CELLS, device="cpu")
+    pctx = LlamaContext(cfg, pp, n_cells=N_CELLS, prefer_unrolled=True, device="cpu")
     pt, pl = _steps(pctx, Batch, prompt)
     assert pt == jt
     for a, b in zip(pl, jl):
