@@ -31,7 +31,16 @@ Phases (any failure exits non-zero and prints no result line):
   6. parity  — full width, 2 layers: the port on the card against the port
                on the CPU (plain versions), prefill plus 4 greedy steps, for
                the synthetic W4A8 model (unrolled bf16 cache, stacked and
-               unrolled q8_0 cache) and for a GGUF file in both modes.
+               unrolled q8_0 cache), the synthetic W4X model (stacked, bf16
+               cache) and for a GGUF file in both modes.
+
+The W4X high-fidelity mode (precise folds, dual-plane activations) adds to
+3 kernel 7 and kernel 5's dual-plane branch against their plain versions,
+the card's dual-plane activation codes against the CPU's and a fidelity
+check (kernel 7 at least 20 times closer than kernel 1 to an exact matmul
+on the same weights); to 4 the full llama3-8B W4X model on the default
+(stacked) context; to 5 the same GGUF file loaded with fast_mode="w4x"
+(unrolled, as in JAX); each with its launch counts, kernels 1 and 2 never.
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -123,14 +132,53 @@ def check_row(results, kernel, shape, got, ref, tol) -> None:
     results.setdefault(kernel, []).append(row)
 
 
-def codes_equal(torch, x) -> None:
-    """The prologue's int8 activation codes, scales and sums (q8.cu) are
-    bit-equal to the plain quantizer's."""
+def codes_equal(torch, x, planes: int = 1) -> None:
+    """The prologue's int8 activation codes, scales and sums (q8.cu; with
+    planes=2 the W4X mode's dual-plane quantizer) are bit-equal to the
+    plain quantizer's on the CPU."""
     from llama_kotlin_tpu_torch.ops.cuda import qmm_w4
 
-    a, b = qmm_w4.quantize_q8_cuda(x), qmm_w4.quantize_q8(x)
-    if not all(torch.equal(p, q) for p, q in zip(a, b)):
-        raise AssertionError("activation codes differ from the plain quantizer")
+    card, plain = ((qmm_w4.quantize_q8_cuda, qmm_w4.quantize_q8) if planes == 1 else
+                   (qmm_w4.quantize_q8_2p_cuda, qmm_w4.quantize_q8_2p))
+    a, b = card(x), plain(x.cpu())
+    if not all(torch.equal(p.cpu(), q) for p, q in zip(a, b)):
+        raise AssertionError(f"{planes}-plane activation codes differ from the CPU quantizer")
+
+
+def matmul_ms(torch, x, w, flush) -> float:
+    """library_ms of a quantized matmul (kernel 4's convention): one
+    torch.matmul of the bf16 activations with the pre-dequantized bf16
+    weight, on the same shapes."""
+    from llama_kotlin_tpu_torch.ops.cuda.qmm import dequantize_bf16
+
+    wb = dequantize_bf16(w)
+    xb = x.to(torch.bfloat16)
+    ms = time_ms(torch, lambda: torch.matmul(xb, wb.T), flush)
+    del wb
+    return ms
+
+
+class BranchCounter:
+    """A launch count kept beside a module's LAUNCHES (kernel 5's
+    dual-plane branch counts in qmm_w8.LAUNCHES_2P), usable where serve()
+    takes a kernel module."""
+
+    def __init__(self, mod, attr: str, name: str):
+        self.__name__, self._mod, self._attr = name, mod, attr
+
+    @property
+    def LAUNCHES(self) -> int:
+        return getattr(self._mod, self._attr)
+
+    @LAUNCHES.setter
+    def LAUNCHES(self, value: int) -> None:
+        setattr(self._mod, self._attr, value)
+
+
+def w8_precise():
+    from llama_kotlin_tpu_torch.ops.cuda import qmm_w8
+
+    return BranchCounter(qmm_w8, "LAUNCHES_2P", "qmm_w8.qmm_w8_precise")
 
 
 def sdpa_call(torch, q, k, v, mask, scale):
@@ -196,7 +244,7 @@ def kernel_phase(torch, results: dict) -> None:
                    time_ms(torch, lambda: qmm_w4.qmm_w4_matmul(x, wt), flush),
                    time_ms(torch, lambda: qmm_w4.qmm_w4_plain(x, wt), flush),
                    b * k * 4 + nbytes(wt, W4_STREAMED) + b * n * 4, 2 * b * n * k, "int8",
-                   None)
+                   matmul_ms(torch, x, wt, flush))
 
     # kernel 1, every flavor (legacy and sym read g_scale/g_min and undo the
     # hi nibble's bias) at every batch-row bucket (b = 3, 5, 9, 17 run the
@@ -274,13 +322,11 @@ def kernel_phase(torch, results: dict) -> None:
         xb = (torch.randn((64, k), generator=gen, device=dev) * 0.7).to(torch.bfloat16)
         got = qmm.qmm(xb, wt)
         ref = qmm.qmm_plain(xb, wt)
-        wb = qmm.dequantize_bf16(wt)
         report("qmm", f"{name} n={n} k={k} m=64", err_of(got, ref), 1e-3,
                time_ms(torch, lambda: qmm.qmm(xb, wt), flush),
                time_ms(torch, lambda: qmm.qmm_plain(xb, wt), flush),
                64 * k * 2 + nbytes(wt) + 64 * n * 4, 2 * 64 * n * k,
-               "bf16", time_ms(torch, lambda: torch.matmul(xb, wb.T), flush))
-        del wb
+               "bf16", matmul_ms(torch, xb, wt, flush))
     del w, flush
     torch.cuda.empty_cache()
 
@@ -342,7 +388,8 @@ def w8_kernel_phase(torch, results: dict) -> None:
                err_of(qmm_w8.qmm_w8_matmul(x, wt), qmm_w8.qmm_w8_plain(x, wt)), 1e-4,
                time_ms(torch, lambda: qmm_w8.qmm_w8_matmul(x, wt), flush),
                time_ms(torch, lambda: qmm_w8.qmm_w8_plain(x, wt), flush),
-               b * k * 4 + nbytes(wt) + b * n * 4, 2 * b * n * k, "int8", None)
+               b * k * 4 + nbytes(wt) + b * n * 4, 2 * b * n * k, "int8",
+               matmul_ms(torch, x, wt, flush))
 
     # kernel 4's 8-bit branch: prefill rows over the W8 fold, m = 64.
     # tol: identical bf16 operands (w = code * s_eff), f32 accumulation order
@@ -350,14 +397,12 @@ def w8_kernel_phase(torch, results: dict) -> None:
         wt = w[name]
         n, k = wt.shape
         xb = (torch.randn((64, k), generator=gen, device=dev) * 0.7).to(torch.bfloat16)
-        wb = qmm.dequantize_bf16(wt)
         report("qmm", f"8-bit {name} n={n} k={k} m=64 group=16",
                err_of(qmm.qmm(xb, wt), qmm.qmm_plain(xb, wt)), 1e-3,
                time_ms(torch, lambda: qmm.qmm(xb, wt), flush),
                time_ms(torch, lambda: qmm.qmm_plain(xb, wt), flush),
                64 * k * 2 + nbytes(wt) + 64 * n * 4, 2 * 64 * n * k, "bf16",
-               time_ms(torch, lambda: torch.matmul(xb, wb.T), flush))
-        del wb
+               matmul_ms(torch, xb, wt, flush))
     del w
 
     # kernel 5 at every batch-row bucket on a q8_0-sourced fold (group 32),
@@ -390,7 +435,8 @@ def w8_kernel_phase(torch, results: dict) -> None:
                    err_of(qmm_int8.qmm_int8(x, wt), qmm_int8.qmm_int8_plain(x, wt)), 1e-4,
                    time_ms(torch, lambda: qmm_int8.qmm_int8(x, wt), flush),
                    time_ms(torch, lambda: qmm_int8.qmm_int8_plain(x, wt), flush),
-                   b * k * 4 + nbytes(wt) + b * n * 4, 2 * b * n * k, "int8", None)
+                   b * k * 4 + nbytes(wt) + b * n * 4, 2 * b * n * k, "int8",
+                   matmul_ms(torch, x, wt, flush))
     # kernel 6 at 300 rows (partial row tiles), at other GEMV buckets, and at
     # k = 768 (the GEMV's half-live last step)
     x = torch.randn((300, E), generator=gen, device=dev) * 0.7
@@ -402,6 +448,117 @@ def w8_kernel_phase(torch, results: dict) -> None:
         check("qmm_int8", f"n=1024 k=768 b={b}", qmm_int8.qmm_int8(x, w768),
               qmm_int8.qmm_int8_plain(x, w768), 1e-4)
     del w, w768, flush
+    torch.cuda.empty_cache()
+
+
+def w4x_kernel_phase(torch, results: dict) -> None:
+    """The W4X mode's kernels at the llama3-8B shapes: kernel 7 on precise
+    W4 folds drawn on the card and kernel 5's dual-plane branch on W8X
+    folds of q6_K wire blocks, each against its plain version; the card's
+    dual-plane activation codes against the CPU's, bit for bit; and the
+    fidelity check on one Q4_K tensor folded both ways."""
+    import numpy as np
+
+    from llama_kotlin_tpu_torch.models.synthetic import (synthetic_w4, synthetic_w4_device,
+                                                         wire_blocks)
+    from llama_kotlin_tpu_torch.ops.cuda import qmm_w4, qmm_w4x, qmm_w8
+    from llama_kotlin_tpu_torch.quant import fold, repack
+    from llama_kotlin_tpu_torch.quant.formats import GGMLQuantType as Q
+    from llama_kotlin_tpu_torch.quant.qtensor import dequantize
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5678)
+    flush = torch.zeros(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    report = functools.partial(report_row, results)
+    check = functools.partial(check_row, results)
+    rng = np.random.default_rng(5678)
+    E, F, V, KVD = 4096, 14336, 128256, 1024
+
+    # the dual-plane prologue: random rows, a zero row, .5 ties (amax 127,
+    # so s1 = 1), integer rows (a zero residual), against the CPU
+    x = torch.randn((6, E), generator=gen, device=dev) * 0.7
+    x[1] = 0.0
+    x[2] = torch.randint(-254, 255, (E,), generator=gen, device=dev) / 2.0
+    x[3] = torch.randint(-127, 128, (E,), generator=gen, device=dev).float()
+    x[2:4, ::256] = 127.0
+    codes_equal(torch, x, planes=2)
+    log(json.dumps({"phase": "quantize_q8_2p", "rows": 6, "k": E, "bit_equal_to_cpu": True}))
+
+    # kernel 7 at the decode projections, b = 1, and gate|up at b = 8, 32.
+    # tol: exact integer partials of both planes on both sides; the f32
+    # order of the scale products and of the group and plane sums differs
+    w = {name: synthetic_w4_device(gen, n, k, zero_mean=False, precise=True, device=dev)
+         for name, (n, k) in {"qkv": (6144, E), "o": (E, E), "gate_up": (2 * F, E),
+                              "down": (E, F), "lm_head": (V, E)}.items()}
+    for name, b in (("qkv", 1), ("o", 1), ("gate_up", 1), ("down", 1), ("lm_head", 1),
+                    ("gate_up", 8), ("gate_up", 32)):
+        wt = w[name]
+        n, k = wt.shape
+        x = torch.randn((b, k), generator=gen, device=dev) * 0.7
+        codes_equal(torch, x, planes=2)
+        report("qmm_w4x", f"{name} n={n} k={k} b={b}",
+               err_of(qmm_w4x.qmm_w4x_matmul(x, wt), qmm_w4x.qmm_w4x_plain(x, wt)), 1e-4,
+               time_ms(torch, lambda: qmm_w4x.qmm_w4x_matmul(x, wt), flush),
+               time_ms(torch, lambda: qmm_w4x.qmm_w4x_plain(x, wt), flush),
+               b * k * 4 + nbytes(wt) + b * n * 4, 2 * 2 * b * n * k, "int8",
+               matmul_ms(torch, x, wt, flush))
+    del w
+    # kernel 7 on legacy and sym precise folds at every batch-row bucket
+    for flavor, kw in (("w4x", {}), ("w4x_sym", dict(sym=True))):
+        wt = synthetic_w4(rng, E, E, precise=True, device=dev, **kw)
+        assert wt.flavor == flavor
+        for b in (1, 2, 3, 5, 9, 17, 32):
+            x = torch.randn((b, E), generator=gen, device=dev) * 0.7
+            check("qmm_w4x", f"{flavor} o b={b}", qmm_w4x.qmm_w4x_matmul(x, wt),
+                  qmm_w4x.qmm_w4x_plain(x, wt), 1e-4)
+
+    # fidelity: one Q4_K tensor folded to compact W4 and to W4X (the same
+    # exact weights); kernel 7's error against the float64 product must be
+    # at most a twentieth of kernel 1's
+    data = torch.from_numpy(wire_blocks(rng, Q.Q4_K, E, E)).to(dev)
+    rp = repack.repack(data, Q.Q4_K, E, E)
+    w4, w4x = fold.fold_to_w4(rp), fold.fold_to_w4(rp, precise=True)
+    wd = dequantize(w4x).double()
+    if (w4.flavor, w4x.flavor) != ("compact", "w4x") or not torch.equal(dequantize(w4).double(), wd):
+        raise AssertionError("the W4 and W4X folds of one tensor hold different weights")
+    for b in (1, 8):
+        x = torch.randn((b, E), generator=gen, device=dev) * 0.7
+        ref = x.double() @ wd.T
+        e1 = (qmm_w4.qmm_w4_matmul(x, w4).double() - ref).abs().max().item()
+        e7 = (qmm_w4x.qmm_w4x_matmul(x, w4x).double() - ref).abs().max().item()
+        log(json.dumps({"phase": "w4x_fidelity", "b": b, "max_abs_err_w4": e1,
+                        "max_abs_err_w4x": e7, "ratio": e1 / e7,
+                        "max_abs_ref": ref.abs().max().item()}))
+        if not e7 * 20 <= e1:
+            raise AssertionError(f"W4X is not 20x closer than W4: {e7} vs {e1}")
+    del data, rp, w4, w4x, wd
+
+    # kernel 5's dual-plane branch on W8X folds of q6_K blocks (group 16):
+    # lm_head, ffn_down and attn_v at b = 1.  tol as kernel 5's
+    def w8x(qtype, n, k):
+        blocks = torch.from_numpy(wire_blocks(rng, qtype, n, k)).to(dev)
+        return fold.fold_to_w8(repack.repack(blocks, qtype, n, k), precise=True)
+
+    w = {"lm_head": w8x(Q.Q6_K, V, E), "down": w8x(Q.Q6_K, E, F),
+         "attn_v": w8x(Q.Q6_K, KVD, E)}
+    for name, wt in w.items():
+        n, k = wt.shape
+        x = torch.randn((1, k), generator=gen, device=dev) * 0.7
+        report("qmm_w8_precise", f"{name} n={n} k={k} b=1 group=16",
+               err_of(qmm_w8.qmm_w8_matmul(x, wt), qmm_w8.qmm_w8_plain(x, wt)), 1e-4,
+               time_ms(torch, lambda: qmm_w8.qmm_w8_matmul(x, wt), flush),
+               time_ms(torch, lambda: qmm_w8.qmm_w8_plain(x, wt), flush),
+               k * 4 + nbytes(wt) + n * 4, 2 * 2 * n * k, "int8", matmul_ms(torch, x, wt, flush))
+    del w
+    # the branch at other buckets, group 32, and with mins (the min term of
+    # both planes outside the kernel)
+    for src, wt in (("q8_0", w8x(Q.Q8_0, E, E)), ("q4_K-mins", w8x(Q.Q4_K, E, E))):
+        for b in (1, 3, 17, 32):
+            x = torch.randn((b, E), generator=gen, device=dev) * 0.7
+            check("qmm_w8_precise", f"{src} group={wt.group_size} n={E} b={b}",
+                  qmm_w8.qmm_w8_matmul(x, wt), qmm_w8.qmm_w8_plain(x, wt), 1e-4)
+    del flush
     torch.cuda.empty_cache()
 
 
@@ -499,10 +656,11 @@ def kv_kernel_phase(torch, results: dict) -> None:
 def streamed_bytes(params) -> int:
     """Weight bytes a decode step streams: every matrix but the embedding
     (kept on the host path only through its gathered rows), in the layout
-    its decode kernel reads — W4: codes + compact planes; W8: codes +
-    s_eff (+ m_eff); Q8F: codes + scales."""
+    its decode kernel reads — compact W4: codes + compact planes; other W4
+    and W4X: codes + f32 s_eff and m_adj; W8: codes + s_eff (+ m_eff);
+    Q8F: codes + scales."""
     def one(w):
-        return nbytes(w, W4_STREAMED if w.flavor in ("compact", "legacy", "sym") else FOLD_PLANES)
+        return nbytes(w, W4_STREAMED if w.flavor == "compact" else FOLD_PLANES)
     out = params.get("output") if params.get("output") is not None else params["tok_embd"]
     return one(out) + sum(one(v) for lp in params["layers"] for v in lp.values()
                           if hasattr(v, "codes"))
@@ -614,6 +772,41 @@ def serving_phase(torch, n_layer: int = 32) -> dict:
     return by_path
 
 
+def w4x_serving_phase(torch, n_layer: int = 32) -> dict:
+    """3 requests on the full llama3-8B W4X model (every matrix a precise
+    fold of the serving phase's draws) on the default context, which
+    stacks it, with a bf16 cache.  Kernel 7 takes every decode projection
+    (4 a layer and the lm_head: 4 n_layer + 1 launches per decode token)
+    and the prefill's lm_head row, kernel 4 the prefill's projections,
+    kernel 9 the attention; kernels 1, 2 and 3 never launch."""
+    from llama_kotlin_tpu_torch.models.synthetic import preset_config, synthetic_params_device
+    from llama_kotlin_tpu_torch.ops.cuda import (flash, flash_stacked, qmm, qmm_w4, qmm_w4_ffn,
+                                                 qmm_w4x)
+
+    cfg = preset_config("llama3-8b", n_layer=n_layer)
+    t0 = time.perf_counter()
+    params = synthetic_params_device(cfg, seed=0, device="cuda", mode="w4x")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    w_bytes = streamed_bytes(params)
+    log(json.dumps({"phase": "serving_w4x", "model": "llama3-8b", "n_layer": n_layer,
+                    "weights_build_s": build_s, "w_bytes_per_tok": w_bytes,
+                    "w_floor_ms_per_tok": w_bytes / HBM_BYTES_S * 1e3}))
+    counts, ctx = serve(torch, cfg, params, (qmm_w4x, qmm, flash_stacked), "serving_w4x",
+                        never=(qmm_w4, qmm_w4_ffn, flash))
+    if "layers_stacked" not in ctx.params:
+        raise AssertionError("the W4X model did not stack")
+    # 3 requests of one 64-row prefill and 31 decode steps
+    want = {"qmm_w4x": 3 * (1 + 31 * (4 * n_layer + 1)), "qmm": 3 * 4 * n_layer,
+            "flash_stacked": 3 * 32 * n_layer}
+    if counts != want:
+        raise AssertionError(f"serving_w4x: launches {counts}, expected {want}")
+    profile_decode(torch, ctx, cfg, "serving_w4x")
+    del ctx, params
+    torch.cuda.empty_cache()
+    return {"serving_w4x": counts}
+
+
 def kv_serving(torch, cfg, params, label: str, mods) -> dict:
     """The same params served in the configurations the int8 KV cache and
     the stacked path add: the default (stacked) context with a bf16 and
@@ -652,21 +845,28 @@ def kv_serving(torch, cfg, params, label: str, mods) -> dict:
 def gguf_phase(torch, tmpdir: Path) -> dict:
     """A full-width 32-layer llama3-8B file with the Q4_K_M type mix, loaded
     by load_gguf_model in each fast mode on the card, serves 3 requests on
-    the unrolled path; the int8-mode params again on the default (stacked)
-    context with a q8_0 cache.  Returns {path: launch counts}."""
+    the unrolled path (in the w4x mode the default context, which keeps its
+    mixed layers unrolled as in JAX); the int8-mode params again on the
+    default (stacked) context with a q8_0 cache.  Returns {path: launch
+    counts}."""
     from llama_kotlin_tpu_torch.models.loader import load_gguf_model
     from llama_kotlin_tpu_torch.models.synthetic import preset_config, synthetic_gguf
     from llama_kotlin_tpu_torch.ops.cuda import (flash, flash_stacked, qmm, qmm_int8, qmm_w4,
-                                                 qmm_w4_ffn, qmm_w8)
+                                                 qmm_w4_ffn, qmm_w4x, qmm_w8)
 
     path = tmpdir / "llama3-8b-q4_k_m.gguf"
     t0 = time.perf_counter()
     size = synthetic_gguf(path, preset_config("llama3-8b"), seed=7)
     log(json.dumps({"phase": "gguf", "file_bytes": size,
                     "write_s": time.perf_counter() - t0}))
-    mode_mods = {"w4": (qmm_w4, qmm_w4_ffn, flash, qmm, qmm_w8), "int8": (flash, qmm_int8)}
+    precise = w8_precise()
+    # mode: (kernels that must launch, kernels that must not, context options)
+    mode_mods = {"w4": ((qmm_w4, qmm_w4_ffn, flash, qmm, qmm_w8), (precise, qmm_w4x),
+                        dict(prefer_unrolled=True)),
+                 "w4x": ((qmm_w4x, precise, flash, qmm), (qmm_w4, qmm_w4_ffn, qmm_w8), {}),
+                 "int8": ((flash, qmm_int8), (), dict(prefer_unrolled=True))}
     counts = {}
-    for mode, mods in mode_mods.items():
+    for mode, (mods, never, ctx_kw) in mode_mods.items():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         cfg, params, f = load_gguf_model(path, fast_mode=mode, fuse=True)
@@ -682,11 +882,24 @@ def gguf_phase(torch, tmpdir: Path) -> dict:
                         "device_bytes": torch.cuda.memory_allocated(),
                         "layouts": layouts}))
         qmm.LAUNCHES_W8 = 0
-        counts[mode], ctx = serve(torch, cfg, params, mods, f"gguf_{mode}", prefer_unrolled=True)
-        if mode == "w4":
-            log(json.dumps({"phase": "gguf_w4", "qmm_8bit_branch_launches": qmm.LAUNCHES_W8}))
+        counts[mode], ctx = serve(torch, cfg, params, mods, f"gguf_{mode}", never=never,
+                                  **ctx_kw)
+        if mode in ("w4", "w4x"):
+            log(json.dumps({"phase": f"gguf_{mode}",
+                            "qmm_8bit_branch_launches": qmm.LAUNCHES_W8}))
             if not qmm.LAUNCHES_W8:
                 raise AssertionError("kernel 4's 8-bit branch was never launched")
+        if mode == "w4x":
+            # per request: the prefill's 64 rows take kernel 4 in every
+            # layer (4 projections in the 16 uniform layers, 6 in the 16
+            # with split q/k/v), its lm_head row kernel 5's dual-plane
+            # branch; a decode token kernel 7 4 times a layer and kernel 5
+            # (attn_v, ffn_down, lm_head) 2 times in each mixed layer + 1
+            want = {"qmm_w4x": 3 * 31 * 128, "qmm_w8_precise": 3 * (1 + 31 * 33),
+                    "flash": 3 * 32 * 32, "qmm": 3 * 160}
+            if "layers" not in ctx.params or counts[mode] != want or qmm.LAUNCHES_W8 != 96:
+                raise AssertionError(f"gguf_w4x: launches {counts[mode]} (kernel 4 8-bit "
+                                     f"{qmm.LAUNCHES_W8}), expected {want} (96) unrolled")
         profile_decode(torch, ctx, cfg, f"gguf_{mode}")
         del ctx
         torch.cuda.empty_cache()
@@ -757,9 +970,8 @@ def profile_decode(torch, ctx, cfg, label: str, n_steps: int = 8) -> None:
 def parity_phase(torch) -> None:
     """Full width, 2 layers: card vs CPU, prefill + 4 greedy steps, on the
     unrolled path with a bf16 cache; then the int8 cache on the stacked and
-    on the unrolled path (card_vs_cpu).  The CPU also runs with one thread:
-    its other reduction order gives the spread of two correct runs, the
-    yardstick for the card's error."""
+    on the unrolled path and the W4X model on the stacked one
+    (card_vs_cpu)."""
     import numpy as np
 
     from llama_kotlin_tpu_torch.models.synthetic import (params_to, preset_config,
@@ -772,10 +984,7 @@ def parity_phase(torch) -> None:
     prompt = np.random.default_rng(3).integers(0, cfg.vocab_size, 64).astype(np.int32)
     res = {}
     cpu_params = params_to(params, "cpu")
-    n_threads = torch.get_num_threads()
-    for run in ("cuda", "cpu", "cpu_1thread"):
-        dev = "cuda" if run == "cuda" else "cpu"
-        torch.set_num_threads(1 if run == "cpu_1thread" else n_threads)
+    for dev in ("cuda", "cpu"):
         p = params if dev == "cuda" else cpu_params
         ctx = LlamaContext(cfg, p, n_cells=1024, buckets=(8, 16, 32, 64), prefer_unrolled=True,
                            device=dev)
@@ -786,27 +995,22 @@ def parity_phase(torch) -> None:
             assert ctx.decode(Batch.single([toks[-1]], pos0=64 + i)) == 0
             logits.append(ctx.get_logits()[-1])
             toks.append(int(np.argmax(logits[-1])))
-        res[run] = (toks, logits)
-    torch.set_num_threads(n_threads)
-    (gt, gl), (ct, cl), (_, c1) = res["cuda"], res["cpu"], res["cpu_1thread"]
-
-    def rel_errs(xs):
-        return [float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(xs, cl)]
-
-    errs = rel_errs(gl)
+        res[dev] = (toks, logits)
+    (gt, gl), (ct, cl) = res["cuda"], res["cpu"]
+    errs = [float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(gl, cl)]
     # the CPU's top-2 logit gap per step, in the same unit: where it exceeds
     # the error, equal greedy tokens are expected and carry signal
     gaps = [float((np.sort(b)[-1] - np.sort(b)[-2]) / np.abs(b).max()) for b in cl]
     # tol: f32 reduction order differs between the kernels and the plain
     # versions, and the bf16 residual stream, the bf16 FFN intermediate and
     # the int8 re-quantizations turn such last-bit differences into whole
-    # rounding steps (cpu_thread_spread shows how far).  On zero-mean
-    # weights max|logits| is ~5 logit std (logit_std_rel), so 3e-2 is ~0.15
-    # std, where a wiring fault moves logits by about one std
+    # rounding steps: the CPU at one thread differs from itself at eight by
+    # ~1.3e-2 of max|logits| on this model (PERF.md).  On zero-mean weights
+    # max|logits| is ~5 logit std (logit_std_rel), so 3e-2 is ~0.15 std,
+    # where a wiring fault moves logits by about one std
     tol = 3e-2
     log(json.dumps({"phase": "parity", "n_layer": 2, "tokens_cuda": gt, "tokens_cpu": ct,
-                    "tokens_cpu_1thread": res["cpu_1thread"][0], "rel_logit_err": errs,
-                    "cpu_thread_spread_rel": rel_errs(c1), "top2_gap_rel": gaps,
+                    "rel_logit_err": errs, "top2_gap_rel": gaps,
                     "logit_std_rel": [float(b.std() / np.abs(b).max()) for b in cl],
                     "tol_rel": tol}))
     if gt != ct or not max(errs) <= tol:
@@ -815,27 +1019,34 @@ def parity_phase(torch) -> None:
                                                      dict(prefer_unrolled=True))):
         card_vs_cpu(torch, label, lambda dev: LlamaContext(
             cfg, params if dev == "cuda" else cpu_params, n_cells=1024, buckets=(8, 16, 32, 64),
-            kv_quant="q8_0", device=dev, **kw), prompt, tol, spread=False)
+            kv_quant="q8_0", device=dev, **kw), prompt, tol)
+    del params, cpu_params
+    # the W4X model of the same seed on the default (stacked) context, bf16
+    # cache.  tol: the W4X activations carry ~16 bits, so a flipped plane-1
+    # code is mostly caught by plane 2; on the CPU the port and the JAX
+    # package differ by ~1e-3 of max|logits| on such a model (the W4A8 one
+    # by ~1e-2), and 1e-2 is ten times that
+    w4x = synthetic_params_device(cfg, seed=1, device="cuda", mode="w4x")
+    w4x_cpu = params_to(w4x, "cpu")
+    card_vs_cpu(torch, "parity_w4x_stacked", lambda dev: LlamaContext(
+        cfg, w4x if dev == "cuda" else w4x_cpu, n_cells=1024, buckets=(8, 16, 32, 64),
+        device=dev), prompt, 1e-2)
 
 
-def card_vs_cpu(torch, label: str, build, prompt, tol: float, spread: bool = True) -> None:
+def card_vs_cpu(torch, label: str, build, prompt, tol: float) -> None:
     """One context on the card against the same on the CPU (the plain
     versions), full width: build(device) gives the context.  The card
     decodes greedily (prefill + 4 steps); the CPU takes the card's tokens,
     so one near-tie cannot send the two down different paths, and its
     greedy token must equal the card's wherever the CPU's top-2 gap exceeds
-    twice the tolerance.  With `spread` the CPU also runs with one thread:
-    the spread of two correct runs, the yardstick for the card's error."""
+    twice the tolerance."""
     import numpy as np
 
     from llama_kotlin_tpu_torch.runtime.batch import Batch
 
     n = len(prompt)
-    n_threads = torch.get_num_threads()
     res, toks = {}, None
-    for run in ("cuda", "cpu", "cpu_1thread")[:3 if spread else 2]:
-        dev = "cuda" if run == "cuda" else "cpu"
-        torch.set_num_threads(1 if run == "cpu_1thread" else n_threads)
+    for dev in ("cuda", "cpu"):
         ctx = build(dev)
         assert ctx.decode(Batch.single(prompt)) == 0
         logits = [ctx.get_logits()[-1]]
@@ -844,22 +1055,17 @@ def card_vs_cpu(torch, label: str, build, prompt, tol: float, spread: bool = Tru
         for i in range(4):
             assert ctx.decode(Batch.single([toks[i]], pos0=n + i)) == 0
             logits.append(ctx.get_logits()[-1])
-            if run == "cuda":
+            if dev == "cuda":
                 toks.append(int(np.argmax(logits[-1])))
-        res[run] = logits
+        res[dev] = logits
         del ctx
-    torch.set_num_threads(n_threads)
     gl, cl = res["cuda"], res["cpu"]
     errs = [float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(gl, cl)]
     gaps = [float((np.sort(b)[-1] - np.sort(b)[-2]) / np.abs(b).max()) for b in cl]
     ct = [int(np.argmax(b)) for b in cl]
     decided = [g > 2 * tol for g in gaps]
     log(json.dumps({"phase": label, "n_layer": 2, "tokens_cuda": toks,
-                    "tokens_cpu_forced": ct, "rel_logit_err": errs,
-                    "cpu_thread_spread_rel": [float(np.abs(a - b).max() / np.abs(b).max())
-                                              for a, b in zip(res["cpu_1thread"], cl)]
-                    if spread else "not run: see the bf16 run of the same model",
-                    "top2_gap_rel": gaps,
+                    "tokens_cpu_forced": ct, "rel_logit_err": errs, "top2_gap_rel": gaps,
                     "logit_std_rel": [float(b.std() / np.abs(b).max()) for b in cl],
                     "tol_rel": tol}))
     if not max(errs) <= tol or any(d and a != b for d, a, b in zip(decided, toks, ct)):
@@ -883,9 +1089,9 @@ def gguf_parity_phase(torch, tmpdir: Path) -> None:
     # tol: as in parity_phase, the int8 re-quantization of every matmul
     # input and the bf16 residual stream amplify f32 last-bit differences:
     # on these zero-mean Q4_K_M weights the CPU at one thread differs from
-    # itself at eight by up to 2.6e-2 of max|logits| (cpu_thread_spread);
-    # 5e-2 is twice that, ~0.25 logit std (logit_std_rel ~0.2), where a
-    # wiring fault moves logits by about one std
+    # itself at eight by up to 2.6e-2 of max|logits| in the w4 mode
+    # (PERF.md); 5e-2 is twice that, ~0.25 logit std (logit_std_rel ~0.2),
+    # where a wiring fault moves logits by about one std
     tol = 5e-2
     for mode in ("w4", "int8"):
         def build(dev, mode=mode):
@@ -945,8 +1151,10 @@ def main() -> int:
 
         timed(kernel_phase, torch, results)
         timed(w8_kernel_phase, torch, results)
+        timed(w4x_kernel_phase, torch, results)
         timed(kv_kernel_phase, torch, results)
         by_path = timed(serving_phase, torch)
+        by_path.update(timed(w4x_serving_phase, torch))
         tmpdir = Path(tempfile.mkdtemp(prefix="lk_gguf_"))
         try:
             for mode, c in timed(gguf_phase, torch, tmpdir).items():
@@ -970,6 +1178,9 @@ def main() -> int:
         "qmm_int8": ("csrc/qmm_int8.cu", "llama_kotlin_tpu/ops/pallas/qmm_int8.py:41", 2, None),
         "flash_stacked": ("csrc/flash_stacked.cu",
                           "llama_kotlin_tpu/ops/pallas/flash_stacked.py:94", 0, 1),
+        "qmm_w4x": ("csrc/qmm_w4x.cu", "llama_kotlin_tpu/ops/pallas/qmm_w4.py:691", 0, None),
+        "qmm_w8_precise": ("csrc/qmm_w8.cu", "llama_kotlin_tpu/ops/pallas/qmm_w8.py:144", 0,
+                           None),
     }
     timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     kernels = []

@@ -1,8 +1,8 @@
 """Weight transfer from the JAX package's params to the port's.
 
 ``params_from_numpy(tree, device)`` takes the JAX package's nested params
-dict with every array already ``np.asarray``'d.  A QTensor (W4 fold, W8
-fold or Q8F) arrives as any object (or dict) carrying the JAX field names;
+dict with every array already ``np.asarray``'d.  A QTensor (W4 or W8 fold,
+plain or precise, or Q8F) arrives as any object (or dict) carrying the JAX field names;
 the port never imports the JAX class.  Both sides then compute on identical
 weights, which is what the parity tests need.
 """
@@ -40,11 +40,11 @@ def _tensor(a, device, dtype=None) -> torch.Tensor:
 
 
 def _int8_from_numpy(obj, aux: dict, dev) -> QTensor:
-    """A JAX W8 fold (its transposed ``scw`` plane is g_scale again, so it
-    is dropped) or Q8F tensor -> the port's layout."""
+    """A JAX W8 fold, plain or precise (its transposed ``scw`` plane is
+    g_scale again, so it is dropped) or Q8F tensor -> the port's layout."""
     gs = int(_field(obj, "group_size"))
-    if "scw" in aux and gs in (16, 32) and "precise" not in aux:
-        flavor = "w8"
+    if "scw" in aux and gs in (16, 32):
+        flavor = "w8x" if "precise" in aux else "w8"
     elif not aux and gs == 256 and _field(obj, "g_min") is None \
             and _field(obj, "sb_scale") is None:
         flavor = "q8f"
@@ -60,8 +60,8 @@ def _int8_from_numpy(obj, aux: dict, dev) -> QTensor:
 
 
 def qtensor_from_numpy(obj, device: DeviceLike = None) -> QTensor:
-    """One JAX-side served QTensor (numpy leaves: a W4 or W8 fold, or Q8F)
-    -> the port's QTensor."""
+    """One JAX-side served QTensor (numpy leaves: a W4 or W8 fold, plain or
+    precise, or Q8F) -> the port's QTensor."""
     dev = resolve_device(device)
     aux = dict(_field(obj, "aux") or {})
     if _field(obj, "bits") == 8 and not _field(obj, "hi_signed"):
@@ -70,12 +70,15 @@ def qtensor_from_numpy(obj, device: DeviceLike = None) -> QTensor:
             or _field(obj, "group_size") != 32):
         raise ValueError("the port serves the W4 fold (hi_signed, 4-bit, group 32), "
                          "the W8 fold and Q8F")
-    if "precise" in aux:
-        raise ValueError("W4X precise folds are not ported yet")
     codes = _tensor(_field(obj, "codes"), dev)
     g_scale = _tensor(_field(obj, "g_scale"), dev, torch.float32)
     g_min = _tensor(_field(obj, "g_min"), dev, torch.float32)
-    if "q6_t" in aux:
+    if "precise" in aux and ("sym" in aux or "madj_t" in aux):
+        # W4X: the f32 g_scale/g_min planes carry over bit for bit
+        new_aux = {"flavor": "w4x_sym" if "sym" in aux else "w4x"}
+    elif "precise" in aux:
+        raise ValueError(f"unrecognised W4X aux planes {sorted(aux)}")
+    elif "q6_t" in aux:
         sc6, m6, d, dmin = compact_from_jax_aux(aux["q6_t"], aux["dd_t"])
         new_aux = dict(compact_planes(_tensor(sc6, dev), _tensor(m6, dev),
                                       _tensor(d, dev), _tensor(dmin, dev)),

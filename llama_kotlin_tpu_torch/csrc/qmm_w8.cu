@@ -19,9 +19,15 @@
 // a 32-group.  Four __dp4a give the lane's exact partial; a 32-group adds
 // its lane pair's partials with one shuffle before scaling, so every
 // group's integer partial is exact, as on the TPU's int32 MXU dot.
+//
+// The precise branch (W8X folds of the W4X mode, NP = 2) takes the
+// dual-plane prologue's 2B rows (plane p of batch row b is row p*B + b):
+// each 16-byte code load is dotted with both planes and both partials add
+// into the same acc[b], so the codes stream once and the halves the JAX
+// entry sums after its kernel are summed here (y[B, n]).
 #include "w4_dot.cuh"
 
-template <int NB, int GS>
+template <int NB, int GS, int NP>
 __global__ void __launch_bounds__(256)
 w8_gemv_kernel(const int8_t* __restrict__ x8, const float* __restrict__ sx, int B,
                const int8_t* __restrict__ codes, const float* __restrict__ gs, int n, int K,
@@ -43,13 +49,17 @@ w8_gemv_kernel(const int8_t* __restrict__ x8, const float* __restrict__ sx, int 
 #pragma unroll
     for (int b = 0; b < NB; ++b) {
       if (b < B) {
-        const int4 xv = *reinterpret_cast<const int4*>(x8 + (size_t)b * K + c0);
-        int p = __dp4a(w.x, xv.x, 0);
-        p = __dp4a(w.y, xv.y, p);
-        p = __dp4a(w.z, xv.z, p);
-        p = __dp4a(w.w, xv.w, p);
-        if (GS == 32) p += __shfl_xor_sync(LK_FULL_MASK, p, 1);
-        if (GS == 16 || (lane & 1) == 0) acc[b] += ((float)p * s) * sx[b * S + sb];
+#pragma unroll
+        for (int pl = 0; pl < NP; ++pl) {
+          const int rb = pl * B + b;  // row of plane pl
+          const int4 xv = *reinterpret_cast<const int4*>(x8 + (size_t)rb * K + c0);
+          int p = __dp4a(w.x, xv.x, 0);
+          p = __dp4a(w.y, xv.y, p);
+          p = __dp4a(w.z, xv.z, p);
+          p = __dp4a(w.w, xv.w, p);
+          if (GS == 32) p += __shfl_xor_sync(LK_FULL_MASK, p, 1);
+          if (GS == 16 || (lane & 1) == 0) acc[b] += ((float)p * s) * sx[rb * S + sb];
+        }
       }
     }
   }
@@ -60,20 +70,27 @@ w8_gemv_kernel(const int8_t* __restrict__ x8, const float* __restrict__ sx, int 
   }
 }
 
-// x8 [B, K] int8, sx [B, K/256] f32; codes [n, K] int8; gs [n, K/group]
-// f32; y [B, n] f32.  K % 512 == 0, group 16 or 32.
-LK_API int lk_w8_gemv(const int8_t* x8, const float* sx, int B, const int8_t* codes,
-                      const float* gs, int n, int K, int group, float* y,
-                      cudaStream_t stream) {
-  if (n <= 0 || K <= 0 || K % 512 || (group != 16 && group != 32))
-    return (int)cudaErrorInvalidValue;
+template <int GS, int NP>
+static int launch_w8(const int8_t* x8, const float* sx, int B, const int8_t* codes,
+                     const float* gs, int n, int K, float* y, cudaStream_t stream) {
   const dim3 grid((n + 7) / 8), block(256);
-  if (group == 16) {
-    LK_SWITCH_NB(B, w8_gemv_kernel<NB, 16><<<grid, block, 0, stream>>>(x8, sx, B, codes, gs,
-                                                                       n, K, y))
-  } else {
-    LK_SWITCH_NB(B, w8_gemv_kernel<NB, 32><<<grid, block, 0, stream>>>(x8, sx, B, codes, gs,
-                                                                       n, K, y))
-  }
+  LK_SWITCH_NB(B, w8_gemv_kernel<NB, GS, NP><<<grid, block, 0, stream>>>(x8, sx, B, codes, gs,
+                                                                         n, K, y))
   return (int)cudaGetLastError();
+}
+
+// x8 [planes*B, K] int8, sx [planes*B, K/256] f32; codes [n, K] int8; gs
+// [n, K/group] f32; y [B, n] f32.  K % 512 == 0, group 16 or 32, planes 1
+// (W8) or 2 (W8X: plane 2 in rows B..2B-1).
+LK_API int lk_w8_gemv(const int8_t* x8, const float* sx, int B, const int8_t* codes,
+                      const float* gs, int n, int K, int group, int planes, float* y,
+                      cudaStream_t stream) {
+  if (n <= 0 || K <= 0 || K % 512 || (group != 16 && group != 32) ||
+      (planes != 1 && planes != 2))
+    return (int)cudaErrorInvalidValue;
+  if (group == 16)
+    return planes == 1 ? launch_w8<16, 1>(x8, sx, B, codes, gs, n, K, y, stream)
+                       : launch_w8<16, 2>(x8, sx, B, codes, gs, n, K, y, stream);
+  return planes == 1 ? launch_w8<32, 1>(x8, sx, B, codes, gs, n, K, y, stream)
+                     : launch_w8<32, 2>(x8, sx, B, codes, gs, n, K, y, stream);
 }

@@ -17,11 +17,17 @@
 // m_g = g_min (+ 8 s_g on hi groups, undoing the fold's nibble bias).
 // This replaces the TPU kernel's block-diagonal MXU layout: on Hopper the
 // per-group partial is a handful of dp4a, so no row redundancy is needed.
+//
+// NP is the number of activation planes: 1 for W4A8 (kernels 1 and 2); 2
+// for the W4X dual-plane activations (kernel 7), whose plane p of batch
+// row b is row p*B + b of x8/sx/xsum.  Both planes take the same unpacked
+// weight registers and add into the same acc[b], so the weights stream
+// once and the plane sum happens here.
 #pragma once
 
 #include "common.cuh"
 
-template <int NB, bool COMPACT>
+template <int NB, bool COMPACT, int NP = 1>
 __device__ __forceinline__ void w4_row_partial(
     float acc[NB], const int8_t* __restrict__ x8, const float* __restrict__ sx,
     const int* __restrict__ xsum, int B, const uint8_t* __restrict__ codes,
@@ -61,20 +67,24 @@ __device__ __forceinline__ void w4_row_partial(
 #pragma unroll
     for (int b = 0; b < NB; ++b) {
       if (b < B) {
-        const int8_t* xr = x8 + (size_t)b * k + s * 256 + (c0 & 127);
-        const int4 xl = *reinterpret_cast<const int4*>(xr);
-        const int4 xh = *reinterpret_cast<const int4*>(xr + 128);
-        int pl = __dp4a(lo[0], xl.x, 0);
-        pl = __dp4a(lo[1], xl.y, pl);
-        pl = __dp4a(lo[2], xl.z, pl);
-        pl = __dp4a(lo[3], xl.w, pl);
-        int ph = __dp4a(hi[0], xh.x, 0);
-        ph = __dp4a(hi[1], xh.y, ph);
-        ph = __dp4a(hi[2], xh.z, ph);
-        ph = __dp4a(hi[3], xh.w, ph);
-        float t = s_lo * (float)pl + s_hi * (float)ph;
-        if (lead) t -= m_lo * (float)xsum[b * G + gl] + m_hi * (float)xsum[b * G + gh];
-        acc[b] += sx[b * S + s] * t;
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          const int rb = p * B + b;  // row of plane p
+          const int8_t* xr = x8 + (size_t)rb * k + s * 256 + (c0 & 127);
+          const int4 xl = *reinterpret_cast<const int4*>(xr);
+          const int4 xh = *reinterpret_cast<const int4*>(xr + 128);
+          int pl = __dp4a(lo[0], xl.x, 0);
+          pl = __dp4a(lo[1], xl.y, pl);
+          pl = __dp4a(lo[2], xl.z, pl);
+          pl = __dp4a(lo[3], xl.w, pl);
+          int ph = __dp4a(hi[0], xh.x, 0);
+          ph = __dp4a(hi[1], xh.y, ph);
+          ph = __dp4a(hi[2], xh.z, ph);
+          ph = __dp4a(hi[3], xh.w, ph);
+          float t = s_lo * (float)pl + s_hi * (float)ph;
+          if (lead) t -= m_lo * (float)xsum[rb * G + gl] + m_hi * (float)xsum[rb * G + gh];
+          acc[b] += sx[rb * S + s] * t;
+        }
       }
     }
   }

@@ -1,13 +1,17 @@
 """GGUF -> device params (port of ``llama_kotlin_tpu/models/loader.py`` for
 the llama architecture in the two fast modes).
 
-``load_gguf_model(path, fast_mode="w4"|"int8", fuse=True)`` memory-maps the
-file, moves each tensor's wire bytes to the device and repacks them there
-(``quant/repack.py``), in row chunks so that no f32 copy of a whole
-lm_head sits in memory:
+``load_gguf_model(path, fast_mode="w4"|"w4x"|"int8", fuse=True)``
+memory-maps the file, moves each tensor's wire bytes to the device and
+repacks them there (``quant/repack.py``), in row chunks so that no f32 copy
+of a whole lm_head sits in memory:
 
 * ``"w4"``: 4-bit group-32 formats (Q4_K) fold to W4 (kernels 1, 2, 4);
   every other group-16/32 format (Q6_K, Q8_0) folds to W8 (kernels 5, 4);
+* ``"w4x"``, the high-fidelity mode: the same formats fold to the precise
+  W4X and W8X folds (kernel 7, kernel 5's dual-plane branch, kernel 4);
+  a format JAX's w4x mode keeps as its exact standard repack (group sizes
+  other than 16/32) raises, naming the exact-dequant slice;
 * ``"int8"``: every matrix converts to Q8F (kernel 6).
 
 Norms stay f32.  The exact-dequant mode (``fast_mode=None``) needs kernel 4
@@ -30,7 +34,7 @@ from llama_kotlin_tpu_torch.quant.formats import TYPE_TRAITS, GGMLQuantType, row
 from llama_kotlin_tpu_torch.quant.qtensor import QTensor, concat_qtensors
 from llama_kotlin_tpu_torch.quant.repack import dequantize_wire, repack, repack_q8flat
 
-FAST_MODES = ("w4", "int8")
+FAST_MODES = ("w4", "w4x", "int8")
 ROW_CHUNK = 16384  # matrix rows converted per step
 
 # tensor-name suffix -> params key (the llama rows of the JAX tables)
@@ -56,12 +60,19 @@ _ALWAYS_FLOAT = {"attn_norm", "ffn_norm", "output_norm", "rope_freqs"}
 
 def _convert(data: torch.Tensor, qt: GGMLQuantType, n: int, k: int,
              fast_mode: str) -> QTensor:
-    """int8 mode: Q8F.  W4 mode: 4-bit group-32 formats fold to W4, the
-    other ported formats (group 16/32) to W8."""
+    """int8 mode: Q8F.  W4 and W4X modes: 4-bit group-32 formats fold to W4
+    (precise in W4X), the other ported formats (group 16/32) to W8."""
     if fast_mode == "int8":
         return repack_q8flat(data, qt, n, k)
     rp = repack(data, qt, n, k)
-    return fold_to_w4(rp) if rp.bits == 4 and rp.group_size == GROUP else fold_to_w8(rp)
+    precise = fast_mode == "w4x"
+    if rp.bits == 4 and rp.group_size == GROUP:
+        return fold_to_w4(rp, precise=precise)
+    if precise and rp.group_size not in (16, 32):
+        raise NotImplementedError(
+            f"{qt.name} in the w4x mode: JAX keeps it as its exact standard repack, "
+            "which needs kernel 4 on every repacked format (the exact-dequant slice)")
+    return fold_to_w8(rp, precise=precise)
 
 
 def _load_matrix(data: torch.Tensor, qt: GGMLQuantType, n: int, k: int, fast_mode: str,
@@ -135,7 +146,7 @@ def fuse_layer_projections(cfg: ModelConfig, params: dict) -> int:
 def load_gguf_model(path: str | Path, *, fast_mode: Optional[str] = None,
                     fuse: bool = False, device: DeviceLike = None):
     """Load a llama GGUF file into (config, params, open GGUFFile) on
-    `device` (None means cuda).  fast_mode is "w4" or "int8"; fuse=True
+    `device` (None means cuda).  fast_mode is "w4", "w4x" or "int8"; fuse=True
     applies the single-device serving fold (fuse_layer_projections)."""
     if fast_mode not in FAST_MODES:
         raise NotImplementedError(

@@ -1,4 +1,4 @@
-"""Synthetic models: random W4 weights at real checkpoint shapes (port of
+"""Synthetic models: random W4 or W4X weights at real checkpoint shapes (port of
 ``llama_kotlin_tpu/models/synthetic.py``, the presets and W4 generators).
 
 ``synthetic_w4`` draws from a numpy Generator in the same order as the JAX
@@ -45,27 +45,32 @@ def _hi_groups(G: int, device=None) -> torch.Tensor:
     return (torch.arange(G, device=device) % 8) >= 4
 
 
-def _compact_w4(packed, sc6, m6, d_sb, dmin_sb, shape) -> QTensor:
-    """W4 compact fold from wire-style parts (torch tensors)."""
+def _compact_w4(packed, sc6, m6, d_sb, dmin_sb, shape, precise: bool = False) -> QTensor:
+    """W4 compact fold from wire-style parts (torch tensors); precise=True
+    re-lays the same weights as the W4X fold that fold_to_w4(precise=True)
+    gives for such a Q4_K source: the exact f32 d*sc6 and m_adj planes."""
     s_eff = sc6.to(torch.float32) * d_sb.repeat_interleave(SPAN // GROUP, dim=1)
     m_eff = m6.to(torch.float32) * dmin_sb.repeat_interleave(SPAN // GROUP, dim=1)
     m_adj = torch.where(_hi_groups(s_eff.shape[1], s_eff.device), m_eff - 8.0 * s_eff, m_eff)
+    if precise:
+        return w4_from_parts(packed, s_eff, m_adj, shape, precise=True)
     return w4_from_parts(packed, s_eff, m_adj, shape,
                          compact_parts=compact_planes(sc6, m6, d_sb, dmin_sb))
 
 
 def synthetic_w4(rng: np.random.Generator, n: int, k: int, scale: float = 0.02,
                  sym: bool = False, compact: Optional[bool] = None,
-                 device: DeviceLike = None) -> QTensor:
+                 precise: bool = False, device: DeviceLike = None) -> QTensor:
     """Random W4 fold from a numpy Generator, drawn in the JAX package's
-    order (its synthetic_w4), so equal seeds give equal weights."""
+    order (its synthetic_w4), so equal seeds give equal weights.
+    precise=True gives the W4X fold (f32 planes, never compact)."""
     dev = resolve_device(device)
     k_pad = (k + ALIGN_W4 - 1) // ALIGN_W4 * ALIGN_W4
     G = k_pad // GROUP
     packed = rng.integers(0, 256, (n, k_pad // 2), dtype=np.uint8)
     if compact is None:
-        compact = not sym
-    compact = compact and not sym and (k_pad // 2) % 1024 == 0
+        compact = not sym and not precise
+    compact = compact and not sym and not precise and (k_pad // 2) % 1024 == 0
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     if compact:
         S = k_pad // SPAN
@@ -83,13 +88,15 @@ def synthetic_w4(rng: np.random.Generator, n: int, k: int, scale: float = 0.02,
         m_adj = np.where(is_lo, 8.0 * s_eff, 0.0).astype(np.float32)
     else:
         m_adj = (rng.random((n, G), np.float32) * scale * 0.5).astype(np.float32)
-    return w4_from_parts(t(packed), t(s_eff), t(m_adj), (n, k), sym=sym)
+    return w4_from_parts(t(packed), t(s_eff), t(m_adj), (n, k), sym=sym, precise=precise)
 
 
 def synthetic_w4_device(gen: torch.Generator, n: int, k: int, scale: float = 0.02,
-                        zero_mean: bool = True, device: DeviceLike = None) -> QTensor:
+                        zero_mean: bool = True, precise: bool = False,
+                        device: DeviceLike = None) -> QTensor:
     """Random compact W4 fold drawn on the device (Q4_K profile: 6-bit
-    scale/min codes under f16-valued superblock d).
+    scale/min codes under f16-valued superblock d); precise=True gives the
+    same weights as a W4X fold (the same draws).
 
     With zero_mean each group's min is 7.5 times its scale (m6 = sc6,
     dmin = 7.5 d), so the uniform 4-bit codes give zero-mean weights, as a
@@ -106,17 +113,23 @@ def synthetic_w4_device(gen: torch.Generator, n: int, k: int, scale: float = 0.0
     sc6 = torch.randint(0, 64, (n, G), dtype=torch.uint8, **kw)
     d_sb = (torch.rand((n, S), **kw) * (scale / 500.0)).half().float()
     if zero_mean:
-        return _compact_w4(packed, sc6, sc6.clone(), d_sb, d_sb * 7.5, (n, k))
+        return _compact_w4(packed, sc6, sc6.clone(), d_sb, d_sb * 7.5, (n, k), precise)
     m6 = torch.randint(0, 64, (n, G), dtype=torch.uint8, **kw)
     dmin_sb = (torch.rand((n, S), **kw) * (scale / 500.0)).half().float()
-    return _compact_w4(packed, sc6, m6, d_sb, dmin_sb, (n, k))
+    return _compact_w4(packed, sc6, m6, d_sb, dmin_sb, (n, k), precise)
+
+
+SYNTHETIC_MODES = ("w4", "w4x")
 
 
 def synthetic_params_device(cfg: ModelConfig, seed: int = 0,
-                            device: DeviceLike = None) -> dict:
-    """Random W4A8 params for `cfg` in the serving layout (wqkv_fused,
-    ffn_gateup_fused; every matrix a compact W4 fold, embedding and lm_head
-    included), drawn on `device` from a seeded torch.Generator."""
+                            device: DeviceLike = None, mode: str = "w4") -> dict:
+    """Random params for `cfg` in the serving layout (wqkv_fused,
+    ffn_gateup_fused), drawn on `device` from a seeded torch.Generator:
+    every matrix, embedding and lm_head included, a compact W4 fold
+    (mode "w4", W4A8) or the W4X fold of the same draws (mode "w4x")."""
+    if mode not in SYNTHETIC_MODES:
+        raise ValueError(f"mode {mode!r} not in {SYNTHETIC_MODES}")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -128,7 +141,7 @@ def synthetic_params_device(cfg: ModelConfig, seed: int = 0,
         return 1.0 + 0.01 * torch.randn(E, generator=gen, device=dev)
 
     def w(n_, k_):
-        return synthetic_w4_device(gen, n_, k_, device=dev)
+        return synthetic_w4_device(gen, n_, k_, precise=mode == "w4x", device=dev)
 
     params: dict = {"tok_embd": w(V, E), "output_norm": norm_w(), "rope_freqs": None,
                     "output": w(V, E), "layers": []}

@@ -34,13 +34,15 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # exported C functions: name -> argument types (every one returns int)
 SIGNATURES = {
     "lk_quantize_q8": [_P, _P, _P, _P, _I, _I, _P],
+    "lk_quantize_q8_2p": [_P, _P, _P, _P, _I, _I, _P],
     "lk_w4_gemv": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "lk_w4x_gemv": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P],
     "lk_w4_ffn": [_P, _P, _P, _I] + [_P] * 10 + [_I, _I, _I, _I, _P, _P, _P],
     "lk_flash": [_P] * 9 + [_I] * 6 + [_F, _F, _I, _P],
     "lk_flash_stacked": [_P] * 12 + [_I] * 6 + [_F, _F, _I, _P],
     "lk_w4_dequant_gemm": [_P] * 5 + [_I, _I, _I, _P],
     "lk_w8_dequant_gemm": [_P] * 5 + [_I, _I, _I, _I, _P],
-    "lk_w8_gemv": [_P, _P, _I, _P, _P, _I, _I, _I, _P, _P],
+    "lk_w8_gemv": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P],
     "lk_q8f_matmul": [_P, _P, _I, _P, _P, _I, _I, _P, _P],
     "lk_error_string": [_I],
 }

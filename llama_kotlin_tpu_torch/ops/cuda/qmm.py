@@ -2,7 +2,9 @@
 (``csrc/qmm.cu``).
 
 Replaces ``llama_kotlin_tpu/ops/pallas/qmm.py::qmm`` on the W4 fold and,
-in its ``bits == 8`` branch, on the W8 fold (entry ``qmm_pallas_or_none``):
+in its ``bits == 8`` branch, on the W8 fold (entry ``qmm_pallas_or_none``);
+the W4X mode's precise folds take the same branches with their f32 scales
+read as stored (``qmm.py:201`` takes any hi_signed W4 layout):
 y = x W^T with w = plane * g_scale - g_min (W4) or code * s_eff (- m_eff)
 (W8) formed in f32 and rounded to bf16, x in bf16, f32 accumulation — the
 operands the Pallas kernel feeds its dot.  Bound on the H100: bytes at 64
@@ -23,7 +25,7 @@ from llama_kotlin_tpu_torch.device import is_cuda, require
 from llama_kotlin_tpu_torch.ops.cuda import _build
 from llama_kotlin_tpu_torch.ops.cuda.qmm_w4 import check_w4_on
 from llama_kotlin_tpu_torch.ops.cuda.qmm_w8 import check_int8_on
-from llama_kotlin_tpu_torch.quant.fold import is_w4, is_w8
+from llama_kotlin_tpu_torch.quant.fold import is_w4, is_w4x, is_w8, is_w8x
 from llama_kotlin_tpu_torch.quant.qtensor import QTensor, dequantize
 
 LAUNCHES = 0  # kernel launches made by qmm (both branches)
@@ -48,10 +50,11 @@ def qmm_plain(x: torch.Tensor, w: QTensor) -> torch.Tensor:
 
 
 def qmm(x: torch.Tensor, w: QTensor) -> torch.Tensor:
-    """x [..., k] @ (W4 or W8) w^T -> [..., n] f32 (any number of rows)."""
+    """x [..., k] @ (W4, W4X, W8 or W8X) w^T -> [..., n] f32 (any number
+    of rows)."""
     global LAUNCHES, LAUNCHES_W8
-    w8 = is_w8(w)
-    require(is_w4(w) or w8, "qmm needs a W4 or W8 fold")
+    w8 = is_w8(w) or is_w8x(w)
+    require(is_w4(w) or is_w4x(w) or w8, "qmm needs a W4 or W8 fold, plain or precise")
     n, k = w.shape
     lead = x.shape[:-1]
     m = math.prod(lead)

@@ -11,6 +11,10 @@ stream); see the CUDA source for the design.
 ``qmm_w4_matmul`` launches the kernel for CUDA tensors and runs
 ``qmm_w4_plain`` — the same function in plain PyTorch — for CPU tensors.
 Nothing on the CUDA path calls the plain version.
+
+The W4X mode's dual-plane quantizer (``quantize_q8_2p`` and its kernel,
+for kernel 7 and kernel 5's dual-plane branch) sits beside
+``quantize_q8``; its row walk (``w4_row_partial``) is kernel 7's too.
 """
 
 from __future__ import annotations
@@ -46,6 +50,19 @@ def quantize_q8(x: torch.Tensor):
     x8 = x8.reshape(b, k)
     xsum = x8.reshape(b, k // GROUP, GROUP).sum(dim=-1, dtype=torch.int32)
     return x8, sx, xsum
+
+
+def quantize_q8_2p(x: torch.Tensor):
+    """Dual-plane activations of the W4X mode (the JAX package's
+    quantize_activations_2p): plane 1 is quantize_q8(x), plane 2
+    quantize_q8 of the residual x - f32(x1) * s1, taken as a separate
+    multiply and subtract.  Returns (x8 int8 [2b, k], sx f32 [2b, k/256],
+    xsum int32 [2b, k/32]) with plane 2 in rows b..2b-1."""
+    x = x.to(torch.float32)
+    x1, s1, sum1 = quantize_q8(x)
+    r = x - x1.to(torch.float32) * s1.repeat_interleave(SPAN, dim=1)
+    x2, s2, sum2 = quantize_q8(r)
+    return torch.cat([x1, x2]), torch.cat([s1, s2]), torch.cat([sum1, sum2])
 
 
 def raw_codes(w: QTensor, rows: slice) -> torch.Tensor:
@@ -114,9 +131,22 @@ def quantize_q8_cuda(x: torch.Tensor):
     return x8, sx, xsum
 
 
+def quantize_q8_2p_cuda(x: torch.Tensor):
+    """Dual-plane prologue kernel: x [b, k] f32 contiguous on the card ->
+    (x8, sx, xsum) with 2b rows, as quantize_q8_2p."""
+    b, k = x.shape
+    x8 = torch.empty((2 * b, k), dtype=torch.int8, device=x.device)
+    sx = torch.empty((2 * b, k // SPAN), dtype=torch.float32, device=x.device)
+    xsum = torch.empty((2 * b, k // GROUP), dtype=torch.int32, device=x.device)
+    _build.check(_build.lib().lk_quantize_q8_2p(
+        x.data_ptr(), x8.data_ptr(), sx.data_ptr(), xsum.data_ptr(), b, k,
+        _build.stream()), "lk_quantize_q8_2p")
+    return x8, sx, xsum
+
+
 def check_w4_on(w: QTensor, device: torch.device) -> None:
-    """Every tensor of the fold lies on `device`, contiguous, in the dtypes
-    the kernels read."""
+    """Every tensor of a W4 or W4X fold lies on `device`, contiguous, in the
+    dtypes the kernels read."""
     for name, t in w.tensors().items():
         require(t.device == device, f"W4 {name} on {t.device}, not {device}")
         require(t.is_contiguous(), f"W4 {name} is not contiguous")

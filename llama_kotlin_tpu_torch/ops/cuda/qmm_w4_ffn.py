@@ -42,7 +42,9 @@ def qmm_w4_ffn_plain(x: torch.Tensor, gu: QTensor, dn: QTensor, act: str) -> tor
 def ffn_eligible(gu, dn, act: str) -> bool:
     """Kernel 2 takes these weights: both W4 folds of the same
     compact / non-compact flavor, at shapes it tiles (mirrors the JAX
-    qmm_w4_ffn_or_none's refusals)."""
+    qmm_w4_ffn_or_none's refusals).  Precise (W4X) folds are declined, as
+    the JAX megakernel declines them (``qmm_w4_ffn.py:101``): kernel 2's
+    single-plane activations would serve them at W4 fidelity."""
     try:
         _check_shapes(gu, dn, act)
     except ValueError:

@@ -11,6 +11,12 @@ f32.  Formats with mins subtract x_g . m_eff outside the kernel with one
 Bound on the H100: bytes (the weight stream, 10 bits per weight at
 group 16); see the CUDA source for the design.
 
+The precise branch (W8X folds, the W4X mode's q6_K tensors; the JAX
+entry's ``precise`` branch, ``qmm_w8.py:117-133``) quantizes the
+activations in two planes (``quantize_q8_2p``), runs the same kernel over
+both planes' rows in one pass over the codes, and subtracts the min term
+of both planes outside the kernel.
+
 ``qmm_w8_matmul`` launches the kernel for CUDA tensors and runs
 ``qmm_w8_plain`` — the same function in plain PyTorch — for CPU tensors.
 """
@@ -23,11 +29,13 @@ import torch
 
 from llama_kotlin_tpu_torch.device import is_cuda, require
 from llama_kotlin_tpu_torch.ops.cuda import _build
-from llama_kotlin_tpu_torch.ops.cuda.qmm_w4 import MAX_ROWS, quantize_q8, quantize_q8_cuda
-from llama_kotlin_tpu_torch.quant.fold import is_w8
+from llama_kotlin_tpu_torch.ops.cuda.qmm_w4 import (MAX_ROWS, quantize_q8, quantize_q8_2p,
+                                                    quantize_q8_2p_cuda, quantize_q8_cuda)
+from llama_kotlin_tpu_torch.quant.fold import is_w8, is_w8x
 from llama_kotlin_tpu_torch.quant.qtensor import SPAN, QTensor
 
-LAUNCHES = 0  # kernel launches made by qmm_w8_matmul
+LAUNCHES = 0  # kernel launches of qmm_w8_matmul on W8 folds (single plane)
+LAUNCHES_2P = 0  # and on W8X folds (the precise, dual-plane branch)
 PLAIN_CHUNK = 8192  # output rows per step of the plain version
 
 
@@ -60,10 +68,15 @@ def min_term(x8: torch.Tensor, sx: torch.Tensor, w: QTensor) -> torch.Tensor:
 
 
 def qmm_w8_plain(x: torch.Tensor, w: QTensor) -> torch.Tensor:
-    """Plain version of the whole wrapper: x [b, k_pad] f32 -> [b, n] f32."""
-    x8, sx, _ = quantize_q8(x)
+    """Plain version of the whole wrapper: x [b, k_pad] f32 -> [b, n] f32.
+    A W8X fold takes both activation planes (each plane's whole product
+    and min term, then their sum, in the JAX entry's order)."""
+    b = x.shape[0]
+    x8, sx, _ = quantize_q8_2p(x) if is_w8x(w) else quantize_q8(x)
     y = w8_dot_plain(x8, sx, w)
-    return y - min_term(x8, sx, w) if w.g_min is not None else y
+    if w.g_min is not None:
+        y = y - min_term(x8, sx, w)
+    return y[:b] + y[b:] if is_w8x(w) else y
 
 
 def check_int8_on(w: QTensor, device: torch.device) -> None:
@@ -79,9 +92,11 @@ def check_int8_on(w: QTensor, device: torch.device) -> None:
 
 
 def qmm_w8_matmul(x: torch.Tensor, w: QTensor) -> torch.Tensor:
-    """x [..., k] (float) @ W8 w^T -> [..., n] f32, for at most 32 rows."""
-    global LAUNCHES
-    require(is_w8(w), "qmm_w8_matmul needs a W8 fold")
+    """x [..., k] (float) @ W8 or W8X w^T -> [..., n] f32, for at most 32
+    rows."""
+    global LAUNCHES, LAUNCHES_2P
+    precise = is_w8x(w)
+    require(is_w8(w) or precise, "qmm_w8_matmul needs a W8 or W8X fold")
     n, k = w.shape
     k_pad = w.k_pad
     lead = x.shape[:-1]
@@ -95,12 +110,17 @@ def qmm_w8_matmul(x: torch.Tensor, w: QTensor) -> torch.Tensor:
         return qmm_w8_plain(x2, w).reshape(*lead, n)
     x2 = x2.contiguous()
     check_int8_on(w, x2.device)
-    x8, sx, _ = quantize_q8_cuda(x2)
+    x8, sx, _ = quantize_q8_2p_cuda(x2) if precise else quantize_q8_cuda(x2)
     y = torch.empty((b, n), dtype=torch.float32, device=x2.device)
     _build.check(_build.lib().lk_w8_gemv(
         x8.data_ptr(), sx.data_ptr(), b, w.codes.data_ptr(), w.g_scale.data_ptr(),
-        n, k_pad, w.group_size, y.data_ptr(), _build.stream()), "lk_w8_gemv")
-    LAUNCHES += 1
+        n, k_pad, w.group_size, 2 if precise else 1, y.data_ptr(), _build.stream()),
+        "lk_w8_gemv")
+    if precise:
+        LAUNCHES_2P += 1
+    else:
+        LAUNCHES += 1
     if w.g_min is not None:
-        y = y - min_term(x8, sx, w)
+        mt = min_term(x8, sx, w)
+        y = y - (mt[:b] + mt[b:] if precise else mt)
     return y.reshape(*lead, n)

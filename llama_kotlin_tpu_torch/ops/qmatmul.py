@@ -6,13 +6,16 @@ Routing is by layout and rows:
 
 * W4 fold: at most 32 rows -> kernel 1 (``ops/cuda/qmm_w4.py``), more rows
   -> kernel 4 (``ops/cuda/qmm.py``);
+* W4X (precise W4) fold: at most 32 rows -> kernel 7
+  (``ops/cuda/qmm_w4x.py``, dual-plane activations), more -> kernel 4;
 * W8 fold: at most 32 rows -> kernel 5 (``ops/cuda/qmm_w8.py``), more rows
-  -> kernel 4's 8-bit branch;
+  -> kernel 4's 8-bit branch; a W8X (precise W8) fold the same, on kernel
+  5's dual-plane branch;
 * Q8F: kernel 6 (``ops/cuda/qmm_int8.py``) at every row count.
 
 ``qmm_ffn`` sends decode rows through kernel 2 when gate|up and down are
-both W4 folds it takes.  Any other weight raises: the port has no library
-stand-in.
+both W4 folds it takes (never precise ones).  Any other weight raises: the
+port has no library stand-in.
 """
 
 from __future__ import annotations
@@ -26,8 +29,9 @@ from llama_kotlin_tpu_torch.ops.cuda.qmm import qmm
 from llama_kotlin_tpu_torch.ops.cuda.qmm_int8 import qmm_int8
 from llama_kotlin_tpu_torch.ops.cuda.qmm_w4 import MAX_ROWS, qmm_w4_matmul
 from llama_kotlin_tpu_torch.ops.cuda.qmm_w4_ffn import ffn_eligible, qmm_w4_ffn_matmul
+from llama_kotlin_tpu_torch.ops.cuda.qmm_w4x import qmm_w4x_matmul
 from llama_kotlin_tpu_torch.ops.cuda.qmm_w8 import qmm_w8_matmul
-from llama_kotlin_tpu_torch.quant.fold import is_q8f, is_w4, is_w8
+from llama_kotlin_tpu_torch.quant.fold import is_q8f, is_w4, is_w4x, is_w8, is_w8x
 from llama_kotlin_tpu_torch.quant.qtensor import QTensor, dequantize
 
 
@@ -39,7 +43,9 @@ def qmatmul(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     """x [..., k] @ w[n, k]^T -> [..., n] f32."""
     if is_w4(w):
         return qmm_w4_matmul(x, w) if _rows(x) <= MAX_ROWS else qmm(x, w)
-    if is_w8(w):
+    if is_w4x(w):
+        return qmm_w4x_matmul(x, w) if _rows(x) <= MAX_ROWS else qmm(x, w)
+    if is_w8(w) or is_w8x(w):
         return qmm_w8_matmul(x, w) if _rows(x) <= MAX_ROWS else qmm(x, w)
     if is_q8f(w):
         return qmm_int8(x, w)

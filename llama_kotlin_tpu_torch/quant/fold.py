@@ -28,6 +28,16 @@ scale s_eff per group in ``g_scale`` [n, G] (the JAX fold also keeps it
 transposed as ``aux["scw"]`` for the TPU; the port's kernel reads it per
 output row) and the f32 m_eff in ``g_min`` for formats with mins.  10 bits
 per weight streamed at group 16.
+
+W4X, the high-fidelity mode (``precise=True``): the same storage as the
+legacy and sym W4 folds with s_eff and m_adj kept in f32 as computed, never
+rounded to bf16 and never compact, so the weights dequantize bit-exactly
+(6.0 bits per weight streamed).  Flavors ``w4x`` and ``w4x_sym``, and
+``w8x`` for the precise W8 fold (the W8 weights unchanged).  Their decode
+kernels quantize the activations in two int8 planes (kernel 7 and kernel
+5's dual-plane branch); kernels 1 and 2 must never take them, so each
+layout has one predicate of its own (``is_w4``, ``is_w4x``, ``is_w8``,
+``is_w8x``, ``is_q8f``) and the flavors never overlap.
 """
 
 from __future__ import annotations
@@ -48,7 +58,8 @@ GROUP = 32  # W4 group size (= Q4_K group)
 # folds are identical
 ALIGN_W4 = 1024
 ALIGN_W8 = 512
-FLAVORS = ("compact", "legacy", "sym")
+FLAVORS = ("compact", "legacy", "sym")  # W4 (kernel 1)
+W4X_FLAVORS = ("w4x", "w4x_sym")  # precise W4 (kernel 7)
 
 
 def _pad_cols(a: Optional[torch.Tensor], cols: int):
@@ -94,17 +105,20 @@ def compact_from_jax_aux(q6_t: np.ndarray, dd_t: np.ndarray) -> tuple:
 
 def w4_from_parts(packed: torch.Tensor, s_eff: torch.Tensor, m_adj: torch.Tensor,
                   shape: tuple[int, int], qtype=None, sym: bool = False,
-                  compact_parts: Optional[dict] = None) -> QTensor:
+                  compact_parts: Optional[dict] = None, precise: bool = False) -> QTensor:
     """Assemble a W4 QTensor from plane-packed codes [n, k_pad/2] u8,
     effective per-32-group scales s_eff [n, G] f32 and adjusted mins m_adj
     [n, G] f32.  Without compact parts the scales are rounded to bf16 as the
-    JAX legacy/sym folds store them (kept as f32 here, exactly)."""
+    JAX legacy/sym folds store them (kept as f32 here, exactly); precise
+    (W4X) folds keep them in f32 as given."""
     s_eff = s_eff.to(torch.float32)
     m_adj = m_adj.to(torch.float32)
     if compact_parts is not None:
-        if sym:
-            raise ValueError("a sym fold has no compact planes")
+        if sym or precise:
+            raise ValueError("sym and precise folds have no compact planes")
         aux = dict(compact_parts, flavor="compact")
+    elif precise:
+        aux = {"flavor": "w4x_sym" if sym else "w4x"}
     else:
         s_eff = s_eff.to(torch.bfloat16).to(torch.float32)
         m_adj = m_adj.to(torch.bfloat16).to(torch.float32)
@@ -117,11 +131,13 @@ def w4_from_parts(packed: torch.Tensor, s_eff: torch.Tensor, m_adj: torch.Tensor
         hi_signed=True, aux=aux)
 
 
-def fold_to_w4(qt: QTensor) -> QTensor:
-    """A repacked 4-bit group-32 QTensor (Q4_K) -> the W4 fold, on its
-    device.  Takes the compact flavor under the JAX fold's rule (6-bit
-    integer scale/min codes under superblock scales, and k a multiple of
-    2048 after padding to 1024), else the legacy flavor."""
+def fold_to_w4(qt: QTensor, precise: bool = False) -> QTensor:
+    """A repacked 4-bit group-32 QTensor -> the W4 fold, on its device.
+    Takes the compact flavor under the JAX fold's rule (6-bit integer
+    scale/min codes under superblock scales, and k a multiple of 2048 after
+    padding to 1024), else the legacy flavor, or sym for a source with
+    code offset 8 and no mins (Q4_0 class).  precise=True gives the W4X
+    fold: never compact, f32 s_eff and m_adj as computed."""
     if qt.bits != 4 or qt.group_size != GROUP:
         raise ValueError(f"fold_to_w4 needs 4-bit group-32 codes, got "
                          f"bits={qt.bits} group={qt.group_size}")
@@ -129,9 +145,12 @@ def fold_to_w4(qt: QTensor) -> QTensor:
         return qt
     n, k = qt.shape
     codes = unpack_codes(qt)  # [n, k_pad] element order
-    s_eff, m_eff = effective_scales(qt)  # Q4_K has mins
+    s_eff, m_eff = effective_scales(qt)
+    if m_eff is None:
+        m_eff = torch.zeros_like(s_eff)
     compact = bool(
-        qt.code_offset == 0 and qt.sb_scale is not None and qt.sb_min is not None and qt.g_min is not None
+        not precise and qt.code_offset == 0 and qt.sb_scale is not None
+        and qt.sb_min is not None and qt.g_min is not None
         and not qt.g_scale.is_floating_point() and not qt.g_min.is_floating_point()
         and (k + (-k % ALIGN_W4)) // 2 % 1024 == 0)
     pad = -qt.k_pad % ALIGN_W4
@@ -139,25 +158,27 @@ def fold_to_w4(qt: QTensor) -> QTensor:
     s_eff = _pad_cols(s_eff, pad // GROUP)
     m_eff = _pad_cols(m_eff, pad // GROUP)
     off = float(qt.code_offset)
+    sym = off == 8.0 and not bool(m_eff.any())
     is_lo = (torch.arange(s_eff.shape[1], device=s_eff.device) % 8) < 4
     bias = torch.where(is_lo, torch.full_like(s_eff[0], off), torch.full_like(s_eff[0], off - 8))
     m_adj = m_eff + bias * s_eff
     el = codes.reshape(n, -1, 2, SPAN // 2)
     packed = (el[:, :, 0].to(torch.uint8) | (((el[:, :, 1] - 8) & 0xF).to(torch.uint8) << 4))
     parts = None
-    if compact:
+    if compact and not sym:
         parts = compact_planes(_pad_cols(qt.g_scale, pad // GROUP),
                                _pad_cols(qt.g_min, pad // GROUP),
                                _pad_cols(qt.sb_scale.to(torch.float32), pad // SPAN),
                                _pad_cols(qt.sb_min.to(torch.float32), pad // SPAN))
     return w4_from_parts(packed.reshape(n, -1), s_eff, m_adj, (n, k), qtype=qt.qtype,
-                         compact_parts=parts)
+                         sym=sym, compact_parts=parts, precise=precise)
 
 
-def fold_to_w8(qt: QTensor) -> QTensor:
+def fold_to_w8(qt: QTensor, precise: bool = False) -> QTensor:
     """A repacked group-16/32 QTensor (q6_K, q8_0; 4-bit sources unpack) ->
     the W8 fold: int8 element-order codes, exact f32 s_eff (and m_eff) per
-    group, k padded to 512."""
+    group, k padded to 512.  precise=True marks it W8X (flavor ``w8x``):
+    the same weights, served with dual-plane activations."""
     if qt.aux is not None:
         return qt  # already folded
     n, k = qt.shape
@@ -171,19 +192,40 @@ def fold_to_w8(qt: QTensor) -> QTensor:
                    g_scale=_pad_cols(s_eff, pad // gs).contiguous(),
                    g_min=None if m_eff is None else _pad_cols(m_eff, pad // gs).contiguous(),
                    sb_scale=None, sb_min=None, qtype=qt.qtype, bits=8, group_size=gs,
-                   code_offset=0, shape=(n, k), hi_signed=False, aux={"flavor": "w8"})
+                   code_offset=0, shape=(n, k), hi_signed=False,
+                   aux={"flavor": "w8x" if precise else "w8"})
+
+
+def _w4_storage(w) -> bool:
+    return (isinstance(w, QTensor) and w.hi_signed and w.bits == 4
+            and w.group_size == GROUP)
 
 
 def is_w4(w) -> bool:
-    """A W4 fold the port's kernels serve."""
-    return (isinstance(w, QTensor) and w.hi_signed and w.bits == 4
-            and w.group_size == GROUP and w.flavor in FLAVORS)
+    """A W4 fold (kernel 1 for decode rows, kernel 2 in the FFN, kernel 4
+    for prefill rows)."""
+    return _w4_storage(w) and w.flavor in FLAVORS
+
+
+def is_w4x(w) -> bool:
+    """A precise W4 fold, W4X (kernel 7 for decode rows, kernel 4 else)."""
+    return _w4_storage(w) and w.flavor in W4X_FLAVORS
+
+
+def _w8_storage(w) -> bool:
+    return (isinstance(w, QTensor) and w.bits == 8 and w.group_size in (16, 32)
+            and w.sb_scale is None)
 
 
 def is_w8(w) -> bool:
     """A W8 fold (kernel 5 for decode rows, kernel 4's 8-bit branch else)."""
-    return (isinstance(w, QTensor) and w.flavor == "w8" and w.bits == 8
-            and w.group_size in (16, 32) and w.sb_scale is None)
+    return _w8_storage(w) and w.flavor == "w8"
+
+
+def is_w8x(w) -> bool:
+    """A precise W8 fold (kernel 5's dual-plane branch for decode rows,
+    kernel 4's 8-bit branch else)."""
+    return _w8_storage(w) and w.flavor == "w8x"
 
 
 def is_q8f(w) -> bool:

@@ -16,9 +16,18 @@ serve carry ``aux["flavor"]``:
   pre-signed (q-8, two's complement) — ``hi_signed``.  ``g_scale``/``g_min``
   hold the f32 effective scale and the adjusted min m_adj per 32-group (hi
   groups carry m_eff - 8*s_eff, so that (q-8)*s - m_adj = q*s - m_eff).
+* W4X (``w4x``/``w4x_sym``, ``fold_to_w4(precise=True)``): the legacy/sym
+  W4 storage with ``g_scale``/``g_min`` the f32 s_eff and m_adj as
+  computed (no bf16 rounding), so ``dequantize`` gives the source's values
+  bit for bit; served with dual-plane activations.
 * W8 (``w8``): int8 element-order codes, f32 s_eff per 16- or 32-group
-  laid per output row ([n, G]), optional f32 m_eff.
+  laid per output row ([n, G]), optional f32 m_eff.  ``w8x`` is the same
+  fold marked precise (dual-plane activations).
 * Q8F (``q8f``): int8 codes with one f32 scale per 256-element superblock.
+
+The flavor is part of the layout: ``concat_qtensors`` refuses to fuse two
+flavors (a precise and a plain fold among them) and the stacked path keeps
+it on the stack and on every layer view.
 """
 
 from __future__ import annotations
@@ -100,8 +109,9 @@ class QTensor:
 def concat_qtensors(qts: list) -> QTensor:
     """Concatenate QTensors along the output (n) axis: wq|wk|wv -> wqkv,
     gate|up -> gateup.  Every port layout keeps n as the leading axis of
-    every plane.  Mismatched layouts raise ValueError, as the JAX package's
-    does: a Q4_K_M layer's W4 wq/wk and W8 wv stay split."""
+    every plane.  Mismatched layouts (flavors included) raise ValueError,
+    as the JAX package's does: a Q4_K_M layer's W4 wq/wk and W8 wv stay
+    split, and so do precise and plain folds."""
     q0 = qts[0]
     key = lambda q: (q.qtype, q.bits, q.group_size, q.code_offset, q.k, q.hi_signed,
                      q.tp_axis, q.flavor)

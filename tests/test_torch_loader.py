@@ -168,8 +168,9 @@ def test_gguf_serving_matches_jax(loaded, mode, monkeypatch):
 
 
 def test_fast_mode_none_raises(gguf_path):
-    """The exact-dequant mode waits for the next slice; it never falls back."""
+    """The exact-dequant mode waits for a later slice; it never falls back,
+    and neither does a mode the port does not know."""
     with pytest.raises(NotImplementedError, match="exact-dequant"):
         load_gguf_model(gguf_path, fast_mode=None, device="cpu")
     with pytest.raises(NotImplementedError):
-        load_gguf_model(gguf_path, fast_mode="w4x", device="cpu")
+        load_gguf_model(gguf_path, fast_mode="w8", device="cpu")

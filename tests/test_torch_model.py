@@ -156,7 +156,7 @@ def test_port_imports_no_jax():
         with tempfile.TemporaryDirectory() as d:
             path = os.path.join(d, "m.gguf")
             synthetic_gguf(path, cfg, seed=1)
-            for mode in ("w4", "int8"):
+            for mode in ("w4", "w4x", "int8"):
                 gcfg, params, f = load_gguf_model(path, fast_mode=mode, fuse=True,
                                                   device="cpu")
                 ctx = LlamaContext(gcfg, params, n_cells=128, device="cpu")
