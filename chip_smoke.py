@@ -42,6 +42,16 @@ on the same weights); to 4 the full llama3-8B W4X model on the default
 (stacked) context; to 5 the same GGUF file loaded with fast_mode="w4x"
 (unrolled, as in JAX); each with its launch counts, kernels 1 and 2 never.
 
+The packed int4 (q4_0) KV cache adds to 3 kernel 3's int4 branch against
+its plain version (decode and a 64-token prefill over 1024 cells), the
+card's quantize_rows_q4 against the CPU's and kernel 9's refusal of the
+packed cache; to 4 the W4A8 model unrolled (kernel 3's int4 branch, 96
+launches a layer over the 3 requests) and stacked (the plain route,
+models/llama.py::attend_stacked_q4, and neither kernel 3 nor 9); to 5 the
+w4-mode file unrolled with it; to 6 the q4_0 cache on both paths, a
+seq_div/seq_add K shift on each cache type and a file with a dense (F16)
+output matrix.
+
 The last line of standard output is {"ok": true, "device": {...}}.
 """
 
@@ -173,6 +183,25 @@ class BranchCounter:
     @LAUNCHES.setter
     def LAUNCHES(self, value: int) -> None:
         setattr(self._mod, self._attr, value)
+
+
+class CallCounter:
+    """Counts the calls of a module's function while installed: a plain
+    torch route of the forward pass (not a kernel), held by serve() as it
+    holds a kernel module's LAUNCHES.  close() puts the function back."""
+
+    def __init__(self, mod, attr: str):
+        self.__name__, self.LAUNCHES = f"{mod.__name__}.{attr}", 0
+        self._mod, self._attr, self._fn = mod, attr, getattr(mod, attr)
+
+        def counted(*args, **kw):
+            self.LAUNCHES += 1
+            return self._fn(*args, **kw)
+
+        setattr(mod, attr, counted)
+
+    def close(self) -> None:
+        setattr(self._mod, self._attr, self._fn)
 
 
 def w8_precise():
@@ -563,13 +592,15 @@ def w4x_kernel_phase(torch, results: dict) -> None:
 
 
 def kv_kernel_phase(torch, results: dict) -> None:
-    """The int8 KV cache's kernels at the llama3-8B shapes: kernel 3's int8
-    branch and kernel 9 (bf16 and int8 cache) on layer 31 of a
-    [32, 8, 1025, 128] cache, decode (nt = 1) and a 64-token prefill chunk,
-    1024 visible cells; and the card's quantize_rows against the CPU's, bit
-    for bit."""
+    """The quantized KV caches' kernels at the llama3-8B shapes: kernel 3's
+    int8 and int4 branches and kernel 9 (bf16 and int8 cache) on layer 31 of
+    a [32, 8, 1025, 128] cache ([.., 64] packed for int4), decode (nt = 1)
+    and a 64-token prefill chunk, 1024 visible cells; kernel 9's refusal of
+    the packed cache; and the card's quantize_rows and quantize_rows_q4
+    against the CPU's, bit for bit."""
     from llama_kotlin_tpu_torch.ops.cuda import flash, flash_stacked
-    from llama_kotlin_tpu_torch.runtime.kv_cache import dequantize_cache_layer, quantize_rows
+    from llama_kotlin_tpu_torch.runtime.kv_cache import (dequantize_cache_layer, quantize_rows,
+                                                         quantize_rows_q4)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -579,26 +610,32 @@ def kv_kernel_phase(torch, results: dict) -> None:
     L, H, KV, D, cells, n_vis, li = 32, 32, 8, 128, 1025, 1024, 31
     scale = D ** -0.5
 
-    # quantize_rows: random rows (f32 and bf16), a zero row, and rows whose
-    # amax is 127 (scale exactly 1) full of .5 ties
-    x = torch.randn((8, 64, D), generator=gen, device=dev) * 3.0
-    x[0, 0] = 0.0
-    x[1, :, :] = torch.randint(-254, 255, (64, D), generator=gen, device=dev) / 2.0
-    x[1, :, 0] = 127.0
-    for xx in (x, x.to(torch.bfloat16)):
-        (gc, gs), (cc, cs) = quantize_rows(xx), quantize_rows(xx.cpu())
-        same = torch.equal(gc.cpu(), cc) and torch.equal(gs.cpu().view(torch.int32),
-                                                         cs.view(torch.int32))
-        log(json.dumps({"phase": "quantize_rows", "dtype": str(xx.dtype), "rows": gs.numel(),
-                        "bit_equal_to_cpu": same}))
-        if not same:
-            raise AssertionError("the card's quantize_rows differs from the CPU's")
+    # quantize_rows and quantize_rows_q4: random rows (f32 and bf16), a zero
+    # row, and rows whose amax is the largest code (scale exactly 1) full of
+    # .5 ties
+    for qr, top in ((quantize_rows, 127), (quantize_rows_q4, 7)):
+        x = torch.randn((8, 64, D), generator=gen, device=dev) * 3.0
+        x[0, 0] = 0.0
+        x[1, :, :] = torch.randint(-2 * top, 2 * top + 1, (64, D), generator=gen,
+                                   device=dev) / 2.0
+        x[1, :, 0] = float(top)
+        for xx in (x, x.to(torch.bfloat16)):
+            (gc, gs), (cc, cs) = qr(xx), qr(xx.cpu())
+            same = torch.equal(gc.cpu(), cc) and torch.equal(gs.cpu().view(torch.int32),
+                                                             cs.view(torch.int32))
+            log(json.dumps({"phase": qr.__name__, "dtype": str(xx.dtype), "rows": gs.numel(),
+                            "bit_equal_to_cpu": same}))
+            if not same:
+                raise AssertionError(f"the card's {qr.__name__} differs from the CPU's")
 
     kb = torch.randn((L, KV, cells, D), generator=gen, device=dev).to(torch.bfloat16)
     vb = torch.randn((L, KV, cells, D), generator=gen, device=dev).to(torch.bfloat16)
     k8, ks = quantize_rows(kb)
     v8, vs = quantize_rows(vb)
-    caches = {"bf16": (kb, vb, None, None), "int8": (k8, v8, ks, vs)}
+    k4, ks4 = quantize_rows_q4(kb)
+    v4, vs4 = quantize_rows_q4(vb)
+    caches = {"bf16": (kb, vb, None, None), "int8": (k8, v8, ks, vs),
+              "int4": (k4, v4, ks4, vs4)}
     # decode: one token at position 1000 over cells 0..1000; prefill: 64
     # tokens at positions 960..1023, causal, cells 0..1023 (cell c holds
     # position c; the step's own tokens sit in the last cells)
@@ -612,27 +649,38 @@ def kv_kernel_phase(torch, results: dict) -> None:
         new_k = torch.randn((nt, KV, D), generator=gen, device=dev).to(torch.bfloat16)
         new_v = torch.randn((nt, KV, D), generator=gen, device=dev).to(torch.bfloat16)
         for kind, (k, v, ksc, vsc) in caches.items():
-            elem = k.element_size() * D + (4 if ksc is not None else 0)  # a row + its scale
+            bits = 4 if kind == "int4" else 8
+            # a row + its scale
+            elem = k.element_size() * k.shape[-1] + (4 if ksc is not None else 0)
             kf, vf = (k[li, :, :n_vis], v[li, :, :n_vis]) if ksc is None else (
-                dequantize_cache_layer(k[li, :, :n_vis], ksc[li, :, :n_vis], torch.bfloat16),
-                dequantize_cache_layer(v[li, :, :n_vis], vsc[li, :, :n_vis], torch.bfloat16))
+                dequantize_cache_layer(c[li, :, :n_vis], sc[li, :, :n_vis], torch.bfloat16,
+                                       bits=bits) for c, sc in ((k, ksc), (v, vsc)))
             kw = dict(scale=scale, k_scale=ksc, v_scale=vsc)
             # kernel 3 on this cache.  tol: bf16 outputs, f32 online-softmax
             # reassociation (~2 bf16 ulps), as for the bf16 rows above
             args = (q, k, v, mask)
+            kw3 = dict(kw, layer=li, kv_bits=bits)
             vis = int(mask.any(dim=0).sum().item())
             report("flash", f"{kind} cache nt={nt} n_vis={n_vis} layer={li}",
-                   err_of(flash.flash_attention(*args, layer=li, **kw),
-                          flash.flash_attention_plain(*args, layer=li, **kw)), 1e-2,
-                   time_ms(torch, lambda: flash.flash_attention(*args, layer=li, **kw), flush),
-                   time_ms(torch, lambda: flash.flash_attention_plain(*args, layer=li, **kw),
-                           flush),
+                   err_of(flash.flash_attention(*args, **kw3),
+                          flash.flash_attention_plain(*args, **kw3)), 1e-2,
+                   time_ms(torch, lambda: flash.flash_attention(*args, **kw3), flush),
+                   time_ms(torch, lambda: flash.flash_attention_plain(*args, **kw3), flush),
                    2 * nt * H * D * 2 + 2 * KV * vis * elem + nt * n_vis,
                    4 * D * int(mask.sum().item()) * H, "bf16",
                    time_ms(torch, sdpa_call(torch, q, kf, vf, mask, scale), flush))
             # kernel 9: the same step on the stacked path (the step's own
-            # cells masked out of the cache, its rows merged fresh)
+            # cells masked out of the cache, its rows merged fresh); it takes
+            # no packed cache, as in JAX, and must refuse one
             sargs = (q, k, v, li, new_k, new_v, mask_cells, mask_new)
+            if kind == "int4":
+                try:
+                    flash_stacked.flash_attention_stacked(*sargs, **kw)
+                except ValueError as e:
+                    log(json.dumps({"phase": "flash_stacked_refuses_int4", "nt": nt,
+                                    "error": str(e)}))
+                    continue
+                raise AssertionError("kernel 9 took a packed int4 cache")
             vis = int(mask_cells.any(dim=0).sum().item())
             lib = sdpa_call(torch, q, torch.cat([kf, new_k.transpose(0, 1)], dim=1),
                             torch.cat([vf, new_v.transpose(0, 1)], dim=1),
@@ -649,7 +697,7 @@ def kv_kernel_phase(torch, results: dict) -> None:
                    + nt * (n_vis + nt),
                    4 * D * int(mask_cells.sum().item() + mask_new.sum().item()) * H, "bf16",
                    time_ms(torch, lib, flush))
-    del caches, kb, vb, k8, v8, ks, vs, flush
+    del caches, kb, vb, k8, v8, ks, vs, k4, v4, ks4, vs4, flush
     torch.cuda.empty_cache()
 
 
@@ -812,8 +860,8 @@ def kv_serving(torch, cfg, params, label: str, mods) -> dict:
     the stacked path add: the default (stacked) context with a bf16 and
     with a q8_0 cache, and the unrolled one with a q8_0 cache.  A stacked
     run must launch kernel 9 once per layer and step and kernel 3 never;
-    the unrolled q8_0 run must launch kernel 3's int8 branch.  Returns
-    {path: launch counts}."""
+    the unrolled q8_0 run must launch kernel 3's int8 branch.  Then the
+    q4_0 cache (q4_kv_serving).  Returns {path: launch counts}."""
     from llama_kotlin_tpu_torch.ops.cuda import flash, flash_stacked
 
     t0 = time.perf_counter()
@@ -838,6 +886,53 @@ def kv_serving(torch, cfg, params, label: str, mods) -> dict:
         del ctx
         torch.cuda.empty_cache()
     log(json.dumps({"phase": "timing", "function": "kv_serving",
+                    "seconds": time.perf_counter() - t0}))
+    by_path.update(q4_kv_serving(torch, cfg, params, label, mods))
+    return by_path
+
+
+def q4_kv_serving(torch, cfg, params, label: str, mods, profile: bool = True) -> dict:
+    """The same params with the packed int4 (q4_0) cache: unrolled, kernel
+    3's int4 branch once a layer and step (3 requests of a prefill and 31
+    decode steps: 96 n_layer launches) and kernel 9 never; stacked (the
+    default context), the plain route JAX takes there
+    (models/llama.py::attend_stacked_q4, counted as often) and neither
+    kernel 3 nor kernel 9.  Returns {path: launch counts}."""
+    from llama_kotlin_tpu_torch.models import llama
+    from llama_kotlin_tpu_torch.ops.cuda import flash, flash_stacked
+
+    t0 = time.perf_counter()
+    by_path, steps = {}, 3 * 32 * cfg.n_layer
+    flash.LAUNCHES_INT4 = 0
+    path = f"{label}_unrolled_q4_0"
+    counts, ctx = serve(torch, cfg, params, mods + (flash,), path, never=(flash_stacked,),
+                        kv_quant="q4_0", prefer_unrolled=True)
+    log(json.dumps({"phase": path, "flash_int4_launches": flash.LAUNCHES_INT4}))
+    if flash.LAUNCHES_INT4 != steps or counts["flash"] != steps or "layers" not in ctx.params:
+        raise AssertionError(f"{path}: kernel 3's int4 branch launched {flash.LAUNCHES_INT4} "
+                             f"times of {counts['flash']}, expected {steps}, unrolled")
+    if profile:
+        profile_decode(torch, ctx, cfg, path)
+    by_path[path] = counts
+    del ctx
+    if "layers" in params and llama.can_stack(params, cfg):
+        path = f"{label}_stacked_q4_0"
+        route = CallCounter(llama, "attend_stacked_q4")
+        try:
+            counts, ctx = serve(torch, cfg, params, mods + (route,), path,
+                                never=(flash, flash_stacked), kv_quant="q4_0")
+        finally:
+            route.close()
+        log(json.dumps({"phase": path, "attention_route": route.__name__,
+                        "route_calls": counts["attend_stacked_q4"]}))
+        if counts["attend_stacked_q4"] != steps or "layers_stacked" not in ctx.params:
+            raise AssertionError(f"{path}: {counts}, expected {steps} stacked route calls")
+        if profile:
+            profile_decode(torch, ctx, cfg, path)
+        by_path[path] = counts
+        del ctx
+    torch.cuda.empty_cache()
+    log(json.dumps({"phase": "timing", "function": "q4_kv_serving",
                     "seconds": time.perf_counter() - t0}))
     return by_path
 
@@ -889,6 +984,11 @@ def gguf_phase(torch, tmpdir: Path) -> dict:
                             "qmm_8bit_branch_launches": qmm.LAUNCHES_W8}))
             if not qmm.LAUNCHES_W8:
                 raise AssertionError("kernel 4's 8-bit branch was never launched")
+        if mode == "w4":
+            # the CLI's -ctk q4_0 on this file: its mixed layers stay unrolled
+            for q4_path, c in q4_kv_serving(torch, cfg, params, "gguf_w4", mods,
+                                            profile=False).items():
+                counts[q4_path.removeprefix("gguf_")] = c
         if mode == "w4x":
             # per request: the prefill's 64 rows take kernel 4 in every
             # layer (4 projections in the 16 uniform layers, 6 in the 16
@@ -970,8 +1070,8 @@ def profile_decode(torch, ctx, cfg, label: str, n_steps: int = 8) -> None:
 def parity_phase(torch) -> None:
     """Full width, 2 layers: card vs CPU, prefill + 4 greedy steps, on the
     unrolled path with a bf16 cache; then the int8 cache on the stacked and
-    on the unrolled path and the W4X model on the stacked one
-    (card_vs_cpu)."""
+    on the unrolled path, the q4_0 cache on both and a K shift on each cache
+    type (2 steps), and the W4X model on the stacked one (card_vs_cpu)."""
     import numpy as np
 
     from llama_kotlin_tpu_torch.models.synthetic import (params_to, preset_config,
@@ -1020,6 +1120,19 @@ def parity_phase(torch) -> None:
         card_vs_cpu(torch, label, lambda dev: LlamaContext(
             cfg, params if dev == "cuda" else cpu_params, n_cells=1024, buckets=(8, 16, 32, 64),
             kv_quant="q8_0", device=dev, **kw), prompt, tol)
+    # the q4_0 cache (kernel 3's int4 branch unrolled, the plain route
+    # stacked), and a seq_div/seq_add shift on each cache type, 2 steps each.
+    # tol as above: on this model the CPU tests' port-vs-JAX spread is no
+    # larger with the q4_0 cache than with q8_0 (1.7e-4 against 1e-4 of
+    # max|logits|, tests/test_torch_kv_q4.py)
+    for label, kw, shift in (
+            ("parity_unrolled_q4_0", dict(kv_quant="q4_0", prefer_unrolled=True), None),
+            ("parity_stacked_q4_0_shift", dict(kv_quant="q4_0"), shift_positions),
+            ("parity_unrolled_bf16_shift", dict(prefer_unrolled=True), shift_positions),
+            ("parity_stacked_q8_0_shift", dict(kv_quant="q8_0"), shift_positions)):
+        card_vs_cpu(torch, label, lambda dev: LlamaContext(
+            cfg, params if dev == "cuda" else cpu_params, n_cells=1024, buckets=(8, 16, 32, 64),
+            device=dev, **kw), prompt, tol, steps=2, shift=shift)
     del params, cpu_params
     # the W4X model of the same seed on the default (stacked) context, bf16
     # cache.  tol: the W4X activations carry ~16 bits, so a flipped plane-1
@@ -1033,26 +1146,38 @@ def parity_phase(torch) -> None:
         device=dev), prompt, 1e-2)
 
 
-def card_vs_cpu(torch, label: str, build, prompt, tol: float) -> None:
+def shift_positions(ctx, n_past: int) -> int:
+    """A self-extend-style shift after the prefill: positions 0..n/2-1 are
+    halved (seq_div) and the rest moved down to follow them (seq_add), so
+    both rotate cached K rows.  Returns the next position."""
+    half = n_past // 2
+    ctx.seq_div(0, 0, half, 2)
+    ctx.seq_add(0, half, -1, -(half // 2))
+    return n_past - half // 2
+
+
+def card_vs_cpu(torch, label: str, build, prompt, tol: float, steps: int = 4,
+                shift=None) -> None:
     """One context on the card against the same on the CPU (the plain
     versions), full width: build(device) gives the context.  The card
-    decodes greedily (prefill + 4 steps); the CPU takes the card's tokens,
-    so one near-tie cannot send the two down different paths, and its
-    greedy token must equal the card's wherever the CPU's top-2 gap exceeds
-    twice the tolerance."""
+    decodes greedily (prefill + `steps` steps, after shift(ctx, n) -> next
+    position when given); the CPU takes the card's tokens, so one near-tie
+    cannot send the two down different paths, and its greedy token must
+    equal the card's wherever the CPU's top-2 gap exceeds twice the
+    tolerance."""
     import numpy as np
 
     from llama_kotlin_tpu_torch.runtime.batch import Batch
 
-    n = len(prompt)
     res, toks = {}, None
     for dev in ("cuda", "cpu"):
         ctx = build(dev)
         assert ctx.decode(Batch.single(prompt)) == 0
+        n = len(prompt) if shift is None else shift(ctx, len(prompt))
         logits = [ctx.get_logits()[-1]]
         if toks is None:  # the card's greedy run sets the tokens
             toks = [int(np.argmax(logits[-1]))]
-        for i in range(4):
+        for i in range(steps):
             assert ctx.decode(Batch.single([toks[i]], pos0=n + i)) == 0
             logits.append(ctx.get_logits()[-1])
             if dev == "cuda":
@@ -1064,7 +1189,7 @@ def card_vs_cpu(torch, label: str, build, prompt, tol: float) -> None:
     gaps = [float((np.sort(b)[-1] - np.sort(b)[-2]) / np.abs(b).max()) for b in cl]
     ct = [int(np.argmax(b)) for b in cl]
     decided = [g > 2 * tol for g in gaps]
-    log(json.dumps({"phase": label, "n_layer": 2, "tokens_cuda": toks,
+    log(json.dumps({"phase": label, "n_layer": 2, "shift": shift is not None, "tokens_cuda": toks,
                     "tokens_cpu_forced": ct, "rel_logit_err": errs, "top2_gap_rel": gaps,
                     "logit_std_rel": [float(b.std() / np.abs(b).max()) for b in cl],
                     "tol_rel": tol}))
@@ -1076,11 +1201,13 @@ def gguf_parity_phase(torch, tmpdir: Path) -> None:
     """Full width, 2 layers of the Q4_K_M profile (layer 0 all Q4_K, layer 1
     with Q6_K attn_v and ffn_down, Q6_K output), each fast mode on the
     unrolled path: the file loaded on the card against the same file loaded
-    on the CPU (the CPU repack and the plain versions), by card_vs_cpu."""
+    on the CPU (the CPU repack and the plain versions), by card_vs_cpu; and
+    the same file with a dense F16 output in the w4 mode."""
     import numpy as np
 
     from llama_kotlin_tpu_torch.models.loader import load_gguf_model
     from llama_kotlin_tpu_torch.models.synthetic import preset_config, synthetic_gguf
+    from llama_kotlin_tpu_torch.quant.formats import GGMLQuantType
     from llama_kotlin_tpu_torch.runtime.context import LlamaContext
 
     path = tmpdir / "llama3-8b-2layer-q4_k_m.gguf"
@@ -1101,6 +1228,22 @@ def gguf_parity_phase(torch, tmpdir: Path) -> None:
                                 prefer_unrolled=True, device=dev)
 
         card_vs_cpu(torch, f"gguf_parity_{mode}", build, prompt, tol)
+    path.unlink()
+    # a file whose output matrix is dense (F16, a bf16 tensor once loaded):
+    # the lm_head is a plain bf16 matmul with an f32 result on both sides
+    path = tmpdir / "llama3-8b-2layer-f16-output.gguf"
+    synthetic_gguf(path, preset_config("llama3-8b", n_layer=2), seed=8,
+                   output_type=GGMLQuantType.F16)
+
+    def build_dense(dev):
+        cfg, params, f = load_gguf_model(path, fast_mode="w4", fuse=True, device=dev)
+        f.close()
+        if not isinstance(params["output"], torch.Tensor):
+            raise AssertionError("the F16 output did not load as a dense tensor")
+        return LlamaContext(cfg, params, n_cells=1024, buckets=(8, 16, 32, 64),
+                            prefer_unrolled=True, device=dev)
+
+    card_vs_cpu(torch, "gguf_parity_w4_f16_output", build_dense, prompt, tol, steps=2)
     path.unlink()
 
 
@@ -1167,24 +1310,28 @@ def main() -> int:
         traceback.print_exc()
         return 1
     # kernel: (source, replaced Pallas kernel, index of the reported timed
-    # row, index of the int8-cache decode row or None)
+    # row, {cache branch: index of its decode row})
     meta = {
-        "qmm_w4": ("csrc/qmm_w4.cu", "llama_kotlin_tpu/ops/pallas/qmm_w4.py:290", 0, None),
+        "qmm_w4": ("csrc/qmm_w4.cu", "llama_kotlin_tpu/ops/pallas/qmm_w4.py:290", 0, {}),
         "qmm_w4_ffn": ("csrc/qmm_w4_ffn.cu", "llama_kotlin_tpu/ops/pallas/qmm_w4_ffn.py:155",
-                       0, None),
-        "flash": ("csrc/flash.cu", "llama_kotlin_tpu/ops/pallas/flash.py:160", 0, 3),
-        "qmm": ("csrc/qmm.cu", "llama_kotlin_tpu/ops/pallas/qmm.py:192", 1, None),
-        "qmm_w8": ("csrc/qmm_w8.cu", "llama_kotlin_tpu/ops/pallas/qmm_w8.py:144", 0, None),
-        "qmm_int8": ("csrc/qmm_int8.cu", "llama_kotlin_tpu/ops/pallas/qmm_int8.py:41", 2, None),
+                       0, {}),
+        "flash": ("csrc/flash.cu", "llama_kotlin_tpu/ops/pallas/flash.py:160", 0,
+                  {"int8": 3, "int4": 4}),
+        "qmm": ("csrc/qmm.cu", "llama_kotlin_tpu/ops/pallas/qmm.py:192", 1, {}),
+        "qmm_w8": ("csrc/qmm_w8.cu", "llama_kotlin_tpu/ops/pallas/qmm_w8.py:144", 0, {}),
+        "qmm_int8": ("csrc/qmm_int8.cu", "llama_kotlin_tpu/ops/pallas/qmm_int8.py:41", 2, {}),
         "flash_stacked": ("csrc/flash_stacked.cu",
-                          "llama_kotlin_tpu/ops/pallas/flash_stacked.py:94", 0, 1),
-        "qmm_w4x": ("csrc/qmm_w4x.cu", "llama_kotlin_tpu/ops/pallas/qmm_w4.py:691", 0, None),
+                          "llama_kotlin_tpu/ops/pallas/flash_stacked.py:94", 0, {"int8": 1}),
+        "qmm_w4x": ("csrc/qmm_w4x.cu", "llama_kotlin_tpu/ops/pallas/qmm_w4.py:691", 0, {}),
         "qmm_w8_precise": ("csrc/qmm_w8.cu", "llama_kotlin_tpu/ops/pallas/qmm_w8.py:144", 0,
-                           None),
+                           {}),
     }
     timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+    # every kernel-3 launch of a q4_0 path is on the int4 branch (checked there)
+    int4_launches = sum(c["flash"] for p, c in by_path.items()
+                        if p.endswith("_q4_0") and "flash" in c)
     kernels = []
-    for kname, (src, replaces, pick, pick8) in meta.items():
+    for kname, (src, replaces, pick, branches) in meta.items():
         rows = [r for r in results[kname] if "ms" in r]
         launches = {p: c[kname] for p, c in by_path.items() if kname in c}
         entry = {"name": kname, "route": "cuda", "source": "llama_kotlin_tpu_torch/" + src,
@@ -1192,8 +1339,10 @@ def main() -> int:
                  "launches_by_path": launches,
                  "max_abs_err": max(r["max_abs_err"] for r in results[kname]),
                  **{k: rows[pick][k] for k in timing}}
-        if pick8 is not None:
-            entry["int8"] = {k: rows[pick8][k] for k in timing + ("max_abs_err",)}
+        for branch, i in branches.items():
+            entry[branch] = {k: rows[i][k] for k in timing + ("max_abs_err",)}
+        if kname == "flash":  # the int4 branch's launches, counted apart
+            entry["int4"]["launches"] = int4_launches
         kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     log(smi)

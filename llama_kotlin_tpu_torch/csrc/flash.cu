@@ -1,23 +1,25 @@
 // Kernel 3: masked GQA attention over the cell cache, online softmax.
 //
 // Replaces llama_kotlin_tpu/ops/pallas/flash.py::flash_attention for a bf16
-// cache and for an int8 cache with per-row f32 scales (static layer index
-// into the whole [L, KV, cells, D] cache, int8 mask bounding n_vis, logit
-// softcap, fully masked rows give 0).  The tiles, the split over blocks and
-// the merge are in flash_tile.cuh, which says what bounds the kernel and
-// what its design does about it.
+// cache, an int8 cache and a packed int4 cache, both with per-row f32
+// scales (static layer index into the whole [L, KV, cells, D] cache, int8
+// mask bounding n_vis, logit softcap, fully masked rows give 0).  The tiles,
+// the split over blocks and the merge are in flash_tile.cuh, which says
+// what bounds the kernel and what its design does about it.
 #include "flash_tile.cuh"
 
 // q [nt, H, 128] bf16; k/v cache [L, KV, cells, 128] bf16, or int8 codes
-// when k_scale/v_scale ([L, KV, cells] f32) are given (layer `layer`);
+// when k_scale/v_scale ([L, KV, cells] f32) are given, or with kv_bits = 4
+// packed int4 codes [L, KV, cells, 64] with such scales (layer `layer`);
 // mask [nt, n_vis] int8; out [nt, H, 128] bf16.  part_o [nsplit, KV*R, 128]
 // and part_ml [nsplit, KV*R, 2] f32 are scratch, R = (H/KV) * nt.
 LK_API int lk_flash(const __nv_bfloat16* q, const void* k, const void* v, const float* k_scale,
                     const float* v_scale, const int8_t* mask, __nv_bfloat16* out, float* part_o,
                     float* part_ml, int nt, int H, int KV, int cells, int n_vis, int layer,
-                    float scale, float softcap, int nsplit, cudaStream_t stream) {
+                    float scale, float softcap, int nsplit, int kv_bits, cudaStream_t stream) {
+  if (kv_bits != 4 && kv_bits != 8) return (int)cudaErrorInvalidValue;
   FlashArgs a{q, k, v, k_scale, v_scale, mask, nullptr, nullptr, nullptr, part_o, part_ml,
               nt, H, KV, cells, n_vis, layer, scale, softcap, 0, nsplit};
   if (nsplit > 0) a.split_cells = n_vis / nsplit;
-  return flash_launch(a, out, stream);
+  return flash_launch(a, out, stream, kv_bits == 4);
 }

@@ -3,8 +3,9 @@ forward``): the unrolled path and the stacked-layer path.
 
 One ubatch step over a flat token list: each token carries (pos, seq) and
 a cache slot, and attention visibility comes from the cell metadata
-(``ops/attention.py``).  Weights are W4 or W8 folds or Q8F tensors; the
-matmuls go through ``ops/qmatmul.py`` and so through the port's kernels.
+(``ops/attention.py``).  Weights are W4 or W8 folds, Q8F tensors or dense
+bf16 matrices; the matmuls go through ``ops/qmatmul.py`` and so through
+the port's kernels (a dense matrix through a plain matmul, as in JAX).
 Projections come fused (``wqkv_fused``, ``ffn_gateup_fused``) or split
 (``wq``/``wk``/``wv``, ``ffn_gate``/``ffn_up``), as ``models/loader.py``
 leaves them; a missing ``output`` ties to ``tok_embd``.
@@ -18,12 +19,16 @@ leaves them; a missing ``output`` ties to ``tok_embd``.
   this path as a ``lax.scan`` and scatters all layers' rows after it; a
   write after each layer's attention leaves the same cache, since kernel 9
   masks out the cells the fresh rows go to.
+- Stacked on a packed int4 (q4_0) cache: JAX declines kernel 9 there
+  (``llama_kotlin_tpu/models/llama.py:569-573``) and attends by XLA over
+  the dequantized prefix and the step's dequantized rows; the port's
+  ``attend_stacked_q4`` is that route in plain torch ops, on the card too.
 
-The KV cache is bf16 or int8 codes with per-row scales; the int8 rows are
-quantized from the same f32 K/V the JAX package quantizes.  Padded rows of
-a bucket carry a slot past the real cells: the context gives the cache one
-scratch cell there (the JAX forward drops those writes with
-``mode="drop"``; a CUDA index out of range would fault instead).
+The KV cache is bf16, int8 codes or packed int4 codes with per-row scales;
+the quantized rows come from the same f32 K/V the JAX package quantizes.
+Padded rows of a bucket carry a slot past the real cells: the context
+gives the cache one scratch cell there (the JAX forward drops those writes
+with ``mode="drop"``; a CUDA index out of range would fault instead).
 """
 
 from __future__ import annotations
@@ -34,14 +39,15 @@ import torch
 
 from llama_kotlin_tpu_torch.models.config import ModelConfig
 from llama_kotlin_tpu_torch.ops.activations import ACTIVATIONS
-from llama_kotlin_tpu_torch.ops.attention import visibility_mask
+from llama_kotlin_tpu_torch.ops.attention import attention_reference, visibility_mask
 from llama_kotlin_tpu_torch.ops.cuda.flash import flash_attention
 from llama_kotlin_tpu_torch.ops.cuda.flash_stacked import flash_attention_stacked
 from llama_kotlin_tpu_torch.ops.norms import rms_norm
 from llama_kotlin_tpu_torch.ops.qmatmul import qmatmul, qmm_ffn, take_rows
 from llama_kotlin_tpu_torch.ops.rope import rope_cos_sin, rotate
 from llama_kotlin_tpu_torch.quant.qtensor import QTensor
-from llama_kotlin_tpu_torch.runtime.kv_cache import KVCache, dequantize_cache_layer, quantize_rows
+from llama_kotlin_tpu_torch.runtime.kv_cache import (KVCache, dequantize_cache_layer,
+                                                     quantize_rows, quantize_rows_q4)
 
 # Activations between the kernels and the KV cache are bf16: kernels 3 and 9
 # take bf16 q and fresh rows only, so this is no setting until a kernel
@@ -150,11 +156,13 @@ def _ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def _cache_rows(cache: KVCache, k: torch.Tensor, v: torch.Tensor):
     """The rows a layer writes for k/v [nt, KV, D] f32: (k, v, k_scale,
     v_scale) in the cache's [KV, nt, ...] order, bf16 rows with no scales,
-    or int8 codes quantized from the same f32 K/V as in the JAX package."""
+    or int8 or packed int4 codes quantized from the same f32 K/V as in the
+    JAX package."""
     kh, vh = k.transpose(0, 1), v.transpose(0, 1)
     if not cache.quantized:
         return kh.to(cache.k.dtype), vh.to(cache.v.dtype), None, None
-    (kc, ks), (vc, vs) = quantize_rows(kh), quantize_rows(vh)
+    qr = quantize_rows_q4 if cache.kv_bits == 4 else quantize_rows
+    (kc, ks), (vc, vs) = qr(kh), qr(vh)
     return kc, vc, ks, vs
 
 
@@ -188,6 +196,27 @@ def _stacked_masks(cfg: ModelConfig, mask_full: torch.Tensor, token_pos: torch.T
     return mask_cells.to(torch.int8), mask_new.to(torch.int8)
 
 
+def attend_stacked_q4(q: torch.Tensor, cache: KVCache, li: int, new_k: torch.Tensor,
+                      new_v: torch.Tensor, mask_cells: torch.Tensor, mask_new: torch.Tensor,
+                      *, scale: float, logit_softcap: float = 0.0) -> torch.Tensor:
+    """The stacked path's attention on a packed int4 cache: JAX's own route
+    there (``llama_kotlin_tpu/models/llama.py:569-573``: kernel 9 is int8
+    only, so ``attend`` at :585-606 takes XLA): layer li's visible prefix
+    dequantized and rounded to bf16, then the step's fresh rows new_k/new_v
+    [nt, KV, D] (dequantized from their own int4 codes), under mask_cells
+    and mask_new side by side, through attention_reference.  Plain torch
+    ops on every device: no Pallas kernel runs there in JAX, and an int4
+    instance of kernel 9 is later performance work (ROADMAP.md)."""
+    n_vis = mask_cells.shape[1]
+    k_old, v_old = (dequantize_cache_layer(c[li, :, :n_vis], sc[li, :, :n_vis],
+                                           COMPUTE_DTYPE, bits=4)
+                    for c, sc in ((cache.k, cache.k_scale), (cache.v, cache.v_scale)))
+    k_cat = torch.cat([k_old, new_k.to(COMPUTE_DTYPE).transpose(0, 1)], dim=1)
+    v_cat = torch.cat([v_old, new_v.to(COMPUTE_DTYPE).transpose(0, 1)], dim=1)
+    m_cat = torch.cat([mask_cells != 0, mask_new != 0], dim=1)
+    return attention_reference(q, k_cat, v_cat, m_cat, scale=scale, logit_softcap=logit_softcap)
+
+
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             token_pos: torch.Tensor, token_seq: torch.Tensor, slots: torch.Tensor,
             cache: KVCache, cell_pos: torch.Tensor, cell_seq: torch.Tensor,
@@ -209,8 +238,8 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         mask_cells, mask_new = _stacked_masks(cfg, mask, token_pos, token_seq, slots, cell_seq)
     else:
         mask = mask.to(torch.int8)
-    attn_kw = dict(scale=cfg.attn_scale, logit_softcap=cfg.attn_logit_softcap,
-                   k_scale=cache.k_scale, v_scale=cache.v_scale)
+    softmax_kw = dict(scale=cfg.attn_scale, logit_softcap=cfg.attn_logit_softcap)
+    attn_kw = dict(softmax_kw, k_scale=cache.k_scale, v_scale=cache.v_scale)
     for li, lp in enumerate(layer_views(params)):
         x = rms_norm(h, lp["attn_norm"], cfg.rms_eps, cfg.norm_weight_offset)
         q, k, v = _qkv(lp, x, cfg)
@@ -221,14 +250,19 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             if cache.quantized:
                 # attend over the dequantized rows, so this step's tokens see
                 # what later steps will read
-                k, v = (dequantize_cache_layer(c, s).transpose(0, 1)
+                k, v = (dequantize_cache_layer(c, s, bits=cache.kv_bits).transpose(0, 1)
                         for c, s in ((rows[0], rows[2]), (rows[1], rows[3])))
-            attn = flash_attention_stacked(q, cache.k, cache.v, li, k.to(COMPUTE_DTYPE),
-                                           v.to(COMPUTE_DTYPE), mask_cells, mask_new, **attn_kw)
+            if cache.kv_bits == 4:
+                attn = attend_stacked_q4(q, cache, li, k, v, mask_cells, mask_new, **softmax_kw)
+            else:
+                attn = flash_attention_stacked(q, cache.k, cache.v, li, k.to(COMPUTE_DTYPE),
+                                               v.to(COMPUTE_DTYPE), mask_cells, mask_new,
+                                               **attn_kw)
             _write_rows(cache, li, slots, rows)
         else:
             _write_rows(cache, li, slots, rows)
-            attn = flash_attention(q, cache.k, cache.v, mask, layer=li, **attn_kw)
+            attn = flash_attention(q, cache.k, cache.v, mask, layer=li, kv_bits=cache.kv_bits,
+                                   **attn_kw)
         attn = attn.to(COMPUTE_DTYPE).reshape(nt, -1)
         h = h + qmatmul(attn, lp["wo"]).to(h.dtype)
         x = rms_norm(h, lp["ffn_norm"], cfg.rms_eps, cfg.norm_weight_offset)

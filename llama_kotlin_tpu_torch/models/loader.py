@@ -14,9 +14,11 @@ of a whole lm_head sits in memory:
   other than 16/32) raises, naming the exact-dequant slice;
 * ``"int8"``: every matrix converts to Q8F (kernel 6).
 
-Norms stay f32.  The exact-dequant mode (``fast_mode=None``) needs kernel 4
-on every repacked format and comes with the next slice; it raises here, as
-does a float matrix or a tensor name the llama forward does not read.
+Norms stay f32, and an F32, F16 or BF16 matrix stays a dense bf16 tensor in
+every mode, as in JAX (a plain matmul serves it).  The exact-dequant mode
+(``fast_mode=None``) needs kernel 4 on every repacked format and comes with
+a later slice (ROADMAP.md section 1, item 7); it raises here, as does a
+tensor name the llama forward does not read.
 """
 
 from __future__ import annotations
@@ -76,20 +78,25 @@ def _convert(data: torch.Tensor, qt: GGMLQuantType, n: int, k: int,
 
 
 def _load_matrix(data: torch.Tensor, qt: GGMLQuantType, n: int, k: int, fast_mode: str,
-                 dev: torch.device, name: str) -> QTensor:
-    """One [n, k] quantized matrix, converted on `dev` in row chunks."""
-    if not TYPE_TRAITS[qt].is_quantized:
-        raise NotImplementedError(
-            f"{name}: a {qt.name} matrix needs kernel 4 on dense weights "
-            "(the exact-dequant mode of the next slice)")
+                 dev: torch.device) -> QTensor | torch.Tensor:
+    """One [n, k] matrix, converted on `dev` in row chunks: a quantized one
+    to the mode's QTensor, a float one (F32, F16, BF16) to a dense bf16
+    tensor, as JAX keeps it (``llama_kotlin_tpu/models/loader.py:159-165``)."""
     flat = data.reshape(n, row_byte_size(k, qt))
+    chunks = range(0, n, ROW_CHUNK)
+    if not TYPE_TRAITS[qt].is_quantized:
+        out = torch.empty((n, k), dtype=torch.bfloat16, device=dev)
+        for r0 in chunks:
+            rows = flat[r0:r0 + ROW_CHUNK]
+            out[r0:r0 + rows.shape[0]] = dequantize_wire(rows.to(dev), qt, (rows.shape[0], k))
+        return out
     parts = [_convert(flat[r0:r0 + ROW_CHUNK].to(dev), qt, min(ROW_CHUNK, n - r0), k,
-                      fast_mode) for r0 in range(0, n, ROW_CHUNK)]
+                      fast_mode) for r0 in chunks]
     return parts[0] if len(parts) == 1 else concat_qtensors(parts)
 
 
 def _load_tensor(f: GGUFFile, name: str, key: str, fast_mode: str, dev: torch.device):
-    """Norms -> f32 tensors; matrices -> the mode's QTensor."""
+    """Norms -> f32 tensors; matrices -> the mode's QTensor or dense bf16."""
     info = f.tensors[name]
     data = f.tensor_data(name)
     if key in _ALWAYS_FLOAT:
@@ -98,7 +105,7 @@ def _load_tensor(f: GGUFFile, name: str, key: str, fast_mode: str, dev: torch.de
         raise NotImplementedError(f"{name}: {len(info.np_shape)}-D weights (MoE) come "
                                   "with slice 5")
     n, k = info.np_shape
-    return _load_matrix(data, info.ggml_type, n, k, fast_mode, dev, name)
+    return _load_matrix(data, info.ggml_type, n, k, fast_mode, dev)
 
 
 def _load_fused_qkv(f: GGUFFile, name: str, cfg: ModelConfig, fast_mode: str,
@@ -113,29 +120,32 @@ def _load_fused_qkv(f: GGUFFile, name: str, cfg: ModelConfig, fast_mode: str,
         raise ValueError(f"{name}: rows {n} != q+2kv {qdim + 2 * kvdim}")
     flat = f.tensor_data(name).reshape(n, row_byte_size(k, info.ggml_type))
     bounds = {"wq": (0, qdim), "wk": (qdim, qdim + kvdim), "wv": (qdim + kvdim, n)}
-    return {key: _load_matrix(flat[r0:r1], info.ggml_type, r1 - r0, k, fast_mode, dev,
-                              f"{name}[{key}]")
+    return {key: _load_matrix(flat[r0:r1], info.ggml_type, r1 - r0, k, fast_mode, dev)
             for key, (r0, r1) in bounds.items()}
 
 
 def fuse_layer_projections(cfg: ModelConfig, params: dict) -> int:
     """Serving fold: wq|wk|wv -> wqkv_fused and ffn_gate|up ->
     ffn_gateup_fused in every layer whose parts share one layout (one
-    launch instead of two or three).  A layer of mixed layouts keeps its
-    projections split: concat_qtensors refuses them.  Returns the number
-    of layers with at least one fusion."""
+    launch instead of two or three): all QTensors, or all dense matrices,
+    as in JAX.  A layer of mixed layouts keeps its projections split:
+    concat_qtensors refuses them.  Returns the number of layers with at
+    least one fusion."""
     n_fused = 0
     for lp in params["layers"]:
         did = False
         for parts, fused in ((("wq", "wk", "wv"), "wqkv_fused"),
                              (("ffn_gate", "ffn_up"), "ffn_gateup_fused")):
             ws = [lp.get(p) for p in parts]
-            if not all(isinstance(w, QTensor) for w in ws):
+            if all(isinstance(w, torch.Tensor) for w in ws):
+                lp[fused] = torch.cat(ws, dim=0)
+            elif not all(isinstance(w, QTensor) for w in ws):
                 continue
-            try:
-                lp[fused] = concat_qtensors(ws)
-            except ValueError:
-                continue  # mixed layouts: keep the split projections
+            else:
+                try:
+                    lp[fused] = concat_qtensors(ws)
+                except ValueError:
+                    continue  # mixed layouts: keep the split projections
             for p in parts:
                 del lp[p]
             did = True

@@ -177,7 +177,11 @@ def wire_blocks(rng: np.random.Generator, qtype: GGMLQuantType, n: int, k: int) 
       7.5 (independent mins give every row a mean, and greedy decoding one
       token whatever the prompt);
     * Q6_K: signed 6-bit-range group scales symmetric about 0;
-    * Q8_0: uniform int8 codes under f16 scales."""
+    * Q8_0: uniform int8 codes under f16 scales;
+    * F16 and F32: dense weights, normal with std 0.02."""
+    if qtype in (GGMLQuantType.F16, GGMLQuantType.F32):
+        dense = rng.standard_normal(n * k, dtype=np.float32) * np.float32(0.02)
+        return dense.astype("<f2" if qtype == GGMLQuantType.F16 else "<f4").view(np.uint8)
     nb = n * k // TYPE_TRAITS[qtype].block_size
     u8 = lambda *shape: rng.integers(0, 256, shape, dtype=np.uint8)
     if qtype == GGMLQuantType.Q4_K:
@@ -207,13 +211,15 @@ def q4_k_m_layer_types(n_layer: int) -> list[dict]:
             for i in range(n_layer)]
 
 
-def synthetic_gguf(path, cfg: ModelConfig, seed: int = 0,
-                   layer_types: Optional[list] = None) -> int:
+def synthetic_gguf(path, cfg: ModelConfig, seed: int = 0, layer_types: Optional[list] = None,
+                   embd_type: GGMLQuantType = GGMLQuantType.Q4_K,
+                   output_type: GGMLQuantType = GGMLQuantType.Q6_K) -> int:
     """Write a llama GGUF of random wire blocks for `cfg`: every matrix Q4_K
-    but those `layer_types` names (default: the Q4_K_M profile, q4_k_m_layer_types)
-    and `output` (Q6_K, as in Q4_K_M); norms F32 near 1.  Each tensor is
-    drawn from one numpy Generator as the writer streams it, so a full 8B
-    file never sits whole in host memory.  Returns the file's size."""
+    but those `layer_types` names (default: the Q4_K_M profile, q4_k_m_layer_types),
+    `token_embd` (embd_type) and `output` (output_type: Q6_K, as in Q4_K_M;
+    F16 or F32 make them dense); norms F32 near 1.  Each tensor is drawn
+    from one numpy Generator as the writer streams it, so a full 8B file
+    never sits whole in host memory.  Returns the file's size."""
     from llama_kotlin_tpu_torch.gguf.writer import GGUFWriter
 
     rng = np.random.default_rng(seed)
@@ -242,7 +248,7 @@ def synthetic_gguf(path, cfg: ModelConfig, seed: int = 0,
         w.add_tensor_stream(name, (E,), GGMLQuantType.F32,
                             lambda: (1.0 + 0.01 * rng.standard_normal(E)).astype("<f4"))
 
-    matrix("token_embd.weight", V, E, GGMLQuantType.Q4_K)
+    matrix("token_embd.weight", V, E, embd_type)
     for i, types in enumerate(layer_types):
         b = f"blk.{i}."
         norm(b + "attn_norm.weight")
@@ -255,7 +261,7 @@ def synthetic_gguf(path, cfg: ModelConfig, seed: int = 0,
         matrix(b + "ffn_up.weight", F, E, GGMLQuantType.Q4_K)
         matrix(b + "ffn_down.weight", E, F, types["ffn_down"])
     norm("output_norm.weight")
-    matrix("output.weight", V, E, GGMLQuantType.Q6_K)
+    matrix("output.weight", V, E, output_type)
     w.write(path)
     return os.path.getsize(path)
 

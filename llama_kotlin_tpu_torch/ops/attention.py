@@ -11,8 +11,8 @@ The forward pass attends through kernel 3 (``ops/cuda/flash.py::
 flash_attention``) or kernel 9 (``ops/cuda/flash_stacked.py``), which take
 CPU tensors to their plain versions; ``attention_reference`` is the plain
 masked softmax those are built on, and ``cache_attention_reference`` the
-JAX package's route over a bf16 or int8 cache (dequantize, then the
-reference).
+JAX package's route over a bf16, int8 or packed int4 cache (dequantize,
+then the reference).
 """
 
 from __future__ import annotations
@@ -64,11 +64,12 @@ def cache_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               mask: torch.Tensor, *, scale: float, logit_softcap: float = 0.0,
                               k_scale: Optional[torch.Tensor] = None,
                               v_scale: Optional[torch.Tensor] = None,
-                              layer: Optional[int] = None) -> torch.Tensor:
+                              layer: Optional[int] = None, kv_bits: int = 8) -> torch.Tensor:
     """The plain route over the cell cache: the layer's visible prefix
-    (mask [nt, n_vis]), dequantized to f32 when k_scale/v_scale mark an int8
-    cache, then attention_reference.  k/v [L, KV, cells, D] with `layer`
-    (scales [L, KV, cells]), or [KV, cells, D] without."""
+    (mask [nt, n_vis]), dequantized to f32 when k_scale/v_scale mark a
+    quantized cache (int8 codes, or packed int4 codes [.., D/2] with
+    kv_bits=4), then attention_reference.  k/v [L, KV, cells, D] with
+    `layer` (scales [L, KV, cells]), or [KV, cells, D] without."""
     n_vis = mask.shape[1]
     if layer is not None:
         k, v = k[layer], v[layer]
@@ -76,7 +77,7 @@ def cache_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             k_scale, v_scale = k_scale[layer], v_scale[layer]
     k, v = k[:, :n_vis], v[:, :n_vis]
     if k_scale is not None:
-        k = dequantize_cache_layer(k, k_scale[:, :n_vis])
-        v = dequantize_cache_layer(v, v_scale[:, :n_vis])
+        k = dequantize_cache_layer(k, k_scale[:, :n_vis], bits=kv_bits)
+        v = dequantize_cache_layer(v, v_scale[:, :n_vis], bits=kv_bits)
     return attention_reference(q, k, v, mask, scale=scale, logit_softcap=logit_softcap)
 

@@ -38,7 +38,7 @@ SIGNATURES = {
     "lk_w4_gemv": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     "lk_w4x_gemv": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P],
     "lk_w4_ffn": [_P, _P, _P, _I] + [_P] * 10 + [_I, _I, _I, _I, _P, _P, _P],
-    "lk_flash": [_P] * 9 + [_I] * 6 + [_F, _F, _I, _P],
+    "lk_flash": [_P] * 9 + [_I] * 6 + [_F, _F, _I, _I, _P],
     "lk_flash_stacked": [_P] * 12 + [_I] * 6 + [_F, _F, _I, _P],
     "lk_w4_dequant_gemm": [_P] * 5 + [_I, _I, _I, _P],
     "lk_w8_dequant_gemm": [_P] * 5 + [_I, _I, _I, _I, _P],

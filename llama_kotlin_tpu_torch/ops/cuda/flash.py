@@ -2,12 +2,14 @@
 (``csrc/flash.cu``, tiles in ``csrc/flash_tile.cuh``).
 
 Replaces ``llama_kotlin_tpu/ops/pallas/flash.py::flash_attention`` for a
-bf16 cache and for an int8 cache with per-row f32 scales: q [nt, H, D],
-the whole cache [L, KV, cells, D] with a layer index, an int8 mask
-[nt, n_vis] bounding the cells read, a logit softcap, and 0 for fully
-masked rows.  Bound on the H100: bytes (one read of the visible K/V
-prefix).  The wrapper splits the visible cells over blocks (flash-decoding)
-so a decode step fills the card; see the CUDA source.
+bf16 cache, an int8 cache with per-row f32 scales and a packed int4 cache
+(``kv_bits=4``: [.., D/2] uint8, two codes a byte, with per-row f32
+scales): q [nt, H, D], the whole cache [L, KV, cells, D] with a layer
+index, an int8 mask [nt, n_vis] bounding the cells read, a logit softcap,
+and 0 for fully masked rows.  Bound on the H100: bytes (one read of the
+visible K/V prefix and its scales).  The wrapper splits the visible cells
+over blocks (flash-decoding) so a decode step fills the card; see the CUDA
+source.
 
 ``flash_attention`` launches the kernel for CUDA tensors and runs
 ``flash_attention_plain`` for CPU tensors.
@@ -29,6 +31,7 @@ ROW_TILE = 16  # query rows per block
 TARGET_BLOCKS = 264  # two blocks per SM of an H100
 LAUNCHES = 0  # kernel launches made by flash_attention
 LAUNCHES_INT8 = 0  # of those, launches on an int8 cache
+LAUNCHES_INT4 = 0  # of those, launches on a packed int4 cache
 
 # Plain version: the JAX package's route over the cache (attention.py:128-142)
 flash_attention_plain = cache_attention_reference
@@ -44,10 +47,13 @@ def n_splits(kv: int, rows: int, n_vis: int) -> int:
 
 
 def check_cache(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_vis: int, layer: int,
-                k_scale: Optional[torch.Tensor], v_scale: Optional[torch.Tensor]) -> None:
+                k_scale: Optional[torch.Tensor], v_scale: Optional[torch.Tensor],
+                kv_bits: int = 8) -> None:
     """The kernels' rules for q and a [L, KV, cells, D] cache on the card
     (kernels 3 and 9): head_dim 128, n_vis a multiple of the cell tile, a
-    contiguous bf16 cache, or int8 codes with contiguous f32 scale planes."""
+    contiguous bf16 cache, or int8 codes with contiguous f32 scale planes;
+    kernel 3 also takes packed int4 codes [L, KV, cells, 64] (kv_bits=4)
+    with such planes."""
     require(q.shape[-1] == HEAD_DIM, f"the kernels take head_dim {HEAD_DIM}, not {q.shape[-1]}")
     require(n_vis % CELL_TILE == 0, f"n_vis {n_vis} is not a multiple of {CELL_TILE}")
     require(0 <= layer < k.shape[0], f"layer {layer} out of range")
@@ -55,9 +61,11 @@ def check_cache(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_vis: int, l
     require(k.is_cuda and v.is_cuda, "q and the cache on the card")
     require(k.is_contiguous() and v.is_contiguous(), "cache must be contiguous")
     if k_scale is None:
-        require(k.dtype == v.dtype == torch.bfloat16, "a cache without scales is bf16")
+        require(kv_bits == 8 and k.dtype == v.dtype == torch.bfloat16,
+                "a cache without scales is bf16")
     else:
-        require(k.dtype == v.dtype == torch.int8, "a cache with scales holds int8 codes")
+        codes = torch.uint8 if kv_bits == 4 else torch.int8
+        require(k.dtype == v.dtype == codes, f"a {kv_bits}-bit cache holds {codes} codes")
         for s in (k_scale, v_scale):
             require(s.dtype == torch.float32 and s.shape == k.shape[:3] and s.is_contiguous()
                     and s.is_cuda, "scales are contiguous f32 [L, KV, cells] on the card")
@@ -66,28 +74,32 @@ def check_cache(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_vis: int, l
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
                     *, scale: float, logit_softcap: float = 0.0,
                     layer: Optional[int] = None, k_scale: Optional[torch.Tensor] = None,
-                    v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    v_scale: Optional[torch.Tensor] = None, kv_bits: int = 8) -> torch.Tensor:
     """q [nt, H, D] bf16; k/v [L, KV, cells, D] with `layer`, or
     [KV, cells, D] without: bf16, or int8 codes with k_scale/v_scale
-    ([L, KV, cells] or [KV, cells] f32); mask [nt, n_vis] (bool or int8,
+    ([L, KV, cells] or [KV, cells] f32), or with kv_bits=4 packed int4
+    codes [.., D/2] uint8 with such scales; mask [nt, n_vis] (bool or int8,
     n_vis a multiple of 64) -> [nt, H, D] bf16."""
-    global LAUNCHES, LAUNCHES_INT8
+    global LAUNCHES, LAUNCHES_INT8, LAUNCHES_INT4
     require((layer is not None) == (k.dim() == 4), "layer index iff a 4D cache")
     require((k_scale is None) == (v_scale is None), "k_scale and v_scale come together")
+    require(kv_bits in (4, 8), f"kv_bits {kv_bits}: 8 (bf16 or int8 cache) or 4 (packed)")
+    require(kv_bits == 8 or k_scale is not None, "a packed int4 cache carries row scales")
     nt, H, D = q.shape
     KV, cells = k.shape[-3], k.shape[-2]
     n_vis = mask.shape[1]
-    require(k.shape == v.shape and k.shape[-1] == D, "k/v/q head dims differ")
+    require(k.shape == v.shape and k.shape[-1] * (8 // kv_bits) == D, "k/v/q head dims differ")
     require(H % KV == 0, f"{H} heads over {KV} kv heads")
     require(mask.shape[0] == nt and n_vis <= cells, "mask does not fit q and the cache")
     if not is_cuda(q):
         return flash_attention_plain(q, k, v, mask, scale=scale, logit_softcap=logit_softcap,
-                                     k_scale=k_scale, v_scale=v_scale, layer=layer)
+                                     k_scale=k_scale, v_scale=v_scale, layer=layer,
+                                     kv_bits=kv_bits)
     if layer is None:  # one layer of a cache: a view with L = 1
         k, v, layer = k[None], v[None], 0
         if k_scale is not None:
             k_scale, v_scale = k_scale[None], v_scale[None]
-    check_cache(q, k, v, n_vis, layer, k_scale, v_scale)
+    check_cache(q, k, v, n_vis, layer, k_scale, v_scale, kv_bits)
     require(mask.is_cuda, "mask on the card")
     q = q.contiguous()
     mask_i8 = mask.to(torch.int8).contiguous()
@@ -99,9 +111,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: tor
     _build.check(_build.lib().lk_flash(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _build.ptr(k_scale), _build.ptr(v_scale),
         mask_i8.data_ptr(), out.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(), nt, H, KV,
-        cells, n_vis, layer, float(scale), float(logit_softcap), nsplit, _build.stream()),
-        "lk_flash")
+        cells, n_vis, layer, float(scale), float(logit_softcap), nsplit, kv_bits,
+        _build.stream()), "lk_flash")
     LAUNCHES += 1
-    if k_scale is not None:
+    if kv_bits == 4:
+        LAUNCHES_INT4 += 1
+    elif k_scale is not None:
         LAUNCHES_INT8 += 1
     return out

@@ -9,7 +9,10 @@ bf16 cache and for an int8 one: q [nt, H, D]; the whole cache
 scales, or bf16); the fresh rows new_k/new_v [nt, KV, D]; mask_cells
 [nt, n_vis] over the cache cells (the caller has masked out the cells the
 fresh rows go to) and mask_new [nt, nt] over the fresh rows.  A row that
-sees nothing gives 0.  Bound on the H100: bytes (one read of the visible
+sees nothing gives 0.  As in JAX, a packed int4 (q4_0) cache is not
+kernel 9's (``llama_kotlin_tpu/models/llama.py:569-573``): the stacked
+forward attends over it by ``models/llama.py::attend_stacked_q4``, and a
+packed cache given here raises.  Bound on the H100: bytes (one read of the visible
 K/V prefix, its scales and the fresh rows).
 
 ``flash_attention_stacked`` launches the kernel for CUDA tensors and runs
@@ -59,6 +62,9 @@ def flash_attention_stacked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, l
     mask_cells [nt, n_vis] (n_vis a multiple of 64) and mask_new [nt, nt],
     bool or int8 -> [nt, H, D] bf16."""
     global LAUNCHES
+    require(k.dtype != torch.uint8,
+            "kernel 9 takes bf16 and int8 caches only, as in JAX: a packed int4 (q4_0) "
+            "cache attends by models/llama.py::attend_stacked_q4")
     require(k.dim() == 4 and k.shape == v.shape, "k/v are the whole [L, KV, cells, D] cache")
     require((k_scale is None) == (v_scale is None), "k_scale and v_scale come together")
     nt, H, D = q.shape

@@ -7,8 +7,9 @@ whole 8B file repacks in seconds, on the CPU the tests' files do.  The bit
 logic and the f32 operation order are the JAX package's, so both give the
 same codes and scales bit for bit.
 
-Ported formats: F32, F16 (float decode), Q8_0, Q4_K and Q6_K.  The other
-wire formats raise NotImplementedError until their slice.
+Ported formats: F32, F16, BF16 (float decode), Q8_0, Q4_K and Q6_K.  The
+other wire formats raise NotImplementedError until their item of
+ROADMAP.md (section 1, item 6).
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ import torch.nn.functional as F
 from llama_kotlin_tpu_torch.quant.formats import QK_K, TYPE_TRAITS, GGMLQuantType
 from llama_kotlin_tpu_torch.quant.qtensor import SPAN, QTensor, dequantize
 
-NOT_PORTED = "not ported yet (the wire formats beyond Q8_0/Q4_K/Q6_K come with slice 3)"
+NOT_PORTED = ("not ported yet (the wire formats beyond Q8_0/Q4_K/Q6_K come with "
+              "ROADMAP.md section 1, item 6)")
 
 
 def _wire_blocks(data: torch.Tensor, qtype: GGMLQuantType, n: int, k: int) -> torch.Tensor:
@@ -136,6 +138,8 @@ def dequantize_wire(data: torch.Tensor, qtype: GGMLQuantType, shape: tuple) -> t
         return data.contiguous().view(torch.float32).reshape(shape).clone()
     if qtype == GGMLQuantType.F16:
         return data.contiguous().view(torch.float16).to(torch.float32).reshape(shape)
+    if qtype == GGMLQuantType.BF16:
+        return data.contiguous().view(torch.bfloat16).to(torch.float32).reshape(shape)
     k = shape[-1]
     n = data.numel() // (k // TYPE_TRAITS[qtype].block_size * TYPE_TRAITS[qtype].type_size)
     return dequantize(repack(data, qtype, n, k)).reshape(shape)

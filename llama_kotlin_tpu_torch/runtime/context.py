@@ -8,8 +8,11 @@ on the device until ``get_logits`` reads them.
 
 As in the JAX package, the context stacks the layers by default
 (``prefer_unrolled=False``) when they are uniform, and keeps them unrolled
-otherwise; ``kv_quant`` picks the cache: False (bf16) or True/"q8_0"
-(int8 codes with per-row scales).
+otherwise; ``kv_quant`` picks the cache: False (bf16), True/"q8_0" (int8
+codes with per-row scales) or "q4_0" (packed int4 codes with per-row
+scales).  The sequence operations edit the cell metadata; ``seq_add`` and
+``seq_div`` also rotate the cached K rows by each cell's position change
+(``apply_k_shift``), as the CLI's context shift and self-extend need.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from llama_kotlin_tpu_torch.device import DeviceLike, resolve_device
 from llama_kotlin_tpu_torch.models import llama as llama_model
 from llama_kotlin_tpu_torch.models.config import ModelConfig
 from llama_kotlin_tpu_torch.runtime.batch import Batch, bucket_size
-from llama_kotlin_tpu_torch.runtime.kv_cache import CellMetadata, KVCache
+from llama_kotlin_tpu_torch.runtime.kv_cache import CellMetadata, KVCache, apply_k_shift
 
 DEFAULT_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048)
 
@@ -129,8 +132,26 @@ class LlamaContext:
         """All logits rows requested by the last decode, [n_out, vocab]."""
         return self.logits_device().cpu().numpy()
 
+    def seq_rm(self, seq_id: int, p0: int = 0, p1: int = -1) -> None:
+        self.meta.seq_rm(seq_id, p0, p1)
+
     def seq_cp(self, src: int, dst: int, p0: int = 0, p1: int = -1) -> None:
         self.meta.seq_cp(src, dst, p0, p1)
 
+    def seq_keep(self, seq_id: int) -> None:
+        self.meta.seq_keep(seq_id)
+
+    def seq_add(self, seq_id: int, p0: int, p1: int, delta: int) -> None:
+        self._shift(self.meta.seq_add(seq_id, p0, p1, delta))
+
+    def seq_div(self, seq_id: int, p0: int, p1: int, d: int) -> None:
+        self._shift(self.meta.seq_div(seq_id, p0, p1, d))
+
+    def seq_pos_max(self, seq_id: int) -> int:
+        return self.meta.seq_pos_max(seq_id)
+
     def clear(self) -> None:
         self.meta.clear()
+
+    def _shift(self, deltas: np.ndarray) -> None:
+        apply_k_shift(self.cache, deltas, self.cfg.rope_params(), self.params.get("rope_freqs"))

@@ -167,8 +167,8 @@ def test_flash_stacked_softcap_and_empty_rows():
 
 def test_kv_cache_create():
     """q8_0 (and True) give int8 codes with zeroed f32 scale planes
-    [L, KV, cells]; the bf16 cache has none; q4_0 is not ported yet and
-    says which item brings it."""
+    [L, KV, cells]; q4_0 packed uint8 codes [L, KV, cells, D/2] with such
+    planes, as in JAX; the bf16 cache has none; another type raises."""
     for kind in (True, "q8_0"):
         c = KVCache.create(2, 65, 4, D, device="cpu", quantized=kind)
         assert c.quantized and c.kv_bits == 8 and c.k.dtype == c.v.dtype == torch.int8
@@ -176,7 +176,9 @@ def test_kv_cache_create():
         assert c.k_scale.dtype == torch.float32 and not c.k_scale.any()
     c = KVCache.create(2, 65, 4, D, device="cpu")
     assert not c.quantized and c.k.dtype == torch.bfloat16 and c.k_scale is None
-    with pytest.raises(NotImplementedError, match="int4 KV cache"):
-        KVCache.create(2, 65, 4, D, device="cpu", quantized="q4_0")
+    c = KVCache.create(2, 65, 4, D, device="cpu", quantized="q4_0")
+    assert c.quantized and c.kv_bits == 4 and c.k.dtype == c.v.dtype == torch.uint8
+    assert c.k.shape == c.v.shape == (2, 4, 65, D // 2) and c.n_cells == 65
+    assert c.k_scale.shape == c.v_scale.shape == (2, 4, 65) and not c.v_scale.any()
     with pytest.raises(ValueError):
         KVCache.create(2, 65, 4, D, device="cpu", quantized="q5_1")

@@ -138,8 +138,9 @@ def test_cell_metadata_matches_jax():
 
 
 def test_port_imports_no_jax():
-    """Importing the port and running a CPU forward leaves neither jax nor
-    the JAX package in sys.modules."""
+    """Importing the port and running a CPU forward (also on a q4_0 cache,
+    after a seq_add) leaves neither jax nor the JAX package in
+    sys.modules."""
     code = textwrap.dedent("""
         import sys, tempfile, os
         import numpy as np
@@ -149,9 +150,14 @@ def test_port_imports_no_jax():
         from llama_kotlin_tpu_torch.runtime.context import LlamaContext
         from llama_kotlin_tpu_torch.runtime.batch import Batch
         cfg = preset_config("test-tiny", n_layer=1)
-        ctx = LlamaContext(cfg, synthetic_params_device(cfg, device="cpu"), n_cells=128,
-                           device="cpu")
+        params = synthetic_params_device(cfg, device="cpu")
+        ctx = LlamaContext(cfg, params, n_cells=128, device="cpu")
         assert ctx.decode(Batch.single(np.arange(5, dtype=np.int32))) == 0
+        assert np.isfinite(ctx.get_logits()).all()
+        ctx = LlamaContext(cfg, params, n_cells=128, kv_quant="q4_0", device="cpu")
+        assert ctx.decode(Batch.single(np.arange(5, dtype=np.int32))) == 0
+        ctx.seq_add(0, 2, -1, 3)
+        assert ctx.decode(Batch.single([7], pos0=8)) == 0
         assert np.isfinite(ctx.get_logits()).all()
         with tempfile.TemporaryDirectory() as d:
             path = os.path.join(d, "m.gguf")

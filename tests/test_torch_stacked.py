@@ -21,9 +21,11 @@ from llama_kotlin_tpu.runtime.context import LlamaContext as JaxContext
 
 from llama_kotlin_tpu_torch.convert import params_from_numpy
 from llama_kotlin_tpu_torch.models.config import ModelConfig
+from llama_kotlin_tpu_torch.models import llama as llama_model
 from llama_kotlin_tpu_torch.models.llama import can_stack, layer_views, stack_layers
 from llama_kotlin_tpu_torch.models.loader import load_gguf_model
 from llama_kotlin_tpu_torch.models.synthetic import synthetic_gguf
+from llama_kotlin_tpu_torch.ops.cuda.flash_stacked import flash_attention_stacked
 from llama_kotlin_tpu_torch.runtime.batch import Batch
 from llama_kotlin_tpu_torch.runtime.context import LlamaContext
 from llama_kotlin_tpu_torch.runtime.generate import generate
@@ -158,8 +160,29 @@ def test_slice_matches_jax(models, gguf_models, model, prefer_unrolled, kv_quant
     max|y| off the exact product (the port's plain version is within 2e-7
     of a float64 reference on these layers), so a value near a rounding
     boundary may take the neighbouring code."""
-    jcfg, jp, cfg, pp = models if model == "synthetic" else gguf_models["int8"]
     monkeypatch.setenv("LKTPU_FORCE_PALLAS_INTERPRET", "1")
+    pair = models if model == "synthetic" else gguf_models["int8"]
+    slice_vs_jax(pair, model, prefer_unrolled, kv_quant, LOGIT_TOL[model])
+
+
+def _cache_codes(x, bits: int) -> np.ndarray:
+    """A cache plane's codes as int32: int8 codes, or packed int4 unpacked."""
+    if bits == 4:
+        x = np.asarray(x)
+        lo = (x & 0x0F).astype(np.int32) - 8
+        hi = (x >> 4).astype(np.int32)
+        return np.concatenate([lo, np.where(hi > 7, hi - 16, hi)], axis=-1)
+    return np.asarray(x).astype(np.int32)
+
+
+def slice_vs_jax(pair, model: str, prefer_unrolled: bool, kv_quant, tol: float,
+                 min_decided: int = 2) -> list:
+    """test_slice_matches_jax's comparison for one model pair (JAX cfg, JAX
+    params, port cfg, port params) and context options; the quantized
+    cache's codes (int8, or int4 unpacked) differ by at most 1 and its
+    scales by 1e-3 relative; on the file, at least min_decided steps have a
+    top-2 gap above twice tol.  Returns the relative logit error per step."""
+    jcfg, jp, cfg, pp = pair
     seed = 7 if model == "synthetic" else 17  # the prompts of the two source tests
     prompt = np.random.default_rng(seed).integers(0, cfg.vocab_size, N_PROMPT).astype(np.int32)
     kw = dict(n_cells=N_CELLS, prefer_unrolled=prefer_unrolled, kv_quant=kv_quant)
@@ -175,9 +198,11 @@ def test_slice_matches_jax(models, gguf_models, model, prefer_unrolled, kv_quant
         # the prompt's cells, the first free ones on both sides
         at = (slice(None) if model == "synthetic" else slice(0, 1), slice(None),
               slice(0, N_PROMPT))
+        bits = pctx.cache.kv_bits
+        assert bits == jctx.cache.kv_bits
         for name in ("k", "v"):
-            jc = np.asarray(getattr(jctx.cache, name))[at].astype(np.int32)
-            pc = getattr(pctx.cache, name)[at].numpy().astype(np.int32)
+            jc = _cache_codes(np.asarray(getattr(jctx.cache, name))[at], bits)
+            pc = _cache_codes(getattr(pctx.cache, name)[at].numpy(), bits)
             assert pc.any() and np.abs(pc - jc).max() <= 1, name
             js = np.asarray(getattr(jctx.cache, name + "_scale"))[at]
             ps = getattr(pctx.cache, name + "_scale")[at].numpy()
@@ -192,16 +217,17 @@ def test_slice_matches_jax(models, gguf_models, model, prefer_unrolled, kv_quant
         jl.append(np.asarray(jctx.get_logits()[-1], np.float32))
         pl.append(pctx.get_logits()[-1])
         toks.append(int(np.argmax(jl[-1])))
-    tol, decided = LOGIT_TOL[model], 0
+    decided, errs = 0, [float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(pl, jl)]
     for tok, a, b in zip(toks, pl, jl):
         top = np.abs(b).max()
-        assert np.abs(a - b).max() <= tol * top
+        assert np.abs(a - b).max() <= tol * top, errs
         s = np.sort(b)
         if s[-1] - s[-2] > 2 * tol * top:
             assert int(np.argmax(a)) == tok
             decided += 1
     if model != "synthetic":  # its random row means give one token throughout
-        assert len(set(toks)) > 1 and decided >= 2
+        assert len(set(toks)) > 1 and decided >= min_decided
+    return errs
 
 
 @pytest.mark.parametrize("kv_quant", [False, "q8_0"])
@@ -227,8 +253,25 @@ def test_stacked_generate_matches_steps(gguf_models, kv_quant):
     assert generate(stacked, prompt, N_STEPS) == toks
 
 
-def test_q4_0_cache_raises(models):
-    """The packed int4 cache is not ported yet: asking for it raises."""
+def test_q4_0_cache_raises(models, monkeypatch):
+    """A q4_0 context stacks the synthetic model, as JAX's does, and its
+    stacked steps attend by the plain route (attend_stacked_q4, once a layer
+    and step), never through kernel 9, which raises if handed the packed
+    cache."""
     _, _, cfg, pp = models
-    with pytest.raises(NotImplementedError, match="q4_0"):
-        LlamaContext(cfg, pp, n_cells=N_CELLS, kv_quant="q4_0", device="cpu")
+    ctx = LlamaContext(cfg, pp, n_cells=N_CELLS, kv_quant="q4_0", device="cpu")
+    assert "layers_stacked" in ctx.params
+    assert ctx.cache.kv_bits == 4 and ctx.cache.k.dtype == torch.uint8
+    calls = []
+    plain = llama_model.attend_stacked_q4
+    monkeypatch.setattr(llama_model, "attend_stacked_q4",
+                        lambda *a, **kw: calls.append(a[2]) or plain(*a, **kw))
+    assert ctx.decode(Batch.single(np.arange(N_PROMPT, dtype=np.int32))) == 0
+    assert ctx.decode(Batch.single([3], pos0=N_PROMPT)) == 0
+    assert calls == [0, 1, 0, 1] and np.isfinite(ctx.get_logits()).all()
+    q = torch.zeros((1, cfg.n_head, cfg.head_dim), dtype=torch.bfloat16)
+    new = torch.zeros((1, cfg.n_head_kv, cfg.head_dim), dtype=torch.bfloat16)
+    mask = torch.ones((1, 64), dtype=torch.int8)
+    with pytest.raises(ValueError, match="q4_0"):
+        flash_attention_stacked(q, ctx.cache.k, ctx.cache.v, 0, new, new, mask, mask[:, :1],
+                                scale=1.0, k_scale=ctx.cache.k_scale, v_scale=ctx.cache.v_scale)
