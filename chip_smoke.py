@@ -52,13 +52,26 @@ w4-mode file unrolled with it; to 6 the q4_0 cache on both paths, a
 seq_div/seq_add K shift on each cache type and a file with a dense (F16)
 output matrix.
 
+Kernels 8 and 10, behind the JAX package's opt-in knobs (set per run by
+knobs(), which restores the environment), add to 3 kernel 8 on sym and
+legacy W4 folds at the four decode projections (b = 1 and 32, beside
+kernel 1 on the same inputs) and kernel 10 on compact, sym and legacy folds
+(b = 1 and 8, beside the unfused route it replaces); to 4 the W4A8 model
+with LKTPU_LAYER_FUSED=1, stacked and unrolled (kernel 10: n_layer
+launches a decode step, none at the prefill); to 5 a full-width 32-layer
+Q4_0 file (sym folds, Q6_K output) by default, with LKTPU_W4_FX=1 and with
+both knobs; to 6 the fused W4A8 model and 2-layer Q4_0 and Q4_1 files under
+each knob against the CPU.
+
 The last line of standard output is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -227,6 +240,13 @@ def sdpa_call(torch, q, k, v, mask, scale):
 
 W4_STREAMED = ("codes", "aux.q6", "aux.dd")
 FOLD_PLANES = ("codes", "g_scale", "g_min")
+SYM_PLANES = ("codes", "g_scale")  # a sym fold's min is 8 s: no plane of its own
+
+
+def w4_planes(w) -> tuple:
+    """The planes that a W4A8 product with fold w must read: the compact
+    planes, a sym fold's codes and scales, or codes, scales and mins."""
+    return {"compact": W4_STREAMED, "sym": SYM_PLANES}.get(w.flavor, FOLD_PLANES)
 
 
 def nbytes(w, names=FOLD_PLANES) -> int:
@@ -701,14 +721,126 @@ def kv_kernel_phase(torch, results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def knobs(**env):
+    """Set the JAX package's environment knobs (LKTPU_W4_FX,
+    LKTPU_LAYER_FUSED) for a block, then restore the environment."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def fx_layer_kernel_phase(torch, results: dict) -> None:
+    """Kernel 8 (LKTPU_W4_FX=1) on sym and legacy W4 folds at the llama3-8B
+    decode projections, b = 1 and 32, beside kernel 1 (prologue + GEMV) on
+    the same inputs; kernel 10 (LKTPU_LAYER_FUSED=1) on compact, sym and
+    legacy folds at E = 4096, F = 14336, b = 1 and 8, beside the unfused
+    route it replaces (kernel 1's o, the residual and norm glue, kernel 2)
+    on the same inputs.  Each against its plain version."""
+    import numpy as np
+
+    from llama_kotlin_tpu_torch.models.synthetic import synthetic_w4, synthetic_w4_device
+    from llama_kotlin_tpu_torch.ops.cuda import qmm_w4, qmm_w4_ffn, qmm_w4_fx, qmm_w4_layer
+    from llama_kotlin_tpu_torch.ops.norms import rms_norm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2468)
+    flush = torch.zeros(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    report = functools.partial(report_row, results)
+    check = functools.partial(check_row, results)
+    rng = np.random.default_rng(2468)
+    E, F = 4096, 14336
+    shapes = {"qkv": (6144, E), "o": (E, E), "gate_up": (2 * F, E), "down": (E, F)}
+
+    # kernel 8.  tol as kernel 1's: exact integer partials on both sides, the
+    # f32 order of the scale products, the tile sums and the group sum differ
+    for flavor, kw in (("sym", dict(sym=True)), ("legacy", dict(compact=False))):
+        for name, (n, k) in shapes.items():
+            wt = synthetic_w4(rng, n, k, device=dev, **kw)
+            assert wt.flavor == flavor
+            for b in (1, 32):
+                x = torch.randn((b, k), generator=gen, device=dev) * 0.7
+                got = qmm_w4_fx.qmm_w4_fx_matmul(x, wt)
+                report("qmm_w4_fx", f"{flavor} {name} n={n} k={k} b={b}",
+                       err_of(got, qmm_w4_fx.qmm_w4_fx_plain(x, wt)), 1e-4,
+                       time_ms(torch, lambda: qmm_w4_fx.qmm_w4_fx_matmul(x, wt), flush),
+                       time_ms(torch, lambda: qmm_w4_fx.qmm_w4_fx_plain(x, wt), flush),
+                       b * k * 4 + nbytes(wt, w4_planes(wt)) + b * n * 4, 2 * b * n * k,
+                       "int8", matmul_ms(torch, x, wt, flush))
+                log(json.dumps({"phase": "qmm_w4_fx_vs_kernel1", "shape": f"{flavor} {name} b={b}",
+                                "kernel1_ms": time_ms(torch, lambda: qmm_w4.qmm_w4_matmul(x, wt),
+                                                      flush),
+                                "kernel1_vs_fx_max_abs": (qmm_w4.qmm_w4_matmul(x, wt) - got)
+                                .abs().max().item()}))
+            if name == "o":  # every batch-row bucket
+                for b in (2, 3, 5, 9, 17):
+                    x = torch.randn((b, k), generator=gen, device=dev) * 0.7
+                    check("qmm_w4_fx", f"{flavor} o b={b}", qmm_w4_fx.qmm_w4_fx_matmul(x, wt),
+                          qmm_w4_fx.qmm_w4_fx_plain(x, wt), 1e-4)
+            del wt
+
+    # kernel 10.  tol as kernel 2's (5e-3 of max|h3|): h3 is bf16 and the
+    # norm's f32 sum runs in another order than the plain version's, so a
+    # last-bit difference of r can move one activation code of the FFN
+    eps = 1e-5
+    for flavor in ("compact", "sym", "legacy"):
+        if flavor == "compact":
+            ws = [synthetic_w4_device(gen, n, k, zero_mean=False, device=dev)
+                  for n, k in ((E, E), (2 * F, E), (E, F))]
+        else:
+            kw = dict(sym=True) if flavor == "sym" else dict(compact=False)
+            ws = [synthetic_w4(rng, n, k, device=dev, **kw)
+                  for n, k in ((E, E), (2 * F, E), (E, F))]
+        wo, gu, dn = ws
+        assert {w.flavor for w in ws} == {flavor}
+        nw = 1.0 + 0.1 * torch.randn(E, generator=gen, device=dev)
+        for b in (1, 8):
+            attn = (torch.randn((b, E), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+            h = (torch.randn((b, E), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+            args = (attn, h, wo, gu, dn, nw)
+            if not qmm_w4_layer.layer_eligible(*args[:5]):
+                raise AssertionError(f"kernel 10 refuses the {flavor} layer")
+            fused = lambda: qmm_w4_layer.qmm_w4_layer_matmul(*args, eps=eps)
+
+            def unfused():  # models/llama.py's route with the knob off
+                h2 = h + qmm_w4.qmm_w4_matmul(attn, wo).to(h.dtype)
+                x = rms_norm(h2, nw, eps)
+                return h2 + qmm_w4_ffn.qmm_w4_ffn_matmul(x, gu, dn).to(h.dtype)
+
+            got = fused()
+            unfused_ms = time_ms(torch, unfused, flush)
+            report("qmm_w4_layer", f"{flavor} E={E} F={F} b={b}",
+                   err_of(got, qmm_w4_layer.qmm_w4_layer_plain(*args, eps, "silu")), 5e-3,
+                   time_ms(torch, fused, flush),
+                   time_ms(torch, lambda: qmm_w4_layer.qmm_w4_layer_plain(*args, eps, "silu"),
+                           flush),
+                   4 * b * E * 2 + E * 4 + sum(nbytes(w, w4_planes(w)) for w in ws),
+                   2 * b * (E * E + 3 * F * E), "int8", None)
+            results["qmm_w4_layer"][-1]["unfused_ms"] = unfused_ms
+            log(json.dumps({"phase": "qmm_w4_layer_vs_unfused", "shape": f"{flavor} b={b}",
+                            "unfused_ms": unfused_ms,
+                            "unfused_vs_fused_rel": err_of(got, unfused())["rel"]}))
+        del ws, wo, gu, dn
+    del flush
+    torch.cuda.empty_cache()
+
+
 def streamed_bytes(params) -> int:
-    """Weight bytes a decode step streams: every matrix but the embedding
-    (kept on the host path only through its gathered rows), in the layout
-    its decode kernel reads — compact W4: codes + compact planes; other W4
-    and W4X: codes + f32 s_eff and m_adj; W8: codes + s_eff (+ m_eff);
-    Q8F: codes + scales."""
+    """Weight bytes a decode step must stream: every matrix but the
+    embedding (kept on the host path only through its gathered rows), in
+    the port's layout — compact W4: codes + compact planes; sym W4: codes
+    + f32 s_eff (its m_adj is 8 s_eff); other W4 and W4X: codes + f32 s_eff
+    and m_adj; W8: codes + s_eff (+ m_eff); Q8F: codes + scales."""
     def one(w):
-        return nbytes(w, W4_STREAMED if w.flavor == "compact" else FOLD_PLANES)
+        return nbytes(w, w4_planes(w))
     out = params.get("output") if params.get("output") is not None else params["tok_embd"]
     return one(out) + sum(one(v) for lp in params["layers"] for v in lp.values()
                           if hasattr(v, "codes"))
@@ -815,6 +947,100 @@ def serving_phase(torch, n_layer: int = 32) -> dict:
     del ctx
     by_path = {"serving": counts}
     by_path.update(kv_serving(torch, cfg, params, "serving", (qmm_w4, qmm_w4_ffn, qmm)))
+    by_path.update(fused_serving(torch, cfg, params))
+    del params
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def fused_serving(torch, cfg, params) -> dict:
+    """The W4A8 model with LKTPU_LAYER_FUSED=1, stacked (the default) and
+    unrolled, bf16 cache: kernel 10 takes the post-attention half of every
+    layer at every decode step (n_layer launches a step) and never at the
+    64-row prefill; kernel 1 the decode qkv and lm_head rows and the
+    prefill's lm_head row; kernel 4 the prefill's projections; kernels 2
+    and 8 never.  Returns {path: launch counts}."""
+    from llama_kotlin_tpu_torch.ops.cuda import (flash, flash_stacked, qmm, qmm_w4, qmm_w4_ffn,
+                                                 qmm_w4_fx, qmm_w4_layer)
+
+    t0 = time.perf_counter()
+    L, by_path = cfg.n_layer, {}
+    want = {"qmm_w4_layer": 3 * 31 * L, "qmm_w4": 3 * (1 + 31 * (L + 1)), "qmm": 3 * 4 * L}
+    for path, attn, kw in (("serving_fused_stacked_bf16", flash_stacked, {}),
+                           ("serving_fused_unrolled_bf16", flash, dict(prefer_unrolled=True))):
+        other = flash if attn is flash_stacked else flash_stacked
+        with knobs(LKTPU_LAYER_FUSED="1"):
+            counts, ctx = serve(torch, cfg, params, (qmm_w4_layer, qmm_w4, qmm, attn), path,
+                                never=(qmm_w4_ffn, qmm_w4_fx, other), **kw)
+            expect = dict(want, **{mod_name(attn): 3 * 32 * L})
+            if counts != expect or ("layers_stacked" in ctx.params) != (attn is flash_stacked):
+                raise AssertionError(f"{path}: launches {counts}, expected {expect}")
+            profile_decode(torch, ctx, cfg, path)
+        by_path[path] = counts
+        del ctx
+        torch.cuda.empty_cache()
+    log(json.dumps({"phase": "timing", "function": "fused_serving",
+                    "seconds": time.perf_counter() - t0}))
+    return by_path
+
+
+def q4_0_gguf_phase(torch, tmpdir: Path) -> dict:
+    """A full-width 32-layer llama3-8B Q4_0 file (every layer matrix and
+    token_embd Q4_0, output Q6_K; random wire blocks, seed 9) in the w4
+    mode on the default (stacked) context, bf16 cache, 3 requests each:
+    by default (kernel 1 on the sym folds' qkv and o, kernel 2 the FFN);
+    with LKTPU_W4_FX=1 (kernel 8 in kernel 1's place: 2 n_layer launches
+    a decode step); with LKTPU_W4_FX=1 and LKTPU_LAYER_FUSED=1 (kernel 8
+    on qkv, kernel 10 on the rest of the layer: n_layer each a step).  The
+    lm_head is kernel 5's (Q6_K -> W8).  Returns {path: launch counts}."""
+    from llama_kotlin_tpu_torch.models.loader import load_gguf_model
+    from llama_kotlin_tpu_torch.models.synthetic import preset_config, synthetic_gguf
+    from llama_kotlin_tpu_torch.ops.cuda import (flash, flash_stacked, qmm, qmm_w4, qmm_w4_ffn,
+                                                 qmm_w4_fx, qmm_w4_layer, qmm_w8)
+    from llama_kotlin_tpu_torch.quant.formats import GGMLQuantType
+
+    path = tmpdir / "llama3-8b-q4_0.gguf"
+    t0 = time.perf_counter()
+    size = synthetic_gguf(path, preset_config("llama3-8b"), seed=9,
+                          matrix_type=GGMLQuantType.Q4_0)
+    log(json.dumps({"phase": "gguf_q4_0", "file_bytes": size,
+                    "write_s": time.perf_counter() - t0}))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cfg, params, f = load_gguf_model(path, fast_mode="w4", fuse=True)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    f.close()
+    path.unlink()
+    w_bytes = streamed_bytes(params)
+    layouts = sorted({(key, getattr(v, "flavor", None)) for lp in params["layers"]
+                      for key, v in lp.items() if hasattr(v, "codes")})
+    log(json.dumps({"phase": "gguf_q4_0_w4", "n_layer": cfg.n_layer, "load_s": load_s,
+                    "w_bytes_per_tok": w_bytes, "w_floor_ms_per_tok": w_bytes / HBM_BYTES_S * 1e3,
+                    "device_bytes": torch.cuda.memory_allocated(), "layouts": layouts,
+                    "output": params["output"].flavor}))
+    L, steps = cfg.n_layer, 3 * 31
+    base = {"qmm_w8": 3 * 32, "qmm": 3 * 4 * L, "flash_stacked": 3 * 32 * L}
+    runs = (("gguf_q4_0_w4", {}, dict(qmm_w4=steps * 2 * L, qmm_w4_ffn=steps * L)),
+            ("gguf_q4_0_w4_fx", dict(LKTPU_W4_FX="1"),
+             dict(qmm_w4_fx=steps * 2 * L, qmm_w4_ffn=steps * L)),
+            ("gguf_q4_0_w4_fx_fused", dict(LKTPU_W4_FX="1", LKTPU_LAYER_FUSED="1"),
+             dict(qmm_w4_fx=steps * L, qmm_w4_layer=steps * L)))
+    all_mods = (qmm_w4, qmm_w4_ffn, qmm_w4_fx, qmm_w4_layer)
+    by_path = {}
+    for label, env, launched in runs:
+        mods = tuple(m for m in all_mods if mod_name(m) in launched) + (qmm_w8, qmm,
+                                                                          flash_stacked)
+        never = tuple(m for m in all_mods if mod_name(m) not in launched) + (flash,)
+        with knobs(**env):
+            counts, ctx = serve(torch, cfg, params, mods, label, never=never)
+            expect = dict(base, **launched)
+            if counts != expect or "layers_stacked" not in ctx.params:
+                raise AssertionError(f"{label}: launches {counts}, expected {expect}, stacked")
+            profile_decode(torch, ctx, cfg, label)
+        by_path[label] = counts
+        del ctx
+        torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
     return by_path
@@ -1115,6 +1341,12 @@ def parity_phase(torch) -> None:
                     "tol_rel": tol}))
     if gt != ct or not max(errs) <= tol:
         raise AssertionError("card and CPU disagree")
+    # kernel 10 on the card (LKTPU_LAYER_FUSED=1) against the same CPU run:
+    # the CPU's plain version equals its unfused route bit for bit
+    card_vs_cpu(torch, "parity_unrolled_bf16_fused", lambda dev: LlamaContext(
+        cfg, params if dev == "cuda" else cpu_params, n_cells=1024, buckets=(8, 16, 32, 64),
+        prefer_unrolled=True, device=dev), prompt, tol,
+        knob_sets=[dict(LKTPU_LAYER_FUSED="1")], cpu=(ct, cl))
     for label, kw in (("parity_stacked_q8_0", {}), ("parity_unrolled_q8_0",
                                                      dict(prefer_unrolled=True))):
         card_vs_cpu(torch, label, lambda dev: LlamaContext(
@@ -1157,44 +1389,47 @@ def shift_positions(ctx, n_past: int) -> int:
 
 
 def card_vs_cpu(torch, label: str, build, prompt, tol: float, steps: int = 4,
-                shift=None) -> None:
-    """One context on the card against the same on the CPU (the plain
-    versions), full width: build(device) gives the context.  The card
-    decodes greedily (prefill + `steps` steps, after shift(ctx, n) -> next
-    position when given); the CPU takes the card's tokens, so one near-tie
-    cannot send the two down different paths, and its greedy token must
-    equal the card's wherever the CPU's top-2 gap exceeds twice the
-    tolerance."""
+                shift=None, knob_sets=({},), cpu=None) -> None:
+    """One context on the CPU (the plain versions, which no knob changes)
+    against the same on the card under each set of environment knobs, full
+    width: build(device) gives the context.  The CPU decodes greedily
+    (prefill + `steps` steps, after shift(ctx, n) -> next position when
+    given; or cpu=(tokens, logits) of such a run) and each card run takes
+    the CPU's tokens, so one near-tie cannot send the two down different
+    paths; logits within tol of max|logits| at every step, and the card's
+    greedy token equal to the CPU's wherever the CPU's top-2 gap exceeds
+    twice the tolerance."""
     import numpy as np
 
     from llama_kotlin_tpu_torch.runtime.batch import Batch
 
-    res, toks = {}, None
-    for dev in ("cuda", "cpu"):
+    def run(dev, toks):
         ctx = build(dev)
         assert ctx.decode(Batch.single(prompt)) == 0
         n = len(prompt) if shift is None else shift(ctx, len(prompt))
         logits = [ctx.get_logits()[-1]]
-        if toks is None:  # the card's greedy run sets the tokens
-            toks = [int(np.argmax(logits[-1]))]
         for i in range(steps):
-            assert ctx.decode(Batch.single([toks[i]], pos0=n + i)) == 0
+            tok = int(np.argmax(logits[-1])) if toks is None else toks[i]
+            assert ctx.decode(Batch.single([tok], pos0=n + i)) == 0
             logits.append(ctx.get_logits()[-1])
-            if dev == "cuda":
-                toks.append(int(np.argmax(logits[-1])))
-        res[dev] = logits
         del ctx
-    gl, cl = res["cuda"], res["cpu"]
-    errs = [float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(gl, cl)]
-    gaps = [float((np.sort(b)[-1] - np.sort(b)[-2]) / np.abs(b).max()) for b in cl]
+        return logits
+
+    cl = run("cpu", None) if cpu is None else cpu[1]
     ct = [int(np.argmax(b)) for b in cl]
-    decided = [g > 2 * tol for g in gaps]
-    log(json.dumps({"phase": label, "n_layer": 2, "shift": shift is not None, "tokens_cuda": toks,
-                    "tokens_cpu_forced": ct, "rel_logit_err": errs, "top2_gap_rel": gaps,
-                    "logit_std_rel": [float(b.std() / np.abs(b).max()) for b in cl],
-                    "tol_rel": tol}))
-    if not max(errs) <= tol or any(d and a != b for d, a, b in zip(decided, toks, ct)):
-        raise AssertionError(f"card and CPU disagree ({label})")
+    gaps = [float((np.sort(b)[-1] - np.sort(b)[-2]) / np.abs(b).max()) for b in cl]
+    for env in knob_sets:
+        with knobs(**env):
+            gl = run("cuda", ct)
+        errs = [float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(gl, cl)]
+        gt = [int(np.argmax(a)) for a in gl]
+        log(json.dumps({"phase": label, "knobs": env, "n_layer": 2, "shift": shift is not None,
+                        "tokens_cpu": ct, "tokens_cuda_forced": gt, "rel_logit_err": errs,
+                        "top2_gap_rel": gaps,
+                        "logit_std_rel": [float(b.std() / np.abs(b).max()) for b in cl],
+                        "tol_rel": tol}))
+        if not max(errs) <= tol or any(g > 2 * tol and a != b for g, a, b in zip(gaps, gt, ct)):
+            raise AssertionError(f"card and CPU disagree ({label}, {env})")
 
 
 def gguf_parity_phase(torch, tmpdir: Path) -> None:
@@ -1245,6 +1480,23 @@ def gguf_parity_phase(torch, tmpdir: Path) -> None:
 
     card_vs_cpu(torch, "gguf_parity_w4_f16_output", build_dense, prompt, tol, steps=2)
     path.unlink()
+    # all-Q4_0 and all-Q4_1 files (sym and legacy W4 folds) in the w4 mode
+    # on the default (stacked) context, the card by default, with kernel 8
+    # (LKTPU_W4_FX=1) and with kernels 8 and 10 (both knobs), each against
+    # one CPU run.  tol: the w4 file's, as above
+    knob_sets = [{}, dict(LKTPU_W4_FX="1"), dict(LKTPU_W4_FX="1", LKTPU_LAYER_FUSED="1")]
+    for qtype in (GGMLQuantType.Q4_0, GGMLQuantType.Q4_1):
+        path = tmpdir / f"llama3-8b-2layer-{qtype.name.lower()}.gguf"
+        synthetic_gguf(path, preset_config("llama3-8b", n_layer=2), seed=10, matrix_type=qtype)
+
+        def build_q4(dev):
+            cfg, params, f = load_gguf_model(path, fast_mode="w4", fuse=True, device=dev)
+            f.close()
+            return LlamaContext(cfg, params, n_cells=1024, buckets=(8, 16, 32, 64), device=dev)
+
+        card_vs_cpu(torch, f"gguf_parity_w4_{qtype.name.lower()}", build_q4, prompt, tol,
+                    knob_sets=knob_sets)
+        path.unlink()
 
 
 def main() -> int:
@@ -1296,12 +1548,14 @@ def main() -> int:
         timed(w8_kernel_phase, torch, results)
         timed(w4x_kernel_phase, torch, results)
         timed(kv_kernel_phase, torch, results)
+        timed(fx_layer_kernel_phase, torch, results)
         by_path = timed(serving_phase, torch)
         by_path.update(timed(w4x_serving_phase, torch))
         tmpdir = Path(tempfile.mkdtemp(prefix="lk_gguf_"))
         try:
             for mode, c in timed(gguf_phase, torch, tmpdir).items():
                 by_path[f"gguf_{mode}"] = c
+            by_path.update(timed(q4_0_gguf_phase, torch, tmpdir))
             timed(parity_phase, torch)
             timed(gguf_parity_phase, torch, tmpdir)
         finally:
@@ -1325,6 +1579,9 @@ def main() -> int:
         "qmm_w4x": ("csrc/qmm_w4x.cu", "llama_kotlin_tpu/ops/pallas/qmm_w4.py:691", 0, {}),
         "qmm_w8_precise": ("csrc/qmm_w8.cu", "llama_kotlin_tpu/ops/pallas/qmm_w8.py:144", 0,
                            {}),
+        "qmm_w4_fx": ("csrc/qmm_w4_fx.cu", "llama_kotlin_tpu/ops/pallas/qmm_w4.py:551", 0, {}),
+        "qmm_w4_layer": ("csrc/qmm_w4_layer.cu",
+                         "llama_kotlin_tpu/ops/pallas/qmm_w4_ffn.py:662", 0, {}),
     }
     timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     # every kernel-3 launch of a q4_0 path is on the int4 branch (checked there)
@@ -1343,6 +1600,9 @@ def main() -> int:
             entry[branch] = {k: rows[i][k] for k in timing + ("max_abs_err",)}
         if kname == "flash":  # the int4 branch's launches, counted apart
             entry["int4"]["launches"] = int4_launches
+        if kname == "qmm_w4_layer":  # no library call; the route it replaces
+            entry["library"] = "none: no one call computes a layer half"
+            entry["unfused_ms"] = rows[pick]["unfused_ms"]
         kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     log(smi)

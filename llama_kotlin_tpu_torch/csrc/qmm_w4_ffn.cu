@@ -11,16 +11,14 @@
 // one 256-wide superblock of F and does the whole FFN for it:
 //   1. its 256 gate and 256 up rows (w4_row_partial, one warp per row) into
 //      shared memory;
-//   2. h = bf16(act(g) * u), rounded to bf16 as the JAX kernel does before
-//      re-quantizing, then quantized per row over the block's superblock —
-//      exactly the per-256 Q8 of h, so h never leaves shared memory;
+//   2. h = bf16(act(g) * u) quantized per row over the block's superblock
+//      (ffn_quantize_h, w4_ffn.cuh) — exactly the per-256 Q8 of h, so h
+//      never leaves shared memory;
 //   3. the down product over the block's 128 plane bytes of every down row
-//      (8 lanes per row), written as a [B, E] partial.
+//      (ffn_down_partial), written as a [B, E] partial.
 // A second kernel sums the F/256 partials in a fixed order, so the result
 // is deterministic (no atomics) and greedy tokens repeat run to run.
-#include "w4_dot.cuh"
-
-constexpr float kGeluC = 0.79788456080286535587989211986876f;
+#include "w4_ffn.cuh"
 
 template <int NB, bool COMPACT>
 __global__ void __launch_bounds__(512)
@@ -56,85 +54,13 @@ w4_ffn_kernel(const int8_t* __restrict__ x8, const float* __restrict__ sx,
   }
   __syncthreads();
 
-  // 2. h in bf16, quantized per row of the batch (one warp per row)
-  for (int b = warp; b < B; b += 16) {
-    float v[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int c = lane * 8 + i;
-      const float g = gu_s[b * 512 + c], u = gu_s[b * 512 + 256 + c];
-      const float a = act == 0 ? g * (1.f / (1.f + expf(-g)))
-                               : 0.5f * g * (1.f + tanhf(kGeluC * g * (1.f + 0.044715f * g * g)));
-      v[i] = __bfloat162float(__float2bfloat16_rn(a * u));
-    }
-    __align__(8) int8_t q[8];
-    int gsum;
-    const float d = quantize8_sb(v, q, &gsum);
-    *reinterpret_cast<int2*>(h8 + b * 256 + lane * 8) = *reinterpret_cast<const int2*>(q);
-    if ((lane & 3) == 0) hsum[b * 8 + lane / 4] = gsum;
-    if (lane == 0) dh[b] = d;
-  }
+  // 2. h in bf16, quantized per row of the batch
+  ffn_quantize_h(B, gu_s, gu_s + 256, 512, act, h8, dh, hsum, warp, 16, lane);
   __syncthreads();
 
-  // 3. down partial: 4 rows per warp step, 16 plane bytes per lane
-  const int S_F = F / 256, G_F = F / 32;
-  const int part = lane & 7, j0 = part * 16, jg = j0 >> 5;
-  const bool lead = (part & 1) == 0;
-  for (int e = warp * 4 + (lane >> 3); e < E; e += 64) {
-    const uint4 w = __ldg(reinterpret_cast<const uint4*>(dn_codes + (size_t)e * (F / 2) +
-                                                         blk * 128 + j0));
-    float s_lo, s_hi, m_lo, m_hi;
-    if (COMPACT) {
-      const size_t sb = (size_t)e * S_F + blk;
-      const uint8_t* q = dn_q6 + sb * 16;
-      const float d = __ldg(dn_dd + 2 * sb), dmin = __ldg(dn_dd + 2 * sb + 1);
-      s_lo = d * (float)q[jg];
-      s_hi = d * (float)q[4 + jg];
-      m_lo = dmin * (float)q[8 + jg];
-      m_hi = dmin * (float)q[12 + jg];
-    } else {
-      const size_t g = (size_t)e * G_F + blk * 8;
-      s_lo = __ldg(dn_gs + g + jg);
-      s_hi = __ldg(dn_gs + g + jg + 4);
-      m_lo = __ldg(dn_gm + g + jg);
-      m_hi = __ldg(dn_gm + g + jg + 4) + 8.f * s_hi;
-    }
-    const unsigned wv[4] = {w.x, w.y, w.z, w.w};
-    int lo[4], hi[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      lo[i] = (int)(wv[i] & 0x0F0F0F0Fu);
-      hi[i] = (int)(((wv[i] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u);
-    }
-    float acc[NB];
-#pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      acc[b] = 0.f;
-      if (b < B) {
-        const int4 hl = *reinterpret_cast<const int4*>(h8 + b * 256 + j0);
-        const int4 hh = *reinterpret_cast<const int4*>(h8 + b * 256 + 128 + j0);
-        int pl = __dp4a(lo[0], hl.x, 0);
-        pl = __dp4a(lo[1], hl.y, pl);
-        pl = __dp4a(lo[2], hl.z, pl);
-        pl = __dp4a(lo[3], hl.w, pl);
-        int ph = __dp4a(hi[0], hh.x, 0);
-        ph = __dp4a(hi[1], hh.y, ph);
-        ph = __dp4a(hi[2], hh.z, ph);
-        ph = __dp4a(hi[3], hh.w, ph);
-        float t = s_lo * (float)pl + s_hi * (float)ph;
-        if (lead) t -= m_lo * (float)hsum[b * 8 + jg] + m_hi * (float)hsum[b * 8 + jg + 4];
-        acc[b] = dh[b] * t;
-      }
-    }
-#pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      float v = acc[b];
-      v += __shfl_xor_sync(LK_FULL_MASK, v, 1);
-      v += __shfl_xor_sync(LK_FULL_MASK, v, 2);
-      v += __shfl_xor_sync(LK_FULL_MASK, v, 4);
-      if (part == 0 && b < B) partial[((size_t)blk * B + b) * E + e] = v;
-    }
-  }
+  // 3. down partial over every down row
+  ffn_down_partial<NB, COMPACT>(h8, dh, hsum, B, dn_codes, dn_q6, dn_dd, dn_gs, dn_gm, E, F, blk,
+                                0, E, warp, 16, lane, partial);
 }
 
 // Fixed-order sum of the per-block partials: y[i] = sum_blk partial[blk][i].

@@ -1,5 +1,6 @@
-// One lane's share of a W4A8 row dot, shared by qmm_w4.cu (kernel 1) and
-// qmm_w4_ffn.cu (kernel 2).
+// One lane's share of a W4A8 row dot, shared by qmm_w4.cu (kernel 1),
+// qmm_w4_ffn.cu (kernel 2), qmm_w4x.cu (kernel 7), qmm_w4_fx.cu (kernel 8)
+// and qmm_w4_layer.cu (kernel 10).
 //
 // Row `row` of a W4 fold holds kc = k/2 plane-packed bytes: byte j of span
 // s carries element 256s+j in its low nibble (raw code 0..15) and element
@@ -13,8 +14,10 @@
 //
 // with w = q * s_g - m_g.  Compact folds form s_g = d * sc6 and
 // m_g = dmin * m6 from the streamed 6-bit codes (exact f32 products, the
-// wire's own dequant); legacy/sym folds read s_g = g_scale and
-// m_g = g_min (+ 8 s_g on hi groups, undoing the fold's nibble bias).
+// wire's own dequant); legacy folds read s_g = g_scale and m_g = g_min
+// (+ 8 s_g on hi groups, undoing the fold's nibble bias).  A sym fold's
+// g_min is 8 s_g on lo groups and 0 on hi groups, so with SYM the walk
+// forms m_g = 8 s_g (exact, the same f32 value) and never reads g_min.
 // This replaces the TPU kernel's block-diagonal MXU layout: on Hopper the
 // per-group partial is a handful of dp4a, so no row redundancy is needed.
 //
@@ -27,17 +30,25 @@
 
 #include "common.cuh"
 
-template <int NB, bool COMPACT, int NP = 1>
-__device__ __forceinline__ void w4_row_partial(
+//
+// w4_span_partial walks the plane bytes [c_begin, c_end) of the row only
+// (c_begin a multiple of 512), against activations that hold just that
+// span's columns: row rb of x8 starts at element 2*c_begin and has stride
+// xk, with sx and xsum strided xk/256 and xk/32 (kernel 8 keeps one k-tile
+// of quantized activations in shared memory).  w4_row_partial is the whole
+// row against whole activation rows.
+template <int NB, bool COMPACT, int NP = 1, bool SYM = false>
+__device__ __forceinline__ void w4_span_partial(
     float acc[NB], const int8_t* __restrict__ x8, const float* __restrict__ sx,
-    const int* __restrict__ xsum, int B, const uint8_t* __restrict__ codes,
+    const int* __restrict__ xsum, int B, int xk, const uint8_t* __restrict__ codes,
     const uint8_t* __restrict__ q6, const float* __restrict__ dd, const float* __restrict__ gs,
-    const float* __restrict__ gm, int row, int kc, int lane) {
+    const float* __restrict__ gm, int row, int kc, int c_begin, int c_end, int lane) {
   const int k = 2 * kc, G = k / 32, S = k / 256;
+  const int XG = xk / 32, XS = xk / 256, s0 = c_begin >> 7;
   const uint8_t* crow = codes + (size_t)row * kc;
   const bool lead = (lane & 1) == 0;  // the lane pair's min term is added once
 #pragma unroll 2
-  for (int c0 = lane * 16; c0 < kc; c0 += 512) {
+  for (int c0 = c_begin + lane * 16; c0 < c_end; c0 += 512) {
     const uint4 w = __ldg(reinterpret_cast<const uint4*>(crow + c0));
     const int s = c0 >> 7, j = (c0 & 127) >> 5;
     const int gl = s * 8 + j, gh = gl + 4;
@@ -54,8 +65,8 @@ __device__ __forceinline__ void w4_row_partial(
       const size_t g = (size_t)row * G;
       s_lo = __ldg(gs + g + gl);
       s_hi = __ldg(gs + g + gh);
-      m_lo = __ldg(gm + g + gl);
-      m_hi = __ldg(gm + g + gh) + 8.f * s_hi;
+      m_lo = SYM ? 8.f * s_lo : __ldg(gm + g + gl);
+      m_hi = (SYM ? 0.f : __ldg(gm + g + gh)) + 8.f * s_hi;
     }
     const unsigned wv[4] = {w.x, w.y, w.z, w.w};
     int lo[4], hi[4];
@@ -70,7 +81,7 @@ __device__ __forceinline__ void w4_row_partial(
 #pragma unroll
         for (int p = 0; p < NP; ++p) {
           const int rb = p * B + b;  // row of plane p
-          const int8_t* xr = x8 + (size_t)rb * k + s * 256 + (c0 & 127);
+          const int8_t* xr = x8 + (size_t)rb * xk + (s - s0) * 256 + (c0 & 127);
           const int4 xl = *reinterpret_cast<const int4*>(xr);
           const int4 xh = *reinterpret_cast<const int4*>(xr + 128);
           int pl = __dp4a(lo[0], xl.x, 0);
@@ -82,12 +93,23 @@ __device__ __forceinline__ void w4_row_partial(
           ph = __dp4a(hi[2], xh.z, ph);
           ph = __dp4a(hi[3], xh.w, ph);
           float t = s_lo * (float)pl + s_hi * (float)ph;
-          if (lead) t -= m_lo * (float)xsum[rb * G + gl] + m_hi * (float)xsum[rb * G + gh];
-          acc[b] += sx[rb * S + s] * t;
+          const int xg = rb * XG - 8 * s0;
+          if (lead) t -= m_lo * (float)xsum[xg + gl] + m_hi * (float)xsum[xg + gh];
+          acc[b] += sx[rb * XS + s - s0] * t;
         }
       }
     }
   }
+}
+
+template <int NB, bool COMPACT, int NP = 1, bool SYM = false>
+__device__ __forceinline__ void w4_row_partial(
+    float acc[NB], const int8_t* __restrict__ x8, const float* __restrict__ sx,
+    const int* __restrict__ xsum, int B, const uint8_t* __restrict__ codes,
+    const uint8_t* __restrict__ q6, const float* __restrict__ dd, const float* __restrict__ gs,
+    const float* __restrict__ gm, int row, int kc, int lane) {
+  w4_span_partial<NB, COMPACT, NP, SYM>(acc, x8, sx, xsum, B, 2 * kc, codes, q6, dd, gs, gm, row, kc,
+                                   0, kc, lane);
 }
 
 // Batch-row bucket of the kernels' NB template: the smallest of

@@ -43,7 +43,7 @@ from llama_kotlin_tpu_torch.ops.attention import attention_reference, visibility
 from llama_kotlin_tpu_torch.ops.cuda.flash import flash_attention
 from llama_kotlin_tpu_torch.ops.cuda.flash_stacked import flash_attention_stacked
 from llama_kotlin_tpu_torch.ops.norms import rms_norm
-from llama_kotlin_tpu_torch.ops.qmatmul import qmatmul, qmm_ffn, take_rows
+from llama_kotlin_tpu_torch.ops.qmatmul import qmatmul, qmm_ffn, qmm_layer, take_rows
 from llama_kotlin_tpu_torch.ops.rope import rope_cos_sin, rotate
 from llama_kotlin_tpu_torch.quant.qtensor import QTensor
 from llama_kotlin_tpu_torch.runtime.kv_cache import (KVCache, dequantize_cache_layer,
@@ -151,6 +151,19 @@ def _ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     else:
         gate, up = qmatmul(x, lp["ffn_gate"]), qmatmul(x, lp["ffn_up"])
     return qmatmul((act(gate) * up).to(COMPUTE_DTYPE), lp["ffn_down"])
+
+
+def _fused_layer_half(lp: dict, h: torch.Tensor, attn: torch.Tensor, cfg: ModelConfig):
+    """The JAX forward's fused layer-half hook (``llama_kotlin_tpu/models/
+    llama.py:255-274``): o projection, residual, ffn_norm and gated FFN in
+    one launch (ops/qmatmul.qmm_layer, kernel 10) where the layer has the
+    fused gate|up; None when it declines, and the caller takes the unfused
+    route.  The port's llama config is always the pre-norm gated RMS one
+    the hook asks for, with none of the extra tensors it excludes."""
+    if "ffn_gateup_fused" not in lp:
+        return None
+    return qmm_layer(attn, h, lp["wo"], lp["ffn_gateup_fused"], lp["ffn_down"], lp["ffn_norm"],
+                     eps=cfg.rms_eps, act=cfg.act, offset=cfg.norm_weight_offset)
 
 
 def _cache_rows(cache: KVCache, k: torch.Tensor, v: torch.Tensor):
@@ -264,6 +277,10 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             attn = flash_attention(q, cache.k, cache.v, mask, layer=li, kv_bits=cache.kv_bits,
                                    **attn_kw)
         attn = attn.to(COMPUTE_DTYPE).reshape(nt, -1)
+        h3 = _fused_layer_half(lp, h, attn, cfg)
+        if h3 is not None:
+            h = h3
+            continue
         h = h + qmatmul(attn, lp["wo"]).to(h.dtype)
         x = rms_norm(h, lp["ffn_norm"], cfg.rms_eps, cfg.norm_weight_offset)
         h = h + _ffn(lp, x, cfg).to(h.dtype)

@@ -176,6 +176,12 @@ def wire_blocks(rng: np.random.Generator, qtype: GGMLQuantType, n: int, k: int) 
       two so 7.5 d is exact in f16; the uniform 4-bit codes then centre on
       7.5 (independent mins give every row a mean, and greedy decoding one
       token whatever the prompt);
+    * Q4_0: (q - 8) d with codes uniform in 1..15 (zero-mean groups; over
+      0..15 every group would have mean -d/2, and 32 such layers steer
+      greedy decoding to one token whatever the prompt) and d in
+      [2^-9, 2^-7];
+    * Q4_1: q d + m with zero-mean groups, m = -7.5 d and d a power of two
+      (2^-9 or 2^-8), so m is exact in f16, as in the Q4_K branch;
     * Q6_K: signed 6-bit-range group scales symmetric about 0;
     * Q8_0: uniform int8 codes under f16 scales;
     * F16 and F32: dense weights, normal with std 0.02."""
@@ -188,6 +194,12 @@ def wire_blocks(rng: np.random.Generator, qtype: GGMLQuantType, n: int, k: int) 
         d = np.where(rng.random(nb) < 0.5, 2.0 ** -14, 2.0 ** -13)
         sc = rng.integers(0, 64, (nb, 8), dtype=np.uint8)
         blocks = [_f16_bytes(d), _f16_bytes(7.5 * d), _pack_scale_min_k4(sc, sc), u8(nb, 128)]
+    elif qtype == GGMLQuantType.Q4_0:
+        q = rng.integers(1, 16, (nb, 2, 16), dtype=np.uint8)
+        blocks = [_f16_bytes(rng.uniform(2.0 ** -9, 2.0 ** -7, nb)), q[:, 0] | (q[:, 1] << 4)]
+    elif qtype == GGMLQuantType.Q4_1:
+        d = np.where(rng.random(nb) < 0.5, 2.0 ** -9, 2.0 ** -8)
+        blocks = [_f16_bytes(d), _f16_bytes(-7.5 * d), u8(nb, 16)]
     elif qtype == GGMLQuantType.Q6_K:
         sc = rng.integers(-31, 32, (nb, 16), dtype=np.int8).view(np.uint8)
         d = rng.uniform(2.0 ** -14, 2.0 ** -13, nb)
@@ -211,25 +223,36 @@ def q4_k_m_layer_types(n_layer: int) -> list[dict]:
             for i in range(n_layer)]
 
 
+# general.file_type of a file whose matrices are all of one type (llama.cpp's
+# llama_ftype); a Q4_K file takes the Q4_K_M mix and its code
+FILE_TYPES = {GGMLQuantType.Q4_0: 2, GGMLQuantType.Q4_1: 3, GGMLQuantType.Q4_K: 15}
+
+
 def synthetic_gguf(path, cfg: ModelConfig, seed: int = 0, layer_types: Optional[list] = None,
-                   embd_type: GGMLQuantType = GGMLQuantType.Q4_K,
-                   output_type: GGMLQuantType = GGMLQuantType.Q6_K) -> int:
-    """Write a llama GGUF of random wire blocks for `cfg`: every matrix Q4_K
-    but those `layer_types` names (default: the Q4_K_M profile, q4_k_m_layer_types),
-    `token_embd` (embd_type) and `output` (output_type: Q6_K, as in Q4_K_M;
-    F16 or F32 make them dense); norms F32 near 1.  Each tensor is drawn
-    from one numpy Generator as the writer streams it, so a full 8B file
-    never sits whole in host memory.  Returns the file's size."""
+                   embd_type: Optional[GGMLQuantType] = None,
+                   output_type: GGMLQuantType = GGMLQuantType.Q6_K,
+                   matrix_type: GGMLQuantType = GGMLQuantType.Q4_K) -> int:
+    """Write a llama GGUF of random wire blocks for `cfg`: every layer matrix
+    of `matrix_type` but those `layer_types` names (default for Q4_K: the
+    Q4_K_M profile, q4_k_m_layer_types; for Q4_0 or Q4_1 none, the
+    LLAMA_FTYPE_MOSTLY_Q4_0/Q4_1 files), `token_embd` (embd_type, default
+    matrix_type) and `output` (output_type: Q6_K, as llama.cpp quantizes
+    it in these files; F16 or F32 make them dense); norms F32 near 1.  Each
+    tensor is drawn from one numpy Generator as the writer streams it, so a
+    full 8B file never sits whole in host memory.  Returns the file's size."""
     from llama_kotlin_tpu_torch.gguf.writer import GGUFWriter
 
     rng = np.random.default_rng(seed)
-    layer_types = q4_k_m_layer_types(cfg.n_layer) if layer_types is None else layer_types
+    if layer_types is None:
+        layer_types = (q4_k_m_layer_types(cfg.n_layer) if matrix_type == GGMLQuantType.Q4_K
+                       else [{}] * cfg.n_layer)
+    embd_type = matrix_type if embd_type is None else embd_type
     E, F, V = cfg.n_embd, cfg.n_ff, cfg.vocab_size
     qd, kvd = cfg.n_head * cfg.head_dim, cfg.n_head_kv * cfg.head_dim
     w = GGUFWriter()
     for key, value in (
             ("general.architecture", "llama"), ("general.name", cfg.name or "synthetic"),
-            ("general.file_type", np.uint32(15)),  # LLAMA_FTYPE_MOSTLY_Q4_K_M
+            ("general.file_type", np.uint32(FILE_TYPES[matrix_type])),
             ("llama.vocab_size", np.uint32(V)),
             ("llama.context_length", np.uint32(cfg.n_ctx_train)),
             ("llama.embedding_length", np.uint32(E)), ("llama.block_count", np.uint32(cfg.n_layer)),
@@ -252,14 +275,14 @@ def synthetic_gguf(path, cfg: ModelConfig, seed: int = 0, layer_types: Optional[
     for i, types in enumerate(layer_types):
         b = f"blk.{i}."
         norm(b + "attn_norm.weight")
-        matrix(b + "attn_q.weight", qd, E, GGMLQuantType.Q4_K)
-        matrix(b + "attn_k.weight", kvd, E, GGMLQuantType.Q4_K)
-        matrix(b + "attn_v.weight", kvd, E, types["attn_v"])
-        matrix(b + "attn_output.weight", E, qd, GGMLQuantType.Q4_K)
+        matrix(b + "attn_q.weight", qd, E, matrix_type)
+        matrix(b + "attn_k.weight", kvd, E, matrix_type)
+        matrix(b + "attn_v.weight", kvd, E, types.get("attn_v", matrix_type))
+        matrix(b + "attn_output.weight", E, qd, matrix_type)
         norm(b + "ffn_norm.weight")
-        matrix(b + "ffn_gate.weight", F, E, GGMLQuantType.Q4_K)
-        matrix(b + "ffn_up.weight", F, E, GGMLQuantType.Q4_K)
-        matrix(b + "ffn_down.weight", E, F, types["ffn_down"])
+        matrix(b + "ffn_gate.weight", F, E, matrix_type)
+        matrix(b + "ffn_up.weight", F, E, matrix_type)
+        matrix(b + "ffn_down.weight", E, F, types.get("ffn_down", matrix_type))
     norm("output_norm.weight")
     matrix("output.weight", V, E, output_type)
     w.write(path)

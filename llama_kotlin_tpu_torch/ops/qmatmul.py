@@ -4,8 +4,14 @@
 
 Routing is by layout and rows:
 
-* W4 fold: at most 32 rows -> kernel 1 (``ops/cuda/qmm_w4.py``), more rows
-  -> kernel 4 (``ops/cuda/qmm.py``);
+* W4 fold: at most 32 rows -> the JAX ``qmm_w4_matmul`` site that
+  ``LKTPU_W4_FX`` selects (read per call, JAX's defaults and comparisons,
+  ``llama_kotlin_tpu/ops/pallas/qmm_w4.py:210-231``): unset or ``"2"`` ->
+  kernel 1 (``ops/cuda/qmm_w4.py``, the fx2 site); ``"1"`` -> kernel 8
+  (``ops/cuda/qmm_w4_fx.py``) on sym and legacy folds; any other value ->
+  the standard ``qmm_w4`` site, kernel 1's function, which kernel 1 serves
+  on sym and legacy folds.  Off the fx2 site JAX declines a compact fold,
+  which then takes kernel 4 (``ops/cuda/qmm.py``), as do more than 32 rows;
 * W4X (precise W4) fold: at most 32 rows -> kernel 7
   (``ops/cuda/qmm_w4x.py``, dual-plane activations), more -> kernel 4;
 * W8 fold: at most 32 rows -> kernel 5 (``ops/cuda/qmm_w8.py``), more rows
@@ -18,13 +24,16 @@ Routing is by layout and rows:
   (``llama_kotlin_tpu/ops/qmatmul.py:433-437``).
 
 ``qmm_ffn`` sends decode rows through kernel 2 when gate|up and down are
-both W4 folds it takes (never precise ones).  Any other weight raises: the
-port has no library stand-in for a kernel.
+both W4 folds it takes (never precise ones).  ``qmm_layer`` runs the whole
+post-attention half of a layer on kernel 10 (``ops/cuda/qmm_w4_layer.py``)
+under ``LKTPU_LAYER_FUSED=1`` when it takes the operands.  Any other weight
+raises: the port has no library stand-in for a kernel.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
@@ -33,6 +42,8 @@ from llama_kotlin_tpu_torch.ops.cuda.qmm import qmm
 from llama_kotlin_tpu_torch.ops.cuda.qmm_int8 import qmm_int8
 from llama_kotlin_tpu_torch.ops.cuda.qmm_w4 import MAX_ROWS, qmm_w4_matmul
 from llama_kotlin_tpu_torch.ops.cuda.qmm_w4_ffn import ffn_eligible, qmm_w4_ffn_matmul
+from llama_kotlin_tpu_torch.ops.cuda.qmm_w4_fx import qmm_w4_fx_matmul
+from llama_kotlin_tpu_torch.ops.cuda.qmm_w4_layer import fused_layer, layer_eligible
 from llama_kotlin_tpu_torch.ops.cuda.qmm_w4x import qmm_w4x_matmul
 from llama_kotlin_tpu_torch.ops.cuda.qmm_w8 import qmm_w8_matmul
 from llama_kotlin_tpu_torch.quant.fold import is_q8f, is_w4, is_w4x, is_w8, is_w8x
@@ -65,7 +76,7 @@ def qmatmul(x: torch.Tensor, w: QTensor | torch.Tensor) -> torch.Tensor:
     if isinstance(w, torch.Tensor):
         return dense_matmul(x, w)
     if is_w4(w):
-        return qmm_w4_matmul(x, w) if _rows(x) <= MAX_ROWS else qmm(x, w)
+        return _w4_decode(x, w) if _rows(x) <= MAX_ROWS else qmm(x, w)
     if is_w4x(w):
         return qmm_w4x_matmul(x, w) if _rows(x) <= MAX_ROWS else qmm(x, w)
     if is_w8(w) or is_w8x(w):
@@ -74,6 +85,18 @@ def qmatmul(x: torch.Tensor, w: QTensor | torch.Tensor) -> torch.Tensor:
         return qmm_int8(x, w)
     raise TypeError(f"no kernel serves this weight ({type(w).__name__}, "
                     f"layout {getattr(w, 'flavor', None)!r})")
+
+
+def _w4_decode(x: torch.Tensor, w: QTensor) -> torch.Tensor:
+    """Decode rows of a W4 fold, at the site LKTPU_W4_FX selects."""
+    fx = os.environ.get("LKTPU_W4_FX", "2")
+    if fx == "2":
+        return qmm_w4_matmul(x, w)  # the fx2 site: every W4 flavor
+    if w.flavor == "compact":
+        return qmm(x, w)  # JAX's fx and standard sites decline a compact fold
+    if fx == "1":
+        return qmm_w4_fx_matmul(x, w)
+    return qmm_w4_matmul(x, w)
 
 
 def qmm_ffn(x: torch.Tensor, gu: QTensor, dn: QTensor,
@@ -85,6 +108,19 @@ def qmm_ffn(x: torch.Tensor, gu: QTensor, dn: QTensor,
     if _rows(x) > MAX_ROWS or not ffn_eligible(gu, dn, act):
         return None
     return qmm_w4_ffn_matmul(x, gu, dn, act=act)
+
+
+def qmm_layer(attn: torch.Tensor, h: torch.Tensor, wo, gu, dn, norm_w: torch.Tensor, *,
+              eps: float, act: str = "silu", offset: float = 0.0) -> Optional[torch.Tensor]:
+    """The post-attention half of a layer, h3 = h2 + FFN(rms_norm(h2)) with
+    h2 = h + attn @ Wo^T, on kernel 10 when LKTPU_LAYER_FUSED is "1" (read
+    per call; off by default, as in JAX) and the kernel takes the operands;
+    else None, and the caller runs o, the norm and the FFN apart."""
+    if os.environ.get("LKTPU_LAYER_FUSED", "0") != "1":
+        return None
+    if not layer_eligible(attn, h, wo, gu, dn, act):
+        return None
+    return fused_layer(attn, h, wo, gu, dn, norm_w, eps=eps, act=act, offset=offset)
 
 
 def take_rows(w: QTensor | torch.Tensor, ids: torch.Tensor,

@@ -7,9 +7,10 @@ whole 8B file repacks in seconds, on the CPU the tests' files do.  The bit
 logic and the f32 operation order are the JAX package's, so both give the
 same codes and scales bit for bit.
 
-Ported formats: F32, F16, BF16 (float decode), Q8_0, Q4_K and Q6_K.  The
-other wire formats raise NotImplementedError until their item of
-ROADMAP.md (section 1, item 6).
+Ported formats: F32, F16, BF16 (float decode), Q4_0, Q4_1, Q8_0, Q4_K and
+Q6_K.  The other wire formats (Q5_0, Q5_1, Q2_K, Q3_K, Q5_K, Q8_K and the
+IQ family) raise NotImplementedError until their item of ROADMAP.md
+(section 1, item 6).
 """
 
 from __future__ import annotations
@@ -20,8 +21,8 @@ import torch.nn.functional as F
 from llama_kotlin_tpu_torch.quant.formats import QK_K, TYPE_TRAITS, GGMLQuantType
 from llama_kotlin_tpu_torch.quant.qtensor import SPAN, QTensor, dequantize
 
-NOT_PORTED = ("not ported yet (the wire formats beyond Q8_0/Q4_K/Q6_K come with "
-              "ROADMAP.md section 1, item 6)")
+NOT_PORTED = ("not ported yet (Q5_0, Q5_1, Q2_K, Q3_K, Q5_K, Q8_K and the IQ formats "
+              "come with ROADMAP.md section 1, item 6)")
 
 
 def _wire_blocks(data: torch.Tensor, qtype: GGMLQuantType, n: int, k: int) -> torch.Tensor:
@@ -59,14 +60,14 @@ def _pack4(codes: torch.Tensor) -> torch.Tensor:
 
 
 def _make(qtype, codes, bits, group_size, n, k, g_scale, g_min=None,
-          sb_scale=None, sb_min=None) -> QTensor:
+          sb_scale=None, sb_min=None, code_offset: int = 0) -> QTensor:
     k_pad = _k_pad_of(k)
     packed = _pack4(_pad_k(codes, k_pad)) if bits == 4 else _pad_k(codes, k_pad)
     pad = lambda a, g: None if a is None else _pad_k(a, k_pad // g)
     return QTensor(codes=packed.contiguous(), g_scale=pad(g_scale, group_size),
                    g_min=pad(g_min, group_size), sb_scale=pad(sb_scale, SPAN),
                    sb_min=pad(sb_min, SPAN), qtype=qtype, bits=bits,
-                   group_size=group_size, code_offset=0, shape=(n, k))
+                   group_size=group_size, code_offset=code_offset, shape=(n, k))
 
 
 def unpack_scale_min_k4(s: torch.Tensor):
@@ -75,6 +76,29 @@ def unpack_scale_min_k4(s: torch.Tensor):
     sc = torch.cat([s[..., 0:4] & 63, (s[..., 8:12] & 0x0F) | ((s[..., 0:4] >> 6) << 4)], -1)
     mn = torch.cat([s[..., 4:8] & 63, (s[..., 8:12] >> 4) | ((s[..., 4:8] >> 6) << 4)], -1)
     return sc, mn
+
+
+def _q4_codes(qs: torch.Tensor, n: int, k: int) -> torch.Tensor:
+    """16 bytes of a legacy 4-bit block [n, blocks, 16] -> its 32 codes in
+    element order: the low nibbles are elements 0..15, the high 16..31."""
+    return torch.cat([qs & 0x0F, qs >> 4], dim=-1).reshape(n, k)
+
+
+def repack_q4_0(data, n: int, k: int) -> QTensor:
+    """Q4_0: value = (q - 8) * d, d f16 per 32."""
+    b = _wire_blocks(data, GGMLQuantType.Q4_0, n, k)
+    d = _f16(b[:, :, 0:2])  # [n, k/32]
+    return _make(GGMLQuantType.Q4_0, _q4_codes(b[:, :, 2:18], n, k), 4, 32, n, k, g_scale=d,
+                 code_offset=8)
+
+
+def repack_q4_1(data, n: int, k: int) -> QTensor:
+    """Q4_1: value = q * d + m, stored as q * d - (-m)."""
+    b = _wire_blocks(data, GGMLQuantType.Q4_1, n, k)
+    d = _f16(b[:, :, 0:2])
+    m = _f16(b[:, :, 2:4])
+    return _make(GGMLQuantType.Q4_1, _q4_codes(b[:, :, 4:20], n, k), 4, 32, n, k, g_scale=d,
+                 g_min=-m)
 
 
 def repack_q8_0(data, n: int, k: int) -> QTensor:
@@ -116,6 +140,8 @@ def repack_q6_k(data, n: int, k: int) -> QTensor:
 
 
 REPACKERS = {
+    GGMLQuantType.Q4_0: repack_q4_0,
+    GGMLQuantType.Q4_1: repack_q4_1,
     GGMLQuantType.Q8_0: repack_q8_0,
     GGMLQuantType.Q4_K: repack_q4_k,
     GGMLQuantType.Q6_K: repack_q6_k,

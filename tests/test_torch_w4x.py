@@ -61,8 +61,8 @@ def _x(b: int, k: int, seed: int) -> np.ndarray:
 
 def _port_source(rp) -> QTensor:
     """A JAX repack (4-bit codes, float group scales, no superblock planes:
-    Q4_0) as the port's repacked QTensor; the port repacks Q4_K, Q6_K and
-    Q8_0 wire blocks itself, not Q4_0."""
+    Q4_0) as the port's repacked QTensor; the JAX side quantizes float
+    weights to Q4_0 here, which the port has no quantizer for."""
     assert rp.sb_scale is None and rp.g_min is None
     return QTensor(codes=torch.from_numpy(np.array(rp.codes)),
                    g_scale=torch.from_numpy(np.asarray(rp.g_scale, np.float32).copy()),
