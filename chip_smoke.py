@@ -19,9 +19,9 @@ Phases (any failure exits non-zero and prints no result line):
                from a seed) serves 3 requests through LlamaContext: prefill
                64 tokens, then 32 greedy tokens; on the unrolled path with
                a bf16 cache, then stacked with a bf16 and a q8_0 cache and
-               unrolled with a q8_0 cache; every kernel of each path must
-               launch (kernel 9 once a layer and step, kernel 3 never, on
-               the stacked path);
+               unrolled with a q8_0 cache (these at the model's first 16
+               layers); every kernel of each path must launch (kernel 9
+               once a layer and step, kernel 3 never, on the stacked path);
   5. gguf    — a full-width 32-layer llama3-8B GGUF file with the Q4_K_M
                type mix (random wire blocks from a seed) is written to a
                temporary directory, loaded with load_gguf_model in the w4
@@ -57,11 +57,18 @@ knobs(), which restores the environment), add to 3 kernel 8 on sym and
 legacy W4 folds at the four decode projections (b = 1 and 32, beside
 kernel 1 on the same inputs) and kernel 10 on compact, sym and legacy folds
 (b = 1 and 8, beside the unfused route it replaces); to 4 the W4A8 model
-with LKTPU_LAYER_FUSED=1, stacked and unrolled (kernel 10: n_layer
-launches a decode step, none at the prefill); to 5 a full-width 32-layer
-Q4_0 file (sym folds, Q6_K output) by default, with LKTPU_W4_FX=1 and with
+(its first 16 layers) with LKTPU_LAYER_FUSED=1, stacked and unrolled
+(kernel 10: n_layer launches a decode step, none at the prefill); to 5 a
+full-width 16-layer Q4_0 file (sym folds, Q6_K output) by default, with LKTPU_W4_FX=1 and with
 both knobs; to 6 the fused W4A8 model and 2-layer Q4_0 and Q4_1 files under
 each knob against the CPU.
+
+Kernel 4's split-K GEMM and kernel 7's tensor-core path add to 3 kernel 4
+at 64 and 512 rows (both branches, timed), at 17, 33, 100 and 1024 rows
+(the other row tiles) and kernel 7 at 9, 16 and 32 rows, each checked for
+two bit-equal launches; to 4 a 32-token W4X prompt (kernel 7
+takes every prefill projection, kernel 4 none); and a torch.profiler trace
+of one prefill beside each decode trace.
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -87,6 +94,10 @@ PEAK_OPS_S = {"int8": 1979e12, "bf16": 989e12}
 REPS = 20
 FLUSH_BYTES = 256 << 20  # > the 50 MB L2: decode streams cold weights
 SPIN_CYCLES = 10_000_000  # ~5 ms of device spin ahead of each timed call
+# depth of the paths earlier slices added (the quantized caches, the fused
+# layer half, the Q4_0 file): cut from 32 layers to keep the whole script
+# near half its time limit; the main path and the W4X model keep 32
+EARLIER_LAYERS = 16
 
 
 def log(msg: str) -> None:
@@ -153,6 +164,17 @@ def check_row(results, kernel, shape, got, ref, tol) -> None:
     if not err["rel"] <= tol:
         raise AssertionError(f"{kernel} {shape}: rel err {err['rel']} > {tol}")
     results.setdefault(kernel, []).append(row)
+
+
+def repeats(torch, kernel, shape, first, fn) -> None:
+    """A second launch on the same inputs gives the first output bit for
+    bit (split partials are summed in a fixed order, no float atomics)."""
+    again = fn()
+    same = torch.equal(first, again)
+    log(json.dumps({"phase": "determinism", "kernel": kernel, "shape": shape,
+                    "bit_equal": same}))
+    if not same:
+        raise AssertionError(f"{kernel} {shape}: two launches differ")
 
 
 def codes_equal(torch, x, planes: int = 1) -> None:
@@ -363,19 +385,27 @@ def kernel_phase(torch, results: dict) -> None:
                2 * nt * H * D * 2 + 2 * KV * vis_cells * D * 2 + nt * n_vis,
                4 * D * n_pairs, "bf16", time_ms(torch, lib, flush))
 
-    # kernel 4: prefill dequant matmul at 64 rows — qkv, gate|up, down, o.
-    # tol: identical bf16 operands, f32 accumulation order only
-    for name in ("qkv", "gate_up", "down", "o"):
-        wt = w[name]
-        n, k = wt.shape
-        xb = (torch.randn((64, k), generator=gen, device=dev) * 0.7).to(torch.bfloat16)
-        got = qmm.qmm(xb, wt)
-        ref = qmm.qmm_plain(xb, wt)
-        report("qmm", f"{name} n={n} k={k} m=64", err_of(got, ref), 1e-3,
-               time_ms(torch, lambda: qmm.qmm(xb, wt), flush),
-               time_ms(torch, lambda: qmm.qmm_plain(xb, wt), flush),
-               64 * k * 2 + nbytes(wt) + 64 * n * 4, 2 * 64 * n * k,
-               "bf16", matmul_ms(torch, xb, wt, flush))
+    # kernel 4: prefill dequant matmul — qkv, gate|up, down, o at 64 and 512
+    # rows (timed), 33 and 100 (ragged row tiles) and 17 (the 32-row tile,
+    # as LKTPU_W4_FX sends a compact fold's decode rows); two launches
+    # bit-equal.  tol: identical bf16 operands, f32 accumulation order only
+    for m in (64, 512, 33, 100, 17):
+        for name in ("qkv", "gate_up", "down", "o"):
+            wt = w[name]
+            n, k = wt.shape
+            xb = (torch.randn((m, k), generator=gen, device=dev) * 0.7).to(torch.bfloat16)
+            got = qmm.qmm(xb, wt)
+            ref = qmm.qmm_plain(xb, wt)
+            shape = f"{name} n={n} k={k} m={m}"
+            repeats(torch, "qmm", shape, got, lambda: qmm.qmm(xb, wt))
+            if m not in (64, 512):
+                check("qmm", shape, got, ref, 1e-3)
+                continue
+            report("qmm", shape, err_of(got, ref), 1e-3,
+                   time_ms(torch, lambda: qmm.qmm(xb, wt), flush),
+                   time_ms(torch, lambda: qmm.qmm_plain(xb, wt), flush),
+                   m * k * 2 + nbytes(wt) + m * n * 4, 2 * m * n * k,
+                   "bf16", matmul_ms(torch, xb, wt, flush))
     del w, flush
     torch.cuda.empty_cache()
 
@@ -440,18 +470,28 @@ def w8_kernel_phase(torch, results: dict) -> None:
                b * k * 4 + nbytes(wt) + b * n * 4, 2 * b * n * k, "int8",
                matmul_ms(torch, x, wt, flush))
 
-    # kernel 4's 8-bit branch: prefill rows over the W8 fold, m = 64.
+    # kernel 4's 8-bit branch: prefill rows over the W8 fold, m = 64 and
+    # 512; two launches bit-equal.
     # tol: identical bf16 operands (w = code * s_eff), f32 accumulation order
-    for name in ("down", "attn_v"):
-        wt = w[name]
-        n, k = wt.shape
-        xb = (torch.randn((64, k), generator=gen, device=dev) * 0.7).to(torch.bfloat16)
-        report("qmm", f"8-bit {name} n={n} k={k} m=64 group=16",
-               err_of(qmm.qmm(xb, wt), qmm.qmm_plain(xb, wt)), 1e-3,
-               time_ms(torch, lambda: qmm.qmm(xb, wt), flush),
-               time_ms(torch, lambda: qmm.qmm_plain(xb, wt), flush),
-               64 * k * 2 + nbytes(wt) + 64 * n * 4, 2 * 64 * n * k, "bf16",
-               matmul_ms(torch, xb, wt, flush))
+    for m in (64, 512):
+        for name in ("down", "attn_v"):
+            wt = w[name]
+            n, k = wt.shape
+            xb = (torch.randn((m, k), generator=gen, device=dev) * 0.7).to(torch.bfloat16)
+            got = qmm.qmm(xb, wt)
+            shape = f"8-bit {name} n={n} k={k} m={m} group=16"
+            repeats(torch, "qmm", shape, got, lambda: qmm.qmm(xb, wt))
+            report("qmm", shape, err_of(got, qmm.qmm_plain(xb, wt)), 1e-3,
+                   time_ms(torch, lambda: qmm.qmm(xb, wt), flush),
+                   time_ms(torch, lambda: qmm.qmm_plain(xb, wt), flush),
+                   m * k * 2 + nbytes(wt) + m * n * 4, 2 * m * n * k, "bf16",
+                   matmul_ms(torch, xb, wt, flush))
+    # the 128-row tile of the 8-bit branch (a 1024-row prompt)
+    xb = (torch.randn((1024, F), generator=gen, device=dev) * 0.7).to(torch.bfloat16)
+    got = qmm.qmm(xb, w["down"])
+    repeats(torch, "qmm", "8-bit down m=1024", got, lambda: qmm.qmm(xb, w["down"]))
+    check("qmm", "8-bit down m=1024", got, qmm.qmm_plain(xb, w["down"]), 1e-3)
+    del xb, got
     del w
 
     # kernel 5 at every batch-row bucket on a q8_0-sourced fold (group 32),
@@ -463,9 +503,12 @@ def w8_kernel_phase(torch, results: dict) -> None:
             x = torch.randn((b, E), generator=gen, device=dev) * 0.7
             check("qmm_w8", f"{src} group={wt.group_size} n={E} b={b}",
                   qmm_w8.qmm_w8_matmul(x, wt), qmm_w8.qmm_w8_plain(x, wt), 1e-4)
-        xb = (torch.randn((100, E), generator=gen, device=dev) * 0.7).to(torch.bfloat16)
-        check("qmm", f"8-bit {src} group={wt.group_size} m=100", qmm.qmm(xb, wt),
-              qmm.qmm_plain(xb, wt), 1e-3)
+        for m in (8, 33, 100):
+            xb = (torch.randn((m, E), generator=gen, device=dev) * 0.7).to(torch.bfloat16)
+            got = qmm.qmm(xb, wt)
+            shape = f"8-bit {src} group={wt.group_size} m={m}"
+            repeats(torch, "qmm", shape, got, lambda: qmm.qmm(xb, wt))
+            check("qmm", shape, got, qmm.qmm_plain(xb, wt), 1e-3)
     del extra
 
     # kernel 6: the Q8F matmul — qkv, gate|up, down, lm_head at b = 1 and
@@ -534,33 +577,43 @@ def w4x_kernel_phase(torch, results: dict) -> None:
     codes_equal(torch, x, planes=2)
     log(json.dumps({"phase": "quantize_q8_2p", "rows": 6, "k": E, "bit_equal_to_cpu": True}))
 
-    # kernel 7 at the decode projections, b = 1, and gate|up at b = 8, 32.
+    # kernel 7 at the decode projections, b = 1; gate|up at b = 8, 9, 16, 32
+    # and down at b = 9, 16, 32 (above the threshold: the tensor-core GEMM;
+    # two launches bit-equal).
     # tol: exact integer partials of both planes on both sides; the f32
     # order of the scale products and of the group and plane sums differs
     w = {name: synthetic_w4_device(gen, n, k, zero_mean=False, precise=True, device=dev)
          for name, (n, k) in {"qkv": (6144, E), "o": (E, E), "gate_up": (2 * F, E),
                               "down": (E, F), "lm_head": (V, E)}.items()}
     for name, b in (("qkv", 1), ("o", 1), ("gate_up", 1), ("down", 1), ("lm_head", 1),
-                    ("gate_up", 8), ("gate_up", 32)):
+                    ("gate_up", 8), ("gate_up", 32), ("gate_up", 9), ("gate_up", 16),
+                    ("down", 9), ("down", 16), ("down", 32)):
         wt = w[name]
         n, k = wt.shape
         x = torch.randn((b, k), generator=gen, device=dev) * 0.7
         codes_equal(torch, x, planes=2)
-        report("qmm_w4x", f"{name} n={n} k={k} b={b}",
-               err_of(qmm_w4x.qmm_w4x_matmul(x, wt), qmm_w4x.qmm_w4x_plain(x, wt)), 1e-4,
+        got = qmm_w4x.qmm_w4x_matmul(x, wt)
+        shape = f"{name} n={n} k={k} b={b}"
+        if qmm_w4x.use_mma(b):
+            repeats(torch, "qmm_w4x", shape, got, lambda: qmm_w4x.qmm_w4x_matmul(x, wt))
+        report("qmm_w4x", shape, err_of(got, qmm_w4x.qmm_w4x_plain(x, wt)), 1e-4,
                time_ms(torch, lambda: qmm_w4x.qmm_w4x_matmul(x, wt), flush),
                time_ms(torch, lambda: qmm_w4x.qmm_w4x_plain(x, wt), flush),
                b * k * 4 + nbytes(wt) + b * n * 4, 2 * 2 * b * n * k, "int8",
                matmul_ms(torch, x, wt, flush))
     del w
-    # kernel 7 on legacy and sym precise folds at every batch-row bucket
+    # kernel 7 on legacy and sym precise folds at every batch-row bucket,
+    # both designs (rows up to the threshold walk, more rows the GEMM)
     for flavor, kw in (("w4x", {}), ("w4x_sym", dict(sym=True))):
         wt = synthetic_w4(rng, E, E, precise=True, device=dev, **kw)
         assert wt.flavor == flavor
-        for b in (1, 2, 3, 5, 9, 17, 32):
+        for b in (1, 2, 3, 5, 8, 9, 12, 16, 17, 24, 32):
             x = torch.randn((b, E), generator=gen, device=dev) * 0.7
-            check("qmm_w4x", f"{flavor} o b={b}", qmm_w4x.qmm_w4x_matmul(x, wt),
-                  qmm_w4x.qmm_w4x_plain(x, wt), 1e-4)
+            got = qmm_w4x.qmm_w4x_matmul(x, wt)
+            if qmm_w4x.use_mma(b):
+                repeats(torch, "qmm_w4x", f"{flavor} o b={b}", got,
+                        lambda: qmm_w4x.qmm_w4x_matmul(x, wt))
+            check("qmm_w4x", f"{flavor} o b={b}", got, qmm_w4x.qmm_w4x_plain(x, wt), 1e-4)
 
     # fidelity: one Q4_K tensor folded to compact W4 and to W4X (the same
     # exact weights); kernel 7's error against the float64 product must be
@@ -946,9 +999,11 @@ def serving_phase(torch, n_layer: int = 32) -> dict:
     profile_decode(torch, ctx, cfg, "serving")
     del ctx
     by_path = {"serving": counts}
-    by_path.update(kv_serving(torch, cfg, params, "serving", (qmm_w4, qmm_w4_ffn, qmm)))
-    by_path.update(fused_serving(torch, cfg, params))
-    del params
+    cut = preset_config("llama3-8b", n_layer=min(n_layer, EARLIER_LAYERS))
+    first = dict(params, layers=params["layers"][:cut.n_layer])  # the same tensors
+    by_path.update(kv_serving(torch, cut, first, "serving", (qmm_w4, qmm_w4_ffn, qmm)))
+    by_path.update(fused_serving(torch, cut, first))
+    del params, first
     torch.cuda.empty_cache()
     return by_path
 
@@ -985,7 +1040,7 @@ def fused_serving(torch, cfg, params) -> dict:
 
 
 def q4_0_gguf_phase(torch, tmpdir: Path) -> dict:
-    """A full-width 32-layer llama3-8B Q4_0 file (every layer matrix and
+    """A full-width 16-layer llama3-8B Q4_0 file (every layer matrix and
     token_embd Q4_0, output Q6_K; random wire blocks, seed 9) in the w4
     mode on the default (stacked) context, bf16 cache, 3 requests each:
     by default (kernel 1 on the sym folds' qkv and o, kernel 2 the FFN);
@@ -1001,7 +1056,7 @@ def q4_0_gguf_phase(torch, tmpdir: Path) -> dict:
 
     path = tmpdir / "llama3-8b-q4_0.gguf"
     t0 = time.perf_counter()
-    size = synthetic_gguf(path, preset_config("llama3-8b"), seed=9,
+    size = synthetic_gguf(path, preset_config("llama3-8b", n_layer=EARLIER_LAYERS), seed=9,
                           matrix_type=GGMLQuantType.Q4_0)
     log(json.dumps({"phase": "gguf_q4_0", "file_bytes": size,
                     "write_s": time.perf_counter() - t0}))
@@ -1052,7 +1107,9 @@ def w4x_serving_phase(torch, n_layer: int = 32) -> dict:
     stacks it, with a bf16 cache.  Kernel 7 takes every decode projection
     (4 a layer and the lm_head: 4 n_layer + 1 launches per decode token)
     and the prefill's lm_head row, kernel 4 the prefill's projections,
-    kernel 9 the attention; kernels 1, 2 and 3 never launch."""
+    kernel 9 the attention; kernels 1, 2 and 3 never launch.  Then 3
+    requests of a 32-token prompt: kernel 7 takes the prefill's
+    projections as well, and kernel 4 never launches."""
     from llama_kotlin_tpu_torch.models.synthetic import preset_config, synthetic_params_device
     from llama_kotlin_tpu_torch.ops.cuda import (flash, flash_stacked, qmm, qmm_w4, qmm_w4_ffn,
                                                  qmm_w4x)
@@ -1076,9 +1133,18 @@ def w4x_serving_phase(torch, n_layer: int = 32) -> dict:
     if counts != want:
         raise AssertionError(f"serving_w4x: launches {counts}, expected {want}")
     profile_decode(torch, ctx, cfg, "serving_w4x")
+    del ctx
+    # a 32-token prompt: kernel 7 takes every prefill projection too (its
+    # tensor-core GEMM above the row threshold) and kernel 4 never launches
+    counts32, ctx = serve(torch, cfg, params, (qmm_w4x, flash_stacked), "serving_w4x_32",
+                          n_prompt=32, never=(qmm, qmm_w4, qmm_w4_ffn, flash))
+    want32 = {"qmm_w4x": 3 * 32 * (4 * n_layer + 1), "flash_stacked": 3 * 32 * n_layer}
+    if counts32 != want32:
+        raise AssertionError(f"serving_w4x_32: launches {counts32}, expected {want32}")
+    profile_decode(torch, ctx, cfg, "serving_w4x_32", n_prompt=32)
     del ctx, params
     torch.cuda.empty_cache()
-    return {"serving_w4x": counts}
+    return {"serving_w4x": counts, "serving_w4x_32": counts32}
 
 
 def kv_serving(torch, cfg, params, label: str, mods) -> dict:
@@ -1244,35 +1310,10 @@ def gguf_phase(torch, tmpdir: Path) -> dict:
     return counts
 
 
-def profile_decode(torch, ctx, cfg, label: str, n_steps: int = 8) -> None:
-    """Where a decode step's time goes: a torch.profiler trace of n_steps
-    greedy steps after a 64-token prefill.  Device busy time is the sum of
-    the kernels' device times (one stream, so they do not overlap); the
-    idle share is the rest of the wall time."""
-    import numpy as np
-    from torch.profiler import ProfilerActivity, profile
-
-    from llama_kotlin_tpu_torch.runtime.batch import Batch
-    from llama_kotlin_tpu_torch.runtime.generate import generate_loop
-
-    ctx.clear()
-    prompt = np.random.default_rng(9).integers(0, cfg.vocab_size, 64).astype(np.int32)
-    assert ctx.decode(Batch.single(prompt)) == 0
-    first = torch.argmax(ctx.logits_device()[:1], dim=-1).to(torch.int32)
-    slots = ctx.meta.find_slots(n_steps)
-    ctx.meta.commit(slots, np.arange(64, 64 + n_steps, dtype=np.int32),
-                    np.zeros(n_steps, np.int32))
-    cell_pos, cell_seq = ctx.meta.device_view(ctx.n_cells, "cuda")
-    args = (torch.tensor([64], dtype=torch.int32, device="cuda"),
-            torch.zeros(1, dtype=torch.int32, device="cuda"),
-            torch.from_numpy(slots.reshape(-1, 1)).to("cuda"), n_steps)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        generate_loop(ctx.params, cfg, ctx.cache, cell_pos, cell_seq, first, *args)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []  # device-side events only (operator rows repeat their kernels)
+def device_rows(prof) -> list:
+    """(device ms, calls, name) of each kernel in a torch.profiler trace
+    (device-side events only: operator rows repeat their kernels)."""
+    rows = []
     for ev in prof.key_averages():
         if "CUDA" not in str(getattr(ev, "device_type", "")):
             continue
@@ -1281,8 +1322,52 @@ def profile_decode(torch, ctx, cfg, label: str, n_steps: int = 8) -> None:
             dev_us = getattr(ev, "self_cuda_time_total", 0)
         if dev_us > 0:
             rows.append((dev_us / 1e3, ev.count, ev.key))
+    return sorted(rows, reverse=True)
+
+
+def profile_decode(torch, ctx, cfg, label: str, n_steps: int = 8, n_prompt: int = 64) -> None:
+    """Where the time goes: torch.profiler traces of an n_prompt-token
+    prefill and of n_steps greedy steps after it.  Device busy time is the
+    sum of the kernels' device times (one stream, so they do not overlap);
+    the idle share is the rest of the wall time."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from llama_kotlin_tpu_torch.runtime.batch import Batch
+    from llama_kotlin_tpu_torch.runtime.generate import generate_loop
+
+    ctx.clear()
+    prompt = np.random.default_rng(9).integers(0, cfg.vocab_size, n_prompt).astype(np.int32)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        assert ctx.decode(Batch.single(prompt)) == 0
+        first = torch.argmax(ctx.logits_device()[:1], dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = device_rows(prof)
     busy = sum(r[0] for r in rows)
-    rows.sort(reverse=True)
+    log(json.dumps({
+        "phase": "profile_prefill", "path": label, "prompt_tokens": n_prompt,
+        "wall_ms": wall_ms, "device_busy_ms": busy if rows else "not measured",
+        "device_idle_share": 1.0 - busy / wall_ms if rows else "not measured",
+        "device_launches": sum(r[1] for r in rows),
+        "top": [{"kernel": k[:60], "ms": t, "calls": c} for t, c, k in rows[:8]]}))
+    slots = ctx.meta.find_slots(n_steps)
+    ctx.meta.commit(slots, np.arange(n_prompt, n_prompt + n_steps, dtype=np.int32),
+                    np.zeros(n_steps, np.int32))
+    cell_pos, cell_seq = ctx.meta.device_view(ctx.n_cells, "cuda")
+    args = (torch.tensor([n_prompt], dtype=torch.int32, device="cuda"),
+            torch.zeros(1, dtype=torch.int32, device="cuda"),
+            torch.from_numpy(slots.reshape(-1, 1)).to("cuda"), n_steps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        generate_loop(ctx.params, cfg, ctx.cache, cell_pos, cell_seq, first, *args)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = device_rows(prof)
+    busy = sum(r[0] for r in rows)
     log(json.dumps({
         "phase": "profile", "path": label, "decode_steps": n_steps,
         "wall_ms_per_step": wall_ms / n_steps,
@@ -1571,12 +1656,14 @@ def main() -> int:
                        0, {}),
         "flash": ("csrc/flash.cu", "llama_kotlin_tpu/ops/pallas/flash.py:160", 0,
                   {"int8": 3, "int4": 4}),
-        "qmm": ("csrc/qmm.cu", "llama_kotlin_tpu/ops/pallas/qmm.py:192", 1, {}),
+        "qmm": ("csrc/qmm.cu", "llama_kotlin_tpu/ops/pallas/qmm.py:192", 1,
+                {"m512": 5, "w8": 8}),
         "qmm_w8": ("csrc/qmm_w8.cu", "llama_kotlin_tpu/ops/pallas/qmm_w8.py:144", 0, {}),
         "qmm_int8": ("csrc/qmm_int8.cu", "llama_kotlin_tpu/ops/pallas/qmm_int8.py:41", 2, {}),
         "flash_stacked": ("csrc/flash_stacked.cu",
                           "llama_kotlin_tpu/ops/pallas/flash_stacked.py:94", 0, {"int8": 1}),
-        "qmm_w4x": ("csrc/qmm_w4x.cu", "llama_kotlin_tpu/ops/pallas/qmm_w4.py:691", 0, {}),
+        "qmm_w4x": ("csrc/qmm_w4x.cu", "llama_kotlin_tpu/ops/pallas/qmm_w4.py:691", 0,
+                    {"b32": 6}),
         "qmm_w8_precise": ("csrc/qmm_w8.cu", "llama_kotlin_tpu/ops/pallas/qmm_w8.py:144", 0,
                            {}),
         "qmm_w4_fx": ("csrc/qmm_w4_fx.cu", "llama_kotlin_tpu/ops/pallas/qmm_w4.py:551", 0, {}),

@@ -1,5 +1,8 @@
 // Kernel 7: the W4X matmul for decode rows (B <= 32), y[B, n] = x @ W^T
-// over a precise W4 fold with dual-plane int8 activations.
+// over a precise W4 fold with dual-plane int8 activations.  Two designs
+// compute it, chosen by the wrapper's row threshold T
+// (ops/cuda/qmm_w4x.py::MMA_MIN_ROWS, 1 on the H100): the warp-per-row
+// walk below for one row, and int8 tensor cores (w4_mma.cuh) above it.
 //
 // Replaces llama_kotlin_tpu/ops/pallas/qmm_w4.py::qmm_w4 as the W4X
 // dispatch reaches it (entry qmm_w4_matmul, precise branch): the Pallas
@@ -24,38 +27,49 @@
 // nibbles sit unpacked in registers, and accumulated into the same
 // registers: every weight byte is read once for both planes, and no
 // [2B, n] intermediate is written.
+//
+// The walk re-reads 2 x 16 bytes of activations for each of the 2B
+// (row, plane) pairs against every 16-byte code load, so past a few rows
+// it is bound by activation traffic and __dp4a issue, not by the weight
+// stream (gate|up at B = 32: 42x its bound).  Above T the 2B plane rows
+// are the A operand of mma.sync m16n8k32 s8 (one 32-group a product, exact
+// int32 partials) staged once a span in shared memory for the block's 8
+// warps, the weight codes the B operand, unpacked to int8 in registers;
+// split K fills the card at n = 4096 and 6144.  T is the crossover
+// measured on the card (PERF.md, kernel 7 rows).
 #include "w4_dot.cuh"
+#include "w4_mma.cuh"
 
-template <int NB>
+// The walk takes one row (the wrapper sends more to the tensor cores).
 __global__ void __launch_bounds__(256)
 w4x_gemv_kernel(const int8_t* __restrict__ x8, const float* __restrict__ sx,
-                const int* __restrict__ xsum, int B, const uint8_t* __restrict__ codes,
+                const int* __restrict__ xsum, const uint8_t* __restrict__ codes,
                 const float* __restrict__ gs, const float* __restrict__ gm, int n, int kc,
                 float* __restrict__ y) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
   if (row >= n) return;
-  float acc[NB];
-#pragma unroll
-  for (int b = 0; b < NB; ++b) acc[b] = 0.f;
-  w4_row_partial<NB, false, 2>(acc, x8, sx, xsum, B, codes, nullptr, nullptr, gs, gm, row, kc,
-                               lane);
-#pragma unroll
-  for (int b = 0; b < NB; ++b) {
-    const float v = warp_sum(acc[b]);
-    if (lane == 0 && b < B) y[(size_t)b * n + row] = v;
-  }
+  float acc[1] = {0.f};
+  w4_row_partial<1, false, 2>(acc, x8, sx, xsum, 1, codes, nullptr, nullptr, gs, gm, row, kc,
+                              lane);
+  const float v = warp_sum(acc[0]);
+  if (lane == 0) y[row] = v;
 }
 
 // x8 [2B, 2kc] int8, sx [2B, kc/128] f32, xsum [2B, kc/16] int32 (plane 1
 // in rows 0..B-1, plane 2 in rows B..2B-1); codes [n, kc] u8; gs, gm
-// [n, kc/16] f32; y [B, n] f32.  kc % 512 == 0.
+// [n, kc/16] f32; y [B, n] f32.  kc % 512 == 0.  splits == 0 runs the
+// walk (B == 1 only); splits >= 1 the tensor-core GEMM with K split in
+// that many span ranges (ops/cuda/qmm.py::plan), with ws [splits, B, n]
+// f32 and cnt (one zeroed int a 128-column tile) when splits > 1.
 LK_API int lk_w4x_gemv(const int8_t* x8, const float* sx, const int* xsum, int B,
                        const uint8_t* codes, const float* gs, const float* gm, int n, int kc,
-                       float* y, cudaStream_t stream) {
-  if (n <= 0 || kc <= 0 || kc % 512) return (int)cudaErrorInvalidValue;
-  const dim3 grid((n + 7) / 8), block(256);
-  LK_SWITCH_NB(B, w4x_gemv_kernel<NB><<<grid, block, 0, stream>>>(x8, sx, xsum, B, codes, gs,
-                                                                   gm, n, kc, y))
+                       float* y, int splits, float* ws, int* cnt, cudaStream_t stream) {
+  if (n <= 0 || kc <= 0 || kc % 512 || B < 1 || B > 32 || splits < 0 || splits > kc / 128 ||
+      (splits == 0 && B > 1) || (splits > 1 && (!ws || !cnt || n % 4)))
+    return (int)cudaErrorInvalidValue;
+  if (splits >= 1)
+    return w4mma::launch<2>(x8, sx, xsum, B, codes, gs, gm, n, kc, y, splits, ws, cnt, stream);
+  w4x_gemv_kernel<<<(n + 7) / 8, 256, 0, stream>>>(x8, sx, xsum, codes, gs, gm, n, kc, y);
   return (int)cudaGetLastError();
 }

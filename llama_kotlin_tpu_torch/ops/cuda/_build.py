@@ -36,20 +36,21 @@ SIGNATURES = {
     "lk_quantize_q8": [_P, _P, _P, _P, _I, _I, _P],
     "lk_quantize_q8_2p": [_P, _P, _P, _P, _I, _I, _P],
     "lk_w4_gemv": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
-    "lk_w4x_gemv": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P],
+    "lk_w4x_gemv": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _I, _P, _P, _P],
     "lk_w4_fx_gemv": [_P, _I, _P, _P, _P, _I, _I, _I, _P, _P],
     "lk_w4_layer": [_P, _P, _P, _I] + [_P] * 15 + [_I] * 5 + [_F, _F] + [_P] * 5,
     "lk_w4_ffn": [_P, _P, _P, _I] + [_P] * 10 + [_I, _I, _I, _I, _P, _P, _P],
     "lk_flash": [_P] * 9 + [_I] * 6 + [_F, _F, _I, _I, _P],
     "lk_flash_stacked": [_P] * 12 + [_I] * 6 + [_F, _F, _I, _P],
-    "lk_w4_dequant_gemm": [_P] * 5 + [_I, _I, _I, _P],
-    "lk_w8_dequant_gemm": [_P] * 5 + [_I, _I, _I, _I, _P],
+    "lk_w4_dequant_gemm": [_P] * 5 + [_I] * 5 + [_P, _P, _P],
+    "lk_w8_dequant_gemm": [_P] * 5 + [_I] * 6 + [_P, _P, _P],
     "lk_w8_gemv": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P],
     "lk_q8f_matmul": [_P, _P, _I, _P, _P, _I, _I, _P, _P],
     "lk_error_string": [_I],
 }
 
 _lib = None
+_counters: dict = {}
 
 
 def nvcc_path() -> str:
@@ -128,6 +129,17 @@ def check(rc: int, what: str) -> None:
 def ptr(t) -> int | None:
     """Device pointer of a tensor (None passes through as NULL)."""
     return None if t is None else t.data_ptr()
+
+
+def split_counters(device: torch.device, n: int) -> torch.Tensor:
+    """At least n zeroed int32 arrival counters on `device`, for the split-K
+    kernels (kernels 4 and 7): the last block of each tile leaves its
+    counter at 0 again, so one buffer serves every launch on the stream."""
+    buf = _counters.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _counters[device] = buf
+    return buf
 
 
 def stream() -> int:

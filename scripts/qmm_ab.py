@@ -1,0 +1,141 @@
+#!/usr/bin/env python3
+"""Kernels 4 (the prefill dequant matmul, both branches) and 7 (the W4X
+matmul) of two checkouts of the port, timed on one card in turns.
+
+    python3 scripts/qmm_ab.py ROOT_A ROOT_B [--rounds N]
+
+Each turn is its own process that builds ROOT's kernels
+(``llama_kotlin_tpu_torch/_build/`` under ROOT) and times them through
+their wrappers (``qmm.qmm``, ``qmm_w4x.qmm_w4x_matmul``) with chip_smoke.py's
+timer (median of 20 CUDA-event timings, L2 flushed before each) at the
+llama3-8B shapes of PERF.md's kernel table: kernel 4 on W4 folds (qkv, o,
+gate|up, down) at 64 and 512 rows and on q6_K W8 folds (ffn_down, attn_v)
+at 64 rows; kernel 7 on precise folds (gate|up at b = 1, 2, 4, 8, 9, 16,
+32; qkv, o and down at b = 1, 2, 4, 32), so a root whose kernel 7 walks
+every row count against one that takes more rows on tensor cores gives
+the row threshold's crossover.  Where a root has the split plan
+(``qmm.plan``), its kernels 4 (64 rows) and 7 (32 rows) are also timed at
+other split counts than the plan's: the least that gives every SM a
+block, and twice that (keys ending in ``splits=S``).  Weights and inputs
+come from fixed seeds, so both roots see the same numbers.  Turns run A,
+B, B, A per round, so neither side always runs first.  Prints one JSON
+line per turn, then the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import importlib.util
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+E, F, KVD = 4096, 14336, 1024
+W4_SHAPES = {"qkv": (6144, E), "o": (E, E), "gate_up": (2 * F, E), "down": (E, F)}
+W8_SHAPES = {"ffn_down": (E, F), "attn_v": (KVD, E)}
+W4X_CASES = tuple([("gate_up", b) for b in (1, 2, 4, 8, 9, 16, 32)]
+                  + [(name, b) for name in ("qkv", "o", "down") for b in (1, 2, 4, 32)])
+
+
+def split_counts(qmm, m: int, n: int, k: int, unit: int, bms) -> list[int]:
+    """The plan's split count, the least that gives every SM a block, and
+    twice that, within the K units; [] for a root without the plan or
+    where all three are one."""
+    if not hasattr(qmm, "plan"):
+        return []
+    p = qmm.plan(m, n, k, unit, qmm.sm_count(0), bms=bms)
+    need = -(-qmm.sm_count(0) // p.tiles)
+    counts = sorted({p.splits, min(need, p.units), min(2 * need, p.units)})
+    return [] if counts == [1] else counts
+
+
+@contextlib.contextmanager
+def forced_splits(modules, splits: int):
+    """Every plan the modules ask for within the block takes `splits`."""
+    real = modules[0].plan
+    for mod in modules:
+        mod.plan = lambda *a, **kw: dataclasses.replace(real(*a, **kw), splits=splits)
+    try:
+        yield
+    finally:
+        for mod in modules:
+            mod.plan = real
+
+
+def one(root: str) -> None:
+    """Build ROOT's kernels and time its kernels 4 and 7."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, root)
+    from llama_kotlin_tpu_torch.models.synthetic import synthetic_w4_device, wire_blocks
+    from llama_kotlin_tpu_torch.ops.cuda import _build, qmm, qmm_w4x
+    from llama_kotlin_tpu_torch.quant import fold, repack
+    from llama_kotlin_tpu_torch.quant.formats import GGMLQuantType as Q
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    _build.build()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1234)
+    flush = torch.zeros(smoke.FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    out = {"root": root, "library": _build.build().name}
+    for name, (n, k) in W4_SHAPES.items():
+        wt = synthetic_w4_device(gen, n, k, zero_mean=False, device=dev)
+        for m in (64, 512):
+            xb = (torch.randn((m, k), generator=gen, device=dev) * 0.7).to(torch.bfloat16)
+            out[f"qmm W4 {name} m={m}"] = smoke.time_ms(torch, lambda: qmm.qmm(xb, wt), flush)
+            if m == 64:
+                for z in split_counts(qmm, m, n, k, 256, (32, 64, 128)):
+                    with forced_splits([qmm], z):
+                        out[f"qmm W4 {name} m={m} splits={z}"] = smoke.time_ms(
+                            torch, lambda: qmm.qmm(xb, wt), flush)
+        del wt
+    rng = np.random.default_rng(99)
+    for name, (n, k) in W8_SHAPES.items():
+        blocks = torch.from_numpy(wire_blocks(rng, Q.Q6_K, n, k)).to(dev)
+        wt = fold.fold_to_w8(repack.repack(blocks, Q.Q6_K, n, k))
+        xb = (torch.randn((64, k), generator=gen, device=dev) * 0.7).to(torch.bfloat16)
+        out[f"qmm 8-bit {name} m=64"] = smoke.time_ms(torch, lambda: qmm.qmm(xb, wt), flush)
+        for z in split_counts(qmm, 64, n, k, 64, (32, 64, 128)):
+            with forced_splits([qmm], z):
+                out[f"qmm 8-bit {name} m=64 splits={z}"] = smoke.time_ms(
+                    torch, lambda: qmm.qmm(xb, wt), flush)
+        del wt, blocks
+    w = {}
+    for name, b in W4X_CASES:
+        n, k = W4_SHAPES[name]
+        if name not in w:
+            w[name] = synthetic_w4_device(gen, n, k, zero_mean=False, precise=True, device=dev)
+        x = torch.randn((b, k), generator=gen, device=dev) * 0.7
+        out[f"qmm_w4x {name} b={b}"] = smoke.time_ms(
+            torch, lambda: qmm_w4x.qmm_w4x_matmul(x, w[name]), flush)
+        if b == 32:
+            for z in split_counts(qmm, 1, n, k, 256, (64,)):
+                with forced_splits([qmm, qmm_w4x], z):
+                    out[f"qmm_w4x {name} b={b} splits={z}"] = smoke.time_ms(
+                        torch, lambda: qmm_w4x.qmm_w4x_matmul(x, w[name]), flush)
+    print(json.dumps(out), flush=True)
+
+
+def main(argv: list[str]) -> int:
+    if argv[:1] == ["--one"]:
+        one(argv[1])
+        return 0
+    a, b = argv[:2]
+    rounds = int(argv[argv.index("--rounds") + 1]) if "--rounds" in argv else 1
+    for _ in range(rounds):
+        for root in (a, b, b, a):
+            subprocess.run([sys.executable, __file__, "--one", root], check=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
