@@ -19,7 +19,7 @@ Phases (any failure exits non-zero and prints no result line):
                from a seed) serves 3 requests through LlamaContext: prefill
                64 tokens, then 32 greedy tokens; on the unrolled path with
                a bf16 cache, then stacked with a bf16 and a q8_0 cache and
-               unrolled with a q8_0 cache (these at the model's first 16
+               unrolled with a q8_0 cache (these at the model's first 8
                layers); every kernel of each path must launch (kernel 9
                once a layer and step, kernel 3 never, on the stacked path);
   5. gguf    — a full-width 32-layer llama3-8B GGUF file with the Q4_K_M
@@ -54,14 +54,14 @@ output matrix.
 
 Kernels 8 and 10, behind the JAX package's opt-in knobs (set per run by
 knobs(), which restores the environment), add to 3 kernel 8 on sym and
-legacy W4 folds at the four decode projections (b = 1 and 32, beside
-kernel 1 on the same inputs) and kernel 10 on compact, sym and legacy folds
+legacy W4 folds at the four decode projections (b = 1, 9, 16 and 32,
+beside kernel 1 on the same inputs) and kernel 10 on compact, sym and legacy folds
 (b = 1 and 8, beside the unfused route it replaces); to 4 the W4A8 model
-(its first 16 layers) with LKTPU_LAYER_FUSED=1, stacked and unrolled
+(its first 8 layers) with LKTPU_LAYER_FUSED=1, stacked and unrolled
 (kernel 10: n_layer launches a decode step, none at the prefill); to 5 a
-full-width 16-layer Q4_0 file (sym folds, Q6_K output) by default, with LKTPU_W4_FX=1 and with
-both knobs; to 6 the fused W4A8 model and 2-layer Q4_0 and Q4_1 files under
-each knob against the CPU.
+full-width 8-layer Q4_0 file (sym folds, Q6_K output) by default, with
+LKTPU_W4_FX=1 and with both knobs; to 6 the fused W4A8 model and 2-layer
+Q4_0 and Q4_1 files under each knob against the CPU.
 
 Kernel 4's split-K GEMM and kernel 7's tensor-core path add to 3 kernel 4
 at 64 and 512 rows (both branches, timed), at 17, 33, 100 and 1024 rows
@@ -69,6 +69,16 @@ at 64 and 512 rows (both branches, timed), at 17, 33, 100 and 1024 rows
 two bit-equal launches; to 4 a 32-token W4X prompt (kernel 7
 takes every prefill projection, kernel 4 none); and a torch.profiler trace
 of one prefill beside each decode trace.
+
+Kernels 5 (both branches) and 8 above their row thresholds take int8
+tensor cores: 3 times kernel 5 at b = 1, 9, 16, 32 on lm_head, ffn_down and
+attn_v (W8 and W8X folds of the same q6_K blocks) and kernel 8 at b = 1, 9,
+16, 32 on qkv, o, gate|up and down (sym and legacy), each at every
+batch-row bucket on one shape and repeated bit-equal, kernel 8's in-launch
+activation codes against kernel 1's prologue's; 5 a 32-token prompt on the
+Q4_K_M file in w4 and w4x (kernel 5 at 32 rows: 32 launches a prefill)
+and on the Q4_0 file under LKTPU_W4_FX=1 (kernel 8 at 32 rows: 2 a layer
+a prefill), each with exact launch counts and a profiled prefill.
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -96,8 +106,11 @@ FLUSH_BYTES = 256 << 20  # > the 50 MB L2: decode streams cold weights
 SPIN_CYCLES = 10_000_000  # ~5 ms of device spin ahead of each timed call
 # depth of the paths earlier slices added (the quantized caches, the fused
 # layer half, the Q4_0 file): cut from 32 layers to keep the whole script
-# near half its time limit; the main path and the W4X model keep 32
-EARLIER_LAYERS = 16
+# well inside its time limit on a slow host; the main path, the W4X model
+# and the Q4_K_M file keep 32
+EARLIER_LAYERS = 8
+# greedy tokens of each request of the 32-token prompts (serve_32)
+N_NEW_32 = 8
 
 
 def log(msg: str) -> None:
@@ -190,6 +203,21 @@ def codes_equal(torch, x, planes: int = 1) -> None:
         raise AssertionError(f"{planes}-plane activation codes differ from the CPU quantizer")
 
 
+def fx_codes_equal(torch, x, w, y) -> None:
+    """Kernel 8's tensor-core launch quantizes x inside its blocks: the
+    codes, scales and group sums it writes when asked are kernel 1's
+    prologue's (q8.cu) bit for bit, and asking leaves y as it was."""
+    from llama_kotlin_tpu_torch.ops.cuda import qmm_w4, qmm_w4_fx
+
+    y2, codes = qmm_w4_fx.qmm_w4_fx_matmul(x, w, codes_out=True)
+    xp = torch.nn.functional.pad(x, (0, w.k_pad - x.shape[-1]))
+    same = all(torch.equal(a, b) for a, b in zip(codes, qmm_w4.quantize_q8_cuda(xp)))
+    log(json.dumps({"phase": "qmm_w4_fx_codes", "rows": x.shape[0], "n": w.n,
+                    "bit_equal_to_prologue": same, "y_bit_equal": torch.equal(y, y2)}))
+    if not same or not torch.equal(y, y2):
+        raise AssertionError("kernel 8's in-launch codes differ from kernel 1's prologue")
+
+
 def matmul_ms(torch, x, w, flush) -> float:
     """library_ms of a quantized matmul (kernel 4's convention): one
     torch.matmul of the bf16 activations with the pre-dequantized bf16
@@ -243,6 +271,13 @@ def w8_precise():
     from llama_kotlin_tpu_torch.ops.cuda import qmm_w8
 
     return BranchCounter(qmm_w8, "LAUNCHES_2P", "qmm_w8.qmm_w8_precise")
+
+
+def mma_counter(mod):
+    """Kernel 5's or 8's launches on its tensor-core path (both branches of
+    kernel 5), counted apart as "<kernel>_mma"."""
+    name = mod_name(mod)
+    return BranchCounter(mod, "LAUNCHES_MMA", f"{mod.__name__}.{name}_mma")
 
 
 def sdpa_call(torch, q, k, v, mask, scale):
@@ -411,9 +446,10 @@ def kernel_phase(torch, results: dict) -> None:
 
 
 def w8_kernel_phase(torch, results: dict) -> None:
-    """Kernels 5 and 6 and kernel 4's 8-bit branch at the llama3-8B shapes
-    the Q4_K_M file gives them, on layouts repacked on the card from random
-    wire blocks; and the card's repack against the CPU's, bit for bit."""
+    """Kernels 5 (both branches: W8 and, as the w4x mode loads them, W8X
+    folds) and 6 and kernel 4's 8-bit branch at the llama3-8B shapes the
+    Q4_K_M file gives them, on layouts repacked on the card from random wire
+    blocks; and the card's repack against the CPU's, bit for bit."""
     import numpy as np
 
     from llama_kotlin_tpu_torch.models.synthetic import wire_blocks
@@ -451,24 +487,37 @@ def w8_kernel_phase(torch, results: dict) -> None:
                 raise AssertionError(f"card repack of {qtype.name} ({what}) differs from the CPU's")
         del data, g, c
 
-    def w8(qtype, n, k):
-        return fold.fold_to_w8(repack.repack(wire(qtype, n, k).to(dev), qtype, n, k))
+    def w8(qtype, n, k, precise=False):
+        return fold.fold_to_w8(repack.repack(wire(qtype, n, k).to(dev), qtype, n, k),
+                               precise=precise)
 
-    # kernel 5: W8 decode matmul on q6_K folds (group 16) — lm_head at b = 1
-    # and 32, ffn_down and attn_v at b = 1.  tol: exact integer partials on
-    # both sides; the f32 order of the group sum differs
-    w = {"lm_head": w8(Q.Q6_K, V, E), "down": w8(Q.Q6_K, E, F), "attn_v": w8(Q.Q6_K, KVD, E)}
-    for name, b in (("lm_head", 1), ("lm_head", 32), ("down", 1), ("attn_v", 1)):
-        wt = w[name]
-        n, k = wt.shape
-        x = torch.randn((b, k), generator=gen, device=dev) * 0.7
-        codes_equal(torch, x)
-        report("qmm_w8", f"{name} n={n} k={k} b={b} group=16",
-               err_of(qmm_w8.qmm_w8_matmul(x, wt), qmm_w8.qmm_w8_plain(x, wt)), 1e-4,
-               time_ms(torch, lambda: qmm_w8.qmm_w8_matmul(x, wt), flush),
-               time_ms(torch, lambda: qmm_w8.qmm_w8_plain(x, wt), flush),
-               b * k * 4 + nbytes(wt) + b * n * 4, 2 * b * n * k, "int8",
-               matmul_ms(torch, x, wt, flush))
+    # kernel 5, both branches (a W8X fold of the same q6_K blocks, group 16,
+    # takes the dual-plane one): lm_head, ffn_down and attn_v at b = 1 (the
+    # walk) and 9, 16, 32 (the tensor cores above T5; two launches
+    # bit-equal).  tol: exact integer partials on both sides; the f32 order of
+    # the group sum differs
+    rp = {name: repack.repack(wire(Q.Q6_K, n, k).to(dev), Q.Q6_K, n, k)
+          for name, (n, k) in {"lm_head": (V, E), "down": (E, F), "attn_v": (KVD, E)}.items()}
+    w = {name: fold.fold_to_w8(r) for name, r in rp.items()}
+    wx = {name: fold.fold_to_w8(r, precise=True) for name, r in rp.items()}
+    del rp
+    for label, folds in (("qmm_w8", w), ("qmm_w8_precise", wx)):
+        precise = folds is wx
+        for name, wt in folds.items():
+            n, k = wt.shape
+            for b in (1, 9, 16, 32):
+                x = torch.randn((b, k), generator=gen, device=dev) * 0.7
+                codes_equal(torch, x, planes=2 if precise else 1)
+                got = qmm_w8.qmm_w8_matmul(x, wt)
+                shape = f"{name} n={n} k={k} b={b} group=16"
+                if qmm_w8.use_mma(b):
+                    repeats(torch, label, shape, got, lambda: qmm_w8.qmm_w8_matmul(x, wt))
+                report(label, shape, err_of(got, qmm_w8.qmm_w8_plain(x, wt)), 1e-4,
+                       time_ms(torch, lambda: qmm_w8.qmm_w8_matmul(x, wt), flush),
+                       time_ms(torch, lambda: qmm_w8.qmm_w8_plain(x, wt), flush),
+                       b * k * 4 + nbytes(wt) + b * n * 4, (1 + precise) * 2 * b * n * k,
+                       "int8", matmul_ms(torch, x, wt, flush))
+    del wx
 
     # kernel 4's 8-bit branch: prefill rows over the W8 fold, m = 64 and
     # 512; two launches bit-equal.
@@ -494,22 +543,32 @@ def w8_kernel_phase(torch, results: dict) -> None:
     del xb, got
     del w
 
-    # kernel 5 at every batch-row bucket on a q8_0-sourced fold (group 32),
-    # and on a fold with mins (Q4_K folded to W8: the min term's matmul);
-    # kernel 4's 8-bit branch on both (its group-32 and with-mins instances)
-    extra = {"q8_0": w8(Q.Q8_0, E, E), "q4_K-mins": w8(Q.Q4_K, E, E)}
-    for src, wt in extra.items():
-        for b in ((1, 2, 3, 5, 9, 17, 32) if src == "q8_0" else (1, 5, 32)):
-            x = torch.randn((b, E), generator=gen, device=dev) * 0.7
-            check("qmm_w8", f"{src} group={wt.group_size} n={E} b={b}",
-                  qmm_w8.qmm_w8_matmul(x, wt), qmm_w8.qmm_w8_plain(x, wt), 1e-4)
-        for m in (8, 33, 100):
-            xb = (torch.randn((m, E), generator=gen, device=dev) * 0.7).to(torch.bfloat16)
-            got = qmm.qmm(xb, wt)
-            shape = f"8-bit {src} group={wt.group_size} m={m}"
-            repeats(torch, "qmm", shape, got, lambda: qmm.qmm(xb, wt))
-            check("qmm", shape, got, qmm.qmm_plain(xb, wt), 1e-3)
-    del extra
+    # kernel 5, both branches, at every batch-row bucket (both designs: the
+    # walk up to T5, the tensor cores' m16 tile counts above it, split K) on
+    # a q8_0-sourced fold (group 32), on a fold with mins (Q4_K folded to W8:
+    # the min term's matmul) and on q6_K attn_v (group 16, K split in every
+    # superblock); kernel 4's 8-bit branch on the W8 ones (its group-32 and
+    # with-mins instances)
+    extra = {"q8_0": (Q.Q8_0, E, E), "q4_K-mins": (Q.Q4_K, E, E), "q6_K": (Q.Q6_K, KVD, E)}
+    for src, (qt, n, k) in extra.items():
+        for label, precise in (("qmm_w8", False), ("qmm_w8_precise", True)):
+            wt = w8(qt, n, k, precise)
+            for b in (1, 2, 3, 5, 8, 9, 12, 16, 17, 24, 32):
+                x = torch.randn((b, k), generator=gen, device=dev) * 0.7
+                got = qmm_w8.qmm_w8_matmul(x, wt)
+                shape = f"{src} group={wt.group_size} n={n} b={b}"
+                if qmm_w8.use_mma(b):
+                    repeats(torch, label, shape, got, lambda: qmm_w8.qmm_w8_matmul(x, wt))
+                check(label, shape, got, qmm_w8.qmm_w8_plain(x, wt), 1e-4)
+            if precise or src == "q6_K":
+                continue
+            for m in (8, 33, 100):
+                xb = (torch.randn((m, k), generator=gen, device=dev) * 0.7).to(torch.bfloat16)
+                got = qmm.qmm(xb, wt)
+                shape = f"8-bit {src} group={wt.group_size} m={m}"
+                repeats(torch, "qmm", shape, got, lambda: qmm.qmm(xb, wt))
+                check("qmm", shape, got, qmm.qmm_plain(xb, wt), 1e-3)
+    del wt
 
     # kernel 6: the Q8F matmul — qkv, gate|up, down, lm_head at b = 1 and
     # m = 64 (the GEMV and the tensor-core GEMM).  tol: exact superblock
@@ -544,16 +603,16 @@ def w8_kernel_phase(torch, results: dict) -> None:
 
 
 def w4x_kernel_phase(torch, results: dict) -> None:
-    """The W4X mode's kernels at the llama3-8B shapes: kernel 7 on precise
-    W4 folds drawn on the card and kernel 5's dual-plane branch on W8X
-    folds of q6_K wire blocks, each against its plain version; the card's
-    dual-plane activation codes against the CPU's, bit for bit; and the
-    fidelity check on one Q4_K tensor folded both ways."""
+    """The W4X mode's kernel 7 at the llama3-8B shapes, on precise W4 folds
+    drawn on the card, against its plain version (kernel 5's dual-plane
+    branch: w8_kernel_phase); the card's dual-plane activation codes
+    against the CPU's, bit for bit; and the fidelity check on one Q4_K
+    tensor folded both ways."""
     import numpy as np
 
     from llama_kotlin_tpu_torch.models.synthetic import (synthetic_w4, synthetic_w4_device,
                                                          wire_blocks)
-    from llama_kotlin_tpu_torch.ops.cuda import qmm_w4, qmm_w4x, qmm_w8
+    from llama_kotlin_tpu_torch.ops.cuda import qmm_w4, qmm_w4x
     from llama_kotlin_tpu_torch.quant import fold, repack
     from llama_kotlin_tpu_torch.quant.formats import GGMLQuantType as Q
     from llama_kotlin_tpu_torch.quant.qtensor import dequantize
@@ -565,7 +624,7 @@ def w4x_kernel_phase(torch, results: dict) -> None:
     report = functools.partial(report_row, results)
     check = functools.partial(check_row, results)
     rng = np.random.default_rng(5678)
-    E, F, V, KVD = 4096, 14336, 128256, 1024
+    E, F, V = 4096, 14336, 128256
 
     # the dual-plane prologue: random rows, a zero row, .5 ties (amax 127,
     # so s1 = 1), integer rows (a zero residual), against the CPU
@@ -634,33 +693,7 @@ def w4x_kernel_phase(torch, results: dict) -> None:
                         "max_abs_ref": ref.abs().max().item()}))
         if not e7 * 20 <= e1:
             raise AssertionError(f"W4X is not 20x closer than W4: {e7} vs {e1}")
-    del data, rp, w4, w4x, wd
-
-    # kernel 5's dual-plane branch on W8X folds of q6_K blocks (group 16):
-    # lm_head, ffn_down and attn_v at b = 1.  tol as kernel 5's
-    def w8x(qtype, n, k):
-        blocks = torch.from_numpy(wire_blocks(rng, qtype, n, k)).to(dev)
-        return fold.fold_to_w8(repack.repack(blocks, qtype, n, k), precise=True)
-
-    w = {"lm_head": w8x(Q.Q6_K, V, E), "down": w8x(Q.Q6_K, E, F),
-         "attn_v": w8x(Q.Q6_K, KVD, E)}
-    for name, wt in w.items():
-        n, k = wt.shape
-        x = torch.randn((1, k), generator=gen, device=dev) * 0.7
-        report("qmm_w8_precise", f"{name} n={n} k={k} b=1 group=16",
-               err_of(qmm_w8.qmm_w8_matmul(x, wt), qmm_w8.qmm_w8_plain(x, wt)), 1e-4,
-               time_ms(torch, lambda: qmm_w8.qmm_w8_matmul(x, wt), flush),
-               time_ms(torch, lambda: qmm_w8.qmm_w8_plain(x, wt), flush),
-               k * 4 + nbytes(wt) + n * 4, 2 * 2 * n * k, "int8", matmul_ms(torch, x, wt, flush))
-    del w
-    # the branch at other buckets, group 32, and with mins (the min term of
-    # both planes outside the kernel)
-    for src, wt in (("q8_0", w8x(Q.Q8_0, E, E)), ("q4_K-mins", w8x(Q.Q4_K, E, E))):
-        for b in (1, 3, 17, 32):
-            x = torch.randn((b, E), generator=gen, device=dev) * 0.7
-            check("qmm_w8_precise", f"{src} group={wt.group_size} n={E} b={b}",
-                  qmm_w8.qmm_w8_matmul(x, wt), qmm_w8.qmm_w8_plain(x, wt), 1e-4)
-    del flush
+    del data, rp, w4, w4x, wd, flush
     torch.cuda.empty_cache()
 
 
@@ -792,11 +825,12 @@ def knobs(**env):
 
 def fx_layer_kernel_phase(torch, results: dict) -> None:
     """Kernel 8 (LKTPU_W4_FX=1) on sym and legacy W4 folds at the llama3-8B
-    decode projections, b = 1 and 32, beside kernel 1 (prologue + GEMV) on
-    the same inputs; kernel 10 (LKTPU_LAYER_FUSED=1) on compact, sym and
-    legacy folds at E = 4096, F = 14336, b = 1 and 8, beside the unfused
-    route it replaces (kernel 1's o, the residual and norm glue, kernel 2)
-    on the same inputs.  Each against its plain version."""
+    decode projections, b = 1, 9, 16 and 32 (o at every batch-row bucket),
+    beside kernel 1 (prologue + GEMV) on the same inputs; kernel 10
+    (LKTPU_LAYER_FUSED=1) on compact, sym and legacy folds at E = 4096,
+    F = 14336, b = 1 and 8, beside the unfused route it replaces (kernel
+    1's o, the residual and norm glue, kernel 2) on the same inputs.  Each
+    against its plain version."""
     import numpy as np
 
     from llama_kotlin_tpu_torch.models.synthetic import synthetic_w4, synthetic_w4_device
@@ -813,17 +847,47 @@ def fx_layer_kernel_phase(torch, results: dict) -> None:
     E, F = 4096, 14336
     shapes = {"qkv": (6144, E), "o": (E, E), "gate_up": (2 * F, E), "down": (E, F)}
 
-    # kernel 8.  tol as kernel 1's: exact integer partials on both sides, the
-    # f32 order of the scale products, the tile sums and the group sum differ
+    # kernel 8's in-launch quantizer against the prologue on rows that reach
+    # its range guard and its rounding ties: random, zero, .5 ties at d = 1,
+    # integers, tiny (1e-30) and huge (1e33, past the guard) scales,
+    # subnormals (a subnormal d: the true division), spikes among small values
+    wt = synthetic_w4(rng, E, E, device=dev, sym=True)
+    x = torch.randn((8, E), generator=gen, device=dev) * 0.7
+    x[1] = 0.0
+    x[2] = torch.randint(-254, 255, (E,), generator=gen, device=dev) / 2.0
+    x[2, ::256] = 127.0
+    x[3] = torch.randint(-127, 128, (E,), generator=gen, device=dev).float()
+    x[4] *= 1e-30
+    x[5] *= 1e33
+    x[6] *= 1e-40
+    x[7] *= 1e-3
+    x[7, ::64] = 50.0
+    fx_codes_equal(torch, x, wt, qmm_w4_fx.qmm_w4_fx_matmul(x, wt))
+    del wt
+
+    # kernel 8 at b = 1 (the walk) and 9, 16, 32 (the tensor cores above T8:
+    # two launches bit-equal, and the launch's own activation codes equal to
+    # kernel 1's prologue's, bit for bit), beside kernel 1 (prologue + GEMV)
+    # on the same inputs.  tol as kernel 1's: exact integer partials on both
+    # sides, the f32 order of the scale products, the tile sums and the group
+    # sum differ
     for flavor, kw in (("sym", dict(sym=True)), ("legacy", dict(compact=False))):
         for name, (n, k) in shapes.items():
             wt = synthetic_w4(rng, n, k, device=dev, **kw)
             assert wt.flavor == flavor
-            for b in (1, 32):
+            bs = (1, 9, 16, 32) if name != "o" else (1, 2, 3, 5, 8, 9, 12, 16, 17, 24, 32)
+            for b in bs:
                 x = torch.randn((b, k), generator=gen, device=dev) * 0.7
                 got = qmm_w4_fx.qmm_w4_fx_matmul(x, wt)
-                report("qmm_w4_fx", f"{flavor} {name} n={n} k={k} b={b}",
-                       err_of(got, qmm_w4_fx.qmm_w4_fx_plain(x, wt)), 1e-4,
+                shape = f"{flavor} {name} n={n} k={k} b={b}"
+                if qmm_w4_fx.use_mma(b):
+                    repeats(torch, "qmm_w4_fx", shape, got,
+                            lambda: qmm_w4_fx.qmm_w4_fx_matmul(x, wt))
+                    fx_codes_equal(torch, x, wt, got)
+                if b not in (1, 9, 16, 32):  # the o projection at every batch-row bucket
+                    check("qmm_w4_fx", shape, got, qmm_w4_fx.qmm_w4_fx_plain(x, wt), 1e-4)
+                    continue
+                report("qmm_w4_fx", shape, err_of(got, qmm_w4_fx.qmm_w4_fx_plain(x, wt)), 1e-4,
                        time_ms(torch, lambda: qmm_w4_fx.qmm_w4_fx_matmul(x, wt), flush),
                        time_ms(torch, lambda: qmm_w4_fx.qmm_w4_fx_plain(x, wt), flush),
                        b * k * 4 + nbytes(wt, w4_planes(wt)) + b * n * 4, 2 * b * n * k,
@@ -833,11 +897,6 @@ def fx_layer_kernel_phase(torch, results: dict) -> None:
                                                       flush),
                                 "kernel1_vs_fx_max_abs": (qmm_w4.qmm_w4_matmul(x, wt) - got)
                                 .abs().max().item()}))
-            if name == "o":  # every batch-row bucket
-                for b in (2, 3, 5, 9, 17):
-                    x = torch.randn((b, k), generator=gen, device=dev) * 0.7
-                    check("qmm_w4_fx", f"{flavor} o b={b}", qmm_w4_fx.qmm_w4_fx_matmul(x, wt),
-                          qmm_w4_fx.qmm_w4_fx_plain(x, wt), 1e-4)
             del wt
 
     # kernel 10.  tol as kernel 2's (5e-3 of max|h3|): h3 is bf16 and the
@@ -979,6 +1038,27 @@ def serve(torch, cfg, params, mods, phase: str, n_prompt: int = 64, n_new: int =
     return counts, ctx
 
 
+def serve_32(torch, cfg, params, label: str, mods, never, per_token: dict, mma,
+             mma_per_prefill: int, **ctx_kw) -> dict:
+    """3 requests of a 32-token prompt and N_NEW_32 greedy tokens through
+    serve(): the prefill's 32 rows take the decode kernels, so every kernel
+    of `mods` launches per_token[name] times in each prefill and each
+    decode step, and the tensor-core branch counter `mma` mma_per_prefill
+    times in each prefill (its rows above the threshold) and never at a
+    decode step (one row walks).  A profiled 32-token prefill follows.
+    Returns the counts."""
+    counts, ctx = serve(torch, cfg, params, mods + (mma,), label, n_prompt=32, n_new=N_NEW_32,
+                        never=never, **ctx_kw)
+    want = {name: 3 * N_NEW_32 * c for name, c in per_token.items()}
+    want[mod_name(mma)] = 3 * mma_per_prefill
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, expected {want}")
+    profile_decode(torch, ctx, cfg, label, n_prompt=32)
+    del ctx
+    torch.cuda.empty_cache()
+    return counts
+
+
 def serving_phase(torch, n_layer: int = 32) -> dict:
     """3 requests on the full llama3-8B W4A8 model in each configuration;
     returns {path: launch counts}."""
@@ -1040,7 +1120,7 @@ def fused_serving(torch, cfg, params) -> dict:
 
 
 def q4_0_gguf_phase(torch, tmpdir: Path) -> dict:
-    """A full-width 16-layer llama3-8B Q4_0 file (every layer matrix and
+    """A full-width 8-layer llama3-8B Q4_0 file (every layer matrix and
     token_embd Q4_0, output Q6_K; random wire blocks, seed 9) in the w4
     mode on the default (stacked) context, bf16 cache, 3 requests each:
     by default (kernel 1 on the sym folds' qkv and o, kernel 2 the FFN);
@@ -1093,9 +1173,18 @@ def q4_0_gguf_phase(torch, tmpdir: Path) -> dict:
             if counts != expect or "layers_stacked" not in ctx.params:
                 raise AssertionError(f"{label}: launches {counts}, expected {expect}, stacked")
             profile_decode(torch, ctx, cfg, label)
-        by_path[label] = counts
-        del ctx
-        torch.cuda.empty_cache()
+            by_path[label] = counts
+            del ctx
+            torch.cuda.empty_cache()
+            if label == "gguf_q4_0_w4_fx":
+                # a 32-token prompt: kernel 8 takes qkv and o at 32 rows on its
+                # tensor cores (2 a layer a prefill), kernel 2 the FFN, kernel 5
+                # the lm_head's last row; no kernel 4
+                by_path[f"{label}_32"] = serve_32(
+                    torch, cfg, params, f"{label}_32", (qmm_w4_fx, qmm_w4_ffn, qmm_w8,
+                                                        flash_stacked), never + (qmm,),
+                    dict(qmm_w4_fx=2 * L, qmm_w4_ffn=L, qmm_w8=1, flash_stacked=L),
+                    mma_counter(qmm_w4_fx), 2 * L)
     del params
     torch.cuda.empty_cache()
     return by_path
@@ -1295,6 +1384,19 @@ def gguf_phase(torch, tmpdir: Path) -> dict:
         profile_decode(torch, ctx, cfg, f"gguf_{mode}")
         del ctx
         torch.cuda.empty_cache()
+        if mode in ("w4", "w4x"):
+            # a 32-token prompt: kernel 5 takes the 16 mixed layers' attn_v and
+            # ffn_down at 32 rows on its tensor cores (32 launches a prefill)
+            # and the lm_head's last row (its walk); no kernel 4.  A token
+            # (the prefill's too): w4 kernel 1 96 times, kernel 2 16 (uniform
+            # layers), kernel 5 33; w4x kernel 7 128, kernel 5's precise
+            # branch 33
+            per = ({"qmm_w4": 96, "qmm_w4_ffn": 16, "qmm_w8": 33} if mode == "w4"
+                   else {"qmm_w4x": 128, "qmm_w8_precise": 33})
+            counts[f"{mode}_32"] = serve_32(
+                torch, cfg, params, f"gguf_{mode}_32",
+                tuple(m for m in mods if m is not qmm), (qmm,) + never,
+                dict(per, flash=32), mma_counter(qmm_w8), 32, **ctx_kw)
         if mode == "int8":
             # the default context with the int8 cache: the uniform Q8F layers
             # stack, so kernels 6 and 9 serve it and kernel 3 never launches
@@ -1649,7 +1751,7 @@ def main() -> int:
         traceback.print_exc()
         return 1
     # kernel: (source, replaced Pallas kernel, index of the reported timed
-    # row, {cache branch: index of its decode row})
+    # row, {branch: index or shape of its timed row})
     meta = {
         "qmm_w4": ("csrc/qmm_w4.cu", "llama_kotlin_tpu/ops/pallas/qmm_w4.py:290", 0, {}),
         "qmm_w4_ffn": ("csrc/qmm_w4_ffn.cu", "llama_kotlin_tpu/ops/pallas/qmm_w4_ffn.py:155",
@@ -1658,15 +1760,17 @@ def main() -> int:
                   {"int8": 3, "int4": 4}),
         "qmm": ("csrc/qmm.cu", "llama_kotlin_tpu/ops/pallas/qmm.py:192", 1,
                 {"m512": 5, "w8": 8}),
-        "qmm_w8": ("csrc/qmm_w8.cu", "llama_kotlin_tpu/ops/pallas/qmm_w8.py:144", 0, {}),
+        "qmm_w8": ("csrc/qmm_w8.cu", "llama_kotlin_tpu/ops/pallas/qmm_w8.py:144", 0,
+                   {"b32": "lm_head n=128256 k=4096 b=32 group=16"}),
         "qmm_int8": ("csrc/qmm_int8.cu", "llama_kotlin_tpu/ops/pallas/qmm_int8.py:41", 2, {}),
         "flash_stacked": ("csrc/flash_stacked.cu",
                           "llama_kotlin_tpu/ops/pallas/flash_stacked.py:94", 0, {"int8": 1}),
         "qmm_w4x": ("csrc/qmm_w4x.cu", "llama_kotlin_tpu/ops/pallas/qmm_w4.py:691", 0,
                     {"b32": 6}),
         "qmm_w8_precise": ("csrc/qmm_w8.cu", "llama_kotlin_tpu/ops/pallas/qmm_w8.py:144", 0,
-                           {}),
-        "qmm_w4_fx": ("csrc/qmm_w4_fx.cu", "llama_kotlin_tpu/ops/pallas/qmm_w4.py:551", 0, {}),
+                           {"b32": "lm_head n=128256 k=4096 b=32 group=16"}),
+        "qmm_w4_fx": ("csrc/qmm_w4_fx.cu", "llama_kotlin_tpu/ops/pallas/qmm_w4.py:551", 0,
+                      {"b32": "sym down n=4096 k=14336 b=32"}),
         "qmm_w4_layer": ("csrc/qmm_w4_layer.cu",
                          "llama_kotlin_tpu/ops/pallas/qmm_w4_ffn.py:662", 0, {}),
     }
@@ -1684,7 +1788,8 @@ def main() -> int:
                  "max_abs_err": max(r["max_abs_err"] for r in results[kname]),
                  **{k: rows[pick][k] for k in timing}}
         for branch, i in branches.items():
-            entry[branch] = {k: rows[i][k] for k in timing + ("max_abs_err",)}
+            row = rows[i] if isinstance(i, int) else next(r for r in rows if r["shape"] == i)
+            entry[branch] = {k: row[k] for k in timing + ("max_abs_err",)}
         if kname == "flash":  # the int4 branch's launches, counted apart
             entry["int4"]["launches"] = int4_launches
         if kname == "qmm_w4_layer":  # no library call; the route it replaces

@@ -1,8 +1,8 @@
 // Pieces shared by the tensor-core GEMMs of kernel 4 (qmm.cu) and of
-// kernel 7 above its row threshold (qmm_w4x.cu, w4_mma.cuh): cp.async
-// copies into a shared-memory ring, the mma.sync products, the bf16
-// dequantization of whole 32-bit code words, and the fixed-order sum of
-// split-K partials.
+// kernels 5, 7 and 8 above their row thresholds (w8_mma.cuh, w4_mma.cuh):
+// cp.async copies into a shared-memory ring, the mma.sync products, the
+// bf16 dequantization of whole 32-bit code words, the fixed-order sum of
+// split-K partials and the int8 GEMMs' epilogue.
 #pragma once
 
 #include "common.cuh"
@@ -105,6 +105,22 @@ __device__ __forceinline__ void dequant_w8_word(uint32_t w, float s, float m, ui
   out[1] = pack_bf16(f[2], f[3]);
 }
 
+// Host side: sets KERN's dynamic shared memory once, then launches it with
+// the enclosing namespace's THREADS and returns the launch's error.
+#define LK_MMA_LAUNCH(KERN, SMEM_BYTES, GRID, STREAM, ...)                               \
+  {                                                                                      \
+    auto kern = KERN;                                                                    \
+    static bool sized = false;                                                           \
+    if (!sized) {                                                                        \
+      const cudaError_t err =                                                            \
+          cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES); \
+      if (err != cudaSuccess) return (int)err;                                           \
+      sized = true;                                                                      \
+    }                                                                                    \
+    kern<<<GRID, THREADS, SMEM_BYTES, STREAM>>>(__VA_ARGS__);                            \
+    return (int)cudaGetLastError();                                                      \
+  }
+
 // --- split-K partials, summed in a fixed order -------------------------
 // A K range [u0, u1) of split z of `splits` over `units` units; the
 // wrapper's plan (ops/cuda/qmm.py::split_bounds) uses the same formula.
@@ -169,4 +185,41 @@ __device__ __forceinline__ void split_sum(const float* __restrict__ ws, float* _
     for (int j = 0; j < 4; ++j)
       if (ok[j]) *reinterpret_cast<float4*>(y + off[j]) = v[j];
   }
+}
+
+// The epilogue of the int8 tensor-core GEMMs (w4_mma.cuh, w8_mma.cuh):
+// THREADS = 256, 8 warps of 16 weight rows, acc[mt][nt][e] at activation
+// row mt*16 + g (+8 for e >= 2) and weight row warp*16 + 8 nt + 2t + (e & 1),
+// NP planes of B rows each.  The f32 tile [MP][BN] goes through shared memory (the ring,
+// drained), then each batch row's planes are summed in a fixed order
+// (plane 0, then plane 1) into y, or into split z's partial when K is
+// split; the last block of the column tile then sums the splits in order.
+template <int NP, int MT, int BN, int THREADS>
+__device__ __forceinline__ void store_planes(uint8_t* smem, const float (&acc)[MT][2][4], int B,
+                                             int n, int n0, int warp, int g, int t,
+                                             float* __restrict__ y, int splits,
+                                             float* __restrict__ ws, int* __restrict__ cnt,
+                                             int z) {
+  constexpr int O_LD = BN + 4;
+  float* tile = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        tile[(mt * 16 + g + (e >= 2 ? 8 : 0)) * O_LD + warp * 16 + nt * 8 + 2 * t +
+             (e & 1)] = acc[mt][nt][e];
+  __syncthreads();
+  float* out = splits == 1 ? y : ws + (size_t)z * B * n;
+  for (int idx = threadIdx.x; idx < B * BN; idx += THREADS) {
+    const int b = idx / BN, c = idx % BN;
+    if (n0 + c >= n) continue;
+    float v = tile[b * O_LD + c];
+#pragma unroll
+    for (int p = 1; p < NP; ++p) v += tile[(p * B + b) * O_LD + c];
+    out[(size_t)b * n + n0 + c] = v;
+  }
+  if (splits > 1 && split_arrive_last(cnt, blockIdx.x, splits))
+    split_sum(ws, y, splits, (size_t)B * n, n, 0, B, n0, min(BN, n - n0));
 }

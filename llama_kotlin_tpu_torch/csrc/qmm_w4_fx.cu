@@ -13,17 +13,35 @@
 //
 // Bound on the H100: bytes, the weight stream (codes plus f32 g_scale: 5
 // bits a weight for sym folds; plus f32 g_min: 6 bits for legacy ones), at
-// B <= 32 far below the int8 rate.  The cost this design adds is the one the TPU kernel has
-// (it repeats its prep per n-block): every block quantizes all of x, since
-// blocks cannot share shared memory.  A block walks k in tiles of KT
-// elements; per tile it quantizes x[:, tile] into shared memory (one warp
-// per 256-element superblock), then each of its 16 warps runs its rows over
-// that tile and adds the warp-summed partial into a shared accumulator.
-// The host picks rows per warp so that a block's weight bytes stay large
-// next to the x it re-quantizes: few blocks (one per SM) when B is large
-// and the quantization is the block's main work, several per SM at small B
-// where the weight stream needs the warps in flight.
+// B <= 32 far below the int8 rate.  Two designs compute it, chosen by the
+// wrapper's row threshold T8 (ops/cuda/qmm_w4_fx.py::MMA_MIN_ROWS,
+// FX_WALK_ROWS here):
+//
+// - up to T8 rows, the walk below.  The cost it adds is the one the TPU
+//   kernel has (it repeats its prep per n-block): every block quantizes all
+//   of x, since blocks cannot share shared memory.  A block walks k in
+//   tiles of KT elements; per tile it quantizes x[:, tile] into shared
+//   memory (one warp per 256-element superblock), then each of its 16
+//   warps runs its rows over that tile and adds the warp-summed partial
+//   into a shared accumulator.  The host picks rows per warp so that a
+//   block's weight bytes stay large next to the x it re-quantizes.  Past a
+//   few rows it is bound by the activations' shared-memory reads and
+//   __dp4a issue (two LDS.128 and eight __dp4a a row per 16 code bytes),
+//   and above 8 rows one block an SM re-quantizes all of x.
+// - above T8, kernel 7's int8 tensor-core tile with one plane
+//   (w4_mma.cuh::w4_fx_mma_kernel): a block takes 128 weight rows and a K
+//   range of whole spans (split K as ops/cuda/qmm.py::plan says, summed in
+//   split order by the last block), and quantizes each span of its rows of
+//   x once, into the stage the products read; one mma.sync m16n8k32 is one
+//   32-group, exact int32 partials.  That quantization, repeated by every
+//   128-column tile, is most of its time above the library's; its division
+//   is common.cuh's branch-free div_nb, the quotient __fdiv_rn gives
+//   without its branches (PERF.md, kernel 8).
 #include "w4_dot.cuh"
+#include "w4_mma.cuh"
+
+// T8: the walk takes at most this many rows (the wrapper's MMA_MIN_ROWS).
+constexpr int FX_WALK_ROWS = 4;
 
 constexpr int kFxWarps = 16;
 
@@ -83,8 +101,8 @@ w4_fx_kernel(const float* __restrict__ x, int B, const uint8_t* __restrict__ cod
 }
 
 template <int NB, bool SYM>
-static int launch_fx(const float* x, int B, const uint8_t* codes, const float* gs,
-                     const float* gm, int n, int kc, float* y, cudaStream_t stream) {
+static int launch_walk(const float* x, int B, const uint8_t* codes, const float* gs,
+                       const float* gm, int n, int kc, float* y, cudaStream_t stream) {
   const int k = 2 * kc;
   // x tile: up to 96 KB of int8 codes, a whole number of 1024-column steps
   const int kt_max = ((96 * 1024 / NB) / 1024) * 1024;
@@ -108,18 +126,37 @@ static int launch_fx(const float* x, int B, const uint8_t* codes, const float* g
   return (int)cudaGetLastError();
 }
 
-// x: [B, 2 kc] f32 (k padded to the fold's k_pad); codes [n, kc] u8; gs, gm
-// [n, 2 kc / 32] f32; sym != 0 for a sym fold (gm is then not read and may
-// be null); y [B, n] f32.
+// The walk's instances: one for each batch-row bucket up to T8.
+template <bool SYM>
+static int walk(const float* x, int B, const uint8_t* codes, const float* gs, const float* gm,
+                int n, int kc, float* y, cudaStream_t stream) {
+  static_assert(FX_WALK_ROWS == 4, "the walk's instances are those up to T8");
+  if (B == 1) return launch_walk<1, SYM>(x, B, codes, gs, gm, n, kc, y, stream);
+  if (B == 2) return launch_walk<2, SYM>(x, B, codes, gs, gm, n, kc, y, stream);
+  return launch_walk<4, SYM>(x, B, codes, gs, gm, n, kc, y, stream);
+}
+
+// x: [B, 2 kc] f32 (k padded to the fold's k_pad), 1 <= B <= 32; codes
+// [n, kc] u8; gs, gm [n, 2 kc / 32] f32; sym != 0 for a sym fold (gm is
+// then not read and may be null); y [B, n] f32.  splits == 0 runs the walk
+// (B <= T8 only); splits >= 1 the tensor-core GEMM with K split in that
+// many span ranges, with ws [splits, B, n] f32 and cnt (one zeroed int a
+// 128-column tile) when splits > 1.  x8_out, sx_out, xsum_out (null, or
+// all three; tensor-core path only) receive the launch's activation codes,
+// scales and group sums in lk_quantize_q8's layout.
 LK_API int lk_w4_fx_gemv(const float* x, int B, const uint8_t* codes, const float* gs,
-                         const float* gm, int sym, int n, int kc, float* y,
+                         const float* gm, int sym, int n, int kc, float* y, int splits,
+                         float* ws, int* cnt, int8_t* x8_out, float* sx_out, int* xsum_out,
                          cudaStream_t stream) {
-  if (n <= 0 || kc <= 0 || kc % 512) return (int)cudaErrorInvalidValue;
-  int err;
-  if (sym) {
-    LK_SWITCH_NB(B, err = launch_fx<NB, true>(x, B, codes, gs, gm, n, kc, y, stream))
-  } else {
-    LK_SWITCH_NB(B, err = launch_fx<NB, false>(x, B, codes, gs, gm, n, kc, y, stream))
-  }
-  return err;
+  if (n <= 0 || kc <= 0 || kc % 512 || B < 1 || B > 32 || (!sym && !gm) || splits < 0 ||
+      splits > kc / 128 || (splits == 0 && (B > FX_WALK_ROWS || x8_out)) ||
+      (splits > 1 && (!ws || !cnt || n % 4)) || (!x8_out != !sx_out) || (!x8_out != !xsum_out))
+    return (int)cudaErrorInvalidValue;
+  if (splits >= 1)
+    return sym ? w4mma::launch_fx<true>(x, B, codes, gs, gm, n, kc, y, splits, ws, cnt, x8_out,
+                                        sx_out, xsum_out, stream)
+               : w4mma::launch_fx<false>(x, B, codes, gs, gm, n, kc, y, splits, ws, cnt, x8_out,
+                                         sx_out, xsum_out, stream);
+  return sym ? walk<true>(x, B, codes, gs, gm, n, kc, y, stream)
+             : walk<false>(x, B, codes, gs, gm, n, kc, y, stream);
 }

@@ -1,6 +1,7 @@
 // The W4A8 product on int8 tensor cores, for row counts where the
 // warp-per-row walk of w4_dot.cuh spends its time on activation traffic
-// (kernel 7 above its row threshold, qmm_w4x.cu).  NP activation planes of
+// (kernel 7 above its row threshold, qmm_w4x.cu; kernel 8 above its own,
+// qmm_w4_fx.cu, with one plane).  NP activation planes of
 // B rows each (row p*B + b of x8/sx/xsum is plane p of batch row b) are
 // stacked as the A operand's MP = 16 MT rows; the weight rows are the
 // B operand; the two planes of a batch row are summed in the epilogue.
@@ -22,6 +23,13 @@
 // 8t..8t+7 of the 32 and the same 8 activation bytes of the group, a
 // permutation of k that both operands share.  Every weight byte is read
 // once a block, and the activation tile is shared by the block's warps.
+//
+// SYM (a sym fold: g_min is 8 s_g on lo groups and 0 on hi groups) forms
+// m_g = 8 s_g from the scale, the same f32 value, and never copies g_min.
+// Kernel 8 (w4_fx_mma_kernel) takes raw f32 rows: each span's activation
+// slots are filled inside the block, each warp quantizing its rows with
+// quantize8_sb's steps (the prologue's codes, bit for bit), from f32 loads
+// issued before the span that is multiplied meanwhile.
 #pragma once
 
 #include "mma_pipe.cuh"
@@ -42,17 +50,15 @@ struct Tile {
   static constexpr int SMEM = STAGE * STAGES;
 };
 
-// Copies of span s into stage st: rows >= rows_live of the activations
-// and >= n of the weights are zero-filled.
-template <int MT>
-__device__ __forceinline__ void load_span(uint8_t* st, int s, const int8_t* __restrict__ x8,
-                                          const float* __restrict__ sx,
-                                          const int* __restrict__ xsum, int rows_live,
-                                          const uint8_t* __restrict__ codes,
-                                          const float* __restrict__ gs,
-                                          const float* __restrict__ gm, int n, int kc, int n0) {
+// Copies of span s of the weight rows into stage st: rows >= n are
+// zero-filled; SYM copies no mins.
+template <int MT, bool SYM = false>
+__device__ __forceinline__ void load_weights(uint8_t* st, int s, const uint8_t* __restrict__ codes,
+                                             const float* __restrict__ gs,
+                                             const float* __restrict__ gm, int n, int kc,
+                                             int n0) {
   using T = Tile<MT>;
-  const int tid = threadIdx.x, G = kc / 16, S = kc / 128;
+  const int tid = threadIdx.x, G = kc / 16;
   for (int idx = tid; idx < BN * 8; idx += THREADS) {
     const int r = idx >> 3, c = idx & 7;
     const bool ok = n0 + r < n;
@@ -66,8 +72,22 @@ __device__ __forceinline__ void load_span(uint8_t* st, int s, const int8_t* __re
     const bool ok = n0 + r < n;
     const size_t g = (size_t)(ok ? n0 + r : 0) * G + s * 8 + c * 4;
     cp_async16(ss + r * S_LD + c * 4, gs + g, ok ? 16 : 0);
-    cp_async16(ms + r * S_LD + c * 4, gm + g, ok ? 16 : 0);
+    if (!SYM) cp_async16(ms + r * S_LD + c * 4, gm + g, ok ? 16 : 0);
   }
+}
+
+// Copies of span s into stage st: rows >= rows_live of the activations
+// and >= n of the weights are zero-filled.
+template <int MT>
+__device__ __forceinline__ void load_span(uint8_t* st, int s, const int8_t* __restrict__ x8,
+                                          const float* __restrict__ sx,
+                                          const int* __restrict__ xsum, int rows_live,
+                                          const uint8_t* __restrict__ codes,
+                                          const float* __restrict__ gs,
+                                          const float* __restrict__ gm, int n, int kc, int n0) {
+  using T = Tile<MT>;
+  const int tid = threadIdx.x, G = kc / 16, S = kc / 128;
+  load_weights<MT>(st, s, codes, gs, gm, n, kc, n0);
   uint8_t* xs = st + T::C_BYTES + 2 * T::S_BYTES;
   for (int idx = tid; idx < T::MP * 16; idx += THREADS) {
     const int r = idx >> 4, c = idx & 15;
@@ -91,7 +111,7 @@ __device__ __forceinline__ void load_span(uint8_t* st, int s, const int8_t* __re
 
 // One span's products and scaling into acc[mt][nt][e] (activation row
 // mt*16 + g (+8 for e >= 2), weight row warp*16 + 8 nt + 2t + (e & 1)).
-template <int MT>
+template <int MT, bool SYM = false>
 __device__ __forceinline__ void span_step(const uint8_t* st, float acc[MT][2][4], int warp,
                                           int g, int t) {
   using T = Tile<MT>;
@@ -137,8 +157,12 @@ __device__ __forceinline__ void span_step(const uint8_t* st, float acc[MT][2][4]
         for (int j = 0; j < 2; ++j) {
           const int col = warp * 16 + nt * 8 + 2 * t + j;
           sc[nt][j] = ss[col * S_LD + gi];
-          mn[nt][j] = ms[col * S_LD + gi];
-          if (h) mn[nt][j] += 8.f * sc[nt][j];
+          if (SYM) {
+            mn[nt][j] = 8.f * sc[nt][j];  // 8 s on lo groups, 0 + 8 s on hi ones
+          } else {
+            mn[nt][j] = ms[col * S_LD + gi];
+            if (h) mn[nt][j] += 8.f * sc[nt][j];
+          }
         }
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
@@ -214,30 +238,162 @@ w4_mma_kernel(const int8_t* __restrict__ x8, const float* __restrict__ sx,
   cp_async_wait<0>();
   __syncthreads();
 
-  // the f32 tile [MP][BN] through shared memory, then the plane sum of
-  // each batch row in a fixed order (plane 0, then plane 1)
-  constexpr int O_LD = BN + 4;
-  float* tile = reinterpret_cast<float*>(smem);
+  store_planes<NP, MT, BN, THREADS>(smem, acc, B, n, n0, warp, g, t, y, splits, ws, cnt, z);
+}
+
+// Kernel 8's activation rows of one span in registers: warp w holds rows
+// w, w + 8, ... (< B), lane l elements 8l..8l+7 of the span.
+template <int MT>
+struct XSpan {
+  float4 v[Tile<MT>::MP / 8][2];
+};
+
+template <int MT>
+__device__ __forceinline__ void fetch_x(XSpan<MT>& r, const float* __restrict__ x, int B, int k,
+                                        int s, int warp, int lane) {
+#pragma unroll
+  for (int i = 0; i < Tile<MT>::MP / 8; ++i) {
+    const int row = warp + 8 * i;
+    r.v[i][0] = r.v[i][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row < B) {
+      const float4* p = reinterpret_cast<const float4*>(x + (size_t)row * k + s * 256 + lane * 8);
+      r.v[i][0] = __ldg(p);
+      r.v[i][1] = __ldg(p + 1);
+    }
+  }
+}
+
+// The rows of r quantized into stage st's activation slots: codes, group
+// sums and the superblock scale, as q8.cu's prologue computes them for span
+// s (and, where x8_out is given, written in q8.cu's layout to global
+// memory).  quantize8_sb's steps run over a warp's MP / 8 rows together,
+// with div_nb's branch-free division, so the rows' chains overlap; rows
+// >= B hold zeros and quantize to zero codes, sums and scales.
+template <int MT>
+__device__ __forceinline__ void quantize_span(uint8_t* st, const XSpan<MT>& r, int B, int k,
+                                              int s, int warp, int lane,
+                                              int8_t* __restrict__ x8_out,
+                                              float* __restrict__ sx_out,
+                                              int* __restrict__ xsum_out) {
+  using T = Tile<MT>;
+  constexpr int RW = T::MP / 8;
+  uint8_t* xs = st + T::C_BYTES + 2 * T::S_BYTES;
+  int* xss = reinterpret_cast<int*>(xs + T::X_BYTES);
+  float* sxs = reinterpret_cast<float*>(xss + T::MP * XS_LD);
+  float v[RW][8], d[RW];
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+    const float4 a = r.v[i][0], c = r.v[i][1];
+    v[i][0] = a.x, v[i][1] = a.y, v[i][2] = a.z, v[i][3] = a.w;
+    v[i][4] = c.x, v[i][5] = c.y, v[i][6] = c.z, v[i][7] = c.w;
+    d[i] = sb_scale(v[i]);
+  }
+  __align__(8) int8_t q[RW][8];
+  int gsum[RW];
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+    const float safe = d[i] > 0.f ? d[i] : 1.0f;
+    const float scale = norm_scale(safe), dn = __fmul_rn(safe, scale), y = recip_nb(dn);
+    gsum[i] = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = code8(div_nb(__fmul_rn(v[i][j], scale), dn, y));
+      q[i][j] = (int8_t)c;
+      gsum[i] += c;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < RW; ++i) gsum[i] = group_sum(gsum[i]);
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+    const int row = warp + 8 * i;
+    const int2 q2 = *reinterpret_cast<const int2*>(q[i]);
+    *reinterpret_cast<int2*>(xs + row * X_LD + lane * 8) = q2;
+    if ((lane & 3) == 0) xss[row * XS_LD + lane / 4] = gsum[i];
+    if (lane == 0) sxs[row] = d[i];
+    if (x8_out && row < B) {
+      *reinterpret_cast<int2*>(x8_out + (size_t)row * k + s * 256 + lane * 8) = q2;
+      if ((lane & 3) == 0) xsum_out[(size_t)row * (k / 32) + s * 8 + lane / 4] = gsum[i];
+      if (lane == 0) sx_out[(size_t)row * (k / 256) + s] = d[i];
+    }
+  }
+}
+
+// Kernel 8 above its row threshold: y [B, n] = W4A8(x) W^T for raw f32 x
+// [B, 2 kc], B <= 32; codes [n, kc] u8, gs (and, unless SYM, gm) [n, kc/16]
+// f32.  As w4_mma_kernel with one plane, but each span's activation slots
+// are quantized here: the f32 rows of the span STAGES - 1 ahead are loaded
+// before this span's products and quantized after them.  Where x8_out is
+// given, the blocks of the first column tile also write their codes,
+// scales and group sums in q8.cu's layout (a check of the quantizer).
+template <int MT, bool SYM>
+__global__ void __launch_bounds__(THREADS, 1)
+w4_fx_mma_kernel(const float* __restrict__ x, int B, const uint8_t* __restrict__ codes,
+                 const float* __restrict__ gs, const float* __restrict__ gm, int n, int kc,
+                 float* __restrict__ y, int splits, float* __restrict__ ws,
+                 int* __restrict__ cnt, int8_t* __restrict__ x8_out, float* __restrict__ sx_out,
+                 int* __restrict__ xsum_out) {
+  using T = Tile<MT>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * BN, z = blockIdx.z, k = 2 * kc;
+  int s0, s1;
+  split_range(z, splits, kc / 128, &s0, &s1);
+  const int ns = s1 - s0;
+  if (blockIdx.x != 0) x8_out = nullptr;
+
+  float acc[MT][2][4];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        tile[(mt * 16 + g + (e >= 2 ? 8 : 0)) * O_LD + warp * 16 + nt * 8 + 2 * t +
-             (e & 1)] = acc[mt][nt][e];
-  __syncthreads();
-  float* out = splits == 1 ? y : ws + (size_t)z * B * n;
-  for (int idx = tid; idx < B * BN; idx += THREADS) {
-    const int b = idx / BN, c = idx % BN;
-    if (n0 + c >= n) continue;
-    float v = tile[b * O_LD + c];
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  XSpan<MT> xr;
 #pragma unroll
-    for (int p = 1; p < NP; ++p) v += tile[(p * B + b) * O_LD + c];
-    out[(size_t)b * n + n0 + c] = v;
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < ns) {
+      load_weights<MT, SYM>(smem + i * T::STAGE, s0 + i, codes, gs, gm, n, kc, n0);
+      fetch_x(xr, x, B, k, s0 + i, warp, lane);
+      quantize_span(smem + i * T::STAGE, xr, B, k, s0 + i, warp, lane, x8_out, sx_out,
+                    xsum_out);
+    }
+    cp_async_commit();
   }
-  if (splits > 1 && split_arrive_last(cnt, blockIdx.x, splits))
-    split_sum(ws, y, splits, (size_t)B * n, n, 0, B, n0, min(BN, n - n0));
+  for (int i = 0; i < ns; ++i) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    const int nxt = i + STAGES - 1;
+    uint8_t* st_nxt = smem + (nxt % STAGES) * T::STAGE;
+    if (nxt < ns) {
+      fetch_x(xr, x, B, k, s0 + nxt, warp, lane);
+      load_weights<MT, SYM>(st_nxt, s0 + nxt, codes, gs, gm, n, kc, n0);
+    }
+    cp_async_commit();
+    span_step<MT, SYM>(smem + (i % STAGES) * T::STAGE, acc, warp, g, t);
+    // stage nxt was last read by span i - 1, before this iteration's barrier
+    if (nxt < ns)
+      quantize_span(st_nxt, xr, B, k, s0 + nxt, warp, lane, x8_out, sx_out, xsum_out);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  store_planes<1, MT, BN, THREADS>(smem, acc, B, n, n0, warp, g, t, y, splits, ws, cnt, z);
+}
+
+// Kernel 8's launch: MT = 1 up to 16 rows, else 2.
+template <bool SYM>
+inline int launch_fx(const float* x, int B, const uint8_t* codes, const float* gs,
+                     const float* gm, int n, int kc, float* y, int splits, float* ws, int* cnt,
+                     int8_t* x8_out, float* sx_out, int* xsum_out, cudaStream_t stream) {
+  const dim3 grid((n + BN - 1) / BN, 1, splits);
+  if (B <= 16)
+    LK_MMA_LAUNCH((w4_fx_mma_kernel<1, SYM>), Tile<1>::SMEM, grid, stream, x, B, codes, gs, gm,
+                  n, kc, y, splits, ws, cnt, x8_out, sx_out, xsum_out)
+  if (B <= 32)
+    LK_MMA_LAUNCH((w4_fx_mma_kernel<2, SYM>), Tile<2>::SMEM, grid, stream, x, B, codes, gs, gm,
+                  n, kc, y, splits, ws, cnt, x8_out, sx_out, xsum_out)
+  return (int)cudaErrorInvalidValue;
 }
 
 // Launch with MT the smallest m16 count that holds NP B rows.
@@ -247,24 +403,15 @@ inline int launch(const int8_t* x8, const float* sx, const int* xsum, int B,
                   float* y, int splits, float* ws, int* cnt, cudaStream_t stream) {
   const int rows = NP * B;
   const dim3 grid((n + BN - 1) / BN, 1, splits);
-#define LK_W4MMA(MTV)                                                                     \
-  {                                                                                       \
-    auto kern = w4_mma_kernel<NP, MTV>;                                                   \
-    static bool sized = false;                                                            \
-    if (!sized) {                                                                         \
-      const cudaError_t err = cudaFuncSetAttribute(                                       \
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<MTV>::SMEM);            \
-      if (err != cudaSuccess) return (int)err;                                            \
-      sized = true;                                                                       \
-    }                                                                                     \
-    kern<<<grid, THREADS, Tile<MTV>::SMEM, stream>>>(x8, sx, xsum, B, codes, gs, gm, n, kc, \
-                                                     y, splits, ws, cnt);                 \
-    return (int)cudaGetLastError();                                                       \
-  }
-  if (rows <= 16) LK_W4MMA(1)
-  if (rows <= 32) LK_W4MMA(2)
-  if (rows <= 64) LK_W4MMA(4)
-#undef LK_W4MMA
+  if (rows <= 16)
+    LK_MMA_LAUNCH((w4_mma_kernel<NP, 1>), Tile<1>::SMEM, grid, stream, x8, sx, xsum, B, codes,
+                  gs, gm, n, kc, y, splits, ws, cnt)
+  if (rows <= 32)
+    LK_MMA_LAUNCH((w4_mma_kernel<NP, 2>), Tile<2>::SMEM, grid, stream, x8, sx, xsum, B, codes,
+                  gs, gm, n, kc, y, splits, ws, cnt)
+  if (rows <= 64)
+    LK_MMA_LAUNCH((w4_mma_kernel<NP, 4>), Tile<4>::SMEM, grid, stream, x8, sx, xsum, B, codes,
+                  gs, gm, n, kc, y, splits, ws, cnt)
   return (int)cudaErrorInvalidValue;
 }
 }  // namespace w4mma

@@ -37,14 +37,14 @@ SIGNATURES = {
     "lk_quantize_q8_2p": [_P, _P, _P, _P, _I, _I, _P],
     "lk_w4_gemv": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     "lk_w4x_gemv": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _I, _P, _P, _P],
-    "lk_w4_fx_gemv": [_P, _I, _P, _P, _P, _I, _I, _I, _P, _P],
+    "lk_w4_fx_gemv": [_P, _I, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P],
     "lk_w4_layer": [_P, _P, _P, _I] + [_P] * 15 + [_I] * 5 + [_F, _F] + [_P] * 5,
     "lk_w4_ffn": [_P, _P, _P, _I] + [_P] * 10 + [_I, _I, _I, _I, _P, _P, _P],
     "lk_flash": [_P] * 9 + [_I] * 6 + [_F, _F, _I, _I, _P],
     "lk_flash_stacked": [_P] * 12 + [_I] * 6 + [_F, _F, _I, _P],
     "lk_w4_dequant_gemm": [_P] * 5 + [_I] * 5 + [_P, _P, _P],
     "lk_w8_dequant_gemm": [_P] * 5 + [_I] * 6 + [_P, _P, _P],
-    "lk_w8_gemv": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P],
+    "lk_w8_gemv": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P],
     "lk_q8f_matmul": [_P, _P, _I, _P, _P, _I, _I, _P, _P],
     "lk_error_string": [_I],
 }
@@ -133,7 +133,7 @@ def ptr(t) -> int | None:
 
 def split_counters(device: torch.device, n: int) -> torch.Tensor:
     """At least n zeroed int32 arrival counters on `device`, for the split-K
-    kernels (kernels 4 and 7): the last block of each tile leaves its
+    kernels (kernels 4, 5, 7 and 8): the last block of each tile leaves its
     counter at 0 again, so one buffer serves every launch on the stream."""
     buf = _counters.get(device)
     if buf is None or buf.numel() < n:

@@ -158,6 +158,18 @@ def check_w4_on(w: QTensor, device: torch.device) -> None:
                 "compact planes must be uint8 q6 and f32 dd")
 
 
+def check_int8_on(w: QTensor, device: torch.device) -> None:
+    """Every tensor of an int8-code layout (W8 fold, Q8F) lies on `device`,
+    contiguous and 16-byte aligned, in the dtypes the kernels read."""
+    for name, t in w.tensors().items():
+        require(t.device == device, f"{w.flavor} {name} on {t.device}, not {device}")
+        require(t.is_contiguous() and t.data_ptr() % 16 == 0,
+                f"{w.flavor} {name} is not contiguous and 16-byte aligned")
+    require(w.codes.dtype == torch.int8 and w.g_scale.dtype == torch.float32,
+            f"{w.flavor} codes must be int8 and g_scale f32")
+    require(w.g_min is None or w.g_min.dtype == torch.float32, f"{w.flavor} g_min must be f32")
+
+
 def gemv_args(w: QTensor):
     """(codes, q6, dd, g_scale, g_min, compact) pointers for a fold."""
     compact = w.aux["flavor"] == "compact"

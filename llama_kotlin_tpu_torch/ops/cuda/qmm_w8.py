@@ -9,13 +9,16 @@ against the fold's int8 codes with exact integer partials per 16- or
 f32.  Formats with mins subtract x_g . m_eff outside the kernel with one
 ``torch.matmul`` over the sx-scaled group sums, as the JAX entry does.
 Bound on the H100: bytes (the weight stream, 10 bits per weight at
-group 16); see the CUDA source for the design.
+group 16); see the CUDA source for the design.  Rows up to
+``MMA_MIN_ROWS`` take the warp-per-row walk, more rows int8 tensor cores
+(``csrc/w8_mma.cuh``) with K split in whole superblocks as kernel 4's
+``plan`` says (``use_mma``).
 
 The precise branch (W8X folds, the W4X mode's q6_K tensors; the JAX
 entry's ``precise`` branch, ``qmm_w8.py:117-133``) quantizes the
 activations in two planes (``quantize_q8_2p``), runs the same kernel over
-both planes' rows in one pass over the codes, and subtracts the min term
-of both planes outside the kernel.
+both planes' rows in one pass over the codes (summing the planes in the
+kernel), and subtracts the min term of both planes outside the kernel.
 
 ``qmm_w8_matmul`` launches the kernel for CUDA tensors and runs
 ``qmm_w8_plain`` — the same function in plain PyTorch — for CPU tensors.
@@ -29,14 +32,31 @@ import torch
 
 from llama_kotlin_tpu_torch.device import is_cuda, require
 from llama_kotlin_tpu_torch.ops.cuda import _build
-from llama_kotlin_tpu_torch.ops.cuda.qmm_w4 import (MAX_ROWS, quantize_q8, quantize_q8_2p,
-                                                    quantize_q8_2p_cuda, quantize_q8_cuda)
+from llama_kotlin_tpu_torch.ops.cuda.qmm import plan, sm_count, split_workspace
+from llama_kotlin_tpu_torch.ops.cuda.qmm_w4 import (MAX_ROWS, check_int8_on, quantize_q8,
+                                                    quantize_q8_2p, quantize_q8_2p_cuda,
+                                                    quantize_q8_cuda)
 from llama_kotlin_tpu_torch.quant.fold import is_w8, is_w8x
 from llama_kotlin_tpu_torch.quant.qtensor import SPAN, QTensor
 
 LAUNCHES = 0  # kernel launches of qmm_w8_matmul on W8 folds (single plane)
 LAUNCHES_2P = 0  # and on W8X folds (the precise, dual-plane branch)
+LAUNCHES_MMA = 0  # of either, the launches that took the tensor cores
 PLAIN_CHUNK = 8192  # output rows per step of the plain version
+# T5: rows above it take the tensor-core GEMM, rows up to it the walk
+# (csrc/qmm_w8.cu's W8_WALK_ROWS, which refuses the walk above it).  The
+# crossover on the H100 (scripts/qmm_ab.py, the parent walking every row
+# count; PERF.md, kernel 5): the walk is faster at 2 rows on every shape
+# and branch but W8X ffn_down, the tensor cores from 4 rows on every one
+# but the W8 lm_head, whose loss there the other projections outweigh
+MMA_MIN_ROWS = 2
+MMA_BM = 64  # the GEMM's one row tile: both planes of up to 32 rows
+UNIT = 256  # K elements a split unit: one superblock, the span of an sx
+
+
+def use_mma(b: int) -> bool:
+    """Whether b rows take the tensor-core GEMM (else the walk)."""
+    return b > MMA_MIN_ROWS
 
 
 def w8_dot_plain(x8: torch.Tensor, sx: torch.Tensor, w: QTensor) -> torch.Tensor:
@@ -79,22 +99,10 @@ def qmm_w8_plain(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     return y[:b] + y[b:] if is_w8x(w) else y
 
 
-def check_int8_on(w: QTensor, device: torch.device) -> None:
-    """Every tensor of an int8-code layout (W8 fold, Q8F) lies on `device`,
-    contiguous and 16-byte aligned, in the dtypes the kernels read."""
-    for name, t in w.tensors().items():
-        require(t.device == device, f"{w.flavor} {name} on {t.device}, not {device}")
-        require(t.is_contiguous() and t.data_ptr() % 16 == 0,
-                f"{w.flavor} {name} is not contiguous and 16-byte aligned")
-    require(w.codes.dtype == torch.int8 and w.g_scale.dtype == torch.float32,
-            f"{w.flavor} codes must be int8 and g_scale f32")
-    require(w.g_min is None or w.g_min.dtype == torch.float32, f"{w.flavor} g_min must be f32")
-
-
 def qmm_w8_matmul(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     """x [..., k] (float) @ W8 or W8X w^T -> [..., n] f32, for at most 32
     rows."""
-    global LAUNCHES, LAUNCHES_2P
+    global LAUNCHES, LAUNCHES_2P, LAUNCHES_MMA
     precise = is_w8x(w)
     require(is_w8(w) or precise, "qmm_w8_matmul needs a W8 or W8X fold")
     n, k = w.shape
@@ -112,14 +120,20 @@ def qmm_w8_matmul(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     check_int8_on(w, x2.device)
     x8, sx, _ = quantize_q8_2p_cuda(x2) if precise else quantize_q8_cuda(x2)
     y = torch.empty((b, n), dtype=torch.float32, device=x2.device)
+    splits, ws, cnt = 0, None, None
+    if use_mma(b):
+        p = plan(1, n, k_pad, UNIT, sm_count(x2.device.index or 0), bms=(MMA_BM,))
+        splits = p.splits
+        ws, cnt = split_workspace(p, b, n, x2.device)
     _build.check(_build.lib().lk_w8_gemv(
         x8.data_ptr(), sx.data_ptr(), b, w.codes.data_ptr(), w.g_scale.data_ptr(),
-        n, k_pad, w.group_size, 2 if precise else 1, y.data_ptr(), _build.stream()),
-        "lk_w8_gemv")
+        n, k_pad, w.group_size, 2 if precise else 1, y.data_ptr(), splits, _build.ptr(ws),
+        _build.ptr(cnt), _build.stream()), "lk_w8_gemv")
     if precise:
         LAUNCHES_2P += 1
     else:
         LAUNCHES += 1
+    LAUNCHES_MMA += int(splits > 0)
     if w.g_min is not None:
         mt = min_term(x8, sx, w)
         y = y - (mt[:b] + mt[b:] if precise else mt)

@@ -1,25 +1,34 @@
 #!/usr/bin/env python3
-"""Kernels 4 (the prefill dequant matmul, both branches) and 7 (the W4X
-matmul) of two checkouts of the port, timed on one card in turns.
+"""Kernels 4 (the prefill dequant matmul, both branches), 5 (the W8 decode
+matmul, both branches), 7 (the W4X matmul) and 8 (the W4A8 matmul with the
+quantization inside the launch) of two or more checkouts of the port,
+timed on one card in turns.
 
-    python3 scripts/qmm_ab.py ROOT_A ROOT_B [--rounds N]
+    python3 scripts/qmm_ab.py ROOT_A ROOT_B [ROOT ...] [--rounds N] [--kernels 4,5,7,8]
 
 Each turn is its own process that builds ROOT's kernels
 (``llama_kotlin_tpu_torch/_build/`` under ROOT) and times them through
-their wrappers (``qmm.qmm``, ``qmm_w4x.qmm_w4x_matmul``) with chip_smoke.py's
-timer (median of 20 CUDA-event timings, L2 flushed before each) at the
-llama3-8B shapes of PERF.md's kernel table: kernel 4 on W4 folds (qkv, o,
-gate|up, down) at 64 and 512 rows and on q6_K W8 folds (ffn_down, attn_v)
-at 64 rows; kernel 7 on precise folds (gate|up at b = 1, 2, 4, 8, 9, 16,
-32; qkv, o and down at b = 1, 2, 4, 32), so a root whose kernel 7 walks
-every row count against one that takes more rows on tensor cores gives
-the row threshold's crossover.  Where a root has the split plan
-(``qmm.plan``), its kernels 4 (64 rows) and 7 (32 rows) are also timed at
-other split counts than the plan's: the least that gives every SM a
-block, and twice that (keys ending in ``splits=S``).  Weights and inputs
-come from fixed seeds, so both roots see the same numbers.  Turns run A,
-B, B, A per round, so neither side always runs first.  Prints one JSON
-line per turn, then the card's name and power limit.
+their wrappers (``qmm.qmm``, ``qmm_w8.qmm_w8_matmul``,
+``qmm_w4x.qmm_w4x_matmul``, ``qmm_w4_fx.qmm_w4_fx_matmul``) with
+chip_smoke.py's timer (median of 20 CUDA-event timings, L2 flushed before
+each) at the llama3-8B shapes of PERF.md's kernel table: kernel 4 on W4
+folds (qkv, o, gate|up, down) at 64 and 512 rows and on q6_K W8 folds
+(ffn_down, attn_v) at 64 rows; kernel 7 on precise folds (gate|up at b = 1,
+2, 4, 8, 9, 16, 32; qkv, o and down at b = 1, 2, 4, 32); kernel 5 on q6_K
+W8 folds (lm_head, ffn_down, attn_v) and on W8X folds of the same blocks at
+b = 1, 2, 4, 8, 9, 16, 32; kernel 8 on sym folds (qkv, o, gate|up, down) at
+the same row counts and on legacy folds at b = 1, 2, 4, 9, 32.  A root
+whose kernel walks every row count against one that takes more rows on
+tensor cores gives that kernel's row threshold's crossover; where a root
+has a threshold (``MMA_MIN_ROWS``), its rows up to it are also timed on
+the tensor cores (keys ending in ``mma``), so one root shows both sides.
+Where a root has the split plan (``qmm.plan``), its kernels 4 (64 rows) and
+5, 7 and 8 (32 rows) are also timed at other split counts than the plan's:
+the least that gives every SM a block, and twice that (keys ending in
+``splits=S``).  Weights and inputs come from fixed seeds, so every root
+sees the same numbers.  Turns run in root order, then in reverse, each
+round, so no root always runs first.  Prints one JSON line per turn, then
+the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -32,11 +41,15 @@ import subprocess
 import sys
 from pathlib import Path
 
-E, F, KVD = 4096, 14336, 1024
+E, F, KVD, V = 4096, 14336, 1024, 128256
 W4_SHAPES = {"qkv": (6144, E), "o": (E, E), "gate_up": (2 * F, E), "down": (E, F)}
 W8_SHAPES = {"ffn_down": (E, F), "attn_v": (KVD, E)}
 W4X_CASES = tuple([("gate_up", b) for b in (1, 2, 4, 8, 9, 16, 32)]
                   + [(name, b) for name in ("qkv", "o", "down") for b in (1, 2, 4, 32)])
+ROWS = (1, 2, 4, 8, 9, 16, 32)  # kernels 5 and 8: both sides of the crossovers
+W8_DECODE = {"lm_head": (V, E), **W8_SHAPES}
+FX_LEGACY_ROWS = (1, 2, 4, 9, 32)
+KERNELS = ("4", "5", "7", "8")
 
 
 def split_counts(qmm, m: int, n: int, k: int, unit: int, bms) -> list[int]:
@@ -64,14 +77,42 @@ def forced_splits(modules, splits: int):
             mod.plan = real
 
 
-def one(root: str) -> None:
-    """Build ROOT's kernels and time its kernels 4 and 7."""
+@contextlib.contextmanager
+def all_mma(mod):
+    """The module's wrapper takes the tensor-core path at every row count."""
+    real = mod.MMA_MIN_ROWS
+    mod.MMA_MIN_ROWS = 0
+    try:
+        yield
+    finally:
+        mod.MMA_MIN_ROWS = real
+
+
+def decode_rows(out, smoke, torch, key, mod, fn, x, wt, flush, n, k, unit) -> None:
+    """Times fn(x, wt) at x's row count; below a root's row threshold also
+    on the tensor cores; at 32 rows also at the sweep's split counts."""
+    b = x.shape[0]
+    out[key] = smoke.time_ms(torch, lambda: fn(x, wt), flush)
+    if hasattr(mod, "MMA_MIN_ROWS") and not mod.use_mma(b):
+        with all_mma(mod):
+            out[f"{key} mma"] = smoke.time_ms(torch, lambda: fn(x, wt), flush)
+    if b == 32 and hasattr(mod, "plan"):
+        from llama_kotlin_tpu_torch.ops.cuda import qmm
+
+        for z in split_counts(qmm, 1, n, k, unit, (mod.MMA_BM,)):
+            with forced_splits([qmm, mod], z):
+                out[f"{key} splits={z}"] = smoke.time_ms(torch, lambda: fn(x, wt), flush)
+
+
+def one(root: str, kernels) -> None:
+    """Build ROOT's kernels and time the chosen ones."""
     import numpy as np
     import torch
 
     sys.path.insert(0, root)
-    from llama_kotlin_tpu_torch.models.synthetic import synthetic_w4_device, wire_blocks
-    from llama_kotlin_tpu_torch.ops.cuda import _build, qmm, qmm_w4x
+    from llama_kotlin_tpu_torch.models.synthetic import (synthetic_w4, synthetic_w4_device,
+                                                         wire_blocks)
+    from llama_kotlin_tpu_torch.ops.cuda import _build, qmm, qmm_w4_fx, qmm_w4x, qmm_w8
     from llama_kotlin_tpu_torch.quant import fold, repack
     from llama_kotlin_tpu_torch.quant.formats import GGMLQuantType as Q
 
@@ -85,53 +126,91 @@ def one(root: str) -> None:
     gen.manual_seed(1234)
     flush = torch.zeros(smoke.FLUSH_BYTES, dtype=torch.uint8, device=dev)
     out = {"root": root, "library": _build.build().name}
-    for name, (n, k) in W4_SHAPES.items():
-        wt = synthetic_w4_device(gen, n, k, zero_mean=False, device=dev)
-        for m in (64, 512):
-            xb = (torch.randn((m, k), generator=gen, device=dev) * 0.7).to(torch.bfloat16)
-            out[f"qmm W4 {name} m={m}"] = smoke.time_ms(torch, lambda: qmm.qmm(xb, wt), flush)
-            if m == 64:
-                for z in split_counts(qmm, m, n, k, 256, (32, 64, 128)):
-                    with forced_splits([qmm], z):
-                        out[f"qmm W4 {name} m={m} splits={z}"] = smoke.time_ms(
-                            torch, lambda: qmm.qmm(xb, wt), flush)
-        del wt
-    rng = np.random.default_rng(99)
-    for name, (n, k) in W8_SHAPES.items():
-        blocks = torch.from_numpy(wire_blocks(rng, Q.Q6_K, n, k)).to(dev)
-        wt = fold.fold_to_w8(repack.repack(blocks, Q.Q6_K, n, k))
-        xb = (torch.randn((64, k), generator=gen, device=dev) * 0.7).to(torch.bfloat16)
-        out[f"qmm 8-bit {name} m=64"] = smoke.time_ms(torch, lambda: qmm.qmm(xb, wt), flush)
-        for z in split_counts(qmm, 64, n, k, 64, (32, 64, 128)):
-            with forced_splits([qmm], z):
-                out[f"qmm 8-bit {name} m=64 splits={z}"] = smoke.time_ms(
-                    torch, lambda: qmm.qmm(xb, wt), flush)
-        del wt, blocks
-    w = {}
-    for name, b in W4X_CASES:
-        n, k = W4_SHAPES[name]
-        if name not in w:
-            w[name] = synthetic_w4_device(gen, n, k, zero_mean=False, precise=True, device=dev)
-        x = torch.randn((b, k), generator=gen, device=dev) * 0.7
-        out[f"qmm_w4x {name} b={b}"] = smoke.time_ms(
-            torch, lambda: qmm_w4x.qmm_w4x_matmul(x, w[name]), flush)
-        if b == 32:
-            for z in split_counts(qmm, 1, n, k, 256, (64,)):
-                with forced_splits([qmm, qmm_w4x], z):
-                    out[f"qmm_w4x {name} b={b} splits={z}"] = smoke.time_ms(
-                        torch, lambda: qmm_w4x.qmm_w4x_matmul(x, w[name]), flush)
+    if "4" in kernels:
+        for name, (n, k) in W4_SHAPES.items():
+            wt = synthetic_w4_device(gen, n, k, zero_mean=False, device=dev)
+            for m in (64, 512):
+                xb = (torch.randn((m, k), generator=gen, device=dev) * 0.7).to(torch.bfloat16)
+                out[f"qmm W4 {name} m={m}"] = smoke.time_ms(torch, lambda: qmm.qmm(xb, wt), flush)
+                if m == 64:
+                    for z in split_counts(qmm, m, n, k, 256, (32, 64, 128)):
+                        with forced_splits([qmm], z):
+                            out[f"qmm W4 {name} m={m} splits={z}"] = smoke.time_ms(
+                                torch, lambda: qmm.qmm(xb, wt), flush)
+            del wt
+        rng = np.random.default_rng(99)
+        for name, (n, k) in W8_SHAPES.items():
+            blocks = torch.from_numpy(wire_blocks(rng, Q.Q6_K, n, k)).to(dev)
+            wt = fold.fold_to_w8(repack.repack(blocks, Q.Q6_K, n, k))
+            xb = (torch.randn((64, k), generator=gen, device=dev) * 0.7).to(torch.bfloat16)
+            out[f"qmm 8-bit {name} m=64"] = smoke.time_ms(torch, lambda: qmm.qmm(xb, wt), flush)
+            for z in split_counts(qmm, 64, n, k, 64, (32, 64, 128)):
+                with forced_splits([qmm], z):
+                    out[f"qmm 8-bit {name} m=64 splits={z}"] = smoke.time_ms(
+                        torch, lambda: qmm.qmm(xb, wt), flush)
+            del wt, blocks
+    if "7" in kernels:
+        w = {}
+        for name, b in W4X_CASES:
+            n, k = W4_SHAPES[name]
+            if name not in w:
+                w[name] = synthetic_w4_device(gen, n, k, zero_mean=False, precise=True,
+                                              device=dev)
+            x = torch.randn((b, k), generator=gen, device=dev) * 0.7
+            out[f"qmm_w4x {name} b={b}"] = smoke.time_ms(
+                torch, lambda: qmm_w4x.qmm_w4x_matmul(x, w[name]), flush)
+            if b == 32:
+                for z in split_counts(qmm, 1, n, k, 256, (64,)):
+                    with forced_splits([qmm, qmm_w4x], z):
+                        out[f"qmm_w4x {name} b={b} splits={z}"] = smoke.time_ms(
+                            torch, lambda: qmm_w4x.qmm_w4x_matmul(x, w[name]), flush)
+        del w
+    if "5" in kernels:
+        rng = np.random.default_rng(98)
+        for name, (n, k) in W8_DECODE.items():
+            blocks = torch.from_numpy(wire_blocks(rng, Q.Q6_K, n, k)).to(dev)
+            rp = repack.repack(blocks, Q.Q6_K, n, k)
+            for label, precise in (("qmm_w8", False), ("qmm_w8_precise", True)):
+                wt = fold.fold_to_w8(rp, precise=precise)
+                for b in ROWS:
+                    x = torch.randn((b, k), generator=gen, device=dev) * 0.7
+                    decode_rows(out, smoke, torch, f"{label} {name} b={b}", qmm_w8,
+                                qmm_w8.qmm_w8_matmul, x, wt, flush, n, k, 256)
+                del wt
+            del blocks, rp
+    if "8" in kernels:
+        rng = np.random.default_rng(97)
+        for flavor, kw, rows in (("sym", dict(sym=True), ROWS),
+                                 ("legacy", dict(compact=False), FX_LEGACY_ROWS)):
+            for name, (n, k) in W4_SHAPES.items():
+                wt = synthetic_w4(rng, n, k, device=dev, **kw)
+                for b in rows:
+                    x = torch.randn((b, k), generator=gen, device=dev) * 0.7
+                    decode_rows(out, smoke, torch, f"qmm_w4_fx {flavor} {name} b={b}", qmm_w4_fx,
+                                qmm_w4_fx.qmm_w4_fx_matmul, x, wt, flush, n, k, 256)
+                del wt
     print(json.dumps(out), flush=True)
 
 
 def main(argv: list[str]) -> int:
+    kernels = KERNELS
+    if "--kernels" in argv:
+        i = argv.index("--kernels")
+        kernels = tuple(argv[i + 1].split(","))
+        del argv[i:i + 2]
     if argv[:1] == ["--one"]:
-        one(argv[1])
+        one(argv[1], kernels)
         return 0
-    a, b = argv[:2]
-    rounds = int(argv[argv.index("--rounds") + 1]) if "--rounds" in argv else 1
+    rounds = 1
+    if "--rounds" in argv:
+        i = argv.index("--rounds")
+        rounds = int(argv[i + 1])
+        del argv[i:i + 2]
+    roots = argv
     for _ in range(rounds):
-        for root in (a, b, b, a):
-            subprocess.run([sys.executable, __file__, "--one", root], check=True)
+        for root in roots + roots[::-1]:
+            subprocess.run([sys.executable, __file__, "--one", root, "--kernels",
+                            ",".join(kernels)], check=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     return 0
