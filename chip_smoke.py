@@ -80,6 +80,16 @@ Q4_K_M file in w4 and w4x (kernel 5 at 32 rows: 32 launches a prefill)
 and on the Q4_0 file under LKTPU_W4_FX=1 (kernel 8 at 32 rows: 2 a layer
 a prefill), each with exact launch counts and a profiled prefill.
 
+Kernel 1 above its row threshold T1 takes kernel 7's int8 tensor-core
+tile with one plane (compact folds through their 6-bit codes), and kernel
+3 a bf16 tensor-core tile that skips dead cell tiles, at every row count:
+3 times kernel 1 on compact, sym and legacy folds at b = 1, 9, 16, 32 on
+qkv, o, gate|up and the lm_head (above T1 repeated bit-equal), and checks
+kernel 3 on the three caches at 4-256 rows a kv head, with a fully masked
+row (exactly 0), a softcap and a dead tile between live ones; serve()
+counts kernel 1's tensor-core launches ("qmm_w4_mma") and holds them,
+request by request, to the rows each prefill and decode step gives it.
+
 The last line of standard output is {"ok": true, "device": {...}}.
 """
 
@@ -274,10 +284,16 @@ def w8_precise():
 
 
 def mma_counter(mod):
-    """Kernel 5's or 8's launches on its tensor-core path (both branches of
-    kernel 5), counted apart as "<kernel>_mma"."""
+    """A kernel's launches on its tensor-core path (kernels 1, 8 and kernel
+    5's single-plane branch), counted apart as "<kernel>_mma"."""
     name = mod_name(mod)
     return BranchCounter(mod, "LAUNCHES_MMA", f"{mod.__name__}.{name}_mma")
+
+
+def w8_precise_mma():
+    from llama_kotlin_tpu_torch.ops.cuda import qmm_w8
+
+    return BranchCounter(qmm_w8, "LAUNCHES_2P_MMA", "qmm_w8.qmm_w8_precise_mma")
 
 
 def sdpa_call(torch, q, k, v, mask, scale):
@@ -314,6 +330,29 @@ def nbytes(w, names=FOLD_PLANES) -> int:
     return sum(ts[n].numel() * ts[n].element_size() for n in names if n in ts)
 
 
+def w4_on_card(torch, gen, n: int, k: int, flavor: str):
+    """A random W4 fold of a flavor, drawn on the card: compact with
+    independent scale and min planes (synthetic_w4_device), or legacy or sym
+    f32 scale (and min) planes rounded to bf16 as those folds keep them; a
+    sym fold's min plane is 8 s on lo groups and 0 on hi ones."""
+    from llama_kotlin_tpu_torch.models.synthetic import synthetic_w4_device
+    from llama_kotlin_tpu_torch.quant.fold import w4_from_parts
+
+    dev = torch.device("cuda")
+    if flavor == "compact":
+        return synthetic_w4_device(gen, n, k, zero_mean=False, device=dev)
+    G = k // 32
+    packed = torch.randint(0, 256, (n, k // 2), dtype=torch.uint8, generator=gen, device=dev)
+    s = torch.rand((n, G), generator=gen, device=dev) * (0.02 / 8)
+    if flavor == "sym":
+        m = torch.where(torch.arange(G, device=dev) % 8 < 4, 8.0 * s, torch.zeros_like(s))
+    else:
+        m = torch.rand((n, G), generator=gen, device=dev) * 0.01
+    w = w4_from_parts(packed, s, m, (n, k), sym=flavor == "sym")
+    assert w.flavor == flavor
+    return w
+
+
 def kernel_phase(torch, results: dict) -> None:
     import numpy as np
 
@@ -335,47 +374,57 @@ def kernel_phase(torch, results: dict) -> None:
     report = functools.partial(report_row, results)
     check = functools.partial(check_row, results)
 
-    # kernel 1: W4A8 decode matmul — qkv, o, lm_head at b = 1 and 32.
-    # tol: both sides take exact integer partials; f32 order of the scale
-    # products and the 128-group sum differs
-    for name in ("qkv", "o", "lm_head"):
-        wt = w[name]
-        n, k = wt.shape
-        for b in (1, 32):
-            x = torch.randn((b, k), generator=gen, device=dev) * 0.7
-            got = qmm_w4.qmm_w4_matmul(x, wt)
-            ref = qmm_w4.qmm_w4_plain(x, wt)
-            codes_equal(torch, x)
-            report("qmm_w4", f"{name} n={n} k={k} b={b}", err_of(got, ref), 1e-4,
-                   time_ms(torch, lambda: qmm_w4.qmm_w4_matmul(x, wt), flush),
-                   time_ms(torch, lambda: qmm_w4.qmm_w4_plain(x, wt), flush),
-                   b * k * 4 + nbytes(wt, W4_STREAMED) + b * n * 4, 2 * b * n * k, "int8",
-                   matmul_ms(torch, x, wt, flush))
+    # kernel 1: W4A8 decode matmul on every flavor (compact, sym, legacy) at
+    # the decode projections, a gate|up-shaped matrix and the lm_head, b = 1
+    # (the walk) and 9, 16, 32 (the tensor cores above T1: two launches
+    # bit-equal).  tol: both sides take exact integer partials; f32 order of
+    # the scale products and the group sums differs
+    for flavor in ("compact", "sym", "legacy"):
+        for name in ("qkv", "o", "gate_up", "lm_head"):
+            n, k = w[name].shape
+            wt = w[name] if flavor == "compact" else w4_on_card(torch, gen, n, k, flavor)
+            for b in (1, 9, 16, 32):
+                x = torch.randn((b, k), generator=gen, device=dev) * 0.7
+                got = qmm_w4.qmm_w4_matmul(x, wt)
+                shape = f"{flavor} {name} n={n} k={k} b={b}"
+                if flavor == "compact":
+                    codes_equal(torch, x)
+                if qmm_w4.use_mma(b):
+                    repeats(torch, "qmm_w4", shape, got, lambda: qmm_w4.qmm_w4_matmul(x, wt))
+                report("qmm_w4", shape, err_of(got, qmm_w4.qmm_w4_plain(x, wt)), 1e-4,
+                       time_ms(torch, lambda: qmm_w4.qmm_w4_matmul(x, wt), flush),
+                       time_ms(torch, lambda: qmm_w4.qmm_w4_plain(x, wt), flush),
+                       b * k * 4 + nbytes(wt, w4_planes(wt)) + b * n * 4, 2 * b * n * k, "int8",
+                       matmul_ms(torch, x, wt, flush))
+            del wt
 
-    # kernel 1, every flavor (legacy and sym read g_scale/g_min and undo the
-    # hi nibble's bias) at every batch-row bucket (b = 3, 5, 9, 17 run the
-    # NB = 4, 8, 16, 32 instantiations with rows masked off)
+    # kernel 1, every flavor at every batch-row bucket of both designs (the
+    # walk's NB = 1, 2; the tensor cores' m16 tile counts, 3-16 and 17-32
+    # rows, with rows masked off)
     rng = np.random.default_rng(4321)
     folds = {"compact": w["o"], "legacy": synthetic_w4(rng, E, E, compact=False, device=dev),
              "sym": synthetic_w4(rng, E, E, sym=True, device=dev)}
     for flavor, wt in folds.items():
         for b in (1, 2, 3, 5, 9, 17, 32):
             x = torch.randn((b, E), generator=gen, device=dev) * 0.7
-            check("qmm_w4", f"{flavor} o b={b}", qmm_w4.qmm_w4_matmul(x, wt),
-                  qmm_w4.qmm_w4_plain(x, wt), 1e-4)
+            got = qmm_w4.qmm_w4_matmul(x, wt)
+            if qmm_w4.use_mma(b):
+                repeats(torch, "qmm_w4", f"{flavor} o b={b}", got,
+                        lambda: qmm_w4.qmm_w4_matmul(x, wt))
+            check("qmm_w4", f"{flavor} o b={b}", got, qmm_w4.qmm_w4_plain(x, wt), 1e-4)
 
-    # kernel 2: the fused FFN at b = 1.  tol: h is rounded to bf16 and
-    # re-quantized, so an f32 last-bit difference can move one h code
-    x = torch.randn((1, E), generator=gen, device=dev) * 0.7
-    got = qmm_w4_ffn.qmm_w4_ffn_matmul(x, w["gate_up"], w["down"])
-    ref = qmm_w4_ffn.qmm_w4_ffn_plain(x, w["gate_up"], w["down"], "silu")
-    report("qmm_w4_ffn", f"E={E} F={F} b=1", err_of(got, ref), 5e-3,
-           time_ms(torch, lambda: qmm_w4_ffn.qmm_w4_ffn_matmul(x, w["gate_up"], w["down"]),
-                   flush),
-           time_ms(torch, lambda: qmm_w4_ffn.qmm_w4_ffn_plain(x, w["gate_up"], w["down"],
-                                                            "silu"), flush),
-           E * 4 + nbytes(w["gate_up"], W4_STREAMED) + nbytes(w["down"], W4_STREAMED) + E * 4,
-           2 * (2 * F * E + E * F), "int8", None)
+    # kernel 2: the fused FFN at b = 1, 9, 16 and 32.  tol: h is rounded to
+    # bf16 and re-quantized, so an f32 last-bit difference can move one h code
+    gu, dn = w["gate_up"], w["down"]
+    for b in (1, 9, 16, 32):
+        x = torch.randn((b, E), generator=gen, device=dev) * 0.7
+        report("qmm_w4_ffn", f"E={E} F={F} b={b}",
+               err_of(qmm_w4_ffn.qmm_w4_ffn_matmul(x, gu, dn),
+                      qmm_w4_ffn.qmm_w4_ffn_plain(x, gu, dn, "silu")), 5e-3,
+               time_ms(torch, lambda: qmm_w4_ffn.qmm_w4_ffn_matmul(x, gu, dn), flush),
+               time_ms(torch, lambda: qmm_w4_ffn.qmm_w4_ffn_plain(x, gu, dn, "silu"), flush),
+               b * E * 4 + nbytes(gu, W4_STREAMED) + nbytes(dn, W4_STREAMED) + b * E * 4,
+               2 * b * (2 * F * E + E * F), "int8", None)
 
     # kernel 2 at the other batch-row buckets, with gelu, and on legacy and
     # sym folds (the non-compact branch)
@@ -383,7 +432,7 @@ def kernel_phase(torch, results: dict) -> None:
     for flavor, kw in (("legacy", dict(compact=False)), ("sym", dict(sym=True))):
         ffn[flavor] = (synthetic_w4(rng, 2 * F, E, device=dev, **kw),
                        synthetic_w4(rng, E, F, device=dev, **kw))
-    cases = [("compact", "silu", b) for b in (2, 3, 5, 9, 17, 32)]
+    cases = [("compact", "silu", b) for b in (2, 3, 5, 17)]
     cases += [("compact", "gelu", 1), ("compact", "gelu", 3), ("legacy", "silu", 1),
               ("legacy", "gelu", 3), ("sym", "silu", 2), ("sym", "gelu", 1)]
     for flavor, act, b in cases:
@@ -713,6 +762,7 @@ def kv_kernel_phase(torch, results: dict) -> None:
     gen.manual_seed(777)
     flush = torch.zeros(FLUSH_BYTES, dtype=torch.uint8, device=dev)
     report = functools.partial(report_row, results)
+    check = functools.partial(check_row, results)
     L, H, KV, D, cells, n_vis, li = 32, 32, 8, 128, 1025, 1024, 31
     scale = D ** -0.5
 
@@ -803,6 +853,62 @@ def kv_kernel_phase(torch, results: dict) -> None:
                    + nt * (n_vis + nt),
                    4 * D * int(mask_cells.sum().item() + mask_new.sum().item()) * H, "bf16",
                    time_ms(torch, lib, flush))
+    # kernel 3 on each cache at 4, 8, 16, 32 and 256 rows a kv head (nt =
+    # 1, 2, 4, 8, 64) over 512 cells with the first 96 visible
+    # (the tokens last, causal), from nt = 2 with a row that sees nothing
+    # (exactly 0) and a logit softcap; and two sequences of 32 tokens whose
+    # live tiles (cells 0..63, 128..191) sit either side of a dead one.
+    # tol as above
+    cpos = torch.arange(512, device=dev)
+    two = torch.zeros((64, 256), dtype=torch.int8, device=dev)
+    for i in range(32):
+        two[i, :32 + i + 1] = 1
+        two[32 + i, 128:128 + 32 + i + 1] = 1
+    for kind, (k, v, ksc, vsc) in caches.items():
+        bits = 4 if kind == "int4" else 8
+        for nt in (1, 2, 4, 8, 64, "two"):
+            mask, cap = two, 0.0
+            if nt != "two":
+                tpos = torch.arange(96 - nt, 96, device=dev)
+                mask = (cpos[None, :] <= tpos[:, None]).to(torch.int8)
+                if nt >= 2:
+                    mask[1], cap = 0, 30.0
+            q = torch.randn((mask.shape[0], H, D), generator=gen, device=dev).to(torch.bfloat16)
+            kw3 = dict(scale=scale, logit_softcap=cap, layer=li, k_scale=ksc, v_scale=vsc,
+                       kv_bits=bits)
+            got = flash.flash_attention(q, k, v, mask, **kw3)
+            check("flash", f"{kind} cache nt={nt} n_vis={mask.shape[1]} softcap={cap}", got,
+                  flash.flash_attention_plain(q, k, v, mask, **kw3), 1e-2)
+            if nt != "two" and nt >= 2 and bool(got[1].any()):
+                raise AssertionError(f"kernel 3 ({kind}, nt={nt}): a row that sees nothing "
+                                     "gave nonzero output")
+    # kernel 3 over 1024 cells where the wrapper gives each split several
+    # tiles (nt = 64: 8 splits of 2 tiles; nt = 256: 2 splits of 8), under
+    # sequences whose live tiles (token i sees the first 33 + i % 31 cells
+    # of each) leave dead tiles first, last and between live ones inside a
+    # split, and whole splits dead; nt = 256's last 8 tokens see nothing
+    # (exactly 0).  tol as above
+    for nt, seqs, want in ((64, ((1, 2, 5, 6), (0, 3, 8, 11, 15)), 8),
+                           (256, ((0, 2, 5), (1, 3, 9, 12), (15,), (7, 8)), 2)):
+        nsplit = flash.n_splits(KV, H // KV * nt, n_vis, flash.ROW_TILE)
+        if nsplit != want:
+            raise AssertionError(f"kernel 3 at nt={nt}: {nsplit} splits, expected {want}")
+        gaps = torch.zeros((nt, n_vis), dtype=torch.int8)
+        for i in range(nt):
+            for tile in seqs[i * len(seqs) // nt]:
+                gaps[i, 64 * tile:64 * tile + 33 + i % 31] = 1
+        gaps[nt - 8 * (nt == 256):] = 0
+        gaps = gaps.to(dev)
+        q = torch.randn((nt, H, D), generator=gen, device=dev).to(torch.bfloat16)
+        for kind, (k, v, ksc, vsc) in caches.items():
+            kw3 = dict(scale=scale, layer=li, k_scale=ksc, v_scale=vsc,
+                       kv_bits=4 if kind == "int4" else 8)
+            got = flash.flash_attention(q, k, v, gaps, **kw3)
+            check("flash", f"{kind} cache nt={nt} n_vis={n_vis} gaps, {nsplit} splits", got,
+                  flash.flash_attention_plain(q, k, v, gaps, **kw3), 1e-2)
+            if nt == 256 and bool(got[-8:].any()):
+                raise AssertionError(f"kernel 3 ({kind}, nt=256): a row that sees nothing "
+                                     "gave nonzero output")
     del caches, kb, vb, k8, v8, ks, vs, k4, v4, ks4, vs4, flush
     torch.cuda.empty_cache()
 
@@ -946,16 +1052,19 @@ def fx_layer_kernel_phase(torch, results: dict) -> None:
 
 
 def streamed_bytes(params) -> int:
-    """Weight bytes a decode step must stream: every matrix but the
-    embedding (kept on the host path only through its gathered rows), in
-    the port's layout — compact W4: codes + compact planes; sym W4: codes
-    + f32 s_eff (its m_adj is 8 s_eff); other W4 and W4X: codes + f32 s_eff
-    and m_adj; W8: codes + s_eff (+ m_eff); Q8F: codes + scales."""
-    def one(w):
-        return nbytes(w, w4_planes(w))
+    """Weight bytes a decode step streams on the default route: every
+    matrix but the embedding (kept on the host path only through its
+    gathered rows), in the port's layout as its decode kernel reads it —
+    compact W4: codes + compact planes; sym W4: codes + f32 s_eff (kernels
+    1, 8 and 10 form m_adj = 8 s_eff), but the fused FFN's matrices also
+    with their m_adj plane (kernel 2 reads it); other W4 and W4X: codes +
+    f32 s_eff and m_adj; W8: codes + s_eff (+ m_eff); Q8F: codes + scales."""
+    def one(w, ffn: bool = False):
+        return nbytes(w, FOLD_PLANES if ffn and w.flavor == "sym" else w4_planes(w))
     out = params.get("output") if params.get("output") is not None else params["tok_embd"]
-    return one(out) + sum(one(v) for lp in params["layers"] for v in lp.values()
-                          if hasattr(v, "codes"))
+    return one(out) + sum(
+        one(v, "ffn_gateup_fused" in lp and key in ("ffn_gateup_fused", "ffn_down"))
+        for lp in params["layers"] for key, v in lp.items() if hasattr(v, "codes"))
 
 
 def mod_name(m) -> str:
@@ -969,18 +1078,28 @@ def serve(torch, cfg, params, mods, phase: str, n_prompt: int = 64, n_new: int =
     counts of `mods` (which must all launch) and `never` (which must not)
     are set to 0 first; returns (the counts of `mods` just after the run,
     the context), and logs each request's launches per prefill and per
-    decode token."""
+    decode token.  Where kernel 1 is among `mods`, its tensor-core launches
+    are counted too ("qmm_w4_mma"): in each request's prefill and decode
+    steps they must be all of its launches where the rows there are above
+    its threshold T1, and none where they are not."""
     import numpy as np
 
+    from llama_kotlin_tpu_torch.ops.cuda import qmm_w4
     from llama_kotlin_tpu_torch.runtime.batch import Batch
     from llama_kotlin_tpu_torch.runtime.context import LlamaContext
     from llama_kotlin_tpu_torch.runtime.generate import generate_loop
 
     ctx = LlamaContext(cfg, params, n_cells=1024, buckets=(8, 16, 32, 64, 128, 256, 512),
                        device="cuda", **ctx_kw)
-    for m in mods + never:
+    # (kernel 1, its tensor-core counter, rows a prefill launch takes, rows
+    # a decode launch takes): a prompt above its rows reaches it only with
+    # its last row (the lm_head)
+    branches = [(qmm_w4, mma_counter(qmm_w4),
+                 n_prompt if n_prompt <= qmm_w4.MAX_ROWS else 1, 1)] if qmm_w4 in mods else []
+    counted = mods + tuple(c for _, c, _, _ in branches) + never
+    for m in counted:
         m.LAUNCHES = 0
-    snap = lambda: {mod_name(m): m.LAUNCHES for m in mods + never}
+    snap = lambda: {mod_name(m): m.LAUNCHES for m in counted}
     outs = []
     for r in range(3):
         # request 2 replays request 0's prompt: greedy tokens must repeat
@@ -1015,6 +1134,13 @@ def serve(torch, cfg, params, mods, phase: str, n_prompt: int = 64, n_new: int =
         if not bool(torch.isfinite(last).all()) or not all(0 <= t < cfg.vocab_size for t in toks):
             raise AssertionError("bad decode output")
         outs.append(toks)
+        for m, c, rp, rd in branches:
+            k, kc = mod_name(m), mod_name(c)
+            got = (c1[kc] - c0[kc], c2[kc] - c1[kc])
+            want = ((c1[k] - c0[k]) * m.use_mma(rp), (c2[k] - c1[k]) * m.use_mma(rd))
+            if got != want:
+                raise AssertionError(f"{phase}: {kc} launches {got} (prefill, decode), "
+                                     f"expected {want}")
         log(json.dumps({"phase": phase, "context": ctx_kw, "request": r,
                         "prompt_tokens": n_prompt,
                         "ttft_ms": ttft_ms, "decode_tokens": n_new - 1,
@@ -1051,6 +1177,8 @@ def serve_32(torch, cfg, params, label: str, mods, never, per_token: dict, mma,
                         never=never, **ctx_kw)
     want = {name: 3 * N_NEW_32 * c for name, c in per_token.items()}
     want[mod_name(mma)] = 3 * mma_per_prefill
+    if "qmm_w4" in per_token:  # kernel 1's 32-row prefills take its tensor cores
+        want["qmm_w4_mma"] = 3 * per_token["qmm_w4"]
     if counts != want:
         raise AssertionError(f"{label}: launches {counts}, expected {want}")
     profile_decode(torch, ctx, cfg, label, n_prompt=32)
@@ -1100,7 +1228,8 @@ def fused_serving(torch, cfg, params) -> dict:
 
     t0 = time.perf_counter()
     L, by_path = cfg.n_layer, {}
-    want = {"qmm_w4_layer": 3 * 31 * L, "qmm_w4": 3 * (1 + 31 * (L + 1)), "qmm": 3 * 4 * L}
+    want = {"qmm_w4_layer": 3 * 31 * L, "qmm_w4": 3 * (1 + 31 * (L + 1)), "qmm_w4_mma": 0,
+            "qmm": 3 * 4 * L}
     for path, attn, kw in (("serving_fused_stacked_bf16", flash_stacked, {}),
                            ("serving_fused_unrolled_bf16", flash, dict(prefer_unrolled=True))):
         other = flash if attn is flash_stacked else flash_stacked
@@ -1156,7 +1285,8 @@ def q4_0_gguf_phase(torch, tmpdir: Path) -> dict:
                     "output": params["output"].flavor}))
     L, steps = cfg.n_layer, 3 * 31
     base = {"qmm_w8": 3 * 32, "qmm": 3 * 4 * L, "flash_stacked": 3 * 32 * L}
-    runs = (("gguf_q4_0_w4", {}, dict(qmm_w4=steps * 2 * L, qmm_w4_ffn=steps * L)),
+    runs = (("gguf_q4_0_w4", {}, dict(qmm_w4=steps * 2 * L, qmm_w4_mma=0,
+                                      qmm_w4_ffn=steps * L)),
             ("gguf_q4_0_w4_fx", dict(LKTPU_W4_FX="1"),
              dict(qmm_w4_fx=steps * 2 * L, qmm_w4_ffn=steps * L)),
             ("gguf_q4_0_w4_fx_fused", dict(LKTPU_W4_FX="1", LKTPU_LAYER_FUSED="1"),
@@ -1396,7 +1526,8 @@ def gguf_phase(torch, tmpdir: Path) -> dict:
             counts[f"{mode}_32"] = serve_32(
                 torch, cfg, params, f"gguf_{mode}_32",
                 tuple(m for m in mods if m is not qmm), (qmm,) + never,
-                dict(per, flash=32), mma_counter(qmm_w8), 32, **ctx_kw)
+                dict(per, flash=32), mma_counter(qmm_w8) if mode == "w4" else w8_precise_mma(),
+                32, **ctx_kw)
         if mode == "int8":
             # the default context with the int8 cache: the uniform Q8F layers
             # stack, so kernels 6 and 9 serve it and kernel 3 never launches
@@ -1753,11 +1884,13 @@ def main() -> int:
     # kernel: (source, replaced Pallas kernel, index of the reported timed
     # row, {branch: index or shape of its timed row})
     meta = {
-        "qmm_w4": ("csrc/qmm_w4.cu", "llama_kotlin_tpu/ops/pallas/qmm_w4.py:290", 0, {}),
+        "qmm_w4": ("csrc/qmm_w4.cu", "llama_kotlin_tpu/ops/pallas/qmm_w4.py:290", 0,
+                   {"b32": "compact qkv n=6144 k=4096 b=32",
+                    "lm_head_b32": "compact lm_head n=128256 k=4096 b=32"}),
         "qmm_w4_ffn": ("csrc/qmm_w4_ffn.cu", "llama_kotlin_tpu/ops/pallas/qmm_w4_ffn.py:155",
                        0, {}),
         "flash": ("csrc/flash.cu", "llama_kotlin_tpu/ops/pallas/flash.py:160", 0,
-                  {"int8": 3, "int4": 4}),
+                  {"prefill": 1, "int8": 3, "int4": 4}),
         "qmm": ("csrc/qmm.cu", "llama_kotlin_tpu/ops/pallas/qmm.py:192", 1,
                 {"m512": 5, "w8": 8}),
         "qmm_w8": ("csrc/qmm_w8.cu", "llama_kotlin_tpu/ops/pallas/qmm_w8.py:144", 0,
@@ -1787,6 +1920,11 @@ def main() -> int:
                  "launches_by_path": launches,
                  "max_abs_err": max(r["max_abs_err"] for r in results[kname]),
                  **{k: rows[pick][k] for k in timing}}
+        # tensor-core launches, on the paths that count them apart (kernels
+        # 1, 5 and 8: LAUNCHES_MMA); every launch of kernels 3 and 4 is one
+        mma = {p: c[f"{kname}_mma"] for p, c in by_path.items() if f"{kname}_mma" in c}
+        if mma:
+            entry["launches_mma_by_path"] = mma
         for branch, i in branches.items():
             row = rows[i] if isinstance(i, int) else next(r for r in rows if r["shape"] == i)
             entry[branch] = {k: row[k] for k in timing + ("max_abs_err",)}

@@ -3,10 +3,12 @@
 // Replaces llama_kotlin_tpu/ops/pallas/flash.py::flash_attention for a bf16
 // cache, an int8 cache and a packed int4 cache, both with per-row f32
 // scales (static layer index into the whole [L, KV, cells, D] cache, int8
-// mask bounding n_vis, logit softcap, fully masked rows give 0).  The tiles,
-// the split over blocks and the merge are in flash_tile.cuh, which says
-// what bounds the kernel and what its design does about it.
-#include "flash_tile.cuh"
+// mask bounding n_vis, logit softcap, fully masked rows give 0), on bf16
+// tensor cores at every row count: flash_mma.cuh's tile, which skips a
+// 64-cell tile that no row of a block sees, splits the cells over blocks
+// and merges the splits in a fixed order (flash_tile.cuh's merge).  The
+// header says what bounds it and what its design does about it.
+#include "flash_mma.cuh"
 
 // q [nt, H, 128] bf16; k/v cache [L, KV, cells, 128] bf16, or int8 codes
 // when k_scale/v_scale ([L, KV, cells] f32) are given, or with kv_bits = 4
@@ -21,5 +23,7 @@ LK_API int lk_flash(const __nv_bfloat16* q, const void* k, const void* v, const 
   FlashArgs a{q, k, v, k_scale, v_scale, mask, nullptr, nullptr, nullptr, part_o, part_ml,
               nt, H, KV, cells, n_vis, layer, scale, softcap, 0, nsplit};
   if (nsplit > 0) a.split_cells = n_vis / nsplit;
-  return flash_launch(a, out, stream, kv_bits == 4);
+  if (kv_bits == 4) return flmma::launch<q4_packed>(a, out, stream);
+  if (k_scale != nullptr) return flmma::launch<int8_t>(a, out, stream);
+  return flmma::launch<__nv_bfloat16>(a, out, stream);
 }

@@ -1,36 +1,28 @@
-// Flash attention over one layer of the cell cache, shared by kernel 3
-// (flash.cu) and kernel 9 (flash_stacked.cu): masked GQA online softmax over
-// the [L, KV, cells, 128] cache, bf16 rows or int8 codes with one f32 scale
-// per cached row ([L, KV, cells] planes), plus kernel 9's fresh rows; and,
-// for kernel 3 only, packed int4 codes [L, KV, cells, 64] with such scales.
+// Flash attention over one layer of the cell cache by a walk of scalar
+// f32 products: kernel 9 (flash_stacked.cu), and the pieces kernel 3's
+// tensor-core tile (flash_mma.cuh) shares with it (the arguments, the
+// constants, the merge of the splits).  Masked GQA online softmax over the
+// [L, KV, cells, 128] cache, bf16 rows or int8 codes with one f32 scale
+// per cached row ([L, KV, cells] planes), plus kernel 9's fresh rows.
 //
 // Bound on the H100: bytes at decode (each K/V byte feeds ~4 query rows)
 // and still bytes for a 64-token prefill over 512-1024 cells, so the floor
 // is one read of the visible K/V prefix (and its scales): per cached row
-// and plane 256 bytes in bf16, 128 + 4 in int8, 64 + 4 packed.  Design: a block
-// owns one kv head, a tile of 16 query rows of that head's GQA group (row
-// r = token r / rep, head kvh * rep + r % rep, so K/V tiles are read once
-// per group, not once per query head) and one contiguous split of the
-// visible cells.  It walks 64-cell tiles with f32 online-softmax statistics
-// in shared memory and an f32 accumulator per (row, dim) in registers
-// (thread d owns dimension d).  Splitting the cells over blocks
-// (flash-decoding) fills the card at decode, where KV * row-tiles is only 8
-// blocks; a second kernel merges the splits' (m, l, acc) in a fixed order.
+// and plane 256 bytes in bf16, 128 + 4 in int8.  Design: a block owns one
+// kv head, a tile of 16 query rows of that head's GQA group (row r = token
+// r / rep, head kvh * rep + r % rep, so K/V tiles are read once per group,
+// not once per query head) and one contiguous split of the visible cells.
+// It walks 64-cell tiles with f32 online-softmax statistics in shared
+// memory and an f32 accumulator per (row, dim) in registers (thread d owns
+// dimension d).  Splitting the cells over blocks (flash-decoding) fills
+// the card at decode, where KV * row-tiles is only 8 blocks; a second
+// kernel merges the splits' (m, l, acc) in a fixed order.
 //
 // int8 cache: codes are widened to bf16 in shared memory (|code| <= 127 is
 // exact in bf16), so the tile arithmetic is the bf16 cache's; as in the
 // Pallas kernel, the per-cell K scale multiplies the score after the
 // softmax scale, s = (q . codes) * scale * ks[c], and the per-cell V scale
 // folds into p after the running sum l takes it, before P V.
-//
-// Packed int4 cache (the JAX package's q4_0 layout, kept so that state
-// blobs cross-load): byte j of a row holds dim j as code + 8 in the low
-// nibble and dim j + 64 as a two's-complement code in the high nibble.
-// The tile loader unpacks both with shifts into the same bf16 tiles (codes
-// -8..7 are exact in bf16), so everything after the load is the int8
-// branch's.  The Pallas kernel's folds of the +8 into a per-row constant
-// and of the high nibble's 16x into q are Mosaic workarounds (no 8-bit
-// shifts) and are not carried over.
 //
 // Kernel 9's fresh rows ([nt, KV, 128] bf16, token-major) are one more
 // split: the block of split index n_old walks them under mask_new
@@ -103,41 +95,6 @@ __device__ __forceinline__ void load_cache_tile(const int8_t* __restrict__ kc,
   }
 }
 
-// Tag type of the packed int4 cache: 64 bytes a row, two codes a byte.
-struct q4_packed {};
-
-// Four packed bytes -> dims 4w..4w+3 (low nibbles) and 64+4w..64+4w+3
-// (high nibbles) of one bf16 tile row.
-__device__ __forceinline__ void unpack_q4x4(uint32_t word, __nv_bfloat16* row, int w) {
-  float lo[4], hi[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int b = (word >> (8 * i)) & 0xFF;
-    lo[i] = (float)((b & 0x0F) - 8);
-    hi[i] = (float)(((b >> 4) ^ 8) - 8);  // sign-extend the 4-bit code
-  }
-  __nv_bfloat162* l = reinterpret_cast<__nv_bfloat162*>(row + 4 * w);
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(row + FD / 2 + 4 * w);
-  l[0] = __floats2bfloat162_rn(lo[0], lo[1]);
-  l[1] = __floats2bfloat162_rn(lo[2], lo[3]);
-  h[0] = __floats2bfloat162_rn(hi[0], hi[1]);
-  h[1] = __floats2bfloat162_rn(hi[2], hi[3]);
-}
-
-__device__ __forceinline__ void load_cache_tile(const q4_packed* kc, const q4_packed* vc,
-                                                size_t row0, __nv_bfloat16 (*ks)[KSTR],
-                                                __nv_bfloat16 (*vs)[FD]) {
-  constexpr int WORDS = FD / 8;  // 4-byte words in a 64-byte packed row
-  const uint32_t* __restrict__ k32 = reinterpret_cast<const uint32_t*>(kc);
-  const uint32_t* __restrict__ v32 = reinterpret_cast<const uint32_t*>(vc);
-  for (int idx = threadIdx.x; idx < CT * WORDS; idx += NTHR) {
-    const int c = idx / WORDS, w = idx % WORDS;
-    const size_t off = (row0 + c) * WORDS + w;
-    unpack_q4x4(k32[off], ks[c], w);
-    unpack_q4x4(v32[off], vs[c], w);
-  }
-}
-
 // Fresh rows c0 .. c0+63 of kv head kvh (rows past nt read as 0).
 __device__ __forceinline__ void load_fresh_tile(const FlashArgs& a, int kvh, int c0,
                                                 __nv_bfloat16 (*ks)[KSTR],
@@ -156,10 +113,9 @@ __device__ __forceinline__ void load_fresh_tile(const FlashArgs& a, int kvh, int
   }
 }
 
-// T: the cache element, __nv_bfloat16, int8_t or q4_packed (the two with
-// row scales).  STACKED: kernel 9, whose last split walks the fresh rows.
-// Both are template arguments so that kernel 3 on a bf16 cache compiles to
-// no more than it did before the other paths shared this code.
+// T: the cache element, __nv_bfloat16 or int8_t (with row scales).
+// STACKED: kernel 9, whose last split walks the fresh rows (the only
+// instantiation since kernel 3 took its own tile, flash_mma.cuh).
 template <typename T, bool STACKED>
 __global__ void __launch_bounds__(NTHR) flash_split_kernel(const FlashArgs a) {
   __shared__ float qs[RT][FD];
@@ -174,8 +130,7 @@ __global__ void __launch_bounds__(NTHR) flash_split_kernel(const FlashArgs a) {
   const int kvh = blockIdx.x, rep = a.H / a.KV, R = rep * a.nt;
   const int r0 = blockIdx.y * RT, split = blockIdx.z;
   const bool fresh = STACKED && split == a.n_old;
-  const bool quant =
-      (std::is_same<T, int8_t>::value || std::is_same<T, q4_packed>::value) && !fresh;
+  const bool quant = std::is_same<T, int8_t>::value && !fresh;
   const int c_begin = fresh ? 0 : split * a.split_cells;
   const int c_end = fresh ? a.nt : min(a.n_vis, c_begin + a.split_cells);
   const int8_t* __restrict__ mask = fresh ? a.mask_new : a.mask;
@@ -307,38 +262,6 @@ flash_merge_kernel(const float* __restrict__ part_o, const float* __restrict__ p
   const int kvh = row / R, r = row % R;
   const int t = r / rep, h = kvh * rep + r % rep;
   out[((size_t)t * H + h) * FD + tid] = __float2bfloat16_rn(l > 0.f ? o / l : 0.f);
-}
-
-// Launch the splits (n_old over the cache, one more when a.kn is set) and
-// the merge.  packed: the cache holds packed int4 codes (kernel 3 only, with
-// scales).  Returns a CUDA error code, cudaErrorInvalidValue for a shape the
-// kernels do not take.
-inline int flash_launch(const FlashArgs& a, __nv_bfloat16* out, cudaStream_t stream,
-                        bool packed = false) {
-  if (a.nt <= 0 || a.KV <= 0 || a.H % a.KV || a.n_vis <= 0 || a.n_vis % CT ||
-      a.n_vis > a.cells || a.n_old <= 0 || (a.n_vis / CT) % a.n_old ||
-      (a.ks == nullptr) != (a.vs == nullptr) || (a.kn == nullptr) != (a.vn == nullptr) ||
-      (a.kn != nullptr && a.mask_new == nullptr) ||
-      (packed && (a.ks == nullptr || a.kn != nullptr)))
-    return (int)cudaErrorInvalidValue;
-  const int R = (a.H / a.KV) * a.nt;
-  const int splits = a.n_old + (a.kn != nullptr ? 1 : 0);
-  const dim3 grid(a.KV, (R + RT - 1) / RT, splits);
-  if (packed)
-    flash_split_kernel<q4_packed, false><<<grid, NTHR, 0, stream>>>(a);
-  else if (a.ks != nullptr && a.kn != nullptr)
-    flash_split_kernel<int8_t, true><<<grid, NTHR, 0, stream>>>(a);
-  else if (a.ks != nullptr)
-    flash_split_kernel<int8_t, false><<<grid, NTHR, 0, stream>>>(a);
-  else if (a.kn != nullptr)
-    flash_split_kernel<__nv_bfloat16, true><<<grid, NTHR, 0, stream>>>(a);
-  else
-    flash_split_kernel<__nv_bfloat16, false><<<grid, NTHR, 0, stream>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  flash_merge_kernel<<<a.KV * R, NTHR, 0, stream>>>(a.part_o, a.part_ml, out, a.nt, a.H, a.KV,
-                                                   splits);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace

@@ -56,6 +56,22 @@ __device__ __forceinline__ void mma_s8_zero(int c[4], const uint32_t a[4], const
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "r"(0));
 }
 
+// ldmatrix x4: thread i names row i % 8 of 8x16-byte matrix i / 8 (a
+// 16-byte aligned shared address); r[j] receives word t of row g of
+// matrix j, the fragment layout of the products above.  The .trans form
+// gives thread (g, t) the 16-bit elements at rows 2t and 2t+1 of column g
+// of each matrix instead: a B fragment of a row-major [k][n] tile.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
 // --- dequantization of one 32-bit code word ----------------------------
 // Byte i of v (0..255) as an exact f32 plus 2^23: __byte_perm puts it in
 // the mantissa of 2^23 (0x4B0000vv), so one subtraction gives the value.

@@ -1,7 +1,7 @@
 // The W4A8 product on int8 tensor cores, for row counts where the
 // warp-per-row walk of w4_dot.cuh spends its time on activation traffic
-// (kernel 7 above its row threshold, qmm_w4x.cu; kernel 8 above its own,
-// qmm_w4_fx.cu, with one plane).  NP activation planes of
+// (kernel 7 above its row threshold, qmm_w4x.cu; kernels 1 and 8 above
+// theirs, qmm_w4.cu and qmm_w4_fx.cu, with one plane).  NP activation planes of
 // B rows each (row p*B + b of x8/sx/xsum is plane p of batch row b) are
 // stacked as the A operand's MP = 16 MT rows; the weight rows are the
 // B operand; the two planes of a batch row are summed in the epilogue.
@@ -26,6 +26,13 @@
 //
 // SYM (a sym fold: g_min is 8 s_g on lo groups and 0 on hi groups) forms
 // m_g = 8 s_g from the scale, the same f32 value, and never copies g_min.
+// COMPACT (a compact fold, kernel 1) copies each row's
+// 16 six-bit codes of the span (8 scale codes, 8 min codes) and its f32
+// (d, dmin) into the stage in place of the 8 f32 scales and 8 mins, 24
+// bytes a row and span instead of 64, and forms s_g = d sc6 and
+// m_g = dmin m6 where the scales apply: the exact f32 products that
+// w4_dot.cuh's walk and the plain group_scale_min form.  A compact fold's
+// hi codes are raw (nibble ^ 8), so its m_g takes no 8 s_g.
 // Kernel 8 (w4_fx_mma_kernel) takes raw f32 rows: each span's activation
 // slots are filled inside the block, each warp quantizing its rows with
 // quantize8_sb's steps (the prologue's codes, bit for bit), from f32 loads
@@ -41,29 +48,49 @@ constexpr int S_LD = 12;   // floats a scale/min row (8 + 4)
 constexpr int X_LD = 288;  // bytes an activation row (256 + 32)
 constexpr int XS_LD = 12;  // ints an xsum row (8 + 4)
 
-template <int MT>
+template <int MT, bool COMPACT = false>
 struct Tile {
   static constexpr int MP = 16 * MT;
   static constexpr int C_BYTES = BN * C_LD, S_BYTES = BN * S_LD * 4;
+  // the span's scales: f32 scale and min planes, or the compact q6 codes
+  // (16 bytes a row) followed by the (d, dmin) pairs (8 bytes a row)
+  static constexpr int W_BYTES = COMPACT ? BN * 16 + BN * 8 : 2 * S_BYTES;
+  static constexpr int X_OFF = C_BYTES + W_BYTES;  // the activation rows
   static constexpr int X_BYTES = MP * X_LD, XS_BYTES = MP * XS_LD * 4, SX_BYTES = MP * 4;
-  static constexpr int STAGE = C_BYTES + 2 * S_BYTES + X_BYTES + XS_BYTES + SX_BYTES;
+  static constexpr int STAGE = X_OFF + X_BYTES + XS_BYTES + SX_BYTES;
   static constexpr int SMEM = STAGE * STAGES;
 };
 
 // Copies of span s of the weight rows into stage st: rows >= n are
-// zero-filled; SYM copies no mins.
-template <int MT, bool SYM = false>
+// zero-filled; SYM copies no mins; COMPACT copies q6 [n, kc/128, 16] and
+// dd [n, kc/128, 2] in place of the gs/gm planes.
+template <int MT, bool SYM = false, bool COMPACT = false>
 __device__ __forceinline__ void load_weights(uint8_t* st, int s, const uint8_t* __restrict__ codes,
                                              const float* __restrict__ gs,
                                              const float* __restrict__ gm, int n, int kc,
-                                             int n0) {
-  using T = Tile<MT>;
+                                             int n0, const uint8_t* __restrict__ q6 = nullptr,
+                                             const float* __restrict__ dd = nullptr) {
+  using T = Tile<MT, COMPACT>;
   const int tid = threadIdx.x, G = kc / 16;
   for (int idx = tid; idx < BN * 8; idx += THREADS) {
     const int r = idx >> 3, c = idx & 7;
     const bool ok = n0 + r < n;
     cp_async16(st + r * C_LD + c * 16, codes + (size_t)(ok ? n0 + r : 0) * kc + s * 128 + c * 16,
                ok ? 16 : 0);
+  }
+  if (COMPACT) {
+    uint8_t* qs = st + T::C_BYTES;
+    float* ds = reinterpret_cast<float*>(qs + BN * 16);
+    for (int idx = tid; idx < BN * 2; idx += THREADS) {
+      const int r = idx >> 1;
+      const bool ok = n0 + r < n;
+      const size_t sb = (size_t)(ok ? n0 + r : 0) * (kc / 128) + s;
+      if (idx & 1)
+        cp_async8(ds + r * 2, dd + 2 * sb, ok ? 8 : 0);
+      else
+        cp_async16(qs + r * 16, q6 + 16 * sb, ok ? 16 : 0);
+    }
+    return;
   }
   float* ss = reinterpret_cast<float*>(st + T::C_BYTES);
   float* ms = ss + BN * S_LD;
@@ -78,17 +105,19 @@ __device__ __forceinline__ void load_weights(uint8_t* st, int s, const uint8_t* 
 
 // Copies of span s into stage st: rows >= rows_live of the activations
 // and >= n of the weights are zero-filled.
-template <int MT>
+template <int MT, bool SYM = false, bool COMPACT = false>
 __device__ __forceinline__ void load_span(uint8_t* st, int s, const int8_t* __restrict__ x8,
                                           const float* __restrict__ sx,
                                           const int* __restrict__ xsum, int rows_live,
                                           const uint8_t* __restrict__ codes,
                                           const float* __restrict__ gs,
-                                          const float* __restrict__ gm, int n, int kc, int n0) {
-  using T = Tile<MT>;
+                                          const float* __restrict__ gm, int n, int kc, int n0,
+                                          const uint8_t* __restrict__ q6 = nullptr,
+                                          const float* __restrict__ dd = nullptr) {
+  using T = Tile<MT, COMPACT>;
   const int tid = threadIdx.x, G = kc / 16, S = kc / 128;
-  load_weights<MT>(st, s, codes, gs, gm, n, kc, n0);
-  uint8_t* xs = st + T::C_BYTES + 2 * T::S_BYTES;
+  load_weights<MT, SYM, COMPACT>(st, s, codes, gs, gm, n, kc, n0, q6, dd);
+  uint8_t* xs = st + T::X_OFF;
   for (int idx = tid; idx < T::MP * 16; idx += THREADS) {
     const int r = idx >> 4, c = idx & 15;
     const bool ok = r < rows_live;
@@ -111,14 +140,14 @@ __device__ __forceinline__ void load_span(uint8_t* st, int s, const int8_t* __re
 
 // One span's products and scaling into acc[mt][nt][e] (activation row
 // mt*16 + g (+8 for e >= 2), weight row warp*16 + 8 nt + 2t + (e & 1)).
-template <int MT, bool SYM = false>
+template <int MT, bool SYM = false, bool COMPACT = false>
 __device__ __forceinline__ void span_step(const uint8_t* st, float acc[MT][2][4], int warp,
                                           int g, int t) {
-  using T = Tile<MT>;
+  using T = Tile<MT, COMPACT>;
   const uint8_t* cs = st;
   const float* ss = reinterpret_cast<const float*>(st + T::C_BYTES);
   const float* ms = ss + BN * S_LD;
-  const uint8_t* xs = st + T::C_BYTES + 2 * T::S_BYTES;
+  const uint8_t* xs = st + T::X_OFF;
   const int* xss = reinterpret_cast<const int*>(xs + T::X_BYTES);
   const float* sxs = reinterpret_cast<const float*>(xss + T::MP * XS_LD);
   float sxr[MT][2];
@@ -126,6 +155,22 @@ __device__ __forceinline__ void span_step(const uint8_t* st, float acc[MT][2][4]
   for (int mt = 0; mt < MT; ++mt) {
     sxr[mt][0] = sxs[mt * 16 + g];
     sxr[mt][1] = sxs[mt * 16 + g + 8];
+  }
+  // COMPACT: the 16 q6 bytes (scale codes of groups 0..3 | 4..7, min codes
+  // of groups 0..3 | 4..7), (d, dmin) and (-2^23 d, -2^23 dmin) of this
+  // thread's weight rows
+  uint4 q6r[2][2];
+  float2 ddr[2][2], ddn[2][2];
+  if (COMPACT) {
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = warp * 16 + nt * 8 + 2 * t + j;
+        q6r[nt][j] = *reinterpret_cast<const uint4*>(st + T::C_BYTES + col * 16);
+        ddr[nt][j] = *reinterpret_cast<const float2*>(st + T::C_BYTES + BN * 16 + col * 8);
+        ddn[nt][j] = make_float2(-8388608.f * ddr[nt][j].x, -8388608.f * ddr[nt][j].y);
+      }
   }
   float part[MT][2][4];  // this span's sum over its 8 groups
 #pragma unroll
@@ -156,6 +201,16 @@ __device__ __forceinline__ void span_step(const uint8_t* st, float acc[MT][2][4]
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           const int col = warp * 16 + nt * 8 + 2 * t + j;
+          if (COMPACT) {  // scale code gi: byte gp of word h; min code: word 2 + h
+            // d sc6 as (2^23 + sc6) d - 2^23 d in one FMA: the exact
+            // product, rounded once, as d * sc6 (byte_f, no int-to-float
+            // conversion, which runs at a quarter of the FMA rate)
+            const uint4 q = q6r[nt][j];
+            const uint32_t sw = h ? q.y : q.x, mw = h ? q.w : q.z;
+            sc[nt][j] = __fmaf_rn(byte_f(sw, gp), ddr[nt][j].x, ddn[nt][j].x);
+            mn[nt][j] = __fmaf_rn(byte_f(mw, gp), ddr[nt][j].y, ddn[nt][j].y);
+            continue;
+          }
           sc[nt][j] = ss[col * S_LD + gi];
           if (SYM) {
             mn[nt][j] = 8.f * sc[nt][j];  // 8 s on lo groups, 0 + 8 s on hi ones
@@ -194,15 +249,18 @@ __device__ __forceinline__ void span_step(const uint8_t* st, float acc[MT][2][4]
 
 // y [B, n] = the sum of the NP planes' rows; x8 [NP B, 2 kc] int8, sx
 // [NP B, kc/128] f32, xsum [NP B, kc/16] int32; codes [n, kc] u8; gs, gm
-// [n, kc/16] f32.  Grid (ceil(n / BN), 1, splits); ws [splits, B, n] f32
-// and cnt (one int a column tile, zero) when splits > 1.
-template <int NP, int MT>
+// [n, kc/16] f32 (SYM: gm not read), or COMPACT q6 [n, kc/128, 16] u8 and
+// dd [n, kc/128, 2] f32 in their place.  Grid (ceil(n / BN), 1, splits);
+// ws [splits, B, n] f32 and cnt (one int a column tile, zero) when
+// splits > 1.  Kernel 7 takes NP = 2 and neither flag; kernel 1 NP = 1.
+template <int NP, int MT, bool SYM = false, bool COMPACT = false>
 __global__ void __launch_bounds__(THREADS, 1)
 w4_mma_kernel(const int8_t* __restrict__ x8, const float* __restrict__ sx,
               const int* __restrict__ xsum, int B, const uint8_t* __restrict__ codes,
               const float* __restrict__ gs, const float* __restrict__ gm, int n, int kc,
-              float* __restrict__ y, int splits, float* __restrict__ ws, int* __restrict__ cnt) {
-  using T = Tile<MT>;
+              float* __restrict__ y, int splits, float* __restrict__ ws, int* __restrict__ cnt,
+              const uint8_t* __restrict__ q6, const float* __restrict__ dd) {
+  using T = Tile<MT, COMPACT>;
   extern __shared__ __align__(16) uint8_t smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -221,8 +279,8 @@ w4_mma_kernel(const int8_t* __restrict__ x8, const float* __restrict__ sx,
 #pragma unroll
   for (int i = 0; i < STAGES - 1; ++i) {
     if (i < ns)
-      load_span<MT>(smem + i * T::STAGE, s0 + i, x8, sx, xsum, rows_live, codes, gs, gm, n, kc,
-                    n0);
+      load_span<MT, SYM, COMPACT>(smem + i * T::STAGE, s0 + i, x8, sx, xsum, rows_live, codes,
+                                  gs, gm, n, kc, n0, q6, dd);
     cp_async_commit();
   }
   for (int i = 0; i < ns; ++i) {
@@ -230,10 +288,10 @@ w4_mma_kernel(const int8_t* __restrict__ x8, const float* __restrict__ sx,
     __syncthreads();
     const int nxt = i + STAGES - 1;
     if (nxt < ns)
-      load_span<MT>(smem + (nxt % STAGES) * T::STAGE, s0 + nxt, x8, sx, xsum, rows_live, codes,
-                    gs, gm, n, kc, n0);
+      load_span<MT, SYM, COMPACT>(smem + (nxt % STAGES) * T::STAGE, s0 + nxt, x8, sx, xsum,
+                                  rows_live, codes, gs, gm, n, kc, n0, q6, dd);
     cp_async_commit();
-    span_step<MT>(smem + (i % STAGES) * T::STAGE, acc, warp, g, t);
+    span_step<MT, SYM, COMPACT>(smem + (i % STAGES) * T::STAGE, acc, warp, g, t);
   }
   cp_async_wait<0>();
   __syncthreads();
@@ -277,7 +335,7 @@ __device__ __forceinline__ void quantize_span(uint8_t* st, const XSpan<MT>& r, i
                                               int* __restrict__ xsum_out) {
   using T = Tile<MT>;
   constexpr int RW = T::MP / 8;
-  uint8_t* xs = st + T::C_BYTES + 2 * T::S_BYTES;
+  uint8_t* xs = st + T::X_OFF;
   int* xss = reinterpret_cast<int*>(xs + T::X_BYTES);
   float* sxs = reinterpret_cast<float*>(xss + T::MP * XS_LD);
   float v[RW][8], d[RW];
@@ -396,22 +454,29 @@ inline int launch_fx(const float* x, int B, const uint8_t* codes, const float* g
   return (int)cudaErrorInvalidValue;
 }
 
-// Launch with MT the smallest m16 count that holds NP B rows.
-template <int NP>
+// Launch with MT the smallest m16 count that holds NP B rows (kernel 1:
+// NP = 1, B <= 32; kernel 7: NP = 2).
+template <int NP, bool SYM = false, bool COMPACT = false>
 inline int launch(const int8_t* x8, const float* sx, const int* xsum, int B,
                   const uint8_t* codes, const float* gs, const float* gm, int n, int kc,
-                  float* y, int splits, float* ws, int* cnt, cudaStream_t stream) {
+                  float* y, int splits, float* ws, int* cnt, cudaStream_t stream,
+                  const uint8_t* q6 = nullptr, const float* dd = nullptr) {
+  using K1 = Tile<1, COMPACT>;
+  using K2 = Tile<2, COMPACT>;
   const int rows = NP * B;
   const dim3 grid((n + BN - 1) / BN, 1, splits);
   if (rows <= 16)
-    LK_MMA_LAUNCH((w4_mma_kernel<NP, 1>), Tile<1>::SMEM, grid, stream, x8, sx, xsum, B, codes,
-                  gs, gm, n, kc, y, splits, ws, cnt)
+    LK_MMA_LAUNCH((w4_mma_kernel<NP, 1, SYM, COMPACT>), K1::SMEM, grid, stream, x8, sx, xsum, B,
+                  codes, gs, gm, n, kc, y, splits, ws, cnt, q6, dd)
   if (rows <= 32)
-    LK_MMA_LAUNCH((w4_mma_kernel<NP, 2>), Tile<2>::SMEM, grid, stream, x8, sx, xsum, B, codes,
-                  gs, gm, n, kc, y, splits, ws, cnt)
-  if (rows <= 64)
-    LK_MMA_LAUNCH((w4_mma_kernel<NP, 4>), Tile<4>::SMEM, grid, stream, x8, sx, xsum, B, codes,
-                  gs, gm, n, kc, y, splits, ws, cnt)
+    LK_MMA_LAUNCH((w4_mma_kernel<NP, 2, SYM, COMPACT>), K2::SMEM, grid, stream, x8, sx, xsum, B,
+                  codes, gs, gm, n, kc, y, splits, ws, cnt, q6, dd)
+  if constexpr (NP > 1) {  // one plane holds at most 32 rows
+    using K4 = Tile<4, COMPACT>;
+    if (rows <= 64)
+      LK_MMA_LAUNCH((w4_mma_kernel<NP, 4, SYM, COMPACT>), K4::SMEM, grid, stream, x8, sx, xsum,
+                    B, codes, gs, gm, n, kc, y, splits, ws, cnt, q6, dd)
+  }
   return (int)cudaErrorInvalidValue;
 }
 }  // namespace w4mma

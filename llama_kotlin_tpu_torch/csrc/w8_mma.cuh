@@ -54,15 +54,6 @@ __device__ __forceinline__ void mma_s8_magic(int c[4], const uint32_t a[4], cons
 }
 __device__ __forceinline__ float exact_f(int c) { return __int_as_float(c) - MAGIC_F; }
 
-// ldmatrix x4: thread i names row i % 8 of 8x16-byte matrix i / 8 (a
-// 16-byte aligned shared address); r[j] receives word t of row g of
-// matrix j, the fragment layout of the products above.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
 constexpr int THREADS = 256, BN = 128, STAGES = 3;  // 8 warps of 16 weight rows
 constexpr int C_LD = 272;  // bytes a code row (256 + 16: ldmatrix conflict-free)
 constexpr int X_LD = 272;  // bytes an activation row

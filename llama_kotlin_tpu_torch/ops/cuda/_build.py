@@ -35,7 +35,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "lk_quantize_q8": [_P, _P, _P, _P, _I, _I, _P],
     "lk_quantize_q8_2p": [_P, _P, _P, _P, _I, _I, _P],
-    "lk_w4_gemv": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "lk_w4_gemv": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P],
     "lk_w4x_gemv": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _I, _P, _P, _P],
     "lk_w4_fx_gemv": [_P, _I, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P],
     "lk_w4_layer": [_P, _P, _P, _I] + [_P] * 15 + [_I] * 5 + [_F, _F] + [_P] * 5,

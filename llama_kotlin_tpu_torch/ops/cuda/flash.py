@@ -1,5 +1,5 @@
 """Kernel 3: masked GQA flash attention over the cell cache
-(``csrc/flash.cu``, tiles in ``csrc/flash_tile.cuh``).
+(``csrc/flash.cu``, its bf16 tensor-core tile in ``csrc/flash_mma.cuh``).
 
 Replaces ``llama_kotlin_tpu/ops/pallas/flash.py::flash_attention`` for a
 bf16 cache, an int8 cache with per-row f32 scales and a packed int4 cache
@@ -7,9 +7,11 @@ bf16 cache, an int8 cache with per-row f32 scales and a packed int4 cache
 scales): q [nt, H, D], the whole cache [L, KV, cells, D] with a layer
 index, an int8 mask [nt, n_vis] bounding the cells read, a logit softcap,
 and 0 for fully masked rows.  Bound on the H100: bytes (one read of the
-visible K/V prefix and its scales).  The wrapper splits the visible cells
-over blocks (flash-decoding) so a decode step fills the card; see the CUDA
-source.
+visible K/V prefix and its scales).  Every row count takes bf16 tensor
+cores, which skip the 64-cell tiles that no row of a block sees.  The
+wrapper splits the visible cells over blocks (flash-decoding) so a decode
+step fills the card; see the CUDA source.  ``n_splits`` and
+``check_cache`` serve kernel 9 too (``ops/cuda/flash_stacked.py``).
 
 ``flash_attention`` launches the kernel for CUDA tensors and runs
 ``flash_attention_plain`` for CPU tensors.
@@ -27,7 +29,8 @@ from llama_kotlin_tpu_torch.ops.cuda import _build
 
 HEAD_DIM = 128  # the kernel's head dim
 CELL_TILE = 64  # cells per kernel tile; n_vis must be a multiple
-ROW_TILE = 16  # query rows per block
+ROW_TILE = 64  # query rows per block of kernel 3's tile
+WALK_ROW_TILE = 16  # query rows per block of kernel 9's walk
 TARGET_BLOCKS = 264  # two blocks per SM of an H100
 LAUNCHES = 0  # kernel launches made by flash_attention
 LAUNCHES_INT8 = 0  # of those, launches on an int8 cache
@@ -37,29 +40,30 @@ LAUNCHES_INT4 = 0  # of those, launches on a packed int4 cache
 flash_attention_plain = cache_attention_reference
 
 
-def n_splits(kv: int, rows: int, n_vis: int) -> int:
-    """Cell splits per (kv head, row tile): enough blocks to fill the card,
-    each split a whole number of cell tiles."""
+def n_splits(kv: int, rows: int, n_vis: int, row_tile: int) -> int:
+    """Cell splits per (kv head, tile of row_tile rows): enough blocks to
+    fill the card, each split a whole number of cell tiles."""
     tiles = n_vis // CELL_TILE
-    blocks = kv * -(-rows // ROW_TILE)
+    blocks = kv * -(-rows // row_tile)
     want = max(1, -(-TARGET_BLOCKS // blocks))
     return max(d for d in range(1, tiles + 1) if tiles % d == 0 and d <= want)
 
 
 def check_cache(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_vis: int, layer: int,
                 k_scale: Optional[torch.Tensor], v_scale: Optional[torch.Tensor],
-                kv_bits: int = 8) -> None:
+                kv_bits: int = 8, mask: Optional[torch.Tensor] = None) -> None:
     """The kernels' rules for q and a [L, KV, cells, D] cache on the card
     (kernels 3 and 9): head_dim 128, n_vis a multiple of the cell tile, a
     contiguous bf16 cache, or int8 codes with contiguous f32 scale planes;
     kernel 3 also takes packed int4 codes [L, KV, cells, 64] (kv_bits=4)
-    with such planes."""
+    with such planes, and its mask on the card."""
     require(q.shape[-1] == HEAD_DIM, f"the kernels take head_dim {HEAD_DIM}, not {q.shape[-1]}")
     require(n_vis % CELL_TILE == 0, f"n_vis {n_vis} is not a multiple of {CELL_TILE}")
     require(0 <= layer < k.shape[0], f"layer {layer} out of range")
     require(q.dtype == torch.bfloat16, "the kernels take bf16 q")
     require(k.is_cuda and v.is_cuda, "q and the cache on the card")
     require(k.is_contiguous() and v.is_contiguous(), "cache must be contiguous")
+    require(mask is None or mask.is_cuda, "mask on the card")
     if k_scale is None:
         require(kv_bits == 8 and k.dtype == v.dtype == torch.bfloat16,
                 "a cache without scales is bf16")
@@ -99,12 +103,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: tor
         k, v, layer = k[None], v[None], 0
         if k_scale is not None:
             k_scale, v_scale = k_scale[None], v_scale[None]
-    check_cache(q, k, v, n_vis, layer, k_scale, v_scale, kv_bits)
-    require(mask.is_cuda, "mask on the card")
+    check_cache(q, k, v, n_vis, layer, k_scale, v_scale, kv_bits, mask)
     q = q.contiguous()
     mask_i8 = mask.to(torch.int8).contiguous()
+    # the tile copies cache rows 16 bytes at a time and reads mask rows 8
+    require(k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0, "cache not 16-byte aligned")
+    require(mask_i8.data_ptr() % 8 == 0, "mask not 8-byte aligned")
     rows = (H // KV) * nt
-    nsplit = n_splits(KV, rows, n_vis)
+    nsplit = n_splits(KV, rows, n_vis, ROW_TILE)
     part_o = torch.empty((nsplit, KV * rows, D), dtype=torch.float32, device=q.device)
     part_ml = torch.empty((nsplit, KV * rows, 2), dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)

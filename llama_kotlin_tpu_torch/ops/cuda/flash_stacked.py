@@ -28,7 +28,7 @@ import torch
 from llama_kotlin_tpu_torch.device import is_cuda, require
 from llama_kotlin_tpu_torch.ops.attention import attention_reference
 from llama_kotlin_tpu_torch.ops.cuda import _build
-from llama_kotlin_tpu_torch.ops.cuda.flash import check_cache, n_splits
+from llama_kotlin_tpu_torch.ops.cuda.flash import WALK_ROW_TILE, check_cache, n_splits
 from llama_kotlin_tpu_torch.runtime.kv_cache import dequantize_cache_layer
 
 LAUNCHES = 0  # kernel launches made by flash_attention_stacked
@@ -85,7 +85,7 @@ def flash_attention_stacked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, l
     m_cells = mask_cells.to(torch.int8).contiguous()
     m_new = mask_new.to(torch.int8).contiguous()
     rows = (H // KV) * nt
-    nsplit = n_splits(KV, rows, n_vis)
+    nsplit = n_splits(KV, rows, n_vis, WALK_ROW_TILE)
     part_o = torch.empty((nsplit + 1, KV * rows, D), dtype=torch.float32, device=q.device)
     part_ml = torch.empty((nsplit + 1, KV * rows, 2), dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)

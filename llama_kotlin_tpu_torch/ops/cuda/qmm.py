@@ -30,7 +30,7 @@ import torch
 
 from llama_kotlin_tpu_torch.device import is_cuda, require
 from llama_kotlin_tpu_torch.ops.cuda import _build
-from llama_kotlin_tpu_torch.ops.cuda.qmm_w4 import check_int8_on, check_w4_on
+from llama_kotlin_tpu_torch.ops.cuda._checks import check_int8_on, check_w4_on
 from llama_kotlin_tpu_torch.quant.fold import is_w4, is_w4x, is_w8, is_w8x
 from llama_kotlin_tpu_torch.quant.qtensor import QTensor, dequantize
 

@@ -20,7 +20,8 @@ import torch
 
 from llama_kotlin_tpu_torch.device import is_cuda, require
 from llama_kotlin_tpu_torch.ops.cuda import _build
-from llama_kotlin_tpu_torch.ops.cuda.qmm_w4 import check_int8_on, quantize_q8, quantize_q8_cuda
+from llama_kotlin_tpu_torch.ops.cuda._checks import check_int8_on
+from llama_kotlin_tpu_torch.ops.cuda.qmm_w4 import quantize_q8, quantize_q8_cuda
 from llama_kotlin_tpu_torch.quant.fold import is_q8f
 from llama_kotlin_tpu_torch.quant.qtensor import SPAN, QTensor
 

@@ -6,7 +6,10 @@ Replaces ``llama_kotlin_tpu/ops/pallas/qmm_w4.py::qmm_w4_fx2`` (entry
 256-element superblock (amax/127, round-half-to-even), multiplied against
 the W4 fold's codes with integer per-32-group partials, and the group
 scales and mins apply in f32.  Bound on the H100: bytes (the weight
-stream); see the CUDA source for the design.
+stream); see the CUDA source for the design.  Rows up to ``MMA_MIN_ROWS``
+take the warp-per-row walk, more rows int8 tensor cores (kernel 7's tile
+with one plane, ``csrc/w4_mma.cuh``) with K split as kernel 4's ``plan``
+says (``use_mma``).
 
 ``qmm_w4_matmul`` launches the kernel for CUDA tensors and runs
 ``qmm_w4_plain`` — the same function in plain PyTorch — for CPU tensors.
@@ -25,12 +28,23 @@ import torch
 
 from llama_kotlin_tpu_torch.device import is_cuda, require
 from llama_kotlin_tpu_torch.ops.cuda import _build
+from llama_kotlin_tpu_torch.ops.cuda._checks import check_w4_on
+from llama_kotlin_tpu_torch.ops.cuda.qmm import UNIT_W4, plan, sm_count, split_workspace
 from llama_kotlin_tpu_torch.quant.fold import GROUP, is_w4
 from llama_kotlin_tpu_torch.quant.qtensor import SPAN, QTensor
 
 MAX_ROWS = 32  # decode rows; prefill rows go to kernel 4 (ops/cuda/qmm.py)
 LAUNCHES = 0  # kernel launches made by qmm_w4_matmul
+LAUNCHES_MMA = 0  # of which took the tensor cores
 PLAIN_CHUNK = 8192  # output rows per step of the plain version
+# T1: rows above it take the tensor-core GEMM, rows up to it the walk
+# (csrc/qmm_w4.cu's W4_WALK_ROWS, which refuses the walk above it).  The
+# crossover on the H100 (scripts/qmm_ab.py, the parent walking every row
+# count; PERF.md, kernel 1): on compact folds the walk is faster at 4 rows
+# on qkv, o, gate|up and the lm_head (qkv 0.0228 vs 0.0280 ms), the GEMM
+# from 8 rows on each (qkv 0.0283 vs 0.0376)
+MMA_MIN_ROWS = 4
+MMA_BM = 64  # the plan's row tile (one tile: at most 32 rows)
 
 
 # -- plain PyTorch version ---------------------------------------------------
@@ -144,30 +158,9 @@ def quantize_q8_2p_cuda(x: torch.Tensor):
     return x8, sx, xsum
 
 
-def check_w4_on(w: QTensor, device: torch.device) -> None:
-    """Every tensor of a W4 or W4X fold lies on `device`, contiguous, in the
-    dtypes the kernels read."""
-    for name, t in w.tensors().items():
-        require(t.device == device, f"W4 {name} on {t.device}, not {device}")
-        require(t.is_contiguous(), f"W4 {name} is not contiguous")
-    require(w.codes.dtype == torch.uint8, "W4 codes must be uint8")
-    require(w.g_scale.dtype == torch.float32 and w.g_min.dtype == torch.float32,
-            "W4 g_scale/g_min must be f32")
-    if w.aux["flavor"] == "compact":
-        require(w.aux["q6"].dtype == torch.uint8 and w.aux["dd"].dtype == torch.float32,
-                "compact planes must be uint8 q6 and f32 dd")
-
-
-def check_int8_on(w: QTensor, device: torch.device) -> None:
-    """Every tensor of an int8-code layout (W8 fold, Q8F) lies on `device`,
-    contiguous and 16-byte aligned, in the dtypes the kernels read."""
-    for name, t in w.tensors().items():
-        require(t.device == device, f"{w.flavor} {name} on {t.device}, not {device}")
-        require(t.is_contiguous() and t.data_ptr() % 16 == 0,
-                f"{w.flavor} {name} is not contiguous and 16-byte aligned")
-    require(w.codes.dtype == torch.int8 and w.g_scale.dtype == torch.float32,
-            f"{w.flavor} codes must be int8 and g_scale f32")
-    require(w.g_min is None or w.g_min.dtype == torch.float32, f"{w.flavor} g_min must be f32")
+def use_mma(b: int) -> bool:
+    """Whether b rows take the tensor-core GEMM (else the walk)."""
+    return b > MMA_MIN_ROWS
 
 
 def gemv_args(w: QTensor):
@@ -181,7 +174,7 @@ def gemv_args(w: QTensor):
 
 def qmm_w4_matmul(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     """x [..., k] (float) @ W4 w^T -> [..., n] f32, for at most 32 rows."""
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_MMA
     require(is_w4(w), "qmm_w4_matmul needs a W4 fold")
     n, k = w.shape
     k_pad = w.k_pad
@@ -198,9 +191,18 @@ def qmm_w4_matmul(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     check_w4_on(w, x2.device)
     x8, sx, xsum = quantize_q8_cuda(x2)
     y = torch.empty((b, n), dtype=torch.float32, device=x2.device)
+    splits, ws, cnt = 0, None, None
+    if use_mma(b):
+        p = plan(1, n, k_pad, UNIT_W4, sm_count(x2.device.index or 0), bms=(MMA_BM,))
+        splits = p.splits
+        ws, cnt = split_workspace(p, b, n, x2.device)
     codes, q6, dd, gs, gm, compact = gemv_args(w)
+    sym = w.flavor == "sym"
     _build.check(_build.lib().lk_w4_gemv(
-        x8.data_ptr(), sx.data_ptr(), xsum.data_ptr(), b, codes, q6, dd, gs, gm,
-        n, k_pad // 2, compact, y.data_ptr(), _build.stream()), "lk_w4_gemv")
+        x8.data_ptr(), sx.data_ptr(), xsum.data_ptr(), b, codes, q6, dd,
+        None if compact else gs, None if compact or sym else gm, n, k_pad // 2, compact,
+        int(sym), y.data_ptr(), splits, _build.ptr(ws), _build.ptr(cnt), _build.stream()),
+        "lk_w4_gemv")
     LAUNCHES += 1
+    LAUNCHES_MMA += int(splits > 0)
     return y.reshape(*lead, n)

@@ -21,8 +21,9 @@ import torch
 from llama_kotlin_tpu_torch.device import is_cuda, require
 from llama_kotlin_tpu_torch.ops.activations import ACTIVATIONS
 from llama_kotlin_tpu_torch.ops.cuda import _build
-from llama_kotlin_tpu_torch.ops.cuda.qmm_w4 import (MAX_ROWS, check_w4_on, gemv_args,
-                                                    qmm_w4_plain, quantize_q8_cuda)
+from llama_kotlin_tpu_torch.ops.cuda._checks import check_w4_on
+from llama_kotlin_tpu_torch.ops.cuda.qmm_w4 import (MAX_ROWS, gemv_args, qmm_w4_plain,
+                                                    quantize_q8_cuda)
 from llama_kotlin_tpu_torch.quant.fold import is_w4
 from llama_kotlin_tpu_torch.quant.qtensor import SPAN, QTensor
 

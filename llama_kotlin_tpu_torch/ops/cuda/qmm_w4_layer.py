@@ -31,7 +31,8 @@ import torch
 
 from llama_kotlin_tpu_torch.device import is_cuda, require
 from llama_kotlin_tpu_torch.ops.cuda import _build
-from llama_kotlin_tpu_torch.ops.cuda.qmm_w4 import check_w4_on, gemv_args, qmm_w4_plain
+from llama_kotlin_tpu_torch.ops.cuda._checks import check_w4_on
+from llama_kotlin_tpu_torch.ops.cuda.qmm_w4 import gemv_args, qmm_w4_plain
 from llama_kotlin_tpu_torch.ops.cuda.qmm_w4_ffn import ACTS, qmm_w4_ffn_plain
 from llama_kotlin_tpu_torch.ops.norms import rms_norm
 from llama_kotlin_tpu_torch.quant.fold import is_w4

@@ -26,8 +26,9 @@ import torch
 from llama_kotlin_tpu_torch.device import is_cuda, require
 from llama_kotlin_tpu_torch.ops.cuda import _build
 from llama_kotlin_tpu_torch.ops.cuda.qmm import UNIT_W4, plan, sm_count, split_workspace
-from llama_kotlin_tpu_torch.ops.cuda.qmm_w4 import (MAX_ROWS, check_w4_on, quantize_q8_2p,
-                                                    quantize_q8_2p_cuda, w4_dot_plain)
+from llama_kotlin_tpu_torch.ops.cuda._checks import check_w4_on
+from llama_kotlin_tpu_torch.ops.cuda.qmm_w4 import (MAX_ROWS, quantize_q8_2p, quantize_q8_2p_cuda,
+                                                    w4_dot_plain)
 from llama_kotlin_tpu_torch.quant.fold import is_w4x
 from llama_kotlin_tpu_torch.quant.qtensor import QTensor
 

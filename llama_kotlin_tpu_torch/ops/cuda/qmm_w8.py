@@ -33,15 +33,16 @@ import torch
 from llama_kotlin_tpu_torch.device import is_cuda, require
 from llama_kotlin_tpu_torch.ops.cuda import _build
 from llama_kotlin_tpu_torch.ops.cuda.qmm import plan, sm_count, split_workspace
-from llama_kotlin_tpu_torch.ops.cuda.qmm_w4 import (MAX_ROWS, check_int8_on, quantize_q8,
-                                                    quantize_q8_2p, quantize_q8_2p_cuda,
-                                                    quantize_q8_cuda)
+from llama_kotlin_tpu_torch.ops.cuda._checks import check_int8_on
+from llama_kotlin_tpu_torch.ops.cuda.qmm_w4 import (MAX_ROWS, quantize_q8, quantize_q8_2p,
+                                                    quantize_q8_2p_cuda, quantize_q8_cuda)
 from llama_kotlin_tpu_torch.quant.fold import is_w8, is_w8x
 from llama_kotlin_tpu_torch.quant.qtensor import SPAN, QTensor
 
 LAUNCHES = 0  # kernel launches of qmm_w8_matmul on W8 folds (single plane)
 LAUNCHES_2P = 0  # and on W8X folds (the precise, dual-plane branch)
-LAUNCHES_MMA = 0  # of either, the launches that took the tensor cores
+LAUNCHES_MMA = 0  # of the W8 launches, those that took the tensor cores
+LAUNCHES_2P_MMA = 0  # and of the W8X ones
 PLAIN_CHUNK = 8192  # output rows per step of the plain version
 # T5: rows above it take the tensor-core GEMM, rows up to it the walk
 # (csrc/qmm_w8.cu's W8_WALK_ROWS, which refuses the walk above it).  The
@@ -102,7 +103,7 @@ def qmm_w8_plain(x: torch.Tensor, w: QTensor) -> torch.Tensor:
 def qmm_w8_matmul(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     """x [..., k] (float) @ W8 or W8X w^T -> [..., n] f32, for at most 32
     rows."""
-    global LAUNCHES, LAUNCHES_2P, LAUNCHES_MMA
+    global LAUNCHES, LAUNCHES_2P, LAUNCHES_MMA, LAUNCHES_2P_MMA
     precise = is_w8x(w)
     require(is_w8(w) or precise, "qmm_w8_matmul needs a W8 or W8X fold")
     n, k = w.shape
@@ -131,9 +132,10 @@ def qmm_w8_matmul(x: torch.Tensor, w: QTensor) -> torch.Tensor:
         _build.ptr(cnt), _build.stream()), "lk_w8_gemv")
     if precise:
         LAUNCHES_2P += 1
+        LAUNCHES_2P_MMA += int(splits > 0)
     else:
         LAUNCHES += 1
-    LAUNCHES_MMA += int(splits > 0)
+        LAUNCHES_MMA += int(splits > 0)
     if w.g_min is not None:
         mt = min_term(x8, sx, w)
         y = y - (mt[:b] + mt[b:] if precise else mt)

@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Kernels 4 (the prefill dequant matmul, both branches), 5 (the W8 decode
-matmul, both branches), 7 (the W4X matmul) and 8 (the W4A8 matmul with the
-quantization inside the launch) of two or more checkouts of the port,
-timed on one card in turns.
+"""Kernels 1 (the W4A8 decode matmul), 4 (the prefill dequant matmul, both
+branches), 5 (the W8 decode matmul, both branches), 7 (the W4X matmul) and
+8 (the W4A8 matmul with the quantization inside the launch) of two or more
+checkouts of the port, timed on one card in turns.
 
-    python3 scripts/qmm_ab.py ROOT_A ROOT_B [ROOT ...] [--rounds N] [--kernels 4,5,7,8]
+    python3 scripts/qmm_ab.py ROOT_A ROOT_B [ROOT ...] [--rounds N] [--kernels 1,4,5,7,8]
 
 Each turn is its own process that builds ROOT's kernels
 (``llama_kotlin_tpu_torch/_build/`` under ROOT) and times them through
-their wrappers (``qmm.qmm``, ``qmm_w8.qmm_w8_matmul``,
-``qmm_w4x.qmm_w4x_matmul``, ``qmm_w4_fx.qmm_w4_fx_matmul``) with
+their wrappers (``qmm_w4.qmm_w4_matmul``, ``qmm.qmm``,
+``qmm_w8.qmm_w8_matmul``, ``qmm_w4x.qmm_w4x_matmul``,
+``qmm_w4_fx.qmm_w4_fx_matmul``) with
 chip_smoke.py's timer (median of 20 CUDA-event timings, L2 flushed before
 each) at the llama3-8B shapes of PERF.md's kernel table: kernel 4 on W4
 folds (qkv, o, gate|up, down) at 64 and 512 rows and on q6_K W8 folds
@@ -17,13 +18,15 @@ folds (qkv, o, gate|up, down) at 64 and 512 rows and on q6_K W8 folds
 2, 4, 8, 9, 16, 32; qkv, o and down at b = 1, 2, 4, 32); kernel 5 on q6_K
 W8 folds (lm_head, ffn_down, attn_v) and on W8X folds of the same blocks at
 b = 1, 2, 4, 8, 9, 16, 32; kernel 8 on sym folds (qkv, o, gate|up, down) at
-the same row counts and on legacy folds at b = 1, 2, 4, 9, 32.  A root
+the same row counts and on legacy folds at b = 1, 2, 4, 9, 32; kernel 1 on
+compact, sym and legacy folds (qkv, o, gate|up, lm_head) at the same row
+counts as kernel 5.  A root
 whose kernel walks every row count against one that takes more rows on
 tensor cores gives that kernel's row threshold's crossover; where a root
 has a threshold (``MMA_MIN_ROWS``), its rows up to it are also timed on
 the tensor cores (keys ending in ``mma``), so one root shows both sides.
 Where a root has the split plan (``qmm.plan``), its kernels 4 (64 rows) and
-5, 7 and 8 (32 rows) are also timed at other split counts than the plan's:
+1, 5, 7 and 8 (32 rows) are also timed at other split counts than the plan's:
 the least that gives every SM a block, and twice that (keys ending in
 ``splits=S``).  Weights and inputs come from fixed seeds, so every root
 sees the same numbers.  Turns run in root order, then in reverse, each
@@ -49,7 +52,8 @@ W4X_CASES = tuple([("gate_up", b) for b in (1, 2, 4, 8, 9, 16, 32)]
 ROWS = (1, 2, 4, 8, 9, 16, 32)  # kernels 5 and 8: both sides of the crossovers
 W8_DECODE = {"lm_head": (V, E), **W8_SHAPES}
 FX_LEGACY_ROWS = (1, 2, 4, 9, 32)
-KERNELS = ("4", "5", "7", "8")
+W4_DECODE = {"qkv": (6144, E), "o": (E, E), "gate_up": (2 * F, E), "lm_head": (V, E)}
+KERNELS = ("1", "4", "5", "7", "8")
 
 
 def split_counts(qmm, m: int, n: int, k: int, unit: int, bms) -> list[int]:
@@ -112,7 +116,7 @@ def one(root: str, kernels) -> None:
     sys.path.insert(0, root)
     from llama_kotlin_tpu_torch.models.synthetic import (synthetic_w4, synthetic_w4_device,
                                                          wire_blocks)
-    from llama_kotlin_tpu_torch.ops.cuda import _build, qmm, qmm_w4_fx, qmm_w4x, qmm_w8
+    from llama_kotlin_tpu_torch.ops.cuda import _build, qmm, qmm_w4, qmm_w4_fx, qmm_w4x, qmm_w8
     from llama_kotlin_tpu_torch.quant import fold, repack
     from llama_kotlin_tpu_torch.quant.formats import GGMLQuantType as Q
 
@@ -126,6 +130,15 @@ def one(root: str, kernels) -> None:
     gen.manual_seed(1234)
     flush = torch.zeros(smoke.FLUSH_BYTES, dtype=torch.uint8, device=dev)
     out = {"root": root, "library": _build.build().name}
+    if "1" in kernels:
+        for flavor in ("compact", "sym", "legacy"):
+            for name, (n, k) in W4_DECODE.items():
+                wt = smoke.w4_on_card(torch, gen, n, k, flavor)
+                for b in ROWS:
+                    x = torch.randn((b, k), generator=gen, device=dev) * 0.7
+                    decode_rows(out, smoke, torch, f"qmm_w4 {flavor} {name} b={b}", qmm_w4,
+                                qmm_w4.qmm_w4_matmul, x, wt, flush, n, k, 256)
+                del wt
     if "4" in kernels:
         for name, (n, k) in W4_SHAPES.items():
             wt = synthetic_w4_device(gen, n, k, zero_mean=False, device=dev)
