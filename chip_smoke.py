@@ -19,7 +19,7 @@ Phases (any failure exits non-zero and prints no result line):
                from a seed) serves 3 requests through LlamaContext: prefill
                64 tokens, then 32 greedy tokens; on the unrolled path with
                a bf16 cache, then stacked with a bf16 and a q8_0 cache and
-               unrolled with a q8_0 cache (these at the model's first 8
+               unrolled with a q8_0 cache (these at the model's first 4
                layers); every kernel of each path must launch (kernel 9
                once a layer and step, kernel 3 never, on the stacked path);
   5. gguf    — a full-width 32-layer llama3-8B GGUF file with the Q4_K_M
@@ -57,9 +57,9 @@ knobs(), which restores the environment), add to 3 kernel 8 on sym and
 legacy W4 folds at the four decode projections (b = 1, 9, 16 and 32,
 beside kernel 1 on the same inputs) and kernel 10 on compact, sym and legacy folds
 (b = 1 and 8, beside the unfused route it replaces); to 4 the W4A8 model
-(its first 8 layers) with LKTPU_LAYER_FUSED=1, stacked and unrolled
+(its first 4 layers) with LKTPU_LAYER_FUSED=1, stacked and unrolled
 (kernel 10: n_layer launches a decode step, none at the prefill); to 5 a
-full-width 8-layer Q4_0 file (sym folds, Q6_K output) by default, with
+full-width 4-layer Q4_0 file (sym folds, Q6_K output) by default, with
 LKTPU_W4_FX=1 and with both knobs; to 6 the fused W4A8 model and 2-layer
 Q4_0 and Q4_1 files under each knob against the CPU.
 
@@ -90,6 +90,18 @@ row (exactly 0), a softcap and a dead tile between live ones; serve()
 counts kernel 1's tensor-core launches ("qmm_w4_mma") and holds them,
 request by request, to the rows each prefill and decode step gives it.
 
+Kernel 9 runs on kernel 3's tile, and both take head dims 64 and 128 and
+any visible-cell count; kernel 6 above its row threshold T6 takes int8
+tensor cores: 3 times kernel 6 at b = 1, 2, 4, 8, 9, 16, 32, 64 and 512 on
+qkv, o, gate|up, down and the lm_head (above T6 repeated bit-equal), and
+kernels 3 and 9 at head dim 64 and over 1000 and 1001 visible cells; 4
+serves the tinyllama-1.1b preset (22 layers, head dim 64: unrolled bf16,
+stacked bf16 and q8_0, unrolled q4_0, and stacked and unrolled contexts of
+1000 cells) with exact launch counts; 5 counts kernel 6's tensor-core
+launches at the int8-mode file's 64-token prefill and serves it a 32-token
+prompt (kernel 6's tile at 32 rows: 128 launches a prefill); 6 holds
+tinyllama at 2 layers on each of those paths against the CPU.
+
 The last line of standard output is {"ok": true, "device": {...}}.
 """
 
@@ -116,11 +128,16 @@ FLUSH_BYTES = 256 << 20  # > the 50 MB L2: decode streams cold weights
 SPIN_CYCLES = 10_000_000  # ~5 ms of device spin ahead of each timed call
 # depth of the paths earlier slices added (the quantized caches, the fused
 # layer half, the Q4_0 file): cut from 32 layers to keep the whole script
-# well inside its time limit on a slow host; the main path, the W4X model
-# and the Q4_K_M file keep 32
-EARLIER_LAYERS = 8
+# well inside its time limit on a slow host (8 layers until the
+# tinyllama-1.1b phase and kernel 6's and the repaired attention's rows
+# came); the main path, the W4X model, the Q4_K_M file and tinyllama-1.1b
+# keep their full depth
+EARLIER_LAYERS = 4
 # greedy tokens of each request of the 32-token prompts (serve_32)
 N_NEW_32 = 8
+# kernel 6's timed row counts: both sides of its threshold T6, each m16
+# count of its tile, a 64-token and a 512-token prefill
+Q8F_ROWS = (1, 2, 4, 8, 9, 16, 32, 64, 512)
 
 
 def log(msg: str) -> None:
@@ -619,31 +636,39 @@ def w8_kernel_phase(torch, results: dict) -> None:
                 check("qmm", shape, got, qmm.qmm_plain(xb, wt), 1e-3)
     del wt
 
-    # kernel 6: the Q8F matmul — qkv, gate|up, down, lm_head at b = 1 and
-    # m = 64 (the GEMV and the tensor-core GEMM).  tol: exact superblock
-    # partials on both sides; the f32 order of the superblock sum differs
-    w = {"qkv": (Q.Q4_K, 6144, E), "gate_up": (Q.Q4_K, 2 * F, E), "down": (Q.Q6_K, E, F),
-         "lm_head": (Q.Q6_K, V, E)}
+    # kernel 6: the Q8F matmul — qkv, o, gate|up, down, lm_head at b = 1, 2,
+    # 4, 8, 9, 16, 32, 64 and 512 (the walk up to T6, the tensor-core tile
+    # above it: 1, 2 and 4 m16 tiles, 64-row tiles, split K; two launches
+    # bit-equal).  tol: exact superblock partials on both sides; the f32
+    # order of the superblock sum differs
+    w = {"qkv": (Q.Q4_K, 6144, E), "o": (Q.Q4_K, E, E), "gate_up": (Q.Q4_K, 2 * F, E),
+         "down": (Q.Q6_K, E, F), "lm_head": (Q.Q6_K, V, E)}
     w = {name: repack.repack_q8flat(wire(qt, n, k).to(dev), qt, n, k)
          for name, (qt, n, k) in w.items()}
     for name, wt in w.items():
         n, k = wt.shape
-        for b in (1, 64):
+        for b in Q8F_ROWS:
             x = torch.randn((b, k), generator=gen, device=dev) * 0.7
-            codes_equal(torch, x)
-            report("qmm_int8", f"{name} n={n} k={k} b={b}",
-                   err_of(qmm_int8.qmm_int8(x, wt), qmm_int8.qmm_int8_plain(x, wt)), 1e-4,
+            if b <= 64:
+                codes_equal(torch, x)
+            got = qmm_int8.qmm_int8(x, wt)
+            shape = f"{name} n={n} k={k} b={b}"
+            if qmm_int8.use_mma(b):
+                repeats(torch, "qmm_int8", shape, got, lambda: qmm_int8.qmm_int8(x, wt))
+            report("qmm_int8", shape, err_of(got, qmm_int8.qmm_int8_plain(x, wt)), 1e-4,
                    time_ms(torch, lambda: qmm_int8.qmm_int8(x, wt), flush),
                    time_ms(torch, lambda: qmm_int8.qmm_int8_plain(x, wt), flush),
                    b * k * 4 + nbytes(wt) + b * n * 4, 2 * b * n * k, "int8",
                    matmul_ms(torch, x, wt, flush))
-    # kernel 6 at 300 rows (partial row tiles), at other GEMV buckets, and at
-    # k = 768 (the GEMV's half-live last step)
+    # kernel 6 at 300 rows (a partial last row tile), at the other row
+    # counts (each m16 count, partial row tiles), and at k = 768 (three
+    # superblocks: the walk's half-live last step, an odd split)
     x = torch.randn((300, E), generator=gen, device=dev) * 0.7
-    check("qmm_int8", "qkv b=300", qmm_int8.qmm_int8(x, w["qkv"]),
-          qmm_int8.qmm_int8_plain(x, w["qkv"]), 1e-4)
+    got = qmm_int8.qmm_int8(x, w["qkv"])
+    repeats(torch, "qmm_int8", "qkv b=300", got, lambda: qmm_int8.qmm_int8(x, w["qkv"]))
+    check("qmm_int8", "qkv b=300", got, qmm_int8.qmm_int8_plain(x, w["qkv"]), 1e-4)
     w768 = repack.repack_q8flat(wire(Q.Q8_0, 1024, 768).to(dev), Q.Q8_0, 1024, 768)
-    for b in (3, 17, 70):
+    for b in (1, 2, 3, 17, 33, 70, 129):
         x = torch.randn((b, 768), generator=gen, device=dev) * 0.7
         check("qmm_int8", f"n=1024 k=768 b={b}", qmm_int8.qmm_int8(x, w768),
               qmm_int8.qmm_int8_plain(x, w768), 1e-4)
@@ -909,8 +934,92 @@ def kv_kernel_phase(torch, results: dict) -> None:
             if nt == 256 and bool(got[-8:].any()):
                 raise AssertionError(f"kernel 3 ({kind}, nt=256): a row that sees nothing "
                                      "gave nonzero output")
-    del caches, kb, vb, k8, v8, ks, vs, k4, v4, ks4, vs4, flush
+    del caches, kb, vb, k8, v8, ks, vs, k4, v4, ks4, vs4
+    repaired_flash_rows(torch, results, gen, flush)
+    del flush
     torch.cuda.empty_cache()
+
+
+def repaired_flash_rows(torch, results: dict, gen, flush) -> None:
+    """Kernels 3 (three caches) and 9 (bf16, int8) where the tile's repairs
+    reach: head dim 64 (tinyllama-1.1b's 32 query heads on 4 kv heads) over
+    1024 visible cells, and head dim 128 over a ragged 1000 and 1001 (the
+    cache one row longer, as a context's scratch cell makes it); decode (a
+    token at the last visible position) and a 64-token prefill (the last
+    64 cells, causal; kernel 9 with those cells masked out of the cache and
+    its rows fresh), a row that sees nothing (exactly 0) in the prefill;
+    timed beside SDPA.  tol as in kv_kernel_phase."""
+    from llama_kotlin_tpu_torch.ops.cuda import flash, flash_stacked
+    from llama_kotlin_tpu_torch.runtime.kv_cache import (dequantize_cache_layer, quantize_rows,
+                                                         quantize_rows_q4)
+
+    dev = torch.device("cuda")
+    report = functools.partial(report_row, results)
+    H, li = 32, 1
+    for d, KV, n_vis in ((64, 4, 1024), (128, 8, 1000), (128, 8, 1001)):
+        cells = n_vis + 1
+        kb, vb = (torch.randn((2, KV, cells, d), generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        (k8, ks), (v8, vs) = quantize_rows(kb), quantize_rows(vb)
+        (k4, ks4), (v4, vs4) = quantize_rows_q4(kb), quantize_rows_q4(vb)
+        caches = {"bf16": (kb, vb, None, None, 8), "int8": (k8, v8, ks, vs, 8),
+                  "int4": (k4, v4, ks4, vs4, 4)}
+        scale = d ** -0.5
+        for nt in (1, 64):
+            q = torch.randn((nt, H, d), generator=gen, device=dev).to(torch.bfloat16)
+            tpos = torch.arange(n_vis - nt, n_vis, device=dev)
+            cpos = torch.arange(n_vis, device=dev)
+            mask = (cpos[None, :] <= tpos[:, None]).to(torch.int8)
+            mask_cells = (cpos[None, :] < n_vis - nt).to(torch.int8).expand(nt, n_vis).clone()
+            mask_new = (tpos[None, :] <= tpos[:, None]).to(torch.int8)
+            if nt > 1:
+                mask[1], mask_cells[1], mask_new[1] = 0, 0, 0
+            new_k, new_v = (torch.randn((nt, KV, d), generator=gen, device=dev)
+                            .to(torch.bfloat16) for _ in range(2))
+            for kind, (k, v, ksc, vsc, bits) in caches.items():
+                elem = k.element_size() * k.shape[-1] + (4 if ksc is not None else 0)
+                kf, vf = (k[li], v[li]) if ksc is None else (
+                    dequantize_cache_layer(c[li], sc[li], torch.bfloat16, bits=bits)
+                    for c, sc in ((k, ksc), (v, vsc)))
+                kw3 = dict(scale=scale, layer=li, k_scale=ksc, v_scale=vsc, kv_bits=bits)
+                args = (q, k, v, mask)
+                got = flash.flash_attention(*args, **kw3)
+                vis = int(mask.any(dim=0).sum().item())
+                report("flash", f"{kind} cache D={d} nt={nt} n_vis={n_vis}",
+                       err_of(got, flash.flash_attention_plain(*args, **kw3)), 1e-2,
+                       time_ms(torch, lambda: flash.flash_attention(*args, **kw3), flush),
+                       time_ms(torch, lambda: flash.flash_attention_plain(*args, **kw3), flush),
+                       2 * nt * H * d * 2 + 2 * KV * vis * elem + nt * n_vis,
+                       4 * d * int(mask.sum().item()) * H, "bf16",
+                       time_ms(torch, sdpa_call(torch, q, kf[:, :n_vis], vf[:, :n_vis], mask,
+                                                scale), flush))
+                if nt > 1 and bool(got[1].any()):
+                    raise AssertionError(f"kernel 3 ({kind}, D={d}, n_vis={n_vis}): a row "
+                                         "that sees nothing gave nonzero output")
+                if kind == "int4":
+                    continue
+                kw = dict(scale=scale, k_scale=ksc, v_scale=vsc)
+                sargs = (q, k, v, li, new_k, new_v, mask_cells, mask_new)
+                got = flash_stacked.flash_attention_stacked(*sargs, **kw)
+                vis = int(mask_cells.any(dim=0).sum().item())
+                lib = sdpa_call(torch, q, torch.cat([kf[:, :n_vis], new_k.transpose(0, 1)], 1),
+                                torch.cat([vf[:, :n_vis], new_v.transpose(0, 1)], 1),
+                                torch.cat([mask_cells, mask_new], dim=1), scale)
+                report("flash_stacked", f"{kind} cache D={d} nt={nt} n_vis={n_vis}",
+                       err_of(got, flash_stacked.flash_attention_stacked_plain(*sargs, **kw)),
+                       1e-2,
+                       time_ms(torch, lambda: flash_stacked.flash_attention_stacked(*sargs,
+                                                                                    **kw), flush),
+                       time_ms(torch, lambda: flash_stacked.flash_attention_stacked_plain(
+                           *sargs, **kw), flush),
+                       2 * nt * H * d * 2 + 2 * KV * vis * elem + 2 * nt * KV * d * 2
+                       + nt * (n_vis + nt),
+                       4 * d * int(mask_cells.sum().item() + mask_new.sum().item()) * H, "bf16",
+                       time_ms(torch, lib, flush))
+                if nt > 1 and bool(got[1].any()):
+                    raise AssertionError(f"kernel 9 ({kind}, D={d}, n_vis={n_vis}): a row "
+                                         "that sees nothing gave nonzero output")
+        del kb, vb, k8, v8, ks, vs, k4, v4, ks4, vs4, caches
 
 
 @contextlib.contextmanager
@@ -1072,8 +1181,9 @@ def mod_name(m) -> str:
 
 
 def serve(torch, cfg, params, mods, phase: str, n_prompt: int = 64, n_new: int = 32,
-          never=(), **ctx_kw):
-    """3 requests through LlamaContext(**ctx_kw): prefill n_prompt tokens,
+          never=(), n_cells: int = 1024, **ctx_kw):
+    """3 requests through LlamaContext(n_cells, **ctx_kw), every cell
+    visible at the decode steps: prefill n_prompt tokens,
     then n_new greedy tokens (the first from the prefill).  The launch
     counts of `mods` (which must all launch) and `never` (which must not)
     are set to 0 first; returns (the counts of `mods` just after the run,
@@ -1089,7 +1199,7 @@ def serve(torch, cfg, params, mods, phase: str, n_prompt: int = 64, n_new: int =
     from llama_kotlin_tpu_torch.runtime.context import LlamaContext
     from llama_kotlin_tpu_torch.runtime.generate import generate_loop
 
-    ctx = LlamaContext(cfg, params, n_cells=1024, buckets=(8, 16, 32, 64, 128, 256, 512),
+    ctx = LlamaContext(cfg, params, n_cells=n_cells, buckets=(8, 16, 32, 64, 128, 256, 512),
                        device="cuda", **ctx_kw)
     # (kernel 1, its tensor-core counter, rows a prefill launch takes, rows
     # a decode launch takes): a prompt above its rows reaches it only with
@@ -1141,7 +1251,7 @@ def serve(torch, cfg, params, mods, phase: str, n_prompt: int = 64, n_new: int =
             if got != want:
                 raise AssertionError(f"{phase}: {kc} launches {got} (prefill, decode), "
                                      f"expected {want}")
-        log(json.dumps({"phase": phase, "context": ctx_kw, "request": r,
+        log(json.dumps({"phase": phase, "context": dict(ctx_kw, n_cells=n_cells), "request": r,
                         "prompt_tokens": n_prompt,
                         "ttft_ms": ttft_ms, "decode_tokens": n_new - 1,
                         "decode_tok_s": (n_new - 1) / dt,
@@ -1248,10 +1358,64 @@ def fused_serving(torch, cfg, params) -> dict:
     return by_path
 
 
+def tinyllama_phase(torch) -> dict:
+    """The JAX package's tinyllama-1.1b preset at full width and depth (22
+    layers; head dim 64: 32 query heads on 4 kv heads; F = 5632, whose down
+    fold pads K to 6144, so kernel 2 declines the FFN as JAX's does and
+    kernel 1 takes gate|up and down at decode), synthetic W4A8 weights (seed
+    2), 3 requests each: unrolled bf16 (kernel 3), stacked bf16 and q8_0
+    (kernel 9), unrolled q4_0 (kernel 3's int4 branch), then stacked and
+    unrolled contexts of 1000 cells (n_vis = 1000 at every step: a ragged
+    last tile on kernels 9 and 3), each with exact launch counts: per
+    request kernel 4 4 a layer at the 64-token prefill, kernel 1 its
+    lm_head row and 4 a layer + 1 a decode step, the attention kernel once
+    a layer and step; kernel 2 and the other attention kernel never.
+    Returns {path: launch counts}."""
+    from llama_kotlin_tpu_torch.models.synthetic import preset_config, synthetic_params_device
+    from llama_kotlin_tpu_torch.ops.cuda import flash, flash_stacked, qmm, qmm_w4, qmm_w4_ffn
+
+    t0 = time.perf_counter()
+    cfg = preset_config("tinyllama-1.1b")
+    params = synthetic_params_device(cfg, seed=2, device="cuda")
+    L, by_path = cfg.n_layer, {}
+    log(json.dumps({"phase": "tinyllama", "n_layer": L, "head_dim": cfg.head_dim,
+                    "ffn_down_k_pad": params["layers"][0]["ffn_down"].k_pad,
+                    "w_bytes_per_tok": streamed_bytes(params)}))
+    steps = 3 * 32 * L  # a prefill and 31 decode steps a request, one launch a layer
+    want = {"qmm_w4": 3 * (1 + 31 * (4 * L + 1)), "qmm_w4_mma": 0, "qmm": 3 * 4 * L}
+    for path, attn, kw in (
+            ("tinyllama_unrolled_bf16", flash, dict(prefer_unrolled=True)),
+            ("tinyllama_stacked_bf16", flash_stacked, {}),
+            ("tinyllama_stacked_q8_0", flash_stacked, dict(kv_quant="q8_0")),
+            ("tinyllama_unrolled_q4_0", flash, dict(kv_quant="q4_0", prefer_unrolled=True)),
+            ("tinyllama_stacked_bf16_1000", flash_stacked, dict(n_cells=1000)),
+            ("tinyllama_unrolled_bf16_1000", flash, dict(n_cells=1000, prefer_unrolled=True))):
+        other = flash if attn is flash_stacked else flash_stacked
+        flash.LAUNCHES_INT4 = 0
+        counts, ctx = serve(torch, cfg, params, (qmm_w4, qmm, attn), path,
+                            never=(qmm_w4_ffn, other), **kw)
+        expect = dict(want, **{mod_name(attn): steps})
+        int4 = flash.LAUNCHES_INT4 if kw.get("kv_quant") == "q4_0" else steps
+        if (counts != expect or int4 != steps
+                or ("layers_stacked" in ctx.params) != (attn is flash_stacked)):
+            raise AssertionError(f"{path}: launches {counts} (int4 {int4}), expected {expect}")
+        if path in ("tinyllama_unrolled_bf16", "tinyllama_stacked_bf16"):
+            profile_decode(torch, ctx, cfg, path)
+        by_path[path] = counts
+        del ctx
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    log(json.dumps({"phase": "timing", "function": "tinyllama_serving",
+                    "seconds": time.perf_counter() - t0}))
+    return by_path
+
+
 def q4_0_gguf_phase(torch, tmpdir: Path) -> dict:
-    """A full-width 8-layer llama3-8B Q4_0 file (every layer matrix and
-    token_embd Q4_0, output Q6_K; random wire blocks, seed 9) in the w4
-    mode on the default (stacked) context, bf16 cache, 3 requests each:
+    """A full-width llama3-8B Q4_0 file of EARLIER_LAYERS layers (every
+    layer matrix and token_embd Q4_0, output Q6_K; random wire blocks, seed
+    9) in the w4 mode on the default (stacked) context, bf16 cache, 3
+    requests each:
     by default (kernel 1 on the sym folds' qkv and o, kernel 2 the FFN);
     with LKTPU_W4_FX=1 (kernel 8 in kernel 1's place: 2 n_layer launches
     a decode step); with LKTPU_W4_FX=1 and LKTPU_LAYER_FUSED=1 (kernel 8
@@ -1470,7 +1634,8 @@ def gguf_phase(torch, tmpdir: Path) -> dict:
     mode_mods = {"w4": ((qmm_w4, qmm_w4_ffn, flash, qmm, qmm_w8), (precise, qmm_w4x),
                         dict(prefer_unrolled=True)),
                  "w4x": ((qmm_w4x, precise, flash, qmm), (qmm_w4, qmm_w4_ffn, qmm_w8), {}),
-                 "int8": ((flash, qmm_int8), (), dict(prefer_unrolled=True))}
+                 "int8": ((flash, qmm_int8, mma_counter(qmm_int8)), (),
+                          dict(prefer_unrolled=True))}
     counts = {}
     for mode, (mods, never, ctx_kw) in mode_mods.items():
         torch.cuda.synchronize()
@@ -1529,6 +1694,16 @@ def gguf_phase(torch, tmpdir: Path) -> dict:
                 dict(per, flash=32), mma_counter(qmm_w8) if mode == "w4" else w8_precise_mma(),
                 32, **ctx_kw)
         if mode == "int8":
+            # kernel 6's tensor-core tile takes the 64-row prefill's 128
+            # projections; the prefill's lm_head row and every decode row walk
+            if counts[mode]["qmm_int8_mma"] != 3 * 128:
+                raise AssertionError(f"gguf_int8: {counts[mode]['qmm_int8_mma']} tensor-core "
+                                     "launches of kernel 6, expected 384")
+            # a 32-token prompt: kernel 6 on its tile at 32 rows, 128 launches
+            # a prefill; a token (the prefill's too) 129 launches of kernel 6
+            counts["int8_32"] = serve_32(
+                torch, cfg, params, "gguf_int8_32", (flash, qmm_int8), (qmm,),
+                {"qmm_int8": 129, "flash": 32}, mma_counter(qmm_int8), 128, **ctx_kw)
             # the default context with the int8 cache: the uniform Q8F layers
             # stack, so kernels 6 and 9 serve it and kernel 3 never launches
             counts["int8_stacked_q8_0"], ctx = serve(
@@ -1684,6 +1859,26 @@ def parity_phase(torch) -> None:
             cfg, params if dev == "cuda" else cpu_params, n_cells=1024, buckets=(8, 16, 32, 64),
             device=dev, **kw), prompt, tol, steps=2, shift=shift)
     del params, cpu_params
+    # tinyllama-1.1b at 2 layers (head dim 64; kernel 1 on the padded FFN)
+    # on each cache and path of tinyllama_phase, and with 1000 cells (n_vis
+    # = 1000 at every step).  tol as above
+    tcfg = preset_config("tinyllama-1.1b", n_layer=2)
+    tiny = synthetic_params_device(tcfg, seed=3, device="cuda")
+    tiny_cpu = params_to(tiny, "cpu")
+    tprompt = np.random.default_rng(5).integers(0, tcfg.vocab_size, 64).astype(np.int32)
+    for label, kw in (("parity_tinyllama_unrolled_bf16", dict(prefer_unrolled=True)),
+                      ("parity_tinyllama_stacked_bf16", {}),
+                      ("parity_tinyllama_stacked_q8_0", dict(kv_quant="q8_0")),
+                      ("parity_tinyllama_unrolled_q4_0", dict(kv_quant="q4_0",
+                                                              prefer_unrolled=True)),
+                      ("parity_tinyllama_stacked_1000", dict(n_cells=1000)),
+                      ("parity_tinyllama_unrolled_1000", dict(n_cells=1000,
+                                                              prefer_unrolled=True))):
+        kw = dict(dict(n_cells=1024), **kw)
+        card_vs_cpu(torch, label, lambda dev: LlamaContext(
+            tcfg, tiny if dev == "cuda" else tiny_cpu, buckets=(8, 16, 32, 64), device=dev,
+            **kw), tprompt, tol)
+    del tiny, tiny_cpu
     # the W4X model of the same seed on the default (stacked) context, bf16
     # cache.  tol: the W4X activations carry ~16 bits, so a flipped plane-1
     # code is mostly caught by plane 2; on the CPU the port and the JAX
@@ -1817,6 +2012,11 @@ def gguf_parity_phase(torch, tmpdir: Path) -> None:
         path.unlink()
 
 
+def pick_row(rows: list, i):
+    """A kernel's timed row by its index or its shape."""
+    return rows[i] if isinstance(i, int) else next(r for r in rows if r["shape"] == i)
+
+
 def main() -> int:
     try:
         import torch
@@ -1869,6 +2069,7 @@ def main() -> int:
         timed(fx_layer_kernel_phase, torch, results)
         by_path = timed(serving_phase, torch)
         by_path.update(timed(w4x_serving_phase, torch))
+        by_path.update(timed(tinyllama_phase, torch))
         tmpdir = Path(tempfile.mkdtemp(prefix="lk_gguf_"))
         try:
             for mode, c in timed(gguf_phase, torch, tmpdir).items():
@@ -1890,14 +2091,23 @@ def main() -> int:
         "qmm_w4_ffn": ("csrc/qmm_w4_ffn.cu", "llama_kotlin_tpu/ops/pallas/qmm_w4_ffn.py:155",
                        0, {}),
         "flash": ("csrc/flash.cu", "llama_kotlin_tpu/ops/pallas/flash.py:160", 0,
-                  {"prefill": 1, "int8": 3, "int4": 4}),
+                  {"prefill": 1, "int8": 3, "int4": 4,
+                   "d64": "bf16 cache D=64 nt=64 n_vis=1024",
+                   "ragged": "bf16 cache D=128 nt=64 n_vis=1001"}),
         "qmm": ("csrc/qmm.cu", "llama_kotlin_tpu/ops/pallas/qmm.py:192", 1,
                 {"m512": 5, "w8": 8}),
         "qmm_w8": ("csrc/qmm_w8.cu", "llama_kotlin_tpu/ops/pallas/qmm_w8.py:144", 0,
                    {"b32": "lm_head n=128256 k=4096 b=32 group=16"}),
-        "qmm_int8": ("csrc/qmm_int8.cu", "llama_kotlin_tpu/ops/pallas/qmm_int8.py:41", 2, {}),
+        "qmm_int8": ("csrc/qmm_int8.cu", "llama_kotlin_tpu/ops/pallas/qmm_int8.py:41",
+                     "down n=4096 k=14336 b=64",
+                     {"b1": "qkv n=6144 k=4096 b=1", "qkv_m64": "qkv n=6144 k=4096 b=64",
+                      "b32": "lm_head n=128256 k=4096 b=32",
+                      "m512": "qkv n=6144 k=4096 b=512"}),
         "flash_stacked": ("csrc/flash_stacked.cu",
-                          "llama_kotlin_tpu/ops/pallas/flash_stacked.py:94", 0, {"int8": 1}),
+                          "llama_kotlin_tpu/ops/pallas/flash_stacked.py:94", 0,
+                          {"int8": 1, "prefill": "bf16 cache nt=64 n_vis=1024 layer=31",
+                           "d64": "bf16 cache D=64 nt=64 n_vis=1024",
+                           "ragged": "bf16 cache D=128 nt=64 n_vis=1001"}),
         "qmm_w4x": ("csrc/qmm_w4x.cu", "llama_kotlin_tpu/ops/pallas/qmm_w4.py:691", 0,
                     {"b32": 6}),
         "qmm_w8_precise": ("csrc/qmm_w8.cu", "llama_kotlin_tpu/ops/pallas/qmm_w8.py:144", 0,
@@ -1919,20 +2129,19 @@ def main() -> int:
                  "replaces": replaces, "launches": sum(launches.values()),
                  "launches_by_path": launches,
                  "max_abs_err": max(r["max_abs_err"] for r in results[kname]),
-                 **{k: rows[pick][k] for k in timing}}
+                 **{k: pick_row(rows, pick)[k] for k in timing}}
         # tensor-core launches, on the paths that count them apart (kernels
         # 1, 5 and 8: LAUNCHES_MMA); every launch of kernels 3 and 4 is one
         mma = {p: c[f"{kname}_mma"] for p, c in by_path.items() if f"{kname}_mma" in c}
         if mma:
             entry["launches_mma_by_path"] = mma
         for branch, i in branches.items():
-            row = rows[i] if isinstance(i, int) else next(r for r in rows if r["shape"] == i)
-            entry[branch] = {k: row[k] for k in timing + ("max_abs_err",)}
+            entry[branch] = {k: pick_row(rows, i)[k] for k in timing + ("max_abs_err",)}
         if kname == "flash":  # the int4 branch's launches, counted apart
             entry["int4"]["launches"] = int4_launches
         if kname == "qmm_w4_layer":  # no library call; the route it replaces
             entry["library"] = "none: no one call computes a layer half"
-            entry["unfused_ms"] = rows[pick]["unfused_ms"]
+            entry["unfused_ms"] = pick_row(rows, pick)["unfused_ms"]
         kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     log(smi)

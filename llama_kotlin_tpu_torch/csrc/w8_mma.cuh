@@ -245,6 +245,213 @@ w8_mma_kernel(const int8_t* __restrict__ x8, const float* __restrict__ sx, int B
                                     ws, cnt, z);
 }
 
+// --- kernel 6's tile (qmm_int8.cu): the Q8F product, one scale a row and
+// superblock on both sides (GS = 256, one group a superblock) ---------------
+//
+//   y[b, n] = sum_s P_s(b, n) * (sx[b, s] * sw[n, s]),   P_s exact
+//
+// The ring, fragments and split K of the tile above; the stage holds the
+// superblock's 256 code bytes and one scale of each of the block's BN
+// weight rows, and the 256 code bytes and scale of each of its MP = 16 MT
+// activation rows (row tile blockIdx.y of the M rows).  The superblock's
+// eight k32 products chain into one int32 accumulator that starts at
+// 0x4B400000: |P_s| <= 256 * 127 * 128 < 2^22 (x codes are clipped to
+// +-127, Q8F weight codes lie in [-127, 127]), so one FADD gives P_s.
+template <int MT>
+struct Q8fTile {
+  static constexpr int MP = 16 * MT;
+  static constexpr int C_BYTES = BN * C_LD, X_BYTES = MP * X_LD;
+  static constexpr int STAGE = C_BYTES + BN * 4 + X_BYTES + MP * 4;
+  static constexpr int SMEM = STAGE * STAGES;
+};
+
+// s8 m16n8k32 into c (int32, accumulating).
+__device__ __forceinline__ void mma_s8_acc(int c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Copies of superblock s into stage st: activation rows m0 .. m0 + MP - 1
+// (zero from M on) and weight rows n0 .. n0 + BN - 1 (zero from n on).
+template <int MT>
+__device__ __forceinline__ void q8f_load(uint8_t* st, int s, const int8_t* __restrict__ x8,
+                                         const float* __restrict__ sx, int M, int m0,
+                                         const int8_t* __restrict__ codes,
+                                         const float* __restrict__ sw, int n, int K, int n0) {
+  using T = Q8fTile<MT>;
+  const int tid = threadIdx.x, S = K / 256;
+  for (int idx = tid; idx < BN * 16; idx += THREADS) {
+    const int r = idx >> 4, c = idx & 15;
+    const bool ok = n0 + r < n;
+    cp_async16(st + r * C_LD + c * 16, codes + (size_t)(ok ? n0 + r : 0) * K + s * 256 + c * 16,
+               ok ? 16 : 0);
+  }
+  uint8_t* xs = st + T::C_BYTES + BN * 4;
+  for (int idx = tid; idx < T::MP * 16; idx += THREADS) {
+    const int r = idx >> 4, c = idx & 15;
+    const bool ok = m0 + r < M;
+    cp_async16(xs + r * X_LD + c * 16, x8 + (size_t)(ok ? m0 + r : 0) * K + s * 256 + c * 16,
+               ok ? 16 : 0);
+  }
+  if (tid < BN) {
+    const bool ok = n0 + tid < n;
+    cp_async4(reinterpret_cast<float*>(st + T::C_BYTES) + tid,
+              sw + (size_t)(ok ? n0 + tid : 0) * S + s, ok ? 4 : 0);
+  } else if (tid - BN < T::MP) {
+    const int r = tid - BN;
+    const bool ok = m0 + r < M;
+    cp_async4(reinterpret_cast<float*>(xs + T::X_BYTES) + r,
+              sx + (size_t)(ok ? m0 + r : 0) * S + s, ok ? 4 : 0);
+  }
+}
+
+// One superblock's exact partials, scaled by sx sw, into acc[mt][nt][e]
+// (activation row mt*16 + g (+8 for e >= 2), weight row warp*16 + 8 nt +
+// 2t + (e & 1)).  The superblock is walked in quads of 64 bytes, two k32
+// products each.
+template <int MT>
+__device__ __forceinline__ void q8f_step(const uint8_t* st, float (&acc)[MT][2][4], int warp,
+                                         int lane) {
+  using T = Q8fTile<MT>;
+  const int g = lane >> 2, t = lane & 3;
+  const int lr = lane & 7, lm = lane >> 3;  // the ldmatrix row this lane names, its matrix
+  const uint8_t* cs = st;
+  const float* sws = reinterpret_cast<const float*>(st + T::C_BYTES);
+  const uint8_t* xs = st + T::C_BYTES + BN * 4;
+  const float* sxs = reinterpret_cast<const float*>(xs + T::X_BYTES);
+  int p[MT][2][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[mt][nt][e] = MAGIC_I;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    // B: matrix m of b[nt] is bytes 64q + 16m of weight rows warp*16 + 8nt + 0..7
+    uint32_t b[2][4];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+      ldmatrix_x4(b[nt], cs + (warp * 16 + nt * 8 + lr) * C_LD + q * 64 + lm * 16);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const uint8_t* xrow = xs + (mt * 16 + lr + (lm & 1) * 8) * X_LD + q * 64;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        // bytes 32h .. 32h + 31 of the quad: a[0], a[1] its bytes 0-15 of
+        // rows 0-7, 8-15; a[2], a[3] bytes 16-31
+        uint32_t a[4];
+        ldmatrix_x4(a, xrow + h * 32 + (lm >> 1) * 16);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const uint32_t bb[2] = {b[nt][2 * h], b[nt][2 * h + 1]};
+          mma_s8_acc(p[mt][nt], a, bb);
+        }
+      }
+    }
+  }
+  float sw2[2][2];
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) sw2[nt][j] = sws[warp * 16 + nt * 8 + 2 * t + j];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const float sx0 = sxs[mt * 16 + g], sx1 = sxs[mt * 16 + g + 8];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[mt][nt][e] = fmaf(exact_f(p[mt][nt][e]), (e >= 2 ? sx1 : sx0) * sw2[nt][e & 1],
+                              acc[mt][nt][e]);
+  }
+}
+
+// y [M, n] = x8 [M, K] . codes [n, K]^T with the scales above.  Grid
+// (ceil(n / BN), ceil(M / MP), splits); ws [splits, M, n] f32 and cnt (one
+// zeroed int an output tile, row tile major) when splits > 1, summed in
+// split order by the last block of each tile.
+template <int MT>
+__global__ void __launch_bounds__(THREADS, 1)
+q8f_mma_kernel(const int8_t* __restrict__ x8, const float* __restrict__ sx, int M,
+               const int8_t* __restrict__ codes, const float* __restrict__ sw, int n, int K,
+               float* __restrict__ y, int splits, float* __restrict__ ws, int* __restrict__ cnt) {
+  using T = Q8fTile<MT>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * T::MP, z = blockIdx.z;
+  int s0, s1;
+  split_range(z, splits, K / 256, &s0, &s1);
+  const int ns = s1 - s0;
+
+  float acc[MT][2][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < ns) q8f_load<MT>(smem + i * T::STAGE, s0 + i, x8, sx, M, m0, codes, sw, n, K, n0);
+    cp_async_commit();
+  }
+  for (int i = 0; i < ns; ++i) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    const int nxt = i + STAGES - 1;
+    if (nxt < ns)
+      q8f_load<MT>(smem + (nxt % STAGES) * T::STAGE, s0 + nxt, x8, sx, M, m0, codes, sw, n, K,
+                   n0);
+    cp_async_commit();
+    q8f_step<MT>(smem + (i % STAGES) * T::STAGE, acc, warp, lane);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  // the f32 tile [MP][BN] through shared memory (the ring, drained), then
+  // rows m0 .. into y, or into split z's partial
+  constexpr int O_LD = BN + 4;
+  float* tile = reinterpret_cast<float*>(smem);
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        tile[(mt * 16 + g + (e >= 2 ? 8 : 0)) * O_LD + warp * 16 + nt * 8 + 2 * t + (e & 1)] =
+            acc[mt][nt][e];
+  __syncthreads();
+  const int rows = min(T::MP, M - m0);
+  float* out = splits == 1 ? y : ws + (size_t)z * M * n;
+  for (int idx = threadIdx.x; idx < rows * BN; idx += THREADS) {
+    const int b = idx / BN, c = idx % BN;
+    if (n0 + c < n) out[(size_t)(m0 + b) * n + n0 + c] = tile[b * O_LD + c];
+  }
+  if (splits > 1 && split_arrive_last(cnt, blockIdx.y * gridDim.x + blockIdx.x, splits))
+    split_sum(ws, y, splits, (size_t)M * n, n, m0, rows, n0, min(BN, n - n0));
+}
+
+// Kernel 6's launch: row tiles of bm = 16, 32 or 64 rows (MT = bm / 16).
+inline int q8f_launch(const int8_t* x8, const float* sx, int M, const int8_t* codes,
+                      const float* sw, int n, int K, float* y, int bm, int splits, float* ws,
+                      int* cnt, cudaStream_t stream) {
+  const dim3 grid((n + BN - 1) / BN, (M + bm - 1) / bm, splits);
+  if (bm == 16)
+    LK_MMA_LAUNCH(q8f_mma_kernel<1>, Q8fTile<1>::SMEM, grid, stream, x8, sx, M, codes, sw, n, K,
+                  y, splits, ws, cnt)
+  if (bm == 32)
+    LK_MMA_LAUNCH(q8f_mma_kernel<2>, Q8fTile<2>::SMEM, grid, stream, x8, sx, M, codes, sw, n, K,
+                  y, splits, ws, cnt)
+  if (bm == 64)
+    LK_MMA_LAUNCH(q8f_mma_kernel<4>, Q8fTile<4>::SMEM, grid, stream, x8, sx, M, codes, sw, n, K,
+                  y, splits, ws, cnt)
+  return (int)cudaErrorInvalidValue;
+}
+
 // Launch with MT the smallest m16 count that holds NP B rows.
 template <int GS, int NP>
 inline int launch(const int8_t* x8, const float* sx, int B, const int8_t* codes, const float* gs,

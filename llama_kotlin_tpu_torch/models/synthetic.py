@@ -25,9 +25,12 @@ from llama_kotlin_tpu_torch.quant.formats import TYPE_TRAITS, GGMLQuantType
 from llama_kotlin_tpu_torch.quant.qtensor import SPAN, QTensor
 
 PRESETS = {
-    # name: (n_embd, n_layer, n_head, n_head_kv, n_ff, vocab).  Only shapes
-    # the kernels serve: an E or F that is not a multiple of 1024 (llama2-7b's
-    # 11008) gets a padded W4 fold, which kernel 2 does not take yet.
+    # name: (n_embd, n_layer, n_head, n_head_kv, n_ff, vocab), the JAX
+    # package's rows.  tinyllama-1.1b has 64-wide heads, and its F = 5632
+    # is not a multiple of 1024: its down projection's W4 fold is padded to
+    # K = 6144, which kernel 2 declines as JAX's does, so its decode FFN
+    # runs through kernel 1 (gate|up, then down on the padded K).
+    "tinyllama-1.1b": (2048, 22, 32, 4, 5632, 32000),
     "llama3-8b": (4096, 32, 32, 8, 14336, 128256),
     "test-tiny": (1024, 2, 8, 4, 1024, 512),
 }

@@ -40,12 +40,12 @@ SIGNATURES = {
     "lk_w4_fx_gemv": [_P, _I, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P],
     "lk_w4_layer": [_P, _P, _P, _I] + [_P] * 15 + [_I] * 5 + [_F, _F] + [_P] * 5,
     "lk_w4_ffn": [_P, _P, _P, _I] + [_P] * 10 + [_I, _I, _I, _I, _P, _P, _P],
-    "lk_flash": [_P] * 9 + [_I] * 6 + [_F, _F, _I, _I, _P],
-    "lk_flash_stacked": [_P] * 12 + [_I] * 6 + [_F, _F, _I, _P],
+    "lk_flash": [_P] * 9 + [_I] * 8 + [_F, _F, _I, _I, _P],
+    "lk_flash_stacked": [_P] * 12 + [_I] * 8 + [_F, _F, _I, _P],
     "lk_w4_dequant_gemm": [_P] * 5 + [_I] * 5 + [_P, _P, _P],
     "lk_w8_dequant_gemm": [_P] * 5 + [_I] * 6 + [_P, _P, _P],
     "lk_w8_gemv": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P],
-    "lk_q8f_matmul": [_P, _P, _I, _P, _P, _I, _I, _P, _P],
+    "lk_q8f_matmul": [_P, _P, _I, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P],
     "lk_error_string": [_I],
 }
 

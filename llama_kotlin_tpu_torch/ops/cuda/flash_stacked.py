@@ -1,6 +1,6 @@
 """Kernel 9: attention over one layer of the stacked cell cache with the
-ubatch's fresh K/V rows merged in (``csrc/flash_stacked.cu``, tiles in
-``csrc/flash_tile.cuh``).
+ubatch's fresh K/V rows merged in (``csrc/flash_stacked.cu``, kernel 3's
+tensor-core tile in ``csrc/flash_mma.cuh``).
 
 Replaces ``llama_kotlin_tpu/ops/pallas/flash_stacked.py::
 flash_attention_stacked``, which the stacked-layer forward pass calls for a
@@ -12,8 +12,11 @@ fresh rows go to) and mask_new [nt, nt] over the fresh rows.  A row that
 sees nothing gives 0.  As in JAX, a packed int4 (q4_0) cache is not
 kernel 9's (``llama_kotlin_tpu/models/llama.py:569-573``): the stacked
 forward attends over it by ``models/llama.py::attend_stacked_q4``, and a
-packed cache given here raises.  Bound on the H100: bytes (one read of the visible
-K/V prefix, its scales and the fresh rows).
+packed cache given here raises.  Head dims 64 and 128, any 1 <= n_vis <=
+cells, any nt.  Bound on the H100: bytes (one read of the visible K/V
+prefix, its scales and the fresh rows).  Design: kernel 3's bf16
+tensor-core tile with its cache splits (dead tiles skipped), plus one
+split over the fresh rows, merged in a fixed order.
 
 ``flash_attention_stacked`` launches the kernel for CUDA tensors and runs
 ``flash_attention_stacked_plain`` for CPU tensors.
@@ -28,7 +31,7 @@ import torch
 from llama_kotlin_tpu_torch.device import is_cuda, require
 from llama_kotlin_tpu_torch.ops.attention import attention_reference
 from llama_kotlin_tpu_torch.ops.cuda import _build
-from llama_kotlin_tpu_torch.ops.cuda.flash import WALK_ROW_TILE, check_cache, n_splits
+from llama_kotlin_tpu_torch.ops.cuda.flash import ROW_TILE, check_cache, n_splits, tile_mask
 from llama_kotlin_tpu_torch.runtime.kv_cache import dequantize_cache_layer
 
 LAUNCHES = 0  # kernel launches made by flash_attention_stacked
@@ -59,7 +62,7 @@ def flash_attention_stacked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, l
                             v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q [nt, H, D] bf16; k/v [L, KV, cells, D] bf16, or int8 codes with
     k_scale/v_scale [L, KV, cells] f32; new_k/new_v [nt, KV, D] bf16;
-    mask_cells [nt, n_vis] (n_vis a multiple of 64) and mask_new [nt, nt],
+    mask_cells [nt, n_vis] (any n_vis up to cells) and mask_new [nt, nt],
     bool or int8 -> [nt, H, D] bf16."""
     global LAUNCHES
     require(k.dtype != torch.uint8,
@@ -80,20 +83,21 @@ def flash_attention_stacked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, l
                                              k_scale=k_scale, v_scale=v_scale)
     check_cache(q, k, v, n_vis, layer, k_scale, v_scale)
     require(new_k.dtype == new_v.dtype == torch.bfloat16, "fresh rows are bf16")
-    require(new_k.is_cuda and mask_cells.is_cuda and mask_new.is_cuda, "inputs on the card")
+    require(all(is_cuda(t) for t in (new_k, new_v, mask_cells, mask_new)), "inputs on the card")
     q, new_k, new_v = q.contiguous(), new_k.contiguous(), new_v.contiguous()
-    m_cells = mask_cells.to(torch.int8).contiguous()
+    require(k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0, "cache not 16-byte aligned")
+    m_cells = tile_mask(mask_cells)
     m_new = mask_new.to(torch.int8).contiguous()
     rows = (H // KV) * nt
-    nsplit = n_splits(KV, rows, n_vis, WALK_ROW_TILE)
+    nsplit = n_splits(KV, rows, n_vis, ROW_TILE)
     part_o = torch.empty((nsplit + 1, KV * rows, D), dtype=torch.float32, device=q.device)
     part_ml = torch.empty((nsplit + 1, KV * rows, 2), dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     _build.check(_build.lib().lk_flash_stacked(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _build.ptr(k_scale), _build.ptr(v_scale),
         m_cells.data_ptr(), new_k.data_ptr(), new_v.data_ptr(), m_new.data_ptr(),
-        out.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(), nt, H, KV, cells, n_vis,
-        int(layer), float(scale), float(logit_softcap), nsplit, _build.stream()),
+        out.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(), nt, H, KV, D, cells, n_vis,
+        m_cells.shape[1], int(layer), float(scale), float(logit_softcap), nsplit, _build.stream()),
         "lk_flash_stacked")
     LAUNCHES += 1
     return out

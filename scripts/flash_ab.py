@@ -17,7 +17,12 @@ of a [2, 8, 1025, 128] cache (32 query heads):
   tokens last, causal), and at chip_smoke.py's prefill over 1024 cells (64
   tokens at positions 960..1023), each on the three caches;
 - kernel 9 at decode and that prefill, bf16 and int8 caches (the step's
-  cells masked out of the cache, its rows merged fresh).
+  cells masked out of the cache, its rows merged fresh);
+- both at head dim 64 (tinyllama-1.1b's heads: 32 query heads on 4 kv
+  heads, a [2, 4, 1025, 64] cache) at decode and that prefill, and at
+  head dim 128 over a ragged 1000 or 1001 visible cells (decode and a
+  64-token prefill); a root whose kernels refuse a shape records the
+  refusal.
 Turns run in root order, then in reverse, each round, so no root always
 runs first.  Prints one JSON line per turn, then the card's name and power
 limit.
@@ -36,6 +41,9 @@ from pathlib import Path
 SHAPES = ((1, 1024, 65), (1, 1024, 1001), (64, 512, 64), (64, 1024, 1024)) + tuple(
     (nt, n_vis, live) for n_vis, live in ((1024, 1001), (512, 96)) for nt in (1, 2, 4, 8, 64))
 STACKED = ((1, 1024, 1001), (64, 1024, 1024))
+# (head dim, kv heads, nt, n_vis): the repairs' shapes (n_vis cells all
+# visible up to the step's tokens, the last ones)
+REPAIRED = ((64, 4, 1, 1024), (64, 4, 64, 1024), (128, 8, 1, 1000), (128, 8, 64, 1001))
 
 
 def one(root: str) -> None:
@@ -91,6 +99,32 @@ def one(root: str) -> None:
                                                                  mask_cells, mask_new, **kw)
             out[f"flash_stacked {kind} nt={nt} n_vis={n_vis} live={live}"] = smoke.time_ms(
                 torch, call, flush)
+    for d, kv, nt, n_vis in REPAIRED:
+        kb, vb = (torch.randn((2, kv, 1025, d), generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        (k8, ks), (v8, vs) = quantize_rows(kb), quantize_rows(vb)
+        q = torch.randn((nt, H, d), generator=gen, device=dev).to(torch.bfloat16)
+        tpos = torch.arange(n_vis - nt, n_vis, device=dev)
+        cpos = torch.arange(n_vis, device=dev)
+        mask = (cpos[None, :] <= tpos[:, None]).to(torch.int8)
+        mask_cells = (cpos[None, :] < n_vis - nt).to(torch.int8).expand(nt, n_vis).contiguous()
+        mask_new = (tpos[None, :] <= tpos[:, None]).to(torch.int8)
+        new_k, new_v = (torch.randn((nt, kv, d), generator=gen, device=dev).to(torch.bfloat16)
+                        for _ in range(2))
+        for kind, kw in (("bf16", {}), ("int8", dict(k_scale=ks, v_scale=vs))):
+            k, v = (kb, vb) if kind == "bf16" else (k8, v8)
+            calls = {"flash": lambda: flash.flash_attention(q, k, v, mask, scale=d ** -0.5,
+                                                            layer=1, **kw),
+                     "flash_stacked": lambda: flash_stacked.flash_attention_stacked(
+                         q, k, v, 1, new_k, new_v, mask_cells, mask_new, scale=d ** -0.5, **kw)}
+            for name, call in calls.items():
+                key = f"{name} {kind} D={d} nt={nt} n_vis={n_vis}"
+                try:
+                    call()
+                except ValueError as e:  # this root's kernels do not take the shape
+                    out[key] = f"refused: {e}"
+                    continue
+                out[key] = smoke.time_ms(torch, call, flush)
     print(json.dumps(out), flush=True)
 
 

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Kernels 1 (the W4A8 decode matmul), 4 (the prefill dequant matmul, both
-branches), 5 (the W8 decode matmul, both branches), 7 (the W4X matmul) and
-8 (the W4A8 matmul with the quantization inside the launch) of two or more
-checkouts of the port, timed on one card in turns.
+branches), 5 (the W8 decode matmul, both branches), 6 (the Q8F matmul of
+the int8 mode), 7 (the W4X matmul) and 8 (the W4A8 matmul with the
+quantization inside the launch) of two or more checkouts of the port,
+timed on one card in turns.
 
-    python3 scripts/qmm_ab.py ROOT_A ROOT_B [ROOT ...] [--rounds N] [--kernels 1,4,5,7,8]
+    python3 scripts/qmm_ab.py ROOT_A ROOT_B [ROOT ...] [--rounds N] [--kernels 1,4,5,6,7,8]
 
 Each turn is its own process that builds ROOT's kernels
 (``llama_kotlin_tpu_torch/_build/`` under ROOT) and times them through
@@ -20,7 +21,10 @@ W8 folds (lm_head, ffn_down, attn_v) and on W8X folds of the same blocks at
 b = 1, 2, 4, 8, 9, 16, 32; kernel 8 on sym folds (qkv, o, gate|up, down) at
 the same row counts and on legacy folds at b = 1, 2, 4, 9, 32; kernel 1 on
 compact, sym and legacy folds (qkv, o, gate|up, lm_head) at the same row
-counts as kernel 5.  A root
+counts as kernel 5; kernel 6 on Q8F conversions of Q4_K (qkv, o, gate|up)
+and Q6_K (down, lm_head) blocks at b = 1, 2, 4, 8, 9, 16, 32, 64 and 512,
+each beside its library call (``library ...`` keys: one torch.matmul of
+the bf16 rows and the pre-dequantized bf16 weight).  A root
 whose kernel walks every row count against one that takes more rows on
 tensor cores gives that kernel's row threshold's crossover; where a root
 has a threshold (``MMA_MIN_ROWS``), its rows up to it are also timed on
@@ -53,7 +57,10 @@ ROWS = (1, 2, 4, 8, 9, 16, 32)  # kernels 5 and 8: both sides of the crossovers
 W8_DECODE = {"lm_head": (V, E), **W8_SHAPES}
 FX_LEGACY_ROWS = (1, 2, 4, 9, 32)
 W4_DECODE = {"qkv": (6144, E), "o": (E, E), "gate_up": (2 * F, E), "lm_head": (V, E)}
-KERNELS = ("1", "4", "5", "7", "8")
+Q8F_SHAPES = {"qkv": ("Q4_K", 6144, E), "o": ("Q4_K", E, E), "gate_up": ("Q4_K", 2 * F, E),
+              "down": ("Q6_K", E, F), "lm_head": ("Q6_K", V, E)}
+Q8F_ROWS = (1, 2, 4, 8, 9, 16, 32, 64, 512)
+KERNELS = ("1", "4", "5", "6", "7", "8")
 
 
 def split_counts(qmm, m: int, n: int, k: int, unit: int, bms) -> list[int]:
@@ -103,7 +110,8 @@ def decode_rows(out, smoke, torch, key, mod, fn, x, wt, flush, n, k, unit) -> No
     if b == 32 and hasattr(mod, "plan"):
         from llama_kotlin_tpu_torch.ops.cuda import qmm
 
-        for z in split_counts(qmm, 1, n, k, unit, (mod.MMA_BM,)):
+        bms = getattr(mod, "MMA_BMS", None) or (mod.MMA_BM,)
+        for z in split_counts(qmm, 1, n, k, unit, bms):
             with forced_splits([qmm, mod], z):
                 out[f"{key} splits={z}"] = smoke.time_ms(torch, lambda: fn(x, wt), flush)
 
@@ -116,7 +124,8 @@ def one(root: str, kernels) -> None:
     sys.path.insert(0, root)
     from llama_kotlin_tpu_torch.models.synthetic import (synthetic_w4, synthetic_w4_device,
                                                          wire_blocks)
-    from llama_kotlin_tpu_torch.ops.cuda import _build, qmm, qmm_w4, qmm_w4_fx, qmm_w4x, qmm_w8
+    from llama_kotlin_tpu_torch.ops.cuda import (_build, qmm, qmm_int8, qmm_w4, qmm_w4_fx, qmm_w4x,
+                                                 qmm_w8)
     from llama_kotlin_tpu_torch.quant import fold, repack
     from llama_kotlin_tpu_torch.quant.formats import GGMLQuantType as Q
 
@@ -191,6 +200,18 @@ def one(root: str, kernels) -> None:
                                 qmm_w8.qmm_w8_matmul, x, wt, flush, n, k, 256)
                 del wt
             del blocks, rp
+    if "6" in kernels:
+        rng = np.random.default_rng(96)
+        for name, (qt, n, k) in Q8F_SHAPES.items():
+            blocks = torch.from_numpy(wire_blocks(rng, Q[qt], n, k)).to(dev)
+            wt = repack.repack_q8flat(blocks, Q[qt], n, k)
+            del blocks
+            for b in Q8F_ROWS:
+                x = torch.randn((b, k), generator=gen, device=dev) * 0.7
+                decode_rows(out, smoke, torch, f"qmm_int8 {name} b={b}", qmm_int8,
+                            qmm_int8.qmm_int8, x, wt, flush, n, k, 256)
+                out[f"library {name} b={b}"] = smoke.matmul_ms(torch, x, wt, flush)
+            del wt
     if "8" in kernels:
         rng = np.random.default_rng(97)
         for flavor, kw, rows in (("sym", dict(sym=True), ROWS),

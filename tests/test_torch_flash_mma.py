@@ -208,7 +208,7 @@ def test_flash_routes(kind, monkeypatch):
         q = torch.zeros((nt, heads, D), dtype=torch.bfloat16)
         flash.flash_attention(q, kc, vc, torch.ones((nt, n_vis), dtype=torch.int8),
                               scale=1.0, layer=0, k_scale=ks, v_scale=vs, kv_bits=bits)
-    assert [(c[9], c[17], c[18]) for c in calls] == [
+    assert [(c[9], c[19], c[20]) for c in calls] == [
         (nt, flash.n_splits(8, 4 * nt, n_vis, flash.ROW_TILE), bits) for nt in nts]
     bad = torch.zeros(kc.numel() + 8, dtype=kc.dtype)[1:1 + kc.numel()].view(kc.shape)
     with pytest.raises(ValueError):  # a cache view off the 16-byte grid
