@@ -102,6 +102,17 @@ launches at the int8-mode file's 64-token prefill and serves it a 32-token
 prompt (kernel 6's tile at 32 rows: 128 launches a prefill); 6 holds
 tinyllama at 2 layers on each of those paths against the CPU.
 
+Kernels 2 and 10 run one staged FFN (csrc/w4_coop.cuh): kernel 2 up to its
+threshold T2 and kernel 10 as one cooperative launch (the walk at one
+row, int8 tensor cores above), kernel 2 above T2 on kernel 1's tile; 3
+times kernel 2 on compact, sym and legacy folds at b = 1, 2, 4, 8, 9, 16,
+32 and its up= branch (gate and up apart) at b = 1 and 32, each beside the
+unfused route (unfused_ms), kernel 10 at b = 1, 2, 4, 8 on each flavor,
+all repeated bit-equal; serve() counts kernel 2's tile launches
+("qmm_w4_ffn_mma") as kernel 1's; 5 serves the Q4_0 file loaded with
+fuse=False (kernel 2's up= branch at every decode step) with exact launch
+counts.
+
 The last line of standard output is {"ok": true, "device": {...}}.
 """
 
@@ -370,6 +381,47 @@ def w4_on_card(torch, gen, n: int, k: int, flavor: str):
     return w
 
 
+# kernel 2's timed rows: its cooperative launch (the walk, its tensor
+# cores) up to T2 = 8, kernel 1's tile above
+FFN_ROWS = (1, 2, 4, 8, 9, 16, 32)
+
+
+def ffn_unfused(torch, x, gu, dn, up=None):
+    """Kernel 2's yardstick: the route models/llama.py::_ffn takes with
+    LKTPU_FFN_FUSED=0, on the port's own kernels (kernel 1 for gate|up or
+    gate and up, the glue, kernel 1 for down)."""
+    from llama_kotlin_tpu_torch.ops.cuda import qmm_w4
+
+    F = dn.k
+    if up is None:
+        y = qmm_w4.qmm_w4_matmul(x, gu)
+        g, u = y[:, :F], y[:, F:]
+    else:
+        g, u = qmm_w4.qmm_w4_matmul(x, gu), qmm_w4.qmm_w4_matmul(x, up)
+    h = (torch.nn.functional.silu(g) * u).to(torch.bfloat16)
+    return qmm_w4.qmm_w4_matmul(h, dn)
+
+
+def ffn_row(torch, results, shape, got, x, gu, dn, up, flush) -> None:
+    """A timed row of kernel 2 against its plain version, with the unfused
+    route's time (unfused_ms) beside it: bytes bound by the three weights
+    in the planes the kernel reads (a sym fold's codes and scales)."""
+    from llama_kotlin_tpu_torch.ops.cuda import qmm_w4_ffn
+
+    b, E = x.shape
+    F = dn.k
+    folds = (gu, dn) if up is None else (gu, up, dn)
+    report_row(results, "qmm_w4_ffn", shape,
+               err_of(got, qmm_w4_ffn.qmm_w4_ffn_plain(x, gu, dn, "silu", up)), 5e-3,
+               time_ms(torch, lambda: qmm_w4_ffn.qmm_w4_ffn_matmul(x, gu, dn, up=up), flush),
+               time_ms(torch, lambda: qmm_w4_ffn.qmm_w4_ffn_plain(x, gu, dn, "silu", up), flush),
+               2 * b * E * 4 + sum(nbytes(w, w4_planes(w)) for w in folds),
+               2 * b * 3 * F * E, "int8", None)
+    unfused_ms = time_ms(torch, lambda: ffn_unfused(torch, x, gu, dn, up), flush)
+    results["qmm_w4_ffn"][-1]["unfused_ms"] = unfused_ms
+    log(json.dumps({"phase": "qmm_w4_ffn_vs_unfused", "shape": shape, "unfused_ms": unfused_ms}))
+
+
 def kernel_phase(torch, results: dict) -> None:
     import numpy as np
 
@@ -430,35 +482,45 @@ def kernel_phase(torch, results: dict) -> None:
                         lambda: qmm_w4.qmm_w4_matmul(x, wt))
             check("qmm_w4", f"{flavor} o b={b}", got, qmm_w4.qmm_w4_plain(x, wt), 1e-4)
 
-    # kernel 2: the fused FFN at b = 1, 9, 16 and 32.  tol: h is rounded to
-    # bf16 and re-quantized, so an f32 last-bit difference can move one h code
-    gu, dn = w["gate_up"], w["down"]
-    for b in (1, 9, 16, 32):
-        x = torch.randn((b, E), generator=gen, device=dev) * 0.7
-        report("qmm_w4_ffn", f"E={E} F={F} b={b}",
-               err_of(qmm_w4_ffn.qmm_w4_ffn_matmul(x, gu, dn),
-                      qmm_w4_ffn.qmm_w4_ffn_plain(x, gu, dn, "silu")), 5e-3,
-               time_ms(torch, lambda: qmm_w4_ffn.qmm_w4_ffn_matmul(x, gu, dn), flush),
-               time_ms(torch, lambda: qmm_w4_ffn.qmm_w4_ffn_plain(x, gu, dn, "silu"), flush),
-               b * E * 4 + nbytes(gu, W4_STREAMED) + nbytes(dn, W4_STREAMED) + b * E * 4,
-               2 * b * (2 * F * E + E * F), "int8", None)
-
-    # kernel 2 at the other batch-row buckets, with gelu, and on legacy and
-    # sym folds (the non-compact branch)
+    # kernel 2: the FFN on compact, sym and legacy folds at b = 1, 2, 4, 8 (the
+    # cooperative launch up to T2; b = 1 walks, more rows take its tensor
+    # cores) and 9, 16, 32 (kernel 1's tile), two launches bit-equal, beside
+    # the unfused route (LKTPU_FFN_FUSED=0: kernel 1's gate|up, the glue,
+    # kernel 1's down); then the up= layout (gate and up apart) at b = 1 and
+    # 32.  tol: h is rounded to bf16 and re-quantized, so an f32 last-bit
+    # difference can move one h code
     ffn = {"compact": (w["gate_up"], w["down"])}
-    for flavor, kw in (("legacy", dict(compact=False)), ("sym", dict(sym=True))):
-        ffn[flavor] = (synthetic_w4(rng, 2 * F, E, device=dev, **kw),
-                       synthetic_w4(rng, E, F, device=dev, **kw))
-    cases = [("compact", "silu", b) for b in (2, 3, 5, 17)]
-    cases += [("compact", "gelu", 1), ("compact", "gelu", 3), ("legacy", "silu", 1),
-              ("legacy", "gelu", 3), ("sym", "silu", 2), ("sym", "gelu", 1)]
+    for flavor in ("sym", "legacy"):
+        ffn[flavor] = tuple(w4_on_card(torch, gen, n, k, flavor) for n, k in ((2 * F, E), (E, F)))
+    for flavor, (gu, dn) in ffn.items():
+        for b in FFN_ROWS:
+            x = torch.randn((b, E), generator=gen, device=dev) * 0.7
+            shape = f"{flavor} E={E} F={F} b={b}"
+            got = qmm_w4_ffn.qmm_w4_ffn_matmul(x, gu, dn)
+            repeats(torch, "qmm_w4_ffn", shape, got,
+                    lambda: qmm_w4_ffn.qmm_w4_ffn_matmul(x, gu, dn))
+            ffn_row(torch, results, shape, got, x, gu, dn, None, flush)
+    gu, dn = ffn["compact"]
+    gate, up = gu.row_slice(0, F), gu.row_slice(F, 2 * F)
+    for b in (1, 32):
+        x = torch.randn((b, E), generator=gen, device=dev) * 0.7
+        got = qmm_w4_ffn.qmm_w4_ffn_matmul(x, gate, dn, up=up)
+        repeats(torch, "qmm_w4_ffn", f"up= b={b}", got,
+                lambda: qmm_w4_ffn.qmm_w4_ffn_matmul(x, gate, dn, up=up))
+        ffn_row(torch, results, f"up= compact E={E} F={F} b={b}", got, x, gate, dn, up, flush)
+
+    # kernel 2 at the other batch-row buckets and with gelu (every route's
+    # instances)
+    cases = [("compact", "silu", b) for b in (3, 5, 17)]
+    cases += [("compact", "gelu", 1), ("compact", "gelu", 3), ("compact", "gelu", 9),
+              ("legacy", "gelu", 3), ("sym", "gelu", 1), ("sym", "silu", 24)]
     for flavor, act, b in cases:
         gu, dn = ffn[flavor]
         x = torch.randn((b, E), generator=gen, device=dev) * 0.7
         check("qmm_w4_ffn", f"{flavor} {act} b={b}",
               qmm_w4_ffn.qmm_w4_ffn_matmul(x, gu, dn, act=act),
               qmm_w4_ffn.qmm_w4_ffn_plain(x, gu, dn, act), 5e-3)
-    del ffn, folds
+    del ffn, folds, gate, up
 
     # kernel 3: flash attention, decode (nt=1 over 1024 cells, 65 live) and
     # prefill (nt=64 over 512 cells, causal) on a 2-layer cache of 1025 cells.
@@ -1043,9 +1105,9 @@ def fx_layer_kernel_phase(torch, results: dict) -> None:
     decode projections, b = 1, 9, 16 and 32 (o at every batch-row bucket),
     beside kernel 1 (prologue + GEMV) on the same inputs; kernel 10
     (LKTPU_LAYER_FUSED=1) on compact, sym and legacy folds at E = 4096,
-    F = 14336, b = 1 and 8, beside the unfused route it replaces (kernel
-    1's o, the residual and norm glue, kernel 2) on the same inputs.  Each
-    against its plain version."""
+    F = 14336, b = 1, 2, 4 and 8 (two launches bit-equal), beside the
+    unfused route it replaces (kernel 1's o, the residual and norm glue,
+    kernel 2) on the same inputs.  Each against its plain version."""
     import numpy as np
 
     from llama_kotlin_tpu_torch.models.synthetic import synthetic_w4, synthetic_w4_device
@@ -1129,13 +1191,14 @@ def fx_layer_kernel_phase(torch, results: dict) -> None:
         wo, gu, dn = ws
         assert {w.flavor for w in ws} == {flavor}
         nw = 1.0 + 0.1 * torch.randn(E, generator=gen, device=dev)
-        for b in (1, 8):
+        for b in (1, 2, 4, 8):
             attn = (torch.randn((b, E), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
             h = (torch.randn((b, E), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
             args = (attn, h, wo, gu, dn, nw)
             if not qmm_w4_layer.layer_eligible(*args[:5]):
                 raise AssertionError(f"kernel 10 refuses the {flavor} layer")
             fused = lambda: qmm_w4_layer.qmm_w4_layer_matmul(*args, eps=eps)
+            repeats(torch, "qmm_w4_layer", f"{flavor} b={b}", fused(), fused)
 
             def unfused():  # models/llama.py's route with the knob off
                 h2 = h + qmm_w4.qmm_w4_matmul(attn, wo).to(h.dtype)
@@ -1165,15 +1228,12 @@ def streamed_bytes(params) -> int:
     matrix but the embedding (kept on the host path only through its
     gathered rows), in the port's layout as its decode kernel reads it —
     compact W4: codes + compact planes; sym W4: codes + f32 s_eff (kernels
-    1, 8 and 10 form m_adj = 8 s_eff), but the fused FFN's matrices also
-    with their m_adj plane (kernel 2 reads it); other W4 and W4X: codes +
-    f32 s_eff and m_adj; W8: codes + s_eff (+ m_eff); Q8F: codes + scales."""
-    def one(w, ffn: bool = False):
-        return nbytes(w, FOLD_PLANES if ffn and w.flavor == "sym" else w4_planes(w))
+    1, 2, 8 and 10 form m_adj = 8 s_eff); other W4 and W4X: codes + f32
+    s_eff and m_adj; W8: codes + s_eff (+ m_eff); Q8F: codes + scales."""
     out = params.get("output") if params.get("output") is not None else params["tok_embd"]
-    return one(out) + sum(
-        one(v, "ffn_gateup_fused" in lp and key in ("ffn_gateup_fused", "ffn_down"))
-        for lp in params["layers"] for key, v in lp.items() if hasattr(v, "codes"))
+    return nbytes(out, w4_planes(out)) + sum(
+        nbytes(v, w4_planes(v)) for lp in params["layers"] for v in lp.values()
+        if hasattr(v, "codes"))
 
 
 def mod_name(m) -> str:
@@ -1188,24 +1248,27 @@ def serve(torch, cfg, params, mods, phase: str, n_prompt: int = 64, n_new: int =
     counts of `mods` (which must all launch) and `never` (which must not)
     are set to 0 first; returns (the counts of `mods` just after the run,
     the context), and logs each request's launches per prefill and per
-    decode token.  Where kernel 1 is among `mods`, its tensor-core launches
-    are counted too ("qmm_w4_mma"): in each request's prefill and decode
-    steps they must be all of its launches where the rows there are above
-    its threshold T1, and none where they are not."""
+    decode token.  Where kernel 1 or 2 is among `mods`, its tensor-core
+    launches are counted too ("qmm_w4_mma", "qmm_w4_ffn_mma": kernel 2's
+    calls on kernel 1's tile): in each request's prefill and decode steps
+    they must be all of its launches where the rows there are above its
+    threshold (T1, T2), and none where they are not."""
     import numpy as np
 
-    from llama_kotlin_tpu_torch.ops.cuda import qmm_w4
+    from llama_kotlin_tpu_torch.ops.cuda import qmm_w4, qmm_w4_ffn
     from llama_kotlin_tpu_torch.runtime.batch import Batch
     from llama_kotlin_tpu_torch.runtime.context import LlamaContext
     from llama_kotlin_tpu_torch.runtime.generate import generate_loop
 
     ctx = LlamaContext(cfg, params, n_cells=n_cells, buckets=(8, 16, 32, 64, 128, 256, 512),
                        device="cuda", **ctx_kw)
-    # (kernel 1, its tensor-core counter, rows a prefill launch takes, rows
-    # a decode launch takes): a prompt above its rows reaches it only with
-    # its last row (the lm_head)
+    # (kernel, its tensor-core counter, rows a prefill launch takes, rows a
+    # decode launch takes): kernel 1 is reached by a prompt above its rows
+    # only with its last row (the lm_head), kernel 2 not at all
     branches = [(qmm_w4, mma_counter(qmm_w4),
                  n_prompt if n_prompt <= qmm_w4.MAX_ROWS else 1, 1)] if qmm_w4 in mods else []
+    if qmm_w4_ffn in mods:
+        branches.append((qmm_w4_ffn, mma_counter(qmm_w4_ffn), n_prompt, 1))
     counted = mods + tuple(c for _, c, _, _ in branches) + never
     for m in counted:
         m.LAUNCHES = 0
@@ -1287,8 +1350,9 @@ def serve_32(torch, cfg, params, label: str, mods, never, per_token: dict, mma,
                         never=never, **ctx_kw)
     want = {name: 3 * N_NEW_32 * c for name, c in per_token.items()}
     want[mod_name(mma)] = 3 * mma_per_prefill
-    if "qmm_w4" in per_token:  # kernel 1's 32-row prefills take its tensor cores
-        want["qmm_w4_mma"] = 3 * per_token["qmm_w4"]
+    for k in ("qmm_w4", "qmm_w4_ffn"):  # 32-row prefills take kernel 1's tile
+        if k in per_token:
+            want[f"{k}_mma"] = 3 * per_token[k]
     if counts != want:
         raise AssertionError(f"{label}: launches {counts}, expected {want}")
     profile_decode(torch, ctx, cfg, label, n_prompt=32)
@@ -1416,7 +1480,8 @@ def q4_0_gguf_phase(torch, tmpdir: Path) -> dict:
     layer matrix and token_embd Q4_0, output Q6_K; random wire blocks, seed
     9) in the w4 mode on the default (stacked) context, bf16 cache, 3
     requests each:
-    by default (kernel 1 on the sym folds' qkv and o, kernel 2 the FFN);
+    by default (kernel 1 on the sym folds' qkv and o, kernel 2 the FFN; then
+    the file loaded with fuse=False, q4_0_unfused_serving);
     with LKTPU_W4_FX=1 (kernel 8 in kernel 1's place: 2 n_layer launches
     a decode step); with LKTPU_W4_FX=1 and LKTPU_LAYER_FUSED=1 (kernel 8
     on qkv, kernel 10 on the rest of the layer: n_layer each a step).  The
@@ -1439,7 +1504,6 @@ def q4_0_gguf_phase(torch, tmpdir: Path) -> dict:
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     f.close()
-    path.unlink()
     w_bytes = streamed_bytes(params)
     layouts = sorted({(key, getattr(v, "flavor", None)) for lp in params["layers"]
                       for key, v in lp.items() if hasattr(v, "codes")})
@@ -1450,16 +1514,16 @@ def q4_0_gguf_phase(torch, tmpdir: Path) -> dict:
     L, steps = cfg.n_layer, 3 * 31
     base = {"qmm_w8": 3 * 32, "qmm": 3 * 4 * L, "flash_stacked": 3 * 32 * L}
     runs = (("gguf_q4_0_w4", {}, dict(qmm_w4=steps * 2 * L, qmm_w4_mma=0,
-                                      qmm_w4_ffn=steps * L)),
+                                      qmm_w4_ffn=steps * L, qmm_w4_ffn_mma=0)),
             ("gguf_q4_0_w4_fx", dict(LKTPU_W4_FX="1"),
-             dict(qmm_w4_fx=steps * 2 * L, qmm_w4_ffn=steps * L)),
+             dict(qmm_w4_fx=steps * 2 * L, qmm_w4_ffn=steps * L, qmm_w4_ffn_mma=0)),
             ("gguf_q4_0_w4_fx_fused", dict(LKTPU_W4_FX="1", LKTPU_LAYER_FUSED="1"),
              dict(qmm_w4_fx=steps * L, qmm_w4_layer=steps * L)))
     all_mods = (qmm_w4, qmm_w4_ffn, qmm_w4_fx, qmm_w4_layer)
     by_path = {}
     for label, env, launched in runs:
-        mods = tuple(m for m in all_mods if mod_name(m) in launched) + (qmm_w8, qmm,
-                                                                          flash_stacked)
+        mods = tuple(m for m in all_mods if launched.get(mod_name(m))) + (qmm_w8, qmm,
+                                                                            flash_stacked)
         never = tuple(m for m in all_mods if mod_name(m) not in launched) + (flash,)
         with knobs(**env):
             counts, ctx = serve(torch, cfg, params, mods, label, never=never)
@@ -1481,7 +1545,40 @@ def q4_0_gguf_phase(torch, tmpdir: Path) -> dict:
                     mma_counter(qmm_w4_fx), 2 * L)
     del params
     torch.cuda.empty_cache()
+    by_path["gguf_q4_0_w4_unfused"] = q4_0_unfused_serving(torch, path)
+    path.unlink()
     return by_path
+
+
+def q4_0_unfused_serving(torch, path: Path) -> dict:
+    """The same Q4_0 file loaded with fuse=False (both loaders' default):
+    every layer keeps wq, wk, wv and ffn_gate, ffn_up apart, and stacks.
+    Per request kernel 2 takes every decode step's FFN on its up= branch
+    (gate and up read from their own folds; n_layer launches a step, the
+    cooperative route), kernel 1 q, k, v and o (4 n_layer a step), kernel 4
+    the 64-token prefill's 7 projections a layer, kernel 5 the lm_head
+    (the prefill's last row and every step), kernel 9 the attention."""
+    from llama_kotlin_tpu_torch.models.loader import load_gguf_model
+    from llama_kotlin_tpu_torch.ops.cuda import (flash, flash_stacked, qmm, qmm_w4, qmm_w4_ffn,
+                                                 qmm_w4_fx, qmm_w4_layer, qmm_w8)
+
+    cfg, params, f = load_gguf_model(path, fast_mode="w4", fuse=False)
+    f.close()
+    lp = params["layers"][0]
+    if "ffn_gateup_fused" in lp or "wqkv_fused" in lp:
+        raise AssertionError("fuse=False fused a layer's projections")
+    L, steps = cfg.n_layer, 3 * 31
+    counts, ctx = serve(torch, cfg, params, (qmm_w4, qmm_w4_ffn, qmm, qmm_w8, flash_stacked),
+                        "gguf_q4_0_w4_unfused", never=(qmm_w4_fx, qmm_w4_layer, flash))
+    expect = dict(qmm_w4=steps * 4 * L, qmm_w4_mma=0, qmm_w4_ffn=steps * L, qmm_w4_ffn_mma=0,
+                  qmm=3 * 7 * L, qmm_w8=3 * 32, flash_stacked=3 * 32 * L)
+    if counts != expect or "layers_stacked" not in ctx.params:
+        raise AssertionError(f"gguf_q4_0_w4_unfused: launches {counts}, expected {expect}, "
+                             "stacked")
+    profile_decode(torch, ctx, cfg, "gguf_q4_0_w4_unfused")
+    del ctx, params
+    torch.cuda.empty_cache()
+    return counts
 
 
 def w4x_serving_phase(torch, n_layer: int = 32) -> dict:
@@ -2089,7 +2186,9 @@ def main() -> int:
                    {"b32": "compact qkv n=6144 k=4096 b=32",
                     "lm_head_b32": "compact lm_head n=128256 k=4096 b=32"}),
         "qmm_w4_ffn": ("csrc/qmm_w4_ffn.cu", "llama_kotlin_tpu/ops/pallas/qmm_w4_ffn.py:155",
-                       0, {}),
+                       0, {"b8": "compact E=4096 F=14336 b=8",
+                           "b32": "compact E=4096 F=14336 b=32",
+                           "up_b1": "up= compact E=4096 F=14336 b=1"}),
         "flash": ("csrc/flash.cu", "llama_kotlin_tpu/ops/pallas/flash.py:160", 0,
                   {"prefill": 1, "int8": 3, "int4": 4,
                    "d64": "bf16 cache D=64 nt=64 n_vis=1024",
@@ -2115,7 +2214,8 @@ def main() -> int:
         "qmm_w4_fx": ("csrc/qmm_w4_fx.cu", "llama_kotlin_tpu/ops/pallas/qmm_w4.py:551", 0,
                       {"b32": "sym down n=4096 k=14336 b=32"}),
         "qmm_w4_layer": ("csrc/qmm_w4_layer.cu",
-                         "llama_kotlin_tpu/ops/pallas/qmm_w4_ffn.py:662", 0, {}),
+                         "llama_kotlin_tpu/ops/pallas/qmm_w4_ffn.py:662", 0,
+                         {"b8": "compact E=4096 F=14336 b=8"}),
     }
     timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     # every kernel-3 launch of a q4_0 path is on the int4 branch (checked there)
@@ -2137,10 +2237,13 @@ def main() -> int:
             entry["launches_mma_by_path"] = mma
         for branch, i in branches.items():
             entry[branch] = {k: pick_row(rows, i)[k] for k in timing + ("max_abs_err",)}
+            if "unfused_ms" in pick_row(rows, i):  # kernels 2 and 10: the route they replace
+                entry[branch]["unfused_ms"] = pick_row(rows, i)["unfused_ms"]
         if kname == "flash":  # the int4 branch's launches, counted apart
             entry["int4"]["launches"] = int4_launches
-        if kname == "qmm_w4_layer":  # no library call; the route it replaces
-            entry["library"] = "none: no one call computes a layer half"
+        if kname in ("qmm_w4_ffn", "qmm_w4_layer"):  # no library call; the route replaced
+            entry["library"] = ("none: no one call computes a gated FFN" if kname == "qmm_w4_ffn"
+                                else "none: no one call computes a layer half")
             entry["unfused_ms"] = pick_row(rows, pick)["unfused_ms"]
         kernels.append(entry)
     log(json.dumps({"kernels": kernels}))

@@ -56,6 +56,21 @@ __device__ __forceinline__ void mma_s8_zero(int c[4], const uint32_t a[4], const
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "r"(0));
 }
 
+// The same product plus 0x4B400000 (kernels 2, 5, 6, 10): c[e] holds the
+// bits of the f32 2^23 + 2^22 + P (|P| < 2^22), so exact_f gives P as an
+// f32 with one FADD, where a conversion instruction would run at a quarter
+// of the FADD rate.
+constexpr int MAGIC_I = 0x4B400000;
+constexpr float MAGIC_F = 12582912.f;  // 2^23 + 2^22
+__device__ __forceinline__ void mma_s8_magic(int c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=r"(c[0]), "=r"(c[1]), "=r"(c[2]), "=r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "r"(MAGIC_I));
+}
+__device__ __forceinline__ float exact_f(int c) { return __int_as_float(c) - MAGIC_F; }
+
 // ldmatrix x4: thread i names row i % 8 of 8x16-byte matrix i / 8 (a
 // 16-byte aligned shared address); r[j] receives word t of row g of
 // matrix j, the fragment layout of the products above.  The .trans form

@@ -63,60 +63,61 @@ struct Tile {
 
 // Copies of span s of the weight rows into stage st: rows >= n are
 // zero-filled; SYM copies no mins; COMPACT copies q6 [n, kc/128, 16] and
-// dd [n, kc/128, 2] in place of the gs/gm planes.
-template <int MT, bool SYM = false, bool COMPACT = false>
+// dd [n, kc/128, 2] in place of the gs/gm planes.  GATED (kernel 2's
+// gate|up tile): the tile's rows 0..63 are rows n0/2 .. n0/2 + 63 of this
+// fold (gate) and its rows 64..127 the same rows of *up.
+template <int MT, bool SYM = false, bool COMPACT = false, bool GATED = false>
 __device__ __forceinline__ void load_weights(uint8_t* st, int s, const uint8_t* __restrict__ codes,
                                              const float* __restrict__ gs,
                                              const float* __restrict__ gm, int n, int kc,
                                              int n0, const uint8_t* __restrict__ q6 = nullptr,
-                                             const float* __restrict__ dd = nullptr) {
+                                             const float* __restrict__ dd = nullptr,
+                                             const W4Fold* up = nullptr) {
   using T = Tile<MT, COMPACT>;
   const int tid = threadIdx.x, G = kc / 16;
+  // the source row of tile row r, and whether it is up's
+  auto row_of = [&](int r) { return GATED ? (n0 >> 1) + (r & (BN / 2 - 1)) : n0 + r; };
+  auto is_up = [&](int r) { return GATED && r >= BN / 2; };
   for (int idx = tid; idx < BN * 8; idx += THREADS) {
-    const int r = idx >> 3, c = idx & 7;
-    const bool ok = n0 + r < n;
-    cp_async16(st + r * C_LD + c * 16, codes + (size_t)(ok ? n0 + r : 0) * kc + s * 128 + c * 16,
+    const int r = idx >> 3, c = idx & 7, row = row_of(r);
+    const bool ok = row < n;
+    const uint8_t* src = is_up(r) ? up->codes : codes;
+    cp_async16(st + r * C_LD + c * 16, src + (size_t)(ok ? row : 0) * kc + s * 128 + c * 16,
                ok ? 16 : 0);
   }
   if (COMPACT) {
     uint8_t* qs = st + T::C_BYTES;
     float* ds = reinterpret_cast<float*>(qs + BN * 16);
     for (int idx = tid; idx < BN * 2; idx += THREADS) {
-      const int r = idx >> 1;
-      const bool ok = n0 + r < n;
-      const size_t sb = (size_t)(ok ? n0 + r : 0) * (kc / 128) + s;
+      const int r = idx >> 1, row = row_of(r);
+      const bool ok = row < n;
+      const size_t sb = (size_t)(ok ? row : 0) * (kc / 128) + s;
       if (idx & 1)
-        cp_async8(ds + r * 2, dd + 2 * sb, ok ? 8 : 0);
+        cp_async8(ds + r * 2, (is_up(r) ? up->dd : dd) + 2 * sb, ok ? 8 : 0);
       else
-        cp_async16(qs + r * 16, q6 + 16 * sb, ok ? 16 : 0);
+        cp_async16(qs + r * 16, (is_up(r) ? up->q6 : q6) + 16 * sb, ok ? 16 : 0);
     }
     return;
   }
   float* ss = reinterpret_cast<float*>(st + T::C_BYTES);
   float* ms = ss + BN * S_LD;
   for (int idx = tid; idx < BN * 2; idx += THREADS) {
-    const int r = idx >> 1, c = idx & 1;
-    const bool ok = n0 + r < n;
-    const size_t g = (size_t)(ok ? n0 + r : 0) * G + s * 8 + c * 4;
-    cp_async16(ss + r * S_LD + c * 4, gs + g, ok ? 16 : 0);
-    if (!SYM) cp_async16(ms + r * S_LD + c * 4, gm + g, ok ? 16 : 0);
+    const int r = idx >> 1, c = idx & 1, row = row_of(r);
+    const bool ok = row < n;
+    const size_t g = (size_t)(ok ? row : 0) * G + s * 8 + c * 4;
+    cp_async16(ss + r * S_LD + c * 4, (is_up(r) ? up->gs : gs) + g, ok ? 16 : 0);
+    if (!SYM) cp_async16(ms + r * S_LD + c * 4, (is_up(r) ? up->gm : gm) + g, ok ? 16 : 0);
   }
 }
 
-// Copies of span s into stage st: rows >= rows_live of the activations
-// and >= n of the weights are zero-filled.
-template <int MT, bool SYM = false, bool COMPACT = false>
-__device__ __forceinline__ void load_span(uint8_t* st, int s, const int8_t* __restrict__ x8,
+// Copies of span s of the activation rows into stage st: rows >= rows_live
+// are zero-filled.
+template <int MT, bool COMPACT = false>
+__device__ __forceinline__ void load_acts(uint8_t* st, int s, const int8_t* __restrict__ x8,
                                           const float* __restrict__ sx,
-                                          const int* __restrict__ xsum, int rows_live,
-                                          const uint8_t* __restrict__ codes,
-                                          const float* __restrict__ gs,
-                                          const float* __restrict__ gm, int n, int kc, int n0,
-                                          const uint8_t* __restrict__ q6 = nullptr,
-                                          const float* __restrict__ dd = nullptr) {
+                                          const int* __restrict__ xsum, int rows_live, int kc) {
   using T = Tile<MT, COMPACT>;
   const int tid = threadIdx.x, G = kc / 16, S = kc / 128;
-  load_weights<MT, SYM, COMPACT>(st, s, codes, gs, gm, n, kc, n0, q6, dd);
   uint8_t* xs = st + T::X_OFF;
   for (int idx = tid; idx < T::MP * 16; idx += THREADS) {
     const int r = idx >> 4, c = idx & 15;
@@ -136,6 +137,21 @@ __device__ __forceinline__ void load_span(uint8_t* st, int s, const int8_t* __re
     const bool ok = r < rows_live;
     cp_async4(sxs + r, sx + (size_t)(ok ? r : 0) * S + s, ok ? 4 : 0);
   }
+}
+
+// Copies of span s into stage st: rows >= rows_live of the activations
+// and >= n of the weights are zero-filled.
+template <int MT, bool SYM = false, bool COMPACT = false>
+__device__ __forceinline__ void load_span(uint8_t* st, int s, const int8_t* __restrict__ x8,
+                                          const float* __restrict__ sx,
+                                          const int* __restrict__ xsum, int rows_live,
+                                          const uint8_t* __restrict__ codes,
+                                          const float* __restrict__ gs,
+                                          const float* __restrict__ gm, int n, int kc, int n0,
+                                          const uint8_t* __restrict__ q6 = nullptr,
+                                          const float* __restrict__ dd = nullptr) {
+  load_weights<MT, SYM, COMPACT>(st, s, codes, gs, gm, n, kc, n0, q6, dd);
+  load_acts<MT, COMPACT>(st, s, x8, sx, xsum, rows_live, kc);
 }
 
 // One span's products and scaling into acc[mt][nt][e] (activation row

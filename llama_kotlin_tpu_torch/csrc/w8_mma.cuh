@@ -31,12 +31,8 @@
 namespace w8mma {
 
 // s8 m16n8k16 (one 16-group), the exact int32 products plus
-// 0x4B400000: a[0] row g at k 4t..4t+3, a[1] row g+8; b[0] the same k of
-// column g.  c[e] holds the bits of the f32 2^23 + 2^22 + P (|P| < 2^22),
-// so exact_f gives P as an f32 with one FADD, where a conversion
-// instruction would run at a quarter of the FADD rate.
-constexpr int MAGIC_I = 0x4B400000;
-constexpr float MAGIC_F = 12582912.f;  // 2^23 + 2^22
+// 0x4B400000 (mma_pipe.cuh's MAGIC_I): a[0] row g at k 4t..4t+3, a[1] row
+// g+8; b[0] the same k of column g.
 __device__ __forceinline__ void mma_s8_k16_magic(int c[4], const uint32_t a[2], uint32_t b) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 "
@@ -44,15 +40,6 @@ __device__ __forceinline__ void mma_s8_k16_magic(int c[4], const uint32_t a[2], 
       : "=r"(c[0]), "=r"(c[1]), "=r"(c[2]), "=r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(b), "r"(MAGIC_I));
 }
-// s8 m16n8k32 (one 32-group), as mma_s8_zero but plus 0x4B400000.
-__device__ __forceinline__ void mma_s8_magic(int c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
-      : "=r"(c[0]), "=r"(c[1]), "=r"(c[2]), "=r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "r"(MAGIC_I));
-}
-__device__ __forceinline__ float exact_f(int c) { return __int_as_float(c) - MAGIC_F; }
 
 constexpr int THREADS = 256, BN = 128, STAGES = 3;  // 8 warps of 16 weight rows
 constexpr int C_LD = 272;  // bytes a code row (256 + 16: ldmatrix conflict-free)

@@ -138,18 +138,22 @@ def _qkv(lp: dict, x: torch.Tensor, cfg: ModelConfig):
 
 
 def _ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Gated FFN: kernel 2 for decode rows when it takes the layouts, else
-    gate|up (fused or separate) and down matmuls.  Plain gated FFN only:
-    the port loads no FFN biases or scales."""
+    """Gated FFN: kernel 2 for decode rows when it takes the layouts (the
+    fused gate|up, or gate and up apart: JAX's forward, ``llama_kotlin_tpu/
+    models/llama.py:389-412``), else gate|up (fused or separate) and down
+    matmuls.  Plain gated FFN only: the port loads no FFN biases or
+    scales."""
     act = ACTIVATIONS[cfg.act]
-    if "ffn_gateup_fused" in lp:
-        down = qmm_ffn(x, lp["ffn_gateup_fused"], lp["ffn_down"], act=cfg.act)
-        if down is not None:
-            return down
-        y = qmatmul(x, lp["ffn_gateup_fused"])
+    fused = "ffn_gateup_fused" in lp
+    gate_w = lp["ffn_gateup_fused"] if fused else lp["ffn_gate"]
+    down = qmm_ffn(x, gate_w, lp["ffn_down"], act=cfg.act, up=None if fused else lp["ffn_up"])
+    if down is not None:
+        return down
+    if fused:
+        y = qmatmul(x, gate_w)
         gate, up = y[:, :cfg.n_ff], y[:, cfg.n_ff:]
     else:
-        gate, up = qmatmul(x, lp["ffn_gate"]), qmatmul(x, lp["ffn_up"])
+        gate, up = qmatmul(x, gate_w), qmatmul(x, lp["ffn_up"])
     return qmatmul((act(gate) * up).to(COMPUTE_DTYPE), lp["ffn_down"])
 
 

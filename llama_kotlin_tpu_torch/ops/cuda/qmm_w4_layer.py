@@ -33,10 +33,11 @@ from llama_kotlin_tpu_torch.device import is_cuda, require
 from llama_kotlin_tpu_torch.ops.cuda import _build
 from llama_kotlin_tpu_torch.ops.cuda._checks import check_w4_on
 from llama_kotlin_tpu_torch.ops.cuda.qmm_w4 import gemv_args, qmm_w4_plain
-from llama_kotlin_tpu_torch.ops.cuda.qmm_w4_ffn import ACTS, qmm_w4_ffn_plain
+from llama_kotlin_tpu_torch.ops.cuda.qmm_w4_ffn import (ACTS, coop_fits, qmm_w4_ffn_plain,
+                                                        workspace_bytes)
 from llama_kotlin_tpu_torch.ops.norms import rms_norm
 from llama_kotlin_tpu_torch.quant.fold import is_w4
-from llama_kotlin_tpu_torch.quant.qtensor import SPAN, QTensor
+from llama_kotlin_tpu_torch.quant.qtensor import QTensor
 
 MAX_ROWS = 8  # the JAX entry's max_rows
 LAUNCHES = 0  # kernel launches made by qmm_w4_layer_matmul
@@ -71,6 +72,8 @@ def _refusal(attn: torch.Tensor, h: torch.Tensor, wo, gu, dn, act: str):
     b = math.prod(attn.shape[:-1])
     if attn.shape[-1] != E or h.shape != attn.shape or b > MAX_ROWS:
         return f"{b} rows of width {attn.shape[-1]} (at most {MAX_ROWS} of {E}, h alike)"
+    if not coop_fits(b, E, F):  # the port's own limit, past every llama3 width
+        return f"{b} rows of E={E}, F={F} overflow a block's shared memory"
     return None
 
 
@@ -79,7 +82,9 @@ def layer_eligible(attn: torch.Tensor, h: torch.Tensor, wo, gu, dn, act: str = "
     [2F, E] and down [E, F] W4 folds, all compact or none, o's sym flavor
     equal to gate|up's, E % 2048 == 0, F % 1024 == 0, at most 8 rows and
     silu or gelu (the JAX entry's refusals; precise folds are not W4
-    folds, and the port has no stacked or sharded QTensor)."""
+    folds, and the port has no stacked or sharded QTensor); and rows and
+    widths whose activations fit a block's shared memory (coop_fits: all
+    8 rows up to F ~ 23K, so every llama3-8B layer)."""
     return _refusal(attn, h, wo, gu, dn, act) is None
 
 
@@ -126,15 +131,15 @@ def fused_layer(attn: torch.Tensor, h: torch.Tensor, wo: QTensor, gu: QTensor, d
         check_w4_on(w, a2.device)
     dev = a2.device
     h2 = torch.empty((b, E), dtype=torch.bfloat16, device=dev)
-    gu_out = torch.empty((b, 2 * F), dtype=torch.float32, device=dev)
-    partial = torch.empty((F // SPAN, b, E), dtype=torch.float32, device=dev)
+    work = torch.empty(workspace_bytes(b, E, F, 0, 0), dtype=torch.uint8, device=dev)
     out = torch.empty((b, E), dtype=torch.bfloat16, device=dev)
-    o_args, gu_args, dn_args = (gemv_args(w)[:5] for w in (wo, gu, dn))
+    folds = (wo, gu.row_slice(0, F), gu.row_slice(F, 2 * F), dn)  # o, gate, up, down
     _build.check(_build.lib().lk_w4_layer(
-        a2.data_ptr(), h2d.data_ptr(), nw.data_ptr(), b, *o_args, *gu_args, *dn_args, E, F,
+        a2.data_ptr(), h2d.data_ptr(), nw.data_ptr(), b,
+        *(p for w in folds for p in gemv_args(w)[:5]), E, F,
         int(wo.flavor == "compact"), int(all(w.flavor == "sym" for w in (wo, gu, dn))),
-        ACTS[act], float(eps), float(offset), h2.data_ptr(),
-        gu_out.data_ptr(), partial.data_ptr(), out.data_ptr(), _build.stream()),
+        ACTS[act], float(eps), float(offset), h2.data_ptr(), work.data_ptr(), out.data_ptr(),
+        _build.stream()),
         "lk_w4_layer")
     LAUNCHES += 1
     return out.reshape(*lead, E)

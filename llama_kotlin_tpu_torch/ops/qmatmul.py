@@ -23,10 +23,12 @@ Routing is by layout and rows:
   ``preferred_element_type=f32`` outside any Pallas kernel
   (``llama_kotlin_tpu/ops/qmatmul.py:433-437``).
 
-``qmm_ffn`` sends decode rows through kernel 2 when gate|up and down are
-both W4 folds it takes (never precise ones).  ``qmm_layer`` runs the whole
-post-attention half of a layer on kernel 10 (``ops/cuda/qmm_w4_layer.py``)
-under ``LKTPU_LAYER_FUSED=1`` when it takes the operands.  Any other weight
+``qmm_ffn`` sends decode rows through kernel 2 when gate|up (fused, or
+gate and up apart) and down are W4 folds it takes (never precise ones),
+unless ``LKTPU_FFN_FUSED`` is "0" (JAX's A/B knob, read per call).
+``qmm_layer`` runs the whole post-attention half of a layer on kernel 10
+(``ops/cuda/qmm_w4_layer.py``) under ``LKTPU_LAYER_FUSED=1`` when it
+takes the operands.  Any other weight
 raises: the port has no library stand-in for a kernel.
 """
 
@@ -99,15 +101,19 @@ def _w4_decode(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     return qmm_w4_matmul(x, w)
 
 
-def qmm_ffn(x: torch.Tensor, gu: QTensor, dn: QTensor,
-            act: str = "silu") -> Optional[torch.Tensor]:
-    """Fused gated FFN on kernel 2 for decode rows; None when the rows or
-    the layouts are not kernel 2's (the caller then runs gate|up and down
-    through qmatmul).  A W8 or Q8F down projection declines: kernel 2
-    would read its int8 codes as nibbles."""
-    if _rows(x) > MAX_ROWS or not ffn_eligible(gu, dn, act):
+def qmm_ffn(x: torch.Tensor, gu: QTensor, dn: QTensor, act: str = "silu",
+            up: Optional[QTensor] = None) -> Optional[torch.Tensor]:
+    """Fused gated FFN on kernel 2 for decode rows (gu the fused [gate; up],
+    or the gate with `up` apart, as JAX's ``qmm_ffn``); None when
+    LKTPU_FFN_FUSED is "0" or the rows or the layouts are not kernel 2's
+    (the caller then runs gate, up and down through qmatmul).  A W8 or Q8F
+    down projection declines: kernel 2 would read its int8 codes as
+    nibbles."""
+    if os.environ.get("LKTPU_FFN_FUSED", "1") == "0":
         return None
-    return qmm_w4_ffn_matmul(x, gu, dn, act=act)
+    if _rows(x) > MAX_ROWS or not ffn_eligible(gu, dn, act, up):
+        return None
+    return qmm_w4_ffn_matmul(x, gu, dn, act=act, up=up)
 
 
 def qmm_layer(attn: torch.Tensor, h: torch.Tensor, wo, gu, dn, norm_w: torch.Tensor, *,

@@ -96,6 +96,15 @@ class QTensor:
                        g_min=mv(self.g_min), sb_scale=mv(self.sb_scale),
                        sb_min=mv(self.sb_min), aux=aux)
 
+    def row_slice(self, lo: int, hi: int) -> "QTensor":
+        """Rows lo..hi-1 as views of every plane, the kernels' aux planes
+        included (a part of a fused fold: gate or up of [gate; up])."""
+        cut = lambda t: t[lo:hi] if isinstance(t, torch.Tensor) else t
+        aux = None if self.aux is None else {k: cut(v) for k, v in self.aux.items()}
+        return replace(self, codes=self.codes[lo:hi], g_scale=self.g_scale[lo:hi],
+                       g_min=cut(self.g_min), sb_scale=cut(self.sb_scale),
+                       sb_min=cut(self.sb_min), shape=(hi - lo, self.k), aux=aux)
+
     def rows(self, ids: torch.Tensor) -> "QTensor":
         """Gathered rows of any layout (codes and every scale plane), without
         the kernels' aux planes: the embedding path dequantizes them."""

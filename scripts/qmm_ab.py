@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Kernels 1 (the W4A8 decode matmul), 4 (the prefill dequant matmul, both
-branches), 5 (the W8 decode matmul, both branches), 6 (the Q8F matmul of
-the int8 mode), 7 (the W4X matmul) and 8 (the W4A8 matmul with the
-quantization inside the launch) of two or more checkouts of the port,
-timed on one card in turns.
+"""Kernels 1 (the W4A8 decode matmul), 2 (the decode FFN), 4 (the prefill
+dequant matmul, both branches), 5 (the W8 decode matmul, both branches), 6
+(the Q8F matmul of the int8 mode), 7 (the W4X matmul), 8 (the W4A8 matmul
+with the quantization inside the launch) and 10 (the fused layer half) of
+two or more checkouts of the port, timed on one card in turns.
 
-    python3 scripts/qmm_ab.py ROOT_A ROOT_B [ROOT ...] [--rounds N] [--kernels 1,4,5,6,7,8]
+    python3 scripts/qmm_ab.py ROOT_A ROOT_B [ROOT ...] [--rounds N] [--kernels 1,2,4,5,6,7,8,10]
 
 Each turn is its own process that builds ROOT's kernels
 (``llama_kotlin_tpu_torch/_build/`` under ROOT) and times them through
@@ -24,7 +24,12 @@ compact, sym and legacy folds (qkv, o, gate|up, lm_head) at the same row
 counts as kernel 5; kernel 6 on Q8F conversions of Q4_K (qkv, o, gate|up)
 and Q6_K (down, lm_head) blocks at b = 1, 2, 4, 8, 9, 16, 32, 64 and 512,
 each beside its library call (``library ...`` keys: one torch.matmul of
-the bf16 rows and the pre-dequantized bf16 weight).  A root
+the bf16 rows and the pre-dequantized bf16 weight); kernel 2
+(``qmm_w4_ffn.qmm_w4_ffn_matmul``) on compact, sym and legacy folds
+(E = 4096, F = 14336) at the same row counts as kernel 5, and on separate
+gate and up folds (``up=``; a root without that branch records "refused")
+at b = 1 and 32; kernel 10 (``qmm_w4_layer.qmm_w4_layer_matmul``) on the
+three flavors at b = 1, 2, 4, 8.  A root
 whose kernel walks every row count against one that takes more rows on
 tensor cores gives that kernel's row threshold's crossover; where a root
 has a threshold (``MMA_MIN_ROWS``), its rows up to it are also timed on
@@ -60,7 +65,8 @@ W4_DECODE = {"qkv": (6144, E), "o": (E, E), "gate_up": (2 * F, E), "lm_head": (V
 Q8F_SHAPES = {"qkv": ("Q4_K", 6144, E), "o": ("Q4_K", E, E), "gate_up": ("Q4_K", 2 * F, E),
               "down": ("Q6_K", E, F), "lm_head": ("Q6_K", V, E)}
 Q8F_ROWS = (1, 2, 4, 8, 9, 16, 32, 64, 512)
-KERNELS = ("1", "4", "5", "6", "7", "8")
+KERNELS = ("1", "2", "4", "5", "6", "7", "8", "10")
+FFN_FOLDS = (("gate_up", 2 * F, E), ("down", E, F), ("o", E, E))
 
 
 def split_counts(qmm, m: int, n: int, k: int, unit: int, bms) -> list[int]:
@@ -223,7 +229,47 @@ def one(root: str, kernels) -> None:
                     decode_rows(out, smoke, torch, f"qmm_w4_fx {flavor} {name} b={b}", qmm_w4_fx,
                                 qmm_w4_fx.qmm_w4_fx_matmul, x, wt, flush, n, k, 256)
                 del wt
+    if "2" in kernels or "10" in kernels:
+        ffn_rows(out, smoke, torch, gen, flush, kernels)
     print(json.dumps(out), flush=True)
+
+
+def ffn_rows(out, smoke, torch, gen, flush, kernels) -> None:
+    """Kernels 2 and 10 on the three flavors (below a root's T2 kernel 2 is
+    also forced onto kernel 1's tile: keys ending in ``mma``)."""
+    from llama_kotlin_tpu_torch.ops.cuda import qmm_w4_ffn, qmm_w4_layer
+
+    dev = torch.device("cuda")
+    for flavor in ("compact", "sym", "legacy"):
+        gu, dn, wo = (smoke.w4_on_card(torch, gen, n, k, flavor) for _, n, k in FFN_FOLDS)
+        nw = 1.0 + 0.1 * torch.randn(E, generator=gen, device=dev)
+        if "2" in kernels:
+            for b in ROWS:
+                x = torch.randn((b, E), generator=gen, device=dev) * 0.7
+                key = f"qmm_w4_ffn {flavor} b={b}"
+                fn = lambda: qmm_w4_ffn.qmm_w4_ffn_matmul(x, gu, dn)
+                out[key] = smoke.time_ms(torch, fn, flush)
+                if hasattr(qmm_w4_ffn, "MMA_MIN_ROWS") and not qmm_w4_ffn.use_mma(b):
+                    with all_mma(qmm_w4_ffn):
+                        out[f"{key} mma"] = smoke.time_ms(torch, fn, flush)
+            gate, up = (gu.row_slice(0, F), gu.row_slice(F, 2 * F)) \
+                if hasattr(gu, "row_slice") else (None, None)
+            for b in (1, 32):
+                x = torch.randn((b, E), generator=gen, device=dev) * 0.7
+                key = f"qmm_w4_ffn up= {flavor} b={b}"
+                try:
+                    out[key] = smoke.time_ms(
+                        torch, lambda: qmm_w4_ffn.qmm_w4_ffn_matmul(x, gate, dn, up=up), flush)
+                except (TypeError, AttributeError):
+                    out[key] = "refused"
+        if "10" in kernels:
+            for b in (1, 2, 4, 8):
+                attn = (torch.randn((b, E), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+                h = (torch.randn((b, E), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+                out[f"qmm_w4_layer {flavor} b={b}"] = smoke.time_ms(
+                    torch, lambda: qmm_w4_layer.qmm_w4_layer_matmul(attn, h, wo, gu, dn, nw,
+                                                                    eps=1e-5), flush)
+        del gu, dn, wo
 
 
 def main(argv: list[str]) -> int:
