@@ -113,6 +113,18 @@ all repeated bit-equal; serve() counts kernel 2's tile launches
 fuse=False (kernel 2's up= branch at every decode step) with exact launch
 counts.
 
+The text path (tokenizers, the sampler chain with grammars, on-device
+sampling, chat templates, session files and the CLIs) adds a phase after 5,
+cli_phase: the Q4_K_M file of 5 carries an SPM vocab of its 128256 pieces
+and a Llama-2 chat template, and tools/tokenize.py, tools/main.py (at a
+seed twice, under a JSON schema, with a prompt cache, interactive on
+stdin), tools/simple.py and generate() run on it in process (their stdout
+captured), with sample_rows_device under grammar masks and _sample's
+stages on the card against the CPU's; kernels 1-5 must launch there
+(launches_by_path["cli_w4"]).  Its cli line gives each run's TTFT and
+ms/token, generate()'s, and the host sampler chain's and the grammar
+filter's cost a token at vocab 128256.
+
 The last line of standard output is {"ok": true, "device": {...}}.
 """
 
@@ -1714,16 +1726,20 @@ def gguf_phase(torch, tmpdir: Path) -> dict:
     by load_gguf_model in each fast mode on the card, serves 3 requests on
     the unrolled path (in the w4x mode the default context, which keeps its
     mixed layers unrolled as in JAX); the int8-mode params again on the
-    default (stacked) context with a q8_0 cache.  Returns {path: launch
-    counts}."""
+    default (stacked) context with a q8_0 cache.  The file stays in tmpdir
+    for cli_phase.  Returns {path: launch counts}."""
     from llama_kotlin_tpu_torch.models.loader import load_gguf_model
-    from llama_kotlin_tpu_torch.models.synthetic import preset_config, synthetic_gguf
+    from llama_kotlin_tpu_torch.models.synthetic import (preset_config, synthetic_gguf,
+                                                         synthetic_spm_vocab)
     from llama_kotlin_tpu_torch.ops.cuda import (flash, flash_stacked, qmm, qmm_int8, qmm_w4,
                                                  qmm_w4_ffn, qmm_w4x, qmm_w8)
 
     path = tmpdir / "llama3-8b-q4_k_m.gguf"
     t0 = time.perf_counter()
-    size = synthetic_gguf(path, preset_config("llama3-8b"), seed=7)
+    # with an SPM vocab of the model's 128256 pieces and a Llama-2 chat
+    # template, which cli_phase reads; the loader ignores these keys
+    size = synthetic_gguf(path, preset_config("llama3-8b"), seed=7,
+                          extra_kvs=synthetic_spm_vocab(128256))
     log(json.dumps({"phase": "gguf", "file_bytes": size,
                     "write_s": time.perf_counter() - t0}))
     precise = w8_precise()
@@ -1811,8 +1827,383 @@ def gguf_phase(torch, tmpdir: Path) -> dict:
             del ctx
         del params
         torch.cuda.empty_cache()
-    path.unlink()
     return counts
+
+
+# cli_phase's prompt: 90 pieces of the synthetic vocab, so the prefill's
+# rows take kernel 4 (more than qmm_w4.MAX_ROWS)
+CLI_PROMPT = ("The quick brown fox jumps over the lazy dog while the cat sleeps by the "
+              "warm fire, and a small bird sings a song about rain, rivers, hills and "
+              "the long road home in 1984.")
+CLI_SCHEMA = json.dumps({"type": "object", "properties": {"name": {"type": "string"},
+                                                          "age": {"type": "integer"}},
+                         "required": ["name", "age"]})
+
+
+def cli_run(label: str, argv: list, stdin: str = None) -> tuple:
+    """tools/main.py in process with its stdout captured (so that this
+    script's own last line stays its result): (the CLI's stats, its
+    stdout, seconds)."""
+    import gc
+    import io
+
+    import torch
+
+    from llama_kotlin_tpu_torch.tools import main as cli
+
+    old_stdin = sys.stdin
+    if stdin is not None:
+        sys.stdin = io.StringIO(stdin)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            stats = cli.main(argv)
+    finally:
+        sys.stdin = old_stdin
+    seconds = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    for r in stats["runs"]:
+        if not r["tokens"]:
+            raise AssertionError(f"cli {label}: a generation drew no token")
+    return stats, buf.getvalue(), seconds
+
+
+def run_times(stats: dict) -> list:
+    return [{k: r[k] for k in ("prompt_tokens", "ttft_ms", "ms_per_token")}
+            | {"tokens": len(r["tokens"])} for r in stats["runs"]]
+
+
+def cli_phase(torch, path: Path) -> dict:
+    """The text path on the 32-layer Q4_K_M file of gguf_phase (seed 7, w4,
+    fused), through the port's entry points: (a) tools/tokenize.py and a
+    decode round trip; (b) tools/main.py at a seed, twice: equal texts;
+    (c) --json-schema: every token accepted in turn by a fresh
+    GrammarSampler; (d) --prompt-cache: a first run writes the session, a
+    second run restored from it reports full reuse, and the logits a
+    restored run samples from lie within 3e-2 of max|logits| of a fresh
+    one-row step's (restore_gap); (e)
+    --interactive, two turns and /exit on stdin; (f) tools/simple.py at
+    greedy: its text is generate()'s greedy ids; (g) generate() with a
+    sampling SampleParams three times (equal ids), at temp 0 the greedy
+    ids, its decode loop run with every host sync an error; (h)
+    sample_rows_device under grammar and random masks: every id inside its
+    row's mask; (i) the card's _sample stages before the draw against the
+    CPU's on the same logits rows.  Logs the cli line (each run's TTFT and
+    ms/token, generate()'s, the host sampler chain's and the grammar
+    filter's ms a token at vocab 128256).  Returns the launch counts of
+    kernels 1-5 over the phase, all of which must launch."""
+    import io
+    import shutil as sh
+
+    import numpy as np
+
+    from llama_kotlin_tpu_torch.gguf.reader import GGUFFile
+    from llama_kotlin_tpu_torch.models.loader import load_gguf_model
+    from llama_kotlin_tpu_torch.ops.cuda import flash, qmm, qmm_w4, qmm_w4_ffn, qmm_w8
+    from llama_kotlin_tpu_torch.runtime import generate as gen
+    from llama_kotlin_tpu_torch.runtime.batch import Batch
+    from llama_kotlin_tpu_torch.runtime.context import LlamaContext
+    from llama_kotlin_tpu_torch.sampling.grammar import GrammarSampler
+    from llama_kotlin_tpu_torch.sampling.json_schema import json_schema_to_gbnf
+    from llama_kotlin_tpu_torch.sampling.samplers import Candidates, SamplerChain, SamplingParams
+    from llama_kotlin_tpu_torch.tokenizer import build_tokenizer
+    from llama_kotlin_tpu_torch.tools import simple
+    from llama_kotlin_tpu_torch.tools import tokenize as tok_tool
+
+    mods = (qmm_w4, qmm_w4_ffn, flash, qmm, qmm_w8)
+    for m in mods:
+        m.LAUNCHES = 0
+    t_phase = time.perf_counter()
+    line: dict = {"phase": "cli", "file": path.name}
+    f = GGUFFile(path)
+    tok = build_tokenizer(f.metadata)
+    f.close()
+    V = tok.vocab.n_tokens
+    # (a) the tokenize tool prints one line a token; decode gives the text back
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ids = tok_tool.tokenize(str(path), CLI_PROMPT)
+    if len(buf.getvalue().splitlines()) != len(ids) or tok.decode(ids) != CLI_PROMPT \
+            or ids != tok.encode(CLI_PROMPT) or len(ids) <= qmm_w4.MAX_ROWS:
+        raise AssertionError("cli: tokenize tool or decode round trip")
+    line["prompt_tokens"] = len(ids)
+    base = ["-m", str(path), "--fast-mode", "w4", "--device", "cuda"]
+    sampled = ["--temp", "0.8", "--top-k", "40", "--top-p", "0.95", "--min-p", "0.05"]
+    # (b) the CLI at a seed, twice
+    argv = base + ["-p", CLI_PROMPT, "-n", "32", "--seed", "42"] + sampled
+    b1, out1, s1 = cli_run("seed", argv)
+    b2, out2, s2 = cli_run("seed", argv)
+    if out1 != out2 or b1["runs"][0]["tokens"] != b2["runs"][0]["tokens"]:
+        raise AssertionError("cli: two runs at one seed differ")
+    line["main"] = run_times(b1) + run_times(b2)
+    line["main_s"] = [s1, s2]
+    # (c) a JSON schema: every token legal in turn
+    c, _, _ = cli_run("json", base + ["-p", "Reply in JSON:", "-n", "16", "--seed", "3",
+                                      "--json-schema", CLI_SCHEMA] + sampled)
+    g = GrammarSampler(json_schema_to_gbnf(CLI_SCHEMA))
+    for t in c["runs"][0]["tokens"]:
+        if t != tok.vocab.eos_id and not g.token_allowed(t, tok, eos_id=tok.vocab.eos_id):
+            raise AssertionError(f"cli: token {t} outside the grammar")
+        g.accept_token(t, tok, eos_id=tok.vocab.eos_id)
+    line["json"] = run_times(c) + [{"text": c["runs"][0]["text"]}]
+    # (d) the prompt cache: a run restored from the first run's session
+    # (restore_gap measures its logits once the fused weights are loaded)
+    cache, first_session = path.parent / "prompt.session", path.parent / "first.session"
+    argv = base + ["-p", CLI_PROMPT, "-n", "8", "--seed", "5", "--prompt-cache", str(cache)]
+    d0, _, _ = cli_run("cache", argv)
+    sh.copy(cache, first_session)
+    d1, _, _ = cli_run("cache", argv)
+    cache.unlink()
+    if d1.get("session_reuse") != len(ids) - 1:
+        raise AssertionError("cli: the restored run did not reuse the whole prompt")
+    line["prompt_cache"] = {"reuse": d1["session_reuse"], "of": len(ids),
+                            "first_run_text_equal": d0["runs"][0]["tokens"] == d1["runs"][0][
+                                "tokens"], "runs": run_times(d0) + run_times(d1)}
+    # (e) interactive: two turns on stdin
+    e, out_e, _ = cli_run("interactive", base + ["--interactive", "-n", "8", "--seed", "9"],
+                          stdin="Tell me about the fox.\nAnd the dog?\n/exit\n")
+    if len(e["runs"]) != 2 or e["runs"][1]["prompt_tokens"] <= e["runs"][0]["prompt_tokens"]:
+        raise AssertionError("cli: interactive turns")
+    line["interactive"] = run_times(e)
+    # (f) tools/simple.py at greedy against generate() on the same (unfused) load
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        if simple.main([str(path), CLI_PROMPT, "16", "--fast-mode", "w4", "--device", "cuda"]) != 0:
+            raise AssertionError("cli: simple failed")
+    cfg, params, f = load_gguf_model(path, fast_mode="w4", device="cuda")
+    f.close()
+    ctx = LlamaContext(cfg, params, n_cells=max(256, len(ids) + 24), device="cuda")
+    greedy = gen.generate(ctx, ids, 16)
+    upto = greedy[:greedy.index(tok.vocab.eos_id)] if tok.vocab.eos_id in greedy else greedy
+    if buf.getvalue() != CLI_PROMPT + "".join(tok.decode([t], skip_special=False)
+                                              for t in upto) + "\n":
+        raise AssertionError("cli: simple's greedy text is not generate()'s")
+    del ctx, params
+    torch.cuda.empty_cache()
+    # (g) generate() on the fused load (the CLI's): a sampling SampleParams
+    # three times, temp 0; TTFT (prefill and first sample) and the decode
+    # loop timed inside each run, the loop with every host sync an error
+    cfg, params, f = load_gguf_model(path, fast_mode="w4", fuse=True, device="cuda")
+    f.close()
+    line["prompt_cache"]["logits_gap"] = restore_gap(torch, cfg, params, ids, first_session)
+    first_session.unlink()
+    new_ctx = lambda: LlamaContext(cfg, params, n_cells=1024, device="cuda")  # noqa: E731
+    sp = gen.SampleParams(temp=0.8, top_k=40, top_p=0.95, penalty_last_n=64,
+                          penalty_repeat=1.1, seed=1)
+    marks: list = []
+    loop = gen.generate_loop
+
+    def checked_loop(*args, **kw):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = loop(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        return res
+
+    def timed_generate(n: int, params_: gen.SampleParams) -> tuple:
+        ctx = new_ctx()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gen.generate(ctx, ids, n, params_)
+        return out, {"ttft_ms": (marks[-2] - t0) * 1e3,
+                     "ms_per_token": (marks[-1] - marks[-2]) * 1e3 / n}
+
+    gen.generate_loop = checked_loop
+    try:
+        runs = [timed_generate(32, sp) for _ in range(3)]  # the first warms up
+        at_t0, _ = timed_generate(32, sp._replace(temp=0.0))
+        greedy32, _ = timed_generate(32, gen.SampleParams())
+    finally:
+        gen.generate_loop = loop
+    if any(out != runs[0][0] for out, _ in runs) or at_t0 != greedy32:
+        raise AssertionError("cli: generate() does not repeat itself, or temp 0 is not greedy")
+    line["generate"] = {"runs": [t for _, t in runs], "steps": 32}
+    # (h) sample_rows_device under masks; (i) the card's stages vs the CPU's
+    ctx = new_ctx()
+    out_rows = np.zeros(len(ids), bool)
+    out_rows[-4:] = True
+    if ctx.decode(Batch(np.asarray(ids), np.arange(len(ids)), np.zeros(len(ids), np.int32),
+                        out_rows)) != 0:
+        raise AssertionError("cli: prefill")
+    rng = np.random.default_rng(13)
+    masks = rng.random((4, V)) < 0.05
+    masks[0] = masks[1] = GrammarSampler(json_schema_to_gbnf(CLI_SCHEMA)).allowed_mask(
+        tok, V, eos_id=tok.vocab.eos_id)
+    spv = {"temp": np.array([0.0, 0.8, 0.0, 1.2], np.float32),
+           "top_k": np.array([0, 40, 0, 0]), "top_p": np.array([1.0, 0.95, 1.0, 0.9], np.float32),
+           "min_p": np.array([0.0, 0.05, 0.0, 0.0], np.float32), "seed": np.array([1, 2, 3, 4])}
+    pos = np.full(4, len(ids))
+    picked = ctx.sample_rows_device(np.arange(4), gen.SampleParams(top_k=64), spv, pos,
+                                    masks=masks)
+    host = ctx.get_logits()
+    for r in range(4):
+        if not masks[r, picked[r]]:
+            raise AssertionError(f"cli: sample_rows_device drew {picked[r]} outside row {r}'s mask")
+        if spv["temp"][r] == 0 and picked[r] != int(np.argmax(np.where(masks[r], host[r],
+                                                                        -np.inf))):
+            raise AssertionError("cli: sample_rows_device's greedy row is not the masked argmax")
+    line["sample_rows_device"] = {"ids": picked.tolist(), "mask_sizes": masks.sum(1).tolist()}
+    line["stages"] = stage_parity(torch, gen, ctx.logits_device(), V, rng)
+    # host costs a token at vocab V: the logits' copy and the sampler chain,
+    # and the grammar filter's sweep (a fresh grammar text: cold tables)
+    chain = SamplerChain(SamplingParams(seed=1), V)
+    costs = {"copy": [], "chain": []}
+    for _ in range(8):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg = ctx.get_logits()[-1]
+        t1 = time.perf_counter()
+        chain.accept(chain.sample(lg, tokenizer=tok), tokenizer=tok)
+        costs["copy"].append((t1 - t0) * 1e3)
+        costs["chain"].append((time.perf_counter() - t1) * 1e3)
+    g = GrammarSampler(json_schema_to_gbnf(CLI_SCHEMA) + "\n# cold tables\n")
+    sweeps = []
+    for ch in '{"name": "':
+        t0 = time.perf_counter()
+        m = g.allowed_mask(tok, V, eos_id=tok.vocab.eos_id)
+        sweeps.append((time.perf_counter() - t0) * 1e3)
+        g.accept_token(tok.vocab.token_to_id["▁" if ch == " " else ch], tok)
+    g.allowed_mask(tok, V, eos_id=tok.vocab.eos_id)  # this state's sweep, then memo hits
+    memo = []
+    for _ in range(8):
+        t0 = time.perf_counter()
+        g.filter_candidates(Candidates.from_logits(lg), tok, eos_id=tok.vocab.eos_id,
+                            vocab_size=V)
+        memo.append((time.perf_counter() - t0) * 1e3)
+    line["host_ms_per_token"] = {
+        "logits_copy": statistics.median(costs["copy"]),
+        "sampler_chain": statistics.median(costs["chain"]),
+        "grammar_sweep_cold": sweeps, "grammar_filter_memo": statistics.median(memo)}
+    del ctx, params
+    torch.cuda.empty_cache()
+    counts = {mod_name(m): m.LAUNCHES for m in mods}
+    line["launches"] = counts
+    line["seconds"] = time.perf_counter() - t_phase
+    log(json.dumps(line))
+    if not all(counts.values()):
+        raise AssertionError(f"cli: a kernel of the w4 path was never launched: {counts}")
+    return counts
+
+
+def restore_gap(torch, cfg, params, ids: list, session: Path) -> dict:
+    """(d)'s restore, measured: the logits the restored run samples its
+    first token from (the last prompt token re-fed as a one-row step over
+    the session's cells) against a one-row step after a fresh prefill of
+    the prompt less its last token, and both against the first run's (the
+    last row of the whole prompt's prefill), each gap a share of
+    max|logits|.  The restored step must lie within 3e-2 of the fresh one,
+    the card-vs-CPU tolerance of parity_phase: a wrong restore (cells,
+    scales, the ring pointer) moves it further.  The one-row step against
+    the prefill's row is also taken on the first 2 and 8 layers, to show
+    how that gap grows with depth."""
+    import dataclasses
+
+    import numpy as np
+
+    from llama_kotlin_tpu_torch.runtime import state as state_io
+    from llama_kotlin_tpu_torch.runtime.batch import Batch
+    from llama_kotlin_tpu_torch.runtime.context import LlamaContext
+    from llama_kotlin_tpu_torch.tools.main import build_argparser
+
+    n, n_ctx = len(ids), build_argparser().get_default("n_ctx")  # the CLI's context
+
+    def last_logits(ctx, toks: list, start: int):
+        out = np.zeros(len(toks), bool)
+        out[-1] = True
+        if ctx.decode(Batch(np.asarray(toks, np.int32),
+                            np.arange(start, start + len(toks), dtype=np.int32),
+                            np.zeros(len(toks), np.int32), out)) != 0:
+            raise AssertionError("cli: a decode of the restore check failed")
+        return ctx.logits_device()[-1].float().clone()
+
+    def first_and_step(n_layer: int) -> tuple:
+        c = dataclasses.replace(cfg, n_layer=n_layer)
+        p = dict(params, layers=params["layers"][:n_layer])
+        first = last_logits(LlamaContext(c, p, n_cells=n_ctx, device="cuda"), ids, 0)
+        ctx = LlamaContext(c, p, n_cells=n_ctx, device="cuda")
+        last_logits(ctx, ids[:-1], 0)
+        return first, last_logits(ctx, ids[-1:], n - 1)
+
+    def gap(a, b, first) -> float:
+        return float((a - b).abs().max()) / float(first.abs().max())
+
+    first, stepped = first_and_step(cfg.n_layer)
+    ctx = LlamaContext(cfg, params, n_cells=n_ctx, device="cuda")
+    if list(state_io.load_session_file(ctx, session)) != list(ids):
+        raise AssertionError("cli: the session file holds other tokens")
+    ctx.seq_rm(0, n - 1, -1)  # what tools/main.py does on a full match
+    restored = last_logits(ctx, ids[-1:], n - 1)
+    del ctx
+    gaps = {"restored_vs_fresh_step": gap(restored, stepped, first),
+            "restored_vs_first": gap(restored, first, first),
+            "fresh_step_vs_first_by_layers": {cfg.n_layer: gap(stepped, first, first)}}
+    for k in (2, 8):
+        f_k, s_k = first_and_step(k)
+        gaps["fresh_step_vs_first_by_layers"][k] = gap(s_k, f_k, f_k)
+    if not gaps["restored_vs_fresh_step"] <= 3e-2:
+        raise AssertionError(f"cli: the restored logits are off a fresh step's: {gaps}")
+    return gaps
+
+
+def stage_parity(torch, gen, logits, V: int, rng) -> dict:
+    """(i) _sample's stages before the draw on the card against the CPU's on
+    the same logits rows, with penalties (a token window's counts), top-k,
+    top-p, min-p and on the per-row path: window ids and keep masks equal
+    (but for keep entries whose cumulative probability lies within 1e-5 of
+    top_p, where f32 rounding may decide either way; counted), scaled
+    logits within 1e-6 relative; the draws equal given the same noise."""
+    import numpy as np
+
+    cpu = logits.float().cpu()
+    window = torch.from_numpy(rng.integers(-1, V, (logits.shape[0], 64)))
+    counts = gen._window_counts(window, V)
+    cases = {"chain": (gen.SampleParams(temp=0.8, top_k=40, top_p=0.95, min_p=0.05,
+                                        penalty_last_n=64, penalty_repeat=1.1,
+                                        penalty_present=0.2), None),
+             "spv": (gen.SampleParams(top_k=64), {
+                 "temp": torch.tensor([0.7, 0.0, 1.0, 1.3]), "top_k": torch.tensor([40, 0, 64, 8]),
+                 "top_p": torch.tensor([0.9, 1.0, 0.95, 1.0]),
+                 "min_p": torch.tensor([0.0, 0.0, 0.05, 0.1])})}
+    out = {}
+    for name, (sp, spv) in cases.items():
+        dev = logits.device
+        dev_spv = None if spv is None else {k: v.to(dev) for k, v in spv.items()}
+        a = gen.sample_stages(logits, sp, counts.to(dev) if spv is None else None, dev_spv)
+        b = gen.sample_stages(cpu, sp, counts if spv is None else None, spv)
+        if not torch.equal(a.ids.cpu(), b.ids):
+            raise AssertionError(f"cli stages {name}: window ids differ")
+        top_p = (torch.full((cpu.shape[0],), sp.top_p) if spv is None else spv["top_p"]).double()
+        vals = torch.gather(gen.penalize(cpu, sp, counts if spv is None else None), 1,
+                            b.ids).double()
+        if spv is not None:  # the per-row top-k cut comes before the softmax
+            kcap = torch.where(spv["top_k"] > 0, spv["top_k"], vals.shape[1])[:, None]
+            vals = torch.where(torch.arange(vals.shape[1])[None] < kcap, vals, -np.inf)
+        pv = torch.softmax(vals, -1)
+        near = ((torch.cumsum(pv, -1) - pv - top_p[:, None]).abs() <= 1e-5) & (top_p[:, None] < 1)
+        differ = (a.keep.cpu() != b.keep) & ~near
+        if differ.any():
+            raise AssertionError(f"cli stages {name}: keep masks differ")
+        fin = torch.isfinite(b.scaled) & (a.keep.cpu() == b.keep)
+        rel = ((a.scaled.cpu() - b.scaled).abs() / b.scaled.abs().clamp_min(1e-30))[fin]
+        if float(rel.max()) > 1e-6:
+            raise AssertionError(f"cli stages {name}: scaled logits {float(rel.max())} apart")
+        noise = gen.gumbel_noise(gen.shared_key(7, 100, cpu.shape[0], "cpu"), b.scaled.shape[1])
+        dev_noise = gen.gumbel_noise(gen.shared_key(7, 100, cpu.shape[0], dev),
+                                     b.scaled.shape[1])
+        same = torch.equal(gen.draw(a, noise.to(dev)).cpu(), gen.draw(b, noise))
+        out[name] = {"max_rel_scaled": float(rel.max()), "kept": int(b.keep.sum()),
+                     "near_top_p": int(near.sum()), "draws_equal": same,
+                     "noise_max_abs_diff": float((dev_noise.cpu() - noise).abs().max())}
+        if not same and not near.any():
+            raise AssertionError(f"cli stages {name}: draws differ given the same noise")
+    return out
 
 
 def device_rows(prof) -> list:
@@ -2171,6 +2562,8 @@ def main() -> int:
         try:
             for mode, c in timed(gguf_phase, torch, tmpdir).items():
                 by_path[f"gguf_{mode}"] = c
+            by_path["cli_w4"] = timed(cli_phase, torch, tmpdir / "llama3-8b-q4_k_m.gguf")
+            (tmpdir / "llama3-8b-q4_k_m.gguf").unlink()
             by_path.update(timed(q4_0_gguf_phase, torch, tmpdir))
             timed(parity_phase, torch)
             timed(gguf_parity_phase, torch, tmpdir)

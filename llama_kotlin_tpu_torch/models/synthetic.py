@@ -231,10 +231,70 @@ def q4_k_m_layer_types(n_layer: int) -> list[dict]:
 FILE_TYPES = {GGMLQuantType.Q4_0: 2, GGMLQuantType.Q4_1: 3, GGMLQuantType.Q4_K: 15}
 
 
+# the public Llama-2 chat template (a jinja string, as HF ships it): the
+# chat module detects it as "llama2" with a system prompt, BOS inside the
+# history, stripped messages and spaces around a response
+LLAMA2_CHAT_TEMPLATE = (
+    "{% if messages[0]['role'] == 'system' %}{% set loop_messages = messages[1:] %}"
+    "{% set system_message = messages[0]['content'] %}{% else %}"
+    "{% set loop_messages = messages %}{% set system_message = false %}{% endif %}"
+    "{% for message in loop_messages %}"
+    "{% if (message['role'] == 'user') != (loop.index0 % 2 == 0) %}"
+    "{{ raise_exception('Conversation roles must alternate user/assistant/user/assistant/...') }}"
+    "{% endif %}{% if loop.index0 == 0 and system_message != false %}"
+    "{% set content = '<<SYS>>\\n' + system_message + '\\n<</SYS>>\\n\\n' + message['content'] %}"
+    "{% else %}{% set content = message['content'] %}{% endif %}"
+    "{% if message['role'] == 'user' %}{{ bos_token + '[INST] ' + content.strip() + ' [/INST]' }}"
+    "{% elif message['role'] == 'assistant' %}{{ ' '  + content.strip() + ' ' + eos_token }}"
+    "{% endif %}{% endfor %}")
+
+
+def synthetic_spm_vocab(vocab_size: int, chat_template: Optional[str] = LLAMA2_CHAT_TEMPLATE
+                        ) -> dict:
+    """SPM tokenizer metadata of exactly `vocab_size` pieces for a synthetic
+    GGUF (synthetic_gguf's extra_kvs): <unk>, <s>, </s>, the 256 byte-fallback
+    tokens <0x00>-<0xFF>, then word pieces: U+2581 (the escaped space),
+    letters, digits and punctuation, every 2- and 3-letter lowercase piece
+    with and without a leading U+2581, then U+2581 + 4-letter pieces in
+    order; each longer piece is one merge of shorter ones, so the SPM merge
+    reaches it.  Scores fall with the id; `chat_template` (None: none) goes
+    into tokenizer.chat_template."""
+    import itertools
+    import string
+
+    toks = ["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]
+    types = [2, 3, 3] + [6] * 256
+    sp = "\u2581"
+    low = string.ascii_lowercase
+    singles = ([sp] + list(low) + list(string.ascii_uppercase) + list(string.digits)
+               + list(".,!?;:'\"-()[]{}<>/\\@#$%&*+=_|~`^"))
+    words = singles + [sp + c for c in low + string.ascii_uppercase + string.digits]
+    for n in (2, 3):
+        combos = ["".join(t) for t in itertools.product(low, repeat=n)]
+        words += combos + [sp + c for c in combos]
+    words = iter(words + [sp + "".join(t) for t in itertools.product(low, repeat=4)])
+    while len(toks) < vocab_size:
+        toks.append(next(words))
+        types.append(1)
+    if len(toks) > vocab_size:
+        raise ValueError(f"vocab_size {vocab_size} is below the {len(toks)} fixed pieces")
+    kv = {"tokenizer.ggml.model": "llama",
+          "tokenizer.ggml.tokens": toks,
+          "tokenizer.ggml.scores": -np.arange(len(toks), dtype=np.float32),
+          "tokenizer.ggml.token_type": np.asarray(types, np.int32),
+          "tokenizer.ggml.bos_token_id": np.uint32(1),
+          "tokenizer.ggml.eos_token_id": np.uint32(2),
+          "tokenizer.ggml.unknown_token_id": np.uint32(0)}
+    if chat_template is not None:
+        kv["tokenizer.chat_template"] = chat_template
+    return kv
+
+
 def synthetic_gguf(path, cfg: ModelConfig, seed: int = 0, layer_types: Optional[list] = None,
                    embd_type: Optional[GGMLQuantType] = None,
                    output_type: GGMLQuantType = GGMLQuantType.Q6_K,
-                   matrix_type: GGMLQuantType = GGMLQuantType.Q4_K) -> int:
+                   matrix_type: GGMLQuantType = GGMLQuantType.Q4_K,
+                   extra_kvs: Optional[dict] = None) -> int:
     """Write a llama GGUF of random wire blocks for `cfg`: every layer matrix
     of `matrix_type` but those `layer_types` names (default for Q4_K: the
     Q4_K_M profile, q4_k_m_layer_types; for Q4_0 or Q4_1 none, the
@@ -242,7 +302,9 @@ def synthetic_gguf(path, cfg: ModelConfig, seed: int = 0, layer_types: Optional[
     matrix_type) and `output` (output_type: Q6_K, as llama.cpp quantizes
     it in these files; F16 or F32 make them dense); norms F32 near 1.  Each
     tensor is drawn from one numpy Generator as the writer streams it, so a
-    full 8B file never sits whole in host memory.  Returns the file's size."""
+    full 8B file never sits whole in host memory.  extra_kvs (e.g.
+    synthetic_spm_vocab's tokenizer keys) are written after the model's
+    keys; the loader ignores them.  Returns the file's size."""
     from llama_kotlin_tpu_torch.gguf.writer import GGUFWriter
 
     rng = np.random.default_rng(seed)
@@ -264,7 +326,8 @@ def synthetic_gguf(path, cfg: ModelConfig, seed: int = 0, layer_types: Optional[
             ("llama.attention.head_count_kv", np.uint32(cfg.n_head_kv)),
             ("llama.rope.dimension_count", np.uint32(cfg.rope_dim)),
             ("llama.rope.freq_base", np.float32(cfg.rope_freq_base)),
-            ("llama.attention.layer_norm_rms_epsilon", np.float32(cfg.rms_eps))):
+            ("llama.attention.layer_norm_rms_epsilon", np.float32(cfg.rms_eps)),
+            *(extra_kvs or {}).items()):
         w.add_kv(key, value)
 
     def matrix(name, n, k, qtype):

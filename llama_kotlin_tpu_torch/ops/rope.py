@@ -44,8 +44,9 @@ def rope_cos_sin(pos: torch.Tensor, p: RopeParams,
     half = p.n_rot // 2
     dim_idx = torch.arange(half, dtype=torch.float32, device=pos.device)
     theta_scale = p.freq_base ** (-2.0 / p.n_rot)
-    inv_freq = torch.tensor(theta_scale, dtype=torch.float32,
-                            device=pos.device) ** dim_idx
+    # a fill on the device, not a copy from the host: a decode step never
+    # waits for the stream
+    inv_freq = torch.full((), theta_scale, dtype=torch.float32, device=pos.device) ** dim_idx
     if freq_factors is not None:
         inv_freq = inv_freq / freq_factors.to(torch.float32)
     theta_extrap = pos.to(torch.float32)[..., None] * inv_freq

@@ -13,10 +13,15 @@ codes with per-row scales) or "q4_0" (packed int4 codes with per-row
 scales).  The sequence operations edit the cell metadata; ``seq_add`` and
 ``seq_div`` also rotate the cached K rows by each cell's position change
 (``apply_k_shift``), as the CLI's context shift and self-extend need.
+``Timings`` keeps the host time of each decode call, as JAX's does (the
+call returns before the device finishes; a caller that reads the logits
+waits for it).
 """
 
 from __future__ import annotations
 
+import time
+from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
@@ -28,7 +33,42 @@ from llama_kotlin_tpu_torch.models.config import ModelConfig
 from llama_kotlin_tpu_torch.runtime.batch import Batch, bucket_size
 from llama_kotlin_tpu_torch.runtime.kv_cache import CellMetadata, KVCache, apply_k_shift
 
-DEFAULT_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048)
+# a one-token step runs at one row: the port compiles nothing per shape, so
+# padding it to 8 rows (as JAX does to bound its compiled variants) would
+# only move it onto another kernel route than generate_loop's one-row steps
+DEFAULT_BUCKETS = (1, 8, 16, 32, 64, 128, 256, 512, 1024, 2048)
+
+
+@dataclass
+class Timings:
+    """Parity: llama_timings (llama.h:396); the JAX package's Timings."""
+
+    t_start: float = field(default_factory=time.perf_counter)
+    t_load_ms: float = 0.0
+    t_p_eval_ms: float = 0.0  # prompt (multi-token ubatch) time
+    t_eval_ms: float = 0.0  # single-token decode time
+    n_p_eval: int = 0
+    n_eval: int = 0
+
+    def yaml(self) -> str:
+        """YAML timing dump (parity: llama_dump_timing_info_yaml)."""
+        d = self.summary()
+        return "\n".join(f"{k}: {v}" for k, v in d.items()) + "\n"
+
+    def summary(self) -> dict:
+        return {
+            "load_ms": round(self.t_load_ms, 2),
+            "prompt_eval_ms": round(self.t_p_eval_ms, 2),
+            "prompt_tokens": self.n_p_eval,
+            "prompt_tps": round(self.n_p_eval / (self.t_p_eval_ms / 1e3), 2)
+            if self.t_p_eval_ms
+            else 0.0,
+            "eval_ms": round(self.t_eval_ms, 2),
+            "eval_tokens": self.n_eval,
+            "eval_tps": round(self.n_eval / (self.t_eval_ms / 1e3), 2)
+            if self.t_eval_ms
+            else 0.0,
+        }
 
 
 class LlamaContext:
@@ -59,6 +99,7 @@ class LlamaContext:
             vb = [b for b in (512, 1024, 2048, 4096, 8192, 16384, 32768, 65536)
                   if b < n_cells and n_cells % b == 0]
             self.vis_buckets = tuple(vb) + (n_cells,)
+        self.timings = Timings()
         self._logits: Optional[torch.Tensor] = None
         self._logits_rows: Optional[np.ndarray] = None
 
@@ -95,6 +136,7 @@ class LlamaContext:
     def _decode_ubatch(self, ub: Batch, all_logits: list, all_rows: list,
                        row_base: int = 0) -> int:
         nt = len(ub)
+        t0 = time.perf_counter()
         slots = self.meta.find_slots(nt)
         if slots is None:
             return 1
@@ -120,6 +162,13 @@ class LlamaContext:
         if len(out_rows):
             all_logits.append(logits[:len(out_rows)])
             all_rows.append(out_rows + row_base)
+        dt = (time.perf_counter() - t0) * 1e3
+        if nt == 1:
+            self.timings.t_eval_ms += dt
+            self.timings.n_eval += 1
+        else:
+            self.timings.t_p_eval_ms += dt
+            self.timings.n_p_eval += nt
         return 0
 
     def logits_device(self) -> torch.Tensor:
@@ -131,6 +180,46 @@ class LlamaContext:
     def get_logits(self) -> np.ndarray:
         """All logits rows requested by the last decode, [n_out, vocab]."""
         return self.logits_device().cpu().numpy()
+
+    def get_topk(self, k: int = 1) -> tuple[np.ndarray, np.ndarray]:
+        """Top-k (values, token ids) of the last decode's logits rows,
+        computed on the device: [n_out, k] comes back instead of
+        [n_out, vocab]."""
+        v, i = torch.topk(self.logits_device(), k, dim=-1)
+        return v.cpu().numpy(), i.to(torch.int32).cpu().numpy()
+
+    def get_logits_ith(self, i: int = -1) -> np.ndarray:
+        return self.get_logits()[i]
+
+    def sample_rows_device(self, rows, sp, spv, pos, masks=None,
+                           pen_window=None) -> np.ndarray:
+        """Sample token ids from the last decode's logits rows on the
+        device: the host grammar mask goes up packed to vocab/8 bytes
+        (``np.packbits``, little bit order) and only the [n] ids come back,
+        instead of the [n, vocab] f32 logits the host sampler needs.
+
+        rows: logits-row indices.  masks: bool [n, vocab] (grammar-legal
+        tokens) or None.  pen_window: [n, last_n] recent tokens (-1 =
+        empty) when sp enables penalties.  spv/pos: per-row sampling arrays
+        (temp, top_k, top_p, min_p, seed) and absolute positions, with
+        generate_loop's reproducibility contract."""
+        from llama_kotlin_tpu_torch.runtime.generate import sample_rows
+
+        dev = self.device
+        logits = self.logits_device()
+        n = len(rows)
+        to_dev = lambda a, dt: torch.as_tensor(np.asarray(a), dtype=dt).to(dev)  # noqa: E731
+        use_mask = masks is not None
+        mask_bits = to_dev(np.packbits(np.asarray(masks, bool), axis=-1, bitorder="little")
+                           if use_mask else np.zeros((n, 1), np.uint8), torch.uint8)
+        use_pen = pen_window is not None
+        pw = to_dev(pen_window if use_pen else np.zeros((n, 1), np.int32), torch.int64)
+        spv_t = {k: to_dev(v, torch.int64 if k in ("top_k", "seed") else torch.float32)
+                 for k, v in spv.items()}
+        ids = sample_rows(logits, to_dev(np.asarray(rows, np.int64), torch.int64), mask_bits,
+                          pw, spv_t, to_dev(np.asarray(pos, np.int64), torch.int64), sp,
+                          use_mask, use_pen)
+        return ids.cpu().numpy()
 
     def seq_rm(self, seq_id: int, p0: int = 0, p1: int = -1) -> None:
         self.meta.seq_rm(seq_id, p0, p1)

@@ -139,11 +139,29 @@ def test_cell_metadata_matches_jax():
 
 def test_port_imports_no_jax():
     """Importing the port and running a CPU forward (also on a q4_0 cache,
-    after a seq_add) leaves neither jax nor the JAX package in
-    sys.modules."""
+    after a seq_add), and the text path's modules (tokenizers, samplers,
+    grammars, chat templates, state files, on-device sampling, the CLIs)
+    leaves neither jax nor the JAX package in sys.modules."""
     code = textwrap.dedent("""
-        import sys, tempfile, os
+        import sys, tempfile, os, io, contextlib
         import numpy as np
+        import llama_kotlin_tpu_torch.tokenizer.bpe, llama_kotlin_tpu_torch.tokenizer.wpm
+        import llama_kotlin_tpu_torch.tokenizer.ugm, llama_kotlin_tpu_torch.tools.tokenize
+        from llama_kotlin_tpu_torch.models.synthetic import synthetic_spm_vocab
+        from llama_kotlin_tpu_torch.tokenizer import build_tokenizer
+        from llama_kotlin_tpu_torch.sampling.samplers import SamplerChain, SamplingParams
+        from llama_kotlin_tpu_torch.sampling.json_schema import json_schema_to_gbnf
+        from llama_kotlin_tpu_torch.runtime.chat import apply_chat_template
+        from llama_kotlin_tpu_torch.runtime import state
+        from llama_kotlin_tpu_torch.runtime.generate import SampleParams, generate
+        from llama_kotlin_tpu_torch.tools import main as cli, simple
+        tok = build_tokenizer(synthetic_spm_vocab(512))
+        text = apply_chat_template([{"role": "user", "content": "hi"}], "llama2")
+        chain = SamplerChain(SamplingParams(seed=1, grammar=json_schema_to_gbnf(
+            {"type": "integer"})), 512)
+        t = chain.sample(np.random.default_rng(0).standard_normal(512), tokenizer=tok)
+        chain.accept(t, tokenizer=tok)
+        assert tok.encode(text, parse_special=True)
         from llama_kotlin_tpu_torch.models.synthetic import (preset_config, synthetic_gguf,
                                                              synthetic_params_device)
         from llama_kotlin_tpu_torch.models.loader import load_gguf_model
@@ -159,9 +177,15 @@ def test_port_imports_no_jax():
         ctx.seq_add(0, 2, -1, 3)
         assert ctx.decode(Batch.single([7], pos0=8)) == 0
         assert np.isfinite(ctx.get_logits()).all()
+        state.set_state_data(ctx, state.get_state_data(ctx))
+        ctx = LlamaContext(cfg, params, n_cells=128, device="cpu")
+        assert len(generate(ctx, [1, 2, 3], 3, SampleParams(temp=0.8, top_k=8))) == 3
         with tempfile.TemporaryDirectory() as d:
             path = os.path.join(d, "m.gguf")
-            synthetic_gguf(path, cfg, seed=1)
+            synthetic_gguf(path, cfg, seed=1, extra_kvs=synthetic_spm_vocab(cfg.vocab_size))
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli.main(["-m", path, "--fast-mode", "w4", "--device", "cpu", "-p", "hi",
+                          "-n", "2", "-c", "128"])
             for mode in ("w4", "w4x", "int8"):
                 gcfg, params, f = load_gguf_model(path, fast_mode=mode, fuse=True,
                                                   device="cpu")
