@@ -125,6 +125,26 @@ stages on the card against the CPU's; kernels 1-5 must launch there
 ms/token, generate()'s, and the host sampler chain's and the grammar
 filter's cost a token at vocab 128256.
 
+The exact-dequant mode (fast_mode=None, the loader's and the CLIs'
+default: every matrix keeps its exact repack) and the Q5_0, Q5_1, Q2_K,
+Q3_K, Q5_K and Q8_K wire formats add to 3 kernel 4's exact branches
+(csrc/qmm_exact.cu) against their plain version, timed at b = 1, 64 and
+512 on the llama3-8B Q4_K (qkv, o, gate|up, down) and Q6_K (lm_head, attn_v,
+ffn_down) shapes and repeated bit-equal, the other layouts untimed at 1, 9
+and 64 rows, a Q8_K repack through kernel 6, and the card's repack, W8
+fold and Q8F of each new format against the CPU's; to 5 the 32-layer
+Q4_K_M file loaded with fast_mode=None serving 3 requests (kernel 4's exact
+branch on every projection at every step, kernel 3 attends, kernels 1, 2,
+5, 6 and 7 never; exact_serving_phase, which also runs tools/main.py
+without --fast-mode), a 4-layer file of every format in all four modes
+and a 4-layer Q8_0 file in the exact mode on the stacked path (kernel 9 and
+kernel 4's exact branch; new_formats_phase); to 6 the 2-layer Q4_K_M file
+and a 2-layer every-format file in the exact mode against the CPU.
+
+The parity phases' CPU references are computed by a child process of this
+script (--cpu-refs, started first, CPU_REF_THREADS threads), which runs
+beside the card's phases; the parent reads each when its card run needs it.
+
 The last line of standard output is {"ok": true, "device": {...}}.
 """
 
@@ -354,12 +374,16 @@ def sdpa_call(torch, q, k, v, mask, scale):
 W4_STREAMED = ("codes", "aux.q6", "aux.dd")
 FOLD_PLANES = ("codes", "g_scale", "g_min")
 SYM_PLANES = ("codes", "g_scale")  # a sym fold's min is 8 s: no plane of its own
+# an exact repack: codes, group scales and mins, superblock scales and mins
+EXACT_PLANES = ("codes", "g_scale", "g_min", "sb_scale", "sb_min")
 
 
 def w4_planes(w) -> tuple:
-    """The planes that a W4A8 product with fold w must read: the compact
-    planes, a sym fold's codes and scales, or codes, scales and mins."""
-    return {"compact": W4_STREAMED, "sym": SYM_PLANES}.get(w.flavor, FOLD_PLANES)
+    """The planes that a product with weight w must read: the compact
+    planes, a sym fold's codes and scales, an exact repack's every plane,
+    or codes, scales and mins."""
+    return {"compact": W4_STREAMED, "sym": SYM_PLANES, None: EXACT_PLANES}.get(
+        w.flavor, FOLD_PLANES)
 
 
 def nbytes(w, names=FOLD_PLANES) -> int:
@@ -614,18 +638,10 @@ def w8_kernel_phase(torch, results: dict) -> None:
     for qtype, (n, k), fold_fn in ((Q.Q4_K, (E, E), fold.fold_to_w4),
                                    (Q.Q6_K, (E, F), fold.fold_to_w8)):
         data = wire(qtype, n, k)
-        for what, fn in (("fold", lambda d: fold_fn(repack.repack(d, qtype, n, k))),
-                         ("q8f", lambda d: repack.repack_q8flat(d, qtype, n, k))):
-            g, c = fn(data.to(dev)), fn(data)
-            same = (g.tensors().keys() == c.tensors().keys() and all(
-                t.dtype == c.tensors()[name].dtype and torch.equal(t.cpu(), c.tensors()[name])
-                for name, t in g.tensors().items()))
-            log(json.dumps({"phase": "repack", "qtype": qtype.name, "shape": [n, k],
-                            "layout": g.flavor, "tensors": sorted(g.tensors()),
-                            "bit_equal_to_cpu": same}))
-            if not same:
-                raise AssertionError(f"card repack of {qtype.name} ({what}) differs from the CPU's")
-        del data, g, c
+        repack_equal(torch, data, qtype, n, k,
+                     lambda d, q, n, k: fold_fn(repack.repack(d, q, n, k)), "fold")
+        repack_equal(torch, data, qtype, n, k, repack.repack_q8flat, "q8f")
+        del data
 
     def w8(qtype, n, k, precise=False):
         return fold.fold_to_w8(repack.repack(wire(qtype, n, k).to(dev), qtype, n, k),
@@ -1233,6 +1249,236 @@ def fx_layer_kernel_phase(torch, results: dict) -> None:
         del ws, wo, gu, dn
     del flush
     torch.cuda.empty_cache()
+
+
+def exact_counter():
+    """Kernel 4's launches on its exact branches (qmm.LAUNCHES_EXACT), counted
+    apart as "qmm_exact" (each also counts in qmm.LAUNCHES)."""
+    from llama_kotlin_tpu_torch.ops.cuda import qmm
+
+    return BranchCounter(qmm, "LAUNCHES_EXACT", "qmm.qmm_exact")
+
+
+def repack_equal(torch, data, qtype, n: int, k: int, fn, what: str) -> None:
+    """A load-time conversion of wire bytes on the card equals the CPU's, bit
+    for bit: every tensor of the QTensor, and its dtype."""
+    g, c = fn(data.to("cuda"), qtype, n, k), fn(data, qtype, n, k)
+    same = (g.tensors().keys() == c.tensors().keys() and all(
+        t.dtype == c.tensors()[name].dtype and torch.equal(t.cpu(), c.tensors()[name])
+        for name, t in g.tensors().items()))
+    log(json.dumps({"phase": "repack", "qtype": qtype.name, "shape": [n, k], "what": what,
+                    "layout": g.flavor, "tensors": sorted(g.tensors()),
+                    "bit_equal_to_cpu": same}))
+    if not same:
+        raise AssertionError(f"card {what} of {qtype.name} differs from the CPU's")
+
+
+# kernel 4's exact branches: the timed rows' row counts (a decode step, a
+# 64-token and a 512-token prefill) and the untimed checks'
+EXACT_ROWS = (1, 64, 512)
+EXACT_CHECK_ROWS = (1, 9, 64)
+
+
+def exact_kernel_phase(torch, results: dict) -> None:
+    """Kernel 4's exact branches (csrc/qmm_exact.cu) against their plain
+    version (ops/cuda/qmm.py::qmm_plain, the Pallas order of the weight),
+    on exact repacks made on the card from random wire blocks: timed at b =
+    1, 64 and 512 on the llama3-8B Q4_K shapes (qkv, o, gate|up, down) and
+    Q6_K shapes (lm_head, attn_v, ffn_down), each repeated bit-equal; the
+    other layouts (Q4_0, Q4_1, Q2_K, Q5_0, Q5_1, Q5_K, Q3_K, Q8_0) untimed at
+    1, 9 and 64 rows; a Q8_K repack through qmatmul (kernel 6) against
+    kernel 6's plain version; and the card's repack of each new format
+    (Q5_0, Q5_1, Q2_K, Q3_K, Q5_K, Q8_K) and its W8 fold and Q8F against the
+    CPU's, bit for bit.  tol: identical bf16 operands, f32 order only."""
+    import numpy as np
+
+    from llama_kotlin_tpu_torch.models.synthetic import wire_blocks
+    from llama_kotlin_tpu_torch.ops import qmatmul as qmatmul_mod
+    from llama_kotlin_tpu_torch.ops.cuda import qmm, qmm_int8
+    from llama_kotlin_tpu_torch.quant import fold, repack
+    from llama_kotlin_tpu_torch.quant.formats import GGMLQuantType as Q
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5678)
+    flush = torch.zeros(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    report = functools.partial(report_row, results)
+    check = functools.partial(check_row, results)
+    rng = np.random.default_rng(77)
+    E, F, V, KVD = 4096, 14336, 128256, 1024
+
+    def wire(qtype, n, k):
+        return torch.from_numpy(wire_blocks(rng, qtype, n, k))
+
+    for qtype in (Q.Q5_0, Q.Q5_1, Q.Q2_K, Q.Q3_K, Q.Q5_K, Q.Q8_K):
+        data = wire(qtype, 1024, E)
+        repack_equal(torch, data, qtype, 1024, E, repack.repack, "repack")
+        repack_equal(torch, data, qtype, 1024, E, repack.repack_q8flat, "q8f")
+        if qtype != Q.Q8_K:
+            repack_equal(torch, data, qtype, 1024, E,
+                         lambda d, q, n, k: fold.fold_to_w8(repack.repack(d, q, n, k)), "w8 fold")
+
+    def timed_rows(qtype, shapes):
+        for name, (n, k) in shapes.items():
+            wt = repack.repack(wire(qtype, n, k).to(dev), qtype, n, k)
+            assert fold.is_exact(wt)
+            for m in EXACT_ROWS:
+                xb = (torch.randn((m, k), generator=gen, device=dev) * 0.7).to(torch.bfloat16)
+                got = qmm.qmm(xb, wt)
+                shape = f"exact {qtype.name} {name} n={n} k={k} m={m}"
+                repeats(torch, "qmm", shape, got, lambda: qmm.qmm(xb, wt))
+                report("qmm", shape, err_of(got, qmm.qmm_plain(xb, wt)), 1e-3,
+                       time_ms(torch, lambda: qmm.qmm(xb, wt), flush),
+                       time_ms(torch, lambda: qmm.qmm_plain(xb, wt), flush),
+                       m * k * 2 + nbytes(wt, EXACT_PLANES) + m * n * 4, 2 * m * n * k,
+                       "bf16", matmul_ms(torch, xb, wt, flush))
+            del wt
+
+    timed_rows(Q.Q4_K, {"qkv": (6144, E), "o": (E, E), "gate_up": (2 * F, E), "down": (E, F)})
+    timed_rows(Q.Q6_K, {"lm_head": (V, E), "attn_v": (KVD, E), "ffn_down": (E, F)})
+    torch.cuda.empty_cache()
+    for qtype in (Q.Q4_0, Q.Q4_1, Q.Q2_K, Q.Q5_0, Q.Q5_1, Q.Q5_K, Q.Q3_K, Q.Q8_0):
+        wt = repack.repack(wire(qtype, E, E).to(dev), qtype, E, E)
+        assert fold.is_exact(wt)
+        for m in EXACT_CHECK_ROWS:
+            xb = (torch.randn((m, E), generator=gen, device=dev) * 0.7).to(torch.bfloat16)
+            got = qmm.qmm(xb, wt)
+            shape = f"exact {qtype.name} n={E} k={E} m={m}"
+            repeats(torch, "qmm", shape, got, lambda: qmm.qmm(xb, wt))
+            check("qmm", shape, got, qmm.qmm_plain(xb, wt), 1e-3)
+    # a Q8_K repack routes to kernel 6 (its layout is Q8F's); tol as kernel
+    # 6's own rows (exact integer partials, f32 order of the scale sum)
+    wt = repack.repack(wire(Q.Q8_K, E, E).to(dev), Q.Q8_K, E, E)
+    assert fold.is_q8_sb(wt) and not fold.is_exact(wt)
+    for m in EXACT_CHECK_ROWS:
+        x = torch.randn((m, E), generator=gen, device=dev) * 0.7
+        n0, e0 = qmm_int8.LAUNCHES, qmm.LAUNCHES
+        got = qmatmul_mod.qmatmul(x, wt)
+        if qmm_int8.LAUNCHES != n0 + 1 or qmm.LAUNCHES != e0:
+            raise AssertionError("a Q8_K repack did not take kernel 6")
+        check("qmm_int8", f"exact Q8_K n={E} k={E} b={m}", got,
+              qmm_int8.qmm_int8_plain(x, wt), 1e-3)
+    del wt, flush
+    torch.cuda.empty_cache()
+
+
+def exact_serving_phase(torch, path: Path) -> dict:
+    """The exact-dequant mode (fast_mode=None, the loader's and the CLI's
+    default) on the 32-layer Q4_K_M file of gguf_phase: 3 requests (64-token
+    prefill, 32 greedy tokens) on the default context, which keeps the
+    mixed layers unrolled as JAX does.  Kernel 4's exact branch takes every
+    projection at every step: per forward 4 in each of the 16 uniform
+    layers (fused q|k|v and gate|up), 6 in each of the 16 with a Q6_K attn_v
+    (q, k and v apart) and the lm_head, 161; kernel 3 attends; kernels 1, 2,
+    5, 6 and 7 never launch.  Then tools/main.py without --fast-mode.
+    Returns {path: launch counts}."""
+    from llama_kotlin_tpu_torch.models.loader import load_gguf_model
+    from llama_kotlin_tpu_torch.ops.cuda import (flash, qmm, qmm_int8, qmm_w4, qmm_w4_ffn,
+                                                 qmm_w4x, qmm_w8)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cfg, params, f = load_gguf_model(path, fuse=True)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    f.close()
+    w_bytes = streamed_bytes(params)
+    log(json.dumps({"phase": "gguf_exact", "n_layer": cfg.n_layer, "load_s": load_s,
+                    "w_bytes_per_tok": w_bytes, "w_floor_ms_per_tok": w_bytes / HBM_BYTES_S * 1e3,
+                    "device_bytes": torch.cuda.memory_allocated(),
+                    "layouts": sorted({(key, v.qtype.name, v.bits, v.group_size)
+                                       for lp in params["layers"] for key, v in lp.items()
+                                       if hasattr(v, "codes")})}))
+    never = (qmm_w4, qmm_w4_ffn, qmm_w8, qmm_int8, qmm_w4x)
+    counts, ctx = serve(torch, cfg, params, (qmm, exact_counter(), flash), "gguf_exact",
+                        never=never)
+    want = {"qmm": 3 * 32 * 161, "qmm_exact": 3 * 32 * 161, "flash": 3 * 32 * 32}
+    if "layers" not in ctx.params or counts != want:
+        raise AssertionError(f"gguf_exact: launches {counts}, expected {want} unrolled")
+    profile_decode(torch, ctx, cfg, "gguf_exact")
+    del ctx, params
+    torch.cuda.empty_cache()
+    # the CLI with JAX's default flags: no --fast-mode
+    for m in (qmm, exact_counter()) + never:
+        m.LAUNCHES = 0
+    stats, out, seconds = cli_run("exact", ["-m", str(path), "-p", CLI_PROMPT, "-n", "16",
+                                            "--temp", "0", "-c", "512"])
+    cli_counts = {mod_name(m): m.LAUNCHES for m in (qmm, exact_counter()) + never}
+    log(json.dumps({"phase": "cli_exact", "seconds": seconds, "runs": run_times(stats),
+                    "launches": cli_counts}))
+    if not out.startswith(CLI_PROMPT) or not cli_counts["qmm_exact"] or any(
+            cli_counts[mod_name(m)] for m in never):
+        raise AssertionError(f"cli_exact: output or launches {cli_counts}")
+    return {"gguf_exact": counts, "cli_exact": {k: cli_counts[k] for k in ("qmm", "qmm_exact")}}
+
+
+def new_formats_phase(torch, tmpdir: Path) -> dict:
+    """A full-width 4-layer llama3-8B file of the every-format mix
+    (every_format_layer_types: Q5_0, Q5_1, Q2_K, Q3_K, Q5_K, Q4_0, Q4_1,
+    Q8_0, Q6_K and Q4_K on its 28 matrices, none fused; Q5_K token_embd, Q6_K
+    output) loaded in all four modes, each serving 3 requests (64-token
+    prefill, 8 greedy tokens) on the default context with its launch
+    counts: the W8 folds of the new formats on kernel 5 (w4; its dual-plane
+    branch in w4x), the 4-bit formats on kernels 1 (w4) and 7 (w4x),
+    prefill rows on kernel 4; Q8F on kernel 6 (int8, whose uniform layers
+    stack: kernel 9 attends); exact repacks on kernel 4's exact branch, 29
+    launches a forward (exact).  The mixed modes stay unrolled (kernel 3).
+    Then a 4-layer all-Q8_0 file in the exact mode: its uniform layers
+    stack, so kernel 9 attends and kernel 4's exact branch takes 17
+    launches a forward.
+    Returns {path: launch counts}."""
+    from llama_kotlin_tpu_torch.models.loader import load_gguf_model
+    from llama_kotlin_tpu_torch.models.synthetic import (every_format_layer_types,
+                                                         preset_config, synthetic_gguf)
+    from llama_kotlin_tpu_torch.ops.cuda import (flash, flash_stacked, qmm, qmm_int8, qmm_w4,
+                                                 qmm_w4_ffn, qmm_w4x, qmm_w8)
+    from llama_kotlin_tpu_torch.quant.formats import GGMLQuantType as Q
+
+    L, n_new = EARLIER_LAYERS, 8
+    cfg4 = preset_config("llama3-8b", n_layer=L)
+    path = tmpdir / "llama3-8b-every-format.gguf"
+    size = synthetic_gguf(path, cfg4, seed=12, layer_types=every_format_layer_types(L),
+                          embd_type=Q.Q5_K)
+    ex, precise = exact_counter(), w8_precise()
+    every = (flash, flash_stacked, qmm, ex, qmm_w4, qmm_w4_ffn, qmm_w8, precise, qmm_int8,
+             qmm_w4x)
+    # mode: the kernels that must launch (the rest of `every` must not); in
+    # the int8 mode every matrix is Q8F, so the layers are uniform and stack
+    modes = {None: (flash, qmm, ex), "w4": (flash, qmm, qmm_w4, qmm_w8),
+             "w4x": (flash, qmm, qmm_w4x, precise), "int8": (flash_stacked, qmm_int8)}
+    counts = {}
+    for mode, mods in modes.items():
+        label = f"every_format_{mode or 'exact'}"
+        cfg, params, f = load_gguf_model(path, fast_mode=mode, fuse=True)
+        f.close()
+        log(json.dumps({"phase": label, "file_bytes": size, "w_bytes_per_tok":
+                        streamed_bytes(params), "layouts": sorted(
+                            {(v.qtype.name, v.flavor or "exact") for lp in params["layers"]
+                             for v in lp.values() if hasattr(v, "codes")})}))
+        counts[label], ctx = serve(torch, cfg, params, mods, label, n_new=n_new,
+                                   never=tuple(m for m in every if m not in mods))
+        if mode is None and counts[label] != {"flash": 3 * n_new * L,
+                                              "qmm": 3 * n_new * (7 * L + 1),
+                                              "qmm_exact": 3 * n_new * (7 * L + 1)}:
+            raise AssertionError(f"{label}: launches {counts[label]}")
+        del ctx, params
+        torch.cuda.empty_cache()
+    path.unlink()
+    path = tmpdir / "llama3-8b-q8_0.gguf"
+    synthetic_gguf(path, cfg4, seed=13, matrix_type=Q.Q8_0)
+    cfg, params, f = load_gguf_model(path, fuse=True)
+    f.close()
+    counts["q8_0_exact_stacked"], ctx = serve(
+        torch, cfg, params, (flash_stacked, qmm, ex), "q8_0_exact_stacked", n_new=n_new,
+        never=tuple(m for m in every if m not in (flash_stacked, qmm, ex)))
+    want = {"flash_stacked": 3 * n_new * L, "qmm": 3 * n_new * (4 * L + 1),
+            "qmm_exact": 3 * n_new * (4 * L + 1)}
+    if "layers_stacked" not in ctx.params or counts["q8_0_exact_stacked"] != want:
+        raise AssertionError(f"q8_0_exact_stacked: {counts['q8_0_exact_stacked']}, want {want}")
+    del ctx, params
+    path.unlink()
+    torch.cuda.empty_cache()
+    return counts
 
 
 def streamed_bytes(params) -> int:
@@ -2289,9 +2535,9 @@ def parity_phase(torch) -> None:
     cfg = preset_config("llama3-8b", n_layer=2)
     params = synthetic_params_device(cfg, seed=1, device="cuda")
     prompt = np.random.default_rng(3).integers(0, cfg.vocab_size, 64).astype(np.int32)
-    res = {}
     cpu_params = params_to(params, "cpu")
-    for dev in ("cuda", "cpu"):
+
+    def greedy(dev):
         p = params if dev == "cuda" else cpu_params
         ctx = LlamaContext(cfg, p, n_cells=1024, buckets=(8, 16, 32, 64), prefer_unrolled=True,
                            device=dev)
@@ -2302,9 +2548,15 @@ def parity_phase(torch) -> None:
             assert ctx.decode(Batch.single([toks[-1]], pos0=64 + i)) == 0
             logits.append(ctx.get_logits()[-1])
             toks.append(int(np.argmax(logits[-1])))
-        res[dev] = (toks, logits)
-    (gt, gl), (ct, cl) = res["cuda"], res["cpu"]
-    errs = [float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(gl, cl)]
+        return logits
+
+    # the CPU's greedy run (its tokens are the argmax of its logits)
+    cl = cpu_ref("parity", lambda: greedy("cpu"))
+    ct = [int(np.argmax(b)) for b in cl]
+    gl = None if REFS["writer"] else greedy("cuda")
+    gt = None if gl is None else [int(np.argmax(a)) for a in gl]
+    errs = [] if gl is None else [float(np.abs(a - b).max() / np.abs(b).max())
+                                  for a, b in zip(gl, cl)]
     # the CPU's top-2 logit gap per step, in the same unit: where it exceeds
     # the error, equal greedy tokens are expected and carry signal
     gaps = [float((np.sort(b)[-1] - np.sort(b)[-2]) / np.abs(b).max()) for b in cl]
@@ -2316,12 +2568,13 @@ def parity_phase(torch) -> None:
     # max|logits| is ~5 logit std (logit_std_rel), so 3e-2 is ~0.15 std,
     # where a wiring fault moves logits by about one std
     tol = 3e-2
-    log(json.dumps({"phase": "parity", "n_layer": 2, "tokens_cuda": gt, "tokens_cpu": ct,
-                    "rel_logit_err": errs, "top2_gap_rel": gaps,
-                    "logit_std_rel": [float(b.std() / np.abs(b).max()) for b in cl],
-                    "tol_rel": tol}))
-    if gt != ct or not max(errs) <= tol:
-        raise AssertionError("card and CPU disagree")
+    if not REFS["writer"]:
+        log(json.dumps({"phase": "parity", "n_layer": 2, "tokens_cuda": gt, "tokens_cpu": ct,
+                        "rel_logit_err": errs, "top2_gap_rel": gaps,
+                        "logit_std_rel": [float(b.std() / np.abs(b).max()) for b in cl],
+                        "tol_rel": tol}))
+        if gt != ct or not max(errs) <= tol:
+            raise AssertionError("card and CPU disagree")
     # kernel 10 on the card (LKTPU_LAYER_FUSED=1) against the same CPU run:
     # the CPU's plain version equals its unfused route bit for bit
     card_vs_cpu(torch, "parity_unrolled_bf16_fused", lambda dev: LlamaContext(
@@ -2389,6 +2642,99 @@ def shift_positions(ctx, n_past: int) -> int:
     return n_past - half // 2
 
 
+# The card-vs-CPU parity phases' CPU references run in a child process of
+# this script (``--cpu-refs DIR``), started at the beginning with
+# CPU_REF_THREADS threads, so that they overlap the card's phases: the child
+# runs the same parity phases with REFS["writer"] set, computes each CPU
+# reference (cpu_ref) into DIR and skips the card runs; the parent reads
+# each reference there when its card run needs it, waiting for the child.
+CPU_REF_THREADS = 4
+REFS: dict = {"dir": None, "writer": False, "child": None, "log": None}
+
+
+def cpu_ref(label: str, compute) -> list:
+    """The CPU reference `label` of a parity check: compute() (a list of
+    logits rows) where no child computes it, written to the reference
+    directory in the child, read from there in the parent."""
+    import numpy as np
+
+    if REFS["dir"] is None:
+        return compute()
+    path = Path(REFS["dir"]) / f"{label}.npy"
+    if REFS["writer"]:
+        t0 = time.perf_counter()
+        rows = compute()
+        tmp = path.with_suffix(".tmp")
+        with open(tmp, "wb") as fh:
+            np.save(fh, np.stack([np.asarray(r, np.float32) for r in rows]))
+        os.replace(tmp, path)
+        log(json.dumps({"phase": "cpu_ref", "label": label,
+                        "seconds": time.perf_counter() - t0}))
+        return rows
+    t0 = time.perf_counter()
+    child = REFS["child"]
+    while not path.exists():
+        if child.poll() is not None and not path.exists():
+            tail = Path(REFS["log"]).read_text()[-4000:]
+            raise AssertionError(f"the CPU reference process ended (rc {child.returncode}) "
+                                 f"without {label}:\n{tail}")
+        time.sleep(0.2)
+    log(json.dumps({"phase": "cpu_ref_wait", "label": label,
+                    "seconds": time.perf_counter() - t0}))
+    return list(np.load(path))
+
+
+def start_cpu_refs(tmp: Path):
+    """Start the child that computes the CPU references into tmp/refs."""
+    ref_dir = tmp / "refs"
+    ref_dir.mkdir()
+    REFS.update(dir=str(ref_dir), log=str(tmp / "cpu_refs.log"))
+    env = dict(os.environ, OMP_NUM_THREADS=str(CPU_REF_THREADS))
+    with open(REFS["log"], "w") as out:
+        REFS["child"] = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--cpu-refs", str(ref_dir)],
+            stdout=out, stderr=subprocess.STDOUT, env=env, cwd=str(Path.cwd()))
+
+
+def stop_cpu_refs(check: bool) -> None:
+    """Wait for the child (check: it must have ended well) or end it."""
+    child = REFS["child"]
+    if child is None:
+        return
+    if check:
+        rc = child.wait(timeout=900)
+        text = Path(REFS["log"]).read_text()
+        log(json.dumps({"phase": "cpu_refs", "rc": rc,
+                        "refs": sorted(p.stem for p in Path(REFS["dir"]).glob("*.npy")),
+                        "timings": [json.loads(ln) for ln in text.splitlines()
+                                    if ln.startswith('{"phase": "cpu_refs_timing"')]}))
+        if rc != 0:
+            raise AssertionError("the CPU reference process failed:\n" + text[-4000:])
+    elif child.poll() is None:
+        child.kill()
+        child.wait()
+
+
+def cpu_refs_main(torch, ref_dir: str) -> int:
+    """The child: every parity phase's CPU references, into ref_dir."""
+    REFS.update(dir=ref_dir, writer=True)
+    torch.set_num_threads(CPU_REF_THREADS)
+    tmp = Path(ref_dir) / "files"
+    tmp.mkdir()
+    try:
+        for fn, args in ((parity_phase, ()), (gguf_parity_phase, (tmp,))):
+            t0 = time.perf_counter()
+            fn(torch, *args)
+            log(json.dumps({"phase": "cpu_refs_timing", "function": fn.__name__,
+                            "seconds": time.perf_counter() - t0}))
+    except Exception:
+        traceback.print_exc()
+        return 1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return 0
+
+
 def card_vs_cpu(torch, label: str, build, prompt, tol: float, steps: int = 4,
                 shift=None, knob_sets=({},), cpu=None) -> None:
     """One context on the CPU (the plain versions, which no knob changes)
@@ -2416,7 +2762,9 @@ def card_vs_cpu(torch, label: str, build, prompt, tol: float, steps: int = 4,
         del ctx
         return logits
 
-    cl = run("cpu", None) if cpu is None else cpu[1]
+    cl = cpu_ref(label, lambda: run("cpu", None)) if cpu is None else cpu[1]
+    if REFS["writer"]:
+        return  # the CPU reference process stops here; the card runs are the parent's
     ct = [int(np.argmax(b)) for b in cl]
     gaps = [float((np.sort(b)[-1] - np.sort(b)[-2]) / np.abs(b).max()) for b in cl]
     for env in knob_sets:
@@ -2435,14 +2783,16 @@ def card_vs_cpu(torch, label: str, build, prompt, tol: float, steps: int = 4,
 
 def gguf_parity_phase(torch, tmpdir: Path) -> None:
     """Full width, 2 layers of the Q4_K_M profile (layer 0 all Q4_K, layer 1
-    with Q6_K attn_v and ffn_down, Q6_K output), each fast mode on the
-    unrolled path: the file loaded on the card against the same file loaded
-    on the CPU (the CPU repack and the plain versions), by card_vs_cpu; and
-    the same file with a dense F16 output in the w4 mode."""
+    with Q6_K attn_v and ffn_down, Q6_K output), in the w4, int8 and exact
+    modes on the unrolled path: the file loaded on the card against the same
+    file loaded on the CPU (the CPU repack and the plain versions), by
+    card_vs_cpu; a 2-layer file of the every-format mix in the exact mode;
+    and the Q4_K_M file with a dense F16 output in the w4 mode."""
     import numpy as np
 
     from llama_kotlin_tpu_torch.models.loader import load_gguf_model
-    from llama_kotlin_tpu_torch.models.synthetic import preset_config, synthetic_gguf
+    from llama_kotlin_tpu_torch.models.synthetic import (every_format_layer_types,
+                                                         preset_config, synthetic_gguf)
     from llama_kotlin_tpu_torch.quant.formats import GGMLQuantType
     from llama_kotlin_tpu_torch.runtime.context import LlamaContext
 
@@ -2456,14 +2806,29 @@ def gguf_parity_phase(torch, tmpdir: Path) -> None:
     # (PERF.md); 5e-2 is twice that, ~0.25 logit std (logit_std_rel ~0.2),
     # where a wiring fault moves logits by about one std
     tol = 5e-2
-    for mode in ("w4", "int8"):
+    # the exact-dequant mode (None) as well, at the w4 file's tolerance: its
+    # bf16 operands carry no int8 re-quantization, so its spread is smaller
+    for mode in ("w4", "int8", None):
         def build(dev, mode=mode):
             cfg, params, f = load_gguf_model(path, fast_mode=mode, fuse=True, device=dev)
             f.close()
             return LlamaContext(cfg, params, n_cells=1024, buckets=(8, 16, 32, 64),
                                 prefer_unrolled=True, device=dev)
 
-        card_vs_cpu(torch, f"gguf_parity_{mode}", build, prompt, tol)
+        card_vs_cpu(torch, f"gguf_parity_{mode or 'exact'}", build, prompt, tol)
+    path.unlink()
+    # the every-format mix (each wire format on some matrix) in the exact
+    # mode, on the default (unrolled: its layers differ) context
+    path = tmpdir / "llama3-8b-2layer-every-format.gguf"
+    synthetic_gguf(path, preset_config("llama3-8b", n_layer=2), seed=9,
+                   layer_types=every_format_layer_types(2), embd_type=GGMLQuantType.Q5_K)
+
+    def build_every(dev):
+        cfg, params, f = load_gguf_model(path, fuse=True, device=dev)
+        f.close()
+        return LlamaContext(cfg, params, n_cells=1024, buckets=(8, 16, 32, 64), device=dev)
+
+    card_vs_cpu(torch, "gguf_parity_exact_every_format", build_every, prompt, tol)
     path.unlink()
     # a file whose output matrix is dense (F16, a bf16 tensor once loaded):
     # the lm_head is a plain bf16 matmul with an f32 result on both sides
@@ -2520,6 +2885,8 @@ def main() -> int:
     except ImportError:
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--cpu-refs"]:
+        return cpu_refs_main(torch, sys.argv[2])
     from llama_kotlin_tpu_torch.ops.cuda import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2531,6 +2898,9 @@ def main() -> int:
     log(json.dumps({"phase": "device", "name": name, "count": torch.cuda.device_count(),
                     "torch": torch.__version__, "cuda": torch.version.cuda}))
     log(smi)
+    ref_tmp = Path(tempfile.mkdtemp(prefix="lk_cpu_refs_"))
+    start_cpu_refs(ref_tmp)
+    ok = False
     try:
         t0 = time.perf_counter()
         so = _build.build()
@@ -2555,6 +2925,7 @@ def main() -> int:
         timed(w4x_kernel_phase, torch, results)
         timed(kv_kernel_phase, torch, results)
         timed(fx_layer_kernel_phase, torch, results)
+        timed(exact_kernel_phase, torch, results)
         by_path = timed(serving_phase, torch)
         by_path.update(timed(w4x_serving_phase, torch))
         by_path.update(timed(tinyllama_phase, torch))
@@ -2563,15 +2934,23 @@ def main() -> int:
             for mode, c in timed(gguf_phase, torch, tmpdir).items():
                 by_path[f"gguf_{mode}"] = c
             by_path["cli_w4"] = timed(cli_phase, torch, tmpdir / "llama3-8b-q4_k_m.gguf")
+            by_path.update(timed(exact_serving_phase, torch, tmpdir / "llama3-8b-q4_k_m.gguf"))
             (tmpdir / "llama3-8b-q4_k_m.gguf").unlink()
             by_path.update(timed(q4_0_gguf_phase, torch, tmpdir))
+            by_path.update(timed(new_formats_phase, torch, tmpdir))
             timed(parity_phase, torch)
             timed(gguf_parity_phase, torch, tmpdir)
+            timed(stop_cpu_refs, True)
         finally:
             shutil.rmtree(tmpdir, ignore_errors=True)
+        ok = True
     except Exception:
         traceback.print_exc()
         return 1
+    finally:
+        if not ok:
+            stop_cpu_refs(False)
+        shutil.rmtree(ref_tmp, ignore_errors=True)
     # kernel: (source, replaced Pallas kernel, index of the reported timed
     # row, {branch: index or shape of its timed row})
     meta = {
@@ -2634,6 +3013,18 @@ def main() -> int:
                 entry[branch]["unfused_ms"] = pick_row(rows, i)["unfused_ms"]
         if kname == "flash":  # the int4 branch's launches, counted apart
             entry["int4"]["launches"] = int4_launches
+        if kname == "qmm":  # the exact branches (csrc/qmm_exact.cu), counted apart
+            exact = {"source": "llama_kotlin_tpu_torch/csrc/qmm_exact.cu",
+                     **{k: pick_row(rows, "exact Q4_K qkv n=6144 k=4096 m=64")[k]
+                        for k in timing + ("max_abs_err",)},
+                     "launches_by_path": {p: c["qmm_exact"] for p, c in by_path.items()
+                                          if "qmm_exact" in c}}
+            exact["launches"] = sum(exact["launches_by_path"].values())
+            for branch, shape in (("b1", "exact Q4_K qkv n=6144 k=4096 m=1"),
+                                  ("m512", "exact Q4_K qkv n=6144 k=4096 m=512"),
+                                  ("lm_head_b1", "exact Q6_K lm_head n=128256 k=4096 m=1")):
+                exact[branch] = {k: pick_row(rows, shape)[k] for k in timing + ("max_abs_err",)}
+            entry["exact"] = exact
         if kname in ("qmm_w4_ffn", "qmm_w4_layer"):  # no library call; the route replaced
             entry["library"] = ("none: no one call computes a gated FFN" if kname == "qmm_w4_ffn"
                                 else "none: no one call computes a layer half")

@@ -2,7 +2,8 @@
 
 ``params_from_numpy(tree, device)`` takes the JAX package's nested params
 dict with every array already ``np.asarray``'d.  A QTensor (W4 or W8 fold,
-plain or precise, or Q8F) arrives as any object (or dict) carrying the JAX field names;
+plain or precise, Q8F, or an exact repack of the exact-dequant mode) arrives
+as any object (or dict) carrying the JAX field names;
 the port never imports the JAX class.  Both sides then compute on identical
 weights, which is what the parity tests need.
 """
@@ -59,11 +60,30 @@ def _int8_from_numpy(obj, aux: dict, dev) -> QTensor:
                    shape=tuple(int(v) for v in _field(obj, "shape")), aux={"flavor": flavor})
 
 
+def _exact_from_numpy(obj, dev) -> QTensor:
+    """A JAX exact repack (no aux: any bits, integer or f32 group planes,
+    optional superblock planes) -> the port's, every plane in its dtype."""
+    opt = lambda name: None if _field(obj, name) is None else _tensor(_field(obj, name), dev)
+    return QTensor(codes=_tensor(_field(obj, "codes"), dev),
+                   g_scale=_tensor(_field(obj, "g_scale"), dev), g_min=opt("g_min"),
+                   sb_scale=opt("sb_scale"), sb_min=opt("sb_min"),
+                   qtype=GGMLQuantType(int(_field(obj, "qtype"))), bits=int(_field(obj, "bits")),
+                   group_size=int(_field(obj, "group_size")),
+                   code_offset=int(_field(obj, "code_offset")),
+                   shape=tuple(int(v) for v in _field(obj, "shape")))
+
+
 def qtensor_from_numpy(obj, device: DeviceLike = None) -> QTensor:
     """One JAX-side served QTensor (numpy leaves: a W4 or W8 fold, plain or
-    precise, or Q8F) -> the port's QTensor."""
+    precise, Q8F, or an exact repack) -> the port's QTensor.  A Q8_K exact
+    repack has Q8F's layout and stays exact (no flavor); JAX's Q8F always
+    carries qtype Q8_0."""
     dev = resolve_device(device)
     aux = dict(_field(obj, "aux") or {})
+    exact_q8k = int(_field(obj, "qtype")) == int(GGMLQuantType.Q8_K)
+    if not aux and not _field(obj, "hi_signed") and (
+            _field(obj, "bits") != 8 or _field(obj, "group_size") != 256 or exact_q8k):
+        return _exact_from_numpy(obj, dev)
     if _field(obj, "bits") == 8 and not _field(obj, "hi_signed"):
         return _int8_from_numpy(obj, aux, dev)
     if (not _field(obj, "hi_signed") or _field(obj, "bits") != 4

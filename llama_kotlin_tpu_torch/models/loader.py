@@ -1,24 +1,28 @@
 """GGUF -> device params (port of ``llama_kotlin_tpu/models/loader.py`` for
-the llama architecture in the two fast modes).
+the llama architecture in all four of its modes).
 
-``load_gguf_model(path, fast_mode="w4"|"w4x"|"int8", fuse=True)``
+``load_gguf_model(path, fast_mode=None|"w4"|"w4x"|"int8", fuse=True)``
 memory-maps the file, moves each tensor's wire bytes to the device and
 repacks them there (``quant/repack.py``), in row chunks so that no f32 copy
 of a whole lm_head sits in memory:
 
-* ``"w4"``: 4-bit group-32 formats (Q4_K) fold to W4 (kernels 1, 2, 4);
-  every other group-16/32 format (Q6_K, Q8_0) folds to W8 (kernels 5, 4);
+* ``None``, the default (JAX ``:334``), the exact-dequant mode: every
+  quantized matrix keeps its exact repack (JAX ``:173-175``), served by
+  kernel 4's exact branches at every row count, an int8 group-256 (Q8_K)
+  repack by kernel 6;
+* ``"w4"`` (JAX ``_repack_w4``, ``:127-148``): 4-bit group-32 formats
+  (Q4_K, Q4_0, Q4_1) fold to W4 (kernels 1, 2, 4); every other group-16/32
+  format (Q6_K, Q8_0, Q5_0, Q5_1, Q5_K, Q3_K, Q2_K) folds to W8 (kernels
+  5, 4); any other group (Q8_K) converts to Q8F (kernel 6);
 * ``"w4x"``, the high-fidelity mode: the same formats fold to the precise
   W4X and W8X folds (kernel 7, kernel 5's dual-plane branch, kernel 4);
-  a format JAX's w4x mode keeps as its exact standard repack (group sizes
-  other than 16/32) raises, naming the exact-dequant slice;
+  any other group keeps its exact repack (JAX ``:148``);
 * ``"int8"``: every matrix converts to Q8F (kernel 6).
 
 Norms stay f32, and an F32, F16 or BF16 matrix stays a dense bf16 tensor in
-every mode, as in JAX (a plain matmul serves it).  The exact-dequant mode
-(``fast_mode=None``) needs kernel 4 on every repacked format and comes with
-a later slice (ROADMAP.md section 1, item 7); it raises here, as does a
-tensor name the llama forward does not read.
+every mode, as in JAX (a plain matmul serves it).  Still refused: the IQ
+formats (``quant/repack.py``, ROADMAP.md section 1, item 6), 3-D (MoE)
+weights and tensor names the llama forward does not read (item 13).
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ from llama_kotlin_tpu_torch.quant.formats import TYPE_TRAITS, GGMLQuantType, row
 from llama_kotlin_tpu_torch.quant.qtensor import QTensor, concat_qtensors
 from llama_kotlin_tpu_torch.quant.repack import dequantize_wire, repack, repack_q8flat
 
-FAST_MODES = ("w4", "w4x", "int8")
+FAST_MODES = (None, "w4", "w4x", "int8")
 ROW_CHUNK = 16384  # matrix rows converted per step
 
 # tensor-name suffix -> params key (the llama rows of the JAX tables)
@@ -61,23 +65,27 @@ _ALWAYS_FLOAT = {"attn_norm", "ffn_norm", "output_norm", "rope_freqs"}
 
 
 def _convert(data: torch.Tensor, qt: GGMLQuantType, n: int, k: int,
-             fast_mode: str) -> QTensor:
-    """int8 mode: Q8F.  W4 and W4X modes: 4-bit group-32 formats fold to W4
-    (precise in W4X), the other ported formats (group 16/32) to W8."""
+             fast_mode: Optional[str]) -> QTensor:
+    """The mode's layout of one quantized matrix: the exact repack (None);
+    Q8F (int8); in the W4 and W4X modes 4-bit group-32 formats fold to W4
+    (precise in W4X), other group-16/32 formats to W8, and any other group
+    converts to Q8F (w4) or keeps its exact repack (w4x), as JAX's
+    ``_repack_w4``."""
     if fast_mode == "int8":
         return repack_q8flat(data, qt, n, k)
     rp = repack(data, qt, n, k)
+    if fast_mode is None:
+        return rp
     precise = fast_mode == "w4x"
     if rp.bits == 4 and rp.group_size == GROUP:
         return fold_to_w4(rp, precise=precise)
-    if precise and rp.group_size not in (16, 32):
-        raise NotImplementedError(
-            f"{qt.name} in the w4x mode: JAX keeps it as its exact standard repack, "
-            "which needs kernel 4 on every repacked format (the exact-dequant slice)")
-    return fold_to_w8(rp, precise=precise)
+    if rp.group_size in (16, 32):
+        return fold_to_w8(rp, precise=precise)
+    return rp if precise else repack_q8flat(data, qt, n, k)
 
 
-def _load_matrix(data: torch.Tensor, qt: GGMLQuantType, n: int, k: int, fast_mode: str,
+def _load_matrix(data: torch.Tensor, qt: GGMLQuantType, n: int, k: int,
+                 fast_mode: Optional[str],
                  dev: torch.device) -> QTensor | torch.Tensor:
     """One [n, k] matrix, converted on `dev` in row chunks: a quantized one
     to the mode's QTensor, a float one (F32, F16, BF16) to a dense bf16
@@ -95,7 +103,8 @@ def _load_matrix(data: torch.Tensor, qt: GGMLQuantType, n: int, k: int, fast_mod
     return parts[0] if len(parts) == 1 else concat_qtensors(parts)
 
 
-def _load_tensor(f: GGUFFile, name: str, key: str, fast_mode: str, dev: torch.device):
+def _load_tensor(f: GGUFFile, name: str, key: str, fast_mode: Optional[str],
+                 dev: torch.device):
     """Norms -> f32 tensors; matrices -> the mode's QTensor or dense bf16."""
     info = f.tensors[name]
     data = f.tensor_data(name)
@@ -103,12 +112,12 @@ def _load_tensor(f: GGUFFile, name: str, key: str, fast_mode: str, dev: torch.de
         return dequantize_wire(data.to(dev), info.ggml_type, info.np_shape)
     if len(info.np_shape) != 2:
         raise NotImplementedError(f"{name}: {len(info.np_shape)}-D weights (MoE) come "
-                                  "with slice 5")
+                                  "with slice 5 (ROADMAP.md section 1, item 13)")
     n, k = info.np_shape
     return _load_matrix(data, info.ggml_type, n, k, fast_mode, dev)
 
 
-def _load_fused_qkv(f: GGUFFile, name: str, cfg: ModelConfig, fast_mode: str,
+def _load_fused_qkv(f: GGUFFile, name: str, cfg: ModelConfig, fast_mode: Optional[str],
                     dev: torch.device) -> dict:
     """Split a fused attn_qkv tensor into wq/wk/wv: the rows are q|k|v and
     quantized rows are independent, so a row split is exact."""
@@ -127,10 +136,11 @@ def _load_fused_qkv(f: GGUFFile, name: str, cfg: ModelConfig, fast_mode: str,
 def fuse_layer_projections(cfg: ModelConfig, params: dict) -> int:
     """Serving fold: wq|wk|wv -> wqkv_fused and ffn_gate|up ->
     ffn_gateup_fused in every layer whose parts share one layout (one
-    launch instead of two or three): all QTensors, or all dense matrices,
-    as in JAX.  A layer of mixed layouts keeps its projections split:
-    concat_qtensors refuses them.  Returns the number of layers with at
-    least one fusion."""
+    launch instead of two or three): all QTensors (folds or exact repacks),
+    or all dense matrices, as in JAX (``:268``).  A layer of mixed layouts
+    keeps its projections split: concat_qtensors refuses them (a Q4_K_M
+    layer's Q4_K wq/wk and Q6_K wv, in every mode).  Returns the number of
+    layers with at least one fusion."""
     n_fused = 0
     for lp in params["layers"]:
         did = False
@@ -156,12 +166,12 @@ def fuse_layer_projections(cfg: ModelConfig, params: dict) -> int:
 def load_gguf_model(path: str | Path, *, fast_mode: Optional[str] = None,
                     fuse: bool = False, device: DeviceLike = None):
     """Load a llama GGUF file into (config, params, open GGUFFile) on
-    `device` (None means cuda).  fast_mode is "w4", "w4x" or "int8"; fuse=True
-    applies the single-device serving fold (fuse_layer_projections)."""
+    `device` (None means cuda).  fast_mode is None (the exact-dequant mode,
+    JAX's default), "w4", "w4x" or "int8"; fuse=True applies the
+    single-device serving fold (fuse_layer_projections)."""
     if fast_mode not in FAST_MODES:
-        raise NotImplementedError(
-            f"fast_mode={fast_mode!r}: the port loads {FAST_MODES}; the exact-dequant "
-            "mode (None) needs kernel 4 on every repacked format, the next slice")
+        raise NotImplementedError(f"fast_mode={fast_mode!r}: the port loads {FAST_MODES}, "
+                                  "the JAX package's modes")
     dev = resolve_device(device)
     f = GGUFFile(path)
     cfg = config_from_metadata(f.metadata)
@@ -182,7 +192,8 @@ def load_gguf_model(path: str | Path, *, fast_mode: Optional[str] = None,
                 lp[key] = _load_tensor(f, name, key, fast_mode, dev)
                 continue
         raise NotImplementedError(f"tensor {name!r} is not read by the port's llama "
-                                  "forward (biases, MoE and other archs come later)")
+                                  "forward (biases, MoE and other archs come with ROADMAP.md "
+                                  "section 1, item 13)")
     params.setdefault("rope_freqs", None)  # no "output": tied, forward reads tok_embd
     if fuse:
         fuse_layer_projections(cfg, params)

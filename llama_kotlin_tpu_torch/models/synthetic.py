@@ -6,7 +6,8 @@ package's generator, so the same seed gives the same weights on both sides.
 ``synthetic_params_device`` draws every large tensor on the device from a
 seeded ``torch.Generator`` — no multi-GB host build.  ``synthetic_gguf``
 writes a llama GGUF file of random wire blocks (the Q4_K_M type mix by
-default) for the loader to read.
+default; the Q5_K_M mix, single-type files and a mix of every format the
+loader takes) for the loader to read.
 """
 
 from __future__ import annotations
@@ -171,6 +172,29 @@ def _pack_scale_min_k4(sc: np.ndarray, mn: np.ndarray) -> np.ndarray:
     return out
 
 
+def _pack_q3k_scales(sc: np.ndarray) -> np.ndarray:
+    """16 signed 6-bit scales -> the 12 packed bytes of a Q3_K block (the
+    inverse of ``quant/repack.py::unpack_q3k_scales``)."""
+    u = (sc.astype(np.int16) + 32).astype(np.uint8)
+    out = np.empty(u.shape[:-1] + (12,), np.uint8)
+    out[..., 0:4] = (u[..., 0:4] & 0x0F) | ((u[..., 8:12] & 0x0F) << 4)
+    out[..., 4:8] = (u[..., 4:8] & 0x0F) | ((u[..., 12:16] & 0x0F) << 4)
+    out[..., 8:12] = (((u[..., 0:4] >> 4) & 3) | (((u[..., 4:8] >> 4) & 3) << 2)
+                      | (((u[..., 8:12] >> 4) & 3) << 4) | (((u[..., 12:16] >> 4) & 3) << 6))
+    return out
+
+
+def _q5_legacy(q: np.ndarray) -> list:
+    """Five-bit codes [nb, 32] (element order) -> (qh as 4 little-endian
+    bytes, qs 16 bytes): bit j of qh is code j's fifth bit, bit 16 + j code
+    16 + j's; qs byte j holds code j's low nibble and code 16 + j's high."""
+    hb = (q >> 4).astype(np.uint32)
+    qh = (hb[:, :16] << np.arange(16, dtype=np.uint32)).sum(axis=1, dtype=np.uint32) | (
+        hb[:, 16:] << np.arange(16, 32, dtype=np.uint32)).sum(axis=1, dtype=np.uint32)
+    return [qh.astype("<u4").view(np.uint8).reshape(-1, 4),
+            (q[:, :16] & 0x0F) | ((q[:, 16:] & 0x0F) << 4)]
+
+
 def wire_blocks(rng: np.random.Generator, qtype: GGMLQuantType, n: int, k: int) -> np.ndarray:
     """Random wire bytes of an [n, k] tensor, flat uint8, with weights of
     std ~0.01-0.04 around zero:
@@ -187,6 +211,15 @@ def wire_blocks(rng: np.random.Generator, qtype: GGMLQuantType, n: int, k: int) 
       (2^-9 or 2^-8), so m is exact in f16, as in the Q4_K branch;
     * Q6_K: signed 6-bit-range group scales symmetric about 0;
     * Q8_0: uniform int8 codes under f16 scales;
+    * Q5_0: (q - 16) d with codes uniform in 1..31 (zero-mean groups, as
+      Q4_0's);
+    * Q5_1: q d + m with m = -15.5 d, d a power of two (zero-mean groups);
+    * Q2_K: q (d sc) - (dmin mn) with mn = sc and dmin = 1.5 d, d a power of
+      two (zero-mean groups of 16);
+    * Q3_K: (d sc) q with codes uniform in -3..3 (the -4 the format could
+      hold is never drawn, so groups are zero-mean) and signed scales;
+    * Q5_K: Q4_K's rule with 5-bit codes: mn = sc and dmin = 15.5 d;
+    * Q8_K: uniform int8 codes under an f32 scale, with their bsums;
     * F16 and F32: dense weights, normal with std 0.02."""
     if qtype in (GGMLQuantType.F16, GGMLQuantType.F32):
         dense = rng.standard_normal(n * k, dtype=np.float32) * np.float32(0.02)
@@ -210,6 +243,36 @@ def wire_blocks(rng: np.random.Generator, qtype: GGMLQuantType, n: int, k: int) 
     elif qtype == GGMLQuantType.Q8_0:
         codes = rng.integers(-127, 128, (nb, 32), dtype=np.int8).view(np.uint8)
         blocks = [_f16_bytes(rng.uniform(2.0 ** -13, 2.0 ** -11, nb)), codes]
+    elif qtype == GGMLQuantType.Q5_0:
+        q = rng.integers(1, 32, (nb, 32), dtype=np.uint8)
+        blocks = [_f16_bytes(rng.uniform(2.0 ** -10, 2.0 ** -8, nb)), *_q5_legacy(q)]
+    elif qtype == GGMLQuantType.Q5_1:
+        d = np.where(rng.random(nb) < 0.5, 2.0 ** -10, 2.0 ** -9)
+        q = rng.integers(0, 32, (nb, 32), dtype=np.uint8)
+        blocks = [_f16_bytes(d), _f16_bytes(-15.5 * d), *_q5_legacy(q)]
+    elif qtype == GGMLQuantType.Q2_K:
+        sc = rng.integers(1, 16, (nb, 16), dtype=np.uint8)
+        d = np.where(rng.random(nb) < 0.5, 2.0 ** -10, 2.0 ** -9)
+        blocks = [sc | (sc << 4), u8(nb, 64), _f16_bytes(d), _f16_bytes(1.5 * d)]
+    elif qtype == GGMLQuantType.Q3_K:
+        q = rng.integers(-3, 4, (nb, 2, 4, 32), dtype=np.int8)  # [half, shift/2, l]
+        low = np.where(q >= 0, q, q + 4).astype(np.uint8)
+        qs = (low[:, :, 0] | (low[:, :, 1] << 2) | (low[:, :, 2] << 4) | (low[:, :, 3] << 6))
+        hset = (q >= 0).astype(np.uint8).reshape(nb, 8, 32)  # bit 4 half + shift/2
+        hmask = (hset << np.arange(8, dtype=np.uint8)[:, None]).sum(axis=1, dtype=np.uint8)
+        sc = rng.integers(-31, 32, (nb, 16), dtype=np.int8)
+        blocks = [hmask, qs.reshape(nb, 64), _pack_q3k_scales(sc),
+                  _f16_bytes(rng.uniform(2.0 ** -12, 2.0 ** -10, nb))]
+    elif qtype == GGMLQuantType.Q5_K:
+        d = np.where(rng.random(nb) < 0.5, 2.0 ** -15, 2.0 ** -14)
+        sc = rng.integers(0, 64, (nb, 8), dtype=np.uint8)
+        blocks = [_f16_bytes(d), _f16_bytes(15.5 * d), _pack_scale_min_k4(sc, sc),
+                  u8(nb, 32), u8(nb, 128)]
+    elif qtype == GGMLQuantType.Q8_K:
+        codes = rng.integers(-127, 128, (nb, 256), dtype=np.int8)
+        bsums = codes.reshape(nb, 16, 16).sum(axis=-1, dtype=np.int16).astype("<i2")
+        d = rng.uniform(2.0 ** -13, 2.0 ** -11, nb).astype("<f4")
+        blocks = [d.view(np.uint8), codes.view(np.uint8), bsums.view(np.uint8)]
     else:
         raise NotImplementedError(f"random {GGMLQuantType(qtype).name} blocks")
     return np.concatenate([b.reshape(nb, -1) for b in blocks], axis=1).reshape(-1)
@@ -226,9 +289,42 @@ def q4_k_m_layer_types(n_layer: int) -> list[dict]:
             for i in range(n_layer)]
 
 
-# general.file_type of a file whose matrices are all of one type (llama.cpp's
-# llama_ftype); a Q4_K file takes the Q4_K_M mix and its code
-FILE_TYPES = {GGMLQuantType.Q4_0: 2, GGMLQuantType.Q4_1: 3, GGMLQuantType.Q4_K: 15}
+def q5_k_m_layer_types(n_layer: int) -> list[dict]:
+    """llama.cpp's Q5_K_M choice per layer (llama_tensor_get_type for
+    LLAMA_FTYPE_MOSTLY_Q5_K_M): Q6_K for attn_v and ffn_down where Q4_K_M
+    takes Q6_K (use_more_bits), Q5_K elsewhere."""
+    return [{name: GGMLQuantType.Q5_K if t == GGMLQuantType.Q4_K else t
+             for name, t in types.items()} for types in q4_k_m_layer_types(n_layer)]
+
+
+# the matrices of a layer, in the order synthetic_gguf writes them
+LAYER_MATRICES = ("attn_q", "attn_k", "attn_v", "attn_output", "ffn_gate", "ffn_up",
+                  "ffn_down")
+# every quantized wire format the loader takes, for every_format_layer_types
+EVERY_FORMAT = (GGMLQuantType.Q5_0, GGMLQuantType.Q5_1, GGMLQuantType.Q2_K,
+                GGMLQuantType.Q3_K, GGMLQuantType.Q5_K, GGMLQuantType.Q4_0,
+                GGMLQuantType.Q4_1, GGMLQuantType.Q8_0, GGMLQuantType.Q6_K,
+                GGMLQuantType.Q4_K)
+
+
+def every_format_layer_types(n_layer: int) -> list[dict]:
+    """A synthetic mix that puts each of EVERY_FORMAT on some matrix: the
+    layers' matrices, in LAYER_MATRICES order, cycle through the formats,
+    so two layers (14 matrices) hold all ten.  No two projections of a
+    layer share a type, so none fuses."""
+    cyc = len(EVERY_FORMAT)
+    return [{name: EVERY_FORMAT[(i * len(LAYER_MATRICES) + j) % cyc]
+             for j, name in enumerate(LAYER_MATRICES)} for i in range(n_layer)]
+
+
+# general.file_type of a file whose matrices are mostly of one type (llama.cpp's
+# llama_ftype); a Q4_K file takes the Q4_K_M mix and its code, a Q5_K file
+# the Q5_K_M mix
+FILE_TYPES = {GGMLQuantType.Q4_0: 2, GGMLQuantType.Q4_1: 3, GGMLQuantType.Q8_0: 7,
+              GGMLQuantType.Q5_0: 8, GGMLQuantType.Q5_1: 9, GGMLQuantType.Q2_K: 10,
+              GGMLQuantType.Q3_K: 12, GGMLQuantType.Q4_K: 15, GGMLQuantType.Q5_K: 17,
+              GGMLQuantType.Q6_K: 18}
+DEFAULT_MIX = {GGMLQuantType.Q4_K: q4_k_m_layer_types, GGMLQuantType.Q5_K: q5_k_m_layer_types}
 
 
 # the public Llama-2 chat template (a jinja string, as HF ships it): the
@@ -296,9 +392,11 @@ def synthetic_gguf(path, cfg: ModelConfig, seed: int = 0, layer_types: Optional[
                    matrix_type: GGMLQuantType = GGMLQuantType.Q4_K,
                    extra_kvs: Optional[dict] = None) -> int:
     """Write a llama GGUF of random wire blocks for `cfg`: every layer matrix
-    of `matrix_type` but those `layer_types` names (default for Q4_K: the
-    Q4_K_M profile, q4_k_m_layer_types; for Q4_0 or Q4_1 none, the
-    LLAMA_FTYPE_MOSTLY_Q4_0/Q4_1 files), `token_embd` (embd_type, default
+    of `matrix_type` but those `layer_types` names (a dict a layer from
+    LAYER_MATRICES to types; default for Q4_K: the Q4_K_M profile,
+    q4_k_m_layer_types; for Q5_K the Q5_K_M one; for other types none, the
+    LLAMA_FTYPE_MOSTLY_* files; every_format_layer_types for a file that
+    holds every format), `token_embd` (embd_type, default
     matrix_type) and `output` (output_type: Q6_K, as llama.cpp quantizes
     it in these files; F16 or F32 make them dense); norms F32 near 1.  Each
     tensor is drawn from one numpy Generator as the writer streams it, so a
@@ -309,8 +407,8 @@ def synthetic_gguf(path, cfg: ModelConfig, seed: int = 0, layer_types: Optional[
 
     rng = np.random.default_rng(seed)
     if layer_types is None:
-        layer_types = (q4_k_m_layer_types(cfg.n_layer) if matrix_type == GGMLQuantType.Q4_K
-                       else [{}] * cfg.n_layer)
+        mix = DEFAULT_MIX.get(matrix_type)
+        layer_types = mix(cfg.n_layer) if mix else [{}] * cfg.n_layer
     embd_type = matrix_type if embd_type is None else embd_type
     E, F, V = cfg.n_embd, cfg.n_ff, cfg.vocab_size
     qd, kvd = cfg.n_head * cfg.head_dim, cfg.n_head_kv * cfg.head_dim
@@ -341,14 +439,13 @@ def synthetic_gguf(path, cfg: ModelConfig, seed: int = 0, layer_types: Optional[
     for i, types in enumerate(layer_types):
         b = f"blk.{i}."
         norm(b + "attn_norm.weight")
-        matrix(b + "attn_q.weight", qd, E, matrix_type)
-        matrix(b + "attn_k.weight", kvd, E, matrix_type)
-        matrix(b + "attn_v.weight", kvd, E, types.get("attn_v", matrix_type))
-        matrix(b + "attn_output.weight", E, qd, matrix_type)
-        norm(b + "ffn_norm.weight")
-        matrix(b + "ffn_gate.weight", F, E, matrix_type)
-        matrix(b + "ffn_up.weight", F, E, matrix_type)
-        matrix(b + "ffn_down.weight", E, F, types.get("ffn_down", matrix_type))
+        shapes = {"attn_q": (qd, E), "attn_k": (kvd, E), "attn_v": (kvd, E),
+                  "attn_output": (E, qd), "ffn_gate": (F, E), "ffn_up": (F, E),
+                  "ffn_down": (E, F)}
+        for name in LAYER_MATRICES:
+            if name == "ffn_gate":
+                norm(b + "ffn_norm.weight")
+            matrix(b + name + ".weight", *shapes[name], types.get(name, matrix_type))
     norm("output_norm.weight")
     matrix("output.weight", V, E, output_type)
     w.write(path)

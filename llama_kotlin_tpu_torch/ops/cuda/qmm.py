@@ -1,14 +1,27 @@
-"""Kernel 4: fused dequantize-matmul for prefill rows over a W4 or W8 fold
-(``csrc/qmm.cu``).
+"""Kernel 4: fused dequantize-matmul over a W4 or W8 fold for prefill rows
+(``csrc/qmm.cu``), and over an exact repack at any number of rows, its
+exact branches (``csrc/qmm_exact.cu``).
 
-Replaces ``llama_kotlin_tpu/ops/pallas/qmm.py::qmm`` on the W4 fold and,
-in its ``bits == 8`` branch, on the W8 fold (entry ``qmm_pallas_or_none``);
-the W4X mode's precise folds take the same branches with their f32 scales
-read as stored (``qmm.py:201`` takes any hi_signed W4 layout):
-y = x W^T with w = plane * g_scale - g_min (W4) or code * s_eff (- m_eff)
-(W8) formed in f32 and rounded to bf16, x in bf16, f32 accumulation — the
-operands the Pallas kernel feeds its dot.  Bound on the H100: bytes at 64
-rows; the dequantized tile lives only in registers.  See the CUDA source.
+Replaces ``llama_kotlin_tpu/ops/pallas/qmm.py::qmm`` (``:192``, its
+``pallas_call`` at ``:349``; entry ``qmm_pallas_or_none``):
+
+* on the W4 fold and, in its ``bits == 8`` branch, on the W8 fold; the W4X
+  mode's precise folds take the same branches with their f32 scales read
+  as stored (``qmm.py:201`` takes any hi_signed W4 layout): w = plane *
+  g_scale - g_min (W4) or code * s_eff (- m_eff) (W8);
+* on the exact repacks of ``quant/repack.py``, the exact-dequant mode's
+  layout (``fast_mode=None``; JAX's chain ends in ``qmm`` at every row
+  count there, ``ops/qmatmul.py:117-119``): 8-bit codes (Q5_0, Q5_1, Q5_K,
+  Q3_K, Q6_K, Q8_0), 4-bit planes (Q4_0, Q4_1, Q4_K) and 2-bit planes
+  (Q2_K), group 16 or 32, f32/uint8/int8 group scales, optional mins and
+  superblock planes, with w formed in the Pallas kernel's order
+  (``qmm.py:82-109``): sc = g_scale * sb_scale, adj = sc * code_offset +
+  g_min * sb_min, w = plane * sc - adj.
+
+Each w is formed in f32 and rounded to bf16, x in bf16, f32 accumulation:
+the operands the Pallas kernel feeds its dot.  Bound on the H100: bytes at
+64 rows; the dequantized tile lives only in registers.  See the CUDA
+sources.
 
 ``plan`` chooses the kernel's tiling on the host: the row tile, and how
 many ranges K is split into so that every projection fills the card's
@@ -24,22 +37,29 @@ from __future__ import annotations
 
 import functools
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 
 from llama_kotlin_tpu_torch.device import is_cuda, require
 from llama_kotlin_tpu_torch.ops.cuda import _build
-from llama_kotlin_tpu_torch.ops.cuda._checks import check_int8_on, check_w4_on
-from llama_kotlin_tpu_torch.quant.fold import is_w4, is_w4x, is_w8, is_w8x
-from llama_kotlin_tpu_torch.quant.qtensor import QTensor, dequantize
+from llama_kotlin_tpu_torch.ops.cuda._checks import (SCALE_DTYPES, check_exact_on,
+                                                     check_int8_on, check_w4_on)
+from llama_kotlin_tpu_torch.quant.fold import is_exact, is_w4, is_w4x, is_w8, is_w8x
+from llama_kotlin_tpu_torch.quant.qtensor import SPAN, QTensor, unpack_codes
 
-LAUNCHES = 0  # kernel launches made by qmm (both branches)
-LAUNCHES_W8 = 0  # of which on the 8-bit branch
+LAUNCHES = 0  # kernel launches made by qmm (every branch)
+LAUNCHES_W8 = 0  # of which on the 8-bit fold branch
+LAUNCHES_EXACT = 0  # of which on the exact branches
 PLAIN_CHUNK = 8192  # output rows per step of the plain version
 BN = 128  # weight rows (output columns) a block
 BMS = (32, 64, 128)  # the row tiles the kernel takes
 UNIT_W4, UNIT_W8 = 256, 64  # K elements a split unit: a W4 span, a W8 step of whole groups
+# the exact branches: a unit of 64 elements of 8-bit codes, or a whole span
+# of 4- or 2-bit planes (a split never cuts a span's planes apart); row
+# tiles of 32 and 64 (csrc/qmm_exact.cu instantiates no 128-row tile)
+UNIT_EXACT = {8: 64, 4: 256, 2: 256}
+EXACT_BMS = (32, 64)
 # the split choice's cost model: a block of 64 rows spends ~4.8 us a
 # 256-element unit, the last block's sum ~1 us a split, and an SM runs 2
 # blocks at once (the launch bounds' floor at 64 rows, the row tile that
@@ -116,9 +136,29 @@ def split_workspace(p: Plan, rows: int, n: int, device: torch.device):
 
 
 def dequantize_bf16(w: QTensor, rows: slice = slice(None)) -> torch.Tensor:
-    """The kernel's weight operand: dequantized rows rounded to bf16."""
+    """The kernel's weight operand: rows `rows` of w formed in f32 in the
+    Pallas kernel's order (``qmm.py:82-109``) and rounded to bf16:
+    sc = g_scale * sb_scale, adj = sc * code_offset + g_min * sb_min,
+    w = plane * sc - adj, each term only where the layout has it.  plane is
+    the raw code, 8-bit codes read as int8 (``_codes_i8``).  On the folds
+    (no offset, no superblock planes) this is w = plane * s - m."""
     sub = w.rows(torch.arange(w.n, device=w.device)[rows])
-    return dequantize(sub, torch.float32).to(torch.bfloat16)
+    codes = sub.codes.view(torch.int8) if sub.bits == 8 else sub.codes
+    plane = unpack_codes(replace(sub, codes=codes)).to(torch.float32)
+    expand = lambda t, r: t.to(torch.float32).repeat_interleave(r, dim=-1)
+    sc = sub.g_scale.to(torch.float32)
+    if sub.sb_scale is not None:
+        sc = sc * expand(sub.sb_scale, SPAN // sub.group_size)
+    adj = sc * float(sub.code_offset) if sub.code_offset else None
+    if sub.g_min is not None:
+        mn = sub.g_min.to(torch.float32)
+        if sub.sb_scale is not None and sub.sb_min is not None:
+            mn = mn * expand(sub.sb_min, SPAN // sub.group_size)
+        adj = mn if adj is None else adj + mn
+    wf = plane * sc.repeat_interleave(sub.group_size, dim=-1)
+    if adj is not None:
+        wf = wf - adj.repeat_interleave(sub.group_size, dim=-1)
+    return wf[:, :sub.k].to(torch.bfloat16)
 
 
 def qmm_plain(x: torch.Tensor, w: QTensor) -> torch.Tensor:
@@ -132,11 +172,15 @@ def qmm_plain(x: torch.Tensor, w: QTensor) -> torch.Tensor:
 
 
 def qmm(x: torch.Tensor, w: QTensor) -> torch.Tensor:
-    """x [..., k] @ (W4, W4X, W8 or W8X) w^T -> [..., n] f32 (any number
-    of rows)."""
-    global LAUNCHES, LAUNCHES_W8
+    """x [..., k] @ (W4, W4X, W8 or W8X fold, or exact repack) w^T ->
+    [..., n] f32 (any number of rows)."""
+    global LAUNCHES, LAUNCHES_W8, LAUNCHES_EXACT
     w8 = is_w8(w) or is_w8x(w)
-    require(is_w4(w) or is_w4x(w) or w8, "qmm needs a W4 or W8 fold, plain or precise")
+    exact = is_exact(w)
+    require(is_w4(w) or is_w4x(w) or w8 or exact,
+            "qmm needs a W4 or W8 fold (plain or precise) or an exact repack of 8-bit "
+            f"codes or 4- or 2-bit planes at group 16 or 32 (got bits={w.bits} "
+            f"group={w.group_size} layout {w.flavor!r})")
     n, k = w.shape
     lead = x.shape[:-1]
     m = math.prod(lead)
@@ -144,15 +188,28 @@ def qmm(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     x2 = x.reshape(m, k)
     if not is_cuda(x2):
         return qmm_plain(x2, w).reshape(*lead, n)
-    (check_int8_on if w8 else check_w4_on)(w, x2.device)
+    (check_exact_on if exact else check_int8_on if w8 else check_w4_on)(w, x2.device)
     xb = x2.to(torch.bfloat16)
     if w.k_pad != k:
         xb = torch.nn.functional.pad(xb, (0, w.k_pad - k))
     xb = xb.contiguous()
     y = torch.empty((m, n), dtype=torch.float32, device=x2.device)
-    p = plan(m, n, w.k_pad, UNIT_W8 if w8 else UNIT_W4, sm_count(x2.device.index or 0))
+    sms = sm_count(x2.device.index or 0)
+    if exact:
+        p = plan(m, n, w.k_pad, UNIT_EXACT[w.bits], sms, bms=EXACT_BMS)
+    else:
+        p = plan(m, n, w.k_pad, UNIT_W8 if w8 else UNIT_W4, sms)
     ws, cnt = split_workspace(p, m, n, x2.device)
-    if w8:
+    if exact:
+        _build.check(_build.lib().lk_exact_dequant_gemm(
+            xb.data_ptr(), w.codes.data_ptr(), w.g_scale.data_ptr(), _build.ptr(w.g_min),
+            _build.ptr(w.sb_scale), _build.ptr(w.sb_min), y.data_ptr(), m, n, w.k_pad, w.bits,
+            w.group_size, SCALE_DTYPES[w.g_scale.dtype],
+            SCALE_DTYPES[w.g_min.dtype] if w.g_min is not None else 0, float(w.code_offset),
+            p.bm, p.splits, _build.ptr(ws), _build.ptr(cnt), _build.stream()),
+            "lk_exact_dequant_gemm")
+        LAUNCHES_EXACT += 1
+    elif w8:
         _build.check(_build.lib().lk_w8_dequant_gemm(
             xb.data_ptr(), w.codes.data_ptr(), w.g_scale.data_ptr(), _build.ptr(w.g_min),
             y.data_ptr(), m, n, w.k_pad, w.group_size, p.bm, p.splits, _build.ptr(ws),

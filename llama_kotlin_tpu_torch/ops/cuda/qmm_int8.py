@@ -1,4 +1,6 @@
-"""Kernel 6: the Q8F matmul of the int8 fast mode, at any row count
+"""Kernel 6: the Q8F matmul of the int8 fast mode, and of an exact Q8_K
+repack (the same layout: JAX's ``ops/qmatmul.py:110-116`` sends it here),
+at any row count
 (``csrc/qmm_int8.cu``, its tensor-core tile in ``csrc/w8_mma.cuh``,
 prologue ``csrc/q8.cu``).
 
@@ -25,7 +27,7 @@ from llama_kotlin_tpu_torch.ops.cuda import _build
 from llama_kotlin_tpu_torch.ops.cuda._checks import check_int8_on
 from llama_kotlin_tpu_torch.ops.cuda.qmm import plan, sm_count, split_workspace
 from llama_kotlin_tpu_torch.ops.cuda.qmm_w4 import quantize_q8, quantize_q8_cuda
-from llama_kotlin_tpu_torch.quant.fold import is_q8f
+from llama_kotlin_tpu_torch.quant.fold import is_q8_sb
 from llama_kotlin_tpu_torch.quant.qtensor import SPAN, QTensor
 
 LAUNCHES = 0  # kernel launches made by qmm_int8
@@ -78,9 +80,11 @@ def qmm_int8_plain(x: torch.Tensor, w: QTensor) -> torch.Tensor:
 
 
 def qmm_int8(x: torch.Tensor, w: QTensor) -> torch.Tensor:
-    """x [..., k] (float) @ Q8F w^T -> [..., n] f32, any number of rows."""
+    """x [..., k] (float) @ Q8F (or exact Q8_K) w^T -> [..., n] f32, any
+    number of rows."""
     global LAUNCHES, LAUNCHES_MMA
-    require(is_q8f(w), "qmm_int8 needs a Q8F tensor")
+    require(is_q8_sb(w), "qmm_int8 needs a Q8F tensor or an exact Q8_K repack (int8 "
+            "codes, one f32 scale a 256-superblock)")
     n, k = w.shape
     k_pad = w.k_pad
     lead = x.shape[:-1]

@@ -18,14 +18,23 @@ Routing is by layout and rows:
   -> kernel 4's 8-bit branch; a W8X (precise W8) fold the same, on kernel
   5's dual-plane branch;
 * Q8F: kernel 6 (``ops/cuda/qmm_int8.py``) at every row count;
+* an exact repack (the exact-dequant mode, ``fast_mode=None``): routed by
+  JAX's layout rules (``llama_kotlin_tpu/ops/qmatmul.py:110-119``), not by
+  a flavor.  int8 codes at group 256 with one scale a superblock and no
+  mins (a Q8_K repack) -> kernel 6 at every row count, as Q8F; every other
+  exact repack of group 16 or 32 (8-bit codes, 4- or 2-bit planes) ->
+  kernel 4's exact branches (``ops/cuda/qmm.py``) at every row count,
+  decode included.  A layout neither takes raises;
 * a dense bf16 matrix (an F32, F16 or BF16 tensor of the file): a plain
   matmul, bf16 operands into an f32 result, as JAX's ``jnp.dot`` with
   ``preferred_element_type=f32`` outside any Pallas kernel
   (``llama_kotlin_tpu/ops/qmatmul.py:433-437``).
 
 ``qmm_ffn`` sends decode rows through kernel 2 when gate|up (fused, or
-gate and up apart) and down are W4 folds it takes (never precise ones),
-unless ``LKTPU_FFN_FUSED`` is "0" (JAX's A/B knob, read per call).
+gate and up apart) and down are W4 folds it takes (never precise ones,
+never exact repacks: those run gate, up and down through ``qmatmul``, as
+JAX's kernels 2 and 10 decline them), unless ``LKTPU_FFN_FUSED`` is "0"
+(JAX's A/B knob, read per call).
 ``qmm_layer`` runs the whole post-attention half of a layer on kernel 10
 (``ops/cuda/qmm_w4_layer.py``) under ``LKTPU_LAYER_FUSED=1`` when it
 takes the operands.  Any other weight
@@ -48,7 +57,7 @@ from llama_kotlin_tpu_torch.ops.cuda.qmm_w4_fx import qmm_w4_fx_matmul
 from llama_kotlin_tpu_torch.ops.cuda.qmm_w4_layer import fused_layer, layer_eligible
 from llama_kotlin_tpu_torch.ops.cuda.qmm_w4x import qmm_w4x_matmul
 from llama_kotlin_tpu_torch.ops.cuda.qmm_w8 import qmm_w8_matmul
-from llama_kotlin_tpu_torch.quant.fold import is_q8f, is_w4, is_w4x, is_w8, is_w8x
+from llama_kotlin_tpu_torch.quant.fold import is_exact, is_q8_sb, is_w4, is_w4x, is_w8, is_w8x
 from llama_kotlin_tpu_torch.quant.qtensor import QTensor, dequantize
 
 
@@ -83,10 +92,13 @@ def qmatmul(x: torch.Tensor, w: QTensor | torch.Tensor) -> torch.Tensor:
         return qmm_w4x_matmul(x, w) if _rows(x) <= MAX_ROWS else qmm(x, w)
     if is_w8(w) or is_w8x(w):
         return qmm_w8_matmul(x, w) if _rows(x) <= MAX_ROWS else qmm(x, w)
-    if is_q8f(w):
+    if is_q8_sb(w):
         return qmm_int8(x, w)
+    if is_exact(w):
+        return qmm(x, w)
     raise TypeError(f"no kernel serves this weight ({type(w).__name__}, "
-                    f"layout {getattr(w, 'flavor', None)!r})")
+                    f"layout {getattr(w, 'flavor', None)!r}, bits {getattr(w, 'bits', None)}, "
+                    f"group {getattr(w, 'group_size', None)})")
 
 
 def _w4_decode(x: torch.Tensor, w: QTensor) -> torch.Tensor:

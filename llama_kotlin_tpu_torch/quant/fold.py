@@ -23,8 +23,9 @@ The JAX package's TPU workarounds — the block-diagonal activation layout
 and the (32, 128)-tile guards on the compact fold — are not needed here.
 
 W8 (``fold_to_w8``, every group-16/32 format the W4 fold does not take:
-q6_K, q8_0): int8 element-order codes [n, k_pad], the exact f32 effective
-scale s_eff per group in ``g_scale`` [n, G] (the JAX fold also keeps it
+q6_K, q8_0, q5_0, q5_1, q5_K and q3_K (8-bit codes) and q2_K (2-bit
+planes, unpacked)): int8 element-order codes [n, k_pad], the exact f32
+effective scale s_eff per group in ``g_scale`` [n, G] (the JAX fold also keeps it
 transposed as ``aux["scw"]`` for the TPU; the port's kernel reads it per
 output row) and the f32 m_eff in ``g_min`` for formats with mins.  10 bits
 per weight streamed at group 16.
@@ -175,7 +176,8 @@ def fold_to_w4(qt: QTensor, precise: bool = False) -> QTensor:
 
 
 def fold_to_w8(qt: QTensor, precise: bool = False) -> QTensor:
-    """A repacked group-16/32 QTensor (q6_K, q8_0; 4-bit sources unpack) ->
+    """A repacked group-16/32 QTensor (q6_K, q8_0, q5_0, q5_1, q5_K, q3_K;
+    4- and 2-bit sources unpack: q4_K folded to W8, q2_K) ->
     the W8 fold: int8 element-order codes, exact f32 s_eff (and m_eff) per
     group, k padded to 512.  precise=True marks it W8X (flavor ``w8x``):
     the same weights, served with dual-plane activations."""
@@ -228,7 +230,26 @@ def is_w8x(w) -> bool:
     return _w8_storage(w) and w.flavor == "w8x"
 
 
+def is_q8_sb(w) -> bool:
+    """Kernel 6's layout: int8 codes with one scale a 256-superblock, no
+    mins and no superblock planes, as a Q8F tensor or an exact Q8_K repack
+    (JAX ``ops/qmatmul.py:110-116`` routes this layout, not a flavor)."""
+    return (isinstance(w, QTensor) and w.flavor in ("q8f", None) and not w.hi_signed
+            and w.bits == 8 and w.group_size == SPAN and w.g_min is None
+            and w.sb_scale is None)
+
+
 def is_q8f(w) -> bool:
     """A Q8F tensor (kernel 6 at every row count)."""
-    return (isinstance(w, QTensor) and w.flavor == "q8f" and w.bits == 8
-            and w.group_size == SPAN and w.g_min is None and w.sb_scale is None)
+    return is_q8_sb(w) and w.flavor == "q8f"
+
+
+EXACT_GROUPS = (16, 32)  # the group sizes of kernel 4's exact branches
+
+
+def is_exact(w) -> bool:
+    """An exact repack (``quant/repack.py``, the exact-dequant mode's layout,
+    no flavor) of 8-bit codes or 4- or 2-bit planes at group 16 or 32:
+    kernel 4's exact branches at every row count."""
+    return (isinstance(w, QTensor) and w.aux is None and not w.hi_signed
+            and w.bits in (2, 4, 8) and w.group_size in EXACT_GROUPS)

@@ -6,8 +6,9 @@ Same fields and formula as ``llama_kotlin_tpu/quant/qtensor.py``:
     eff_scale   = g_scale[n, g] * sb_scale[n, k // 256]   (two-level), or g_scale
     eff_min     = g_min[n, g] * sb_min[n, k // 256]       (two-level), or g_min
 
-A repacked wire tensor (``quant/repack.py``) keeps the wire's integer
-group scales under f32 superblock scales.  The layouts the port's kernels
+A repacked wire tensor (``quant/repack.py``), the exact-dequant mode's
+layout, keeps the wire's codes (8-bit, or 4- and 2-bit planes) and its
+integer group scales under f32 superblock scales, with no flavor.  The layouts the port's kernels
 serve carry ``aux["flavor"]``:
 
 * W4 (``compact``/``legacy``/``sym``, ``quant/fold.py``): 4-bit
@@ -152,15 +153,22 @@ def concat_qtensors(qts: list) -> QTensor:
 
 
 def unpack_codes(qt: QTensor) -> torch.Tensor:
-    """Codes as int32 [n, k_pad] in element order: int8 codes as they are;
-    4-bit planes split into the low nibble (element j of a span) and the
-    high nibble (element 128+j), pre-signed (q-8) when ``hi_signed``."""
+    """Codes as int32 [n, k_pad] in element order: 8-bit codes as they are
+    (int8, or uint8 0..31 for Q5_K); 4-bit planes split into the low nibble
+    (element j of a span) and the high nibble (element 128+j), pre-signed
+    (q-8) when ``hi_signed``; 2-bit planes into bits 2p..2p+1 of byte j
+    (element 64p+j of a span, as ``quant/repack.py::_pack2`` writes them)."""
     c = qt.codes
     if qt.bits == 8:
         return c.to(torch.int32)
-    if qt.bits != 4:
-        raise ValueError(f"{qt.bits}-bit codes are not ported yet")
     n = c.shape[0]
+    if qt.bits == 2:
+        quarter = SPAN // 4
+        b = c.reshape(n, c.shape[-1] // quarter, 1, quarter).to(torch.int32)
+        shifts = torch.tensor([0, 2, 4, 6], device=c.device, dtype=torch.int32).reshape(4, 1)
+        return ((b >> shifts) & 0x03).reshape(n, -1)
+    if qt.bits != 4:
+        raise ValueError(f"unsupported bit width {qt.bits}")
     half = SPAN // 2
     spans = c.shape[-1] // half
     b = c.reshape(n, spans, half)

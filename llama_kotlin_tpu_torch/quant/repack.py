@@ -7,10 +7,13 @@ whole 8B file repacks in seconds, on the CPU the tests' files do.  The bit
 logic and the f32 operation order are the JAX package's, so both give the
 same codes and scales bit for bit.
 
-Ported formats: F32, F16, BF16 (float decode), Q4_0, Q4_1, Q8_0, Q4_K and
-Q6_K.  The other wire formats (Q5_0, Q5_1, Q2_K, Q3_K, Q5_K, Q8_K and the
-IQ family) raise NotImplementedError until their item of ROADMAP.md
-(section 1, item 6).
+Ported formats: F32, F16, BF16 (float decode), the legacy Q4_0, Q4_1,
+Q5_0, Q5_1 and Q8_0, and the k-quants Q2_K, Q3_K, Q4_K, Q5_K, Q6_K and
+Q8_K (JAX ``quant/repack.py:88-249``).  The scale planes keep JAX's
+dtypes: uint8 scale/min codes for Q2_K, Q4_K and Q5_K, int8 for Q3_K and
+Q6_K, f32 for the legacy formats and Q8_K.  The IQ family (JAX
+``repack_iq``, ``:255``) raises NotImplementedError until its item of
+ROADMAP.md (section 1, item 6).
 """
 
 from __future__ import annotations
@@ -21,8 +24,8 @@ import torch.nn.functional as F
 from llama_kotlin_tpu_torch.quant.formats import QK_K, TYPE_TRAITS, GGMLQuantType
 from llama_kotlin_tpu_torch.quant.qtensor import SPAN, QTensor, dequantize
 
-NOT_PORTED = ("not ported yet (Q5_0, Q5_1, Q2_K, Q3_K, Q5_K, Q8_K and the IQ formats "
-              "come with ROADMAP.md section 1, item 6)")
+NOT_PORTED = ("not ported yet (the IQ formats come with ROADMAP.md section 1, item 6, "
+              "and the port's copy of quant/iq.py)")
 
 
 def _wire_blocks(data: torch.Tensor, qtype: GGMLQuantType, n: int, k: int) -> torch.Tensor:
@@ -59,10 +62,20 @@ def _pack4(codes: torch.Tensor) -> torch.Tensor:
     return (c[:, :, 0] | (c[:, :, 1] << 4)).reshape(n, k // 2)
 
 
+def _pack2(codes: torch.Tensor) -> torch.Tensor:
+    """uint2 codes [n, k_pad] -> plane-packed bytes [n, k_pad // 4]: byte j
+    of span s holds element 256s+64p+j in bits 2p..2p+1 (JAX ``_pack2``)."""
+    n, k = codes.shape
+    c = codes.reshape(n, k // SPAN, 4, SPAN // 4).to(torch.uint8)
+    return (c[:, :, 0] | (c[:, :, 1] << 2) | (c[:, :, 2] << 4) | (c[:, :, 3] << 6)).reshape(
+        n, k // 4)
+
+
 def _make(qtype, codes, bits, group_size, n, k, g_scale, g_min=None,
           sb_scale=None, sb_min=None, code_offset: int = 0) -> QTensor:
     k_pad = _k_pad_of(k)
-    packed = _pack4(_pad_k(codes, k_pad)) if bits == 4 else _pad_k(codes, k_pad)
+    pack = {8: lambda c: c, 4: _pack4, 2: _pack2}[bits]
+    packed = pack(_pad_k(codes, k_pad))
     pad = lambda a, g: None if a is None else _pad_k(a, k_pad // g)
     return QTensor(codes=packed.contiguous(), g_scale=pad(g_scale, group_size),
                    g_min=pad(g_min, group_size), sb_scale=pad(sb_scale, SPAN),
@@ -101,11 +114,90 @@ def repack_q4_1(data, n: int, k: int) -> QTensor:
                  g_min=-m)
 
 
+def _q5_codes(qh: torch.Tensor, qs: torch.Tensor, n: int, k: int) -> torch.Tensor:
+    """The 32 five-bit codes (0..31) of a Q5_0/Q5_1 block in element order:
+    element j < 16 is the low nibble of qs[j] with bit j of qh as bit 4,
+    element 16 + j the high nibble with bit 12 + j (shifted to bit 4)."""
+    j = torch.arange(16, device=qs.device, dtype=torch.int64)
+    h = qh.to(torch.int64)[..., None]  # [n, blocks, 1]
+    lo = (qs & 0x0F) | (((h >> j) << 4) & 0x10).to(torch.uint8)
+    hi = (qs >> 4) | ((h >> (j + 12)) & 0x10).to(torch.uint8)
+    return torch.cat([lo, hi], dim=-1).reshape(n, k)
+
+
+def _u32(b: torch.Tensor) -> torch.Tensor:
+    """Little-endian bytes [..., 4] -> their uint32 values as int64 [...]."""
+    b = b.to(torch.int64)
+    return b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16) | (b[..., 3] << 24)
+
+
+def repack_q5_0(data, n: int, k: int) -> QTensor:
+    """Q5_0: value = (q - 16) * d, stored as int8 codes q - 16."""
+    b = _wire_blocks(data, GGMLQuantType.Q5_0, n, k)
+    d = _f16(b[:, :, 0:2])
+    q = _q5_codes(_u32(b[:, :, 2:6]), b[:, :, 6:22], n, k)
+    codes = (q.to(torch.int16) - 16).to(torch.int8)
+    return _make(GGMLQuantType.Q5_0, codes, 8, 32, n, k, g_scale=d)
+
+
+def repack_q5_1(data, n: int, k: int) -> QTensor:
+    """Q5_1: value = q * d + m, stored as int8 codes q and q * d - (-m)."""
+    b = _wire_blocks(data, GGMLQuantType.Q5_1, n, k)
+    d = _f16(b[:, :, 0:2])
+    m = _f16(b[:, :, 2:4])
+    q = _q5_codes(_u32(b[:, :, 4:8]), b[:, :, 8:24], n, k)
+    return _make(GGMLQuantType.Q5_1, q.to(torch.int8), 8, 32, n, k, g_scale=d, g_min=-m)
+
+
 def repack_q8_0(data, n: int, k: int) -> QTensor:
     b = _wire_blocks(data, GGMLQuantType.Q8_0, n, k)
     d = _f16(b[:, :, 0:2])  # [n, k/32]
     codes = b[:, :, 2:34].contiguous().view(torch.int8).reshape(n, k)
     return _make(GGMLQuantType.Q8_0, codes, 8, 32, n, k, g_scale=d)
+
+
+def repack_q2_k(data, n: int, k: int) -> QTensor:
+    """Q2_K: value = q * (d * sc) - dmin * mn, 4-bit sc/mn per 16, 2-bit
+    codes; qs byte l of half h holds elements 128h + 32p + l (p = shift/2)."""
+    b = _wire_blocks(data, GGMLQuantType.Q2_K, n, k)
+    nsb = k // QK_K
+    scales = b[:, :, 0:16]
+    qs = b[:, :, 16:80].reshape(n, nsb, 2, 1, 32)
+    d = _f16(b[:, :, 80:82])
+    dmin = _f16(b[:, :, 82:84])
+    shifts = torch.tensor([0, 2, 4, 6], device=qs.device, dtype=torch.uint8).reshape(4, 1)
+    codes = ((qs >> shifts) & 3).reshape(n, k)  # [n, nsb, half, 4, 32]
+    return _make(GGMLQuantType.Q2_K, codes, 2, 16, n, k, g_scale=(scales & 0x0F).reshape(n, -1),
+                 g_min=(scales >> 4).reshape(n, -1), sb_scale=d, sb_min=dmin)
+
+
+def unpack_q3k_scales(s: torch.Tensor) -> torch.Tensor:
+    """12 packed bytes [..., 12] -> the 16 signed 6-bit scales (value - 32)
+    of a Q3_K superblock, as int8 [..., 16] (JAX numpy_ref.unpack_q3k_scales)."""
+    out = torch.cat([
+        (s[..., 0:4] & 0x0F) | ((s[..., 8:12] & 0x03) << 4),
+        (s[..., 4:8] & 0x0F) | (((s[..., 8:12] >> 2) & 0x03) << 4),
+        (s[..., 0:4] >> 4) | (((s[..., 8:12] >> 4) & 0x03) << 4),
+        (s[..., 4:8] >> 4) | (((s[..., 8:12] >> 6) & 0x03) << 4)], dim=-1)
+    return (out.to(torch.int16) - 32).to(torch.int8)
+
+
+def repack_q3_k(data, n: int, k: int) -> QTensor:
+    """Q3_K: value = (d * sc) * q, q = low 2 bits - 4 where the hmask bit is
+    clear; bit m of hmask byte l belongs to element 32m + l."""
+    b = _wire_blocks(data, GGMLQuantType.Q3_K, n, k)
+    nsb = k // QK_K
+    hmask = b[:, :, 0:32].reshape(n, nsb, 1, 1, 32)
+    qs = b[:, :, 32:96].reshape(n, nsb, 2, 1, 32)
+    sc = unpack_q3k_scales(b[:, :, 96:108])  # [n, nsb, 16]
+    d = _f16(b[:, :, 108:110])
+    dev = qs.device
+    shifts = torch.tensor([0, 2, 4, 6], device=dev, dtype=torch.uint8).reshape(4, 1)
+    bits = (torch.arange(8, device=dev, dtype=torch.uint8)).reshape(2, 4, 1)
+    low = ((qs >> shifts) & 3).to(torch.int8)  # [n, nsb, 2, 4, 32]
+    high = (((hmask >> bits) & 1) == 0).to(torch.int8) * 4
+    codes = (low - high).reshape(n, k)
+    return _make(GGMLQuantType.Q3_K, codes, 8, 16, n, k, g_scale=sc.reshape(n, -1), sb_scale=d)
 
 
 def repack_q4_k(data, n: int, k: int) -> QTensor:
@@ -118,6 +210,23 @@ def repack_q4_k(data, n: int, k: int) -> QTensor:
     # 32-byte chunk j -> elements 64j..64j+31 (low nibbles), +32.. (high)
     codes = torch.cat([qs & 0x0F, qs >> 4], dim=3).reshape(n, k)
     return _make(GGMLQuantType.Q4_K, codes, 4, 32, n, k, g_scale=sc.reshape(n, -1),
+                 g_min=mn.reshape(n, -1), sb_scale=d, sb_min=dmin)
+
+
+def repack_q5_k(data, n: int, k: int) -> QTensor:
+    """Q5_K: Q4_K's nibbles plus a fifth bit from qh (bit 2j of qh byte l
+    for element 64j + l, bit 2j + 1 for 64j + 32 + l): uint8 codes 0..31."""
+    b = _wire_blocks(data, GGMLQuantType.Q5_K, n, k)
+    nsb = k // QK_K
+    d = _f16(b[:, :, 0:2])
+    dmin = _f16(b[:, :, 2:4])
+    sc, mn = unpack_scale_min_k4(b[:, :, 4:16])
+    qh = b[:, :, 16:48].reshape(n, nsb, 1, 1, 32)
+    qs = b[:, :, 48:176].reshape(n, nsb, 4, 1, 32)
+    nib = torch.cat([qs & 0x0F, qs >> 4], dim=3)  # [n, nsb, 4, 2, 32]
+    bit = torch.arange(8, device=qs.device, dtype=torch.uint8).reshape(4, 2, 1)
+    codes = (nib | (((qh >> bit) & 1) << 4)).reshape(n, k)
+    return _make(GGMLQuantType.Q5_K, codes, 8, 32, n, k, g_scale=sc.reshape(n, -1),
                  g_min=mn.reshape(n, -1), sb_scale=d, sb_min=dmin)
 
 
@@ -139,12 +248,26 @@ def repack_q6_k(data, n: int, k: int) -> QTensor:
                  sb_scale=d)
 
 
+def repack_q8_k(data, n: int, k: int) -> QTensor:
+    """Q8_K: value = q * d, f32 d per 256, int8 codes (the bsums unread)."""
+    b = _wire_blocks(data, GGMLQuantType.Q8_K, n, k)
+    d = b[:, :, 0:4].contiguous().view(torch.float32).squeeze(-1)  # [n, k/256]
+    codes = b[:, :, 4:4 + QK_K].contiguous().view(torch.int8).reshape(n, k)
+    return _make(GGMLQuantType.Q8_K, codes, 8, QK_K, n, k, g_scale=d)
+
+
 REPACKERS = {
     GGMLQuantType.Q4_0: repack_q4_0,
     GGMLQuantType.Q4_1: repack_q4_1,
+    GGMLQuantType.Q5_0: repack_q5_0,
+    GGMLQuantType.Q5_1: repack_q5_1,
     GGMLQuantType.Q8_0: repack_q8_0,
+    GGMLQuantType.Q2_K: repack_q2_k,
+    GGMLQuantType.Q3_K: repack_q3_k,
     GGMLQuantType.Q4_K: repack_q4_k,
+    GGMLQuantType.Q5_K: repack_q5_k,
     GGMLQuantType.Q6_K: repack_q6_k,
+    GGMLQuantType.Q8_K: repack_q8_k,
 }
 
 

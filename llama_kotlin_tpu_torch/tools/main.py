@@ -7,8 +7,12 @@ flags and their defaults are JAX's, plus ``--device`` (cuda unless the
 caller asks for the CPU).
 
 Usage:
-    python -m llama_kotlin_tpu_torch.tools.main --model m.gguf --fast-mode w4 -p "Hello" -n 64
-    python -m llama_kotlin_tpu_torch.tools.main --model m.gguf --fast-mode w4 --interactive
+    python -m llama_kotlin_tpu_torch.tools.main --model m.gguf -p "Hello" -n 64
+    python -m llama_kotlin_tpu_torch.tools.main --model m.gguf --interactive
+    python -m llama_kotlin_tpu_torch.tools.main --model m.gguf --device cpu -p "Hello" -n 8
+
+(``--fast-mode w4|w4x|int8`` picks a fast layout; the default is the
+exact-dequant repack, as in JAX.)
 
 ``main`` returns what it measured on the host clock: each generation's
 prompt tokens, time to first token (prompt evaluation, the logits' copy
@@ -58,8 +62,7 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="serving weight layout: int8 = W8A8 flat, w4 = "
                          "4-bit-resident W4A8, w4x = W4 with exact f32 "
                          "scales + dual-plane activations (high fidelity); "
-                         "default = exact dequant repack (not ported yet: the "
-                         "loader says so)")
+                         "default = exact dequant repack")
     ap.add_argument("--no-fuse", action="store_true",
                     help="disable the fused q|k|v / gate|up serving fold")
     ap.add_argument("--profile-dir", default=None,

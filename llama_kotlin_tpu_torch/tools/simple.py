@@ -6,7 +6,9 @@ decode/logits calls.
 
 Usage:
     python -m llama_kotlin_tpu_torch.tools.simple model.gguf "Hello my name is" 32 \
-        [--fast-mode w4] [--device cuda|cpu]
+        [--fast-mode w4|w4x|int8] [--device cuda|cpu]
+
+(without --fast-mode the weights keep the exact-dequant repack, JAX's default)
 """
 
 from __future__ import annotations
@@ -23,8 +25,7 @@ def main(argv=None):
     ap.add_argument("prompt", nargs="?", default="Hello my name is")
     ap.add_argument("n_predict", nargs="?", type=int, default=32)
     ap.add_argument("--fast-mode", default=None, choices=["int8", "w4", "w4x"],
-                    help="serving weight layout; the default, the exact-dequant "
-                         "repack, is not ported yet and the loader says so")
+                    help="serving weight layout; default = the exact-dequant repack")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv if argv is not None else sys.argv[1:])
 

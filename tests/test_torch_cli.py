@@ -217,11 +217,12 @@ def test_simple_matches_generate(gguf):
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the no-CUDA refusal")
 def test_clis_refuse_without_cuda(gguf):
     """Without CUDA and without --device cpu the CLIs raise (no quiet CPU
-    run); a missing --fast-mode keeps JAX's default, which the loader
-    refuses with its own message."""
+    run), in a fast mode and in JAX's default (no --fast-mode: the
+    exact-dequant mode, which tests/test_torch_exact_mode.py runs on the
+    CPU)."""
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["-m", str(gguf), "--fast-mode", "w4", "-p", "x", "-n", "1"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         simple.main([str(gguf), "x", "1", "--fast-mode", "w4"])
-    with pytest.raises(NotImplementedError, match="exact-dequant"):
-        cli.main(["-m", str(gguf), "--device", "cpu", "-p", "x", "-n", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["-m", str(gguf), "-p", "x", "-n", "1"])

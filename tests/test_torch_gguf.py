@@ -160,9 +160,10 @@ def test_wire_decode_equals_numpy_ref(qtype):
 
 
 def test_unported_formats_raise():
-    """Formats of a later slice raise rather than load wrong."""
-    data = torch.zeros(row_byte_size(256, Q.Q5_K) * 2, dtype=torch.uint8)
+    """Formats of a later slice (the IQ family) raise rather than load
+    wrong, naming their ROADMAP item."""
+    data = torch.zeros(row_byte_size(256, Q.IQ4_XS) * 2, dtype=torch.uint8)
     with pytest.raises(NotImplementedError, match="item 6"):
-        repack.repack(data, Q.Q5_K, 2, 256)
+        repack.repack(data, Q.IQ4_XS, 2, 256)
     with pytest.raises(NotImplementedError, match="item 6"):
-        repack.repack_q8flat(data, Q.Q5_K, 2, 256)
+        repack.repack_q8flat(data, Q.IQ4_XS, 2, 256)

@@ -168,9 +168,12 @@ def test_gguf_serving_matches_jax(loaded, mode, monkeypatch):
 
 
 def test_fast_mode_none_raises(gguf_path):
-    """The exact-dequant mode waits for a later slice; it never falls back,
-    and neither does a mode the port does not know."""
-    with pytest.raises(NotImplementedError, match="exact-dequant"):
-        load_gguf_model(gguf_path, fast_mode=None, device="cpu")
-    with pytest.raises(NotImplementedError):
+    """fast_mode=None, the default, is the exact-dequant mode and loads
+    (every matrix its exact repack; tests/test_torch_exact_mode.py serves
+    it); a mode the port does not know raises and never falls back."""
+    cfg, pp, f = load_gguf_model(gguf_path, device="cpu")
+    f.close()
+    assert pp["output"].flavor is None and pp["output"].qtype == Q.Q6_K
+    assert pp["layers"][0]["wq"].bits == 4 and pp["layers"][0]["wq"].aux is None
+    with pytest.raises(NotImplementedError, match="the port loads"):
         load_gguf_model(gguf_path, fast_mode="w8", device="cpu")
