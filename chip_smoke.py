@@ -141,6 +141,19 @@ and a 4-layer Q8_0 file in the exact mode on the stacked path (kernel 9 and
 kernel 4's exact branch; new_formats_phase); to 6 the 2-layer Q4_K_M file
 and a 2-layer every-format file in the exact mode against the CPU.
 
+The serving runtime (the continuous-batching engine, speculative, lookup
+and lookahead decoding, the OpenAI server) adds to 3 kernel 3 under the
+masks serving gives it (serving_mask_phase: four sequences interleaved
+beside a prompt chunk, a prefix shared through seq_cp, a speculative tree
+with branch bitmasks; three caches, blind rows exactly 0, beside SDPA); to
+4 speculative_phase on the 32-layer W4A8 model (host and device loops
+identical; every emitted token of every method within twice the measured
+route noise of the target's best, teacher-forced); to 5
+server_phase on the Q4_K_M file in the w4 and the exact mode (one slot
+bit-equal to generate(), 8 concurrent HTTP requests on 4 slots, tokens/s
+at 1, 4 and 8 slots, one engine step profiled); to 6 engine_parity_phase
+(4 slots, 6 requests, 6 steps, card against CPU at 2 layers).
+
 The parity phases' CPU references are computed by a child process of this
 script (--cpu-refs, started first, CPU_REF_THREADS threads), which runs
 beside the card's phases; the parent reads each when its card run needs it.
@@ -185,6 +198,15 @@ Q8F_ROWS = (1, 2, 4, 8, 9, 16, 32, 64, 512)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def timed_call(fn, *args):
+    """fn(*args), with its wall seconds logged as a timing line."""
+    t = time.perf_counter()
+    out = fn(*args)
+    log(json.dumps({"phase": "timing", "function": fn.__name__,
+                    "seconds": time.perf_counter() - t}))
+    return out
 
 
 def bound(nbytes: float, ops: float, kind: str):
@@ -1619,9 +1641,10 @@ def serve_32(torch, cfg, params, label: str, mods, never, per_token: dict, mma,
     return counts
 
 
-def serving_phase(torch, n_layer: int = 32) -> dict:
+def serving_phase(torch, n_layer: int = 32) -> tuple:
     """3 requests on the full llama3-8B W4A8 model in each configuration;
-    returns {path: launch counts}."""
+    returns ({path: launch counts}, cfg, params): the model goes on to
+    speculative_phase."""
     from llama_kotlin_tpu_torch.models.synthetic import preset_config, synthetic_params_device
     from llama_kotlin_tpu_torch.ops.cuda import flash, qmm, qmm_w4, qmm_w4_ffn
 
@@ -1643,9 +1666,7 @@ def serving_phase(torch, n_layer: int = 32) -> dict:
     first = dict(params, layers=params["layers"][:cut.n_layer])  # the same tensors
     by_path.update(kv_serving(torch, cut, first, "serving", (qmm_w4, qmm_w4_ffn, qmm)))
     by_path.update(fused_serving(torch, cut, first))
-    del params, first
-    torch.cuda.empty_cache()
-    return by_path
+    return by_path, cfg, params
 
 
 def fused_serving(torch, cfg, params) -> dict:
@@ -2722,7 +2743,8 @@ def cpu_refs_main(torch, ref_dir: str) -> int:
     tmp = Path(ref_dir) / "files"
     tmp.mkdir()
     try:
-        for fn, args in ((parity_phase, ()), (gguf_parity_phase, (tmp,))):
+        for fn, args in ((parity_phase, ()), (gguf_parity_phase, (tmp,)),
+                         (engine_parity_phase, ())):
             t0 = time.perf_counter()
             fn(torch, *args)
             log(json.dumps({"phase": "cpu_refs_timing", "function": fn.__name__,
@@ -2865,6 +2887,677 @@ def gguf_parity_phase(torch, tmpdir: Path) -> None:
         path.unlink()
 
 
+# -- the serving runtime: kernel 3 on serving masks, the engine, the server,
+# -- speculative, lookup and lookahead decoding
+
+SERVE_CELLS = 4096  # the server's context: 8 slots of 512 cells
+SERVE_PROMPTS = (16, 64, 180, 400)  # tokens of the greedy /completion requests
+SERVE_SCHEMA = {"type": "object", "properties": {"ok": {"type": "boolean"}},
+                "required": ["ok"]}
+SPEC_PROMPT, SPEC_NEW, SPEC_DRAFT = 64, 32, 5
+SPEC_TOL = 3e-2  # of max|logits|: plain greedy's near-tie bound (the w4 parity tolerance)
+
+
+def _mask_of(torch, meta, tpos, tseq, seq_mask=None):
+    """Commit a ubatch of (pos, seq) rows to the cell metadata as a context
+    does and return kernel 3's int8 mask [rows, n_cells] over all cells;
+    rows with pos -1 are padding (no cell, nothing visible)."""
+    import numpy as np
+
+    from llama_kotlin_tpu_torch.ops.attention import visibility_mask
+
+    tpos, tseq = np.asarray(tpos, np.int32), np.asarray(tseq, np.int32)
+    live = tpos >= 0
+    slots = meta.find_slots(int(live.sum()))
+    meta.commit(slots, tpos[live], tseq[live],
+                None if seq_mask is None else np.asarray(seq_mask, np.int32)[live])
+    dev = torch.device("cuda")
+    cpos, cseq = meta.device_view(meta.n_cells, dev)
+    vis = visibility_mask(torch.from_numpy(tpos).to(dev), torch.from_numpy(tseq).to(dev),
+                          cpos, cseq)
+    return vis.to(torch.int8).contiguous()
+
+
+def serving_masks(torch) -> dict:
+    """The three serving masks over 1024 cells, built with CellMetadata as
+    the engine and the speculative tree leave them: (a) four sequences
+    whose prompts and decode steps interleave their cells, decoding one row
+    each beside a 60-row prompt chunk of a fifth; (b) a 200-cell prefix
+    shared by four sequences (seq_cp), each with a private tail, decoding a
+    row each, padded to 8 rows; (c) a speculative tree of 3 branches and
+    depth 4 after a 300-cell prompt (root and shared nodes in several
+    branches by their bitmasks), padded to 16 rows."""
+    from llama_kotlin_tpu_torch.runtime.kv_cache import CellMetadata
+
+    n, pad = 1024, 31
+    masks = {}
+    # (a) prompts of 150, 90, 200, 60 in one ubatch, 40 decode steps of the
+    # four, then 4 decode rows and a 60-token chunk of sequence 4
+    m = CellMetadata(n)
+    lens = (150, 90, 200, 60)
+    _mask_of(torch, m, [p for ln in lens for p in range(ln)],
+             [s for s, ln in enumerate(lens) for _ in range(ln)])
+    for i in range(40):
+        _mask_of(torch, m, [ln + i for ln in lens], range(4))
+    masks["a"] = _mask_of(torch, m, [ln + 40 for ln in lens] + list(range(60)),
+                          [0, 1, 2, 3] + [4] * 60)
+    # (b) a 200-token prefix of sequence 0 copied to 1-3, tails of 30, 45,
+    # 10 and 60 tokens decoded in turns
+    m = CellMetadata(n)
+    _mask_of(torch, m, range(200), [0] * 200)
+    for s in (1, 2, 3):
+        m.seq_cp(0, s)
+    tails = (30, 45, 10, 60)
+    for i in range(max(tails)):
+        rows = [s for s in range(4) if i < tails[s]]
+        _mask_of(torch, m, [200 + i] * len(rows), rows)
+    masks["b"] = _mask_of(torch, m, [200 + t for t in tails] + [-1] * 4,
+                          [0, 1, 2, 3] + [pad] * 4)
+    # (c) the tree: the root in branches 1-3, a1 in 1 and 2, then a2-a4 in
+    # 1, b2-b4 in 2, c1-c4 in 3 (primary sequence: the lowest branch)
+    m = CellMetadata(n)
+    _mask_of(torch, m, range(300), [0] * 300)
+    for b in (1, 2, 3):
+        m.seq_cp(0, b)
+    nodes = [(0, (1, 2, 3)), (1, (1, 2))] + [(d, (1,)) for d in (2, 3, 4)] \
+        + [(d, (2,)) for d in (2, 3, 4)] + [(d, (3,)) for d in (1, 2, 3, 4)]
+    masks["c"] = _mask_of(torch, m, [300 + d for d, _ in nodes] + [-1] * 4,
+                          [min(bs) for _, bs in nodes] + [pad] * 4,
+                          [sum(1 << b for b in bs) for _, bs in nodes] + [0] * 4)
+    return masks
+
+
+def serving_mask_phase(torch, results: dict) -> None:
+    """Kernel 3 under the serving masks (serving_masks) on the bf16, int8 and
+    packed int4 caches, D = 128, 32 query heads on 8 kv heads: held against
+    its plain version (tol as kv_kernel_phase's), rows that see nothing
+    exactly 0, and timed beside SDPA on the same mask."""
+    from llama_kotlin_tpu_torch.ops.cuda import flash
+    from llama_kotlin_tpu_torch.runtime.kv_cache import (dequantize_cache_layer, quantize_rows,
+                                                         quantize_rows_q4)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1515)
+    flush = torch.zeros(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    H, KV, D, cells, n_vis = 32, 8, 128, 1025, 1024
+    scale = D ** -0.5
+    kb = torch.randn((1, KV, cells, D), generator=gen, device=dev).to(torch.bfloat16)
+    vb = torch.randn((1, KV, cells, D), generator=gen, device=dev).to(torch.bfloat16)
+    caches = {"bf16": (kb, vb, None, None), "int8": quantize_rows(kb) + quantize_rows(vb),
+              "int4": quantize_rows_q4(kb) + quantize_rows_q4(vb)}
+    for name, mask in serving_masks(torch).items():
+        nt = mask.shape[0]
+        blind = ~mask.bool().any(dim=1)
+        q = torch.randn((nt, H, D), generator=gen, device=dev).to(torch.bfloat16)
+        vis = int(mask.any(dim=0).sum().item())
+        for kind, cache in caches.items():
+            k, v, ksc, vsc = (cache if kind == "bf16" else (cache[0], cache[2], cache[1],
+                                                            cache[3]))
+            bits = 4 if kind == "int4" else 8
+            kw = dict(scale=scale, layer=0, k_scale=ksc, v_scale=vsc, kv_bits=bits)
+            got = flash.flash_attention(q, k, v, mask, **kw)
+            if bool(got[blind].any()):
+                raise AssertionError(f"kernel 3 ({kind}, mask {name}): a row that sees "
+                                     "nothing gave nonzero output")
+            kf, vf = (k[0, :, :n_vis], v[0, :, :n_vis]) if ksc is None else (
+                dequantize_cache_layer(c[0, :, :n_vis], sc[0, :, :n_vis], torch.bfloat16,
+                                       bits=bits) for c, sc in ((k, ksc), (v, vsc)))
+            elem = k.element_size() * k.shape[-1] + (4 if ksc is not None else 0)
+            report_row(results, "flash", f"{kind} cache serving mask {name} nt={nt} "
+                       f"n_vis={n_vis}", err_of(got, flash.flash_attention_plain(q, k, v, mask,
+                                                                                **kw)),
+                       1e-2, time_ms(torch, lambda: flash.flash_attention(q, k, v, mask, **kw),
+                                     flush),
+                       time_ms(torch, lambda: flash.flash_attention_plain(q, k, v, mask, **kw),
+                               flush),
+                       2 * nt * H * D * 2 + 2 * KV * vis * elem + nt * n_vis,
+                       4 * D * int(mask.sum().item()) * H, "bf16",
+                       time_ms(torch, sdpa_call(torch, q, kf, vf, mask, scale), flush))
+        log(json.dumps({"phase": "serving_mask", "mask": name, "rows": nt,
+                        "blind_rows": int(blind.sum()), "visible_cells": vis,
+                        "mask_ones": int(mask.sum().item())}))
+    del caches, kb, vb, flush
+    torch.cuda.empty_cache()
+
+
+def _engine_class():
+    """The port's Engine, with the greedy choices it makes recorded and,
+    given `forced`, replaced by those tokens (so that a card run follows the
+    CPU's tokens and one near-tie cannot part the two schedules)."""
+    import numpy as np
+
+    from llama_kotlin_tpu_torch.runtime.engine import Engine
+
+    class Forced(Engine):
+        def __init__(self, *a, forced=None, **kw):
+            super().__init__(*a, **kw)
+            self.forced, self.chosen = forced, []
+
+        def _pick(self, tok: int) -> int:
+            self.chosen.append(int(tok))
+            return int(tok) if self.forced is None else int(self.forced[len(self.chosen) - 1])
+
+        def _sample(self, slot, logits):
+            own = slot.sampler.sample
+            slot.sampler.sample = lambda lg, **kw: self._pick(own(lg, **kw))
+            try:
+                return super()._sample(slot, logits)
+            finally:
+                del slot.sampler.sample
+
+        def _sample_rows_masked_device(self, emits):
+            toks = super()._sample_rows_masked_device(emits)
+            return None if toks is None else np.array([self._pick(t) for t in toks])
+
+    return Forced
+
+
+def engine_parity_phase(torch) -> None:
+    """Full width, 2 layers: the port's Engine on the card against the same
+    on the CPU.  4 slots, n_batch 256, chunked decode off (every step
+    gives logits), driven by step() in this thread for 6 steps: greedy
+    prompts of 9, 40, 130 and 300 tokens (the 300 split over two ubatches
+    beside decode rows), then a greedy request under a JSON schema (sampled
+    on the device under its grammar mask) and one with n_probs = 5 (the
+    host path) as slots free up.  The card run takes the CPU's tokens;
+    every logits row within 3e-2 of max|logits| of the CPU's, and where the
+    card's own choice differs from the CPU's, the CPU's logits of the two
+    tokens lie within twice that (a near-tie)."""
+    import numpy as np
+
+    from llama_kotlin_tpu_torch.models.synthetic import (params_to, preset_config,
+                                                         synthetic_params_device,
+                                                         synthetic_spm_vocab)
+    from llama_kotlin_tpu_torch.runtime.context import LlamaContext
+    from llama_kotlin_tpu_torch.runtime.engine import Request
+    from llama_kotlin_tpu_torch.sampling.json_schema import json_schema_to_gbnf
+    from llama_kotlin_tpu_torch.sampling.samplers import SamplingParams
+    from llama_kotlin_tpu_torch.tokenizer import build_tokenizer
+
+    tol = 3e-2
+    cfg = preset_config("llama3-8b", n_layer=2)
+    params = synthetic_params_device(cfg, seed=1, device="cuda")
+    cpu_params = params_to(params, "cpu")
+    tok = build_tokenizer(synthetic_spm_vocab(cfg.vocab_size))
+    rng = np.random.default_rng(15)
+    prompts = [rng.integers(300, cfg.vocab_size, n).astype(np.int32)
+               for n in (9, 40, 130, 300, 12, 20)]
+    n_predict = (3, 4, 6, 6, 4, 3)
+    grammar = json_schema_to_gbnf(SERVE_SCHEMA)
+    Forced = _engine_class()
+
+    def run(dev, forced):
+        ctx = LlamaContext(cfg, params if dev == "cuda" else cpu_params, n_cells=2048,
+                           prefer_unrolled=True, device=dev)
+        rows = []
+        decode = ctx.decode
+
+        def keep(batch):
+            rc = decode(batch)
+            if rc == 0 and batch.output.any():
+                rows.extend(ctx.logits_device().float().cpu().numpy())
+            return rc
+        ctx.decode = keep
+        eng = Forced(ctx, tok, n_slots=4, n_batch=256, chunk_steps=0, forced=forced)
+        for i, (p, n) in enumerate(zip(prompts, n_predict)):
+            eng.submit(Request(prompt_tokens=p, n_predict=n, n_probs=5 if i == 5 else 0,
+                               params=SamplingParams(temp=0.0,
+                                                     grammar=grammar if i == 4 else None)))
+        for _ in range(6):
+            eng.step()
+        used = {"decode_steps": eng.metrics["n_decode_steps"],
+                "prompt_tokens": eng.metrics["prompt_tokens_processed"]}
+        return rows, eng.chosen, used
+
+    def cpu_run():
+        rows, chosen, _ = run("cpu", None)
+        record = np.full(cfg.vocab_size, -1.0, np.float32)
+        record[:len(chosen)] = chosen
+        return rows + [record]
+
+    cl = cpu_ref("engine", cpu_run)
+    if REFS["writer"]:
+        return
+    *cl, record = cl
+    ct = [int(t) for t in record if t >= 0]
+    gl, gt, used = run("cuda", ct)
+    if len(gl) != len(cl) or len(gt) != len(ct) or len(ct) != len(cl):
+        raise AssertionError(f"engine parity: {len(gl)} card rows, {len(cl)} CPU rows, "
+                             f"{len(gt)} and {len(ct)} choices")
+    errs = [float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(gl, cl)]
+    ties = [i for i, (a, b) in enumerate(zip(gt, ct)) if a != b]
+    near = all(cl[i][ct[i]] - cl[i][gt[i]] <= 2 * tol * np.abs(cl[i]).max() for i in ties)
+    log(json.dumps({"phase": "engine_parity", "n_layer": 2, "rows": len(cl), **used,
+                    "tokens_cpu": ct, "tokens_cuda_own": gt, "rel_logit_err": errs,
+                    "max_rel_logit_err": max(errs), "near_ties": ties, "tol_rel": tol}))
+    if max(errs) > tol or not near:
+        raise AssertionError("engine parity: card and CPU disagree")
+
+
+def _server_prompts(tok) -> list:
+    """Prompt texts of about SERVE_PROMPTS tokens: CLI_PROMPT repeated, cut."""
+    ids = tok.encode(" ".join([CLI_PROMPT] * 40), add_special=False)
+    return [tok.decode(ids[:n]) for n in SERVE_PROMPTS]
+
+
+def _http(url, path, body=None):
+    import urllib.request
+
+    req = urllib.request.Request(url + path, None if body is None else json.dumps(body).encode(),
+                                 {"Content-Type": "application/json"})
+    return urllib.request.urlopen(req, timeout=600)
+
+
+def _drive(eng, reqs, threaded: bool = True) -> float:
+    """Submit reqs to eng and wait for all (the engine's own thread, or
+    step() here); returns the wall seconds."""
+    import threading
+
+    t0 = time.perf_counter()
+    stop = threading.Event()
+    th = threading.Thread(target=eng.run_loop, args=(stop,), daemon=True) if threaded else None
+    for r in reqs:
+        eng.submit(r)
+    if th is not None:
+        th.start()
+    try:
+        while not all(r.done.is_set() for r in reqs):
+            if th is None:
+                eng.step()
+            else:  # block on a pending request: a spin here would starve the engine
+                next(r for r in reqs if not r.done.is_set()).done.wait(0.05)
+                eng.check()
+    finally:
+        stop.set()
+        if th is not None:
+            th.join(60)
+    eng.check()
+    if any(r.error for r in reqs):
+        raise AssertionError([r.error for r in reqs if r.error])
+    return time.perf_counter() - t0
+
+
+def server_phase(torch, path: Path, mode) -> dict:
+    """The OpenAI server on the 32-layer Q4_K_M file of gguf_phase (SPM vocab
+    of 128256 pieces), loaded as tools/server.py loads it (fast_mode=mode:
+    "w4" or None, the exact-dequant default; fused; the default context of
+    SERVE_CELLS cells):
+    (a) one slot, greedy: the engine's tokens (a prefill through
+        ctx.decode, then generate_loop chunks at B = 1) equal generate()'s
+        bit for bit;
+    (b) serve() on 127.0.0.1:0 with 4 slots, 8 concurrent requests: 4
+        greedy /completion (n_predict 32, prompts of SERVE_PROMPTS tokens),
+        2 streaming /v1/chat/completions at temperature 0.8 with seeds, one
+        under a JSON schema, one with n_probs; /tokenize, /health, /slots,
+        /metrics.  Every response 200; each request ends at n_predict or a
+        stop; streamed text equals the engine's final text; /metrics counts
+        the tokens returned; the JSON output parses;
+    (c) tokens/s of the 4 greedy and 2 sampled requests at 1, 4 and 8
+        slots, and one engine step at 4 slots profiled.
+    Logs TTFT per request and how often the chunked decode engaged.
+    Returns {path: launch counts}."""
+    import threading
+
+    import numpy as np
+
+    from llama_kotlin_tpu_torch.gguf.reader import GGUFFile
+    from llama_kotlin_tpu_torch.models.loader import load_gguf_model
+    from llama_kotlin_tpu_torch.ops.cuda import (flash, qmm, qmm_int8, qmm_w4, qmm_w4_ffn,
+                                                 qmm_w4x, qmm_w8)
+    from llama_kotlin_tpu_torch.runtime.chat import resolve_template
+    from llama_kotlin_tpu_torch.runtime.context import LlamaContext
+    from llama_kotlin_tpu_torch.runtime.engine import Engine, Request
+    from llama_kotlin_tpu_torch.runtime.generate import generate
+    from llama_kotlin_tpu_torch.sampling.samplers import SamplingParams
+    from llama_kotlin_tpu_torch.tokenizer import build_tokenizer
+    from llama_kotlin_tpu_torch.tools import server
+
+    label = f"server_{mode or 'exact'}"
+    if mode == "w4":
+        mods, never = (qmm_w4, qmm_w4_ffn, flash, qmm, qmm_w8), (qmm_w4x, qmm_int8)
+    else:
+        mods, never = (qmm, exact_counter(), flash), (qmm_w4, qmm_w4_ffn, qmm_w8, qmm_int8,
+                                                      qmm_w4x)
+    t0 = time.perf_counter()
+    cfg, params, f = load_gguf_model(path, fast_mode=mode, fuse=True, device="cuda")
+    tok = build_tokenizer(f.metadata)
+    template = resolve_template(f.metadata.get("tokenizer.chat_template"), cfg.arch)
+    f.close()
+    ctx = LlamaContext(cfg, params, n_cells=SERVE_CELLS, device="cuda")
+    torch.cuda.synchronize()
+    line: dict = {"phase": label, "load_s": time.perf_counter() - t0,
+                  "unrolled": "layers" in ctx.params}
+    for m in mods + never:
+        m.LAUNCHES = 0
+    texts = _server_prompts(tok)
+    # (a) one slot, greedy, against generate()
+    ids = np.asarray(tok.encode(texts[1], add_special=True), np.int32)
+    req = Request(prompt_tokens=ids, params=SamplingParams(temp=0.0), n_predict=32)
+    eng = Engine(ctx, tok, n_slots=1)
+    _drive(eng, [req], threaded=False)
+    ctx.clear()
+    ref = generate(ctx, ids, 32)
+    line["exact_vs_generate"] = {"engine": req.output_tokens, "generate": ref,
+                                 "chunked_steps": eng.n_chunked}
+    if req.output_tokens != ref or not eng.n_chunked:
+        raise AssertionError(f"{label}: the engine's greedy tokens differ from generate()'s")
+    # (b) the HTTP server, 4 slots, 8 concurrent requests
+    ctx.clear()
+    state = server.serve(ctx, tok, model_name=cfg.name, template=template, host="127.0.0.1",
+                         port=0, n_slots=4, n_batch=256)
+    url = f"http://127.0.0.1:{state.httpd.server_address[1]}"
+    threading.Thread(target=state.httpd.serve_forever, daemon=True).start()
+    submitted = []
+    submit = state.engine.submit
+    state.engine.submit = lambda r: submitted.append(r) or submit(r)
+    bodies = [("/completion", {"prompt": t, "n_predict": 32, "temperature": 0})
+              for t in texts]
+    bodies += [("/v1/chat/completions", {"messages": [{"role": "user", "content": texts[i]}],
+                                         "max_tokens": 32, "temperature": 0.8, "seed": s,
+                                         "stream": True}) for i, s in ((0, 1), (2, 2))]
+    bodies += [("/completion", {"prompt": "Reply in JSON: " + texts[0], "n_predict": 128,
+                                "temperature": 0, "json_schema": SERVE_SCHEMA}),
+               ("/completion", {"prompt": texts[1], "n_predict": 32, "temperature": 0,
+                                "n_probs": 5})]
+    out: dict = {}
+
+    def client(i, route, body):
+        t = time.perf_counter()
+        with _http(url, route, body) as r:
+            if r.status != 200:
+                raise AssertionError(f"{label}: {route} answered {r.status}")
+            if not body.get("stream"):
+                out[i] = {"json": json.loads(r.read()), "s": time.perf_counter() - t}
+                return
+            deltas, first = [], None
+            for raw in r:
+                raw = raw.strip()
+                if raw.startswith(b"data: ") and raw != b"data: [DONE]":
+                    ev = json.loads(raw[6:])
+                    d = ev["choices"][0]["delta"].get("content", "")
+                    if d and first is None:
+                        first = time.perf_counter() - t
+                    deltas.append(d)
+                    fin = ev["choices"][0]["finish_reason"]
+            out[i] = {"text": "".join(deltas), "finish": fin, "ttft_s": first,
+                      "s": time.perf_counter() - t}
+
+    errors = []
+
+    def guarded(*a):
+        try:
+            client(*a)
+        except Exception as e:  # noqa: BLE001 (raised below)
+            errors.append(repr(e))
+
+    t_http = time.perf_counter()
+    threads = [threading.Thread(target=guarded, args=(i, r, b)) for i, (r, b) in
+               enumerate(bodies)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(900)
+    wall = time.perf_counter() - t_http
+    state.engine.check()
+    if errors or len(out) != len(bodies):
+        raise AssertionError(f"{label}: requests failed: {errors}")
+    with _http(url, "/tokenize", {"content": texts[0]}) as r:
+        n_tok = json.loads(r.read())["tokens"]
+    with _http(url, "/health") as r:
+        health = json.loads(r.read())
+    with _http(url, "/slots") as r:
+        slots = json.loads(r.read())
+    with _http(url, "/metrics") as r:
+        metrics = dict(ln.split() for ln in r.read().decode().splitlines()
+                       if not ln.startswith("#"))
+    n_returned = sum(len(r.output_tokens) for r in submitted)
+    for i, (route, body) in enumerate(bodies):
+        n_want = body.get("n_predict", body.get("max_tokens"))
+        if route == "/completion":
+            j = out[i]["json"]
+            ended = j["tokens_predicted"] == n_want or j["stopped_eos"] or j["stopping_word"]
+        else:
+            ended = out[i]["finish"] in ("length", "eos", "stop")
+        if not ended:
+            raise AssertionError(f"{label}: request {i} ended early: {out[i]}")
+    streamed = [r for r in submitted if r.stream is not None]
+    texts_ok = len(streamed) == 2 and sorted(o["text"] for o in out.values() if "text" in o) \
+        == sorted(r.output_text for r in streamed)
+    schema_text = out[6]["json"]["content"]
+    parsed = json.loads(schema_text)
+    want_tok = tok.encode(texts[0], add_special=False, parse_special=True)
+    if not texts_ok or health != {"status": "ok"} or len(slots) != 4 or n_tok != want_tok \
+            or int(metrics["llamacpp:tokens_predicted_total"]) != n_returned \
+            or not isinstance(parsed.get("ok"), bool) or len(submitted) != len(bodies):
+        raise AssertionError(f"{label}: streamed texts {texts_ok}, health {health}, slots "
+                             f"{len(slots)}, metrics {metrics}, returned {n_returned}, "
+                             f"json {schema_text!r}")
+    line.update({
+        "http": {"requests": len(bodies), "wall_s": wall, "tokens": n_returned,
+                 "tok_s": n_returned / wall, "chunked_steps": state.engine.n_chunked,
+                 "decode_steps": state.engine.metrics["n_decode_steps"],
+                 "prompt_tokens": state.engine.metrics["prompt_tokens_processed"],
+                 "json": schema_text},
+        "ttft_ms": [{"prompt_tokens": len(r.prompt_tokens), "stream": r.stream is not None,
+                     "n_probs": r.n_probs, "grammar": r.params.grammar is not None,
+                     "n_out": len(r.output_tokens), "stop": r.stop_reason,
+                     "ttft_ms": (r.t_first_token - r.t_start) * 1e3} for r in submitted]})
+    state.shutdown()
+    del state
+    # (c) tokens/s of 6 requests (4 greedy, 2 sampled) at 1, 4 and 8 slots
+    sweep = {}
+    for n_slots in (1, 4, 8):
+        ctx.clear()
+        eng = Engine(ctx, tok, n_slots=n_slots, n_batch=256)
+        reqs6 = [Request(prompt_tokens=np.asarray(tok.encode(t), np.int32),
+                         params=SamplingParams(temp=0.0), n_predict=32) for t in texts]
+        reqs6 += [Request(prompt_tokens=np.asarray(tok.encode(texts[i]), np.int32),
+                          params=SamplingParams(temp=0.8, seed=s), n_predict=32)
+                  for i, s in ((0, 1), (2, 2))]
+        dt = _drive(eng, reqs6)
+        n = sum(len(r.output_tokens) for r in reqs6)
+        sweep[n_slots] = {"tok_s": n / dt, "wall_s": dt, "tokens": n,
+                          "decode_steps": eng.metrics["n_decode_steps"],
+                          "chunked_steps": eng.n_chunked,
+                          "ttft_ms": [(r.t_first_token - r.t_start) * 1e3 for r in reqs6]}
+    line["slots_sweep"] = sweep
+    line["profile_step_4_slots"] = profile_engine_step(torch, ctx, tok, texts)
+    counts = {mod_name(m): m.LAUNCHES for m in mods}
+    line["launches"] = counts
+    log(json.dumps(line))
+    if not all(counts.values()) or any(m.LAUNCHES for m in never):
+        raise AssertionError(f"{label}: launches {counts}, never "
+                             f"{ {mod_name(m): m.LAUNCHES for m in never} }")
+    del ctx, params
+    torch.cuda.empty_cache()
+    return {label: counts}
+
+
+def profile_engine_step(torch, ctx, tok, texts) -> dict:
+    """One engine step of 4 greedy slots, all generating (the chunked
+    on-device loop: K decode steps of 4 rows), under torch.profiler: its
+    wall time, launches, device busy time and idle share (as
+    profile_decode)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from llama_kotlin_tpu_torch.runtime.engine import Engine, Request, SlotState
+    from llama_kotlin_tpu_torch.sampling.samplers import SamplingParams
+
+    ctx.clear()
+    eng = Engine(ctx, tok, n_slots=4, n_batch=256)
+    for t in texts:
+        eng.submit(Request(prompt_tokens=np.asarray(tok.encode(t), np.int32),
+                           params=SamplingParams(temp=0.0), n_predict=64))
+    while not all(s.state == SlotState.GENERATING for s in eng.slots):
+        eng.step()
+    chunked = eng.n_chunked
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    k = eng.chunk_steps if eng.n_chunked > chunked else 1
+    rows = device_rows(prof)
+    busy = sum(r[0] for r in rows)
+    return {"decode_steps_in_step": k, "rows": 4, "wall_ms": wall_ms,
+            "wall_ms_per_decode_step": wall_ms / k,
+            "device_busy_ms": busy if rows else "not measured",
+            "device_idle_share": 1.0 - busy / wall_ms if rows else "not measured",
+            "device_launches": sum(r[1] for r in rows),
+            "top": [{"kernel": n[:60], "ms": t, "calls": c} for t, c, n in rows[:6]]}
+
+
+def speculative_phase(torch, cfg, params) -> dict:
+    """Speculative, lookup and lookahead decoding on the full llama3-8B W4A8
+    model (the target, unrolled, 1024 cells): a SPEC_PROMPT-token prompt,
+    SPEC_NEW tokens, n_draft SPEC_DRAFT; drafts (i) the target itself and
+    (ii) a 2-layer llama3-8b of another seed (same vocab).
+    speculative_generate and speculative_generate_device give identical
+    tokens and stats.  Every token each method emits (and
+    speculative_generate_tree's with 3 branches, and generate()'s) is held
+    to the target: its token list is teacher-forced through the target one
+    token a decode (plain greedy's route), and at every position the
+    emitted token's logit must lie within 2 * noise * max|logits| of its
+    row's maximum.  noise is this model's route noise, measured here: the
+    largest max|logits difference| / max|logits| between plain greedy's
+    one-row rows and the same rows made as K+1-row verify batches, or as
+    one batch of the prompt and the tokens (above 32 rows: kernel 4's
+    route, which lookahead's batches take).  A method's row differs from
+    the one-row row by at most noise, so its argmax is within 2 * noise of
+    the one-row maximum.  Logs the noise, each method's worst margin,
+    where it parts from plain greedy, the near-ties (plain greedy's top-2
+    gap under SPEC_TOL of max|logits|), acceptance and tokens/s beside
+    plain generate().  Returns {"speculative": launch counts}."""
+    import numpy as np
+
+    from llama_kotlin_tpu_torch.models.synthetic import preset_config, synthetic_params_device
+    from llama_kotlin_tpu_torch.ops.cuda import flash, qmm, qmm_w4, qmm_w4_ffn
+    from llama_kotlin_tpu_torch.runtime import lookahead as la
+    from llama_kotlin_tpu_torch.runtime import speculative as spec
+    from llama_kotlin_tpu_torch.runtime.batch import Batch
+    from llama_kotlin_tpu_torch.runtime.context import LlamaContext
+    from llama_kotlin_tpu_torch.runtime.generate import generate
+
+    mods = (qmm_w4, qmm_w4_ffn, flash, qmm)
+    dcfg = preset_config("llama3-8b", n_layer=2)
+    dparams = synthetic_params_device(dcfg, seed=5, device="cuda")
+
+    def ctx_of(c, p):
+        return LlamaContext(c, p, n_cells=1024, prefer_unrolled=True, device="cuda")
+
+    target, self_draft, small = ctx_of(cfg, params), ctx_of(cfg, params), ctx_of(dcfg, dparams)
+    prompt = np.random.default_rng(16).integers(0, cfg.vocab_size, SPEC_PROMPT).astype(np.int32)
+
+    def forced(toks) -> np.ndarray:
+        """The target's one-row rows along toks: row i predicts toks[i]."""
+        target.clear()
+        assert target.decode(Batch.single(prompt)) == 0
+        rows = [target.get_logits()[-1]]
+        for i, t in enumerate(toks[:-1]):
+            assert target.decode(Batch.single([t], pos0=SPEC_PROMPT + i)) == 0
+            rows.append(target.get_logits()[-1])
+        return np.stack(rows).astype(np.float32)
+
+    def rel_diff(a, b) -> float:
+        return float((np.abs(a - b).max(-1) / np.abs(a).max(-1)).max())
+
+    for m in mods:
+        m.LAUNCHES = 0
+    # plain greedy, one token a decode, and its rows' top-2 gaps
+    target.clear()
+    assert target.decode(Batch.single(prompt)) == 0
+    plain, rows = [], []
+    for i in range(SPEC_NEW):
+        rows.append(target.get_logits()[-1].astype(np.float32))
+        plain.append(int(np.argmax(rows[-1])))
+        if i + 1 < SPEC_NEW:
+            assert target.decode(Batch.single([plain[-1]], pos0=SPEC_PROMPT + i)) == 0
+    rows = np.stack(rows)
+    top2 = np.sort(rows, axis=-1)[:, -2:]
+    gaps = ((top2[:, 1] - top2[:, 0]) / np.abs(rows).max(-1)).tolist()
+    # route noise: the same rows as K+1-row verify batches, and as one batch
+    # of the prompt and the tokens
+    target.clear()
+    assert target.decode(Batch.single(prompt)) == 0
+    chunked = [None]
+    for c in range(0, SPEC_NEW - 1, SPEC_DRAFT + 1):
+        part = plain[c:min(c + SPEC_DRAFT + 1, SPEC_NEW - 1)]
+        assert target.decode(Batch.single(part, pos0=SPEC_PROMPT + c,
+                                          logits_last_only=False)) == 0
+        chunked += list(target.get_logits().astype(np.float32))
+    noise_verify = rel_diff(rows[1:], np.stack(chunked[1:]))
+    target.clear()
+    assert target.decode(Batch.single(np.concatenate([prompt, plain[:-1]]),
+                                      logits_last_only=False)) == 0
+    noise_batch = rel_diff(rows, target.get_logits()[SPEC_PROMPT - 1:].astype(np.float32))
+    noise = max(noise_verify, noise_batch)
+    target.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen_toks = generate(target, prompt, SPEC_NEW)
+    gen_s = time.perf_counter() - t0
+    line = {"phase": "speculative", "n_layer": cfg.n_layer, "prompt_tokens": SPEC_PROMPT,
+            "n_predict": SPEC_NEW, "n_draft": SPEC_DRAFT,
+            "route_noise_verify": noise_verify, "route_noise_batch": noise_batch,
+            "margin_bound": 2 * noise, "near_ties": sum(g < SPEC_TOL for g in gaps),
+            "top2_gap_rel": gaps, "plain_generate_tok_s": SPEC_NEW / gen_s, "runs": {}}
+    runs = [(f"{fn}_{dname}", getattr(spec, fn), (target, d), {"n_draft": SPEC_DRAFT, **kw})
+            for dname, d in (("self", self_draft), ("2layer", small))
+            for fn, kw in (("speculative_generate", {}), ("speculative_generate_device", {}),
+                           ("speculative_generate_tree", {"n_branches": 3}))]
+    runs += [("lookup_generate", spec.lookup_generate, (target,), {"n_draft": SPEC_DRAFT}),
+             ("lookahead_generate", la.lookahead_generate, (target,), {})]
+    got = {"generate": (list(gen_toks), {})}
+    for name, fn, ctxs, kw in runs:
+        for c in ctxs:
+            c.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, st = fn(*ctxs, prompt, SPEC_NEW, **kw)
+        dt = time.perf_counter() - t0
+        st = st if isinstance(st, dict) else {"n_drafted": st.n_drafted, "n_accepted": st.n_accepted,
+                                              "n_target_calls": st.n_target_calls,
+                                              "accept_rate": st.accept_rate}
+        got[name] = (list(toks), st)
+        line["runs"][name] = {"tok_s": len(toks) / dt, "stats": st, "tokens": list(toks)}
+    line["launches"] = counts = {mod_name(m): m.LAUNCHES for m in mods}
+    # every emitted token against the target's teacher-forced rows
+    forced_rows = {tuple(plain): rows}
+    bad = []
+    for name, (toks, _) in got.items():
+        if len(toks) != SPEC_NEW:
+            bad.append(f"{name} emitted {len(toks)} tokens")
+            continue
+        key = tuple(toks)
+        if key not in forced_rows:
+            forced_rows[key] = forced(toks)
+        r = forced_rows[key]
+        margins = (r.max(-1) - r[np.arange(SPEC_NEW), toks]) / np.abs(r).max(-1)
+        part = next((i for i, (a, b) in enumerate(zip(toks, plain)) if a != b), None)
+        run = line["runs"].setdefault(name, {"tokens": toks})
+        run.update({"parts_at": part, "gap_at_part": None if part is None else gaps[part],
+                    "worst_margin": float(margins.max()),
+                    "worst_at": int(margins.argmax())})
+        if margins.max() > 2 * noise:
+            bad.append(f"{name} emits token {toks[int(margins.argmax())]} at "
+                       f"{int(margins.argmax())}, {float(margins.max()):.3e} of max|logits| "
+                       f"below the target's best (bound {2 * noise:.3e})")
+    log(json.dumps(line))
+    if bad:
+        raise AssertionError("speculative: " + "; ".join(bad))
+    for d in ("self", "2layer"):
+        if got[f"speculative_generate_{d}"] != got[f"speculative_generate_device_{d}"]:
+            raise AssertionError(f"speculative: host and device loops differ ({d})")
+    if not all(counts.values()):
+        raise AssertionError(f"speculative: a kernel of the path never launched: {counts}")
+    del target, self_draft, small, dparams
+    torch.cuda.empty_cache()
+    return {"speculative": counts}
+
+
 def pick_row(rows: list, i):
     """A kernel's timed row by its index or its shape."""
     return rows[i] if isinstance(i, int) else next(r for r in rows if r["shape"] == i)
@@ -2913,20 +3606,18 @@ def main() -> int:
             print(ln, file=sys.stderr)
         results: dict = {}
 
-        def timed(fn, *args):
-            t = time.perf_counter()
-            out = fn(*args)
-            log(json.dumps({"phase": "timing", "function": fn.__name__,
-                            "seconds": time.perf_counter() - t}))
-            return out
-
+        timed = timed_call
         timed(kernel_phase, torch, results)
         timed(w8_kernel_phase, torch, results)
         timed(w4x_kernel_phase, torch, results)
         timed(kv_kernel_phase, torch, results)
+        timed(serving_mask_phase, torch, results)
         timed(fx_layer_kernel_phase, torch, results)
         timed(exact_kernel_phase, torch, results)
-        by_path = timed(serving_phase, torch)
+        by_path, cfg, params = timed(serving_phase, torch)
+        by_path.update(timed(speculative_phase, torch, cfg, params))
+        del params
+        torch.cuda.empty_cache()
         by_path.update(timed(w4x_serving_phase, torch))
         by_path.update(timed(tinyllama_phase, torch))
         tmpdir = Path(tempfile.mkdtemp(prefix="lk_gguf_"))
@@ -2935,11 +3626,15 @@ def main() -> int:
                 by_path[f"gguf_{mode}"] = c
             by_path["cli_w4"] = timed(cli_phase, torch, tmpdir / "llama3-8b-q4_k_m.gguf")
             by_path.update(timed(exact_serving_phase, torch, tmpdir / "llama3-8b-q4_k_m.gguf"))
+            for mode in ("w4", None):  # the server's fast mode and its default
+                by_path.update(timed(server_phase, torch, tmpdir / "llama3-8b-q4_k_m.gguf",
+                                     mode))
             (tmpdir / "llama3-8b-q4_k_m.gguf").unlink()
             by_path.update(timed(q4_0_gguf_phase, torch, tmpdir))
             by_path.update(timed(new_formats_phase, torch, tmpdir))
             timed(parity_phase, torch)
             timed(gguf_parity_phase, torch, tmpdir)
+            timed(engine_parity_phase, torch)
             timed(stop_cpu_refs, True)
         finally:
             shutil.rmtree(tmpdir, ignore_errors=True)
@@ -2964,7 +3659,10 @@ def main() -> int:
         "flash": ("csrc/flash.cu", "llama_kotlin_tpu/ops/pallas/flash.py:160", 0,
                   {"prefill": 1, "int8": 3, "int4": 4,
                    "d64": "bf16 cache D=64 nt=64 n_vis=1024",
-                   "ragged": "bf16 cache D=128 nt=64 n_vis=1001"}),
+                   "ragged": "bf16 cache D=128 nt=64 n_vis=1001",
+                   "serving_a": "bf16 cache serving mask a nt=64 n_vis=1024",
+                   "serving_b": "bf16 cache serving mask b nt=8 n_vis=1024",
+                   "serving_c": "bf16 cache serving mask c nt=16 n_vis=1024"}),
         "qmm": ("csrc/qmm.cu", "llama_kotlin_tpu/ops/pallas/qmm.py:192", 1,
                 {"m512": 5, "w8": 8}),
         "qmm_w8": ("csrc/qmm_w8.cu", "llama_kotlin_tpu/ops/pallas/qmm_w8.py:144", 0,

@@ -102,6 +102,7 @@ class LlamaContext:
         self.timings = Timings()
         self._logits: Optional[torch.Tensor] = None
         self._logits_rows: Optional[np.ndarray] = None
+        self._embd: list[torch.Tensor] = []  # per-ubatch final-norm rows
 
     def _prepare_params(self, params: dict) -> dict:
         """Stacked layers unless prefer_unrolled, or the layers are not
@@ -122,19 +123,20 @@ class LlamaContext:
 
     def decode(self, batch: Batch) -> int:
         """Process a batch; 0 on success, 1 if the KV cache is full."""
-        all_logits, all_rows = [], []
+        all_logits, all_rows, all_embd = [], [], []
         for base, ub in zip(range(0, len(batch), self.n_ubatch),
                             batch.split(self.n_ubatch)):
-            rc = self._decode_ubatch(ub, all_logits, all_rows, row_base=base)
+            rc = self._decode_ubatch(ub, all_logits, all_rows, all_embd, row_base=base)
             if rc != 0:
                 return rc
         if all_logits:
             self._logits = torch.cat(all_logits, dim=0)
             self._logits_rows = np.concatenate(all_rows)
+            self._embd = all_embd
         return 0
 
     def _decode_ubatch(self, ub: Batch, all_logits: list, all_rows: list,
-                       row_base: int = 0) -> int:
+                       all_embd: list, row_base: int = 0) -> int:
         nt = len(ub)
         t0 = time.perf_counter()
         slots = self.meta.find_slots(nt)
@@ -154,7 +156,7 @@ class LlamaContext:
         out_ids = np.zeros(max(1, len(out_rows)), np.int32)
         out_ids[:len(out_rows)] = out_rows
         dev = self.device
-        logits, _embd = llama_model.forward(
+        logits, embd = llama_model.forward(
             self.params, self.cfg,
             *(torch.from_numpy(a).to(dev) for a in (tokens, pos, seq, slot_arr)),
             self.cache, *self.meta.device_view(self.n_vis_for_span(), dev),
@@ -162,6 +164,7 @@ class LlamaContext:
         if len(out_rows):
             all_logits.append(logits[:len(out_rows)])
             all_rows.append(out_rows + row_base)
+            all_embd.append(embd[:len(out_rows)])
         dt = (time.perf_counter() - t0) * 1e3
         if nt == 1:
             self.timings.t_eval_ms += dt
@@ -190,6 +193,21 @@ class LlamaContext:
 
     def get_logits_ith(self, i: int = -1) -> np.ndarray:
         return self.get_logits()[i]
+
+    def get_embeddings(self, pooling: str = "last") -> np.ndarray:
+        """Final-norm hidden states of the last decode's output rows
+        (parity: llama_get_embeddings + pooling NONE/MEAN/LAST/CLS).
+        pooling: "none" -> [n_out, n_embd]; "mean"/"last"/"cls" -> [n_embd]."""
+        if not self._embd:
+            raise RuntimeError("no embeddings: decode with output flags first")
+        e = torch.cat(self._embd, dim=0).cpu().numpy()
+        if pooling == "none":
+            return e
+        if pooling == "mean":
+            return e.mean(axis=0)
+        if pooling == "cls":
+            return e[0]
+        return e[-1]
 
     def sample_rows_device(self, rows, sp, spv, pos, masks=None,
                            pen_window=None) -> np.ndarray:

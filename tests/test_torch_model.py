@@ -139,9 +139,11 @@ def test_cell_metadata_matches_jax():
 
 def test_port_imports_no_jax():
     """Importing the port and running a CPU forward (also on a q4_0 cache,
-    after a seq_add), and the text path's modules (tokenizers, samplers,
-    grammars, chat templates, state files, on-device sampling, the CLIs)
-    leaves neither jax nor the JAX package in sys.modules."""
+    after a seq_add), the text path's modules (tokenizers, samplers,
+    grammars, chat templates, state files, on-device sampling, the CLIs),
+    and the serving runtime's (engine, speculative, lookahead, the server
+    and its tools) with one engine step, leaves neither jax nor the JAX
+    package in sys.modules."""
     code = textwrap.dedent("""
         import sys, tempfile, os, io, contextlib
         import numpy as np
@@ -194,6 +196,17 @@ def test_port_imports_no_jax():
                 assert np.isfinite(ctx.get_logits()).all()
                 del params, ctx
                 f.close()
+        import llama_kotlin_tpu_torch.runtime.speculative, llama_kotlin_tpu_torch.runtime.lookahead
+        from llama_kotlin_tpu_torch.tools import (server, server_ui, infill, parallel_sim,
+                                                  batched_bench, lookahead, passkey,
+                                                  gbnf_validator)
+        from llama_kotlin_tpu_torch.runtime.engine import Engine, Request
+        ctx = LlamaContext(cfg, synthetic_params_device(cfg, device="cpu"), n_cells=128,
+                           device="cpu")
+        eng = Engine(ctx, tok, n_slots=2)
+        eng.submit(Request(prompt_tokens=np.arange(1, 6, dtype=np.int32),
+                           params=SamplingParams(temp=0.0), n_predict=2))
+        assert eng.step() and eng.metrics["prompt_tokens_processed"] == 5
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith(("jax.", "llama_kotlin_tpu."))
                or m == "llama_kotlin_tpu"]
