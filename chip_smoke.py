@@ -47,7 +47,7 @@ its plain version (decode and a 64-token prefill over 1024 cells), the
 card's quantize_rows_q4 against the CPU's and kernel 9's refusal of the
 packed cache; to 4 the W4A8 model unrolled (kernel 3's int4 branch, 96
 launches a layer over the 3 requests) and stacked (the plain route,
-models/llama.py::attend_stacked_q4, and neither kernel 3 nor 9); to 5 the
+models/llama.py::attend_stacked_plain, and neither kernel 3 nor 9); to 5 the
 w4-mode file unrolled with it; to 6 the q4_0 cache on both paths, a
 seq_div/seq_add K shift on each cache type and a file with a dense (F16)
 output matrix.
@@ -146,7 +146,7 @@ and lookahead decoding, the OpenAI server) adds to 3 kernel 3 under the
 masks serving gives it (serving_mask_phase: four sequences interleaved
 beside a prompt chunk, a prefix shared through seq_cp, a speculative tree
 with branch bitmasks; three caches, blind rows exactly 0, beside SDPA); to
-4 speculative_phase on the 32-layer W4A8 model (host and device loops
+4 speculative_phase on the W4A8 model's first layers (host and device loops
 identical; every emitted token of every method within twice the measured
 route noise of the target's best, teacher-forced); to 5
 server_phase on the Q4_K_M file in the w4 and the exact mode (one slot
@@ -154,9 +154,24 @@ bit-equal to generate(), 8 concurrent HTTP requests on 4 slots, tokens/s
 at 1, 4 and 8 slots, one engine step profiled); to 6 engine_parity_phase
 (4 slots, 6 requests, 6 steps, card against CPU at 2 layers).
 
+DeepSeek-V2-Lite and llama-architecture MoE (deepseek2's multi-head latent
+attention on kernel 3's MLA branch, routed and shared experts) add to 3
+kernel 3's MLA branch (K 192, V 128; 16 heads on 16 kv heads) on the three
+caches at decode and a 64-token chunk over 1024 and 4096 cells
+(mla_kernel_phase); to 5 DeepSeek-V2-Lite at its published shapes and all
+27 layers in the exact and w4 modes, 3 requests each with exact MLA launch
+counts (27 a decode step) and no plain attention, profiled, and 4
+concurrent requests on the engine at 4 slots (deepseek2_phase); to 6 its
+first 2 layers in both modes and a 2-layer Mixtral-8x7B-shaped file in w4
+against the CPU, the card on the CPU's routing (moe_parity_phase).  The W4X
+model, tinyllama-1.1b and speculative decoding are cut to EARLIER_LAYERS
+layers since then.
+
 The parity phases' CPU references are computed by a child process of this
 script (--cpu-refs, started first, CPU_REF_THREADS threads), which runs
 beside the card's phases; the parent reads each when its card run needs it.
+Another child (--write-files) writes the 4.9 GB llama3-8B Q4_K_M file and
+the 10.4 GB DeepSeek-V2-Lite file meanwhile.
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -166,6 +181,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import math
 import os
 import shutil
 import statistics
@@ -174,6 +190,7 @@ import sys
 import tempfile
 import time
 import traceback
+from dataclasses import replace
 from pathlib import Path
 
 # the card's data-sheet peaks (H100 SXM, dense): bytes/s and ops/s
@@ -183,11 +200,12 @@ REPS = 20
 FLUSH_BYTES = 256 << 20  # > the 50 MB L2: decode streams cold weights
 SPIN_CYCLES = 10_000_000  # ~5 ms of device spin ahead of each timed call
 # depth of the paths earlier slices added (the quantized caches, the fused
-# layer half, the Q4_0 file): cut from 32 layers to keep the whole script
-# well inside its time limit on a slow host (8 layers until the
-# tinyllama-1.1b phase and kernel 6's and the repaired attention's rows
-# came); the main path, the W4X model, the Q4_K_M file and tinyllama-1.1b
-# keep their full depth
+# layer half, the Q4_0 file, and since the DeepSeek-V2-Lite phases came
+# the W4X model, tinyllama-1.1b and speculative decoding): cut to keep the
+# whole script well inside its time limit on a slow host (8 layers until
+# the tinyllama-1.1b phase and kernel 6's and the repaired attention's rows
+# came); the main path, the Q4_K_M file and DeepSeek-V2-Lite keep their
+# full depth
 EARLIER_LAYERS = 4
 # greedy tokens of each request of the 32-token prompts (serve_32)
 N_NEW_32 = 8
@@ -1701,9 +1719,9 @@ def fused_serving(torch, cfg, params) -> dict:
     return by_path
 
 
-def tinyllama_phase(torch) -> dict:
-    """The JAX package's tinyllama-1.1b preset at full width and depth (22
-    layers; head dim 64: 32 query heads on 4 kv heads; F = 5632, whose down
+def tinyllama_phase(torch, n_layer: int = 22) -> dict:
+    """The JAX package's tinyllama-1.1b preset at full width, n_layer of its
+    22 layers (head dim 64: 32 query heads on 4 kv heads; F = 5632, whose down
     fold pads K to 6144, so kernel 2 declines the FFN as JAX's does and
     kernel 1 takes gate|up and down at decode), synthetic W4A8 weights (seed
     2), 3 requests each: unrolled bf16 (kernel 3), stacked bf16 and q8_0
@@ -1718,7 +1736,7 @@ def tinyllama_phase(torch) -> dict:
     from llama_kotlin_tpu_torch.ops.cuda import flash, flash_stacked, qmm, qmm_w4, qmm_w4_ffn
 
     t0 = time.perf_counter()
-    cfg = preset_config("tinyllama-1.1b")
+    cfg = preset_config("tinyllama-1.1b", n_layer=n_layer)
     params = synthetic_params_device(cfg, seed=2, device="cuda")
     L, by_path = cfg.n_layer, {}
     log(json.dumps({"phase": "tinyllama", "n_layer": L, "head_dim": cfg.head_dim,
@@ -1861,7 +1879,8 @@ def q4_0_unfused_serving(torch, path: Path) -> dict:
 
 
 def w4x_serving_phase(torch, n_layer: int = 32) -> dict:
-    """3 requests on the full llama3-8B W4X model (every matrix a precise
+    """3 requests on the full-width llama3-8B W4X model, n_layer of its 32
+    layers (every matrix a precise
     fold of the serving phase's draws) on the default context, which
     stacks it, with a bf16 cache.  Kernel 7 takes every decode projection
     (4 a layer and the lm_head: 4 n_layer + 1 launches per decode token)
@@ -1947,7 +1966,7 @@ def q4_kv_serving(torch, cfg, params, label: str, mods, profile: bool = True) ->
     3's int4 branch once a layer and step (3 requests of a prefill and 31
     decode steps: 96 n_layer launches) and kernel 9 never; stacked (the
     default context), the plain route JAX takes there
-    (models/llama.py::attend_stacked_q4, counted as often) and neither
+    (models/llama.py::attend_stacked_plain, counted as often) and neither
     kernel 3 nor kernel 9.  Returns {path: launch counts}."""
     from llama_kotlin_tpu_torch.models import llama
     from llama_kotlin_tpu_torch.ops.cuda import flash, flash_stacked
@@ -1968,15 +1987,15 @@ def q4_kv_serving(torch, cfg, params, label: str, mods, profile: bool = True) ->
     del ctx
     if "layers" in params and llama.can_stack(params, cfg):
         path = f"{label}_stacked_q4_0"
-        route = CallCounter(llama, "attend_stacked_q4")
+        route = CallCounter(llama, "attend_stacked_plain")
         try:
             counts, ctx = serve(torch, cfg, params, mods + (route,), path,
                                 never=(flash, flash_stacked), kv_quant="q4_0")
         finally:
             route.close()
         log(json.dumps({"phase": path, "attention_route": route.__name__,
-                        "route_calls": counts["attend_stacked_q4"]}))
-        if counts["attend_stacked_q4"] != steps or "layers_stacked" not in ctx.params:
+                        "route_calls": counts["attend_stacked_plain"]}))
+        if counts["attend_stacked_plain"] != steps or "layers_stacked" not in ctx.params:
             raise AssertionError(f"{path}: {counts}, expected {steps} stacked route calls")
         if profile:
             profile_decode(torch, ctx, cfg, path)
@@ -1996,19 +2015,11 @@ def gguf_phase(torch, tmpdir: Path) -> dict:
     default (stacked) context with a q8_0 cache.  The file stays in tmpdir
     for cli_phase.  Returns {path: launch counts}."""
     from llama_kotlin_tpu_torch.models.loader import load_gguf_model
-    from llama_kotlin_tpu_torch.models.synthetic import (preset_config, synthetic_gguf,
-                                                         synthetic_spm_vocab)
     from llama_kotlin_tpu_torch.ops.cuda import (flash, flash_stacked, qmm, qmm_int8, qmm_w4,
                                                  qmm_w4_ffn, qmm_w4x, qmm_w8)
 
-    path = tmpdir / "llama3-8b-q4_k_m.gguf"
-    t0 = time.perf_counter()
-    # with an SPM vocab of the model's 128256 pieces and a Llama-2 chat
-    # template, which cli_phase reads; the loader ignores these keys
-    size = synthetic_gguf(path, preset_config("llama3-8b"), seed=7,
-                          extra_kvs=synthetic_spm_vocab(128256))
-    log(json.dumps({"phase": "gguf", "file_bytes": size,
-                    "write_s": time.perf_counter() - t0}))
+    path, written = child_file(tmpdir, LLAMA_FILE)
+    log(json.dumps({"phase": "gguf", "file_bytes": written.pop("bytes"), **written}))
     precise = w8_precise()
     # mode: (kernels that must launch, kernels that must not, context options)
     mode_mods = {"w4": ((qmm_w4, qmm_w4_ffn, flash, qmm, qmm_w8), (precise, qmm_w4x),
@@ -2488,11 +2499,13 @@ def device_rows(prof) -> list:
     return sorted(rows, reverse=True)
 
 
-def profile_decode(torch, ctx, cfg, label: str, n_steps: int = 8, n_prompt: int = 64) -> None:
+def profile_decode(torch, ctx, cfg, label: str, n_steps: int = 8, n_prompt: int = 64,
+                   prefill: bool = True) -> None:
     """Where the time goes: torch.profiler traces of an n_prompt-token
-    prefill and of n_steps greedy steps after it.  Device busy time is the
-    sum of the kernels' device times (one stream, so they do not overlap);
-    the idle share is the rest of the wall time."""
+    prefill (unless prefill=False: the prefill runs untraced) and of n_steps
+    greedy steps after it.  Device busy time is the sum of the kernels'
+    device times (one stream, so they do not overlap); the idle share is
+    the rest of the wall time."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -2502,20 +2515,22 @@ def profile_decode(torch, ctx, cfg, label: str, n_steps: int = 8, n_prompt: int 
     ctx.clear()
     prompt = np.random.default_rng(9).integers(0, cfg.vocab_size, n_prompt).astype(np.int32)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if prefill \
+            else contextlib.nullcontext() as prof:
         t0 = time.perf_counter()
         assert ctx.decode(Batch.single(prompt)) == 0
         first = torch.argmax(ctx.logits_device()[:1], dim=-1).to(torch.int32)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = device_rows(prof)
-    busy = sum(r[0] for r in rows)
-    log(json.dumps({
-        "phase": "profile_prefill", "path": label, "prompt_tokens": n_prompt,
-        "wall_ms": wall_ms, "device_busy_ms": busy if rows else "not measured",
-        "device_idle_share": 1.0 - busy / wall_ms if rows else "not measured",
-        "device_launches": sum(r[1] for r in rows),
-        "top": [{"kernel": k[:60], "ms": t, "calls": c} for t, c, k in rows[:8]]}))
+    if prefill:
+        rows = device_rows(prof)
+        busy = sum(r[0] for r in rows)
+        log(json.dumps({
+            "phase": "profile_prefill", "path": label, "prompt_tokens": n_prompt,
+            "wall_ms": wall_ms, "device_busy_ms": busy if rows else "not measured",
+            "device_idle_share": 1.0 - busy / wall_ms if rows else "not measured",
+            "device_launches": sum(r[1] for r in rows),
+            "top": [{"kernel": k[:60], "ms": t, "calls": c} for t, c, k in rows[:8]]}))
     slots = ctx.meta.find_slots(n_steps)
     ctx.meta.commit(slots, np.arange(n_prompt, n_prompt + n_steps, dtype=np.int32),
                     np.zeros(n_steps, np.int32))
@@ -2705,6 +2720,102 @@ def cpu_ref(label: str, compute) -> list:
     return list(np.load(path))
 
 
+# The two largest files (the 32-layer llama3-8B Q4_K_M file of gguf_phase,
+# 4.9 GB, and the 27-layer DeepSeek-V2-Lite file, 10.4 GB: ~100 s of random
+# draws and disk writes) are written by another child of this script
+# (``--write-files DIR``), started with the CPU references, so that they
+# overlap the card's earlier phases; each phase that reads one waits for it
+# (logging the wait) and moves it into its own directory.  A phase called
+# alone writes its file itself.
+FILES: dict = {"dir": None, "child": None, "log": None}
+LLAMA_FILE = "llama3-8b-q4_k_m.gguf"
+DS2_FILE = "deepseek-v2-lite-q4_k_m.gguf"
+
+
+def _written(path: Path, cfg, **kw) -> dict:
+    """synthetic_gguf(path, cfg, **kw) through a temporary name and a
+    rename, so that the name appears only once the file is whole."""
+    from llama_kotlin_tpu_torch.models.synthetic import synthetic_gguf
+
+    t0 = time.perf_counter()
+    tmp = path.with_suffix(".part")
+    size = synthetic_gguf(tmp, cfg, **kw)
+    os.replace(tmp, path)
+    return {"bytes": size, "write_s": time.perf_counter() - t0}
+
+
+def write_llama_file(path: Path) -> dict:
+    """gguf_phase's file: the 32-layer llama3-8B Q4_K_M mix from seed 7 with
+    an SPM vocab of its 128256 pieces and a Llama-2 chat template, which
+    cli_phase reads (the loader ignores these keys)."""
+    from llama_kotlin_tpu_torch.models.synthetic import preset_config, synthetic_spm_vocab
+
+    return _written(path, preset_config("llama3-8b"), seed=7,
+                    extra_kvs=synthetic_spm_vocab(128256))
+
+
+def write_ds2_file(path: Path) -> dict:
+    """deepseek2_phase's file: DeepSeek-V2-Lite (deepseek_v2_lite(), all 27
+    layers) from DS2_SEED with an SPM vocab of its 102400 pieces."""
+    from llama_kotlin_tpu_torch.models.synthetic import deepseek_v2_lite, synthetic_spm_vocab
+
+    cfg, moe_shape = deepseek_v2_lite()
+    return _written(path, cfg, seed=DS2_SEED, moe=moe_shape,
+                    extra_kvs=synthetic_spm_vocab(cfg.vocab_size))
+
+
+WRITERS = {LLAMA_FILE: write_llama_file, DS2_FILE: write_ds2_file}  # in writing order
+
+
+def write_files_main(out_dir: str) -> int:
+    """The file-writer child."""
+    try:
+        for name, write in WRITERS.items():
+            log(json.dumps({"phase": "write_files", "file": name,
+                            **write(Path(out_dir) / name)}))
+    except Exception:
+        traceback.print_exc()
+        return 1
+    return 0
+
+
+def start_file_writer(tmp: Path) -> None:
+    FILES.update(dir=str(tmp), log=str(tmp / "write_files.log"))
+    with open(FILES["log"], "w") as out:
+        FILES["child"] = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--write-files", str(tmp)],
+            stdout=out, stderr=subprocess.STDOUT, cwd=str(Path.cwd()))
+
+
+def stop_file_writer() -> None:
+    """End the writer if it still runs."""
+    child = FILES["child"]
+    if child is not None and child.poll() is None:
+        child.kill()
+        child.wait()
+
+
+def child_file(tmpdir: Path, name: str) -> tuple:
+    """(tmpdir / name, its write line): the writer child's file, waited for
+    and moved into tmpdir, or written there now when no child writes."""
+    path = tmpdir / name
+    if FILES["dir"] is None:
+        return path, WRITERS[name](path)
+    src = Path(FILES["dir"]) / name
+    t0 = time.perf_counter()
+    child = FILES["child"]
+    while not src.exists():
+        if child.poll() is not None and not src.exists():
+            raise AssertionError(f"the file writer ended (rc {child.returncode}) without "
+                                 f"{name}:\n{Path(FILES['log']).read_text()[-4000:]}")
+        time.sleep(0.2)
+    os.replace(src, path)
+    lines = [json.loads(ln) for ln in Path(FILES["log"]).read_text().splitlines()
+             if ln.startswith('{"phase": "write_files"')]
+    line = next(ln for ln in lines if ln["file"] == name)
+    return path, {k: line[k] for k in ("bytes", "write_s")} | {"wait_s": time.perf_counter() - t0}
+
+
 def start_cpu_refs(tmp: Path):
     """Start the child that computes the CPU references into tmp/refs."""
     ref_dir = tmp / "refs"
@@ -2744,7 +2855,7 @@ def cpu_refs_main(torch, ref_dir: str) -> int:
     tmp.mkdir()
     try:
         for fn, args in ((parity_phase, ()), (gguf_parity_phase, (tmp,)),
-                         (engine_parity_phase, ())):
+                         (engine_parity_phase, ()), (moe_parity_phase, (tmp,))):
             t0 = time.perf_counter()
             fn(torch, *args)
             log(json.dumps({"phase": "cpu_refs_timing", "function": fn.__name__,
@@ -2755,6 +2866,26 @@ def cpu_refs_main(torch, ref_dir: str) -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return 0
+
+
+def greedy_logits(build, dev, prompt, steps: int, toks=None, shift=None) -> list:
+    """build(dev)'s context: a prefill of prompt (then shift(ctx, n) -> the
+    next position, when given), then `steps` one-token steps on its greedy
+    tokens, or on toks; the last logits row of each."""
+    import numpy as np
+
+    from llama_kotlin_tpu_torch.runtime.batch import Batch
+
+    ctx = build(dev)
+    assert ctx.decode(Batch.single(prompt)) == 0
+    n = len(prompt) if shift is None else shift(ctx, len(prompt))
+    logits = [ctx.get_logits()[-1]]
+    for i in range(steps):
+        tok = int(np.argmax(logits[-1])) if toks is None else toks[i]
+        assert ctx.decode(Batch.single([tok], pos0=n + i)) == 0
+        logits.append(ctx.get_logits()[-1])
+    del ctx
+    return logits
 
 
 def card_vs_cpu(torch, label: str, build, prompt, tol: float, steps: int = 4,
@@ -2770,19 +2901,8 @@ def card_vs_cpu(torch, label: str, build, prompt, tol: float, steps: int = 4,
     twice the tolerance."""
     import numpy as np
 
-    from llama_kotlin_tpu_torch.runtime.batch import Batch
-
     def run(dev, toks):
-        ctx = build(dev)
-        assert ctx.decode(Batch.single(prompt)) == 0
-        n = len(prompt) if shift is None else shift(ctx, len(prompt))
-        logits = [ctx.get_logits()[-1]]
-        for i in range(steps):
-            tok = int(np.argmax(logits[-1])) if toks is None else toks[i]
-            assert ctx.decode(Batch.single([tok], pos0=n + i)) == 0
-            logits.append(ctx.get_logits()[-1])
-        del ctx
-        return logits
+        return greedy_logits(build, dev, prompt, steps, toks, shift)
 
     cl = cpu_ref(label, lambda: run("cpu", None)) if cpu is None else cpu[1]
     if REFS["writer"]:
@@ -3411,8 +3531,8 @@ def profile_engine_step(torch, ctx, tok, texts) -> dict:
 
 
 def speculative_phase(torch, cfg, params) -> dict:
-    """Speculative, lookup and lookahead decoding on the full llama3-8B W4A8
-    model (the target, unrolled, 1024 cells): a SPEC_PROMPT-token prompt,
+    """Speculative, lookup and lookahead decoding on the llama3-8B W4A8
+    model of cfg (the target, unrolled, 1024 cells): a SPEC_PROMPT-token prompt,
     SPEC_NEW tokens, n_draft SPEC_DRAFT; drafts (i) the target itself and
     (ii) a 2-layer llama3-8b of another seed (same vocab).
     speculative_generate and speculative_generate_device give identical
@@ -3558,6 +3678,327 @@ def speculative_phase(torch, cfg, params) -> dict:
     return {"speculative": counts}
 
 
+# -- deepseek2 (multi-head latent attention on kernel 3's MLA branch, routed
+# -- and shared experts) and llama-architecture MoE (Mixtral)
+
+MLA_DIMS = (192, 128)  # DeepSeek-V2-Lite's q/k and v head widths
+DS2_SEED = 13
+
+
+def mla_kernel_phase(torch, results: dict) -> None:
+    """Kernel 3's MLA branch at DeepSeek-V2-Lite's attention shapes (16
+    heads on 16 kv heads: rep = 1, K rows 192 wide, V rows 128) on the bf16,
+    int8 and packed int4 caches: layer 1 of a [2, 16, 4097, ..] cache,
+    decode (nt = 1) and a 64-token prefill chunk (the step's tokens in the
+    last cells, causal; the chunk with a row that sees nothing, exactly 0),
+    over 1024 and 4096 visible cells, against the plain version, beside one
+    SDPA call (Ev != E) on the dequantized prefix.  tol: bf16 outputs, f32
+    online-softmax reassociation (~2 bf16 ulps), as for the other kernel 3
+    rows.  bound_ms: one read of the visible K/V prefix ((192 + 128) x 2
+    bytes a cell and head in bf16; 192 + 128 and 96 + 64 bytes, each with
+    two f32 scales, in int8 and int4), q, the output and the mask."""
+    from llama_kotlin_tpu_torch.ops.cuda import flash
+    from llama_kotlin_tpu_torch.runtime.kv_cache import (dequantize_cache_layer, quantize_rows,
+                                                         quantize_rows_q4)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(778)
+    flush = torch.zeros(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    L, H, KV, cells, li = 2, 16, 16, 4097, 1
+    dk, dv = MLA_DIMS
+    # DeepSeek-V2-Lite's softmax scale: YaRN mscale^2 / sqrt(192)
+    mscale = 1.0 + 0.0707 * math.log(40.0)
+    scale = mscale * mscale / dk ** 0.5
+    kb = torch.randn((L, KV, cells, dk), generator=gen, device=dev).to(torch.bfloat16)
+    vb = torch.randn((L, KV, cells, dv), generator=gen, device=dev).to(torch.bfloat16)
+    (k8, ks), (v8, vs) = quantize_rows(kb), quantize_rows(vb)
+    (k4, ks4), (v4, vs4) = quantize_rows_q4(kb), quantize_rows_q4(vb)
+    caches = {"bf16": (kb, vb, None, None, 8, 2 * (dk + dv)),
+              "int8": (k8, v8, ks, vs, 8, dk + dv + 8),
+              "int4": (k4, v4, ks4, vs4, 4, (dk + dv) // 2 + 8)}
+    for n_vis in (1024, 4096):
+        for nt in (1, 64):
+            q = torch.randn((nt, H, dk), generator=gen, device=dev).to(torch.bfloat16)
+            tpos = torch.arange(n_vis - nt, n_vis, device=dev)
+            cpos = torch.arange(n_vis, device=dev)
+            mask = (cpos[None, :] <= tpos[:, None]).to(torch.int8)
+            if nt > 1:
+                mask[5] = 0  # a row that sees no cell
+            for kind, (k, v, ksc, vsc, bits, elem) in caches.items():
+                kw = dict(scale=scale, layer=li, k_scale=ksc, v_scale=vsc, kv_bits=bits)
+                args = (q, k, v, mask)
+                got = flash.flash_attention(*args, **kw)
+                if nt > 1 and bool(got[5].any()):
+                    raise AssertionError("kernel 3's MLA branch: a blind row is not 0")
+                kf, vf = (k[li, :, :n_vis], v[li, :, :n_vis]) if ksc is None else (
+                    dequantize_cache_layer(c[li, :, :n_vis], sc[li, :, :n_vis], torch.bfloat16,
+                                           bits=bits) for c, sc in ((k, ksc), (v, vsc)))
+                vis = int(mask.any(dim=0).sum().item())
+                report_row(results, "flash_mla", f"{kind} cache nt={nt} n_vis={n_vis} layer={li}",
+                           err_of(got, flash.flash_attention_plain(*args, **kw)), 1e-2,
+                           time_ms(torch, lambda: flash.flash_attention(*args, **kw), flush),
+                           time_ms(torch, lambda: flash.flash_attention_plain(*args, **kw),
+                                   flush),
+                           nt * H * (dk + dv) * 2 + KV * vis * elem + nt * n_vis,
+                           2 * (dk + dv) * int(mask.sum().item()) * H, "bf16",
+                           time_ms(torch, sdpa_call(torch, q, kf, vf, mask, scale), flush))
+
+
+def mla_counter():
+    """Kernel 3's launches on its MLA branch (flash.LAUNCHES_MLA), counted
+    apart as "flash_mla" (each also counts in flash.LAUNCHES)."""
+    from llama_kotlin_tpu_torch.ops.cuda import flash
+
+    return BranchCounter(flash, "LAUNCHES_MLA", "flash.flash_mla")
+
+
+def plain_attention_counters() -> tuple:
+    """Call counters of the plain attention routes (the reference softmax
+    under kernel 3's plain version, and the stacked path's plain route):
+    the card's MLA path must take neither."""
+    from llama_kotlin_tpu_torch.models import llama
+    from llama_kotlin_tpu_torch.ops import attention
+
+    return CallCounter(attention, "attention_reference"), CallCounter(llama, "attend_stacked_plain")
+
+
+def type_mix(path: Path) -> dict:
+    """{tensor name with the layer index dropped: sorted types} of a GGUF file."""
+    from llama_kotlin_tpu_torch.gguf.reader import GGUFFile
+
+    f = GGUFFile(path)
+    mix: dict = {}
+    for name, info in f.tensors.items():
+        key = name.split(".", 2)[2] if name.startswith("blk.") else name
+        mix.setdefault(key, set()).add(info.ggml_type.name)
+    f.close()
+    return {k: sorted(v) for k, v in mix.items()}
+
+
+def deepseek2_phase(torch, tmpdir: Path) -> dict:
+    """DeepSeek-V2-Lite at its published shapes and all 27 layers
+    (models/synthetic.py::deepseek_v2_lite: 1 dense layer, then 26 MoE of
+    64 routed experts, 6 used, and 2 shared; MLA 16 heads, q/k 192, v 128;
+    YaRN 40 on 4096; vocab 102400), random wire blocks from DS2_SEED in
+    Q4_K_M's type mix by tensor name (moe_tensor_types, output Q6_K) with an
+    SPM vocab of 102400 pieces, loaded in the exact mode (the default) and
+    in w4 (its wkv_a_mqa on kernel 4 at a decode row, checked); each serves
+    3 requests (64-token prompt, 32 greedy tokens)
+    through LlamaContext and generate_loop by serve(), unrolled (the dense
+    lead layer), kernel 3's MLA branch once a layer at every forward (27 a
+    decode step) and never the plain attention; then 4 profiled decode steps
+    (after a profiled prefill in the exact mode); the exact mode also serves
+    4 concurrent requests on the engine at 4 slots.  Returns {path: launch
+    counts}."""
+    from llama_kotlin_tpu_torch.models.loader import load_gguf_model
+    from llama_kotlin_tpu_torch.ops.cuda import (flash, flash_stacked, qmm, qmm_int8, qmm_w4,
+                                                 qmm_w4_ffn, qmm_w4x, qmm_w8)
+    from llama_kotlin_tpu_torch.ops.qmatmul import qmatmul
+    from llama_kotlin_tpu_torch.tokenizer import build_tokenizer
+
+    path, written = child_file(tmpdir, DS2_FILE)
+    log(json.dumps({"phase": "deepseek2_file", **written, "type_mix": type_mix(path)}))
+    out = {}
+    for mode in (None, "w4"):
+        label = f"deepseek2_{mode or 'exact'}"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lcfg, params, f = load_gguf_model(path, fast_mode=mode, fuse=True)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        tok = build_tokenizer(f.metadata)
+        f.close()
+        log(json.dumps({"phase": label, "n_layer": lcfg.n_layer, "load_s": load_s,
+                        "device_bytes": torch.cuda.memory_allocated(),
+                        "layouts": sorted({(key, type(v).__name__ if not hasattr(v, "codes")
+                                            else f"{v.qtype.name} {v.flavor or 'exact'}"
+                                            + (" stacked" if v.is_stacked else ""))
+                                           for lp in params["layers"] for key, v in lp.items()
+                                           if hasattr(v, "codes") or isinstance(v, list)})}))
+        if mode is None:  # every projection kernel 4's exact branch; experts gathered at decode
+            mods = (qmm, exact_counter(), flash, mla_counter())
+            never = (qmm_w4, qmm_w4_ffn, qmm_w8, qmm_int8, qmm_w4x, flash_stacked)
+        else:  # W4 projections on kernel 1, W8 (the Q6_K lm_head, Q8_0 downs) on 5
+            mods = (qmm_w4, qmm_w8, qmm, flash, mla_counter())
+            never = (qmm_w4_ffn, qmm_int8, qmm_w4x, flash_stacked)
+            # but wkv_a_mqa's 576 rows, which JAX's kernel 1 cannot block (no
+            # 512, 256 or 128 divides them): kernel 4 at a decode row, as in JAX
+            n0, w40 = qmm.LAUNCHES, qmm_w4.LAUNCHES
+            qmatmul(torch.zeros((1, lcfg.n_embd), device="cuda"), params["layers"][0]["wkv_a_mqa"])
+            if (qmm.LAUNCHES - n0, qmm_w4.LAUNCHES - w40) != (1, 0):
+                raise AssertionError(f"{label}: wkv_a_mqa at a decode row took kernel 1")
+        plain = plain_attention_counters()
+        try:
+            counts, ctx = serve(torch, lcfg, params, mods, label, never=never + plain)
+        finally:
+            for c in plain:
+                c.close()
+        # one attention a layer at every forward: a prefill and 31 steps
+        want = 3 * 32 * lcfg.n_layer
+        if "layers" not in ctx.params or counts["flash"] != want or counts["flash_mla"] != want:
+            raise AssertionError(f"{label}: launches {counts}, kernel 3 (MLA) {want} unrolled")
+        # 34 000 launches a prefill and 4 100-4 500 a decode step: the traces
+        # are kept short (a w4 prefill runs the exact mode's sweep)
+        profile_decode(torch, ctx, lcfg, label, n_steps=4, prefill=mode is None)
+        out[label] = counts
+        del ctx
+        torch.cuda.empty_cache()
+        if mode is None:
+            out.update(deepseek2_engine(torch, lcfg, params, tok))
+        del params
+        torch.cuda.empty_cache()
+    path.unlink()
+    return out
+
+
+def deepseek2_engine(torch, cfg, params, tok) -> dict:
+    """The engine (runtime/engine.py) serving 4 concurrent greedy requests
+    (64-token prompts, 32 tokens) at 4 slots on the loaded DeepSeek-V2-Lite:
+    tokens/s, TTFT per request, decode and chunked steps, and kernel 3's MLA
+    launches; every request ends at its 32 tokens."""
+    import numpy as np
+
+    from llama_kotlin_tpu_torch.runtime.context import LlamaContext
+    from llama_kotlin_tpu_torch.runtime.engine import Engine, Request
+    from llama_kotlin_tpu_torch.sampling.samplers import SamplingParams
+
+    ctx = LlamaContext(cfg, params, n_cells=SERVE_CELLS, device="cuda")
+    mla = mla_counter()
+    mla.LAUNCHES = 0
+    reqs = [Request(prompt_tokens=np.random.default_rng(50 + i).integers(
+        259, cfg.vocab_size, 64).astype(np.int32), params=SamplingParams(temp=0.0),
+        n_predict=32) for i in range(4)]
+    eng = Engine(ctx, tok, n_slots=4, n_batch=256)
+    dt = _drive(eng, reqs)
+    n = sum(len(r.output_tokens) for r in reqs)
+    line = {"phase": "deepseek2_engine", "slots": 4, "requests": len(reqs), "wall_s": dt,
+            "tokens": n, "tok_s": n / dt, "decode_steps": eng.metrics["n_decode_steps"],
+            "chunked_steps": eng.n_chunked, "flash_mla": mla.LAUNCHES,
+            "ttft_ms": [(r.t_first_token - r.t_start) * 1e3 for r in reqs]}
+    log(json.dumps(line))
+    if n != 4 * 32 or not mla.LAUNCHES:
+        raise AssertionError(f"deepseek2_engine: {line}")
+    del ctx
+    return {"deepseek2_engine": {"flash_mla": mla.LAUNCHES}}
+
+
+def replayed_route(torch, router, ids, norm_topk: bool, scale: float):
+    """ops/moe.py::route's (top_w, top_i) for the given experts ids [nt, k]
+    in place of its own top k (a run that replays another's routing)."""
+    w = torch.softmax(router.to(torch.float32), dim=-1).gather(-1, ids)
+    if norm_topk:
+        w = w / w.sum(dim=-1, keepdim=True)
+    return (w * scale if scale != 1.0 else w), ids
+
+
+def moe_card_vs_cpu(torch, label: str, build, prompt, tol: float, steps: int = 4) -> None:
+    """card_vs_cpu on a MoE model, the card on the CPU's routing.  Top-k of
+    many experts parts at near-ties between two devices (the router's
+    inputs differ by the f32 order of every product before it), and one
+    expert moves the logits far past any tolerance; so the CPU run records
+    every routing call's experts and probabilities (ops/moe.py::route, in
+    order), and the card run takes the CPU's experts with its own
+    probabilities' weights.  The card's own choice is kept: every row where
+    it parts from the CPU's must be a near-tie, the CPU's k-th minus
+    (k+1)-th probability at most twice the measured noise (the largest
+    difference between the two devices' probabilities over all rows); they
+    are counted."""
+    import numpy as np
+
+    from llama_kotlin_tpu_torch.ops import moe
+
+    real = moe.route
+    rec = {"i": [], "p": []}
+
+    def recording(router, n_used, norm_topk, scale):
+        rec["p"].append(torch.softmax(router.to(torch.float32), dim=-1).numpy())
+        w, i = real(router, n_used, norm_topk, scale)
+        rec["i"].append(i.numpy())
+        return w, i
+
+    def cpu_run():
+        moe.route = recording
+        try:
+            return greedy_logits(build, "cpu", prompt, steps)
+        finally:
+            moe.route = real
+
+    cl = cpu_ref(label, cpu_run)
+    top_i = cpu_ref(f"{label}_top_i", lambda: [np.concatenate(rec["i"])])[0].astype(np.int64)
+    probs = cpu_ref(f"{label}_probs", lambda: [np.concatenate(rec["p"])])[0]
+    if REFS["writer"]:
+        return
+    st = {"row": 0, "noise": 0.0, "gaps": []}
+
+    def replay(router, n_used, norm_topk, scale):
+        nt = router.shape[0]
+        r0 = st["row"]
+        st["row"] += nt
+        p = torch.softmax(router.to(torch.float32), dim=-1).cpu().numpy()
+        st["noise"] = max(st["noise"], float(np.abs(p - probs[r0:r0 + nt]).max()))
+        _, own = real(router, n_used, norm_topk, scale)
+        own = own.cpu().numpy()
+        for r in range(nt):
+            if set(own[r].tolist()) != set(top_i[r0 + r].tolist()):
+                srt = np.sort(probs[r0 + r])[::-1]
+                st["gaps"].append(float(srt[n_used - 1] - srt[n_used]))
+        ids = torch.from_numpy(top_i[r0:r0 + nt]).to(router.device)
+        return replayed_route(torch, router, ids, norm_topk, scale)
+
+    moe.route = replay
+    try:
+        card_vs_cpu(torch, label, build, prompt, tol, steps=steps, cpu=(None, cl))
+    finally:
+        moe.route = real
+    line = {"phase": f"{label}_routing", "rows": int(top_i.shape[0]),
+            "parted_rows": len(st["gaps"]), "noise": st["noise"], "gaps": st["gaps"]}
+    log(json.dumps(line))
+    if st["row"] != top_i.shape[0] or any(g > 2 * st["noise"] for g in st["gaps"]):
+        raise AssertionError(f"{label}: the card's routing parts from the CPU's off a "
+                             f"near-tie: {line}")
+
+
+def moe_parity_phase(torch, tmpdir: Path) -> None:
+    """Full width, 2 layers, card against CPU by moe_card_vs_cpu (prefill of
+    64 tokens plus 4 greedy steps): DeepSeek-V2-Lite's dense lead and first
+    MoE layer (deepseek_v2_lite(n_layer=2), Q4_K_M's mix) in the exact and
+    w4 modes, and a Mixtral-8x7B-shaped file (mixtral_8x7b(n_layer=2): E
+    4096, 8 experts of 14336, top-2) in w4, whose per-expert W4 fold lists
+    run through _moe_sweep.  tol: the exact mode 3e-2 of max|logits|,
+    parity_phase's (bf16 operands: the W4A8 model's one-thread vs
+    eight-thread CPU spread, 1.33e-2, with room); w4 5e-2,
+    gguf_parity_phase's for a w4 GGUF file (every matmul re-quantizes its
+    input to int8: that file's CPU spread is 2.6e-2), twice the spread of
+    these files' own (scripts/moe_cpu_spread.py on the 8-core host of an
+    H100: Mixtral-shaped w4 2.4e-2, DeepSeek-V2-Lite w4 1.3e-2 and exact
+    3.4e-3)."""
+    import numpy as np
+
+    from llama_kotlin_tpu_torch.models.loader import load_gguf_model
+    from llama_kotlin_tpu_torch.models.synthetic import (deepseek_v2_lite, mixtral_8x7b,
+                                                         synthetic_gguf)
+    from llama_kotlin_tpu_torch.runtime.context import LlamaContext
+
+    tols = {None: 3e-2, "w4": 5e-2}
+    for name, (cfg, moe_shape), modes, seed in (
+            ("deepseek2", deepseek_v2_lite(n_layer=2), (None, "w4"), DS2_SEED + 1),
+            ("mixtral", mixtral_8x7b(n_layer=2), ("w4",), DS2_SEED + 2)):
+        path = tmpdir / f"{name}-2layer.gguf"
+        synthetic_gguf(path, cfg, seed=seed, moe=moe_shape)
+        prompt = np.random.default_rng(seed).integers(0, cfg.vocab_size, 64).astype(np.int32)
+        for mode in modes:
+            def build(dev, mode=mode, path=path):
+                lcfg, params, f = load_gguf_model(path, fast_mode=mode, fuse=True, device=dev)
+                f.close()
+                return LlamaContext(lcfg, params, n_cells=1024, buckets=(8, 16, 32, 64),
+                                    device=dev)
+
+            moe_card_vs_cpu(torch, f"{name}_parity_{mode or 'exact'}", build, prompt,
+                            tols[mode])
+        path.unlink()
+
+
 def pick_row(rows: list, i):
     """A kernel's timed row by its index or its shape."""
     return rows[i] if isinstance(i, int) else next(r for r in rows if r["shape"] == i)
@@ -3580,6 +4021,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--cpu-refs"]:
         return cpu_refs_main(torch, sys.argv[2])
+    if sys.argv[1:2] == ["--write-files"]:
+        return write_files_main(sys.argv[2])
     from llama_kotlin_tpu_torch.ops.cuda import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3593,13 +4036,16 @@ def main() -> int:
     log(smi)
     ref_tmp = Path(tempfile.mkdtemp(prefix="lk_cpu_refs_"))
     start_cpu_refs(ref_tmp)
+    files_tmp = Path(tempfile.mkdtemp(prefix="lk_files_"))
+    start_file_writer(files_tmp)
     ok = False
     try:
         t0 = time.perf_counter()
         so = _build.build()
         _build.lib()
         ptxas = [ln.strip() for ln in (_build.BUILD_DIR / "ptxas.log").read_text().splitlines()
-                 if "registers" in ln or "spill" in ln] if (_build.BUILD_DIR / "ptxas.log").exists() else []
+                 if "registers" in ln or "spill" in ln or "entry function" in ln] \
+            if (_build.BUILD_DIR / "ptxas.log").exists() else []
         log(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                         "library": so.name}))
         for ln in ptxas:
@@ -3611,30 +4057,35 @@ def main() -> int:
         timed(w8_kernel_phase, torch, results)
         timed(w4x_kernel_phase, torch, results)
         timed(kv_kernel_phase, torch, results)
+        timed(mla_kernel_phase, torch, results)
         timed(serving_mask_phase, torch, results)
         timed(fx_layer_kernel_phase, torch, results)
         timed(exact_kernel_phase, torch, results)
         by_path, cfg, params = timed(serving_phase, torch)
-        by_path.update(timed(speculative_phase, torch, cfg, params))
+        # speculative decoding on the model's first EARLIER_LAYERS layers
+        by_path.update(timed(speculative_phase, torch, replace(cfg, n_layer=EARLIER_LAYERS),
+                             dict(params, layers=params["layers"][:EARLIER_LAYERS])))
         del params
         torch.cuda.empty_cache()
-        by_path.update(timed(w4x_serving_phase, torch))
-        by_path.update(timed(tinyllama_phase, torch))
+        by_path.update(timed(w4x_serving_phase, torch, EARLIER_LAYERS))
+        by_path.update(timed(tinyllama_phase, torch, EARLIER_LAYERS))
         tmpdir = Path(tempfile.mkdtemp(prefix="lk_gguf_"))
         try:
             for mode, c in timed(gguf_phase, torch, tmpdir).items():
                 by_path[f"gguf_{mode}"] = c
-            by_path["cli_w4"] = timed(cli_phase, torch, tmpdir / "llama3-8b-q4_k_m.gguf")
-            by_path.update(timed(exact_serving_phase, torch, tmpdir / "llama3-8b-q4_k_m.gguf"))
+            by_path["cli_w4"] = timed(cli_phase, torch, tmpdir / LLAMA_FILE)
+            by_path.update(timed(exact_serving_phase, torch, tmpdir / LLAMA_FILE))
             for mode in ("w4", None):  # the server's fast mode and its default
-                by_path.update(timed(server_phase, torch, tmpdir / "llama3-8b-q4_k_m.gguf",
+                by_path.update(timed(server_phase, torch, tmpdir / LLAMA_FILE,
                                      mode))
-            (tmpdir / "llama3-8b-q4_k_m.gguf").unlink()
+            (tmpdir / LLAMA_FILE).unlink()
             by_path.update(timed(q4_0_gguf_phase, torch, tmpdir))
             by_path.update(timed(new_formats_phase, torch, tmpdir))
+            by_path.update(timed(deepseek2_phase, torch, tmpdir))
             timed(parity_phase, torch)
             timed(gguf_parity_phase, torch, tmpdir)
             timed(engine_parity_phase, torch)
+            timed(moe_parity_phase, torch, tmpdir)
             timed(stop_cpu_refs, True)
         finally:
             shutil.rmtree(tmpdir, ignore_errors=True)
@@ -3645,7 +4096,9 @@ def main() -> int:
     finally:
         if not ok:
             stop_cpu_refs(False)
+        stop_file_writer()
         shutil.rmtree(ref_tmp, ignore_errors=True)
+        shutil.rmtree(files_tmp, ignore_errors=True)
     # kernel: (source, replaced Pallas kernel, index of the reported timed
     # row, {branch: index or shape of its timed row})
     meta = {
@@ -3656,6 +4109,11 @@ def main() -> int:
                        0, {"b8": "compact E=4096 F=14336 b=8",
                            "b32": "compact E=4096 F=14336 b=32",
                            "up_b1": "up= compact E=4096 F=14336 b=1"}),
+        "flash_mla": ("csrc/flash.cu", "llama_kotlin_tpu/ops/pallas/flash.py:160", 0,
+                      {"prefill": "bf16 cache nt=64 n_vis=1024 layer=1",
+                       "n4096": "bf16 cache nt=1 n_vis=4096 layer=1",
+                       "int8": "int8 cache nt=1 n_vis=1024 layer=1",
+                       "int4": "int4 cache nt=1 n_vis=1024 layer=1"}),
         "flash": ("csrc/flash.cu", "llama_kotlin_tpu/ops/pallas/flash.py:160", 0,
                   {"prefill": 1, "int8": 3, "int4": 4,
                    "d64": "bf16 cache D=64 nt=64 n_vis=1024",

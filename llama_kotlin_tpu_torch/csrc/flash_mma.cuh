@@ -2,7 +2,9 @@
 // the masked GQA online softmax with Q K^T and P V on bf16 tensor cores
 // (mma.sync m16n8k16, f32 accumulators), the FlashAttention-2 shape, at
 // head dims 64 and 128 and at every row count; then a fixed-order merge of
-// the cell splits.  It replaced both kernels' scalar walks, which it beats
+// the cell splits.  Kernel 3 also takes deepseek2's multi-head latent
+// attention, K rows 192 wide and V rows 128 (the MLA branch, a template on
+// (DK, DV) where the others have DK = DV = D).  It replaced both kernels' scalar walks, which it beats
 // on the H100 from decode's 4 rows a kv head up (PERF.md, kernels 3, 9).
 //
 // A block owns one kv head, BM = 64 rows of that head's GQA row space (row
@@ -56,6 +58,17 @@
 // blobs cross-load): the Pallas kernel's folds of the +8 into a per-row
 // constant and of the high nibble's 16x into q are Mosaic workarounds (no
 // 8-bit shifts) and are not carried over.
+//
+// The MLA branch, (DK, DV) = (192, 128), kernel 3 only: Q K^T takes 12
+// k-steps of 16 and P V gives 128 output columns (8 n16 pairs), so a
+// thread holds 48 registers of Q fragments and 64 of O accumulators
+// (D = 128: 32 and 64).  A K tile is 64 x 192 bf16 (24 KB, rows padded to
+// 200) and a V tile 64 x 128 (16 KB, rows padded to 136): with the mask
+// tiles a ring of two stages takes 92 KB.  K and V rows load and widen in
+// loops of their own widths; a packed int4 row pairs dim j with j + DK/2
+// in K and with j + DV/2 in V.  part_o rows are DV wide, and the merge is
+// the D = 128 merge.  The DK = DV instances compile from the same source
+// lines as before the branch came (if constexpr keeps their loops apart).
 #pragma once
 
 #include <type_traits>
@@ -91,25 +104,34 @@ struct q4_packed {};
 namespace flmma {
 constexpr int WARPS = 4, THREADS = 32 * WARPS, BM = 16 * WARPS;  // rows a block
 
-// The tile at head dim D for the cache element T: its bytes a row, and
-// whether the ring holds raw codes to widen (int8, packed int4) or the
-// bf16 tile itself.
+// Bytes of a cache row of D elements of T.
 template <typename T, int D>
+__host__ __device__ constexpr int row_bytes() {
+  return std::is_same<T, q4_packed>::value ? D / 2 : std::is_same<T, int8_t>::value ? D : 2 * D;
+}
+
+// The tile at head dims (DK, DV) for the cache element T: its bytes a row,
+// and whether the ring holds raw codes to widen (int8, packed int4) or the
+// bf16 tiles themselves.
+template <typename T, int DK, int DV = DK>
 struct Cache {
-  static_assert(D == 64 || D == 128, "the tile takes head dims 64 and 128");
-  static constexpr int KLD = D + 8;  // bf16 a K/V tile row (ldmatrix conflict-free)
-  static constexpr int TILE_BYTES = CT * KLD * 2;  // one K or V tile in bf16
+  static_assert((DK == DV && (DK == 64 || DK == 128)) || (DK == 192 && DV == 128),
+                "the tile takes head dims 64 and 128, and (DK, DV) = (192, 128)");
+  static constexpr int KLD = DK + 8;  // bf16 a K tile row (ldmatrix conflict-free)
+  static constexpr int VLD = DV + 8;  // bf16 a V tile row
+  static constexpr int KTILE = CT * KLD * 2;  // one K tile in bf16
+  static constexpr int VTILE = CT * VLD * 2;  // one V tile in bf16
   static constexpr bool QUANT = !std::is_same<T, __nv_bfloat16>::value;
-  static constexpr int ROW = std::is_same<T, q4_packed>::value ? D / 2
-                             : std::is_same<T, int8_t>::value  ? D
-                                                               : 2 * D;
+  static constexpr int ROWK = row_bytes<T, DK>();
+  static constexpr int ROWV = row_bytes<T, DV>();
   // one stage of the ring: K and V (bf16 tiles, or raw rows), then the
   // K and V scales of its cells
-  static constexpr int RAW = QUANT ? CT * ROW : TILE_BYTES;
-  static constexpr int STAGE = 2 * RAW + (QUANT ? 2 * CT * 4 : 0);
-  // the ring (2 stages), the widened K/V tile of a quantized cache, the
+  static constexpr int RAWK = QUANT ? CT * ROWK : KTILE;
+  static constexpr int RAWV = QUANT ? CT * ROWV : VTILE;
+  static constexpr int STAGE = RAWK + RAWV + (QUANT ? 2 * CT * 4 : 0);
+  // the ring (2 stages), the widened K/V tiles of a quantized cache, the
   // mask tiles (2 stages, up to BM tokens of 64 cells)
-  static constexpr int WIDE = QUANT ? 2 * TILE_BYTES : 0;
+  static constexpr int WIDE = QUANT ? KTILE + VTILE : 0;
   static constexpr int MASK = 2 * BM * CT;
   static constexpr int SMEM = 2 * STAGE + WIDE + MASK;
 };
@@ -155,36 +177,58 @@ __device__ __forceinline__ bool stage_mask(const FlashArgs& a, bool fresh, int t
 // their scales) into stage st: cache rows row0 .. row0 + 63 (row0 = the
 // head's first row + c0), or kernel 9's fresh rows c0 .. c0 + 63 of kv head
 // kvh (bf16, token-major).  Rows at or past n_vis (nt) are
-// zero-filled from the tile's first row, which is valid.
-template <typename T, int D, int SRC>
+// zero-filled from the tile's first row, which is valid.  K and V rows of
+// one width share a loop; the MLA branch's (kernel 3 only) take one each.
+template <typename T, int DK, int DV, int SRC>
 __device__ __forceinline__ void load_stage(const FlashArgs& a, bool fresh, size_t row0, int c0,
                                            int kvh, uint8_t* st) {
-  using C = Cache<T, D>;
-  constexpr int CHUNKS = C::ROW / 16;  // 16-byte copies a row
-  constexpr int ld = C::QUANT ? C::ROW : C::KLD * 2;  // bytes a row in the stage
+  using C = Cache<T, DK, DV>;
   const bool fr = is_fresh<SRC>(fresh);
   const int live = (fr ? a.nt : a.n_vis) - c0;
-  const uint8_t* kc;
-  const uint8_t* vc;
-  size_t stride;
-  if (fr) {
-    kc = reinterpret_cast<const uint8_t*>(a.kn + ((size_t)c0 * a.KV + kvh) * D);
-    vc = reinterpret_cast<const uint8_t*>(a.vn + ((size_t)c0 * a.KV + kvh) * D);
-    stride = (size_t)a.KV * D * 2;
+  if constexpr (DK == DV) {
+    constexpr int D = DK;
+    constexpr int CHUNKS = C::ROWK / 16;  // 16-byte copies a row
+    constexpr int ld = C::QUANT ? C::ROWK : C::KLD * 2;  // bytes a row in the stage
+    const uint8_t* kc;
+    const uint8_t* vc;
+    size_t stride;
+    if (fr) {
+      kc = reinterpret_cast<const uint8_t*>(a.kn + ((size_t)c0 * a.KV + kvh) * D);
+      vc = reinterpret_cast<const uint8_t*>(a.vn + ((size_t)c0 * a.KV + kvh) * D);
+      stride = (size_t)a.KV * D * 2;
+    } else {
+      kc = static_cast<const uint8_t*>(a.kc) + row0 * C::ROWK;
+      vc = static_cast<const uint8_t*>(a.vc) + row0 * C::ROWK;
+      stride = C::ROWK;
+    }
+    for (int idx = threadIdx.x; idx < CT * CHUNKS; idx += THREADS) {
+      const int c = idx / CHUNKS, j = idx % CHUNKS;
+      const bool ok = c < live;
+      const size_t off = (ok ? (size_t)c * stride : 0) + j * 16;
+      cp_async16(st + c * ld + j * 16, kc + off, ok ? 16 : 0);
+      cp_async16(st + C::RAWK + c * ld + j * 16, vc + off, ok ? 16 : 0);
+    }
   } else {
-    kc = static_cast<const uint8_t*>(a.kc) + row0 * C::ROW;
-    vc = static_cast<const uint8_t*>(a.vc) + row0 * C::ROW;
-    stride = C::ROW;
-  }
-  for (int idx = threadIdx.x; idx < CT * CHUNKS; idx += THREADS) {
-    const int c = idx / CHUNKS, j = idx % CHUNKS;
-    const bool ok = c < live;
-    const size_t off = (ok ? (size_t)c * stride : 0) + j * 16;
-    cp_async16(st + c * ld + j * 16, kc + off, ok ? 16 : 0);
-    cp_async16(st + C::RAW + c * ld + j * 16, vc + off, ok ? 16 : 0);
+    static_assert(SRC == CACHE_SPLIT, "the MLA branch walks cache splits only");
+    constexpr int CK = C::ROWK / 16, CV = C::ROWV / 16;  // 16-byte copies a row
+    constexpr int ldk = C::QUANT ? C::ROWK : C::KLD * 2;  // bytes a row in the stage
+    constexpr int ldv = C::QUANT ? C::ROWV : C::VLD * 2;
+    const uint8_t* kc = static_cast<const uint8_t*>(a.kc) + row0 * C::ROWK;
+    const uint8_t* vc = static_cast<const uint8_t*>(a.vc) + row0 * C::ROWV;
+    for (int idx = threadIdx.x; idx < CT * CK; idx += THREADS) {
+      const int c = idx / CK, j = idx % CK;
+      const bool ok = c < live;
+      cp_async16(st + c * ldk + j * 16, kc + (ok ? (size_t)c * C::ROWK : 0) + j * 16, ok ? 16 : 0);
+    }
+    for (int idx = threadIdx.x; idx < CT * CV; idx += THREADS) {
+      const int c = idx / CV, j = idx % CV;
+      const bool ok = c < live;
+      cp_async16(st + C::RAWK + c * ldv + j * 16, vc + (ok ? (size_t)c * C::ROWV : 0) + j * 16,
+                 ok ? 16 : 0);
+    }
   }
   if constexpr (C::QUANT) {
-    float* sc = reinterpret_cast<float*>(st + 2 * C::RAW);
+    float* sc = reinterpret_cast<float*>(st + C::RAWK + C::RAWV);
     const int c = threadIdx.x % CT;
     const bool ok = c < live;
     const float* src = threadIdx.x < CT ? a.ks : a.vs;
@@ -192,16 +236,65 @@ __device__ __forceinline__ void load_stage(const FlashArgs& a, bool fresh, size_
   }
 }
 
-// Raw codes of stage st widened into the bf16 K/V tiles at wide.
-template <typename T, int D>
-__device__ __forceinline__ void widen(const uint8_t* st, uint8_t* wide) {
-  using C = Cache<T, D>;
-  for (int idx = threadIdx.x; idx < 2 * CT * (C::ROW / 16); idx += THREADS) {
-    const int m = idx / (CT * (C::ROW / 16)), rest = idx % (CT * (C::ROW / 16));
-    const int c = rest / (C::ROW / 16), j = rest % (C::ROW / 16);
-    const uint4 w = *reinterpret_cast<const uint4*>(st + m * C::RAW + c * C::ROW + j * 16);
+// One matrix's raw rows (D elements of T, packed in rows of row_bytes)
+// widened into the bf16 tile at tile (rows of LD): the MLA branch's K and
+// V, each in a loop of its own width.
+template <typename T, int D, int LD>
+__device__ __forceinline__ void widen_rows(const uint8_t* raw, __nv_bfloat16* tile) {
+  constexpr int ROW = row_bytes<T, D>(), CH = ROW / 16;
+  for (int idx = threadIdx.x; idx < CT * CH; idx += THREADS) {
+    const int c = idx / CH, j = idx % CH;
+    const uint4 w = *reinterpret_cast<const uint4*>(raw + c * ROW + j * 16);
     const uint32_t wv[4] = {w.x, w.y, w.z, w.w};
-    __nv_bfloat16* row = reinterpret_cast<__nv_bfloat16*>(wide + m * C::TILE_BYTES) + c * C::KLD;
+    __nv_bfloat16* row = tile + c * LD;
+    uint32_t lo[8], hi[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t v = wv[i];
+      if constexpr (std::is_same<T, int8_t>::value) {  // dims 16j + 4i .. + 3
+        lo[2 * i] = pack_bf16((float)(int8_t)(v & 0xFF), (float)(int8_t)((v >> 8) & 0xFF));
+        lo[2 * i + 1] = pack_bf16((float)(int8_t)((v >> 16) & 0xFF), (float)(int8_t)(v >> 24));
+      } else {  // bytes 16j + 4i .. + 3: dims of that index (lo) and D/2 on (hi)
+        float l[4], h[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int b = (v >> (8 * e)) & 0xFF;
+          l[e] = (float)((b & 0x0F) - 8);
+          h[e] = (float)(((b >> 4) ^ 8) - 8);  // sign-extend the 4-bit code
+        }
+        lo[2 * i] = pack_bf16(l[0], l[1]);
+        lo[2 * i + 1] = pack_bf16(l[2], l[3]);
+        hi[2 * i] = pack_bf16(h[0], h[1]);
+        hi[2 * i + 1] = pack_bf16(h[2], h[3]);
+      }
+    }
+    uint4* dl = reinterpret_cast<uint4*>(row + 16 * j);
+    dl[0] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    dl[1] = make_uint4(lo[4], lo[5], lo[6], lo[7]);
+    if constexpr (std::is_same<T, q4_packed>::value) {
+      uint4* dh = reinterpret_cast<uint4*>(row + D / 2 + 16 * j);
+      dh[0] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      dh[1] = make_uint4(hi[4], hi[5], hi[6], hi[7]);
+    }
+  }
+}
+
+// Raw codes of stage st widened into the bf16 K/V tiles at wide.
+template <typename T, int DK, int DV>
+__device__ __forceinline__ void widen(const uint8_t* st, uint8_t* wide) {
+  using C = Cache<T, DK, DV>;
+  if constexpr (DK != DV) {
+    widen_rows<T, DK, C::KLD>(st, reinterpret_cast<__nv_bfloat16*>(wide));
+    widen_rows<T, DV, C::VLD>(st + C::RAWK, reinterpret_cast<__nv_bfloat16*>(wide + C::KTILE));
+    return;
+  }
+  constexpr int D = DK;
+  for (int idx = threadIdx.x; idx < 2 * CT * (C::ROWK / 16); idx += THREADS) {
+    const int m = idx / (CT * (C::ROWK / 16)), rest = idx % (CT * (C::ROWK / 16));
+    const int c = rest / (C::ROWK / 16), j = rest % (C::ROWK / 16);
+    const uint4 w = *reinterpret_cast<const uint4*>(st + m * C::RAWK + c * C::ROWK + j * 16);
+    const uint32_t wv[4] = {w.x, w.y, w.z, w.w};
+    __nv_bfloat16* row = reinterpret_cast<__nv_bfloat16*>(wide + m * C::KTILE) + c * C::KLD;
     uint32_t lo[8], hi[8];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -260,11 +353,12 @@ __device__ __forceinline__ void mask_scores(float (&s)[8][4], uint32_t& vis, flo
 // One split's walk for this block's rows: the cells of cache split
 // cell_split, or kernel 9's fresh rows (is_fresh); (acc, m, l) of rows ra
 // and rb of each warp into part_o / part_ml at split index blockIdx.z.
-template <typename T, int D, int SRC>
+template <typename T, int DK, int DV, int SRC>
 __device__ __forceinline__ void walk(const FlashArgs& a, uint8_t* smem, int cell_split,
                                      bool fresh) {
-  using C = Cache<T, D>;
-  constexpr int KK = D / 16;  // k16 steps of Q K^T; n16 pairs of P V
+  using C = Cache<T, DK, DV>;
+  constexpr int KK = DK / 16;  // k16 steps of Q K^T
+  constexpr int NV = DV / 16;  // n16 pairs of P V
   uint8_t* ring = smem;
   uint8_t* wide = smem + 2 * C::STAGE;
   int8_t* masks = reinterpret_cast<int8_t*>(wide + C::WIDE);
@@ -286,9 +380,9 @@ __device__ __forceinline__ void walk(const FlashArgs& a, uint8_t* smem, int cell
   uint32_t qa[KK][4];
   {
     const __nv_bfloat16* qra =
-        a.q + ((size_t)(ra / rep) * a.H + kvh * rep + ra % rep) * D + 2 * t;
+        a.q + ((size_t)(ra / rep) * a.H + kvh * rep + ra % rep) * DK + 2 * t;
     const __nv_bfloat16* qrb =
-        a.q + ((size_t)(rb / rep) * a.H + kvh * rep + rb % rep) * D + 2 * t;
+        a.q + ((size_t)(rb / rep) * a.H + kvh * rep + rb % rep) * DK + 2 * t;
 #pragma unroll
     for (int kk = 0; kk < KK; ++kk) {
       qa[kk][0] = ra < R ? *reinterpret_cast<const uint32_t*>(qra + 16 * kk) : 0u;
@@ -298,9 +392,9 @@ __device__ __forceinline__ void walk(const FlashArgs& a, uint8_t* smem, int cell
     }
   }
   float m_run[2] = {FLASH_NEG_INF, FLASH_NEG_INF}, l_run[2] = {0.f, 0.f};
-  float o[2 * KK][4];
+  float o[2 * NV][4];
 #pragma unroll
-  for (int n = 0; n < 2 * KK; ++n)
+  for (int n = 0; n < 2 * NV; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
 
@@ -308,7 +402,7 @@ __device__ __forceinline__ void walk(const FlashArgs& a, uint8_t* smem, int cell
   // the first live tile: its mask in stage 0, its K/V requested
   int cur = c_begin;
   while (cur < c_end && !stage_mask<SRC>(a, fr, tok0, ntok, cur, masks)) cur += CT;
-  if (cur < c_end) load_stage<T, D, SRC>(a, fr, head_base + cur, cur, kvh, ring);
+  if (cur < c_end) load_stage<T, DK, DV, SRC>(a, fr, head_base + cur, cur, kvh, ring);
   cp_async_commit();
   int buf = 0;
   const int lr = lane & 7, lm = lane >> 3;  // the ldmatrix row this lane names, its matrix
@@ -319,19 +413,19 @@ __device__ __forceinline__ void walk(const FlashArgs& a, uint8_t* smem, int cell
     int8_t* mk_nxt = masks + (buf ^ 1) * BM * CT;
     while (nxt < c_end && !stage_mask<SRC>(a, fr, tok0, ntok, nxt, mk_nxt)) nxt += CT;
     if (nxt < c_end)
-      load_stage<T, D, SRC>(a, fr, head_base + nxt, nxt, kvh, ring + (buf ^ 1) * C::STAGE);
+      load_stage<T, DK, DV, SRC>(a, fr, head_base + nxt, nxt, kvh, ring + (buf ^ 1) * C::STAGE);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
     const uint8_t* st = ring + buf * C::STAGE;
     const uint8_t* kt = st;
     if constexpr (C::QUANT) {
-      widen<T, D>(st, wide);
+      widen<T, DK, DV>(st, wide);
       __syncthreads();
       kt = wide;
     }
-    const uint8_t* vt = kt + (C::QUANT ? C::TILE_BYTES : C::RAW);
-    const float* ksc = reinterpret_cast<const float*>(st + 2 * C::RAW);
+    const uint8_t* vt = kt + (C::QUANT ? C::KTILE : C::RAWK);
+    const float* ksc = reinterpret_cast<const float*>(st + C::RAWK + C::RAWV);
     const int8_t* mk = masks + buf * BM * CT;
 
     if (live) {
@@ -388,7 +482,7 @@ __device__ __forceinline__ void walk(const FlashArgs& a, uint8_t* smem, int cell
         l_run[h] = l_run[h] * alpha[h] + sum[h];
       }
 #pragma unroll
-      for (int n = 0; n < 2 * KK; ++n) {
+      for (int n = 0; n < 2 * NV; ++n) {
         o[n][0] *= alpha[0];
         o[n][1] *= alpha[0];
         o[n][2] *= alpha[1];
@@ -408,9 +502,9 @@ __device__ __forceinline__ void walk(const FlashArgs& a, uint8_t* smem, int cell
           pl[i] = pack_bf16(v[0] - hf.x, v[1] - hf.y);
         }
 #pragma unroll
-        for (int np = 0; np < KK; ++np) {
+        for (int np = 0; np < NV; ++np) {
           uint32_t b[4];  // cells 16kk + 8 (lm & 1) + lr, dims 16np + 8 (lm >> 1)
-          ldmatrix_x4_trans(b, vt + (16 * kk + 8 * (lm & 1) + lr) * C::KLD * 2 +
+          ldmatrix_x4_trans(b, vt + (16 * kk + 8 * (lm & 1) + lr) * C::VLD * 2 +
                                    (16 * np + 8 * (lm >> 1)) * 2);
           mma_bf16(o[2 * np], ph, b);
           mma_bf16(o[2 * np], pl, b);
@@ -433,8 +527,8 @@ __device__ __forceinline__ void walk(const FlashArgs& a, uint8_t* smem, int cell
     if (r >= R) continue;
     const size_t row = (size_t)split * rows_total + (size_t)kvh * R + r;
 #pragma unroll
-    for (int n = 0; n < 2 * KK; ++n)
-      *reinterpret_cast<float2*>(a.part_o + row * D + 8 * n + 2 * t) =
+    for (int n = 0; n < 2 * NV; ++n)
+      *reinterpret_cast<float2*>(a.part_o + row * DV + 8 * n + 2 * t) =
           make_float2(o[n][2 * h], o[n][2 * h + 1]);
     if (t == 0) {
       a.part_ml[2 * row] = m_run[h];
@@ -460,16 +554,24 @@ template <typename T, int D, bool STACKED>
 __global__ void __launch_bounds__(THREADS) flash_mma_kernel(const FlashArgs a) {
   extern __shared__ __align__(16) uint8_t smem[];
   if constexpr (!STACKED) {
-    walk<T, D, CACHE_SPLIT>(a, smem, blockIdx.z, false);
+    walk<T, D, D, CACHE_SPLIT>(a, smem, blockIdx.z, false);
   } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     // one walk for both kinds of split: the fresh rows' blocks run the
     // code the cache splits' blocks have already brought in
-    walk<T, D, ANY_SPLIT>(a, smem, blockIdx.z - 1, blockIdx.z == 0);
+    walk<T, D, D, ANY_SPLIT>(a, smem, blockIdx.z - 1, blockIdx.z == 0);
   } else if (blockIdx.z == 0) {
-    walk<__nv_bfloat16, D, FRESH_SPLIT>(a, smem, 0, true);
+    walk<__nv_bfloat16, D, D, FRESH_SPLIT>(a, smem, 0, true);
   } else {
-    walk<T, D, CACHE_SPLIT>(a, smem, blockIdx.z - 1, false);
+    walk<T, D, D, CACHE_SPLIT>(a, smem, blockIdx.z - 1, false);
   }
+}
+
+// Kernel 3's MLA branch: q [nt, H, DK] rows -> per-split (acc, m, l), acc
+// DV wide.  Grid (KV, ceil(R / BM), n_old).
+template <typename T, int DK, int DV>
+__global__ void __launch_bounds__(THREADS) flash_mla_kernel(const FlashArgs a) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  walk<T, DK, DV, CACHE_SPLIT>(a, smem, blockIdx.z, false);
 }
 
 // Merge the splits of one (kv head, row) and write out[t, h, :] in bf16;
@@ -516,20 +618,48 @@ inline int launch_d(const FlashArgs& a, __nv_bfloat16* out, cudaStream_t stream)
   return (int)cudaGetLastError();
 }
 
+// The MLA branch's splits and merge (out [nt, H, DV]).
+template <typename T, int DK, int DV>
+inline int launch_mla(const FlashArgs& a, __nv_bfloat16* out, cudaStream_t stream) {
+  constexpr int SMEM = Cache<T, DK, DV>::SMEM;
+  const int R = (a.H / a.KV) * a.nt;
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_mla_kernel<T, DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (err != cudaSuccess) return (int)err;
+    sized = true;
+  }
+  const dim3 grid(a.KV, (R + BM - 1) / BM, a.n_old);
+  flash_mla_kernel<T, DK, DV><<<grid, THREADS, SMEM, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_merge_kernel<DV><<<a.KV * R, DV, 0, stream>>>(a.part_o, a.part_ml, out, a.nt, a.H, a.KV,
+                                                      a.n_old);
+  return (int)cudaGetLastError();
+}
+
 // The splits (n_old over the cache, and kernel 9's fresh split) and the
 // merge; the cache element is bf16, int8 or (packed) q4_packed, with
-// scales for the two quantized ones.  Sets a.split_cells.  Returns a CUDA
-// error code, cudaErrorInvalidValue for a shape the kernels do not take.
+// scales for the two quantized ones; K rows a.D wide and V rows dv (the
+// MLA branch, kernel 3 only: (192, 128); else dv = a.D, 64 or 128).  Sets
+// a.split_cells.  Returns a CUDA error code, cudaErrorInvalidValue for a
+// shape the kernels do not take.
 template <typename T, bool STACKED>
-inline int launch(FlashArgs a, __nv_bfloat16* out, cudaStream_t stream) {
+inline int launch(FlashArgs a, __nv_bfloat16* out, cudaStream_t stream, int dv) {
   const int tiles = (a.n_vis + CT - 1) / CT;
-  if (a.nt <= 0 || a.KV <= 0 || a.H % a.KV || (a.D != 64 && a.D != 128) || a.n_vis <= 0 ||
+  const bool mla = !STACKED && a.D == 192 && dv == 128;
+  if (a.nt <= 0 || a.KV <= 0 || a.H % a.KV ||
+      !(mla || (dv == a.D && (a.D == 64 || a.D == 128))) || a.n_vis <= 0 ||
       a.n_vis > a.cells || a.mask_ld < tiles * CT || a.mask_ld % 8 || a.n_old <= 0 ||
       tiles % a.n_old ||
       Cache<T, 128>::QUANT != (a.ks != nullptr && a.vs != nullptr) ||
       STACKED != (a.kn != nullptr && a.vn != nullptr && a.mask_new != nullptr))
     return (int)cudaErrorInvalidValue;
   a.split_cells = tiles / a.n_old * CT;
+  if constexpr (!STACKED) {
+    if (mla) return launch_mla<T, 192, 128>(a, out, stream);
+  }
   return a.D == 64 ? launch_d<T, 64, STACKED>(a, out, stream)
                    : launch_d<T, 128, STACKED>(a, out, stream);
 }

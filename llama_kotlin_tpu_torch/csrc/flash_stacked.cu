@@ -38,6 +38,6 @@ LK_API int lk_flash_stacked(const __nv_bfloat16* q, const void* k, const void* v
   const FlashArgs a{q,      k,       v,  k_scale, v_scale, mask_cells, new_k, new_v, mask_new,
                     part_o, part_ml, nt, H,       KV,      D,          cells, n_vis, mask_ld,
                     layer,  scale,   softcap, 0,  nsplit};
-  if (k_scale != nullptr) return flmma::launch<int8_t, true>(a, out, stream);
-  return flmma::launch<__nv_bfloat16, true>(a, out, stream);
+  if (k_scale != nullptr) return flmma::launch<int8_t, true>(a, out, stream, D);
+  return flmma::launch<__nv_bfloat16, true>(a, out, stream, D);
 }

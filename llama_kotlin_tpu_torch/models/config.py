@@ -1,11 +1,16 @@
 """Model hyper-parameters (port of ``llama_kotlin_tpu/models/config.py``):
-the ModelConfig fields the llama family's unrolled path reads, with the
-same defaults, ``attn_scale`` and ``rope_params``."""
+the ModelConfig fields the port's forward reads, with the same defaults,
+``attn_scale`` (with deepseek2's YaRN mscale correction) and
+``rope_params``.  ``config_from_metadata`` maps the llama architecture,
+llama-architecture MoE files (Mixtral) and deepseek2 (MLA and scaled MoE);
+every other architecture raises (ROADMAP.md section 1, item 13)."""
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
+from llama_kotlin_tpu_torch.models import registry
 from llama_kotlin_tpu_torch.ops.rope import ROPE_TYPE_NORM, RopeParams
 
 
@@ -19,7 +24,8 @@ class ModelConfig:
     n_head: int = 32
     n_head_kv: int = 32
     n_ff: int = 11008
-    head_dim: int = 0  # 0 -> n_embd // n_head
+    head_dim: int = 0  # 0 -> n_embd // n_head (the q/k head dim)
+    v_head_dim: int = 0  # 0 -> head_dim (deepseek2 MLA: k 192, v 128)
     n_ctx_train: int = 2048
     rms_eps: float = 1e-5
     norm_weight_offset: float = 0.0
@@ -33,17 +39,28 @@ class ModelConfig:
     rope_yarn_beta_fast: float = 32.0
     rope_yarn_beta_slow: float = 1.0
     rope_orig_ctx: int = 0
+    n_expert: int = 0
+    n_expert_used: int = 0
     causal_attn: bool = True
     attn_logit_softcap: float = 0.0
+    moe_norm_topk: bool = True  # renormalize the top-k router weights (mixtral)
+    moe_expert_scale: float = 1.0  # deepseek2 expert_weights_scale
+    rope_yarn_log_mul: float = 0.0  # deepseek2 yarn mscale correction
 
     def __post_init__(self):
         if self.head_dim == 0:
             self.head_dim = self.n_embd // self.n_head
+        if self.v_head_dim == 0:
+            self.v_head_dim = self.head_dim
         if self.rope_dim == 0:
             self.rope_dim = self.head_dim
 
     @property
     def attn_scale(self) -> float:
+        if self.rope_yarn_log_mul and self.rope_freq_scale != 1.0:
+            # deepseek2's YaRN mscale squared (JAX config.py:91-100)
+            mscale = 1.0 + self.rope_yarn_log_mul * math.log(1.0 / self.rope_freq_scale)
+            return mscale * mscale / (self.head_dim ** 0.5)
         return 1.0 / (self.head_dim ** 0.5)
 
     def rope_params(self) -> RopeParams:
@@ -70,21 +87,24 @@ def _scalar(md: dict, key: str, default: int) -> int:
     if v is None:
         return default
     if isinstance(v, (list, tuple)) or getattr(v, "ndim", 0) == 1:
-        raise NotImplementedError(f"{key}: per-layer values (openelm) come with slice 5")
+        raise NotImplementedError(f"{key}: per-layer values (openelm) come with ROADMAP.md "
+                                  "section 1, item 13")
     return int(v)
+
+
+# the architectures config_from_metadata maps: models/registry.py's ported rows
+ARCHES = tuple(a.name for a in registry.ARCHES if a.ported)
 
 
 def config_from_metadata(md: dict) -> ModelConfig:
     """ModelConfig from GGUF metadata KVs (port of the JAX package's
-    config_from_metadata for ``general.architecture == "llama"``, rope
-    scaling included).  Other architectures, and llama-arch MoE files, raise
-    until slice 5 ports them."""
+    config_from_metadata for ``general.architecture`` "llama", dense or MoE,
+    and "deepseek2", rope scaling included).  Other architectures raise
+    until ROADMAP.md section 1, item 13 ports them."""
     arch = md.get("general.architecture", "llama")
-    if arch != "llama":
-        raise NotImplementedError(f"architecture {arch!r} comes with slice 5; "
-                                  "the port loads llama only")
-    if int(_get(md, arch, "expert_count", 0) or 0):
-        raise NotImplementedError("llama-architecture MoE files come with slice 5")
+    if arch not in ARCHES:
+        raise NotImplementedError(f"architecture {arch!r} is not ported: the port loads "
+                                  f"{ARCHES} (ROADMAP.md section 1, item 13)")
     n_embd = int(_get(md, arch, "embedding_length", 4096))
     n_head = _scalar(md, f"{arch}.attention.head_count", 32) or 1
     cfg = ModelConfig(
@@ -96,14 +116,17 @@ def config_from_metadata(md: dict) -> ModelConfig:
         n_head_kv=_scalar(md, f"{arch}.attention.head_count_kv", n_head) or n_head,
         n_ff=_scalar(md, f"{arch}.feed_forward_length", 4 * n_embd),
         head_dim=int(_get(md, arch, "attention.key_length", 0) or 0),
+        v_head_dim=int(_get(md, arch, "attention.value_length", 0) or 0),
         n_ctx_train=int(_get(md, arch, "context_length", 2048)),
         rms_eps=float(_get(md, arch, "attention.layer_norm_rms_epsilon", 1e-5)),
         rope_freq_base=float(_get(md, arch, "rope.freq_base", 10000.0)),
         rope_dim=int(_get(md, arch, "rope.dimension_count", 0) or 0),
+        n_expert=int(_get(md, arch, "expert_count", 0) or 0),
+        n_expert_used=int(_get(md, arch, "expert_used_count", 0) or 0),
     )
-    v_dim = int(_get(md, arch, "attention.value_length", 0) or 0)
-    if v_dim and v_dim != cfg.head_dim:
-        raise NotImplementedError("a value head width other than the key's is not ported")
+    if arch == "llama" and cfg.v_head_dim != cfg.head_dim:
+        raise NotImplementedError("a llama file whose value head width differs from the "
+                                  "key's is not ported")
     vs = _get(md, arch, "vocab_size", None)
     if vs is None:
         toks = md.get("tokenizer.ggml.tokens")
@@ -122,4 +145,16 @@ def config_from_metadata(md: dict) -> ModelConfig:
         cfg.rope_yarn_ext_factor = 1.0
         cfg.rope_orig_ctx = int(
             _get(md, arch, "rope.scaling.original_context_length", cfg.n_ctx_train))
+    if arch == "deepseek2":
+        # MLA and scaled MoE (JAX config.py:352-369): raw top-k router
+        # weights times expert_weights_scale, the YaRN mscale correction,
+        # rope on the last rope_dim of each qk head
+        cfg.moe_norm_topk = False
+        cfg.moe_expert_scale = float(_get(md, arch, "expert_weights_scale", 1.0) or 1.0)
+        cfg.rope_yarn_log_mul = float(
+            _get(md, arch, "rope.scaling.yarn_log_multiplier", 0.0) or 0.0)
+        if cfg.rope_freq_scale != 1.0:
+            # the pre-scaled rope attn factor (build_deepseek2's attn_factor_scaled)
+            cfg.rope_yarn_attn_factor = 1.0 / (1.0 + 0.1 * math.log(1.0 / cfg.rope_freq_scale))
+        cfg.rope_dim = int(_get(md, arch, "rope.dimension_count", 64) or 64)
     return cfg

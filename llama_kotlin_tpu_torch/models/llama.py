@@ -10,6 +10,16 @@ Projections come fused (``wqkv_fused``, ``ffn_gateup_fused``) or split
 (``wq``/``wk``/``wv``, ``ffn_gate``/``ffn_up``), as ``models/loader.py``
 leaves them; a missing ``output`` ties to ``tok_embd``.
 
+deepseek2 (JAX ``:159-193``, ``_qkv_mla``): multi-head latent attention, q
+through an optional LoRA bottleneck (``wq_a``, its norm, ``wq_b``; the
+Lite model has one ``wq``), k and v decompressed from a shared latent
+(``wkv_a_mqa``, its norm, ``wkv_b``), rope on the last rope_dim of each
+192-wide qk head and on the one rope key all heads share; the cache holds K
+192 and V 128 wide, and kernel 3 attends at (192, 128).  MoE layers
+(``ffn_gate_inp``; JAX ``:306-387``, ``_moe_ffn``): the router's top-k, then
+the routed FFN by one of three routes (``ops/moe.py``) and the shared
+experts (``ffn_*_shexp``).
+
 - Unrolled (``params["layers"]``): every layer writes its K/V rows into the
   cache IN PLACE, then attends over it through kernel 3.
 - Stacked (``params["layers_stacked"]``, built once by ``stack_layers``;
@@ -22,7 +32,8 @@ leaves them; a missing ``output`` ties to ``tok_embd``.
 - Stacked on a packed int4 (q4_0) cache: JAX declines kernel 9 there
   (``llama_kotlin_tpu/models/llama.py:569-573``) and attends by XLA over
   the dequantized prefix and the step's dequantized rows; the port's
-  ``attend_stacked_q4`` is that route in plain torch ops, on the card too.
+  ``attend_stacked_plain`` is that route in plain torch ops, on the card
+  too, and also serves a stacked model whose V is narrower than its K.
 
 The KV cache is bf16, int8 codes or packed int4 codes with per-row scales;
 the quantized rows come from the same f32 K/V the JAX package quantizes.
@@ -38,6 +49,7 @@ from dataclasses import replace
 import torch
 
 from llama_kotlin_tpu_torch.models.config import ModelConfig
+from llama_kotlin_tpu_torch.ops import moe
 from llama_kotlin_tpu_torch.ops.activations import ACTIVATIONS
 from llama_kotlin_tpu_torch.ops.attention import attention_reference, visibility_mask
 from llama_kotlin_tpu_torch.ops.cuda.flash import flash_attention
@@ -59,7 +71,9 @@ QT_TENSORS = ("codes", "g_scale", "g_min", "sb_scale", "sb_min")
 def can_stack(params: dict, cfg: ModelConfig) -> bool:
     """Layers can share one loop body when uniform in structure: at least
     two layers with the same keys (the JAX package's rule; the port's
-    config has no per-layer windows, ALiBi or per-layer shapes)."""
+    config has no per-layer windows, ALiBi or per-layer shapes).
+    deepseek2's dense lead layer has other keys than its MoE layers, so
+    that model stays unrolled, as in JAX."""
     layers = params.get("layers")
     if not layers or len(layers) < 2:
         return False
@@ -68,12 +82,17 @@ def can_stack(params: dict, cfg: ModelConfig) -> bool:
 
 
 def _stack(xs: list):
-    """One leaf of every layer -> the stacked leaf.  Leaves that differ in
-    anything but their values raise ValueError or TypeError, as jnp.stack
-    under jax.tree.map does, so the context keeps the unrolled path."""
+    """One leaf of every layer -> the stacked leaf (a list of per-expert
+    matrices -> the list of their stacks).  Leaves that differ in anything
+    but their values raise ValueError or TypeError, as jnp.stack under
+    jax.tree.map does, so the context keeps the unrolled path."""
     x0 = xs[0]
     if any(type(x) is not type(x0) for x in xs):
         raise TypeError("stack_layers: leaves of different types")
+    if isinstance(x0, list):
+        if any(len(x) != len(x0) for x in xs):
+            raise ValueError("stack_layers: expert lists of different lengths")
+        return [_stack([x[e] for x in xs]) for e in range(len(x0))]
     if isinstance(x0, torch.Tensor):
         if any(x.shape != x0.shape or x.dtype != x0.dtype or x.device != x0.device for x in xs):
             raise ValueError("stack_layers: tensors of different shapes or types")
@@ -109,7 +128,10 @@ def stack_layers(params: dict) -> dict:
 
 
 def _layer(leaf, i: int):
-    """Layer i of a stacked leaf (a tensor or a QTensor), as a view."""
+    """Layer i of a stacked leaf (a tensor, a QTensor or a list of them),
+    as a view."""
+    if isinstance(leaf, list):
+        return [_layer(x, i) for x in leaf]
     if isinstance(leaf, torch.Tensor):
         return leaf[i]
     aux = None if leaf.aux is None else {
@@ -123,7 +145,43 @@ def layer_views(params: dict) -> list[dict]:
     return params["layers"] if "layers" in params else params["layer_views"]
 
 
-def _qkv(lp: dict, x: torch.Tensor, cfg: ModelConfig):
+def _qkv(lp: dict, x: torch.Tensor, cfg: ModelConfig, cos: torch.Tensor, sin: torch.Tensor,
+         rope):
+    """The attention inputs of a layer: q [nt, H, Dk] bf16 and k [nt, KV,
+    Dk], v [nt, KV, Dv] f32, q and k roped."""
+    if "wkv_a_mqa" in lp:
+        q, k, v = _qkv_mla(lp, x, cfg, cos, sin, rope)
+    else:
+        q, k, v = _qkv_gqa(lp, x, cfg)
+        q, k = rotate(q, cos, sin, rope), rotate(k, cos, sin, rope)
+    return q.to(COMPUTE_DTYPE), k, v
+
+
+def _qkv_mla(lp: dict, x: torch.Tensor, cfg: ModelConfig, cos: torch.Tensor,
+             sin: torch.Tensor, rope):
+    """deepseek2's multi-head latent attention inputs (JAX ``qkv_mla``):
+    the rope tables are the config's (n_rot = rope_dim), turning the last
+    rope_dim dims of each qk head and the shared rope key."""
+    nt = x.shape[0]
+    rope_d, v_dim = cfg.rope_dim, cfg.v_head_dim
+    nope = cfg.head_dim - rope_d
+    if "wq_a" in lp:  # q LoRA
+        q = rms_norm(qmatmul(x, lp["wq_a"]), lp["attn_q_a_norm"], cfg.rms_eps)
+        q = qmatmul(q, lp["wq_b"])
+    else:  # DeepSeek-V2-Lite
+        q = qmatmul(x, lp["wq"])
+    q = q.reshape(nt, cfg.n_head, cfg.head_dim)
+    kv_pe = qmatmul(x, lp["wkv_a_mqa"])
+    kv_rank = kv_pe.shape[-1] - rope_d
+    kv_c = rms_norm(kv_pe[:, :kv_rank], lp["attn_kv_a_norm"], cfg.rms_eps)
+    k_pe = rotate(kv_pe[:, kv_rank:].reshape(nt, 1, rope_d), cos, sin, rope)
+    kv = qmatmul(kv_c, lp["wkv_b"]).reshape(nt, cfg.n_head, nope + v_dim)
+    q = torch.cat([q[..., :nope], rotate(q[..., nope:], cos, sin, rope)], dim=-1)
+    k = torch.cat([kv[..., :nope], k_pe.expand(nt, cfg.n_head, rope_d)], dim=-1)
+    return q, k, kv[..., nope:]
+
+
+def _qkv_gqa(lp: dict, x: torch.Tensor, cfg: ModelConfig):
     nt = x.shape[0]
     qd = cfg.n_head * cfg.head_dim
     kvd = cfg.n_head_kv * cfg.head_dim
@@ -138,11 +196,13 @@ def _qkv(lp: dict, x: torch.Tensor, cfg: ModelConfig):
 
 
 def _ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Gated FFN: kernel 2 for decode rows when it takes the layouts (the
-    fused gate|up, or gate and up apart: JAX's forward, ``llama_kotlin_tpu/
-    models/llama.py:389-412``), else gate|up (fused or separate) and down
-    matmuls.  Plain gated FFN only: the port loads no FFN biases or
-    scales."""
+    """Gated FFN: the MoE block where the layer has a router; kernel 2 for
+    decode rows when it takes the layouts (the fused gate|up, or gate and
+    up apart: JAX's forward, ``llama_kotlin_tpu/models/llama.py:389-412``),
+    else gate|up (fused or separate) and down matmuls.  Plain gated FFN
+    only: the port loads no FFN biases or scales."""
+    if "ffn_gate_inp" in lp:
+        return _moe_ffn(lp, x, cfg)
     act = ACTIVATIONS[cfg.act]
     fused = "ffn_gateup_fused" in lp
     gate_w = lp["ffn_gateup_fused"] if fused else lp["ffn_gate"]
@@ -157,14 +217,63 @@ def _ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return qmatmul((act(gate) * up).to(COMPUTE_DTYPE), lp["ffn_down"])
 
 
+def _moe_ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """A MoE layer's FFN (JAX ``moe_ffn``, ``:306-353``), [nt, d] f32: the
+    router (a dense bf16 matrix) and its top-k (``ops/moe.py::route``),
+    then the routed experts by JAX's rule: dense stacks (a float file) ->
+    the grouped FFN; a quantized expert stack with at most 64 routed slots,
+    fewer than the experts (decode) -> the gathered FFN; else (per-expert
+    lists, prefill) -> the sweep; then the shared experts."""
+    nt = x.shape[0]
+    act = ACTIVATIONS[cfg.act]
+    top_w, top_i = moe.route(qmatmul(x, lp["ffn_gate_inp"]), cfg.n_expert_used,
+                             cfg.moe_norm_topk, cfg.moe_expert_scale)
+    gate_w, up_w, down_w = lp["ffn_gate_exps"], lp["ffn_up_exps"], lp["ffn_down_exps"]
+    slots = nt * cfg.n_expert_used
+    if all(isinstance(w, torch.Tensor) and w.dim() == 3 for w in (gate_w, up_w, down_w)):
+        down = moe.moe_grouped_ffn(x, gate_w, up_w, down_w, top_i, top_w, act)
+    elif (isinstance(gate_w, QTensor) and gate_w.is_stacked and slots <= 64
+          and slots < cfg.n_expert):
+        down = moe.moe_gathered_quant(x, gate_w, up_w, down_w, top_i, top_w, act)
+    else:
+        down = _moe_sweep(lp, x, top_i, top_w, cfg)
+    return _moe_shared(lp, x, down, cfg)
+
+
+def _moe_sweep(lp: dict, x: torch.Tensor, top_i: torch.Tensor, top_w: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    """Every expert through the kernels (``qmatmul``), a token's output
+    weighted by its routing weight for that expert (0 where unrouted): JAX's
+    ``_moe_sweep``, ``:355-367``."""
+    act = ACTIVATIONS[cfg.act]
+    down = torch.zeros((x.shape[0], cfg.n_embd), dtype=torch.float32, device=x.device)
+    for e in range(cfg.n_expert):
+        w_tok = torch.where(top_i == e, top_w, torch.zeros_like(top_w)).sum(dim=-1)
+        ffn_e = act(qmatmul(x, lp["ffn_gate_exps"][e])) * qmatmul(x, lp["ffn_up_exps"][e])
+        down_e = qmatmul(ffn_e.to(COMPUTE_DTYPE), lp["ffn_down_exps"][e])
+        down = down + w_tok[:, None] * down_e
+    return down
+
+
+def _moe_shared(lp: dict, x: torch.Tensor, down: torch.Tensor, cfg: ModelConfig):
+    """The shared experts, a gated FFN every token takes, added to the routed
+    output as deepseek2 does (JAX ``_moe_shared``, ``:369-383``)."""
+    if "ffn_gate_shexp" not in lp:
+        return down
+    act = ACTIVATIONS[cfg.act]
+    h = act(qmatmul(x, lp["ffn_gate_shexp"])) * qmatmul(x, lp["ffn_up_shexp"])
+    return down + qmatmul(h.to(COMPUTE_DTYPE), lp["ffn_down_shexp"])
+
+
 def _fused_layer_half(lp: dict, h: torch.Tensor, attn: torch.Tensor, cfg: ModelConfig):
     """The JAX forward's fused layer-half hook (``llama_kotlin_tpu/models/
     llama.py:255-274``): o projection, residual, ffn_norm and gated FFN in
     one launch (ops/qmatmul.qmm_layer, kernel 10) where the layer has the
     fused gate|up; None when it declines, and the caller takes the unfused
-    route.  The port's llama config is always the pre-norm gated RMS one
-    the hook asks for, with none of the extra tensors it excludes."""
-    if "ffn_gateup_fused" not in lp:
+    route.  The port's configs are always the pre-norm gated RMS one the
+    hook asks for; of the tensors it excludes, the port loads only the MoE
+    router (``:255-265``)."""
+    if "ffn_gateup_fused" not in lp or "ffn_gate_inp" in lp:
         return None
     return qmm_layer(attn, h, lp["wo"], lp["ffn_gateup_fused"], lp["ffn_down"], lp["ffn_norm"],
                      eps=cfg.rms_eps, act=cfg.act, offset=cfg.norm_weight_offset)
@@ -213,21 +322,23 @@ def _stacked_masks(cfg: ModelConfig, mask_full: torch.Tensor, token_pos: torch.T
     return mask_cells.to(torch.int8), mask_new.to(torch.int8)
 
 
-def attend_stacked_q4(q: torch.Tensor, cache: KVCache, li: int, new_k: torch.Tensor,
-                      new_v: torch.Tensor, mask_cells: torch.Tensor, mask_new: torch.Tensor,
-                      *, scale: float, logit_softcap: float = 0.0) -> torch.Tensor:
-    """The stacked path's attention on a packed int4 cache: JAX's own route
-    there (``llama_kotlin_tpu/models/llama.py:569-573``: kernel 9 is int8
-    only, so ``attend`` at :585-606 takes XLA): layer li's visible prefix
-    dequantized and rounded to bf16, then the step's fresh rows new_k/new_v
-    [nt, KV, D] (dequantized from their own int4 codes), under mask_cells
-    and mask_new side by side, through attention_reference.  Plain torch
-    ops on every device: no Pallas kernel runs there in JAX, and an int4
-    instance of kernel 9 is later performance work (ROADMAP.md)."""
+def attend_stacked_plain(q: torch.Tensor, cache: KVCache, li: int, new_k: torch.Tensor,
+                         new_v: torch.Tensor, mask_cells: torch.Tensor, mask_new: torch.Tensor,
+                         *, scale: float, logit_softcap: float = 0.0) -> torch.Tensor:
+    """JAX's stacked attention where kernel 9 declines (``llama_kotlin_tpu/
+    models/llama.py:569-606``: a packed int4 cache, or V narrower than K):
+    layer li's visible prefix (dequantized where quantized) rounded to bf16,
+    then the step's fresh rows new_k/new_v [nt, KV, D] (on a quantized cache
+    dequantized from their own codes), under mask_cells and mask_new side
+    by side, through attention_reference.  Plain torch ops on every device:
+    no Pallas kernel runs there in JAX."""
     n_vis = mask_cells.shape[1]
-    k_old, v_old = (dequantize_cache_layer(c[li, :, :n_vis], sc[li, :, :n_vis],
-                                           COMPUTE_DTYPE, bits=4)
-                    for c, sc in ((cache.k, cache.k_scale), (cache.v, cache.v_scale)))
+    if cache.quantized:
+        k_old, v_old = (dequantize_cache_layer(c[li, :, :n_vis], sc[li, :, :n_vis],
+                                               COMPUTE_DTYPE, bits=cache.kv_bits)
+                        for c, sc in ((cache.k, cache.k_scale), (cache.v, cache.v_scale)))
+    else:
+        k_old, v_old = cache.k[li, :, :n_vis], cache.v[li, :, :n_vis]
     k_cat = torch.cat([k_old, new_k.to(COMPUTE_DTYPE).transpose(0, 1)], dim=1)
     v_cat = torch.cat([v_old, new_v.to(COMPUTE_DTYPE).transpose(0, 1)], dim=1)
     m_cat = torch.cat([mask_cells != 0, mask_new != 0], dim=1)
@@ -259,9 +370,7 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     attn_kw = dict(softmax_kw, k_scale=cache.k_scale, v_scale=cache.v_scale)
     for li, lp in enumerate(layer_views(params)):
         x = rms_norm(h, lp["attn_norm"], cfg.rms_eps, cfg.norm_weight_offset)
-        q, k, v = _qkv(lp, x, cfg)
-        q = rotate(q, cos, sin, rope).to(COMPUTE_DTYPE)
-        k = rotate(k, cos, sin, rope)
+        q, k, v = _qkv(lp, x, cfg, cos, sin, rope)
         rows = _cache_rows(cache, k, v)
         if stacked:
             if cache.quantized:
@@ -269,8 +378,9 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                 # what later steps will read
                 k, v = (dequantize_cache_layer(c, s, bits=cache.kv_bits).transpose(0, 1)
                         for c, s in ((rows[0], rows[2]), (rows[1], rows[3])))
-            if cache.kv_bits == 4:
-                attn = attend_stacked_q4(q, cache, li, k, v, mask_cells, mask_new, **softmax_kw)
+            if cache.kv_bits == 4 or cfg.v_head_dim != cfg.head_dim:
+                attn = attend_stacked_plain(q, cache, li, k, v, mask_cells, mask_new,
+                                            **softmax_kw)
             else:
                 attn = flash_attention_stacked(q, cache.k, cache.v, li, k.to(COMPUTE_DTYPE),
                                                v.to(COMPUTE_DTYPE), mask_cells, mask_new,

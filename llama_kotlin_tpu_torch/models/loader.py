@@ -1,5 +1,6 @@
 """GGUF -> device params (port of ``llama_kotlin_tpu/models/loader.py`` for
-the llama architecture in all four of its modes).
+the llama architecture, dense or MoE (Mixtral), and deepseek2, in all four
+of its modes).
 
 ``load_gguf_model(path, fast_mode=None|"w4"|"w4x"|"int8", fuse=True)``
 memory-maps the file, moves each tensor's wire bytes to the device and
@@ -20,9 +21,21 @@ of a whole lm_head sits in memory:
 * ``"int8"``: every matrix converts to Q8F (kernel 6).
 
 Norms stay f32, and an F32, F16 or BF16 matrix stays a dense bf16 tensor in
-every mode, as in JAX (a plain matmul serves it).  Still refused: the IQ
-formats (``quant/repack.py``, ROADMAP.md section 1, item 6), 3-D (MoE)
-weights and tensor names the llama forward does not read (item 13).
+every mode, as in JAX (a plain matmul serves it).  The MoE router
+(``ffn_gate_inp``) is always dense: JAX keeps it f32 and casts it to bf16
+at its matmul, the port casts it once here.
+
+MoE expert stacks (3-D ``ffn_{gate,up,down}_exps`` [E, n, k], JAX
+``:181-206``): in a fast mode with E <= 16 (Mixtral), a list of E
+per-expert matrices in the mode's layout, which ``_moe_sweep`` runs through
+the kernels one expert at a time; otherwise one stacked exact repack
+(``quant/qtensor.py::stack_qtensors``), whose routed experts a decode step
+gathers; a float file's stacks stay dense bf16 [E, n, k].  deepseek2's MLA
+projections (``attn_q_a``/``attn_q_b`` or ``attn_q``, ``attn_kv_a_mqa``,
+``attn_kv_b``, and their norms) and shared experts (``ffn_*_shexp``) load
+as any matrix.  Still refused: the IQ formats (``quant/repack.py``,
+ROADMAP.md section 1, item 6) and tensor names the port's forward does not
+read (item 13).
 """
 
 from __future__ import annotations
@@ -37,13 +50,14 @@ from llama_kotlin_tpu_torch.gguf.reader import GGUFFile
 from llama_kotlin_tpu_torch.models.config import ModelConfig, config_from_metadata
 from llama_kotlin_tpu_torch.quant.fold import GROUP, fold_to_w4, fold_to_w8
 from llama_kotlin_tpu_torch.quant.formats import TYPE_TRAITS, GGMLQuantType, row_byte_size
-from llama_kotlin_tpu_torch.quant.qtensor import QTensor, concat_qtensors
+from llama_kotlin_tpu_torch.quant.qtensor import QTensor, concat_qtensors, stack_qtensors
 from llama_kotlin_tpu_torch.quant.repack import dequantize_wire, repack, repack_q8flat
 
 FAST_MODES = (None, "w4", "w4x", "int8")
 ROW_CHUNK = 16384  # matrix rows converted per step
 
-# tensor-name suffix -> params key (the llama rows of the JAX tables)
+# tensor-name suffix -> params key (the llama, MoE and deepseek2 rows of the
+# JAX tables)
 _LAYER_TENSORS = {
     "attn_norm.weight": "attn_norm",
     "attn_q.weight": "wq",
@@ -54,6 +68,19 @@ _LAYER_TENSORS = {
     "ffn_gate.weight": "ffn_gate",
     "ffn_up.weight": "ffn_up",
     "ffn_down.weight": "ffn_down",
+    "ffn_gate_inp.weight": "ffn_gate_inp",
+    "ffn_gate_exps.weight": "ffn_gate_exps",
+    "ffn_up_exps.weight": "ffn_up_exps",
+    "ffn_down_exps.weight": "ffn_down_exps",
+    "ffn_gate_shexp.weight": "ffn_gate_shexp",
+    "ffn_up_shexp.weight": "ffn_up_shexp",
+    "ffn_down_shexp.weight": "ffn_down_shexp",
+    "attn_q_a.weight": "wq_a",
+    "attn_q_b.weight": "wq_b",
+    "attn_kv_a_mqa.weight": "wkv_a_mqa",
+    "attn_kv_b.weight": "wkv_b",
+    "attn_q_a_norm.weight": "attn_q_a_norm",
+    "attn_kv_a_norm.weight": "attn_kv_a_norm",
 }
 _GLOBAL_TENSORS = {
     "token_embd.weight": "tok_embd",
@@ -61,7 +88,10 @@ _GLOBAL_TENSORS = {
     "output.weight": "output",
     "rope_freqs.weight": "rope_freqs",
 }
-_ALWAYS_FLOAT = {"attn_norm", "ffn_norm", "output_norm", "rope_freqs"}
+_ALWAYS_FLOAT = {"attn_norm", "ffn_norm", "output_norm", "rope_freqs", "attn_q_a_norm",
+                 "attn_kv_a_norm"}
+_ALWAYS_DENSE = {"ffn_gate_inp"}  # dense bf16 in every mode, whatever the file's type
+MAX_EXPERT_LIST = 16  # expert counts a fast mode loads as per-expert lists (JAX :196)
 
 
 def _convert(data: torch.Tensor, qt: GGMLQuantType, n: int, k: int,
@@ -103,16 +133,38 @@ def _load_matrix(data: torch.Tensor, qt: GGMLQuantType, n: int, k: int,
     return parts[0] if len(parts) == 1 else concat_qtensors(parts)
 
 
+def _load_experts(data: torch.Tensor, qt: GGMLQuantType, shape: tuple,
+                  fast_mode: Optional[str], dev: torch.device):
+    """A 3-D expert stack [E, n, k] (JAX ``:181-206``): a float one as one
+    dense bf16 tensor; a quantized one, in a fast mode with E <= 16, as a
+    list of the mode's per-expert layouts (the sweep runs each through the
+    kernels), else as one stacked exact repack (decode gathers the routed
+    experts' planes)."""
+    n_exp, n, k = shape
+    flat = data.reshape(n_exp, n * row_byte_size(k, qt))
+    if not TYPE_TRAITS[qt].is_quantized:
+        return torch.stack([_load_matrix(flat[e], qt, n, k, fast_mode, dev)
+                            for e in range(n_exp)])
+    if fast_mode is not None and n_exp <= MAX_EXPERT_LIST:
+        return [_load_matrix(flat[e], qt, n, k, fast_mode, dev) for e in range(n_exp)]
+    return stack_qtensors([_load_matrix(flat[e], qt, n, k, None, dev) for e in range(n_exp)])
+
+
 def _load_tensor(f: GGUFFile, name: str, key: str, fast_mode: Optional[str],
                  dev: torch.device):
-    """Norms -> f32 tensors; matrices -> the mode's QTensor or dense bf16."""
+    """Norms -> f32 tensors; the router -> dense bf16; matrices -> the
+    mode's QTensor or dense bf16; expert stacks -> _load_experts."""
     info = f.tensors[name]
     data = f.tensor_data(name)
     if key in _ALWAYS_FLOAT:
         return dequantize_wire(data.to(dev), info.ggml_type, info.np_shape)
+    if key in _ALWAYS_DENSE:
+        return dequantize_wire(data.to(dev), info.ggml_type,
+                               info.np_shape).to(torch.bfloat16)
+    if len(info.np_shape) == 3:
+        return _load_experts(data, info.ggml_type, info.np_shape, fast_mode, dev)
     if len(info.np_shape) != 2:
-        raise NotImplementedError(f"{name}: {len(info.np_shape)}-D weights (MoE) come "
-                                  "with slice 5 (ROADMAP.md section 1, item 13)")
+        raise NotImplementedError(f"{name}: {len(info.np_shape)}-D weights are not ported")
     n, k = info.np_shape
     return _load_matrix(data, info.ggml_type, n, k, fast_mode, dev)
 
@@ -165,7 +217,7 @@ def fuse_layer_projections(cfg: ModelConfig, params: dict) -> int:
 
 def load_gguf_model(path: str | Path, *, fast_mode: Optional[str] = None,
                     fuse: bool = False, device: DeviceLike = None):
-    """Load a llama GGUF file into (config, params, open GGUFFile) on
+    """Load a llama or deepseek2 GGUF file into (config, params, open GGUFFile) on
     `device` (None means cuda).  fast_mode is None (the exact-dequant mode,
     JAX's default), "w4", "w4x" or "int8"; fuse=True applies the
     single-device serving fold (fuse_layer_projections)."""
@@ -191,9 +243,9 @@ def load_gguf_model(path: str | Path, *, fast_mode: Optional[str] = None,
                 key = _LAYER_TENSORS[parts[2]]
                 lp[key] = _load_tensor(f, name, key, fast_mode, dev)
                 continue
-        raise NotImplementedError(f"tensor {name!r} is not read by the port's llama "
-                                  "forward (biases, MoE and other archs come with ROADMAP.md "
-                                  "section 1, item 13)")
+        raise NotImplementedError(f"tensor {name!r} is not read by the port's forward "
+                                  "(biases and other archs come with ROADMAP.md section 1, "
+                                  "item 13)")
     params.setdefault("rope_freqs", None)  # no "output": tied, forward reads tok_embd
     if fuse:
         fuse_layer_projections(cfg, params)

@@ -1,0 +1,117 @@
+"""Architecture registry (port of ``llama_kotlin_tpu/models/registry.py``):
+the JAX package's table of the reference's architectures, each with its
+status there and whether the port loads it.  ``models/config.py::
+config_from_metadata`` raises for every architecture this table does not
+mark ported (ROADMAP.md section 1, item 13).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class ArchInfo:
+    name: str
+    status: str  # the JAX package's: "supported" | "planned" | "out-of-scope"
+    ported: bool  # loaded and served by the port
+    notes: str = ""
+
+
+ARCHES = [
+    ArchInfo("llama", "supported", True,
+             "LLaMA 1/2/3, Mistral, TinyLlama; rope freq-factors; MoE (Mixtral)"),
+    ArchInfo("gemma", "supported", False,
+             "gelu, embd scale sqrt(E), (1+w) norms, tied head"),
+    ArchInfo("gemma2", "supported", False,
+             "logit softcaps, pre/post-ffn norms, alternating SWA"),
+    ArchInfo("qwen2", "supported", False,
+             "qkv bias, NEOX rope"),
+    ArchInfo("qwen2moe", "supported", False,
+             "shared expert + sigmoid gate, raw top-k probs"),
+    ArchInfo("stablelm", "supported", False,
+             "qkv bias, NEOX rope, partial rotary via rope_dim"),
+    ArchInfo("phi3", "supported", False,
+             "NEOX rope, SWA; fused qkv split at load planned"),
+    ArchInfo("internlm2", "supported", False,
+             "llama-shaped"),
+    ArchInfo("minicpm", "supported", False,
+             "llama-shaped + scale factors"),
+    ArchInfo("command-r", "supported", False,
+             "parallel block, per-head qk LayerNorm, logit scale"),
+    ArchInfo("deepseek2", "supported", True,
+             "MLA (q/kv LoRA latents, split k/v dims), yarn mscale, scaled MoE + shared expert"),
+    ArchInfo("falcon", "supported", False,
+             "LayerNorm, dual norms (40B), parallel residual, GQA"),
+    ArchInfo("gpt2", "supported", False,
+             "LayerNorm, learned positions, fused qkv split at load"),
+    ArchInfo("gptneox", "supported", False,
+             "LayerNorm, parallel residual, partial rope"),
+    ArchInfo("mpt", "supported", False,
+             "ALiBi attention, LayerNorm, fused qkv"),
+    ArchInfo("starcoder", "supported", False,
+             "MQA, LayerNorm, learned positions"),
+    ArchInfo("phi2", "supported", False,
+             "parallel residual w/ shared norm, partial rope, output bias"),
+    ArchInfo("bloom", "supported", False,
+             "embedding LayerNorm, ALiBi, per-head fused qkv"),
+    ArchInfo("starcoder2", "supported", False,
+             "llama-shaped with biases"),
+    ArchInfo("olmo", "supported", False,
+             "non-parametric LayerNorm, clamp_kqv"),
+    ArchInfo("chatglm", "supported", False,
+             "fused qkv+bias, packed swiglu, half-dim rope"),
+    ArchInfo("nemotron", "supported", False,
+             "LayerNorm1P (+1 folded at convert), relu^2 FFN, partial rope"),
+    ArchInfo("exaone", "supported", False,
+             "llama-shaped, own metadata namespace"),
+    ArchInfo("jais", "supported", False,
+             "LayerNorm + ALiBi + biased gated swiglu"),
+    ArchInfo("xverse", "supported", False,
+             "llama-shaped"),
+    ArchInfo("orion", "supported", False,
+             "biased LayerNorm, llama-shaped otherwise"),
+    ArchInfo("plamo", "supported", False,
+             "shared-norm parallel residual"),
+    ArchInfo("baichuan", "supported", False,
+             "7B llama-shaped; 13B ALiBi (by layer count)"),
+    ArchInfo("qwen", "supported", False,
+             "fused qkv+bias, NEOX rope, rms"),
+    ArchInfo("refact", "supported", False,
+             "RMS norms + ALiBi, no rope"),
+    ArchInfo("dbrx", "supported", False,
+             "biasless LayerNorm, clamped fused qkv, normalized-top-k MoE"),
+    ArchInfo("arctic", "supported", False,
+             "dense FFN + parallel MoE branch (ffn_norm_exps)"),
+    ArchInfo("codeshell", "supported", False,
+             "LayerNorm+bias, gelu FFN, NEOX partial rope"),
+    ArchInfo("grok", "supported", False,
+             "scaled embd/logits, 30-softcap attention, gelu MoE, pre-residual out-norms"),
+    ArchInfo("bert", "supported", False,
+             "encoder-only: bidirectional post-norm blocks, token types, WPM tokenizer"),
+    ArchInfo("openelm", "supported", False,
+             "per-layer head/kv/ff arrays, fused qkv, per-head qk RMS norm, tied output"),
+    ArchInfo("nomic-bert", "supported", False,
+             "rope encoder, gated silu FFN"),
+    ArchInfo("jina-bert-v2", "supported", False,
+             "bidirectional ALiBi, gated gelu, mid-block re-norm"),
+    ArchInfo("t5", "supported", False,
+             "enc-dec: relative-position buckets, unscaled attention, cross-attention "
+             "(models/t5.py T5Context)"),
+    ArchInfo("t5encoder", "supported", False,
+             "encoder-only t5 via the same loader/encode path"),
+    ArchInfo("mamba", "supported", False,
+             "selective SSM via lax.scan, recurrent-state MambaContext (models/mamba.py)"),
+    ArchInfo("bitnet", "supported", False,
+             "per-projection scalar scales, attn/ffn sub-norms, tied head"),
+]
+
+
+def support_status(arch: str) -> str:
+    """The JAX package's status of `arch` ("unknown" if absent)."""
+    return next((a.status for a in ARCHES if a.name == arch), "unknown")
+
+
+def is_ported(arch: str) -> bool:
+    """Whether the port loads `arch`."""
+    return any(a.name == arch and a.ported for a in ARCHES)

@@ -7,12 +7,17 @@ package's generator, so the same seed gives the same weights on both sides.
 seeded ``torch.Generator`` — no multi-GB host build.  ``synthetic_gguf``
 writes a llama GGUF file of random wire blocks (the Q4_K_M type mix by
 default; the Q5_K_M mix, single-type files and a mix of every format the
-loader takes) for the loader to read.
+loader takes) for the loader to read; with a ``MoEShape`` it writes a
+llama-architecture MoE file (Mixtral) or a deepseek2 file (MLA, a dense
+lead, routed and shared experts) with the metadata keys the loader reads
+(``deepseek_v2_lite``, ``mixtral_8x7b``: their published shapes).
 """
 
 from __future__ import annotations
 
+import math
 import os
+from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
@@ -188,11 +193,8 @@ def _q5_legacy(q: np.ndarray) -> list:
     """Five-bit codes [nb, 32] (element order) -> (qh as 4 little-endian
     bytes, qs 16 bytes): bit j of qh is code j's fifth bit, bit 16 + j code
     16 + j's; qs byte j holds code j's low nibble and code 16 + j's high."""
-    hb = (q >> 4).astype(np.uint32)
-    qh = (hb[:, :16] << np.arange(16, dtype=np.uint32)).sum(axis=1, dtype=np.uint32) | (
-        hb[:, 16:] << np.arange(16, 32, dtype=np.uint32)).sum(axis=1, dtype=np.uint32)
-    return [qh.astype("<u4").view(np.uint8).reshape(-1, 4),
-            (q[:, :16] & 0x0F) | ((q[:, 16:] & 0x0F) << 4)]
+    qh = np.packbits(q >> 4, axis=1, bitorder="little")  # bit j: code j's fifth bit
+    return [qh, (q[:, :16] & 0x0F) | ((q[:, 16:] & 0x0F) << 4)]
 
 
 def wire_blocks(rng: np.random.Generator, qtype: GGMLQuantType, n: int, k: int) -> np.ndarray:
@@ -390,7 +392,7 @@ def synthetic_gguf(path, cfg: ModelConfig, seed: int = 0, layer_types: Optional[
                    embd_type: Optional[GGMLQuantType] = None,
                    output_type: GGMLQuantType = GGMLQuantType.Q6_K,
                    matrix_type: GGMLQuantType = GGMLQuantType.Q4_K,
-                   extra_kvs: Optional[dict] = None) -> int:
+                   extra_kvs: Optional[dict] = None, moe: Optional[MoEShape] = None) -> int:
     """Write a llama GGUF of random wire blocks for `cfg`: every layer matrix
     of `matrix_type` but those `layer_types` names (a dict a layer from
     LAYER_MATRICES to types; default for Q4_K: the Q4_K_M profile,
@@ -402,10 +404,17 @@ def synthetic_gguf(path, cfg: ModelConfig, seed: int = 0, layer_types: Optional[
     tensor is drawn from one numpy Generator as the writer streams it, so a
     full 8B file never sits whole in host memory.  extra_kvs (e.g.
     synthetic_spm_vocab's tokenizer keys) are written after the model's
-    keys; the loader ignores them.  Returns the file's size."""
+    keys; the loader ignores them.  With `moe` the file is cfg.arch's MoE
+    layout (llama: Mixtral; deepseek2: MLA with dense lead and shared
+    experts), its layers' types moe_tensor_types(cfg, moe, matrix_type)
+    unless layer_types maps tensor names to types.  Returns the file's
+    size."""
     from llama_kotlin_tpu_torch.gguf.writer import GGUFWriter
 
     rng = np.random.default_rng(seed)
+    if moe is not None:
+        return _synthetic_moe_gguf(path, cfg, moe, rng, layer_types, embd_type, output_type,
+                                   matrix_type, extra_kvs)
     if layer_types is None:
         mix = DEFAULT_MIX.get(matrix_type)
         layer_types = mix(cfg.n_layer) if mix else [{}] * cfg.n_layer
@@ -448,6 +457,198 @@ def synthetic_gguf(path, cfg: ModelConfig, seed: int = 0, layer_types: Optional[
             matrix(b + name + ".weight", *shapes[name], types.get(name, matrix_type))
     norm("output_norm.weight")
     matrix("output.weight", V, E, output_type)
+    w.write(path)
+    return os.path.getsize(path)
+
+
+@dataclass(frozen=True)
+class MoEShape:
+    """A MoE file's shapes beyond ModelConfig's (which gives n_expert,
+    n_expert_used and the dense FFN width n_ff): the routed experts' width,
+    the shared experts (deepseek2: n_shared of expert_ff, written as one
+    FFN n_shared * expert_ff wide), the leading dense layers, and
+    deepseek2's q and kv LoRA ranks (q_lora_rank 0: one ``attn_q``, the
+    Lite model)."""
+
+    expert_ff: int
+    n_shared: int = 0
+    dense_lead: int = 0
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+
+
+def deepseek_v2_lite(n_layer: int = 27) -> tuple:
+    """(ModelConfig, MoEShape) of DeepSeek-V2-Lite at its published shapes
+    (huggingface.co/deepseek-ai/DeepSeek-V2-Lite, config.json): 27 layers,
+    the first dense (F 10944), then 64 routed experts of 1408 (6 a token,
+    raw softmax weights, scale 1) and 2 shared; 16 heads of q/k 192 (128 +
+    64 rope) and v 128 over a 512-wide kv latent, no q LoRA; YaRN factor 40
+    on 4096 positions, mscale_all_dim 0.707 (yarn_log_multiplier 0.0707 as
+    llama.cpp's converter writes it).  n_layer cuts depth."""
+    cfg = ModelConfig(arch="deepseek2", name="deepseek-v2-lite", vocab_size=102400,
+                      n_embd=2048, n_layer=n_layer, n_head=16, n_head_kv=16, n_ff=10944,
+                      head_dim=192, v_head_dim=128, rope_dim=64, n_ctx_train=163840,
+                      rms_eps=1e-6, rope_freq_scale=1.0 / 40.0, rope_yarn_ext_factor=1.0,
+                      rope_orig_ctx=4096, rope_yarn_log_mul=0.1 * 0.707, n_expert=64,
+                      n_expert_used=6, moe_norm_topk=False,
+                      rope_yarn_attn_factor=1.0 / (1.0 + 0.1 * math.log(40.0)))
+    return cfg, MoEShape(expert_ff=1408, n_shared=2, dense_lead=1, kv_lora_rank=512)
+
+
+def mixtral_8x7b(n_layer: int = 32) -> tuple:
+    """(ModelConfig, MoEShape) of Mixtral-8x7B's published shapes
+    (huggingface.co/mistralai/Mixtral-8x7B-v0.1, config.json): E 4096, 32
+    heads on 8 kv heads, 8 experts of 14336, 2 a token; n_layer cuts
+    depth."""
+    cfg = ModelConfig(arch="llama", name="mixtral-8x7b", vocab_size=32000, n_embd=4096,
+                      n_layer=n_layer, n_head=32, n_head_kv=8, n_ff=14336,
+                      n_ctx_train=32768, rope_freq_base=1e6, n_expert=8, n_expert_used=2)
+    return cfg, MoEShape(expert_ff=14336)
+
+
+def _fallback_type(qtype: GGMLQuantType, k: int) -> GGMLQuantType:
+    """llama.cpp's quantize fallback for rows a k-quant block cannot tile
+    (k % 256): Q4_K -> Q5_0, Q5_K -> Q5_1, Q6_K -> Q8_0."""
+    if k % SPAN == 0 or TYPE_TRAITS[qtype].block_size != SPAN:
+        return qtype
+    return {GGMLQuantType.Q4_K: GGMLQuantType.Q5_0, GGMLQuantType.Q5_K: GGMLQuantType.Q5_1,
+            GGMLQuantType.Q6_K: GGMLQuantType.Q8_0}[qtype]
+
+
+def moe_layer_tensors(cfg: ModelConfig, moe: MoEShape, i: int) -> list:
+    """Layer i of a MoE or deepseek2 file: (name suffix, numpy shape, role)
+    in the order synthetic_gguf writes them; role "norm" (F32), "router"
+    (F32, as llama.cpp's quantize leaves ffn_gate_inp), "attn_v" and
+    "ffn_down" (Q4_K_M's use_more_bits choice) or "matrix"."""
+    E, H = cfg.n_embd, cfg.n_head
+    out = [("attn_norm.weight", (E,), "norm")]
+    if cfg.arch == "deepseek2":
+        nope, rope = cfg.head_dim - cfg.rope_dim, cfg.rope_dim
+        if moe.q_lora_rank:
+            out += [("attn_q_a.weight", (moe.q_lora_rank, E), "matrix"),
+                    ("attn_q_a_norm.weight", (moe.q_lora_rank,), "norm"),
+                    ("attn_q_b.weight", (H * cfg.head_dim, moe.q_lora_rank), "matrix")]
+        else:
+            out.append(("attn_q.weight", (H * cfg.head_dim, E), "matrix"))
+        out += [("attn_kv_a_mqa.weight", (moe.kv_lora_rank + rope, E), "matrix"),
+                ("attn_kv_a_norm.weight", (moe.kv_lora_rank,), "norm"),
+                ("attn_kv_b.weight", (H * (nope + cfg.v_head_dim), moe.kv_lora_rank), "matrix"),
+                ("attn_output.weight", (E, H * cfg.v_head_dim), "matrix")]
+    else:
+        qd, kvd = H * cfg.head_dim, cfg.n_head_kv * cfg.head_dim
+        out += [("attn_q.weight", (qd, E), "matrix"), ("attn_k.weight", (kvd, E), "matrix"),
+                ("attn_v.weight", (kvd, E), "attn_v"), ("attn_output.weight", (E, qd), "matrix")]
+    out.append(("ffn_norm.weight", (E,), "norm"))
+    if i < moe.dense_lead:
+        F = cfg.n_ff
+        return out + [("ffn_gate.weight", (F, E), "matrix"), ("ffn_up.weight", (F, E), "matrix"),
+                      ("ffn_down.weight", (E, F), "ffn_down")]
+    Ne, Fe = cfg.n_expert, moe.expert_ff
+    out += [("ffn_gate_inp.weight", (Ne, E), "router"),
+            ("ffn_gate_exps.weight", (Ne, Fe, E), "matrix"),
+            ("ffn_up_exps.weight", (Ne, Fe, E), "matrix"),
+            ("ffn_down_exps.weight", (Ne, E, Fe), "ffn_down")]
+    if moe.n_shared:
+        Fs = moe.n_shared * Fe
+        out += [("ffn_gate_shexp.weight", (Fs, E), "matrix"),
+                ("ffn_up_shexp.weight", (Fs, E), "matrix"),
+                ("ffn_down_shexp.weight", (E, Fs), "ffn_down")]
+    return out
+
+
+def moe_tensor_types(cfg: ModelConfig, moe: MoEShape,
+                     matrix_type: GGMLQuantType = GGMLQuantType.Q4_K) -> dict:
+    """{tensor name: type} of a MoE file's layers under Q4_K_M's rule by
+    tensor name (Q4_K when matrix_type is Q4_K, else every matrix
+    matrix_type): attn_v and every ffn_down (dense, routed and shared) Q6_K
+    on use_more_bits layers (q4_k_m_layer_types, the layer read from the
+    name as llama.cpp does for MoE models), attn_v Q8_0 in an 8-expert
+    model (llama.cpp's bump for Mixtral), the router F32; then llama.cpp's
+    fallback where k is no multiple of 256 (q4_K -> Q5_0, q6_K -> Q8_0)."""
+    mix = q4_k_m_layer_types(cfg.n_layer) if matrix_type == GGMLQuantType.Q4_K else None
+    out = {}
+    for i in range(cfg.n_layer):
+        for suffix, shape, role in moe_layer_tensors(cfg, moe, i):
+            if role in ("norm", "router"):
+                t = GGMLQuantType.F32
+            elif role == "attn_v" and cfg.n_expert == 8 and mix:
+                t = GGMLQuantType.Q8_0
+            elif mix and role in ("attn_v", "ffn_down"):
+                t = mix[i][role]
+            else:
+                t = matrix_type
+            out[f"blk.{i}.{suffix}"] = _fallback_type(t, shape[-1])
+    return out
+
+
+def moe_metadata(cfg: ModelConfig, moe: MoEShape,
+                 matrix_type: GGMLQuantType = GGMLQuantType.Q4_K) -> list:
+    """The (key, value) metadata of synthetic_gguf's MoE or deepseek2 file:
+    a llama file's keys under cfg.arch, the expert counts, and deepseek2's
+    head widths, LoRA ranks, dense lead, expert widths, expert weight scale
+    and YaRN keys (the keys llama.cpp's converter writes)."""
+    a = cfg.arch
+    kv = [("general.architecture", a), ("general.name", cfg.name or "synthetic"),
+          ("general.file_type", np.uint32(FILE_TYPES[matrix_type])),
+          (f"{a}.vocab_size", np.uint32(cfg.vocab_size)),
+          (f"{a}.context_length", np.uint32(cfg.n_ctx_train)),
+          (f"{a}.embedding_length", np.uint32(cfg.n_embd)),
+          (f"{a}.block_count", np.uint32(cfg.n_layer)),
+          (f"{a}.feed_forward_length", np.uint32(cfg.n_ff)),
+          (f"{a}.attention.head_count", np.uint32(cfg.n_head)),
+          (f"{a}.attention.head_count_kv", np.uint32(cfg.n_head_kv)),
+          (f"{a}.rope.dimension_count", np.uint32(cfg.rope_dim)),
+          (f"{a}.rope.freq_base", np.float32(cfg.rope_freq_base)),
+          (f"{a}.attention.layer_norm_rms_epsilon", np.float32(cfg.rms_eps)),
+          (f"{a}.expert_count", np.uint32(cfg.n_expert)),
+          (f"{a}.expert_used_count", np.uint32(cfg.n_expert_used))]
+    if a != "deepseek2":
+        return kv
+    kv += [(f"{a}.attention.key_length", np.uint32(cfg.head_dim)),
+           (f"{a}.attention.value_length", np.uint32(cfg.v_head_dim)),
+           (f"{a}.attention.q_lora_rank", np.uint32(moe.q_lora_rank)),
+           (f"{a}.attention.kv_lora_rank", np.uint32(moe.kv_lora_rank)),
+           (f"{a}.leading_dense_block_count", np.uint32(moe.dense_lead)),
+           (f"{a}.expert_feed_forward_length", np.uint32(moe.expert_ff)),
+           (f"{a}.expert_shared_count", np.uint32(moe.n_shared)),
+           (f"{a}.expert_weights_scale", np.float32(cfg.moe_expert_scale))]
+    if cfg.rope_freq_scale != 1.0:
+        kv += [(f"{a}.rope.scaling.type", "yarn"),
+               (f"{a}.rope.scaling.factor", np.float32(1.0 / cfg.rope_freq_scale)),
+               (f"{a}.rope.scaling.original_context_length", np.uint32(cfg.rope_orig_ctx)),
+               (f"{a}.rope.scaling.yarn_log_multiplier", np.float32(cfg.rope_yarn_log_mul))]
+    return kv
+
+
+def _synthetic_moe_gguf(path, cfg: ModelConfig, moe: MoEShape, rng, types: Optional[dict],
+                        embd_type, output_type, matrix_type, extra_kvs) -> int:
+    """synthetic_gguf's MoE and deepseek2 files: wire_blocks' draws, tensor
+    by tensor in the writer's order (an expert stack as E * n rows of one
+    draw; a router F32, normal with std 0.02)."""
+    from llama_kotlin_tpu_torch.gguf.writer import GGUFWriter
+
+    E, V = cfg.n_embd, cfg.vocab_size
+    types = moe_tensor_types(cfg, moe, matrix_type) if types is None else types
+    embd_type = matrix_type if embd_type is None else embd_type
+    w = GGUFWriter()
+    for key, value in (*moe_metadata(cfg, moe, matrix_type), *(extra_kvs or {}).items()):
+        w.add_kv(key, value)
+
+    def tensor(name, shape, qtype):
+        n, k = math.prod(shape[:-1]), shape[-1]
+        if qtype == GGMLQuantType.F32 and len(shape) == 1:  # a norm near 1
+            draw = lambda: (1.0 + 0.01 * rng.standard_normal(k)).astype("<f4")
+        else:
+            draw = lambda: wire_blocks(rng, qtype, n, k)
+        w.add_tensor_stream(name, tuple(reversed(shape)), qtype, draw)
+
+    tensor("token_embd.weight", (V, E), embd_type)
+    for i in range(cfg.n_layer):
+        for suffix, shape, _role in moe_layer_tensors(cfg, moe, i):
+            name = f"blk.{i}.{suffix}"
+            tensor(name, shape, types[name])
+    tensor("output_norm.weight", (E,), GGMLQuantType.F32)
+    tensor("output.weight", (V, E), output_type)
     w.write(path)
     return os.path.getsize(path)
 

@@ -41,7 +41,7 @@ SIGNATURES = {
     "lk_w4_layer": [_P, _P, _P, _I] + [_P] * 20 + [_I] * 5 + [_F, _F] + [_P] * 4,
     "lk_w4_ffn": [_P, _I] + [_P] * 15 + [_I] * 7 + [_P] * 4,
     "lk_w4_ffn_workspace": [_I] * 5,
-    "lk_flash": [_P] * 9 + [_I] * 8 + [_F, _F, _I, _I, _P],
+    "lk_flash": [_P] * 9 + [_I] * 8 + [_F, _F, _I, _I, _I, _P],
     "lk_flash_stacked": [_P] * 12 + [_I] * 8 + [_F, _F, _I, _P],
     "lk_w4_dequant_gemm": [_P] * 5 + [_I] * 5 + [_P, _P, _P],
     "lk_w8_dequant_gemm": [_P] * 5 + [_I] * 6 + [_P, _P, _P],

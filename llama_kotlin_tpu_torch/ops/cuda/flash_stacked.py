@@ -11,7 +11,7 @@ scales, or bf16); the fresh rows new_k/new_v [nt, KV, D]; mask_cells
 fresh rows go to) and mask_new [nt, nt] over the fresh rows.  A row that
 sees nothing gives 0.  As in JAX, a packed int4 (q4_0) cache is not
 kernel 9's (``llama_kotlin_tpu/models/llama.py:569-573``): the stacked
-forward attends over it by ``models/llama.py::attend_stacked_q4``, and a
+forward attends over it by ``models/llama.py::attend_stacked_plain``, and a
 packed cache given here raises.  Head dims 64 and 128, any 1 <= n_vis <=
 cells, any nt.  Bound on the H100: bytes (one read of the visible K/V
 prefix, its scales and the fresh rows).  Design: kernel 3's bf16
@@ -67,7 +67,7 @@ def flash_attention_stacked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, l
     global LAUNCHES
     require(k.dtype != torch.uint8,
             "kernel 9 takes bf16 and int8 caches only, as in JAX: a packed int4 (q4_0) "
-            "cache attends by models/llama.py::attend_stacked_q4")
+            "cache attends by models/llama.py::attend_stacked_plain")
     require(k.dim() == 4 and k.shape == v.shape, "k/v are the whole [L, KV, cells, D] cache")
     require((k_scale is None) == (v_scale is None), "k_scale and v_scale come together")
     nt, H, D = q.shape

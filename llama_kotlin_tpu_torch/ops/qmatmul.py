@@ -2,7 +2,14 @@
 ``llama_kotlin_tpu/ops/qmatmul.py``, the single-device kernel dispatch of
 ``_pallas_dispatch``).
 
-Routing is by layout and rows:
+Routing is by layout and rows.  The decode kernels of the W4, W4X and W8
+folds (1, 5, 7, 8) take a matrix whose output rows JAX's kernels can
+block: JAX plans n in blocks of 512, 256 or 128 and declines a matrix
+none of them divides (``llama_kotlin_tpu/ops/pallas/qmm_w4.py::_plan``,
+``qmm_w8.py::_plan``; the folds already pad k to those kernels' column
+chunks), and such a matrix takes kernel 4 at every row count, as in JAX
+(DeepSeek-V2-Lite's ``attn_kv_a_mqa``, 576 rows, and its dense lead
+layer's unfused gate and up, 10944 rows):
 
 * W4 fold: at most 32 rows -> the JAX ``qmm_w4_matmul`` site that
   ``LKTPU_W4_FX`` selects (read per call, JAX's defaults and comparisons,
@@ -62,10 +69,18 @@ from llama_kotlin_tpu_torch.quant.qtensor import QTensor, dequantize
 
 
 DENSE_CPU_ROWS = 4096  # weight rows widened to f32 at a time by the CPU dense product
+ROW_BLOCK = 128  # the smallest output-row block of JAX's W4/W8 decode kernels' plans
 
 
 def _rows(x: torch.Tensor) -> int:
     return math.prod(x.shape[:-1])
+
+
+def _decode(x: torch.Tensor, w: QTensor) -> bool:
+    """Whether a W4, W4X or W8 fold takes its decode kernel for x: at
+    most 32 rows, and output rows that JAX's kernel plans (module
+    docstring); else kernel 4."""
+    return _rows(x) <= MAX_ROWS and w.shape[0] % ROW_BLOCK == 0
 
 
 def dense_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -87,11 +102,11 @@ def qmatmul(x: torch.Tensor, w: QTensor | torch.Tensor) -> torch.Tensor:
     if isinstance(w, torch.Tensor):
         return dense_matmul(x, w)
     if is_w4(w):
-        return _w4_decode(x, w) if _rows(x) <= MAX_ROWS else qmm(x, w)
+        return _w4_decode(x, w) if _decode(x, w) else qmm(x, w)
     if is_w4x(w):
-        return qmm_w4x_matmul(x, w) if _rows(x) <= MAX_ROWS else qmm(x, w)
+        return qmm_w4x_matmul(x, w) if _decode(x, w) else qmm(x, w)
     if is_w8(w) or is_w8x(w):
-        return qmm_w8_matmul(x, w) if _rows(x) <= MAX_ROWS else qmm(x, w)
+        return qmm_w8_matmul(x, w) if _decode(x, w) else qmm(x, w)
     if is_q8_sb(w):
         return qmm_int8(x, w)
     if is_exact(w):

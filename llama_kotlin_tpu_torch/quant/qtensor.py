@@ -29,6 +29,10 @@ serve carry ``aux["flavor"]``:
 The flavor is part of the layout: ``concat_qtensors`` refuses to fuse two
 flavors (a precise and a plain fold among them) and the stacked path keeps
 it on the stack and on every layer view.
+
+A MoE expert stack (``stack_qtensors``) carries a leading E axis on every
+plane, with ``shape`` the per-expert (n, k); ``qt[e]`` views one expert
+and ``dequantize`` takes the stack whole ([E, n, k]).
 """
 
 from __future__ import annotations
@@ -74,6 +78,27 @@ class QTensor:
         return self.codes.shape[-1] * (8 // self.bits)
 
     @property
+    def is_stacked(self) -> bool:
+        """A MoE expert stack: every plane has a leading E axis."""
+        return self.codes.dim() == 3
+
+    def __len__(self) -> int:
+        if not self.is_stacked:
+            raise TypeError("len() on a QTensor that is no expert stack")
+        return self.codes.shape[0]
+
+    def __getitem__(self, e):
+        """Expert e (an int) of a stack as views of its planes, or the
+        experts `e` (an index tensor) as a smaller stack."""
+        if not self.is_stacked:
+            raise TypeError("indexing a QTensor that is no expert stack")
+        pick = lambda t: t[e] if isinstance(t, torch.Tensor) else t
+        aux = None if self.aux is None else {k: pick(v) for k, v in self.aux.items()}
+        return replace(self, codes=self.codes[e], g_scale=self.g_scale[e],
+                       g_min=pick(self.g_min), sb_scale=pick(self.sb_scale),
+                       sb_min=pick(self.sb_min), aux=aux)
+
+    @property
     def device(self) -> torch.device:
         return self.codes.device
 
@@ -116,6 +141,27 @@ class QTensor:
                        aux=None)
 
 
+def stack_qtensors(qts: list) -> QTensor:
+    """Per-expert QTensors of one layout -> one stack with a leading E axis
+    on every plane (JAX ``qtensor.py:117``), so that a decode step gathers
+    only the routed experts' planes (``ops/moe.py::moe_gathered_quant``).
+    Mismatched layouts raise ValueError, and so do the served folds, whose
+    aux planes only their 2-D kernels read, as in JAX."""
+    q0 = qts[0]
+    key = lambda q: (q.qtype, q.bits, q.group_size, q.code_offset, q.shape, q.hi_signed)
+    if any(key(q) != key(q0) for q in qts[1:]):
+        raise ValueError("stack_qtensors: mismatched expert metadata")
+    if any(q.aux is not None for q in qts):
+        raise ValueError("stack_qtensors: a served fold (aux planes) does not stack")
+
+    def st(vals):
+        return None if vals[0] is None else torch.stack(vals)
+
+    return replace(q0, codes=st([q.codes for q in qts]), g_scale=st([q.g_scale for q in qts]),
+                   g_min=st([q.g_min for q in qts]), sb_scale=st([q.sb_scale for q in qts]),
+                   sb_min=st([q.sb_min for q in qts]))
+
+
 def concat_qtensors(qts: list) -> QTensor:
     """Concatenate QTensors along the output (n) axis: wq|wk|wv -> wqkv,
     gate|up -> gateup.  Every port layout keeps n as the leading axis of
@@ -136,6 +182,8 @@ def concat_qtensors(qts: list) -> QTensor:
                 raise ValueError(f"concat_qtensors: mismatched {f}")
     if q0.tp_axis is not None:
         raise ValueError("concat_qtensors: refusing to fuse sharded tensors")
+    if any(q.is_stacked for q in qts):
+        raise ValueError("concat_qtensors: expert stacks do not fuse")
 
     def cat(vals):
         return None if vals[0] is None else torch.cat(vals, dim=0)
@@ -195,8 +243,16 @@ def effective_scales(qt: QTensor):
 
 
 def dequantize(qt: QTensor, dtype=torch.float32) -> torch.Tensor:
-    """Full dequantization to [n, k] (reference path; kernels fuse this).
-    Same f32 operation order as the JAX package: (q - off) * s, then - m."""
+    """Full dequantization to [n, k] (reference path; kernels fuse this),
+    or [E, n, k] for an expert stack.  Same f32 operation order as the JAX
+    package: (q - off) * s, then - m."""
+    if qt.is_stacked:  # the experts' rows are independent: one [E * n, k] pass
+        lead = qt.codes.shape[0]
+        flat = lambda t: None if t is None else t.reshape(-1, *t.shape[2:])
+        rows = replace(qt, codes=flat(qt.codes), g_scale=flat(qt.g_scale),
+                       g_min=flat(qt.g_min), sb_scale=flat(qt.sb_scale),
+                       sb_min=flat(qt.sb_min), shape=(lead * qt.n, qt.k))
+        return dequantize(rows, dtype).reshape(lead, qt.n, qt.k)
     codes = unpack_codes(qt)
     s, m = effective_scales(qt)
     g = qt.group_size

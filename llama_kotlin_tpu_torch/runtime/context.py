@@ -91,7 +91,8 @@ class LlamaContext:
         # one scratch cell past the real ones receives the padded rows'
         # writes; attention never reads it (n_vis <= n_cells)
         self.cache = KVCache.create(cfg.n_layer, n_cells + 1, cfg.n_head_kv,
-                                    cfg.head_dim, device=self.device, quantized=kv_quant)
+                                    cfg.head_dim, device=self.device, quantized=kv_quant,
+                                    v_head_dim=cfg.v_head_dim)
         # used-prefix attention bucketing: attend over a bucketed prefix of
         # the cells instead of every allocated cell
         self.vis_buckets: tuple[int, ...] = (n_cells,)

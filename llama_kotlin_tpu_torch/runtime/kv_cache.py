@@ -3,7 +3,8 @@
 caches and the K-shift).
 
 - Device side: dense K/V tensors [n_layer, n_kv_head, cells, head_dim],
-  head-major, which is what the flash kernels read: bf16 rows; int8 codes
+  head-major, which is what the flash kernels read (V [.., v_head_dim]
+  where it is narrower, deepseek2's MLA: K 192, V 128): bf16 rows; int8 codes
   (``quantized="q8_0"``); or packed int4 codes, two a byte, in
   [n_layer, n_kv_head, cells, head_dim / 2] uint8 (``quantized="q4_0"``,
   the JAX package's byte layout, so that state blobs cross-load).  Both
@@ -32,7 +33,7 @@ from llama_kotlin_tpu_torch.ops.rope import (ROPE_TYPE_NEOX, ROPE_TYPE_NONE, Rop
 @dataclass
 class KVCache:
     # [n_layer, n_kv_head, cells, head_dim] bf16 or int8 codes, or
-    # [.., head_dim / 2] uint8 packed int4 codes
+    # [.., head_dim / 2] uint8 packed int4 codes; v [.., v_head_dim] likewise
     k: torch.Tensor
     v: torch.Tensor
     k_scale: Optional[torch.Tensor] = None  # [n_layer, n_kv_head, cells] f32
@@ -49,20 +50,25 @@ class KVCache:
 
     @staticmethod
     def create(n_layer: int, cells: int, n_kv_head: int, head_dim: int,
-               device: DeviceLike = None, quantized=False) -> "KVCache":
+               device: DeviceLike = None, quantized=False,
+               v_head_dim: int = 0) -> "KVCache":
         """A zeroed cache.  quantized: False = bf16 rows; True or "q8_0" =
         int8 codes with per-row f32 scales; "q4_0" = packed int4 codes
-        (quantize_rows_q4) with per-row f32 scales, half the bytes of int8."""
+        (quantize_rows_q4) with per-row f32 scales, half the bytes of int8.
+        v_head_dim (0: head_dim) is V's row width where it differs from K's
+        (deepseek2's MLA: k 192, v 128; JAX ``kv_cache.py:77-90``)."""
         if quantized not in (False, True, "q8_0", "q4_0"):
             raise ValueError(f"unknown KV cache type {quantized!r}")
         dev = resolve_device(device)
         bits = 4 if quantized == "q4_0" else 8
-        shape = (n_layer, n_kv_head, cells, head_dim // (8 // bits))
+        v_head_dim = v_head_dim or head_dim
+        kshape = (n_layer, n_kv_head, cells, head_dim // (8 // bits))
+        vshape = kshape[:3] + (v_head_dim // (8 // bits),)
         dtype = {4: torch.uint8, 8: torch.int8}[bits] if quantized else torch.bfloat16
-        planes = (lambda: torch.zeros(shape[:3], dtype=torch.float32, device=dev)) \
+        planes = (lambda: torch.zeros(kshape[:3], dtype=torch.float32, device=dev)) \
             if quantized else (lambda: None)
-        return KVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
-                       v=torch.zeros(shape, dtype=dtype, device=dev),
+        return KVCache(k=torch.zeros(kshape, dtype=dtype, device=dev),
+                       v=torch.zeros(vshape, dtype=dtype, device=dev),
                        k_scale=planes(), v_scale=planes(), kv_bits=bits)
 
 
@@ -232,7 +238,10 @@ def _rotate_k(k: torch.Tensor, deltas: torch.Tensor, rope: RopeParams,
               freq_factors: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Rotate cached (already roped) K [n_layer, n_kv_head, cells, head_dim]
     by per-cell position deltas [cells]; cells whose delta is 0 keep their
-    rows exactly.  Returns a new tensor of k's dtype."""
+    rows exactly.  Returns a new tensor of k's dtype.  The first rope.n_rot
+    dims turn, as in JAX's ``_rotate_k``: on deepseek2's 192-wide K rows,
+    whose rope dims are the last 64, those are the first 64 (nope) dims, and
+    the port turns the same ones."""
     cos, sin = rope_cos_sin(deltas, rope, freq_factors)  # [cells, n_rot/2]
     cos, sin = cos[None, None], sin[None, None]
     rot = k[..., :rope.n_rot].to(torch.float32)

@@ -73,14 +73,17 @@ def _widen(c: torch.Tensor, kv_bits: int) -> torch.Tensor:
 def _flash_mma_emulation(q, k, v, mask, *, scale, softcap, k_scale, v_scale, kv_bits, nsplit,
                          single_p=False):
     """The tile's arithmetic in f32: q [nt, H, D]; k/v [KV, cells, ..] ->
-    [nt, H, D] f32 (before the output's bf16 rounding).  single_p feeds P
-    V one bf16 P instead of p_hi + p_lo."""
-    nt = q.shape[0]
-    rep, n_vis = H // KV, mask.shape[1]
+    [nt, H, Dv] f32 (before the output's bf16 rounding; Dv is v's width,
+    D but in the MLA branch).  single_p feeds P V one bf16 P instead of
+    p_hi + p_lo."""
+    nt, n_head = q.shape[:2]
+    n_kv = k.shape[0]
+    rep, n_vis = n_head // n_kv, mask.shape[1]
     R, split_cells = rep * nt, n_vis // nsplit
     kf, vf = _widen(k, kv_bits), _widen(v, kv_bits)
-    out = torch.zeros((nt, H, D))
-    for kvh in range(KV):
+    dv = vf.shape[-1]
+    out = torch.zeros((nt, n_head, dv))
+    for kvh in range(n_kv):
         r = torch.arange(R)
         tok, head = r // rep, kvh * rep + r % rep
         qr = q[tok, head].to(torch.float32)
@@ -89,7 +92,7 @@ def _flash_mma_emulation(q, k, v, mask, *, scale, softcap, k_scale, v_scale, kv_
         for z in range(nsplit):
             m = torch.full((R,), NEG_INF)
             l = torch.zeros(R)
-            o = torch.zeros((R, D))
+            o = torch.zeros((R, dv))
             for r0 in range(0, R, flash.ROW_TILE):
                 rb = slice(r0, min(R, r0 + flash.ROW_TILE))
                 for c0 in range(z * split_cells, (z + 1) * split_cells, flash.CELL_TILE):
@@ -120,7 +123,7 @@ def _flash_mma_emulation(q, k, v, mask, *, scale, softcap, k_scale, v_scale, kv_
         mx = parts[0][0]
         for m, _, _ in parts[1:]:
             mx = torch.maximum(mx, m)
-        lt, ot = torch.zeros(R), torch.zeros((R, D))
+        lt, ot = torch.zeros(R), torch.zeros((R, dv))
         for m, l, o in parts:
             w = torch.exp(m - mx)
             lt = lt + l * w

@@ -168,7 +168,7 @@ def test_flash_stacked_refuses_packed_cache():
     nt = 4
     q = torch.zeros((nt, H, D), dtype=torch.bfloat16)
     new = torch.zeros((nt, KV, D), dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="attend_stacked_q4"):
+    with pytest.raises(ValueError, match="attend_stacked_plain"):
         flash_attention_stacked(q, kc, vc, 1, new, new, torch.ones((nt, 256), dtype=torch.int8),
                                 torch.ones((nt, nt), dtype=torch.int8), scale=D ** -0.5,
                                 k_scale=ks, v_scale=vs)

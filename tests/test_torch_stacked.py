@@ -255,7 +255,7 @@ def test_stacked_generate_matches_steps(gguf_models, kv_quant):
 
 def test_q4_0_cache_raises(models, monkeypatch):
     """A q4_0 context stacks the synthetic model, as JAX's does, and its
-    stacked steps attend by the plain route (attend_stacked_q4, once a layer
+    stacked steps attend by the plain route (attend_stacked_plain, once a layer
     and step), never through kernel 9, which raises if handed the packed
     cache."""
     _, _, cfg, pp = models
@@ -263,8 +263,8 @@ def test_q4_0_cache_raises(models, monkeypatch):
     assert "layers_stacked" in ctx.params
     assert ctx.cache.kv_bits == 4 and ctx.cache.k.dtype == torch.uint8
     calls = []
-    plain = llama_model.attend_stacked_q4
-    monkeypatch.setattr(llama_model, "attend_stacked_q4",
+    plain = llama_model.attend_stacked_plain
+    monkeypatch.setattr(llama_model, "attend_stacked_plain",
                         lambda *a, **kw: calls.append(a[2]) or plain(*a, **kw))
     assert ctx.decode(Batch.single(np.arange(N_PROMPT, dtype=np.int32))) == 0
     assert ctx.decode(Batch.single([3], pos0=N_PROMPT)) == 0
