@@ -158,20 +158,34 @@ DeepSeek-V2-Lite and llama-architecture MoE (deepseek2's multi-head latent
 attention on kernel 3's MLA branch, routed and shared experts) add to 3
 kernel 3's MLA branch (K 192, V 128; 16 heads on 16 kv heads) on the three
 caches at decode and a 64-token chunk over 1024 and 4096 cells
-(mla_kernel_phase); to 5 DeepSeek-V2-Lite at its published shapes and all
-27 layers in the exact and w4 modes, 3 requests each with exact MLA launch
-counts (27 a decode step) and no plain attention, profiled, and 4
-concurrent requests on the engine at 4 slots (deepseek2_phase); to 6 its
-first 2 layers in both modes and a 2-layer Mixtral-8x7B-shaped file in w4
-against the CPU, the card on the CPU's routing (moe_parity_phase).  The W4X
-model, tinyllama-1.1b and speculative decoding are cut to EARLIER_LAYERS
-layers since then.
+(mla_kernel_phase); to 5 DeepSeek-V2-Lite at its published widths (its
+first EARLIER_LAYERS layers since the gemma phases came) in the exact and
+w4 modes, 3 requests each with exact MLA launch counts (one a layer and
+step) and no plain attention, profiled, and 4 concurrent requests on the
+engine at 4 slots (deepseek2_phase); to 6 its first 2 layers in both modes
+and a 2-layer Mixtral-8x7B-shaped file in w4 against the CPU, the card on
+the CPU's routing (moe_parity_phase).  The W4X model, tinyllama-1.1b and
+speculative decoding are cut to EARLIER_LAYERS layers since then.
+
+gemma and gemma2 (kernel 3's D = 256 branch, logit softcaps, alternating
+sliding-window attention, (1 + w) norms, gemma2's post norms, a tied Q6_K
+head) add to 3 kernel 3's D = 256 branch (16 heads on 8 kv heads,
+softcap 50) on the three caches at decode and a 64-token chunk over 1024
+and 4096 cells and under a 1024-cell window over 4096, whose dead tiles
+are poisoned and must not move the output, with the ptxas report of its
+three instances (no spill; d256_kernel_phase); to 5 gemma-2-9b at its
+published shapes and all 42 layers in the exact and w4 modes, 3 requests
+each with exact launch counts on every kernel (42 D = 256 launches a
+decode step and a prefill) and no plain attention, profiled (gemma2_phase);
+to 6 gemma-2-9b at 2 layers with a window under the prompt in both modes
+and gemma-7b at 2 layers on the stacked path (attend_stacked_plain) in the
+exact mode, card against CPU (gemma_parity_phase).
 
 The parity phases' CPU references are computed by a child process of this
 script (--cpu-refs, started first, CPU_REF_THREADS threads), which runs
 beside the card's phases; the parent reads each when its card run needs it.
-Another child (--write-files) writes the 4.9 GB llama3-8B Q4_K_M file and
-the 10.4 GB DeepSeek-V2-Lite file meanwhile.
+Another child (--write-files) writes the 4.9 GB llama3-8B Q4_K_M file, the
+DeepSeek-V2-Lite file and the 5.8 GB gemma-2-9b file meanwhile.
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -2684,7 +2698,7 @@ def shift_positions(ctx, n_past: int) -> int:
 # runs the same parity phases with REFS["writer"] set, computes each CPU
 # reference (cpu_ref) into DIR and skips the card runs; the parent reads
 # each reference there when its card run needs it, waiting for the child.
-CPU_REF_THREADS = 4
+CPU_REF_THREADS = 6
 REFS: dict = {"dir": None, "writer": False, "child": None, "log": None}
 
 
@@ -2720,9 +2734,9 @@ def cpu_ref(label: str, compute) -> list:
     return list(np.load(path))
 
 
-# The two largest files (the 32-layer llama3-8B Q4_K_M file of gguf_phase,
-# 4.9 GB, and the 27-layer DeepSeek-V2-Lite file, 10.4 GB: ~100 s of random
-# draws and disk writes) are written by another child of this script
+# The largest files (the 32-layer llama3-8B Q4_K_M file of gguf_phase, 4.9
+# GB, the DeepSeek-V2-Lite file of its first EARLIER_LAYERS layers and the
+# 42-layer gemma-2-9b file, 5.8 GB) are written by another child of this script
 # (``--write-files DIR``), started with the CPU references, so that they
 # overlap the card's earlier phases; each phase that reads one waits for it
 # (logging the wait) and moves it into its own directory.  A phase called
@@ -2730,6 +2744,8 @@ def cpu_ref(label: str, compute) -> list:
 FILES: dict = {"dir": None, "child": None, "log": None}
 LLAMA_FILE = "llama3-8b-q4_k_m.gguf"
 DS2_FILE = "deepseek-v2-lite-q4_k_m.gguf"
+GEMMA2_FILE = "gemma-2-9b-q4_k_m.gguf"
+GEMMA_SEED = 17
 
 
 def _written(path: Path, cfg, **kw) -> dict:
@@ -2755,16 +2771,47 @@ def write_llama_file(path: Path) -> dict:
 
 
 def write_ds2_file(path: Path) -> dict:
-    """deepseek2_phase's file: DeepSeek-V2-Lite (deepseek_v2_lite(), all 27
-    layers) from DS2_SEED with an SPM vocab of its 102400 pieces."""
+    """deepseek2_phase's file: DeepSeek-V2-Lite (deepseek_v2_lite(), its
+    first EARLIER_LAYERS layers) from DS2_SEED with an SPM vocab of its
+    102400 pieces."""
     from llama_kotlin_tpu_torch.models.synthetic import deepseek_v2_lite, synthetic_spm_vocab
 
-    cfg, moe_shape = deepseek_v2_lite()
+    cfg, moe_shape = deepseek_v2_lite(n_layer=EARLIER_LAYERS)
     return _written(path, cfg, seed=DS2_SEED, moe=moe_shape,
                     extra_kvs=synthetic_spm_vocab(cfg.vocab_size))
 
 
-WRITERS = {LLAMA_FILE: write_llama_file, DS2_FILE: write_ds2_file}  # in writing order
+def write_gemma2_file(path: Path) -> dict:
+    """gemma2_phase's file: gemma-2-9b (gemma2_9b(), all 42 layers) from
+    GEMMA_SEED with an SPM vocab of its 256000 pieces (no chat template:
+    the gemma template is the arch's default)."""
+    from llama_kotlin_tpu_torch.models.synthetic import gemma2_9b, synthetic_spm_vocab
+
+    cfg = gemma2_9b()
+    return _written(path, cfg, seed=GEMMA_SEED,
+                    extra_kvs=synthetic_spm_vocab(cfg.vocab_size, chat_template=None))
+
+
+def gemma_parity_files() -> dict:
+    """gemma_parity_cases' 2-layer files: {name: (config, synthetic_gguf's
+    keywords)}.  gemma-2-9b's widths with the file's window at 32 cells,
+    under the 64-token prompt (so it bites on layer 0); gemma-7b's widths
+    with both layers all Q4_K (uniform, so the context stacks)."""
+    from llama_kotlin_tpu_torch.models.synthetic import gemma2_9b, gemma_7b
+
+    return {"gemma2-2layer.gguf": (replace(gemma2_9b(n_layer=2), swa_window=32), {}),
+            "gemma7b-2layer.gguf": (gemma_7b(n_layer=2), dict(layer_types=[{}, {}]))}
+
+
+def write_gemma_parity_file(path: Path) -> dict:
+    cfg, kw = gemma_parity_files()[path.name]
+    return _written(path, cfg, seed=GEMMA_SEED + 1, **kw)
+
+
+# in writing order
+WRITERS = {LLAMA_FILE: write_llama_file, DS2_FILE: write_ds2_file,
+           GEMMA2_FILE: write_gemma2_file,
+           **{name: write_gemma_parity_file for name in gemma_parity_files()}}
 
 
 def write_files_main(out_dir: str) -> int:
@@ -2855,7 +2902,8 @@ def cpu_refs_main(torch, ref_dir: str) -> int:
     tmp.mkdir()
     try:
         for fn, args in ((parity_phase, ()), (gguf_parity_phase, (tmp,)),
-                         (engine_parity_phase, ()), (moe_parity_phase, (tmp,))):
+                         (engine_parity_phase, ()), (moe_parity_phase, (tmp,)),
+                         (gemma_parity_phase, (tmp,))):
             t0 = time.perf_counter()
             fn(torch, *args)
             log(json.dumps({"phase": "cpu_refs_timing", "function": fn.__name__,
@@ -3745,6 +3793,138 @@ def mla_kernel_phase(torch, results: dict) -> None:
                            time_ms(torch, sdpa_call(torch, q, kf, vf, mask, scale), flush))
 
 
+GEMMA2_HEADS = (16, 8)  # gemma-2-9b's query and kv heads (head dim 256)
+D256_WINDOW = 1024  # the sliding window of d256_kernel_phase's windowed rows
+
+
+def ptxas_entries(name: str) -> list:
+    """[{entry, registers, spill_stores, spill_loads}] of every kernel
+    function in the build's ptxas report whose name holds `name`."""
+    import re
+
+    from llama_kotlin_tpu_torch.ops.cuda import _build
+
+    out, cur = [], None
+    for ln in (_build.BUILD_DIR / "ptxas.log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = {"entry": m.group(1)} if name in m.group(1) else None
+            if cur is not None:
+                out.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            if m:
+                cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                cur["registers"] = int(m.group(1))
+    return out
+
+
+def d256_kernel_phase(torch, results: dict) -> None:
+    """Kernel 3's D = 256 branch at gemma-2-9b's attention shapes (16 heads
+    on 8 kv heads: rep = 2, head dim 256, softcap 50, scale 1/16) on the
+    bf16, int8 and packed int4 caches: layer 1 of a [2, 8, 4097, 256]
+    cache, decode (nt = 1) and a 64-token prefill chunk (the step's tokens
+    in the last cells, causal; the chunk with a row that sees nothing,
+    exactly 0), over 1024 and 4096 visible cells, and over 4096 cells under
+    a sliding window of D256_WINDOW (gemma2's masks on its windowed layers),
+    against the plain version, beside one SDPA call on the dequantized
+    prefix (the yardstick; SDPA takes no softcap, so its call is the
+    same work without the tanh).  On the windowed rows the cells of the
+    tiles no row sees are then poisoned (NaN K/V, or NaN scales on a
+    quantized cache): the output must stay bit-equal, so those tiles are
+    skipped, never read.  tol: bf16 outputs, f32 online-softmax
+    reassociation (~2 bf16 ulps), as for the other kernel 3 rows.
+    bound_ms: one read of the visible K/V prefix (2 x 256 x 2 bytes a cell
+    and kv head in bf16; 2 x (256 + 4) in int8 and 2 x (128 + 4) in int4),
+    q, the output and the mask.  The build's ptxas lines of the three
+    instances must show no spill."""
+    from llama_kotlin_tpu_torch.ops.cuda import flash
+    from llama_kotlin_tpu_torch.runtime.kv_cache import (dequantize_cache_layer, quantize_rows,
+                                                         quantize_rows_q4)
+
+    entries = ptxas_entries("flash_d256_kernel")
+    log(json.dumps({"phase": "d256_ptxas", "entries": entries}))
+    if len(entries) != 3 or any(e.get("spill_stores", 1) or e.get("spill_loads", 1)
+                                for e in entries):
+        raise AssertionError(f"kernel 3's D = 256 instances: {entries}")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(779)
+    flush = torch.zeros(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    (H, KV), D, L, cells, li = GEMMA2_HEADS, 256, 2, 4097, 1
+    scale, softcap = D ** -0.5, 50.0
+    kb = torch.randn((L, KV, cells, D), generator=gen, device=dev).to(torch.bfloat16)
+    vb = torch.randn((L, KV, cells, D), generator=gen, device=dev).to(torch.bfloat16)
+    (k8, ks), (v8, vs) = quantize_rows(kb), quantize_rows(vb)
+    (k4, ks4), (v4, vs4) = quantize_rows_q4(kb), quantize_rows_q4(vb)
+    caches = {"bf16": (kb, vb, None, None, 8, 4 * D),
+              "int8": (k8, v8, ks, vs, 8, 2 * (D + 4)),
+              "int4": (k4, v4, ks4, vs4, 4, 2 * (D // 2 + 4))}
+    for n_vis, window in ((1024, 0), (4096, 0), (4096, D256_WINDOW)):
+        for nt in (1, 64):
+            q = torch.randn((nt, H, D), generator=gen, device=dev).to(torch.bfloat16)
+            tpos = torch.arange(n_vis - nt, n_vis, device=dev)
+            cpos = torch.arange(n_vis, device=dev)
+            seen = cpos[None, :] <= tpos[:, None]
+            if window:
+                seen &= tpos[:, None] - cpos[None, :] < window
+            mask = seen.to(torch.int8)
+            if nt > 1:
+                mask[5] = 0  # a row that sees no cell
+            live = mask.any(dim=0)
+            dead = ~live.reshape(-1, flash.CELL_TILE).any(dim=1).repeat_interleave(flash.CELL_TILE)
+            for kind, (k, v, ksc, vsc, bits, elem) in caches.items():
+                kw = dict(scale=scale, logit_softcap=softcap, layer=li, k_scale=ksc,
+                          v_scale=vsc, kv_bits=bits)
+                args = (q, k, v, mask)
+                got = flash.flash_attention(*args, **kw)
+                if nt > 1 and bool(got[5].any()):
+                    raise AssertionError("kernel 3's D = 256 branch: a blind row is not 0")
+                kf, vf = (k[li, :, :n_vis], v[li, :, :n_vis]) if ksc is None else (
+                    dequantize_cache_layer(c[li, :, :n_vis], sc[li, :, :n_vis], torch.bfloat16,
+                                           bits=bits) for c, sc in ((k, ksc), (v, vsc)))
+                vis = int(live.sum().item())
+                shape = f"{kind} cache nt={nt} n_vis={n_vis} window={window} layer={li}"
+                report_row(results, "flash_d256", shape,
+                           err_of(got, flash.flash_attention_plain(*args, **kw)), 1e-2,
+                           time_ms(torch, lambda: flash.flash_attention(*args, **kw), flush),
+                           time_ms(torch, lambda: flash.flash_attention_plain(*args, **kw),
+                                   flush),
+                           nt * H * D * 2 * 2 + KV * vis * elem + nt * n_vis,
+                           4 * D * int(mask.sum().item()) * H, "bf16",
+                           time_ms(torch, sdpa_call(torch, q, kf, vf, mask, scale), flush))
+                if not window:
+                    continue
+                # poison every cell of the dead tiles: the output must not move
+                pk, pv = k.clone(), v.clone()
+                pks = None if ksc is None else ksc.clone()
+                pvs = None if vsc is None else vsc.clone()
+                if ksc is None:
+                    pk[li, :, :n_vis][:, dead] = float("nan")
+                    pv[li, :, :n_vis][:, dead] = float("nan")
+                else:
+                    pks[li, :, :n_vis][:, dead] = float("nan")
+                    pvs[li, :, :n_vis][:, dead] = float("nan")
+                again = flash.flash_attention(q, pk, pv, mask, **dict(kw, k_scale=pks,
+                                                                      v_scale=pvs))
+                same = torch.equal(got, again)
+                log(json.dumps({"phase": "d256_dead_tiles", "shape": shape,
+                                "dead_cells": int(dead.sum().item()), "bit_equal": same}))
+                if not same or not int(dead.sum().item()):
+                    raise AssertionError(f"kernel 3's D = 256 branch read a dead tile ({shape})")
+                del pk, pv, pks, pvs
+
+
+def d256_counter():
+    """Kernel 3's launches on its D = 256 branch (flash.LAUNCHES_D256),
+    counted apart as "flash_d256" (each also counts in flash.LAUNCHES)."""
+    from llama_kotlin_tpu_torch.ops.cuda import flash
+
+    return BranchCounter(flash, "LAUNCHES_D256", "flash.flash_d256")
+
+
 def mla_counter():
     """Kernel 3's launches on its MLA branch (flash.LAUNCHES_MLA), counted
     apart as "flash_mla" (each also counts in flash.LAUNCHES)."""
@@ -3777,17 +3957,18 @@ def type_mix(path: Path) -> dict:
 
 
 def deepseek2_phase(torch, tmpdir: Path) -> dict:
-    """DeepSeek-V2-Lite at its published shapes and all 27 layers
-    (models/synthetic.py::deepseek_v2_lite: 1 dense layer, then 26 MoE of
-    64 routed experts, 6 used, and 2 shared; MLA 16 heads, q/k 192, v 128;
+    """DeepSeek-V2-Lite at its published widths, its first EARLIER_LAYERS
+    layers of 27 (models/synthetic.py::deepseek_v2_lite: 1 dense layer,
+    then MoE layers of 64 routed experts, 6 used, and 2 shared; MLA 16
+    heads, q/k 192, v 128;
     YaRN 40 on 4096; vocab 102400), random wire blocks from DS2_SEED in
     Q4_K_M's type mix by tensor name (moe_tensor_types, output Q6_K) with an
     SPM vocab of 102400 pieces, loaded in the exact mode (the default) and
     in w4 (its wkv_a_mqa on kernel 4 at a decode row, checked); each serves
     3 requests (64-token prompt, 32 greedy tokens)
     through LlamaContext and generate_loop by serve(), unrolled (the dense
-    lead layer), kernel 3's MLA branch once a layer at every forward (27 a
-    decode step) and never the plain attention; then 4 profiled decode steps
+    lead layer), kernel 3's MLA branch once a layer at every forward
+    (n_layer a decode step) and never the plain attention; then 4 profiled decode steps
     (after a profiled prefill in the exact mode); the exact mode also serves
     4 concurrent requests on the engine at 4 slots.  Returns {path: launch
     counts}."""
@@ -3999,6 +4180,167 @@ def moe_parity_phase(torch, tmpdir: Path) -> None:
         path.unlink()
 
 
+def gemma_route_counts(params, n_forward: int, n_decode: int, mode) -> dict:
+    """The launches serve() must count on a loaded gemma file: per forward,
+    kernel 3 once a layer on its D = 256 branch; per decode step in w4 each
+    W4 projection (the fused qkv or wq and wk, o, the fused gate|up, a Q4_K
+    down) on kernel 1 and each W8 one (a Q6_K attn_v or ffn_down, the tied
+    Q6_K head) on kernel 5, kernel 2 never (JAX's entry declines E = 3584);
+    per 64-token prefill every layer matrix on kernel 4 and the head's one
+    row on kernel 5; in the exact mode every matrix on kernel 4's exact
+    branch at every forward (tests/test_torch_gemma.py::
+    test_w4_decode_routes_as_jax holds these routes against JAX's)."""
+    from llama_kotlin_tpu_torch.quant.fold import is_w4, is_w8
+
+    n_layer = len(params["layers"])
+    mats = [w for lp in params["layers"] for w in lp.values() if hasattr(w, "codes")]
+    want = {"flash": n_forward * n_layer, "flash_d256": n_forward * n_layer}
+    n_prefill = n_forward - n_decode
+    if mode is None:
+        want["qmm"] = want["qmm_exact"] = n_forward * (len(mats) + 1)
+        return want
+    w4 = sum(1 for w in mats if is_w4(w))
+    w8 = sum(1 for w in mats if is_w8(w))
+    if w4 + w8 != len(mats) or not is_w8(params["tok_embd"]):
+        raise AssertionError("a gemma w4 file loads W4 and W8 folds only")
+    want.update(qmm_w4=n_decode * w4, qmm_w8=n_decode * (w8 + 1) + n_prefill,
+                qmm=n_prefill * len(mats))
+    return want
+
+
+def gemma2_phase(torch, tmpdir: Path) -> dict:
+    """gemma-2-9b at its published shapes and all 42 layers
+    (models/synthetic.py::gemma2_9b: E 3584, 16 heads on 8 kv heads of 256,
+    F 14336, vocab 256000, a 4096-cell window on every other layer, softcaps
+    50 and 30), random wire blocks from GEMMA_SEED in Q4_K_M's mix (Q6_K
+    attn_v and ffn_down on use_more_bits layers, the tied token_embd Q6_K,
+    no output) with an SPM vocab of its 256000 pieces, loaded in the exact
+    mode (the default) and in w4; each serves 3 requests (64-token prompt,
+    32 greedy tokens) through LlamaContext and generate_loop by serve(),
+    unrolled (the windows), kernel 3's D = 256 branch once a layer at every
+    forward (42 a decode step and a prefill), never the plain attention,
+    and every kernel's launches exactly gemma_route_counts'; then a
+    profiled prefill and 4 profiled decode steps.  Returns {path: launch
+    counts}."""
+    from llama_kotlin_tpu_torch.models.loader import load_gguf_model
+    from llama_kotlin_tpu_torch.ops.cuda import (flash, flash_stacked, qmm, qmm_int8, qmm_w4,
+                                                 qmm_w4_ffn, qmm_w4x, qmm_w8)
+
+    path, written = child_file(tmpdir, GEMMA2_FILE)
+    log(json.dumps({"phase": "gemma2_file", **written, "type_mix": type_mix(path)}))
+    out = {}
+    for mode in (None, "w4"):
+        label = f"gemma2_{mode or 'exact'}"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lcfg, params, f = load_gguf_model(path, fast_mode=mode, fuse=True)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        f.close()
+        log(json.dumps({"phase": label, "n_layer": lcfg.n_layer, "load_s": load_s,
+                        "device_bytes": torch.cuda.memory_allocated(),
+                        "swa_window": lcfg.swa_window, "softcaps": [lcfg.attn_logit_softcap,
+                                                                    lcfg.final_logit_softcap],
+                        "tied_head": "output" not in params}))
+        if mode is None:  # every projection and the head on kernel 4's exact branch
+            mods = (qmm, exact_counter(), flash, d256_counter())
+            never = (qmm_w4, qmm_w4_ffn, qmm_w8, qmm_int8, qmm_w4x, flash_stacked)
+        else:  # W4 on kernel 1, W8 (Q6_K attn_v, ffn_down, the tied head) on 5
+            mods = (qmm_w4, qmm_w8, qmm, flash, d256_counter())
+            never = (qmm_w4_ffn, qmm_int8, qmm_w4x, flash_stacked)
+        plain = plain_attention_counters()
+        try:
+            counts, ctx = serve(torch, lcfg, params, mods, label, never=never + plain)
+        finally:
+            for c in plain:
+                c.close()
+        # a prefill and 31 decode steps a request
+        want = gemma_route_counts(params, 3 * 32, 3 * 31, mode)
+        got = {k: counts[k] for k in want}
+        log(json.dumps({"phase": f"{label}_routes", "launches": got, "expected": want}))
+        if "layers" not in ctx.params or got != want:
+            raise AssertionError(f"{label}: launches {got}, expected {want}")
+        profile_decode(torch, ctx, lcfg, label, n_steps=4)
+        out[label] = counts
+        del ctx, params
+        torch.cuda.empty_cache()
+    path.unlink()
+    return out
+
+
+def gemma_parity_cases(tmpdir: Path) -> list:
+    """gemma_parity_phase's checks, (label, build, prompt, tol), on their
+    2-layer files (gemma_parity_files, taken from the writer child or
+    written into tmpdir): gemma-2-9b's widths with the file's window under
+    the prompt, in the exact and w4 modes; gemma-7b's widths (MHA 16/16, F
+    24576) on the stacked path (attend_stacked_plain), in the exact mode.
+    (In w4 kernel 2
+    would decline gemma-7b's FFN as JAX's does: E = 3072 folds gate and up
+    in the legacy layout, no multiple of 2048, and down compact.)  tol, of
+    max|logits|: gguf_parity_phase's rule, twice the CPU's own
+    8-thread-against-1 spread on these files, rounded up
+    (scripts/gemma_cpu_spread.py on the H100 machine's host, PERF.md, PR
+    17 run C: gemma-2-9b exact 1.34e-3, w4 4.78e-3, gemma-7b 6.5e-4)."""
+    import numpy as np
+
+    from llama_kotlin_tpu_torch.models.loader import load_gguf_model
+    from llama_kotlin_tpu_torch.runtime.context import LlamaContext
+
+    tols = {("gemma2", None): 3e-3, ("gemma2", "w4"): 1e-2, ("gemma", None): 1.5e-3}
+    cases = []
+    for name, (cfg, _kw) in gemma_parity_files().items():
+        path = tmpdir / name
+        if not path.exists():
+            child_file(tmpdir, name)
+        prompt = np.random.default_rng(GEMMA_SEED).integers(0, cfg.vocab_size, 64).astype(
+            np.int32)
+        for mode in ((None, "w4") if cfg.arch == "gemma2" else (None,)):
+            def build(dev, mode=mode, path=path):
+                lcfg, params, f = load_gguf_model(path, fast_mode=mode, fuse=True, device=dev)
+                f.close()
+                return LlamaContext(lcfg, params, n_cells=1024, buckets=(8, 16, 32, 64),
+                                    device=dev)
+
+            label = name.split("-")[0]
+            cases.append((f"{label}_parity_{mode or 'exact'}", build, prompt,
+                          tols[cfg.arch, mode]))
+    return cases
+
+
+def gemma_parity_phase(torch, tmpdir: Path) -> None:
+    """Full width, 2 layers, card against CPU by card_vs_cpu (prefill of 64
+    tokens plus 4 greedy steps) on gemma_parity_cases; on the card run the
+    gemma2 files must take kernel 3's D = 256 branch once a layer and step
+    and the gemma-7b file the stacked path's plain attention (kernel 3 and
+    kernel 9 never), kernel 2 never."""
+    from llama_kotlin_tpu_torch.ops.cuda import flash, flash_stacked, qmm_w4_ffn
+
+    d256 = d256_counter()
+    for label, build, prompt, tol in gemma_parity_cases(tmpdir):
+        cl = cpu_ref(label, lambda: greedy_logits(build, "cpu", prompt, 4))
+        if REFS["writer"]:
+            continue
+        plain = plain_attention_counters()
+        counters = (flash, d256, flash_stacked, qmm_w4_ffn) + plain
+        for c in counters:
+            c.LAUNCHES = 0
+        try:
+            card_vs_cpu(torch, label, build, prompt, tol, cpu=(None, cl))
+        finally:
+            for c in plain:
+                c.close()
+        got = {mod_name(c): c.LAUNCHES for c in counters}
+        log(json.dumps({"phase": f"{label}_routes", "launches": got}))
+        if label.startswith("gemma2"):
+            ok = got["flash_d256"] == got["flash"] == 2 * 5 and not got["attend_stacked_plain"]
+        else:
+            ok = not got["flash"] and got["attend_stacked_plain"] == 2 * 5
+        if not ok or got["flash_stacked"] or got["qmm_w4_ffn"]:
+            raise AssertionError(f"{label}: launches {got}")
+    for p in tmpdir.glob("gemma*-2layer.gguf"):
+        p.unlink()
+
+
 def pick_row(rows: list, i):
     """A kernel's timed row by its index or its shape."""
     return rows[i] if isinstance(i, int) else next(r for r in rows if r["shape"] == i)
@@ -4058,6 +4400,7 @@ def main() -> int:
         timed(w4x_kernel_phase, torch, results)
         timed(kv_kernel_phase, torch, results)
         timed(mla_kernel_phase, torch, results)
+        timed(d256_kernel_phase, torch, results)
         timed(serving_mask_phase, torch, results)
         timed(fx_layer_kernel_phase, torch, results)
         timed(exact_kernel_phase, torch, results)
@@ -4082,10 +4425,12 @@ def main() -> int:
             by_path.update(timed(q4_0_gguf_phase, torch, tmpdir))
             by_path.update(timed(new_formats_phase, torch, tmpdir))
             by_path.update(timed(deepseek2_phase, torch, tmpdir))
+            by_path.update(timed(gemma2_phase, torch, tmpdir))
             timed(parity_phase, torch)
             timed(gguf_parity_phase, torch, tmpdir)
             timed(engine_parity_phase, torch)
             timed(moe_parity_phase, torch, tmpdir)
+            timed(gemma_parity_phase, torch, tmpdir)
             timed(stop_cpu_refs, True)
         finally:
             shutil.rmtree(tmpdir, ignore_errors=True)
@@ -4114,6 +4459,12 @@ def main() -> int:
                        "n4096": "bf16 cache nt=1 n_vis=4096 layer=1",
                        "int8": "int8 cache nt=1 n_vis=1024 layer=1",
                        "int4": "int4 cache nt=1 n_vis=1024 layer=1"}),
+        "flash_d256": ("csrc/flash.cu", "llama_kotlin_tpu/ops/pallas/flash.py:160", 0,
+                       {"prefill": "bf16 cache nt=64 n_vis=1024 window=0 layer=1",
+                        "n4096": "bf16 cache nt=1 n_vis=4096 window=0 layer=1",
+                        "window": "bf16 cache nt=1 n_vis=4096 window=1024 layer=1",
+                        "int8": "int8 cache nt=1 n_vis=1024 window=0 layer=1",
+                        "int4": "int4 cache nt=1 n_vis=1024 window=0 layer=1"}),
         "flash": ("csrc/flash.cu", "llama_kotlin_tpu/ops/pallas/flash.py:160", 0,
                   {"prefill": 1, "int8": 3, "int4": 4,
                    "d64": "bf16 cache D=64 nt=64 n_vis=1024",

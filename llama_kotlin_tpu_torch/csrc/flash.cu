@@ -4,16 +4,18 @@
 // cache, an int8 cache and a packed int4 cache, both with per-row f32
 // scales (static layer index into the whole [L, KV, cells, D] cache, int8
 // mask bounding n_vis, logit softcap, fully masked rows give 0), at head
-// dims 64 and 128 and at deepseek2's multi-head latent attention (the MLA
-// branch: K rows 192 wide, V rows 128), on bf16 tensor cores at every row
-// count: flash_mma.cuh's tile, which skips a 64-cell tile that no row of a
-// block sees, takes a ragged last tile, splits the cells over blocks and
-// merges the splits in a fixed order.  The header says what bounds it and
-// what its design does about it.  Head dim 256 and the other (DK, DV)
-// pairs (the JAX kernel's other branches) are not taken.
+// dims 64 and 128, at deepseek2's multi-head latent attention (the MLA
+// branch: K rows 192 wide, V rows 128) and at Gemma's head dim 256 (the
+// D = 256 branch: 8 warps a block, Q in shared memory), on bf16 tensor
+// cores at every row count: flash_mma.cuh's tile, which skips a 64-cell
+// tile that no row of a block sees, takes a ragged last tile, splits the
+// cells over blocks and merges the splits in a fixed order.  The header
+// says what bounds it and what its design does about it.  The other (DK,
+// DV) pairs (the JAX kernel's other branches) are not taken.
 #include "flash_mma.cuh"
 
-// q [nt, H, D] bf16 (D = 64, 128, or 192 with Dv = 128; else Dv = D); k
+// q [nt, H, D] bf16 (D = 64, 128, 256, or 192 with Dv = 128; else Dv = D;
+// at D = 256 16-byte aligned); k
 // cache [L, KV, cells, D] and v cache [L, KV, cells, Dv] bf16, or int8
 // codes when k_scale/v_scale ([L, KV, cells] f32) are given, or with
 // kv_bits = 4 packed int4 codes [.., D/2] and [.., Dv/2] with such scales

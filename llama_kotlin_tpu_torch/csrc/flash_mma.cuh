@@ -4,7 +4,8 @@
 // head dims 64 and 128 and at every row count; then a fixed-order merge of
 // the cell splits.  Kernel 3 also takes deepseek2's multi-head latent
 // attention, K rows 192 wide and V rows 128 (the MLA branch, a template on
-// (DK, DV) where the others have DK = DV = D).  It replaced both kernels' scalar walks, which it beats
+// (DK, DV) where the others have DK = DV = D), and Gemma's head dim 256 (the
+// D = 256 branch, below).  It replaced both kernels' scalar walks, which it beats
 // on the H100 from decode's 4 rows a kv head up (PERF.md, kernels 3, 9).
 //
 // A block owns one kv head, BM = 64 rows of that head's GQA row space (row
@@ -69,6 +70,24 @@
 // in K and with j + DV/2 in V.  part_o rows are DV wide, and the merge is
 // the D = 128 merge.  The DK = DV instances compile from the same source
 // lines as before the branch came (if constexpr keeps their loops apart).
+//
+// The D = 256 branch (Gemma), kernel 3 only: held as at D <= 192, a
+// thread's Q fragments (16 k-steps: 64 registers), O accumulators (256
+// columns: 128) and S (32) would come to 224 registers before addresses and
+// softmax state, where the D = 128 and MLA instances already use 239-254.
+// So a block of BM = 64 rows runs 8 warps (NTH = 256 threads), warps w and
+// w + 4 sharing rows 16 (w % 4) .. + 15: both compute those rows' S over all
+// 256 dims (the same products in the same order, so the same m and l, and
+// only the first writes them) and each keeps half of O, 128 columns (64
+// registers).  Q is staged once into shared memory (64 x 256 bf16, rows
+// padded to 264) and read back per k-step by ldmatrix, so no thread holds
+// it.  The Q K^T products of a row block are done twice: at decode the
+// tile is bound by the bytes of its K/V walk, and the extra products cost
+// no more than a second warp's instruction slots.  A K or V tile is 64 x 256 bf16
+// (33 KB, rows padded to 264): two stages, the mask tiles and Q take 173 KB
+// on a bf16 cache, one block an SM.  The other instances keep their
+// thread count, loops and Q registers (NTH, QSMEM and WSPLIT fold to their
+// old constants).
 #pragma once
 
 #include <type_traits>
@@ -115,8 +134,8 @@ __host__ __device__ constexpr int row_bytes() {
 // bf16 tiles themselves.
 template <typename T, int DK, int DV = DK>
 struct Cache {
-  static_assert((DK == DV && (DK == 64 || DK == 128)) || (DK == 192 && DV == 128),
-                "the tile takes head dims 64 and 128, and (DK, DV) = (192, 128)");
+  static_assert((DK == DV && (DK == 64 || DK == 128 || DK == 256)) || (DK == 192 && DV == 128),
+                "the tile takes head dims 64, 128 and 256, and (DK, DV) = (192, 128)");
   static constexpr int KLD = DK + 8;  // bf16 a K tile row (ldmatrix conflict-free)
   static constexpr int VLD = DV + 8;  // bf16 a V tile row
   static constexpr int KTILE = CT * KLD * 2;  // one K tile in bf16
@@ -129,11 +148,17 @@ struct Cache {
   static constexpr int RAWK = QUANT ? CT * ROWK : KTILE;
   static constexpr int RAWV = QUANT ? CT * ROWV : VTILE;
   static constexpr int STAGE = RAWK + RAWV + (QUANT ? 2 * CT * 4 : 0);
+  // the D = 256 branch: Q staged in shared memory, 8 warps, O's columns
+  // split between the two warps of a row group (see the header)
+  static constexpr bool QSMEM = DK == 256;
+  static constexpr int QLD = DK + 8;  // bf16 a Q tile row (ldmatrix conflict-free)
+  static constexpr int NTH = QSMEM ? 2 * THREADS : THREADS;  // threads a block
   // the ring (2 stages), the widened K/V tiles of a quantized cache, the
-  // mask tiles (2 stages, up to BM tokens of 64 cells)
+  // mask tiles (2 stages, up to BM tokens of 64 cells), the Q tile (D = 256)
   static constexpr int WIDE = QUANT ? KTILE + VTILE : 0;
   static constexpr int MASK = 2 * BM * CT;
-  static constexpr int SMEM = 2 * STAGE + WIDE + MASK;
+  static constexpr int QTILE = QSMEM ? BM * QLD * 2 : 0;
+  static constexpr int SMEM = 2 * STAGE + WIDE + MASK + QTILE;
 };
 
 // Which rows a walk reads: a cache split's cells, kernel 9's fresh rows,
@@ -150,19 +175,19 @@ __device__ __forceinline__ bool is_fresh(bool fresh) {
 // A cache split reads whole 8-byte words of mask [nt, mask_ld] (padded to
 // whole tiles with zeros); kernel 9's fresh split reads mask_new
 // [nt, nt] a byte at a time, 0 past column nt.
-template <int SRC>
+template <int SRC, int NTH = THREADS>
 __device__ __forceinline__ bool stage_mask(const FlashArgs& a, bool fresh, int tok0, int ntok,
                                            int c0, int8_t* mk) {
   int any = 0;
   if (is_fresh<SRC>(fresh)) {
-    for (int idx = threadIdx.x; idx < ntok * CT; idx += THREADS) {
+    for (int idx = threadIdx.x; idx < ntok * CT; idx += NTH) {
       const int tk = idx / CT, c = idx % CT;
       const int8_t m = c0 + c < a.nt ? a.mask_new[(size_t)(tok0 + tk) * a.nt + c0 + c] : 0;
       mk[tk * CT + c] = m;
       any |= m != 0;
     }
   } else {
-    for (int idx = threadIdx.x; idx < ntok * (CT / 8); idx += THREADS) {
+    for (int idx = threadIdx.x; idx < ntok * (CT / 8); idx += NTH) {
       const int tk = idx / (CT / 8), c8 = idx % (CT / 8);
       const uint2 m = *reinterpret_cast<const uint2*>(a.mask + (size_t)(tok0 + tk) * a.mask_ld +
                                                       c0 + c8 * 8);
@@ -201,7 +226,7 @@ __device__ __forceinline__ void load_stage(const FlashArgs& a, bool fresh, size_
       vc = static_cast<const uint8_t*>(a.vc) + row0 * C::ROWK;
       stride = C::ROWK;
     }
-    for (int idx = threadIdx.x; idx < CT * CHUNKS; idx += THREADS) {
+    for (int idx = threadIdx.x; idx < CT * CHUNKS; idx += C::NTH) {
       const int c = idx / CHUNKS, j = idx % CHUNKS;
       const bool ok = c < live;
       const size_t off = (ok ? (size_t)c * stride : 0) + j * 16;
@@ -232,7 +257,8 @@ __device__ __forceinline__ void load_stage(const FlashArgs& a, bool fresh, size_
     const int c = threadIdx.x % CT;
     const bool ok = c < live;
     const float* src = threadIdx.x < CT ? a.ks : a.vs;
-    cp_async4(sc + (threadIdx.x < CT ? 0 : CT) + c, src + row0 + (ok ? c : 0), ok ? 4 : 0);
+    if (C::NTH == THREADS || threadIdx.x < 2 * CT)  // one thread a scale
+      cp_async4(sc + (threadIdx.x < CT ? 0 : CT) + c, src + row0 + (ok ? c : 0), ok ? 4 : 0);
   }
 }
 
@@ -289,7 +315,7 @@ __device__ __forceinline__ void widen(const uint8_t* st, uint8_t* wide) {
     return;
   }
   constexpr int D = DK;
-  for (int idx = threadIdx.x; idx < 2 * CT * (C::ROWK / 16); idx += THREADS) {
+  for (int idx = threadIdx.x; idx < 2 * CT * (C::ROWK / 16); idx += C::NTH) {
     const int m = idx / (CT * (C::ROWK / 16)), rest = idx % (CT * (C::ROWK / 16));
     const int c = rest / (C::ROWK / 16), j = rest % (C::ROWK / 16);
     const uint4 w = *reinterpret_cast<const uint4*>(st + m * C::RAWK + c * C::ROWK + j * 16);
@@ -358,12 +384,16 @@ __device__ __forceinline__ void walk(const FlashArgs& a, uint8_t* smem, int cell
                                      bool fresh) {
   using C = Cache<T, DK, DV>;
   constexpr int KK = DK / 16;  // k16 steps of Q K^T
-  constexpr int NV = DV / 16;  // n16 pairs of P V
+  constexpr int WSPLIT = C::NTH / THREADS;  // warps sharing a row group (O's columns split)
+  constexpr int NV = DV / 16 / WSPLIT;  // n16 pairs of P V a warp takes
   uint8_t* ring = smem;
   uint8_t* wide = smem + 2 * C::STAGE;
   int8_t* masks = reinterpret_cast<int8_t*>(wide + C::WIDE);
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // warp: the warp's row group; vhalf: its part of O's columns
+  const int tid = threadIdx.x, warp = WSPLIT == 1 ? tid >> 5 : (tid >> 5) % WARPS,
+            lane = tid & 31;
+  const int vhalf = WSPLIT == 1 ? 0 : (tid >> 5) / WARPS;
   const int g = lane >> 2, t = lane & 3;
   const int kvh = blockIdx.x, rep = a.H / a.KV, R = rep * a.nt;
   const int r0 = blockIdx.y * BM, split = blockIdx.z;
@@ -375,10 +405,25 @@ __device__ __forceinline__ void walk(const FlashArgs& a, uint8_t* smem, int cell
   const bool live = r0 + warp * 16 < R;            // the warp has a row
   const int ta = ra / rep - tok0, tb = rb / rep - tok0;  // their tokens in the mask tile
 
+  // D = 256: the block's Q rows into shared memory [BM][QLD], rows past R
+  // zero (the first stage_mask's barrier orders these writes before use)
+  const __nv_bfloat16* qs = reinterpret_cast<const __nv_bfloat16*>(masks + C::MASK);
+  if constexpr (C::QSMEM) {
+    constexpr int QCH = DK / 8;  // 16-byte chunks a row
+    __nv_bfloat16* qw = reinterpret_cast<__nv_bfloat16*>(masks + C::MASK);
+    for (int idx = tid; idx < BM * QCH; idx += C::NTH) {
+      const int i = idx / QCH, j = idx % QCH, r = r0 + i;
+      uint4 w = make_uint4(0u, 0u, 0u, 0u);
+      if (r < R)
+        w = *reinterpret_cast<const uint4*>(
+            a.q + ((size_t)(r / rep) * a.H + kvh * rep + r % rep) * DK + 8 * j);
+      *reinterpret_cast<uint4*>(qw + i * C::QLD + 8 * j) = w;
+    }
+  }
   // Q fragments (bf16 pairs): qa[kk] = rows ra / rb at dims 16kk + 2t, +1
-  // and 16kk + 8 + 2t, +1; rows past R are zero
-  uint32_t qa[KK][4];
-  {
+  // and 16kk + 8 + 2t, +1; rows past R are zero (D = 256: none held)
+  uint32_t qa[C::QSMEM ? 1 : KK][4];
+  if constexpr (!C::QSMEM) {
     const __nv_bfloat16* qra =
         a.q + ((size_t)(ra / rep) * a.H + kvh * rep + ra % rep) * DK + 2 * t;
     const __nv_bfloat16* qrb =
@@ -401,7 +446,7 @@ __device__ __forceinline__ void walk(const FlashArgs& a, uint8_t* smem, int cell
   const size_t head_base = fr ? 0 : ((size_t)a.layer * a.KV + kvh) * a.cells;
   // the first live tile: its mask in stage 0, its K/V requested
   int cur = c_begin;
-  while (cur < c_end && !stage_mask<SRC>(a, fr, tok0, ntok, cur, masks)) cur += CT;
+  while (cur < c_end && !stage_mask<SRC, C::NTH>(a, fr, tok0, ntok, cur, masks)) cur += CT;
   if (cur < c_end) load_stage<T, DK, DV, SRC>(a, fr, head_base + cur, cur, kvh, ring);
   cp_async_commit();
   int buf = 0;
@@ -411,7 +456,7 @@ __device__ __forceinline__ void walk(const FlashArgs& a, uint8_t* smem, int cell
     // while this one is multiplied
     int nxt = cur + CT;
     int8_t* mk_nxt = masks + (buf ^ 1) * BM * CT;
-    while (nxt < c_end && !stage_mask<SRC>(a, fr, tok0, ntok, nxt, mk_nxt)) nxt += CT;
+    while (nxt < c_end && !stage_mask<SRC, C::NTH>(a, fr, tok0, ntok, nxt, mk_nxt)) nxt += CT;
     if (nxt < c_end)
       load_stage<T, DK, DV, SRC>(a, fr, head_base + nxt, nxt, kvh, ring + (buf ^ 1) * C::STAGE);
     cp_async_commit();
@@ -435,6 +480,7 @@ __device__ __forceinline__ void walk(const FlashArgs& a, uint8_t* smem, int cell
       for (int j = 0; j < 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+      if constexpr (!C::QSMEM) {
 #pragma unroll
       for (int kk = 0; kk < KK; ++kk)
 #pragma unroll
@@ -445,6 +491,23 @@ __device__ __forceinline__ void walk(const FlashArgs& a, uint8_t* smem, int cell
           mma_bf16(s[2 * jp], qa[kk], b);
           mma_bf16(s[2 * jp + 1], qa[kk], b + 2);
         }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < KK; ++kk) {
+          // the A fragment: rows 16 warp + lr + 8 (lm & 1), dims 16kk + 8 (lm >> 1)
+          uint32_t qf[4];
+          ldmatrix_x4(qf, qs + (warp * 16 + lr + 8 * (lm & 1)) * C::QLD + 16 * kk +
+                              8 * (lm >> 1));
+#pragma unroll
+          for (int jp = 0; jp < 4; ++jp) {
+            uint32_t b[4];
+            ldmatrix_x4(b, kt + (16 * jp + 8 * (lm >> 1) + lr) * C::KLD * 2 +
+                               (16 * kk + 8 * (lm & 1)) * 2);
+            mma_bf16(s[2 * jp], qf, b);
+            mma_bf16(s[2 * jp + 1], qf, b + 2);
+          }
+        }
+      }
       // scale, K scale, softcap, mask; the tile's row max (the softcap
       // test taken once a tile, not once an element)
       uint32_t vis = 0;
@@ -505,7 +568,7 @@ __device__ __forceinline__ void walk(const FlashArgs& a, uint8_t* smem, int cell
         for (int np = 0; np < NV; ++np) {
           uint32_t b[4];  // cells 16kk + 8 (lm & 1) + lr, dims 16np + 8 (lm >> 1)
           ldmatrix_x4_trans(b, vt + (16 * kk + 8 * (lm & 1) + lr) * C::VLD * 2 +
-                                   (16 * np + 8 * (lm >> 1)) * 2);
+                                   ((DV / WSPLIT) * vhalf + 16 * np + 8 * (lm >> 1)) * 2);
           mma_bf16(o[2 * np], ph, b);
           mma_bf16(o[2 * np], pl, b);
           mma_bf16(o[2 * np + 1], ph, b + 2);
@@ -528,9 +591,9 @@ __device__ __forceinline__ void walk(const FlashArgs& a, uint8_t* smem, int cell
     const size_t row = (size_t)split * rows_total + (size_t)kvh * R + r;
 #pragma unroll
     for (int n = 0; n < 2 * NV; ++n)
-      *reinterpret_cast<float2*>(a.part_o + row * DV + 8 * n + 2 * t) =
+      *reinterpret_cast<float2*>(a.part_o + row * DV + (DV / WSPLIT) * vhalf + 8 * n + 2 * t) =
           make_float2(o[n][2 * h], o[n][2 * h + 1]);
-    if (t == 0) {
+    if (t == 0 && vhalf == 0) {
       a.part_ml[2 * row] = m_run[h];
       a.part_ml[2 * row + 1] = l_run[h];
     }
@@ -572,6 +635,14 @@ template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(THREADS) flash_mla_kernel(const FlashArgs a) {
   extern __shared__ __align__(16) uint8_t smem[];
   walk<T, DK, DV, CACHE_SPLIT>(a, smem, blockIdx.z, false);
+}
+
+// Kernel 3's D = 256 branch: q [nt, H, 256] rows -> per-split (acc, m, l),
+// 8 warps a block (see the header).  Grid (KV, ceil(R / BM), n_old).
+template <typename T>
+__global__ void __launch_bounds__(2 * THREADS) flash_d256_kernel(const FlashArgs a) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  walk<T, 256, 256, CACHE_SPLIT>(a, smem, blockIdx.z, false);
 }
 
 // Merge the splits of one (kv head, row) and write out[t, h, :] in bf16;
@@ -639,18 +710,41 @@ inline int launch_mla(const FlashArgs& a, __nv_bfloat16* out, cudaStream_t strea
   return (int)cudaGetLastError();
 }
 
+// The D = 256 branch's splits and merge (out [nt, H, 256]).
+template <typename T>
+inline int launch_d256(const FlashArgs& a, __nv_bfloat16* out, cudaStream_t stream) {
+  using C = Cache<T, 256, 256>;
+  const int R = (a.H / a.KV) * a.nt;
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_d256_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    sized = true;
+  }
+  const dim3 grid(a.KV, (R + BM - 1) / BM, a.n_old);
+  flash_d256_kernel<T><<<grid, C::NTH, C::SMEM, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_merge_kernel<256><<<a.KV * R, 256, 0, stream>>>(a.part_o, a.part_ml, out, a.nt, a.H,
+                                                        a.KV, a.n_old);
+  return (int)cudaGetLastError();
+}
+
 // The splits (n_old over the cache, and kernel 9's fresh split) and the
 // merge; the cache element is bf16, int8 or (packed) q4_packed, with
 // scales for the two quantized ones; K rows a.D wide and V rows dv (the
-// MLA branch, kernel 3 only: (192, 128); else dv = a.D, 64 or 128).  Sets
+// MLA branch, kernel 3 only: (192, 128); the D = 256 branch, kernel 3
+// only: dv = a.D = 256; else dv = a.D, 64 or 128).  Sets
 // a.split_cells.  Returns a CUDA error code, cudaErrorInvalidValue for a
 // shape the kernels do not take.
 template <typename T, bool STACKED>
 inline int launch(FlashArgs a, __nv_bfloat16* out, cudaStream_t stream, int dv) {
   const int tiles = (a.n_vis + CT - 1) / CT;
   const bool mla = !STACKED && a.D == 192 && dv == 128;
+  const bool d256 = !STACKED && a.D == 256 && dv == 256;
   if (a.nt <= 0 || a.KV <= 0 || a.H % a.KV ||
-      !(mla || (dv == a.D && (a.D == 64 || a.D == 128))) || a.n_vis <= 0 ||
+      !(mla || d256 || (dv == a.D && (a.D == 64 || a.D == 128))) || a.n_vis <= 0 ||
       a.n_vis > a.cells || a.mask_ld < tiles * CT || a.mask_ld % 8 || a.n_old <= 0 ||
       tiles % a.n_old ||
       Cache<T, 128>::QUANT != (a.ks != nullptr && a.vs != nullptr) ||
@@ -659,6 +753,7 @@ inline int launch(FlashArgs a, __nv_bfloat16* out, cudaStream_t stream, int dv) 
   a.split_cells = tiles / a.n_old * CT;
   if constexpr (!STACKED) {
     if (mla) return launch_mla<T, 192, 128>(a, out, stream);
+    if (d256) return launch_d256<T>(a, out, stream);
   }
   return a.D == 64 ? launch_d<T, 64, STACKED>(a, out, stream)
                    : launch_d<T, 128, STACKED>(a, out, stream);

@@ -2,8 +2,11 @@
 the ModelConfig fields the port's forward reads, with the same defaults,
 ``attn_scale`` (with deepseek2's YaRN mscale correction) and
 ``rope_params``.  ``config_from_metadata`` maps the llama architecture,
-llama-architecture MoE files (Mixtral) and deepseek2 (MLA and scaled MoE);
-every other architecture raises (ROADMAP.md section 1, item 13)."""
+llama-architecture MoE files (Mixtral), gemma and gemma2 (gelu, the
+sqrt(n_embd) embedding scale, (1 + w) norms, a tied head, NEOX rope; gemma2
+also the logit softcaps and the sliding window on every other layer) and
+deepseek2 (MLA and scaled MoE); every other architecture raises
+(ROADMAP.md section 1, item 13)."""
 
 from __future__ import annotations
 
@@ -11,7 +14,7 @@ import math
 from dataclasses import dataclass
 
 from llama_kotlin_tpu_torch.models import registry
-from llama_kotlin_tpu_torch.ops.rope import ROPE_TYPE_NORM, RopeParams
+from llama_kotlin_tpu_torch.ops.rope import ROPE_TYPE_NEOX, ROPE_TYPE_NORM, RopeParams
 
 
 @dataclass(eq=False)
@@ -42,7 +45,11 @@ class ModelConfig:
     n_expert: int = 0
     n_expert_used: int = 0
     causal_attn: bool = True
-    attn_logit_softcap: float = 0.0
+    embd_scale: float = 1.0  # gemma: sqrt(n_embd)
+    attn_logit_softcap: float = 0.0  # gemma2
+    final_logit_softcap: float = 0.0  # gemma2
+    swa_window: int = 0  # sliding-window attention width (0 = off)
+    swa_pattern: int = 1  # every Nth layer is full-attention (gemma2: 2)
     moe_norm_topk: bool = True  # renormalize the top-k router weights (mixtral)
     moe_expert_scale: float = 1.0  # deepseek2 expert_weights_scale
     rope_yarn_log_mul: float = 0.0  # deepseek2 yarn mscale correction
@@ -62,6 +69,14 @@ class ModelConfig:
             mscale = 1.0 + self.rope_yarn_log_mul * math.log(1.0 / self.rope_freq_scale)
             return mscale * mscale / (self.head_dim ** 0.5)
         return 1.0 / (self.head_dim ** 0.5)
+
+    def layer_swa_window(self, layer: int) -> int:
+        """Layer `layer`'s sliding window (0: full attention)."""
+        if self.swa_window <= 0:
+            return 0
+        if self.swa_pattern > 1 and (layer + 1) % self.swa_pattern == 0:
+            return 0
+        return self.swa_window
 
     def rope_params(self) -> RopeParams:
         return RopeParams(
@@ -99,7 +114,7 @@ ARCHES = tuple(a.name for a in registry.ARCHES if a.ported)
 def config_from_metadata(md: dict) -> ModelConfig:
     """ModelConfig from GGUF metadata KVs (port of the JAX package's
     config_from_metadata for ``general.architecture`` "llama", dense or MoE,
-    and "deepseek2", rope scaling included).  Other architectures raise
+    "gemma", "gemma2" and "deepseek2", rope scaling included).  Other architectures raise
     until ROADMAP.md section 1, item 13 ports them."""
     arch = md.get("general.architecture", "llama")
     if arch not in ARCHES:
@@ -123,6 +138,7 @@ def config_from_metadata(md: dict) -> ModelConfig:
         rope_dim=int(_get(md, arch, "rope.dimension_count", 0) or 0),
         n_expert=int(_get(md, arch, "expert_count", 0) or 0),
         n_expert_used=int(_get(md, arch, "expert_used_count", 0) or 0),
+        swa_window=int(_get(md, arch, "attention.sliding_window", 0) or 0),
     )
     if arch == "llama" and cfg.v_head_dim != cfg.head_dim:
         raise NotImplementedError("a llama file whose value head width differs from the "
@@ -145,6 +161,18 @@ def config_from_metadata(md: dict) -> ModelConfig:
         cfg.rope_yarn_ext_factor = 1.0
         cfg.rope_orig_ctx = int(
             _get(md, arch, "rope.scaling.original_context_length", cfg.n_ctx_train))
+    if arch in ("gemma", "gemma2"):
+        # JAX config.py:219-238: NEOX rope (JAX's rule, for the archs the
+        # port maps), gelu, the embedding scale, (1 + w) norms, a tied head
+        cfg.rope_type = ROPE_TYPE_NEOX
+        cfg.act = "gelu"
+        cfg.embd_scale = float(n_embd) ** 0.5
+        cfg.norm_weight_offset = 1.0
+    if arch == "gemma2":
+        cfg.attn_logit_softcap = float(_get(md, arch, "attn_logit_softcapping", 50.0))
+        cfg.final_logit_softcap = float(_get(md, arch, "final_logit_softcapping", 30.0))
+        cfg.swa_window = cfg.swa_window or 4096
+        cfg.swa_pattern = 2
     if arch == "deepseek2":
         # MLA and scaled MoE (JAX config.py:352-369): raw top-k router
         # weights times expert_weights_scale, the YaRN mscale correction,

@@ -20,6 +20,18 @@ Lite model has one ``wq``), k and v decompressed from a shared latent
 the routed FFN by one of three routes (``ops/moe.py``) and the shared
 experts (``ffn_*_shexp``).
 
+gemma and gemma2 (JAX ``:108-109``, ``:121-127``, ``:283-285``,
+``:443-444``, ``:665-667``, ``:706-707``): the embedding rows times
+sqrt(n_embd) (bf16 rows, an f32 product, bf16 again), (1 + w) norms, a tied
+head, and for gemma2 the post-attention and post-FFN norms, the attention
+softcap (inside kernel 3), the final softcap tanh(logits / c) c, and a
+sliding-window mask on every other layer (``cfg.layer_swa_window``): the
+window reaches kernel 3 only through the mask, whose out-of-window tiles
+the kernel skips.  A model with a window stays unrolled, as in JAX.  At
+head dim 256 kernel 3 takes its D = 256 branch; kernel 9 takes 64 and 128
+only (JAX's declines 256), so a stacked gemma attends by
+``attend_stacked_plain``.
+
 - Unrolled (``params["layers"]``): every layer writes its K/V rows into the
   cache IN PLACE, then attends over it through kernel 3.
 - Stacked (``params["layers_stacked"]``, built once by ``stack_layers``;
@@ -33,7 +45,8 @@ experts (``ffn_*_shexp``).
   (``llama_kotlin_tpu/models/llama.py:569-573``) and attends by XLA over
   the dequantized prefix and the step's dequantized rows; the port's
   ``attend_stacked_plain`` is that route in plain torch ops, on the card
-  too, and also serves a stacked model whose V is narrower than its K.
+  too, and also serves a stacked model whose V is narrower than its K or
+  whose head dim kernel 9 does not take (256).
 
 The KV cache is bf16, int8 codes or packed int4 codes with per-row scales;
 the quantized rows come from the same f32 K/V the JAX package quantizes.
@@ -52,7 +65,7 @@ from llama_kotlin_tpu_torch.models.config import ModelConfig
 from llama_kotlin_tpu_torch.ops import moe
 from llama_kotlin_tpu_torch.ops.activations import ACTIVATIONS
 from llama_kotlin_tpu_torch.ops.attention import attention_reference, visibility_mask
-from llama_kotlin_tpu_torch.ops.cuda.flash import flash_attention
+from llama_kotlin_tpu_torch.ops.cuda.flash import HEAD_DIMS, flash_attention
 from llama_kotlin_tpu_torch.ops.cuda.flash_stacked import flash_attention_stacked
 from llama_kotlin_tpu_torch.ops.norms import rms_norm
 from llama_kotlin_tpu_torch.ops.qmatmul import qmatmul, qmm_ffn, qmm_layer, take_rows
@@ -70,12 +83,12 @@ QT_TENSORS = ("codes", "g_scale", "g_min", "sb_scale", "sb_min")
 
 def can_stack(params: dict, cfg: ModelConfig) -> bool:
     """Layers can share one loop body when uniform in structure: at least
-    two layers with the same keys (the JAX package's rule; the port's
-    config has no per-layer windows, ALiBi or per-layer shapes).
-    deepseek2's dense lead layer has other keys than its MoE layers, so
-    that model stays unrolled, as in JAX."""
+    two layers with the same keys and no sliding window (the JAX package's
+    rule; the port's config has no ALiBi or per-layer shapes).
+    deepseek2's dense lead layer has other keys than its MoE layers, and
+    gemma2's windows alternate, so those models stay unrolled, as in JAX."""
     layers = params.get("layers")
-    if not layers or len(layers) < 2:
+    if not layers or len(layers) < 2 or cfg.swa_window > 0:
         return False
     keys = set(layers[0])
     return all(set(lp) == keys for lp in layers)
@@ -271,9 +284,10 @@ def _fused_layer_half(lp: dict, h: torch.Tensor, attn: torch.Tensor, cfg: ModelC
     one launch (ops/qmatmul.qmm_layer, kernel 10) where the layer has the
     fused gate|up; None when it declines, and the caller takes the unfused
     route.  The port's configs are always the pre-norm gated RMS one the
-    hook asks for; of the tensors it excludes, the port loads only the MoE
-    router (``:255-265``)."""
-    if "ffn_gateup_fused" not in lp or "ffn_gate_inp" in lp:
+    hook asks for; of the tensors it excludes, the port loads the MoE
+    router and gemma2's post norms (``:255-265``)."""
+    if "ffn_gateup_fused" not in lp or any(
+            key in lp for key in ("ffn_gate_inp", "post_attn_norm", "post_ffn_norm")):
         return None
     return qmm_layer(attn, h, lp["wo"], lp["ffn_gateup_fused"], lp["ffn_down"], lp["ffn_norm"],
                      eps=cfg.rms_eps, act=cfg.act, offset=cfg.norm_weight_offset)
@@ -359,13 +373,20 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     rope = cfg.rope_params()
     cos, sin = rope_cos_sin(token_pos, rope, params.get("rope_freqs"))
     h = take_rows(params["tok_embd"], tokens, dtype=COMPUTE_DTYPE)
+    if cfg.embd_scale != 1.0:
+        h = (h.to(torch.float32) * cfg.embd_scale).to(COMPUTE_DTYPE)
     mask = visibility_mask(token_pos, token_seq, cell_pos, cell_seq, causal=cfg.causal_attn)
     slots = slots.to(torch.long)
     stacked = "layers_stacked" in params
     if stacked:
         mask_cells, mask_new = _stacked_masks(cfg, mask, token_pos, token_seq, slots, cell_seq)
     else:
+        # the full mask and, with a sliding window, the windowed one (JAX
+        # builds it causal whatever the config), each once a step
         mask = mask.to(torch.int8)
+        mask_swa = (visibility_mask(token_pos, token_seq, cell_pos, cell_seq,
+                                    window=cfg.swa_window).to(torch.int8)
+                    if cfg.swa_window > 0 else None)
     softmax_kw = dict(scale=cfg.attn_scale, logit_softcap=cfg.attn_logit_softcap)
     attn_kw = dict(softmax_kw, k_scale=cache.k_scale, v_scale=cache.v_scale)
     for li, lp in enumerate(layer_views(params)):
@@ -378,7 +399,8 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                 # what later steps will read
                 k, v = (dequantize_cache_layer(c, s, bits=cache.kv_bits).transpose(0, 1)
                         for c, s in ((rows[0], rows[2]), (rows[1], rows[3])))
-            if cache.kv_bits == 4 or cfg.v_head_dim != cfg.head_dim:
+            if (cache.kv_bits == 4 or cfg.v_head_dim != cfg.head_dim
+                    or cfg.head_dim not in HEAD_DIMS):  # kernel 9's head dims
                 attn = attend_stacked_plain(q, cache, li, k, v, mask_cells, mask_new,
                                             **softmax_kw)
             else:
@@ -388,20 +410,30 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             _write_rows(cache, li, slots, rows)
         else:
             _write_rows(cache, li, slots, rows)
-            attn = flash_attention(q, cache.k, cache.v, mask, layer=li, kv_bits=cache.kv_bits,
-                                   **attn_kw)
+            layer_mask = mask_swa if cfg.layer_swa_window(li) > 0 else mask
+            attn = flash_attention(q, cache.k, cache.v, layer_mask, layer=li,
+                                   kv_bits=cache.kv_bits, **attn_kw)
         attn = attn.to(COMPUTE_DTYPE).reshape(nt, -1)
         h3 = _fused_layer_half(lp, h, attn, cfg)
         if h3 is not None:
             h = h3
             continue
-        h = h + qmatmul(attn, lp["wo"]).to(h.dtype)
+        attn_out = qmatmul(attn, lp["wo"])
+        if "post_attn_norm" in lp:  # gemma2
+            attn_out = rms_norm(attn_out, lp["post_attn_norm"], cfg.rms_eps,
+                                cfg.norm_weight_offset)
+        h = h + attn_out.to(h.dtype)
         x = rms_norm(h, lp["ffn_norm"], cfg.rms_eps, cfg.norm_weight_offset)
-        h = h + _ffn(lp, x, cfg).to(h.dtype)
+        down = _ffn(lp, x, cfg)
+        if "post_ffn_norm" in lp:  # gemma2
+            down = rms_norm(down, lp["post_ffn_norm"], cfg.rms_eps, cfg.norm_weight_offset)
+        h = h + down.to(h.dtype)
     h_out = rms_norm(h[out_ids.to(torch.long)], params["output_norm"], cfg.rms_eps,
                      cfg.norm_weight_offset)
     out_w = params.get("output")
     if out_w is None:
         out_w = params["tok_embd"]  # tied embeddings
     logits = qmatmul(h_out, out_w).to(torch.float32)
+    if cfg.final_logit_softcap > 0.0:  # gemma2
+        logits = torch.tanh(logits / cfg.final_logit_softcap) * cfg.final_logit_softcap
     return logits, h_out.to(torch.float32)

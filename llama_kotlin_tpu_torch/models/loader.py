@@ -1,6 +1,6 @@
 """GGUF -> device params (port of ``llama_kotlin_tpu/models/loader.py`` for
-the llama architecture, dense or MoE (Mixtral), and deepseek2, in all four
-of its modes).
+the llama architecture, dense or MoE (Mixtral), gemma, gemma2 and
+deepseek2, in all four of its modes).
 
 ``load_gguf_model(path, fast_mode=None|"w4"|"w4x"|"int8", fuse=True)``
 memory-maps the file, moves each tensor's wire bytes to the device and
@@ -33,7 +33,12 @@ the kernels one expert at a time; otherwise one stacked exact repack
 gathers; a float file's stacks stay dense bf16 [E, n, k].  deepseek2's MLA
 projections (``attn_q_a``/``attn_q_b`` or ``attn_q``, ``attn_kv_a_mqa``,
 ``attn_kv_b``, and their norms) and shared experts (``ffn_*_shexp``) load
-as any matrix.  Still refused: the IQ formats (``quant/repack.py``,
+as any matrix.  gemma2's post-attention and post-FFN norms
+(``post_attention_norm``, ``post_ffw_norm``) stay f32 as the other norms.
+A file with no ``output`` (gemma's tied head: llama.cpp gives the
+embedding the output's type, Q6_K in a Q4_K_M file) loads ``token_embd``
+once in the mode's layout, which serves both the embedding rows
+(``take_rows``) and the lm_head.  Still refused: the IQ formats (``quant/repack.py``,
 ROADMAP.md section 1, item 6) and tensor names the port's forward does not
 read (item 13).
 """
@@ -56,8 +61,8 @@ from llama_kotlin_tpu_torch.quant.repack import dequantize_wire, repack, repack_
 FAST_MODES = (None, "w4", "w4x", "int8")
 ROW_CHUNK = 16384  # matrix rows converted per step
 
-# tensor-name suffix -> params key (the llama, MoE and deepseek2 rows of the
-# JAX tables)
+# tensor-name suffix -> params key (the llama, MoE, gemma2 and deepseek2 rows
+# of the JAX tables)
 _LAYER_TENSORS = {
     "attn_norm.weight": "attn_norm",
     "attn_q.weight": "wq",
@@ -81,6 +86,8 @@ _LAYER_TENSORS = {
     "attn_kv_b.weight": "wkv_b",
     "attn_q_a_norm.weight": "attn_q_a_norm",
     "attn_kv_a_norm.weight": "attn_kv_a_norm",
+    "post_attention_norm.weight": "post_attn_norm",
+    "post_ffw_norm.weight": "post_ffn_norm",
 }
 _GLOBAL_TENSORS = {
     "token_embd.weight": "tok_embd",
@@ -89,7 +96,7 @@ _GLOBAL_TENSORS = {
     "rope_freqs.weight": "rope_freqs",
 }
 _ALWAYS_FLOAT = {"attn_norm", "ffn_norm", "output_norm", "rope_freqs", "attn_q_a_norm",
-                 "attn_kv_a_norm"}
+                 "attn_kv_a_norm", "post_attn_norm", "post_ffn_norm"}
 _ALWAYS_DENSE = {"ffn_gate_inp"}  # dense bf16 in every mode, whatever the file's type
 MAX_EXPERT_LIST = 16  # expert counts a fast mode loads as per-expert lists (JAX :196)
 
@@ -217,7 +224,7 @@ def fuse_layer_projections(cfg: ModelConfig, params: dict) -> int:
 
 def load_gguf_model(path: str | Path, *, fast_mode: Optional[str] = None,
                     fuse: bool = False, device: DeviceLike = None):
-    """Load a llama or deepseek2 GGUF file into (config, params, open GGUFFile) on
+    """Load a llama, gemma, gemma2 or deepseek2 GGUF file into (config, params, open GGUFFile) on
     `device` (None means cuda).  fast_mode is None (the exact-dequant mode,
     JAX's default), "w4", "w4x" or "int8"; fuse=True applies the
     single-device serving fold (fuse_layer_projections)."""

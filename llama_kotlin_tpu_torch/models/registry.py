@@ -21,9 +21,9 @@ class ArchInfo:
 ARCHES = [
     ArchInfo("llama", "supported", True,
              "LLaMA 1/2/3, Mistral, TinyLlama; rope freq-factors; MoE (Mixtral)"),
-    ArchInfo("gemma", "supported", False,
+    ArchInfo("gemma", "supported", True,
              "gelu, embd scale sqrt(E), (1+w) norms, tied head"),
-    ArchInfo("gemma2", "supported", False,
+    ArchInfo("gemma2", "supported", True,
              "logit softcaps, pre/post-ffn norms, alternating SWA"),
     ArchInfo("qwen2", "supported", False,
              "qkv bias, NEOX rope"),

@@ -7,10 +7,12 @@ package's generator, so the same seed gives the same weights on both sides.
 seeded ``torch.Generator`` — no multi-GB host build.  ``synthetic_gguf``
 writes a llama GGUF file of random wire blocks (the Q4_K_M type mix by
 default; the Q5_K_M mix, single-type files and a mix of every format the
-loader takes) for the loader to read; with a ``MoEShape`` it writes a
-llama-architecture MoE file (Mixtral) or a deepseek2 file (MLA, a dense
-lead, routed and shared experts) with the metadata keys the loader reads
-(``deepseek_v2_lite``, ``mixtral_8x7b``: their published shapes).
+loader takes) for the loader to read, and gemma and gemma2 files (a tied
+head, gemma2's post norms, window and softcap keys); with a ``MoEShape`` it
+writes a llama-architecture MoE file (Mixtral) or a deepseek2 file (MLA, a
+dense lead, routed and shared experts) with the metadata keys the loader
+reads (``deepseek_v2_lite``, ``mixtral_8x7b``, ``gemma2_9b``, ``gemma_7b``:
+their published shapes).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 
 from llama_kotlin_tpu_torch.device import DeviceLike, resolve_device
 from llama_kotlin_tpu_torch.models.config import ModelConfig
+from llama_kotlin_tpu_torch.ops.rope import ROPE_TYPE_NEOX
 from llama_kotlin_tpu_torch.quant.fold import (ALIGN_W4, GROUP, compact_planes,
                                                w4_from_parts)
 from llama_kotlin_tpu_torch.quant.formats import TYPE_TRAITS, GGMLQuantType
@@ -388,19 +391,58 @@ def synthetic_spm_vocab(vocab_size: int, chat_template: Optional[str] = LLAMA2_C
     return kv
 
 
+GEMMA_ARCHES = ("gemma", "gemma2")  # tied heads and (1 + w) norms
+
+
+def file_metadata(cfg: ModelConfig, matrix_type: GGMLQuantType = GGMLQuantType.Q4_K) -> list:
+    """The (key, value) metadata of synthetic_gguf's llama, gemma or gemma2
+    file, under cfg.arch (the keys llama.cpp's converter writes); a gemma or
+    gemma2 file adds its head widths, gemma2 its sliding window and logit
+    softcaps."""
+    a = cfg.arch
+    if a not in ("llama",) + GEMMA_ARCHES:
+        raise ValueError(f"synthetic_gguf writes llama, gemma and gemma2 files, not {a!r}")
+    kv = [("general.architecture", a), ("general.name", cfg.name or "synthetic"),
+          ("general.file_type", np.uint32(FILE_TYPES[matrix_type])),
+          (f"{a}.vocab_size", np.uint32(cfg.vocab_size)),
+          (f"{a}.context_length", np.uint32(cfg.n_ctx_train)),
+          (f"{a}.embedding_length", np.uint32(cfg.n_embd)),
+          (f"{a}.block_count", np.uint32(cfg.n_layer)),
+          (f"{a}.feed_forward_length", np.uint32(cfg.n_ff)),
+          (f"{a}.attention.head_count", np.uint32(cfg.n_head)),
+          (f"{a}.attention.head_count_kv", np.uint32(cfg.n_head_kv)),
+          (f"{a}.rope.dimension_count", np.uint32(cfg.rope_dim)),
+          (f"{a}.rope.freq_base", np.float32(cfg.rope_freq_base)),
+          (f"{a}.attention.layer_norm_rms_epsilon", np.float32(cfg.rms_eps))]
+    if a in GEMMA_ARCHES:
+        kv += [(f"{a}.attention.key_length", np.uint32(cfg.head_dim)),
+               (f"{a}.attention.value_length", np.uint32(cfg.v_head_dim))]
+    if a == "gemma2":
+        kv += [(f"{a}.attention.sliding_window", np.uint32(cfg.swa_window)),
+               (f"{a}.attn_logit_softcapping", np.float32(cfg.attn_logit_softcap)),
+               (f"{a}.final_logit_softcapping", np.float32(cfg.final_logit_softcap))]
+    return kv
+
+
 def synthetic_gguf(path, cfg: ModelConfig, seed: int = 0, layer_types: Optional[list] = None,
                    embd_type: Optional[GGMLQuantType] = None,
                    output_type: GGMLQuantType = GGMLQuantType.Q6_K,
                    matrix_type: GGMLQuantType = GGMLQuantType.Q4_K,
                    extra_kvs: Optional[dict] = None, moe: Optional[MoEShape] = None) -> int:
-    """Write a llama GGUF of random wire blocks for `cfg`: every layer matrix
+    """Write a GGUF of random wire blocks for `cfg` (a llama, gemma or gemma2
+    file, by cfg.arch; file_metadata gives its keys): every layer matrix
     of `matrix_type` but those `layer_types` names (a dict a layer from
     LAYER_MATRICES to types; default for Q4_K: the Q4_K_M profile,
     q4_k_m_layer_types; for Q5_K the Q5_K_M one; for other types none, the
     LLAMA_FTYPE_MOSTLY_* files; every_format_layer_types for a file that
     holds every format), `token_embd` (embd_type, default
     matrix_type) and `output` (output_type: Q6_K, as llama.cpp quantizes
-    it in these files; F16 or F32 make them dense); norms F32 near 1.  Each
+    it in these files; F16 or F32 make them dense); norms F32 near 1.  A
+    gemma or gemma2 file has no `output` (a tied head): its `token_embd`
+    defaults to output_type, as llama.cpp gives a tied embedding the
+    output's type, and its norms are drawn near 0 (the model scales by 1 +
+    w); gemma2's layers add `post_attention_norm` (after attn_output) and
+    `post_ffw_norm` (after ffn_down).  Each
     tensor is drawn from one numpy Generator as the writer streams it, so a
     full 8B file never sits whole in host memory.  extra_kvs (e.g.
     synthetic_spm_vocab's tokenizer keys) are written after the model's
@@ -418,31 +460,23 @@ def synthetic_gguf(path, cfg: ModelConfig, seed: int = 0, layer_types: Optional[
     if layer_types is None:
         mix = DEFAULT_MIX.get(matrix_type)
         layer_types = mix(cfg.n_layer) if mix else [{}] * cfg.n_layer
-    embd_type = matrix_type if embd_type is None else embd_type
+    tied = cfg.arch in GEMMA_ARCHES
+    if embd_type is None:
+        embd_type = output_type if tied else matrix_type
     E, F, V = cfg.n_embd, cfg.n_ff, cfg.vocab_size
     qd, kvd = cfg.n_head * cfg.head_dim, cfg.n_head_kv * cfg.head_dim
     w = GGUFWriter()
-    for key, value in (
-            ("general.architecture", "llama"), ("general.name", cfg.name or "synthetic"),
-            ("general.file_type", np.uint32(FILE_TYPES[matrix_type])),
-            ("llama.vocab_size", np.uint32(V)),
-            ("llama.context_length", np.uint32(cfg.n_ctx_train)),
-            ("llama.embedding_length", np.uint32(E)), ("llama.block_count", np.uint32(cfg.n_layer)),
-            ("llama.feed_forward_length", np.uint32(F)),
-            ("llama.attention.head_count", np.uint32(cfg.n_head)),
-            ("llama.attention.head_count_kv", np.uint32(cfg.n_head_kv)),
-            ("llama.rope.dimension_count", np.uint32(cfg.rope_dim)),
-            ("llama.rope.freq_base", np.float32(cfg.rope_freq_base)),
-            ("llama.attention.layer_norm_rms_epsilon", np.float32(cfg.rms_eps)),
-            *(extra_kvs or {}).items()):
+    for key, value in (*file_metadata(cfg, matrix_type), *(extra_kvs or {}).items()):
         w.add_kv(key, value)
 
     def matrix(name, n, k, qtype):
         w.add_tensor_stream(name, (k, n), qtype, lambda: wire_blocks(rng, qtype, n, k))
 
+    centre = 0.0 if tied else 1.0  # gemma's norms scale by 1 + w
+
     def norm(name):
         w.add_tensor_stream(name, (E,), GGMLQuantType.F32,
-                            lambda: (1.0 + 0.01 * rng.standard_normal(E)).astype("<f4"))
+                            lambda: (centre + 0.01 * rng.standard_normal(E)).astype("<f4"))
 
     matrix("token_embd.weight", V, E, embd_type)
     for i, types in enumerate(layer_types):
@@ -455,8 +489,12 @@ def synthetic_gguf(path, cfg: ModelConfig, seed: int = 0, layer_types: Optional[
             if name == "ffn_gate":
                 norm(b + "ffn_norm.weight")
             matrix(b + name + ".weight", *shapes[name], types.get(name, matrix_type))
+            if cfg.arch == "gemma2" and name in ("attn_output", "ffn_down"):
+                norm(b + ("post_attention_norm.weight" if name == "attn_output"
+                          else "post_ffw_norm.weight"))
     norm("output_norm.weight")
-    matrix("output.weight", V, E, output_type)
+    if not tied:
+        matrix("output.weight", V, E, output_type)
     w.write(path)
     return os.path.getsize(path)
 
@@ -504,6 +542,33 @@ def mixtral_8x7b(n_layer: int = 32) -> tuple:
                       n_layer=n_layer, n_head=32, n_head_kv=8, n_ff=14336,
                       n_ctx_train=32768, rope_freq_base=1e6, n_expert=8, n_expert_used=2)
     return cfg, MoEShape(expert_ff=14336)
+
+
+def gemma2_9b(n_layer: int = 42) -> ModelConfig:
+    """gemma-2-9b at its published shapes (huggingface.co/google/gemma-2-9b,
+    config.json): 42 layers, E 3584, 16 heads on 8 kv heads of 256
+    (query_pre_attn_scalar 256 = head_dim, so 1/sqrt(256) is its scale),
+    F 14336 (gelu), vocab 256000, rms_eps 1e-6, rope base 10000, a
+    4096-cell sliding window on every other layer, attention and final
+    logit softcaps 50 and 30; the fields config_from_metadata sets for
+    such a file.  n_layer cuts depth."""
+    return ModelConfig(arch="gemma2", name="gemma-2-9b", vocab_size=256000, n_embd=3584,
+                       n_layer=n_layer, n_head=16, n_head_kv=8, n_ff=14336, head_dim=256,
+                       n_ctx_train=8192, rms_eps=1e-6, norm_weight_offset=1.0, act="gelu",
+                       rope_type=ROPE_TYPE_NEOX, embd_scale=3584 ** 0.5,
+                       attn_logit_softcap=50.0, final_logit_softcap=30.0, swa_window=4096,
+                       swa_pattern=2)
+
+
+def gemma_7b(n_layer: int = 28) -> ModelConfig:
+    """gemma-7b at its published shapes (huggingface.co/google/gemma-7b,
+    config.json): 28 layers, E 3072, 16 heads on 16 kv heads of 256, F
+    24576 (gelu), vocab 256000, rms_eps 1e-6, rope base 10000; the fields
+    config_from_metadata sets for such a file.  n_layer cuts depth."""
+    return ModelConfig(arch="gemma", name="gemma-7b", vocab_size=256000, n_embd=3072,
+                       n_layer=n_layer, n_head=16, n_head_kv=16, n_ff=24576, head_dim=256,
+                       n_ctx_train=8192, rms_eps=1e-6, norm_weight_offset=1.0, act="gelu",
+                       rope_type=ROPE_TYPE_NEOX, embd_scale=3072 ** 0.5)
 
 
 def _fallback_type(qtype: GGMLQuantType, k: int) -> GGMLQuantType:

@@ -28,12 +28,16 @@ NEG_INF = -1e30
 
 def visibility_mask(token_pos: torch.Tensor, token_seq: torch.Tensor,
                     cell_pos: torch.Tensor, cell_seq: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
-    """Boolean [nt, cells] visibility from cache-cell metadata."""
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Boolean [nt, cells] visibility from cache-cell metadata; window > 0
+    keeps only the cells fewer than `window` positions back (gemma2's
+    sliding window, JAX ``ops/attention.py:49-61``)."""
     seq_ok = ((cell_seq[None, :] >> token_seq[:, None]) & 1) != 0
     vis = seq_ok & (cell_pos[None, :] >= 0)
     if causal:
         vis = vis & (cell_pos[None, :] <= token_pos[:, None])
+    if window > 0:
+        vis = vis & (token_pos[:, None] - cell_pos[None, :] < window)
     return vis
 
 

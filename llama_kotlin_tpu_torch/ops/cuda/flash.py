@@ -4,8 +4,10 @@
 Replaces ``llama_kotlin_tpu/ops/pallas/flash.py::flash_attention`` for a
 bf16 cache, an int8 cache with per-row f32 scales and a packed int4 cache
 (``kv_bits=4``: [.., D/2] uint8, two codes a byte, with per-row f32
-scales): q [nt, H, D] at head dims 64 and 128, and deepseek2's multi-head
-latent attention (the MLA branch: K rows 192 wide, V rows 128), the whole
+scales): q [nt, H, D] at head dims 64 and 128, deepseek2's multi-head
+latent attention (the MLA branch: K rows 192 wide, V rows 128) and Gemma's
+head dim 256 (the D = 256 branch: 8 warps a block, each keeping half of O's
+columns, Q staged in shared memory), the whole
 cache [L, KV, cells, D] (V [.., Dv]) with a layer index, an int8 mask
 [nt, n_vis] bounding
 the cells read (any 1 <= n_vis <= cells), a logit softcap, and 0 for fully
@@ -15,9 +17,10 @@ and its scales).  Every row count takes bf16 tensor cores, which skip the
 cells over blocks (flash-decoding) so a decode step fills the card, and
 pads a ragged mask to whole tiles with zeros; see the CUDA source.
 ``n_splits``, ``check_cache`` and ``tile_mask`` serve kernel 9 too
-(``ops/cuda/flash_stacked.py``).  Head dim 256 and the (DK, DV) pairs
-other than (64, 64), (128, 128) and (192, 128), which the JAX kernel also
-takes, raise on the card (ROADMAP.md section 2).
+(``ops/cuda/flash_stacked.py``).  The (DK, DV) pairs other than (64, 64),
+(128, 128), (192, 128) and (256, 256), which the JAX kernel also takes,
+raise on the card (ROADMAP.md section 2); kernel 9 takes 64 and 128 only,
+as JAX's.
 
 ``flash_attention`` launches the kernel for CUDA tensors and runs
 ``flash_attention_plain`` for CPU tensors.
@@ -34,8 +37,9 @@ from llama_kotlin_tpu_torch.ops.attention import cache_attention_reference
 from llama_kotlin_tpu_torch.ops.cuda import _build
 
 HEAD_DIMS = (64, 128)  # the tile's head dims where K and V rows are of one width
-# the (K, V) row widths kernel 3 takes: HEAD_DIMS, and its MLA branch
-DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
+# the (K, V) row widths kernel 3 takes: HEAD_DIMS, its MLA branch and its
+# D = 256 branch
+DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128), (256, 256))
 CELL_TILE = 64  # cells per kernel tile
 ROW_TILE = 64  # query rows per block of the tile
 TARGET_BLOCKS = 264  # two blocks per SM of an H100
@@ -43,6 +47,7 @@ LAUNCHES = 0  # kernel launches made by flash_attention
 LAUNCHES_INT8 = 0  # of those, launches on an int8 cache
 LAUNCHES_INT4 = 0  # of those, launches on a packed int4 cache
 LAUNCHES_MLA = 0  # of those, launches on the MLA branch (K 192, V 128 wide)
+LAUNCHES_D256 = 0  # of those, launches on the D = 256 branch
 
 # Plain version: the JAX package's route over the cache (attention.py:128-142)
 flash_attention_plain = cache_attention_reference
@@ -64,14 +69,14 @@ def check_cache(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_vis: int, l
                 pairs: tuple = tuple((d, d) for d in HEAD_DIMS)) -> None:
     """The kernels' rules for q and a [L, KV, cells, D] cache on the card
     (kernels 3 and 9): head_dim 64 or 128 for K and V alike (kernel 3 also
-    (192, 128), pairs=DIM_PAIRS), 1 <= n_vis <= cells, a contiguous bf16
-    cache, or int8 codes with contiguous f32 scale planes; kernel 3 also
+    (192, 128) and (256, 256), pairs=DIM_PAIRS), 1 <= n_vis <= cells, a
+    contiguous bf16 cache, or int8 codes with contiguous f32 scale planes; kernel 3 also
     takes packed int4 codes [L, KV, cells, D/2] (kv_bits=4) with such
     planes, and its mask on the card."""
     dims = (q.shape[-1], v.shape[-1] * (8 // kv_bits))
     require(dims in pairs and k.shape[-1] * (8 // kv_bits) == dims[0],
-            f"the kernels take head dims {HEAD_DIMS} (kernel 3 also (K, V) = (192, 128)), "
-            f"not (K, V) = {dims}")
+            f"the kernels take head dims {HEAD_DIMS} (kernel 3 also (K, V) = (192, 128) "
+            f"and (256, 256)), not (K, V) = {dims}")
     require(1 <= n_vis <= k.shape[2], f"n_vis {n_vis} outside 1..{k.shape[2]}")
     require(0 <= layer < k.shape[0], f"layer {layer} out of range")
     require(q.dtype == torch.bfloat16, "the kernels take bf16 q")
@@ -112,7 +117,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: tor
     codes [.., D/2] uint8 with such scales; v's rows Dv wide (Dv = D, or
     128 where D = 192); mask [nt, n_vis] (bool or int8, any n_vis up to
     cells) -> [nt, H, Dv] bf16."""
-    global LAUNCHES, LAUNCHES_INT8, LAUNCHES_INT4, LAUNCHES_MLA
+    global LAUNCHES, LAUNCHES_INT8, LAUNCHES_INT4, LAUNCHES_MLA, LAUNCHES_D256
     require((layer is not None) == (k.dim() == 4), "layer index iff a 4D cache")
     require((k_scale is None) == (v_scale is None), "k_scale and v_scale come together")
     require(kv_bits in (4, 8), f"kv_bits {kv_bits}: 8 (bf16 or int8 cache) or 4 (packed)")
@@ -135,8 +140,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: tor
             k_scale, v_scale = k_scale[None], v_scale[None]
     check_cache(q, k, v, n_vis, layer, k_scale, v_scale, kv_bits, mask, pairs=DIM_PAIRS)
     q = q.contiguous()
-    # the tile copies cache rows 16 bytes at a time and reads mask rows 8
+    # the tile copies cache rows (and at D = 256 q rows) 16 bytes at a time
+    # and reads mask rows 8
     require(k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0, "cache not 16-byte aligned")
+    require(D != 256 or q.data_ptr() % 16 == 0, "q not 16-byte aligned")
     mask_i8 = tile_mask(mask)
     rows = (H // KV) * nt
     nsplit = n_splits(KV, rows, n_vis, ROW_TILE)
@@ -151,6 +158,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: tor
     LAUNCHES += 1
     if Dv != D:
         LAUNCHES_MLA += 1
+    if D == 256:
+        LAUNCHES_D256 += 1
     if kv_bits == 4:
         LAUNCHES_INT4 += 1
     elif k_scale is not None:

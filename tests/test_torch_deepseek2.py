@@ -127,7 +127,7 @@ def test_config_matches_jax(lite):
         assert ours.rope_params() == RopeParams(**vars(ref.rope_params()))
     assert ours.head_dim == 192 and ours.v_head_dim == 128 and ours.rope_dim == 64
     assert registry.is_ported("deepseek2") and registry.is_ported("llama")
-    assert registry.support_status("deepseek2") == "supported" and not registry.is_ported("gemma")
+    assert registry.support_status("deepseek2") == "supported" and not registry.is_ported("qwen2")
     with pytest.raises(NotImplementedError, match="item 13"):
         config_from_metadata({"general.architecture": "qwen2moe"})
 

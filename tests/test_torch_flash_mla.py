@@ -98,8 +98,8 @@ def test_mla_plain_and_tile_match_jax(kind):
 def test_mla_launch_arguments(monkeypatch):
     """One lk_flash launch with K's width D = 192 and V's Dv = 128 (the last
     argument before the stream), a [nsplit, KV * rows, 128] scratch, an
-    output 128 wide, and LAUNCHES_MLA counting it; every other (K, V) pair
-    raises on the card before the entry."""
+    output 128 wide, and LAUNCHES_MLA counting it; every (K, V) pair kernel
+    3 does not take raises on the card before the entry."""
     calls = []
 
     class Lib:
@@ -132,7 +132,7 @@ def test_mla_launch_arguments(monkeypatch):
     nsplit = flash.n_splits(KV, 1, N_VIS, flash.ROW_TILE)
     assert (nsplit, KV, DV) in shapes
     monkeypatch.setattr(flash, "check_cache", cache_ok)
-    for dk, dv in ((192, 192), (256, 256), (128, 64), (192, 64)):
+    for dk, dv in ((192, 192), (256, 128), (128, 64), (192, 64)):
         qq = torch.zeros((1, H, dk), dtype=torch.bfloat16)
         kk = torch.zeros((1, KV, 64, dk), dtype=torch.bfloat16)
         vv = torch.zeros((1, KV, 64, dv), dtype=torch.bfloat16)

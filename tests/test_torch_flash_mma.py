@@ -79,7 +79,9 @@ def _flash_mma_emulation(q, k, v, mask, *, scale, softcap, k_scale, v_scale, kv_
     nt, n_head = q.shape[:2]
     n_kv = k.shape[0]
     rep, n_vis = n_head // n_kv, mask.shape[1]
-    R, split_cells = rep * nt, n_vis // nsplit
+    # a split is a whole number of the ceil(n_vis / 64) tiles (the kernel's
+    # split_cells); the last tile of the last split may be ragged
+    R, split_cells = rep * nt, -(-n_vis // flash.CELL_TILE) // nsplit * flash.CELL_TILE
     kf, vf = _widen(k, kv_bits), _widen(v, kv_bits)
     dv = vf.shape[-1]
     out = torch.zeros((nt, n_head, dv))
@@ -95,7 +97,8 @@ def _flash_mma_emulation(q, k, v, mask, *, scale, softcap, k_scale, v_scale, kv_
             o = torch.zeros((R, dv))
             for r0 in range(0, R, flash.ROW_TILE):
                 rb = slice(r0, min(R, r0 + flash.ROW_TILE))
-                for c0 in range(z * split_cells, (z + 1) * split_cells, flash.CELL_TILE):
+                for c0 in range(z * split_cells, min(n_vis, (z + 1) * split_cells),
+                                flash.CELL_TILE):
                     cs = slice(c0, c0 + flash.CELL_TILE)
                     seen = seen_all[rb, cs]
                     if not seen.any():  # no row of the block sees the tile: skipped
