@@ -174,18 +174,38 @@ softcap 50) on the three caches at decode and a 64-token chunk over 1024
 and 4096 cells and under a 1024-cell window over 4096, whose dead tiles
 are poisoned and must not move the output, with the ptxas report of its
 three instances (no spill; d256_kernel_phase); to 5 gemma-2-9b at its
-published shapes and all 42 layers in the exact and w4 modes, 3 requests
+published widths (all 42 layers until llama3-70b came, EARLIER_LAYERS since)
+in the exact and w4 modes, 3 requests
 each with exact launch counts on every kernel (42 D = 256 launches a
 decode step and a prefill) and no plain attention, profiled (gemma2_phase);
 to 6 gemma-2-9b at 2 layers with a window under the prompt in both modes
 and gemma-7b at 2 layers on the stacked path (attend_stacked_plain) in the
 exact mode, card against CPU (gemma_parity_phase).
 
+Every weight layout of the JAX package (the nine IQ wire formats, the Q8F
+high-batch shadow of LKTPU_DUAL_FOLD=1, the rest of models/synthetic.py,
+llama3-70b) adds to 3 kernel 4's exact branch on the nine IQ repacks at
+llama3-8B's qkv and gate|up widths, m = 1, 64 and 512, held against the
+plain version and an f32 product with the weight decoded on the card
+from the wire, and the card's IQ repacks, W8 folds and Q8F against the
+CPU's (iq_kernel_phase); to 4 the dual fold on the W4A8 model of
+EARLIER_LAYERS layers (every shadowed projection on kernel 6 at 9-256
+rows, bit-equal W4 routes at 8 and 257, batched_bench rows at 1-32 slots
+and 64-300-token prompts with and without the shadow, exact launch
+counts; dual_fold_phase) and the synthetic int8, dequant, sym w4, dense
+and unfused draws (synthetic_modes_phase); to 5 a 4-layer llama3-8B file
+of every IQ format in the four modes (iq_formats_phase) and llama3-70b
+at full width and all 80 layers in w4 (kernel 2's routes at F = 28672,
+kernels 1 and 2 timed at its widths, 3 requests, a profiled prefill and
+decode; llama70b_phase); to 6 a 2-layer every-IQ file in the exact and
+w4 modes and llama3-70b at 2 layers against the CPU (iq_parity_phase,
+llama70b_parity_phase).
+
 The parity phases' CPU references are computed by a child process of this
-script (--cpu-refs, started first, CPU_REF_THREADS threads), which runs
+script (--cpu-refs, started at once, CPU_REF_THREADS threads), which runs
 beside the card's phases; the parent reads each when its card run needs it.
 Another child (--write-files) writes the 4.9 GB llama3-8B Q4_K_M file, the
-DeepSeek-V2-Lite file and the 5.8 GB gemma-2-9b file meanwhile.
+every-IQ files, the DeepSeek-V2-Lite and gemma-2-9b files meanwhile.
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -1482,17 +1502,12 @@ def new_formats_phase(torch, tmpdir: Path) -> dict:
     launches a forward.
     Returns {path: launch counts}."""
     from llama_kotlin_tpu_torch.models.loader import load_gguf_model
-    from llama_kotlin_tpu_torch.models.synthetic import (every_format_layer_types,
-                                                         preset_config, synthetic_gguf)
     from llama_kotlin_tpu_torch.ops.cuda import (flash, flash_stacked, qmm, qmm_int8, qmm_w4,
                                                  qmm_w4_ffn, qmm_w4x, qmm_w8)
-    from llama_kotlin_tpu_torch.quant.formats import GGMLQuantType as Q
 
     L, n_new = EARLIER_LAYERS, 8
-    cfg4 = preset_config("llama3-8b", n_layer=L)
-    path = tmpdir / "llama3-8b-every-format.gguf"
-    size = synthetic_gguf(path, cfg4, seed=12, layer_types=every_format_layer_types(L),
-                          embd_type=Q.Q5_K)
+    path, wrote = child_file(tmpdir, "llama3-8b-every-format.gguf")  # file_specs' seeds
+    size = wrote["bytes"]
     ex, precise = exact_counter(), w8_precise()
     every = (flash, flash_stacked, qmm, ex, qmm_w4, qmm_w4_ffn, qmm_w8, precise, qmm_int8,
              qmm_w4x)
@@ -1518,8 +1533,7 @@ def new_formats_phase(torch, tmpdir: Path) -> dict:
         del ctx, params
         torch.cuda.empty_cache()
     path.unlink()
-    path = tmpdir / "llama3-8b-q8_0.gguf"
-    synthetic_gguf(path, cfg4, seed=13, matrix_type=Q.Q8_0)
+    path, _ = child_file(tmpdir, "llama3-8b-q8_0.gguf")
     cfg, params, f = load_gguf_model(path, fuse=True)
     f.close()
     counts["q8_0_exact_stacked"], ctx = serve(
@@ -1798,17 +1812,11 @@ def q4_0_gguf_phase(torch, tmpdir: Path) -> dict:
     on qkv, kernel 10 on the rest of the layer: n_layer each a step).  The
     lm_head is kernel 5's (Q6_K -> W8).  Returns {path: launch counts}."""
     from llama_kotlin_tpu_torch.models.loader import load_gguf_model
-    from llama_kotlin_tpu_torch.models.synthetic import preset_config, synthetic_gguf
     from llama_kotlin_tpu_torch.ops.cuda import (flash, flash_stacked, qmm, qmm_w4, qmm_w4_ffn,
                                                  qmm_w4_fx, qmm_w4_layer, qmm_w8)
-    from llama_kotlin_tpu_torch.quant.formats import GGMLQuantType
 
-    path = tmpdir / "llama3-8b-q4_0.gguf"
-    t0 = time.perf_counter()
-    size = synthetic_gguf(path, preset_config("llama3-8b", n_layer=EARLIER_LAYERS), seed=9,
-                          matrix_type=GGMLQuantType.Q4_0)
-    log(json.dumps({"phase": "gguf_q4_0", "file_bytes": size,
-                    "write_s": time.perf_counter() - t0}))
+    path, wrote = child_file(tmpdir, "llama3-8b-q4_0.gguf")
+    log(json.dumps({"phase": "gguf_q4_0", "file_bytes": wrote["bytes"], **wrote}))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     cfg, params, f = load_gguf_model(path, fast_mode="w4", fuse=True)
@@ -2693,12 +2701,12 @@ def shift_positions(ctx, n_past: int) -> int:
 
 
 # The card-vs-CPU parity phases' CPU references run in a child process of
-# this script (``--cpu-refs DIR``), started at the beginning with
+# this script (``--cpu-refs DIR FILES_DIR``), started at the beginning with
 # CPU_REF_THREADS threads, so that they overlap the card's phases: the child
 # runs the same parity phases with REFS["writer"] set, computes each CPU
 # reference (cpu_ref) into DIR and skips the card runs; the parent reads
 # each reference there when its card run needs it, waiting for the child.
-CPU_REF_THREADS = 6
+CPU_REF_THREADS = 7
 REFS: dict = {"dir": None, "writer": False, "child": None, "log": None}
 
 
@@ -2735,8 +2743,9 @@ def cpu_ref(label: str, compute) -> list:
 
 
 # The largest files (the 32-layer llama3-8B Q4_K_M file of gguf_phase, 4.9
-# GB, the DeepSeek-V2-Lite file of its first EARLIER_LAYERS layers and the
-# 42-layer gemma-2-9b file, 5.8 GB) are written by another child of this script
+# GB, the every-IQ files, the DeepSeek-V2-Lite file of its first
+# EARLIER_LAYERS layers and the gemma-2-9b file) are
+# written by another child of this script
 # (``--write-files DIR``), started with the CPU references, so that they
 # overlap the card's earlier phases; each phase that reads one waits for it
 # (logging the wait) and moves it into its own directory.  A phase called
@@ -2746,6 +2755,9 @@ LLAMA_FILE = "llama3-8b-q4_k_m.gguf"
 DS2_FILE = "deepseek-v2-lite-q4_k_m.gguf"
 GEMMA2_FILE = "gemma-2-9b-q4_k_m.gguf"
 GEMMA_SEED = 17
+IQ_FILE = "llama3-8b-every-iq.gguf"
+IQ_PARITY_FILE = "llama3-8b-2layer-every-iq.gguf"
+IQ_SEED = 21
 
 
 def _written(path: Path, cfg, **kw) -> dict:
@@ -2782,12 +2794,13 @@ def write_ds2_file(path: Path) -> dict:
 
 
 def write_gemma2_file(path: Path) -> dict:
-    """gemma2_phase's file: gemma-2-9b (gemma2_9b(), all 42 layers) from
-    GEMMA_SEED with an SPM vocab of its 256000 pieces (no chat template:
-    the gemma template is the arch's default)."""
+    """gemma2_phase's file: gemma-2-9b (gemma2_9b(), its first
+    EARLIER_LAYERS layers since llama3-70b's phase came) from GEMMA_SEED
+    with an SPM vocab of its 256000 pieces (no chat template: the gemma
+    template is the arch's default)."""
     from llama_kotlin_tpu_torch.models.synthetic import gemma2_9b, synthetic_spm_vocab
 
-    cfg = gemma2_9b()
+    cfg = gemma2_9b(n_layer=EARLIER_LAYERS)
     return _written(path, cfg, seed=GEMMA_SEED,
                     extra_kvs=synthetic_spm_vocab(cfg.vocab_size, chat_template=None))
 
@@ -2808,10 +2821,60 @@ def write_gemma_parity_file(path: Path) -> dict:
     return _written(path, cfg, seed=GEMMA_SEED + 1, **kw)
 
 
-# in writing order
-WRITERS = {LLAMA_FILE: write_llama_file, DS2_FILE: write_ds2_file,
-           GEMMA2_FILE: write_gemma2_file,
-           **{name: write_gemma_parity_file for name in gemma_parity_files()}}
+def file_specs() -> dict:
+    """{name: (config, synthetic_gguf's keywords)} of the smaller files the
+    writer child writes: gguf_parity_phase's and moe_parity_phase's 2-layer
+    files (which the CPU reference process reads too) and the 4-layer files
+    of new_formats_phase and q4_0_gguf_phase."""
+    from llama_kotlin_tpu_torch.models.synthetic import (deepseek_v2_lite,
+                                                         every_format_layer_types, mixtral_8x7b,
+                                                         preset_config)
+    from llama_kotlin_tpu_torch.quant.formats import GGMLQuantType as Q
+
+    cfg2 = preset_config("llama3-8b", n_layer=2)
+    cfg4 = preset_config("llama3-8b", n_layer=EARLIER_LAYERS)
+    (ds2, ds2_moe), (mix, mix_moe) = deepseek_v2_lite(n_layer=2), mixtral_8x7b(n_layer=2)
+    return {
+        "llama3-8b-2layer-q4_k_m.gguf": (cfg2, dict(seed=8)),
+        "llama3-8b-2layer-every-format.gguf": (cfg2, dict(
+            seed=9, layer_types=every_format_layer_types(2), embd_type=Q.Q5_K)),
+        "llama3-8b-2layer-f16-output.gguf": (cfg2, dict(seed=8, output_type=Q.F16)),
+        "llama3-8b-2layer-q4_0.gguf": (cfg2, dict(seed=10, matrix_type=Q.Q4_0)),
+        "llama3-8b-2layer-q4_1.gguf": (cfg2, dict(seed=10, matrix_type=Q.Q4_1)),
+        "deepseek2-2layer.gguf": (ds2, dict(seed=DS2_SEED + 1, moe=ds2_moe)),
+        "mixtral-2layer.gguf": (mix, dict(seed=DS2_SEED + 2, moe=mix_moe)),
+        "llama3-8b-q4_0.gguf": (cfg4, dict(seed=9, matrix_type=Q.Q4_0)),
+        "llama3-8b-every-format.gguf": (cfg4, dict(
+            seed=12, layer_types=every_format_layer_types(EARLIER_LAYERS), embd_type=Q.Q5_K)),
+        "llama3-8b-q8_0.gguf": (cfg4, dict(seed=13, matrix_type=Q.Q8_0)),
+    }
+
+
+def write_spec_file(path: Path) -> dict:
+    cfg, kw = file_specs()[path.name]
+    return _written(path, cfg, **kw)
+
+
+PARITY_FILES = ("llama3-8b-2layer-q4_k_m.gguf", "llama3-8b-2layer-every-format.gguf",
+                "llama3-8b-2layer-f16-output.gguf", "llama3-8b-2layer-q4_0.gguf",
+                "llama3-8b-2layer-q4_1.gguf")
+MOE_PARITY_FILES = ("deepseek2-2layer.gguf", "mixtral-2layer.gguf")
+# in writing order: the CPU reference process's first files first (its
+# parity_phase needs none), then the parent's in the order its phases read
+# them (the IQ files' writers are defined with their phases, further down)
+WRITERS = {**{name: write_spec_file for name in PARITY_FILES},
+           LLAMA_FILE: write_llama_file,
+           **{name: write_spec_file for name in MOE_PARITY_FILES},
+           "llama3-8b-q4_0.gguf": write_spec_file, "llama3-8b-every-format.gguf": write_spec_file,
+           "llama3-8b-q8_0.gguf": write_spec_file, IQ_FILE: lambda p: write_iq_file(p),
+           DS2_FILE: write_ds2_file, GEMMA2_FILE: write_gemma2_file,
+           **{name: write_gemma_parity_file for name in gemma_parity_files()},
+           IQ_PARITY_FILE: lambda p: write_iq_parity_file(p)}
+# files both the parent and the CPU reference process read: each takes a
+# hard link, and the writer's directory keeps the file to the end
+SHARED_FILES = frozenset(PARITY_FILES + MOE_PARITY_FILES + tuple(gemma_parity_files())
+                         + (IQ_PARITY_FILE,))
+FILE_WAIT_S = 900  # how long the CPU reference process waits for a file
 
 
 def write_files_main(out_dir: str) -> int:
@@ -2844,35 +2907,50 @@ def stop_file_writer() -> None:
 
 def child_file(tmpdir: Path, name: str) -> tuple:
     """(tmpdir / name, its write line): the writer child's file, waited for
-    and moved into tmpdir, or written there now when no child writes."""
+    (the file and its line in the writer's log) and moved into tmpdir, or
+    hard-linked there for a file of SHARED_FILES; written there now when no
+    writer runs.  The CPU reference process has the parent's writer, not
+    its process, and waits up to FILE_WAIT_S."""
     path = tmpdir / name
     if FILES["dir"] is None:
         return path, WRITERS[name](path)
     src = Path(FILES["dir"]) / name
     t0 = time.perf_counter()
     child = FILES["child"]
-    while not src.exists():
-        if child.poll() is not None and not src.exists():
+
+    def line():
+        text = Path(FILES["log"]).read_text() if Path(FILES["log"]).exists() else ""
+        return next((json.loads(ln) for ln in text.splitlines()
+                     if ln.startswith('{"phase": "write_files"') and f'"file": "{name}"' in ln),
+                    None)
+
+    while not src.exists() or line() is None:
+        if child is not None and child.poll() is not None and line() is None:
             raise AssertionError(f"the file writer ended (rc {child.returncode}) without "
                                  f"{name}:\n{Path(FILES['log']).read_text()[-4000:]}")
+        if child is None and time.perf_counter() - t0 > FILE_WAIT_S:
+            raise AssertionError(f"no {name} from the file writer in {FILE_WAIT_S} s")
         time.sleep(0.2)
-    os.replace(src, path)
-    lines = [json.loads(ln) for ln in Path(FILES["log"]).read_text().splitlines()
-             if ln.startswith('{"phase": "write_files"')]
-    line = next(ln for ln in lines if ln["file"] == name)
-    return path, {k: line[k] for k in ("bytes", "write_s")} | {"wait_s": time.perf_counter() - t0}
+    if name in SHARED_FILES:
+        os.link(src, path)
+    else:
+        os.replace(src, path)
+    return path, {k: line()[k] for k in ("bytes", "write_s")} | {
+        "wait_s": time.perf_counter() - t0}
 
 
-def start_cpu_refs(tmp: Path):
-    """Start the child that computes the CPU references into tmp/refs."""
+def start_cpu_refs(tmp: Path, files_dir: Path):
+    """Start the child that computes the CPU references into tmp/refs,
+    reading the shared files from the writer's files_dir."""
     ref_dir = tmp / "refs"
     ref_dir.mkdir()
     REFS.update(dir=str(ref_dir), log=str(tmp / "cpu_refs.log"))
     env = dict(os.environ, OMP_NUM_THREADS=str(CPU_REF_THREADS))
     with open(REFS["log"], "w") as out:
         REFS["child"] = subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), "--cpu-refs", str(ref_dir)],
-            stdout=out, stderr=subprocess.STDOUT, env=env, cwd=str(Path.cwd()))
+            [sys.executable, str(Path(__file__).resolve()), "--cpu-refs", str(ref_dir),
+             str(files_dir)], stdout=out, stderr=subprocess.STDOUT, env=env,
+            cwd=str(Path.cwd()))
 
 
 def stop_cpu_refs(check: bool) -> None:
@@ -2894,16 +2972,21 @@ def stop_cpu_refs(check: bool) -> None:
         child.wait()
 
 
-def cpu_refs_main(torch, ref_dir: str) -> int:
-    """The child: every parity phase's CPU references, into ref_dir."""
+def cpu_refs_main(torch, ref_dir: str, files_dir: str = None) -> int:
+    """The child: every parity phase's CPU references, into ref_dir, from
+    the files the parent's writer child writes into files_dir (the files
+    are written here when no files_dir is given)."""
     REFS.update(dir=ref_dir, writer=True)
+    if files_dir is not None:
+        FILES.update(dir=files_dir, log=str(Path(files_dir) / "write_files.log"), child=None)
     torch.set_num_threads(CPU_REF_THREADS)
     tmp = Path(ref_dir) / "files"
     tmp.mkdir()
     try:
         for fn, args in ((parity_phase, ()), (gguf_parity_phase, (tmp,)),
                          (engine_parity_phase, ()), (moe_parity_phase, (tmp,)),
-                         (gemma_parity_phase, (tmp,))):
+                         (gemma_parity_phase, (tmp,)), (iq_parity_phase, (tmp,)),
+                         (llama70b_parity_phase, ())):
             t0 = time.perf_counter()
             fn(torch, *args)
             log(json.dumps({"phase": "cpu_refs_timing", "function": fn.__name__,
@@ -2981,13 +3064,10 @@ def gguf_parity_phase(torch, tmpdir: Path) -> None:
     import numpy as np
 
     from llama_kotlin_tpu_torch.models.loader import load_gguf_model
-    from llama_kotlin_tpu_torch.models.synthetic import (every_format_layer_types,
-                                                         preset_config, synthetic_gguf)
     from llama_kotlin_tpu_torch.quant.formats import GGMLQuantType
     from llama_kotlin_tpu_torch.runtime.context import LlamaContext
 
-    path = tmpdir / "llama3-8b-2layer-q4_k_m.gguf"
-    synthetic_gguf(path, preset_config("llama3-8b", n_layer=2), seed=8)
+    path, _ = child_file(tmpdir, "llama3-8b-2layer-q4_k_m.gguf")
     prompt = np.random.default_rng(4).integers(0, 128256, 64).astype(np.int32)
     # tol: as in parity_phase, the int8 re-quantization of every matmul
     # input and the bf16 residual stream amplify f32 last-bit differences:
@@ -3009,9 +3089,7 @@ def gguf_parity_phase(torch, tmpdir: Path) -> None:
     path.unlink()
     # the every-format mix (each wire format on some matrix) in the exact
     # mode, on the default (unrolled: its layers differ) context
-    path = tmpdir / "llama3-8b-2layer-every-format.gguf"
-    synthetic_gguf(path, preset_config("llama3-8b", n_layer=2), seed=9,
-                   layer_types=every_format_layer_types(2), embd_type=GGMLQuantType.Q5_K)
+    path, _ = child_file(tmpdir, "llama3-8b-2layer-every-format.gguf")
 
     def build_every(dev):
         cfg, params, f = load_gguf_model(path, fuse=True, device=dev)
@@ -3022,9 +3100,7 @@ def gguf_parity_phase(torch, tmpdir: Path) -> None:
     path.unlink()
     # a file whose output matrix is dense (F16, a bf16 tensor once loaded):
     # the lm_head is a plain bf16 matmul with an f32 result on both sides
-    path = tmpdir / "llama3-8b-2layer-f16-output.gguf"
-    synthetic_gguf(path, preset_config("llama3-8b", n_layer=2), seed=8,
-                   output_type=GGMLQuantType.F16)
+    path, _ = child_file(tmpdir, "llama3-8b-2layer-f16-output.gguf")
 
     def build_dense(dev):
         cfg, params, f = load_gguf_model(path, fast_mode="w4", fuse=True, device=dev)
@@ -3042,8 +3118,7 @@ def gguf_parity_phase(torch, tmpdir: Path) -> None:
     # one CPU run.  tol: the w4 file's, as above
     knob_sets = [{}, dict(LKTPU_W4_FX="1"), dict(LKTPU_W4_FX="1", LKTPU_LAYER_FUSED="1")]
     for qtype in (GGMLQuantType.Q4_0, GGMLQuantType.Q4_1):
-        path = tmpdir / f"llama3-8b-2layer-{qtype.name.lower()}.gguf"
-        synthetic_gguf(path, preset_config("llama3-8b", n_layer=2), seed=10, matrix_type=qtype)
+        path, _ = child_file(tmpdir, f"llama3-8b-2layer-{qtype.name.lower()}.gguf")
 
         def build_q4(dev):
             cfg, params, f = load_gguf_model(path, fast_mode="w4", fuse=True, device=dev)
@@ -4157,16 +4232,14 @@ def moe_parity_phase(torch, tmpdir: Path) -> None:
     import numpy as np
 
     from llama_kotlin_tpu_torch.models.loader import load_gguf_model
-    from llama_kotlin_tpu_torch.models.synthetic import (deepseek_v2_lite, mixtral_8x7b,
-                                                         synthetic_gguf)
+    from llama_kotlin_tpu_torch.models.synthetic import deepseek_v2_lite, mixtral_8x7b
     from llama_kotlin_tpu_torch.runtime.context import LlamaContext
 
     tols = {None: 3e-2, "w4": 5e-2}
     for name, (cfg, moe_shape), modes, seed in (
             ("deepseek2", deepseek_v2_lite(n_layer=2), (None, "w4"), DS2_SEED + 1),
             ("mixtral", mixtral_8x7b(n_layer=2), ("w4",), DS2_SEED + 2)):
-        path = tmpdir / f"{name}-2layer.gguf"
-        synthetic_gguf(path, cfg, seed=seed, moe=moe_shape)
+        path, _ = child_file(tmpdir, f"{name}-2layer.gguf")
         prompt = np.random.default_rng(seed).integers(0, cfg.vocab_size, 64).astype(np.int32)
         for mode in modes:
             def build(dev, mode=mode, path=path):
@@ -4209,8 +4282,9 @@ def gemma_route_counts(params, n_forward: int, n_decode: int, mode) -> dict:
 
 
 def gemma2_phase(torch, tmpdir: Path) -> dict:
-    """gemma-2-9b at its published shapes and all 42 layers
-    (models/synthetic.py::gemma2_9b: E 3584, 16 heads on 8 kv heads of 256,
+    """gemma-2-9b at its published widths and its first EARLIER_LAYERS
+    layers (all 42 until llama3-70b's phase came; models/synthetic.py::
+    gemma2_9b: E 3584, 16 heads on 8 kv heads of 256,
     F 14336, vocab 256000, a 4096-cell window on every other layer, softcaps
     50 and 30), random wire blocks from GEMMA_SEED in Q4_K_M's mix (Q6_K
     attn_v and ffn_down on use_more_bits layers, the tied token_embd Q6_K,
@@ -4218,7 +4292,8 @@ def gemma2_phase(torch, tmpdir: Path) -> dict:
     mode (the default) and in w4; each serves 3 requests (64-token prompt,
     32 greedy tokens) through LlamaContext and generate_loop by serve(),
     unrolled (the windows), kernel 3's D = 256 branch once a layer at every
-    forward (42 a decode step and a prefill), never the plain attention,
+    forward (one a layer at a decode step and a prefill), never the plain
+    attention,
     and every kernel's launches exactly gemma_route_counts'; then a
     profiled prefill and 4 profiled decode steps.  Returns {path: launch
     counts}."""
@@ -4341,6 +4416,564 @@ def gemma_parity_phase(torch, tmpdir: Path) -> None:
         p.unlink()
 
 
+# -- the IQ wire formats, the Q8F high-batch shadow, the synthetic modes and
+# -- llama3-70b
+
+# kernel 4's IQ rows: llama3-8B's fused qkv and gate|up
+IQ_SHAPES = {"qkv": (6144, 4096), "gate_up": (28672, 4096)}
+# kernel 5's IQ rows (the W8 and W8X folds of the w4 and w4x modes): one
+# format of each group size
+IQ_W8_TIMED = ("IQ2_XS", "IQ4_XS")
+
+
+def write_iq_file(path: Path, n_layer: int = EARLIER_LAYERS, seed: int = IQ_SEED) -> dict:
+    """iq_formats_phase's file: llama3-8B at full width, n_layer layers of
+    the every-IQ mix (every_iq_layer_types: the nine IQ formats on its
+    matrices, no two of a layer alike, so none fuses), an IQ4_XS token_embd
+    and an IQ3_S output."""
+    from llama_kotlin_tpu_torch.models.synthetic import every_iq_layer_types, preset_config
+    from llama_kotlin_tpu_torch.quant.formats import GGMLQuantType as Q
+
+    return _written(path, preset_config("llama3-8b", n_layer=n_layer), seed=seed,
+                    layer_types=every_iq_layer_types(n_layer), embd_type=Q.IQ4_XS,
+                    output_type=Q.IQ3_S, matrix_type=Q.IQ4_XS)
+
+
+def write_iq_parity_file(path: Path) -> dict:
+    """iq_parity_cases' file: the every-IQ mix at 2 layers (14 matrices,
+    each of the nine formats on one at least)."""
+    return write_iq_file(path, n_layer=2, seed=IQ_SEED + 1)
+
+
+def iq_kernel_phase(torch, results: dict) -> None:
+    """Kernel 4's exact branch (csrc/qmm_exact.cu) on the nine IQ repacks:
+    each format's repack, W8 fold and Q8F made on the card from random wire
+    blocks equal the CPU's bit for bit; then at llama3-8B's qkv and gate|up
+    widths (IQ_SHAPES) and m = 1, 64 and 512 (EXACT_ROWS), repeated
+    bit-equal, held against the plain version and against an f32 product
+    with the weight dequantized on the card from the wire bytes and rounded
+    to bf16, timed beside torch.matmul on that weight (library_ms).  tol:
+    identical bf16 operands (the IQ factors are exact in f32), f32 order
+    only.  Kernel 5 on the W8 and W8X folds of IQ_W8_TIMED's formats
+    (group 16 and 32) at b = 1 and 32, timed against its plain version
+    (tol: exact integer partials, f32 order of the scale products)."""
+    import numpy as np
+
+    from llama_kotlin_tpu_torch.models.synthetic import EVERY_IQ, wire_blocks
+    from llama_kotlin_tpu_torch.ops.cuda import qmm, qmm_w8
+    from llama_kotlin_tpu_torch.quant import fold, repack
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8765)
+    flush = torch.zeros(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    rng = np.random.default_rng(88)
+    for qtype in EVERY_IQ:
+        data = torch.from_numpy(wire_blocks(rng, qtype, 512, 4096))
+        repack_equal(torch, data, qtype, 512, 4096, repack.repack, "repack")
+        repack_equal(torch, data, qtype, 512, 4096, repack.repack_q8flat, "q8f")
+        repack_equal(torch, data, qtype, 512, 4096,
+                     lambda d, q, n, k: fold.fold_to_w8(repack.repack(d, q, n, k)), "w8 fold")
+        for name, (n, k) in IQ_SHAPES.items():
+            wire = torch.from_numpy(wire_blocks(rng, qtype, n, k)).to(dev)
+            wt = repack.repack(wire, qtype, n, k)
+            if not fold.is_exact(wt):
+                raise AssertionError(f"{qtype.name}: the repack is no exact layout")
+            wdq = repack.dequantize_wire(wire, qtype, (n, k)).to(torch.bfloat16)
+            del wire
+            for m in EXACT_ROWS:
+                xb = (torch.randn((m, k), generator=gen, device=dev) * 0.7).to(torch.bfloat16)
+                got = qmm.qmm(xb, wt)
+                shape = f"exact {qtype.name} {name} n={n} k={k} m={m}"
+                repeats(torch, "qmm", shape, got, lambda: qmm.qmm(xb, wt))
+                wire_err = err_of(got, xb.float() @ wdq.float().T)
+                log(json.dumps({"phase": "iq_vs_wire", "shape": shape, **wire_err}))
+                if not wire_err["rel"] <= 1e-3:
+                    raise AssertionError(f"{shape}: {wire_err} off the wire's product")
+                report_row(results, "qmm", shape, err_of(got, qmm.qmm_plain(xb, wt)), 1e-3,
+                           time_ms(torch, lambda: qmm.qmm(xb, wt), flush),
+                           time_ms(torch, lambda: qmm.qmm_plain(xb, wt), flush),
+                           m * k * 2 + nbytes(wt, EXACT_PLANES) + m * n * 4, 2 * m * n * k,
+                           "bf16", time_ms(torch, lambda: torch.matmul(xb, wdq.T), flush))
+            for label, precise in (("qmm_w8", False), ("qmm_w8_precise", True)):
+                if qtype.name not in IQ_W8_TIMED:
+                    break
+                w8 = fold.fold_to_w8(wt, precise=precise)
+                for b in (1, 32):
+                    x = torch.randn((b, k), generator=gen, device=dev) * 0.7
+                    got = qmm_w8.qmm_w8_matmul(x, w8)
+                    shape = f"{qtype.name} {name} n={n} k={k} b={b} group={w8.group_size}"
+                    if qmm_w8.use_mma(b):
+                        repeats(torch, label, shape, got, lambda: qmm_w8.qmm_w8_matmul(x, w8))
+                    report_row(results, label, shape, err_of(got, qmm_w8.qmm_w8_plain(x, w8)),
+                               1e-4, time_ms(torch, lambda: qmm_w8.qmm_w8_matmul(x, w8), flush),
+                               time_ms(torch, lambda: qmm_w8.qmm_w8_plain(x, w8), flush),
+                               b * k * 4 + nbytes(w8) + b * n * 4, (1 + precise) * 2 * b * n * k,
+                               "int8", matmul_ms(torch, x, w8, flush))
+                del w8
+            del wt, wdq
+    del flush
+    torch.cuda.empty_cache()
+
+
+def iq_formats_phase(torch, tmpdir: Path) -> dict:
+    """A full-width llama3-8B file of EARLIER_LAYERS layers of the every-IQ
+    mix (write_iq_file; the writer child's) loaded in all four modes, each
+    serving 3 requests (64-token prefill, 8 greedy tokens) on the default
+    context with exact launch counts: exact, every projection on kernel 4's
+    exact branch at every row count (29 a forward); w4, the W8 folds on
+    kernel 5 at decode rows and kernel 4's 8-bit branch at the prefill's;
+    w4x, the W8X folds on kernel 5's dual-plane branch, kernel 4 at the
+    prefill; int8, Q8F on kernel 6 (uniform layers: stacked, kernel 9).
+    The mixed modes stay unrolled (kernel 3); kernels 1, 2 and 7 never
+    launch.  Returns {path: launch counts}."""
+    from llama_kotlin_tpu_torch.models.loader import load_gguf_model
+    from llama_kotlin_tpu_torch.ops.cuda import (flash, flash_stacked, qmm, qmm_int8, qmm_w4,
+                                                 qmm_w4_ffn, qmm_w4x, qmm_w8)
+
+    path, wrote = child_file(tmpdir, IQ_FILE)
+    L, n_new = EARLIER_LAYERS, 8
+    per = 7 * L + 1  # a forward's projections: 7 a layer, none fused, and the lm_head
+    ex, precise = exact_counter(), w8_precise()
+    every = (flash, flash_stacked, qmm, ex, qmm_w4, qmm_w4_ffn, qmm_w8, precise, qmm_int8,
+             qmm_w4x)
+    fwd, steps = 3 * n_new, 3 * (n_new - 1)  # forwards and decode steps over the 3 requests
+    w8 = 3 + steps * per  # the prefill's lm_head row, every projection of a step
+    modes = {None: ((flash, qmm, ex), {"flash": fwd * L, "qmm": fwd * per,
+                                       "qmm_exact": fwd * per}),
+             "w4": ((flash, qmm, qmm_w8), {"flash": fwd * L, "qmm": 3 * (per - 1),
+                                           "qmm_w8": w8}),
+             "w4x": ((flash, qmm, precise),  # kernel 5's dual-plane branch counts apart
+                     {"flash": fwd * L, "qmm": 3 * (per - 1), "qmm_w8_precise": w8}),
+             "int8": ((flash_stacked, qmm_int8), {"flash_stacked": fwd * L,
+                                                  "qmm_int8": fwd * (4 * L + 1)})}
+    counts = {}
+    for mode, (mods, want) in modes.items():
+        label = f"every_iq_{mode or 'exact'}"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cfg, params, f = load_gguf_model(path, fast_mode=mode, fuse=True)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        f.close()
+        log(json.dumps({"phase": label, "file": wrote, "load_s": load_s,
+                        "w_bytes_per_tok": streamed_bytes(params), "layouts": sorted(
+                            {(v.qtype.name, v.flavor or "exact") for lp in params["layers"]
+                             for v in lp.values() if hasattr(v, "codes")})}))
+        counts[label], ctx = serve(torch, cfg, params, mods, label, n_new=n_new,
+                                   never=tuple(m for m in every if m not in mods))
+        if counts[label] != want or ("layers_stacked" in ctx.params) != (mode == "int8"):
+            raise AssertionError(f"{label}: launches {counts[label]}, expected {want}")
+        del ctx, params
+        torch.cuda.empty_cache()
+    path.unlink()
+    return counts
+
+
+def iq_parity_cases(tmpdir: Path) -> list:
+    """iq_parity_phase's checks, (label, build, prompt, tol), on the 2-layer
+    every-IQ file (the writer child's, or written into tmpdir) in the exact
+    and w4 modes, unrolled (its layers differ).  tol, of max|logits|:
+    twice the CPU's own 8-thread-against-1 spread on this file, rounded up
+    (scripts/iq_70b_cpu_spread.py on the H100 machine's host; PERF.md)."""
+    import numpy as np
+
+    from llama_kotlin_tpu_torch.models.loader import load_gguf_model
+    from llama_kotlin_tpu_torch.runtime.context import LlamaContext
+
+    path = tmpdir / IQ_PARITY_FILE
+    if not path.exists():
+        child_file(tmpdir, IQ_PARITY_FILE)
+    prompt = np.random.default_rng(IQ_SEED).integers(0, 128256, 64).astype(np.int32)
+    tols = {None: 2e-2, "w4": 4e-2}  # spreads 7.98e-3 and 1.83e-2
+    cases = []
+    for mode in (None, "w4"):
+        def build(dev, mode=mode):
+            cfg, params, f = load_gguf_model(path, fast_mode=mode, fuse=True, device=dev)
+            f.close()
+            return LlamaContext(cfg, params, n_cells=1024, buckets=(8, 16, 32, 64), device=dev)
+
+        cases.append((f"iq_parity_{mode or 'exact'}", build, prompt, tols[mode]))
+    return cases
+
+
+def iq_parity_phase(torch, tmpdir: Path) -> None:
+    """Full width, 2 layers of the every-IQ mix, card against CPU by
+    card_vs_cpu (a 64-token prefill and 4 greedy steps) in the exact mode
+    (kernel 4's exact branch only) and in w4 (kernels 5 and 4); kernels 1,
+    2 and 7 never."""
+    from llama_kotlin_tpu_torch.ops.cuda import qmm, qmm_w4, qmm_w4_ffn, qmm_w4x, qmm_w8
+
+    ex = exact_counter()
+    counters = (qmm, ex, qmm_w8, qmm_w4, qmm_w4_ffn, qmm_w4x)
+    for label, build, prompt, tol in iq_parity_cases(tmpdir):
+        cl = cpu_ref(label, lambda: greedy_logits(build, "cpu", prompt, 4))
+        if REFS["writer"]:
+            continue
+        for c in counters:
+            c.LAUNCHES = 0
+        card_vs_cpu(torch, label, build, prompt, tol, cpu=(None, cl))
+        got = {mod_name(c): c.LAUNCHES for c in counters}
+        log(json.dumps({"phase": f"{label}_routes", "launches": got}))
+        exact = label.endswith("exact")
+        if (got["qmm_exact"] == 0) != (not exact) or (got["qmm_w8"] == 0) != exact or any(
+                got[k] for k in ("qmm_w4", "qmm_w4_ffn", "qmm_w4x")):
+            raise AssertionError(f"{label}: launches {got}")
+    (tmpdir / IQ_PARITY_FILE).unlink(missing_ok=True)
+
+
+def without_shadows(params):
+    """A copy of a params tree whose W4 folds carry no Q8F shadow (views of
+    the same tensors)."""
+    from llama_kotlin_tpu_torch.quant.qtensor import QTensor
+
+    if isinstance(params, QTensor):
+        if params.aux is None or "q8_codes" not in params.aux:
+            return params
+        return replace(params, aux={k: v for k, v in params.aux.items()
+                                    if k not in ("q8_codes", "q8_scale")})
+    if isinstance(params, dict):
+        return {k: without_shadows(v) for k, v in params.items()}
+    if isinstance(params, list):
+        return [without_shadows(v) for v in params]
+    return params
+
+
+# the dual fold's batched_bench rows, (prompt tokens, slots,
+# LKTPU_LAYER_FUSED): decode rows at 1 and 8 slots (at and below
+# LKTPU_W4_BMAX: kernels 1 and 2, or 10), 16 and 32 (the shadow; 32
+# sequences are the most the cell metadata holds, as JAX's), each after a
+# 300-token prompt (the 512-row bucket: kernel 4 with a shadow or not);
+# prompts of 64 and 256 tokens, whose rows take the shadow
+DUAL_COMBOS = ((300, 1, False), (300, 8, False), (300, 16, False), (300, 32, False),
+               (300, 8, True), (300, 16, True), (64, 1, False), (256, 1, False))
+DUAL_STEPS = 8
+
+
+def dual_counts(L: int, T: int, pp_rows: int, P: int, dual: bool, fused: bool) -> dict:
+    """The launches of one bench_combo on a W4 model of L layers: a prompt
+    of pp_rows rows (its q|k|v, o, gate|up and down; its lm_head one row on
+    kernel 1), then T decode steps of P rows; with the shadow (dual) rows
+    above LKTPU_W4_BMAX (8) and up to 256 take kernel 6."""
+    want = dict.fromkeys(("qmm", "qmm_w4", "qmm_w4_ffn", "qmm_int8", "qmm_w4_layer"), 0)
+    want["qmm_w4"] = 1
+    want["qmm_int8" if dual and 8 < pp_rows <= 256 else "qmm"] += 4 * L
+    if dual and P > 8:
+        want["qmm_int8"] += T * (4 * L + 1)
+    elif P > 32:
+        want["qmm"] += T * (4 * L + 1)
+    elif fused and P <= 8:
+        want["qmm_w4"] += T * (L + 1)
+        want["qmm_w4_layer"] += T * L
+    else:
+        want["qmm_w4"] += T * (2 * L + 1)
+        want["qmm_w4_ffn"] += T * L
+    want["flash_stacked"] = L * (1 + T)
+    return want
+
+
+def dual_fold_phase(torch, results: dict) -> dict:
+    """The Q8F high-batch shadow (LKTPU_DUAL_FOLD=1) on the synthetic
+    llama3-8B W4A8 model of EARLIER_LAYERS layers, drawn with the switch on
+    (synthetic_params_device attaches a shadow to every W4 fold):
+    - the shadow's extra bytes a weight, logged;
+    - each shadowed projection (qkv, o, gate|up, down, lm_head) at 9, 16, 64
+      and 256 rows through qmatmul: kernel 6 alone launches, held against
+      kernel 6's plain version on the shadow; timed at 16 and 256 rows; at
+      8 rows (kernel 1) and 257 (kernel 4) bit-equal to the fold without a
+      shadow;
+    - a 16-token prefill's logits (every projection on the shadow) against
+      the same prefill without shadows, within the W4-vs-Q8F rounding the
+      CPU tests allow (tests/test_torch_dual_fold.py, FAST_TOL 4e-2);
+    - tools/batched_bench.py's bench_combo at DUAL_COMBOS with and without
+      the shadows, warm, with exact launch counts (dual_counts): kernels 1
+      and 2 up to 8 slots, kernel 6 and never kernels 1 and 2 at 16 and 32
+      slots and at 64- and 256-token prompts, kernel 4 at the 300-token
+      prompt (512 rows); under LKTPU_LAYER_FUSED=1 kernel 10 takes 8 slots
+      and declines 16; prompt and decode tokens/s of each.
+    Returns {path: launch counts}."""
+    import numpy as np
+
+    from llama_kotlin_tpu_torch.models.synthetic import preset_config, synthetic_params_device
+    from llama_kotlin_tpu_torch.ops import qmatmul as qm
+    from llama_kotlin_tpu_torch.ops.cuda import (flash_stacked, qmm, qmm_int8, qmm_w4,
+                                                 qmm_w4_ffn, qmm_w4_layer)
+    from llama_kotlin_tpu_torch.quant import fold
+    from llama_kotlin_tpu_torch.runtime.batch import Batch
+    from llama_kotlin_tpu_torch.runtime.context import LlamaContext
+    from llama_kotlin_tpu_torch.tools.batched_bench import bench_combo
+
+    dev = torch.device("cuda")
+    L = EARLIER_LAYERS
+    cfg = preset_config("llama3-8b", n_layer=L)
+    t0 = time.perf_counter()
+    with knobs(LKTPU_DUAL_FOLD="1"):
+        params = synthetic_params_device(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    plain = without_shadows(params)
+    lp = params["layers"][0]
+    mats = {"qkv": lp["wqkv_fused"], "o": lp["wo"], "gate_up": lp["ffn_gateup_fused"],
+            "down": lp["ffn_down"], "lm_head": params["output"]}
+    folds = [params["tok_embd"], params["output"]] + [
+        w for layer in params["layers"] for w in layer.values() if hasattr(w, "codes")]
+    if not all(fold.has_shadow(w) for w in folds):
+        raise AssertionError("a W4 fold of the dual-fold draw has no shadow")
+    weights = sum(w.n * w.k for w in folds)
+    shadow_bytes = sum(w.aux["q8_codes"].numel() + 4 * w.aux["q8_scale"].numel()
+                       for w in folds)
+    fold_bytes = sum(nbytes(without_shadows(w), w4_planes(w)) for w in folds)
+    log(json.dumps({"phase": "dual_fold", "n_layer": L, "build_s": build_s,
+                    "weights": weights, "fold_bits_per_weight": 8 * fold_bytes / weights,
+                    "shadow_bits_per_weight": 8 * shadow_bytes / weights,
+                    "device_bytes": torch.cuda.memory_allocated()}))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4242)
+    flush = torch.zeros(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    rows_kernel = {8: qmm_w4, 9: qmm_int8, 16: qmm_int8, 64: qmm_int8, 256: qmm_int8, 257: qmm}
+    for name, w in mats.items():
+        q8 = fold.q8_shadow(w)
+        for b, kern in rows_kernel.items():
+            x = torch.randn((b, w.k), generator=gen, device=dev) * 0.7
+            c0 = {m: m.LAUNCHES for m in (qmm, qmm_int8, qmm_w4)}
+            got = qm.qmatmul(x, w)
+            hit = [mod_name(m) for m in c0 if m.LAUNCHES != c0[m]]
+            if hit != [mod_name(kern)]:
+                raise AssertionError(f"shadow {name} b={b}: launched {hit}, not {mod_name(kern)}")
+            shape = f"shadow {name} n={w.n} k={w.k} b={b}"
+            if kern is not qmm_int8:
+                if not torch.equal(got, qm.qmatmul(x, without_shadows(w))):
+                    raise AssertionError(f"{shape}: not the fold's own route bit for bit")
+                continue
+            ref = qmm_int8.qmm_int8_plain(x, q8)
+            if b in (16, 256):
+                report_row(results, "qmm_int8", shape, err_of(got, ref), 1e-3,
+                           time_ms(torch, lambda: qmm_int8.qmm_int8(x, q8), flush),
+                           time_ms(torch, lambda: qmm_int8.qmm_int8_plain(x, q8), flush),
+                           b * w.k * 4 + nbytes(q8) + b * w.n * 4, 2 * b * w.n * w.k, "int8",
+                           matmul_ms(torch, x, q8, flush))
+            else:
+                check_row(results, "qmm_int8", shape, got, ref, 1e-3)
+    del flush
+    prompt = np.random.default_rng(8).integers(0, cfg.vocab_size, 16).astype(np.int32)
+    logits = []
+    for p in (params, plain):
+        ctx = LlamaContext(cfg, p, n_cells=256, device="cuda")
+        assert ctx.decode(Batch.single(prompt)) == 0
+        logits.append(ctx.logits_device()[-1].float())
+        del ctx
+    err = err_of(logits[0], logits[1])
+    log(json.dumps({"phase": "dual_fold_prefill_logits", "rows": 16, **err, "tol_rel": 4e-2}))
+    if not err["rel"] <= 4e-2:
+        raise AssertionError(f"dual fold: the shadow's prefill logits are {err} off the W4 route's")
+    counted = (qmm, qmm_w4, qmm_w4_ffn, qmm_int8, qmm_w4_layer, flash_stacked)
+    by_path = {}
+    for label, p in (("dual", params), ("plain", plain)):
+        ctx = LlamaContext(cfg, p, n_cells=4096, device="cuda")
+        for n_pp, P, fused in DUAL_COMBOS:
+            if fused and label == "plain":
+                continue
+            with knobs(LKTPU_LAYER_FUSED="1" if fused else "0"):
+                bench_combo(ctx, n_pp, DUAL_STEPS, P)  # warm
+                for m in counted:
+                    m.LAUNCHES = 0
+                row = bench_combo(ctx, n_pp, DUAL_STEPS, P)
+            got = {mod_name(m): m.LAUNCHES for m in counted}
+            pp_rows = next(b for b in ctx.buckets if b >= n_pp)
+            want = dual_counts(L, DUAL_STEPS, pp_rows, P, label == "dual", fused)
+            log(json.dumps({"phase": "dual_fold_batched", "path": label, "prompt_rows": pp_rows,
+                            "slots": P, "layer_fused": fused, **row, "launches": got}))
+            if got != want:
+                raise AssertionError(f"dual fold {label} pp={n_pp} {P} slots: launches {got}, "
+                                     f"expected {want}")
+            by_path[f"dual_fold_{label}_pp{n_pp}_{P}{'_fused' if fused else ''}"] = got
+        del ctx
+        torch.cuda.empty_cache()
+    del params, plain
+    torch.cuda.empty_cache()
+    return by_path
+
+
+# synthetic_params_device's other modes at EARLIER_LAYERS: (path, mode,
+# qtype, fuse); the synthetic W4A8 and W4X models have phases of their own
+SYNTHETIC_CASES = (("synthetic_int8", "int8", "Q4_K", True),
+                   ("synthetic_dequant", "dequant", "Q4_K", True),
+                   ("synthetic_w4_sym", "w4", "Q4_0", True),
+                   ("synthetic_dense", "dense", None, True),
+                   ("synthetic_w4_unfused", "w4", "Q4_K", False))
+
+
+def synthetic_modes_phase(torch) -> dict:
+    """The llama3-8B draws of synthetic_params_device's other modes at
+    EARLIER_LAYERS layers (SYNTHETIC_CASES: Q8F, exact Q4_K repacks, the sym
+    W4 fold of a Q4_0 profile, dense bf16, and the W4 fold unfused), each
+    serving 3 requests (64-token prefill, 8 greedy tokens) on the default
+    context (uniform layers: stacked, kernel 9 attends) with exact launch
+    counts: Q8F on kernel 6 and the exact repacks on kernel 4's exact
+    branch at every row count (17 a forward); the sym fold on kernels 1
+    and 2 at decode and 4 at the prefill; dense matrices on no matmul
+    kernel; unfused, kernel 1 on q, k, v and o apart and kernel 2's up=
+    branch.  Returns {path: launch counts}."""
+    from llama_kotlin_tpu_torch.models.synthetic import preset_config, synthetic_params_device
+    from llama_kotlin_tpu_torch.ops.cuda import (flash, flash_stacked, qmm, qmm_int8, qmm_w4,
+                                                 qmm_w4_ffn, qmm_w4x, qmm_w8)
+    from llama_kotlin_tpu_torch.quant.formats import GGMLQuantType as Q
+
+    L, n_new = EARLIER_LAYERS, 8
+    cfg = preset_config("llama3-8b", n_layer=L)
+    ex = exact_counter()
+    every = (flash, flash_stacked, qmm, ex, qmm_w4, qmm_w4_ffn, qmm_w8, qmm_int8, qmm_w4x)
+    fwd, steps = 3 * n_new, 3 * (n_new - 1)
+    attn = {"flash_stacked": fwd * L}
+    wants = {
+        "synthetic_int8": ((flash_stacked, qmm_int8), dict(attn, qmm_int8=fwd * (4 * L + 1))),
+        "synthetic_dequant": ((flash_stacked, qmm, ex), dict(attn, qmm=fwd * (4 * L + 1),
+                                                            qmm_exact=fwd * (4 * L + 1))),
+        "synthetic_w4_sym": ((flash_stacked, qmm, qmm_w4, qmm_w4_ffn),
+                             dict(attn, qmm=3 * 4 * L, qmm_w4=3 + steps * (2 * L + 1),
+                                  qmm_w4_ffn=steps * L, qmm_w4_mma=0, qmm_w4_ffn_mma=0)),
+        "synthetic_dense": ((flash_stacked,), attn),
+        "synthetic_w4_unfused": ((flash_stacked, qmm, qmm_w4, qmm_w4_ffn),
+                                 dict(attn, qmm=3 * 7 * L, qmm_w4=3 + steps * (4 * L + 1),
+                                      qmm_w4_ffn=steps * L, qmm_w4_mma=0, qmm_w4_ffn_mma=0))}
+    by_path = {}
+    for path, mode, qtype, fuse in SYNTHETIC_CASES:
+        t0 = time.perf_counter()
+        params = synthetic_params_device(cfg, seed=3, device="cuda", mode=mode,
+                                         qtype=None if qtype is None else Q[qtype], fuse=fuse)
+        torch.cuda.synchronize()
+        log(json.dumps({"phase": path, "mode": mode, "qtype": qtype, "fuse": fuse,
+                        "build_s": time.perf_counter() - t0,
+                        "device_bytes": torch.cuda.memory_allocated()}))
+        mods, want = wants[path]
+        counts, ctx = serve(torch, cfg, params, mods, path, n_new=n_new,
+                            never=tuple(m for m in every if m not in mods))
+        if counts != want or "layers_stacked" not in ctx.params:
+            raise AssertionError(f"{path}: launches {counts}, expected {want} stacked")
+        by_path[path] = counts
+        del ctx, params
+        torch.cuda.empty_cache()
+    return by_path
+
+
+def llama70b_phase(torch, results: dict) -> dict:
+    """The llama3-70b preset at full width and depth (E 8192, 80 layers,
+    64/8 heads, F 28672, vocab 128256), synthetic W4A8 weights drawn on the
+    card (seed 0; about 42 GB of compact W4 folds):
+    - kernel 2's routes at F = 28672 for each row count of FFN_ROWS on layer
+      0's FFN: the cooperative launch where coop_fits (1 row: h of 28672
+      fits a block's shared memory; from 2 rows its tensor-core stage does
+      not), kernel 1's tile elsewhere, each held against the plain version
+      and logged; timed at 1 and 8 rows beside the unfused route;
+    - kernel 1 at the 70B qkv, o and lm_head at 1 and 8 rows, timed;
+    - 3 requests (64-token prefill, 8 greedy tokens) unrolled, with exact
+      launch counts (kernel 4 4 a layer at the prefill, kernel 1 2 a layer
+      and the lm_head a step, kernel 2 once a layer and step at one row, on
+      its cooperative launch), then a profiled prefill and 8 decode steps
+      (device busy, idle share, launches a step).
+    Returns {path: launch counts}."""
+    from llama_kotlin_tpu_torch.models.synthetic import preset_config, synthetic_params_device
+    from llama_kotlin_tpu_torch.ops.cuda import flash, qmm, qmm_w4, qmm_w4_ffn
+
+    cfg = preset_config("llama3-70b")
+    L, E, F = cfg.n_layer, cfg.n_embd, cfg.n_ff
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = synthetic_params_device(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    w_bytes = streamed_bytes(params)
+    log(json.dumps({"phase": "llama3_70b", "n_layer": L, "build_s": build_s,
+                    "w_bytes_per_tok": w_bytes, "w_floor_ms_per_tok": w_bytes / HBM_BYTES_S * 1e3,
+                    "device_bytes": torch.cuda.memory_allocated()}))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7070)
+    flush = torch.zeros(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    lp = params["layers"][0]
+    gu, dn = lp["ffn_gateup_fused"], lp["ffn_down"]
+    routes = {}
+    for b in FFN_ROWS:
+        x = torch.randn((b, E), generator=gen, device=dev) * 0.7
+        n0 = qmm_w4_ffn.LAUNCHES_MMA
+        got = qmm_w4_ffn.qmm_w4_ffn_matmul(x, gu, dn)
+        tile = qmm_w4_ffn.LAUNCHES_MMA - n0
+        want = int(qmm_w4_ffn.use_mma(b) or not qmm_w4_ffn.coop_fits(b, E, F))
+        routes[b] = "tile" if tile else "cooperative"
+        if tile != want:
+            raise AssertionError(f"70b kernel 2 at {b} rows: tile {tile}, expected {want}")
+        shape = f"70b compact E={E} F={F} b={b}"
+        if b in (1, 8):
+            ffn_row(torch, results, shape, got, x, gu, dn, None, flush)
+        else:
+            check_row(results, "qmm_w4_ffn", shape, got,
+                      qmm_w4_ffn.qmm_w4_ffn_plain(x, gu, dn, "silu"), 5e-3)
+    log(json.dumps({"phase": "llama3_70b_ffn_routes", "E": E, "F": F, "routes": routes,
+                    "coop_smem": {b: qmm_w4_ffn.coop_smem(b, E, F) for b in FFN_ROWS}}))
+    for name, wt in (("qkv", lp["wqkv_fused"]), ("o", lp["wo"]), ("lm_head", params["output"])):
+        n, k = wt.shape
+        for b in (1, 8):
+            x = torch.randn((b, k), generator=gen, device=dev) * 0.7
+            got = qmm_w4.qmm_w4_matmul(x, wt)
+            report_row(results, "qmm_w4", f"70b compact {name} n={n} k={k} b={b}",
+                       err_of(got, qmm_w4.qmm_w4_plain(x, wt)), 1e-4,
+                       time_ms(torch, lambda: qmm_w4.qmm_w4_matmul(x, wt), flush),
+                       time_ms(torch, lambda: qmm_w4.qmm_w4_plain(x, wt), flush),
+                       b * k * 4 + nbytes(wt, w4_planes(wt)) + b * n * 4, 2 * b * n * k,
+                       "int8", matmul_ms(torch, x, wt, flush))
+    del flush, gu, dn, lp
+    torch.cuda.empty_cache()
+    n_new = 8
+    counts, ctx = serve(torch, cfg, params, (qmm_w4, qmm_w4_ffn, flash, qmm), "llama3_70b",
+                        n_new=n_new, prefer_unrolled=True)
+    steps = 3 * (n_new - 1)
+    want = {"qmm": 3 * 4 * L, "qmm_w4": 3 + steps * (2 * L + 1), "qmm_w4_ffn": steps * L,
+            "flash": 3 * n_new * L, "qmm_w4_mma": 0, "qmm_w4_ffn_mma": 0}
+    if counts != want:
+        raise AssertionError(f"llama3_70b: launches {counts}, expected {want}")
+    profile_decode(torch, ctx, cfg, "llama3_70b")
+    del ctx, params
+    torch.cuda.empty_cache()
+    return {"llama3_70b": counts}
+
+
+# of max|logits|: twice the CPU's own 8-thread-against-4 spread on the
+# 2-layer llama3-70b (1.56e-2), rounded up (scripts/iq_70b_cpu_spread.py on
+# the H100 machine's host; PERF.md)
+LLAMA70B_PARITY_TOL = 3.5e-2
+
+
+def llama70b_parity_case(torch) -> tuple:
+    """(label, build, prompt, tol) of llama70b_parity_phase: llama3-70b at
+    full width, 2 layers of synthetic W4A8 weights drawn on the card (seed
+    1) and copied to the CPU, unrolled."""
+    import numpy as np
+
+    from llama_kotlin_tpu_torch.models.synthetic import (params_to, preset_config,
+                                                         synthetic_params_device)
+    from llama_kotlin_tpu_torch.runtime.context import LlamaContext
+
+    cfg = preset_config("llama3-70b", n_layer=2)
+    params = synthetic_params_device(cfg, seed=1, device="cuda")
+    cpu_params = params_to(params, "cpu")
+    prompt = np.random.default_rng(6).integers(0, cfg.vocab_size, 64).astype(np.int32)
+
+    def build(dev):
+        return LlamaContext(cfg, params if dev == "cuda" else cpu_params, n_cells=1024,
+                            buckets=(8, 16, 32, 64), prefer_unrolled=True, device=dev)
+
+    return "parity_llama3_70b", build, prompt, LLAMA70B_PARITY_TOL
+
+
+def llama70b_parity_phase(torch) -> None:
+    """llama70b_parity_case, card against CPU by card_vs_cpu (a 64-token
+    prefill and 4 greedy steps)."""
+    label, build, prompt, tol = llama70b_parity_case(torch)
+    card_vs_cpu(torch, label, build, prompt, tol)
+    del build
+    torch.cuda.empty_cache()
+
+
 def pick_row(rows: list, i):
     """A kernel's timed row by its index or its shape."""
     return rows[i] if isinstance(i, int) else next(r for r in rows if r["shape"] == i)
@@ -4362,7 +4995,7 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     if sys.argv[1:2] == ["--cpu-refs"]:
-        return cpu_refs_main(torch, sys.argv[2])
+        return cpu_refs_main(torch, *sys.argv[2:4])
     if sys.argv[1:2] == ["--write-files"]:
         return write_files_main(sys.argv[2])
     from llama_kotlin_tpu_torch.ops.cuda import _build
@@ -4376,10 +5009,10 @@ def main() -> int:
     log(json.dumps({"phase": "device", "name": name, "count": torch.cuda.device_count(),
                     "torch": torch.__version__, "cuda": torch.version.cuda}))
     log(smi)
-    ref_tmp = Path(tempfile.mkdtemp(prefix="lk_cpu_refs_"))
-    start_cpu_refs(ref_tmp)
     files_tmp = Path(tempfile.mkdtemp(prefix="lk_files_"))
     start_file_writer(files_tmp)
+    ref_tmp = Path(tempfile.mkdtemp(prefix="lk_cpu_refs_"))
+    start_cpu_refs(ref_tmp, files_tmp)
     ok = False
     try:
         t0 = time.perf_counter()
@@ -4404,6 +5037,7 @@ def main() -> int:
         timed(serving_mask_phase, torch, results)
         timed(fx_layer_kernel_phase, torch, results)
         timed(exact_kernel_phase, torch, results)
+        timed(iq_kernel_phase, torch, results)
         by_path, cfg, params = timed(serving_phase, torch)
         # speculative decoding on the model's first EARLIER_LAYERS layers
         by_path.update(timed(speculative_phase, torch, replace(cfg, n_layer=EARLIER_LAYERS),
@@ -4412,6 +5046,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         by_path.update(timed(w4x_serving_phase, torch, EARLIER_LAYERS))
         by_path.update(timed(tinyllama_phase, torch, EARLIER_LAYERS))
+        by_path.update(timed(dual_fold_phase, torch, results))
+        by_path.update(timed(synthetic_modes_phase, torch))
         tmpdir = Path(tempfile.mkdtemp(prefix="lk_gguf_"))
         try:
             for mode, c in timed(gguf_phase, torch, tmpdir).items():
@@ -4424,13 +5060,17 @@ def main() -> int:
             (tmpdir / LLAMA_FILE).unlink()
             by_path.update(timed(q4_0_gguf_phase, torch, tmpdir))
             by_path.update(timed(new_formats_phase, torch, tmpdir))
+            by_path.update(timed(iq_formats_phase, torch, tmpdir))
             by_path.update(timed(deepseek2_phase, torch, tmpdir))
             by_path.update(timed(gemma2_phase, torch, tmpdir))
+            by_path.update(timed(llama70b_phase, torch, results))
             timed(parity_phase, torch)
             timed(gguf_parity_phase, torch, tmpdir)
             timed(engine_parity_phase, torch)
             timed(moe_parity_phase, torch, tmpdir)
             timed(gemma_parity_phase, torch, tmpdir)
+            timed(iq_parity_phase, torch, tmpdir)
+            timed(llama70b_parity_phase, torch)
             timed(stop_cpu_refs, True)
         finally:
             shutil.rmtree(tmpdir, ignore_errors=True)
@@ -4449,11 +5089,15 @@ def main() -> int:
     meta = {
         "qmm_w4": ("csrc/qmm_w4.cu", "llama_kotlin_tpu/ops/pallas/qmm_w4.py:290", 0,
                    {"b32": "compact qkv n=6144 k=4096 b=32",
-                    "lm_head_b32": "compact lm_head n=128256 k=4096 b=32"}),
+                    "lm_head_b32": "compact lm_head n=128256 k=4096 b=32",
+                    "llama3_70b_qkv_b1": "70b compact qkv n=10240 k=8192 b=1",
+                    "llama3_70b_lm_head_b1": "70b compact lm_head n=128256 k=8192 b=1"}),
         "qmm_w4_ffn": ("csrc/qmm_w4_ffn.cu", "llama_kotlin_tpu/ops/pallas/qmm_w4_ffn.py:155",
                        0, {"b8": "compact E=4096 F=14336 b=8",
                            "b32": "compact E=4096 F=14336 b=32",
-                           "up_b1": "up= compact E=4096 F=14336 b=1"}),
+                           "up_b1": "up= compact E=4096 F=14336 b=1",
+                           "llama3_70b_b1": "70b compact E=8192 F=28672 b=1",
+                           "llama3_70b_b8": "70b compact E=8192 F=28672 b=8"}),
         "flash_mla": ("csrc/flash.cu", "llama_kotlin_tpu/ops/pallas/flash.py:160", 0,
                       {"prefill": "bf16 cache nt=64 n_vis=1024 layer=1",
                        "n4096": "bf16 cache nt=1 n_vis=4096 layer=1",
@@ -4480,7 +5124,10 @@ def main() -> int:
                      "down n=4096 k=14336 b=64",
                      {"b1": "qkv n=6144 k=4096 b=1", "qkv_m64": "qkv n=6144 k=4096 b=64",
                       "b32": "lm_head n=128256 k=4096 b=32",
-                      "m512": "qkv n=6144 k=4096 b=512"}),
+                      "m512": "qkv n=6144 k=4096 b=512",
+                      "shadow_qkv_b16": "shadow qkv n=6144 k=4096 b=16",
+                      "shadow_gate_up_b256": "shadow gate_up n=28672 k=4096 b=256",
+                      "shadow_lm_head_b16": "shadow lm_head n=128256 k=4096 b=16"}),
         "flash_stacked": ("csrc/flash_stacked.cu",
                           "llama_kotlin_tpu/ops/pallas/flash_stacked.py:94", 0,
                           {"int8": 1, "prefill": "bf16 cache nt=64 n_vis=1024 layer=31",
@@ -4531,6 +5178,11 @@ def main() -> int:
                                   ("m512", "exact Q4_K qkv n=6144 k=4096 m=512"),
                                   ("lm_head_b1", "exact Q6_K lm_head n=128256 k=4096 m=1")):
                 exact[branch] = {k: pick_row(rows, shape)[k] for k in timing + ("max_abs_err",)}
+            # the IQ repacks on the same branch (iq_kernel_phase): qkv at one row
+            exact["iq_qkv_b1"] = {
+                r["shape"].split()[1]: {k: r[k] for k in timing + ("max_abs_err",)}
+                for r in rows if r["shape"].startswith("exact IQ") and " qkv " in r["shape"]
+                and r["shape"].endswith(" m=1")}
             entry["exact"] = exact
         if kname in ("qmm_w4_ffn", "qmm_w4_layer"):  # no library call; the route replaced
             entry["library"] = ("none: no one call computes a gated FFN" if kname == "qmm_w4_ffn"

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from llama_kotlin_tpu_torch.device import DeviceLike, resolve_device
-from llama_kotlin_tpu_torch.quant.fold import (compact_from_jax_aux,
+from llama_kotlin_tpu_torch.quant.fold import (FLAVORS, compact_from_jax_aux,
                                                compact_planes)
 from llama_kotlin_tpu_torch.quant.formats import GGMLQuantType
 from llama_kotlin_tpu_torch.quant.qtensor import QTensor
@@ -75,7 +75,8 @@ def _exact_from_numpy(obj, dev) -> QTensor:
 
 def qtensor_from_numpy(obj, device: DeviceLike = None) -> QTensor:
     """One JAX-side served QTensor (numpy leaves: a W4 or W8 fold, plain or
-    precise, Q8F, or an exact repack) -> the port's QTensor.  A Q8_K exact
+    precise (a W4 fold with its Q8F shadow keeps it), Q8F, or an exact
+    repack) -> the port's QTensor.  A Q8_K exact
     repack has Q8F's layout and stays exact (no flavor); JAX's Q8F always
     carries qtype Q8_0."""
     dev = resolve_device(device)
@@ -90,6 +91,10 @@ def qtensor_from_numpy(obj, device: DeviceLike = None) -> QTensor:
             or _field(obj, "group_size") != 32):
         raise ValueError("the port serves the W4 fold (hi_signed, 4-bit, group 32), "
                          "the W8 fold and Q8F")
+    shadow = {}
+    if "q8_codes" in aux:  # the dual fold's Q8F shadow (JAX fold.py::attach_q8)
+        shadow = {"q8_codes": _tensor(aux.pop("q8_codes"), dev, torch.int8),
+                  "q8_scale": _tensor(aux.pop("q8_scale"), dev, torch.float32)}
     codes = _tensor(_field(obj, "codes"), dev)
     g_scale = _tensor(_field(obj, "g_scale"), dev, torch.float32)
     g_min = _tensor(_field(obj, "g_min"), dev, torch.float32)
@@ -109,6 +114,9 @@ def qtensor_from_numpy(obj, device: DeviceLike = None) -> QTensor:
         new_aux = {"flavor": "legacy"}
     else:
         raise ValueError(f"unrecognised W4 aux planes {sorted(aux)}")
+    if shadow and new_aux["flavor"] not in FLAVORS:
+        raise ValueError("a Q8F shadow rides on a W4 fold, never a precise one")
+    new_aux.update(shadow)
     return QTensor(codes=codes, g_scale=g_scale, g_min=g_min, sb_scale=None,
                    sb_min=None, qtype=GGMLQuantType(int(_field(obj, "qtype"))),
                    bits=4, group_size=32, code_offset=int(_field(obj, "code_offset")),

@@ -38,9 +38,13 @@ as any matrix.  gemma2's post-attention and post-FFN norms
 A file with no ``output`` (gemma's tied head: llama.cpp gives the
 embedding the output's type, Q6_K in a Q4_K_M file) loads ``token_embd``
 once in the mode's layout, which serves both the embedding rows
-(``take_rows``) and the lm_head.  Still refused: the IQ formats (``quant/repack.py``,
-ROADMAP.md section 1, item 6) and tensor names the port's forward does not
-read (item 13).
+(``take_rows``) and the lm_head.  The nine IQ formats route as the other
+8-bit repacks (exact: kernel 4's exact branch; ``w4``: the W8 fold, kernel
+5; ``w4x``: W8X; ``int8``: Q8F).  ``LKTPU_DUAL_FOLD=1`` (read at load, as
+JAX's ``:140-144``) gives every W4 fold of the ``w4`` mode a Q8F shadow
+(``quant/fold.py::attach_q8``) from the f32 decode of its wire bytes, for
+the high-batch switch of ``ops/qmatmul.py``.  Still refused: tensor names
+the port's forward does not read (ROADMAP.md section 1, item 13).
 """
 
 from __future__ import annotations
@@ -53,7 +57,8 @@ import torch
 from llama_kotlin_tpu_torch.device import DeviceLike, resolve_device
 from llama_kotlin_tpu_torch.gguf.reader import GGUFFile
 from llama_kotlin_tpu_torch.models.config import ModelConfig, config_from_metadata
-from llama_kotlin_tpu_torch.quant.fold import GROUP, fold_to_w4, fold_to_w8
+from llama_kotlin_tpu_torch.quant.fold import (GROUP, attach_q8, dual_fold_enabled, fold_to_w4,
+                                               fold_to_w8)
 from llama_kotlin_tpu_torch.quant.formats import TYPE_TRAITS, GGMLQuantType, row_byte_size
 from llama_kotlin_tpu_torch.quant.qtensor import QTensor, concat_qtensors, stack_qtensors
 from llama_kotlin_tpu_torch.quant.repack import dequantize_wire, repack, repack_q8flat
@@ -115,7 +120,10 @@ def _convert(data: torch.Tensor, qt: GGMLQuantType, n: int, k: int,
         return rp
     precise = fast_mode == "w4x"
     if rp.bits == 4 and rp.group_size == GROUP:
-        return fold_to_w4(rp, precise=precise)
+        w4 = fold_to_w4(rp, precise=precise)
+        if not precise and dual_fold_enabled():  # JAX :140-144: from the f32 decode
+            w4 = attach_q8(w4, dequantize_wire(data, qt, (n, k)))
+        return w4
     if rp.group_size in (16, 32):
         return fold_to_w8(rp, precise=precise)
     return rp if precise else repack_q8flat(data, qt, n, k)

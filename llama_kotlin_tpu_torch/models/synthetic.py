@@ -1,10 +1,15 @@
-"""Synthetic models: random W4 or W4X weights at real checkpoint shapes (port of
-``llama_kotlin_tpu/models/synthetic.py``, the presets and W4 generators).
+"""Synthetic models: random weights in every layout the port serves, at
+real checkpoint shapes (port of ``llama_kotlin_tpu/models/synthetic.py``).
 
-``synthetic_w4`` draws from a numpy Generator in the same order as the JAX
-package's generator, so the same seed gives the same weights on both sides.
+The host builders (``synthetic_w4``, its sym and precise flavors,
+``synthetic_q8flat``, ``synthetic_qtensor`` and ``synthetic_params``, with
+its MoE branch) draw from a numpy Generator in the same order as the JAX
+package's, so the same seed gives the same weights on both sides.
 ``synthetic_params_device`` draws every large tensor on the device from a
-seeded ``torch.Generator`` — no multi-GB host build.  ``synthetic_gguf``
+seeded ``torch.Generator`` — no multi-GB host build — in the modes of
+JAX's ``synthetic_params_device``: the W4 fold (sym for a Q4_0 profile;
+with a Q8F shadow under ``LKTPU_DUAL_FOLD=1``), W4X, Q8F, exact repacks
+and dense bf16, fused or not, with or without a tied head.  ``synthetic_gguf``
 writes a llama GGUF file of random wire blocks (the Q4_K_M type mix by
 default; the Q5_K_M mix, single-type files and a mix of every format the
 loader takes) for the loader to read, and gemma and gemma2 files (a tied
@@ -28,9 +33,10 @@ import torch
 from llama_kotlin_tpu_torch.device import DeviceLike, resolve_device
 from llama_kotlin_tpu_torch.models.config import ModelConfig
 from llama_kotlin_tpu_torch.ops.rope import ROPE_TYPE_NEOX
-from llama_kotlin_tpu_torch.quant.fold import (ALIGN_W4, GROUP, compact_planes,
-                                               w4_from_parts)
+from llama_kotlin_tpu_torch.quant.fold import (ALIGN_W4, GROUP, attach_q8_device,
+                                               compact_planes, dual_fold_enabled, w4_from_parts)
 from llama_kotlin_tpu_torch.quant.formats import TYPE_TRAITS, GGMLQuantType
+from llama_kotlin_tpu_torch.quant.iq import IQ_TYPES
 from llama_kotlin_tpu_torch.quant.qtensor import SPAN, QTensor
 
 PRESETS = {
@@ -39,9 +45,16 @@ PRESETS = {
     # is not a multiple of 1024: its down projection's W4 fold is padded to
     # K = 6144, which kernel 2 declines as JAX's does, so its decode FFN
     # runs through kernel 1 (gate|up, then down on the padded K).
+    # llama2-7b's F = 11008 folds legacy (no multiple of 2048), and
+    # llama3-70b's F = 28672 is wider than kernel 2's cooperative stages
+    # hold above a few rows (ops/cuda/qmm_w4_ffn.py::coop_fits).
     "tinyllama-1.1b": (2048, 22, 32, 4, 5632, 32000),
+    "llama2-7b": (4096, 32, 32, 32, 11008, 32000),
     "llama3-8b": (4096, 32, 32, 8, 14336, 128256),
-    "test-tiny": (1024, 2, 8, 4, 1024, 512),
+    # BASELINE.json configs[3]: Mistral-7B long-context (32k) GQA
+    "mistral-7b": (4096, 32, 32, 8, 14336, 32000),
+    "llama3-70b": (8192, 80, 64, 8, 28672, 128256),
+    "test-tiny": (256, 4, 8, 4, 512, 512),
 }
 
 
@@ -103,12 +116,145 @@ def synthetic_w4(rng: np.random.Generator, n: int, k: int, scale: float = 0.02,
     return w4_from_parts(t(packed), t(s_eff), t(m_adj), (n, k), sym=sym, precise=precise)
 
 
+def synthetic_q8flat(rng: np.random.Generator, n: int, k: int, scale: float = 0.02,
+                     device: DeviceLike = None) -> QTensor:
+    """Random Q8F weight (the int8 mode's layout) from a numpy Generator in
+    JAX's order: int8 codes and one f32 scale a 256-superblock."""
+    k_pad = (k + SPAN - 1) // SPAN * SPAN
+    codes = rng.integers(-127, 128, (n, k_pad), dtype=np.int8)
+    scales = (rng.random((n, k_pad // SPAN), np.float32) * scale / 127.0).astype(np.float32)
+    return _q8f(torch.from_numpy(codes), torch.from_numpy(scales), (n, k)).to(
+        resolve_device(device))
+
+
+def _q8f(codes: torch.Tensor, scales: torch.Tensor, shape: tuple) -> QTensor:
+    return QTensor(codes=codes, g_scale=scales, g_min=None, sb_scale=None, sb_min=None,
+                   qtype=GGMLQuantType.Q8_0, bits=8, group_size=SPAN, code_offset=0,
+                   shape=tuple(shape), aux={"flavor": "q8f"})
+
+
+def _probe(qtype: GGMLQuantType) -> QTensor:
+    """The repacked geometry of a format: its repack of one zero span (JAX
+    probes with repack_float of zeros; the layouts are the same)."""
+    from llama_kotlin_tpu_torch.quant.repack import repack
+
+    tr = TYPE_TRAITS[qtype]
+    return repack(torch.zeros(SPAN // tr.block_size * tr.type_size, dtype=torch.uint8),
+                  qtype, 1, SPAN)
+
+
+def synthetic_qtensor(rng: np.random.Generator, n: int, k: int, qtype: GGMLQuantType,
+                      scale: float = 0.02, device: DeviceLike = None) -> QTensor:
+    """An exact repack of `qtype` (the exact-dequant mode's layout) with
+    random codes and scales, drawn in JAX's order: no float quantization
+    pass, the decode cost profile of real weights."""
+    probe = _probe(qtype)
+    k_pad = (k + SPAN - 1) // SPAN * SPAN
+    g = probe.group_size
+    cols = k_pad // SPAN * probe.codes.shape[1]
+    codes = rng.integers(0, 256, (n, cols), dtype=np.uint8)
+    if probe.codes.dtype == torch.int8:
+        codes = (codes.view(np.int8) // 4).astype(np.int8)  # keep magnitudes sane
+    elif probe.bits == 8:
+        codes &= 0x1F  # unsigned byte-stored formats (Q5_K) top out at 31
+    npdt = lambda t: torch.empty(0, dtype=t.dtype).numpy().dtype
+    if probe.g_scale.is_floating_point():
+        g_scale = (rng.random((n, k_pad // g), np.float32) * scale).astype(np.float32)
+    else:
+        g_scale = rng.integers(0, 64, (n, k_pad // g)).astype(npdt(probe.g_scale))
+    g_min = None
+    if probe.g_min is not None:
+        if probe.g_min.is_floating_point():
+            g_min = (rng.random((n, k_pad // g), np.float32) * scale * 0.1).astype(np.float32)
+        else:
+            g_min = rng.integers(0, 16, (n, k_pad // g)).astype(npdt(probe.g_min))
+    sb = lambda: (rng.random((n, k_pad // SPAN), np.float32) * scale / 32).astype(np.float32)
+    sb_scale = sb() if probe.sb_scale is not None else None
+    sb_min = sb() if probe.sb_min is not None else None
+    t = lambda a: None if a is None else torch.from_numpy(a).to(resolve_device(device))
+    return QTensor(codes=t(codes), g_scale=t(g_scale), g_min=t(g_min), sb_scale=t(sb_scale),
+                   sb_min=t(sb_min), qtype=qtype, bits=probe.bits, group_size=g,
+                   code_offset=probe.code_offset, shape=(n, k))
+
+
+def _rand_weight(rng, n: int, k: int, qtype, fast_int8, fast_w4a8, device):
+    """One matrix of synthetic_params, JAX's ``_rand_weight``: dense bf16
+    (qtype None or a float type), a W4 fold (fast_w4a8; "w4x" the precise
+    one; sym for Q4_0), Q8F (fast_int8) or an exact repack of qtype."""
+    if qtype is None or not TYPE_TRAITS[qtype].is_quantized:
+        x = (rng.standard_normal((n, k)) * 0.02).astype(np.float32)
+        return torch.from_numpy(x).to(resolve_device(device), torch.bfloat16)
+    if fast_w4a8:
+        return synthetic_w4(rng, n, k, precise=fast_w4a8 == "w4x",
+                            sym=qtype == GGMLQuantType.Q4_0, device=device)
+    if fast_int8:
+        return synthetic_q8flat(rng, n, k, device=device)
+    return synthetic_qtensor(rng, n, k, qtype, device=device)
+
+
+def synthetic_params(cfg: ModelConfig, qtype: Optional[GGMLQuantType] = None, seed: int = 0,
+                     tie_output: bool = False, fast_int8: bool = False, fast_w4a8=False,
+                     device: DeviceLike = None) -> dict:
+    """Random params for `cfg` from a numpy Generator, drawn in JAX's order
+    (its host ``synthetic_params``), every matmul weight in `qtype`'s layout
+    by _rand_weight, unfused; norms f32 near 1.  A MoE cfg draws expert
+    stacks by the loader's policy: more than 16 experts draw exact repacks
+    and stack them (decode gathers the routed experts); up to 16, a fast
+    layout (W4, W8, Q8F) stays a per-expert list, an exact repack stacks; a
+    dense draw stacks into one [E, n, k] tensor.  The router is drawn f32
+    and kept bf16, as the port's loader keeps it."""
+    from llama_kotlin_tpu_torch.models.loader import MAX_EXPERT_LIST
+    from llama_kotlin_tpu_torch.quant.qtensor import stack_qtensors
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    E, F, V = cfg.n_embd, cfg.n_ff, cfg.vocab_size
+    qdim = cfg.n_head * cfg.head_dim
+    kvdim = cfg.n_head_kv * cfg.head_dim
+
+    def norm_w():
+        return torch.from_numpy(1.0 + 0.01 * rng.standard_normal(E)).to(dev, torch.float32)
+
+    def w(n_, k_, int8=fast_int8, w4a8=fast_w4a8):
+        return _rand_weight(rng, n_, k_, qtype, int8, w4a8, dev)
+
+    params: dict = {"tok_embd": w(V, E), "output_norm": norm_w(), "rope_freqs": None}
+    if not tie_output:
+        params["output"] = w(V, E)
+    params["layers"] = []
+    for _ in range(cfg.n_layer):
+        lp = {"attn_norm": norm_w(), "wq": w(qdim, E), "wk": w(kvdim, E), "wv": w(kvdim, E),
+              "wo": w(E, qdim), "ffn_norm": norm_w()}
+        params["layers"].append(lp)
+        if cfg.n_expert == 0:
+            lp.update(ffn_gate=w(F, E), ffn_up=w(F, E), ffn_down=w(E, F))
+            continue
+        router = rng.standard_normal((cfg.n_expert, E)) * 0.02
+        lp["ffn_gate_inp"] = torch.from_numpy(router).to(dev, torch.float32).to(torch.bfloat16)
+        big_e = cfg.n_expert > MAX_EXPERT_LIST
+        for key, (nn, kk) in (("ffn_gate_exps", (F, E)), ("ffn_up_exps", (F, E)),
+                              ("ffn_down_exps", (E, F))):
+            ws = [w(nn, kk, fast_int8 and not big_e, False if big_e else fast_w4a8)
+                  for _ in range(cfg.n_expert)]
+            if not isinstance(ws[0], QTensor):
+                lp[key] = torch.stack(ws)
+                continue
+            fast = ws[0].aux is not None or (ws[0].bits == 8 and ws[0].group_size == SPAN
+                                             and ws[0].g_min is None)
+            lp[key] = ws if (fast and not big_e) or ws[0].aux is not None else stack_qtensors(ws)
+    return params
+
+
 def synthetic_w4_device(gen: torch.Generator, n: int, k: int, scale: float = 0.02,
-                        zero_mean: bool = True, precise: bool = False,
+                        zero_mean: bool = True, precise: bool = False, sym: bool = False,
                         device: DeviceLike = None) -> QTensor:
-    """Random compact W4 fold drawn on the device (Q4_K profile: 6-bit
-    scale/min codes under f16-valued superblock d); precise=True gives the
-    same weights as a W4X fold (the same draws).
+    """Random W4 fold drawn on the device (Q4_K profile: 6-bit scale/min
+    codes under f16-valued superblock d): the compact flavor where JAX's
+    fold takes it ((k_pad / 2) % 1024 == 0), else the legacy flavor of the
+    same draws (their planes rounded to bf16, as that fold stores them);
+    precise=True gives the same weights as a W4X fold.  sym=True draws a
+    Q4_0 profile's sym fold (W4X sym when precise): group scales and no
+    min plane, its codes drawn so that (q - 8) s is zero-mean.
 
     With zero_mean each group's min is 7.5 times its scale (m6 = sc6,
     dmin = 7.5 d), so the uniform 4-bit codes give zero-mean weights, as a
@@ -122,46 +268,160 @@ def synthetic_w4_device(gen: torch.Generator, n: int, k: int, scale: float = 0.0
     G, S = k_pad // GROUP, k_pad // SPAN
     kw = dict(generator=gen, device=dev)
     packed = torch.randint(0, 256, (n, k_pad // 2), dtype=torch.uint8, **kw)
+    bf16 = lambda t: t.to(torch.bfloat16).to(torch.float32)  # a legacy/sym fold's planes
+    if sym:
+        # zero-mean groups, as wire_blocks' Q4_0: a low nibble holds the raw
+        # code q (1..15, weight (q - 8) s), a high one q - 8 pre-signed (any
+        # but -8)
+        lo = torch.randint(1, 16, (n, k_pad // 2), dtype=torch.uint8, **kw)
+        hi = torch.randint(0, 15, (n, k_pad // 2), dtype=torch.uint8, **kw)
+        packed = lo | ((hi + (hi >= 8).to(torch.uint8)) << 4)
+        s_eff = bf16(torch.rand((n, G), **kw) * (scale / 8.0))
+        m_adj = torch.where(_hi_groups(G, dev), torch.zeros_like(s_eff), 8.0 * s_eff)
+        return w4_from_parts(packed, s_eff, m_adj, (n, k), sym=True, precise=precise)
     sc6 = torch.randint(0, 64, (n, G), dtype=torch.uint8, **kw)
     d_sb = (torch.rand((n, S), **kw) * (scale / 500.0)).half().float()
     if zero_mean:
-        return _compact_w4(packed, sc6, sc6.clone(), d_sb, d_sb * 7.5, (n, k), precise)
-    m6 = torch.randint(0, 64, (n, G), dtype=torch.uint8, **kw)
-    dmin_sb = (torch.rand((n, S), **kw) * (scale / 500.0)).half().float()
-    return _compact_w4(packed, sc6, m6, d_sb, dmin_sb, (n, k), precise)
+        m6, dmin_sb = sc6.clone(), d_sb * 7.5
+    else:
+        m6 = torch.randint(0, 64, (n, G), dtype=torch.uint8, **kw)
+        dmin_sb = (torch.rand((n, S), **kw) * (scale / 500.0)).half().float()
+    if (k_pad // 2) % 1024 == 0:
+        return _compact_w4(packed, sc6, m6, d_sb, dmin_sb, (n, k), precise)
+    s_eff = sc6.to(torch.float32) * d_sb.repeat_interleave(SPAN // GROUP, dim=1)
+    m_eff = m6.to(torch.float32) * dmin_sb.repeat_interleave(SPAN // GROUP, dim=1)
+    m_adj = torch.where(_hi_groups(G, dev), m_eff - 8.0 * s_eff, m_eff)
+    return w4_from_parts(packed, bf16(s_eff), bf16(m_adj), (n, k), precise=precise)
 
 
-SYNTHETIC_MODES = ("w4", "w4x")
+def synthetic_q8flat_device(gen: torch.Generator, n: int, k: int, scale: float = 0.02,
+                            device: DeviceLike = None) -> QTensor:
+    """Random Q8F weight drawn on the device (JAX's draw: uniform codes in
+    -127..127, scales uniform below scale / 127)."""
+    dev = resolve_device(device)
+    k_pad = (k + SPAN - 1) // SPAN * SPAN
+    codes = torch.randint(-127, 128, (n, k_pad), dtype=torch.int8, generator=gen, device=dev)
+    scales = torch.rand((n, k_pad // SPAN), generator=gen, device=dev) * (scale / 127.0)
+    return _q8f(codes, scales, (n, k))
 
 
-def synthetic_params_device(cfg: ModelConfig, seed: int = 0,
-                            device: DeviceLike = None, mode: str = "w4") -> dict:
-    """Random params for `cfg` in the serving layout (wqkv_fused,
-    ffn_gateup_fused), drawn on `device` from a seeded torch.Generator:
-    every matrix, embedding and lm_head included, a compact W4 fold
-    (mode "w4", W4A8) or the W4X fold of the same draws (mode "w4x")."""
+def synthetic_qtensor_device(gen: torch.Generator, n: int, k: int, qtype: GGMLQuantType,
+                             scale: float = 0.02, device: DeviceLike = None) -> QTensor:
+    """An exact repack of `qtype` with random codes and scales drawn on the
+    device, JAX's device draw (int8 codes in -32..31, byte-stored 8-bit
+    codes in 0..31, random 4- and 2-bit planes; integer group scales in
+    0..63; f32 planes uniform below their scale) but for the mins: each
+    group's min is its scale times the codes' mean (integer min codes equal
+    to the scale codes, the superblock min that mean times the superblock
+    scale), so that groups are zero-mean, as the W4 draw's (JAX's draws
+    independent mins, and its rows' means steer greedy decoding to one
+    token whatever the prompt)."""
+    dev = resolve_device(device)
+    probe = _probe(qtype)
+    k_pad = (k + SPAN - 1) // SPAN * SPAN
+    g = probe.group_size
+    cols = k_pad // SPAN * probe.codes.shape[1]
+    kw = dict(generator=gen, device=dev)
+
+    def rint(shape, lo, hi, dtype):
+        return torch.randint(lo, hi, shape, dtype=torch.int32, **kw).to(dtype)
+
+    def plane(ref, lo, hi, f_scale, shape):
+        if ref is None:
+            return None
+        if ref.is_floating_point():
+            return torch.rand(shape, **kw) * f_scale
+        return rint(shape, lo, hi, ref.dtype)
+
+    if probe.codes.dtype == torch.int8:
+        codes, mean = rint((n, cols), -32, 32, torch.int8), -0.5
+    elif probe.bits == 8:
+        codes, mean = rint((n, cols), 0, 32, torch.uint8), 15.5
+    else:
+        codes, mean = rint((n, cols), 0, 256, torch.uint8), (2 ** probe.bits - 1) / 2
+    g_scale = plane(probe.g_scale, 0, 64, scale, (n, k_pad // g))
+    sb_scale = plane(probe.sb_scale, 0, 0, scale / 32, (n, k_pad // SPAN))
+    g_min = sb_min = None
+    if probe.g_min is not None:
+        if probe.sb_min is not None:  # integer mins under a superblock min
+            g_min, sb_min = g_scale.to(probe.g_min.dtype), sb_scale * mean
+        else:
+            g_min = g_scale.to(torch.float32) * mean
+    return QTensor(codes=codes, g_scale=g_scale, g_min=g_min, sb_scale=sb_scale,
+                   sb_min=sb_min, qtype=qtype, bits=probe.bits, group_size=g,
+                   code_offset=probe.code_offset, shape=(n, k))
+
+
+# the modes of synthetic_params_device: JAX's fast_w4a8 (True / "w4x"),
+# fast_int8, an exact repack of qtype (bench.py's BENCH_MODE=dequant) and
+# qtype=None (dense)
+SYNTHETIC_MODES = ("w4", "w4x", "int8", "dequant", "dense")
+
+
+def synthetic_params_device(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,
+                            mode: str = "w4", qtype: Optional[GGMLQuantType] = GGMLQuantType.Q4_K,
+                            fuse: bool = True, tie_output: bool = False) -> dict:
+    """Random params for `cfg` drawn on `device` from a seeded
+    torch.Generator, every matrix (the embedding and the lm_head included)
+    in the layout of `mode`:
+
+    * "w4": the W4 fold (W4A8), compact where JAX's fold is (sym for
+      qtype Q4_0), with a Q8F shadow under ``LKTPU_DUAL_FOLD=1``
+      (``quant/fold.py::attach_q8_device``);
+    * "w4x": the W4X fold of the same draws (W4X sym for Q4_0);
+    * "int8": Q8F;
+    * "dequant": exact repacks of qtype (Q4_K by default), kernel 4's exact
+      branches (kernel 6 for Q8_K);
+    * "dense": bf16 matrices (also any mode with qtype None or a float type).
+
+    fuse=True (the serving layout) draws wqkv_fused and ffn_gateup_fused,
+    fuse=False wq/wk/wv and ffn_gate/ffn_up apart; tie_output draws no
+    "output" (the head is tok_embd).  MoE configs raise, as JAX's: the host
+    synthetic_params draws them."""
     if mode not in SYNTHETIC_MODES:
         raise ValueError(f"mode {mode!r} not in {SYNTHETIC_MODES}")
+    if cfg.n_expert > 0:
+        raise NotImplementedError("synthetic_params_device: use synthetic_params for MoE cfgs")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     E, F, V = cfg.n_embd, cfg.n_ff, cfg.vocab_size
     qdim = cfg.n_head * cfg.head_dim
     kvdim = cfg.n_head_kv * cfg.head_dim
+    dense = mode == "dense" or qtype is None or not TYPE_TRAITS[qtype].is_quantized
+    sym = qtype == GGMLQuantType.Q4_0
+    dual = mode == "w4" and dual_fold_enabled()
 
     def norm_w():
         return 1.0 + 0.01 * torch.randn(E, generator=gen, device=dev)
 
     def w(n_, k_):
-        return synthetic_w4_device(gen, n_, k_, precise=mode == "w4x", device=dev)
+        if dense:
+            return (torch.randn((n_, k_), generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+        if mode == "int8":
+            return synthetic_q8flat_device(gen, n_, k_, device=dev)
+        if mode == "dequant":
+            return synthetic_qtensor_device(gen, n_, k_, qtype, device=dev)
+        w4 = synthetic_w4_device(gen, n_, k_, precise=mode == "w4x", sym=sym, device=dev)
+        return attach_q8_device(w4) if dual else w4
 
-    params: dict = {"tok_embd": w(V, E), "output_norm": norm_w(), "rope_freqs": None,
-                    "output": w(V, E), "layers": []}
+    params: dict = {"tok_embd": w(V, E), "output_norm": norm_w(), "rope_freqs": None}
+    if not tie_output:
+        params["output"] = w(V, E)
+    params["layers"] = []
     for _ in range(cfg.n_layer):
-        params["layers"].append({
-            "attn_norm": norm_w(), "ffn_norm": norm_w(),
-            "wqkv_fused": w(qdim + 2 * kvdim, E), "wo": w(E, qdim),
-            "ffn_gateup_fused": w(2 * F, E), "ffn_down": w(E, F)})
+        lp = {"attn_norm": norm_w(), "ffn_norm": norm_w()}
+        if fuse:
+            lp["wqkv_fused"] = w(qdim + 2 * kvdim, E)
+        else:
+            lp.update(wq=w(qdim, E), wk=w(kvdim, E), wv=w(kvdim, E))
+        lp["wo"] = w(E, qdim)
+        if fuse:
+            lp["ffn_gateup_fused"] = w(2 * F, E)
+        else:
+            lp.update(ffn_gate=w(F, E), ffn_up=w(F, E))
+        lp["ffn_down"] = w(E, F)
+        params["layers"].append(lp)
     return params
 
 
@@ -214,7 +474,10 @@ def wire_blocks(rng: np.random.Generator, qtype: GGMLQuantType, n: int, k: int) 
       [2^-9, 2^-7];
     * Q4_1: q d + m with zero-mean groups, m = -7.5 d and d a power of two
       (2^-9 or 2^-8), so m is exact in f16, as in the Q4_K branch;
-    * Q6_K: signed 6-bit-range group scales symmetric about 0;
+    * Q6_K: (q - 32) (d sc) with codes uniform in 1..63 (zero-mean groups:
+      over 0..63 every group had mean -d sc / 2, and through gemma's tied
+      Q6_K embedding one token won whatever the prompt) and signed 6-bit
+      group scales symmetric about 0;
     * Q8_0: uniform int8 codes under f16 scales;
     * Q5_0: (q - 16) d with codes uniform in 1..31 (zero-mean groups, as
       Q4_0's);
@@ -225,6 +488,9 @@ def wire_blocks(rng: np.random.Generator, qtype: GGMLQuantType, n: int, k: int) 
       hold is never drawn, so groups are zero-mean) and signed scales;
     * Q5_K: Q4_K's rule with 5-bit codes: mn = sc and dmin = 15.5 d;
     * Q8_K: uniform int8 codes under an f32 scale, with their bsums;
+    * the nine IQ formats (_iq_blocks): random grid index, sign and scale
+      bytes as JAX's tests draw them (tests/test_iq_quants.py), under a
+      pinned f16 d of one of two powers of two per format;
     * F16 and F32: dense weights, normal with std 0.02."""
     if qtype in (GGMLQuantType.F16, GGMLQuantType.F32):
         dense = rng.standard_normal(n * k, dtype=np.float32) * np.float32(0.02)
@@ -242,9 +508,14 @@ def wire_blocks(rng: np.random.Generator, qtype: GGMLQuantType, n: int, k: int) 
         d = np.where(rng.random(nb) < 0.5, 2.0 ** -9, 2.0 ** -8)
         blocks = [_f16_bytes(d), _f16_bytes(-7.5 * d), u8(nb, 16)]
     elif qtype == GGMLQuantType.Q6_K:
+        q = rng.integers(1, 64, (nb, 2, 4, 32), dtype=np.uint8)  # element 128 h + 32 i + l
+        ql = np.stack([(q[:, :, 0] & 0x0F) | ((q[:, :, 2] & 0x0F) << 4),
+                       (q[:, :, 1] & 0x0F) | ((q[:, :, 3] & 0x0F) << 4)], axis=2)
+        qh = ((q[:, :, 0] >> 4) | ((q[:, :, 1] >> 4) << 2) | ((q[:, :, 2] >> 4) << 4)
+              | ((q[:, :, 3] >> 4) << 6))
         sc = rng.integers(-31, 32, (nb, 16), dtype=np.int8).view(np.uint8)
         d = rng.uniform(2.0 ** -14, 2.0 ** -13, nb)
-        blocks = [u8(nb, 128), u8(nb, 64), sc, _f16_bytes(d)]
+        blocks = [ql.reshape(nb, 128), qh.reshape(nb, 64), sc, _f16_bytes(d)]
     elif qtype == GGMLQuantType.Q8_0:
         codes = rng.integers(-127, 128, (nb, 32), dtype=np.int8).view(np.uint8)
         blocks = [_f16_bytes(rng.uniform(2.0 ** -13, 2.0 ** -11, nb)), codes]
@@ -278,9 +549,46 @@ def wire_blocks(rng: np.random.Generator, qtype: GGMLQuantType, n: int, k: int) 
         bsums = codes.reshape(nb, 16, 16).sum(axis=-1, dtype=np.int16).astype("<i2")
         d = rng.uniform(2.0 ** -13, 2.0 ** -11, nb).astype("<f4")
         blocks = [d.view(np.uint8), codes.view(np.uint8), bsums.view(np.uint8)]
+    elif qtype in IQ_D:
+        return _iq_blocks(rng, qtype, nb).reshape(-1)
     else:
         raise NotImplementedError(f"random {GGMLQuantType(qtype).name} blocks")
     return np.concatenate([b.reshape(nb, -1) for b in blocks], axis=1).reshape(-1)
+
+
+# the smaller of the two f16 d a format's blocks draw: weights of std
+# 0.013-0.035 over random grid, sign and scale bytes
+IQ_D = {GGMLQuantType.IQ2_XXS: 2.0 ** -12, GGMLQuantType.IQ2_XS: 2.0 ** -12,
+        GGMLQuantType.IQ2_S: 2.0 ** -12, GGMLQuantType.IQ3_XXS: 2.0 ** -13,
+        GGMLQuantType.IQ3_S: 2.0 ** -13, GGMLQuantType.IQ1_S: 2.0 ** -9,
+        GGMLQuantType.IQ1_M: 2.0 ** -9, GGMLQuantType.IQ4_NL: 2.0 ** -12,
+        GGMLQuantType.IQ4_XS: 2.0 ** -16}
+# IQ4's level indices drawn: all but -49, -35 and -10 (indices 4, 5, 7), the
+# rest summing to 0, so groups are zero-mean (the 16 levels average -5.9)
+IQ4_CENTRED = np.array([0, 1, 2, 3, 6, 8, 9, 10, 11, 12, 13, 14, 15], np.uint8)
+
+
+def _iq_blocks(rng: np.random.Generator, qtype: GGMLQuantType, nb: int) -> np.ndarray:
+    """nb random blocks of an IQ format [nb, type_size]: random bytes (grid
+    indices, signs, scales), then d pinned to IQ_D or twice it.  IQ1_M's d
+    is assembled from the top nibbles of its four scale words, which are
+    set to d's f16 bits; IQ4_NL and IQ4_XS take level indices from
+    IQ4_CENTRED."""
+    b = rng.integers(0, 256, (nb, TYPE_TRAITS[qtype].type_size), dtype=np.uint8)
+    d = np.where(rng.random(nb) < 0.5, IQ_D[qtype], 2 * IQ_D[qtype]).astype(np.float16)
+    if qtype == GGMLQuantType.IQ1_M:
+        bits = d.view(np.uint16).astype(np.uint16)
+        sc = b[:, 48:56].copy().view("<u2").reshape(nb, 4)
+        for i in range(4):
+            sc[:, i] = (sc[:, i] & 0x0FFF) | (((bits >> (4 * i)) & 0xF) << 12)
+        b[:, 48:56] = sc.view(np.uint8).reshape(nb, 8)
+        return b
+    b[:, 0:2] = d.astype("<f2").view(np.uint8).reshape(nb, 2)
+    if qtype in (GGMLQuantType.IQ4_NL, GGMLQuantType.IQ4_XS):
+        lo = 2 if qtype == GGMLQuantType.IQ4_NL else 8
+        idx = IQ4_CENTRED[rng.integers(0, len(IQ4_CENTRED), (nb, b.shape[1] - lo, 2))]
+        b[:, lo:] = idx[..., 0] | (idx[..., 1] << 4)
+    return b
 
 
 def q4_k_m_layer_types(n_layer: int) -> list[dict]:
@@ -312,6 +620,19 @@ EVERY_FORMAT = (GGMLQuantType.Q5_0, GGMLQuantType.Q5_1, GGMLQuantType.Q2_K,
                 GGMLQuantType.Q4_K)
 
 
+EVERY_IQ = IQ_TYPES  # the nine IQ formats, for every_iq_layer_types
+
+
+def every_iq_layer_types(n_layer: int) -> list[dict]:
+    """A synthetic mix that puts each of the nine IQ formats on some matrix,
+    as every_format_layer_types does the k-quant and legacy formats: the
+    layers' matrices cycle through EVERY_IQ, so two layers (14 matrices)
+    hold all nine, and no two projections of a layer share a type."""
+    cyc = len(EVERY_IQ)
+    return [{name: EVERY_IQ[(i * len(LAYER_MATRICES) + j) % cyc]
+             for j, name in enumerate(LAYER_MATRICES)} for i in range(n_layer)]
+
+
 def every_format_layer_types(n_layer: int) -> list[dict]:
     """A synthetic mix that puts each of EVERY_FORMAT on some matrix: the
     layers' matrices, in LAYER_MATRICES order, cycle through the formats,
@@ -328,8 +649,68 @@ def every_format_layer_types(n_layer: int) -> list[dict]:
 FILE_TYPES = {GGMLQuantType.Q4_0: 2, GGMLQuantType.Q4_1: 3, GGMLQuantType.Q8_0: 7,
               GGMLQuantType.Q5_0: 8, GGMLQuantType.Q5_1: 9, GGMLQuantType.Q2_K: 10,
               GGMLQuantType.Q3_K: 12, GGMLQuantType.Q4_K: 15, GGMLQuantType.Q5_K: 17,
-              GGMLQuantType.Q6_K: 18}
+              GGMLQuantType.Q6_K: 18, GGMLQuantType.IQ2_XXS: 19, GGMLQuantType.IQ2_XS: 20,
+              GGMLQuantType.IQ3_XXS: 23, GGMLQuantType.IQ1_S: 24, GGMLQuantType.IQ4_NL: 25,
+              GGMLQuantType.IQ3_S: 26, GGMLQuantType.IQ2_S: 28, GGMLQuantType.IQ4_XS: 30,
+              GGMLQuantType.IQ1_M: 31}
 DEFAULT_MIX = {GGMLQuantType.Q4_K: q4_k_m_layer_types, GGMLQuantType.Q5_K: q5_k_m_layer_types}
+
+# the quantize tool's file types (JAX llama_kotlin_tpu/tools/quantize.py::
+# FTYPES): name -> the default matrix type
+FTYPES = {
+    "Q4_0": GGMLQuantType.Q4_0, "Q4_1": GGMLQuantType.Q4_1, "Q5_0": GGMLQuantType.Q5_0,
+    "Q5_1": GGMLQuantType.Q5_1, "Q8_0": GGMLQuantType.Q8_0, "Q2_K": GGMLQuantType.Q2_K,
+    "Q3_K_S": GGMLQuantType.Q3_K, "Q3_K_M": GGMLQuantType.Q3_K,
+    "Q4_K_S": GGMLQuantType.Q4_K, "Q4_K_M": GGMLQuantType.Q4_K,
+    "Q5_K_S": GGMLQuantType.Q5_K, "Q5_K_M": GGMLQuantType.Q5_K, "Q6_K": GGMLQuantType.Q6_K,
+    "IQ2_XXS": GGMLQuantType.IQ2_XXS, "IQ2_XS": GGMLQuantType.IQ2_XS,
+    "IQ3_XXS": GGMLQuantType.IQ3_XXS, "IQ3_S": GGMLQuantType.IQ3_S,
+    "IQ4_NL": GGMLQuantType.IQ4_NL, "IQ4_XS": GGMLQuantType.IQ4_XS,
+    "F16": GGMLQuantType.F16, "BF16": GGMLQuantType.BF16, "F32": GGMLQuantType.F32,
+}
+
+
+def tensor_get_type(name: str, default: GGMLQuantType, ftype: str,
+                    n_expert: int = 0) -> GGMLQuantType:
+    """The quantize tool's per-tensor type (JAX ``tools/quantize.py::
+    tensor_get_type``, llama.cpp's llama_tensor_get_type): the lm_head at
+    Q6_K under the 2-5-bit k-quants and legacy types, Q5_K under the low IQ
+    types; token_embd Q4_K under IQ2_XXS, IQ2_XS, IQ3_XXS and Q2_K; the
+    *_M mixes bump attn_v and ffn_down."""
+    is_m = ftype.endswith("_M")
+    if name == "output.weight" and TYPE_TRAITS[default].is_quantized:
+        if default in (GGMLQuantType.Q2_K, GGMLQuantType.Q3_K, GGMLQuantType.Q4_K,
+                       GGMLQuantType.Q5_K, GGMLQuantType.Q4_0, GGMLQuantType.Q4_1,
+                       GGMLQuantType.Q5_0, GGMLQuantType.Q5_1):
+            return GGMLQuantType.Q6_K
+    iq_low = (GGMLQuantType.IQ2_XXS, GGMLQuantType.IQ2_XS, GGMLQuantType.IQ3_XXS)
+    if name == "output.weight" and default in iq_low + (GGMLQuantType.IQ3_S,):
+        return GGMLQuantType.Q5_K
+    if name == "token_embd.weight" and default in iq_low:
+        return GGMLQuantType.Q4_K
+    if name == "token_embd.weight" and default == GGMLQuantType.Q2_K:
+        return GGMLQuantType.Q4_K
+    if ".attn_v.weight" in name and is_m:
+        bump = {GGMLQuantType.Q2_K: GGMLQuantType.Q4_K, GGMLQuantType.Q3_K: GGMLQuantType.Q5_K,
+                GGMLQuantType.Q4_K: GGMLQuantType.Q6_K, GGMLQuantType.Q5_K: GGMLQuantType.Q6_K}
+        return bump.get(default, default)
+    if ".ffn_down" in name and is_m:
+        bump = {GGMLQuantType.Q3_K: GGMLQuantType.Q4_K, GGMLQuantType.Q4_K: GGMLQuantType.Q6_K}
+        return bump.get(default, default)
+    return default
+
+
+def ftype_profile(n_layer: int, ftype: str) -> dict:
+    """synthetic_gguf's type arguments (matrix_type, layer_types,
+    embd_type, output_type) of a file the quantize tool makes at `ftype`,
+    tensor by tensor through tensor_get_type: e.g. "IQ2_XXS" gives IQ2_XXS
+    layers, a Q4_K token_embd and a Q5_K output."""
+    default = FTYPES[ftype]
+    layers = [{m: tensor_get_type(f"blk.{i}.{m}.weight", default, ftype)
+               for m in LAYER_MATRICES} for i in range(n_layer)]
+    return {"matrix_type": default, "layer_types": layers,
+            "embd_type": tensor_get_type("token_embd.weight", default, ftype),
+            "output_type": tensor_get_type("output.weight", default, ftype)}
 
 
 # the public Llama-2 chat template (a jinja string, as HF ships it): the

@@ -19,6 +19,11 @@ layer's unfused gate and up, 10944 rows):
   the standard ``qmm_w4`` site, kernel 1's function, which kernel 1 serves
   on sym and legacy folds.  Off the fx2 site JAX declines a compact fold,
   which then takes kernel 4 (``ops/cuda/qmm.py``), as do more than 32 rows;
+  A W4 fold that carries a Q8F shadow (``LKTPU_DUAL_FOLD=1``,
+  ``quant/fold.py::attach_q8``) sends more than ``LKTPU_W4_BMAX`` rows
+  (read per call, default 8) and at most 256 to kernel 6 on the shadow,
+  JAX's high-batch switch (``llama_kotlin_tpu/ops/qmatmul.py:55-99``);
+  fewer rows take the W4 route above bit for bit, more take kernel 4;
 * W4X (precise W4) fold: at most 32 rows -> kernel 7
   (``ops/cuda/qmm_w4x.py``, dual-plane activations), more -> kernel 4;
 * W8 fold: at most 32 rows -> kernel 5 (``ops/cuda/qmm_w8.py``), more rows
@@ -41,10 +46,12 @@ layer's unfused gate and up, 10944 rows):
 gate and up apart) and down are W4 folds it takes (never precise ones,
 never exact repacks: those run gate, up and down through ``qmatmul``, as
 JAX's kernels 2 and 10 decline them), unless ``LKTPU_FFN_FUSED`` is "0"
-(JAX's A/B knob, read per call).
+(JAX's A/B knob, read per call), or the gate carries a shadow and the rows
+exceed ``LKTPU_W4_BMAX`` (the caller's two-launch path then takes kernel 6).
 ``qmm_layer`` runs the whole post-attention half of a layer on kernel 10
 (``ops/cuda/qmm_w4_layer.py``) under ``LKTPU_LAYER_FUSED=1`` when it
-takes the operands.  Any other weight
+takes the operands, and declines above ``LKTPU_W4_BMAX`` rows as kernel 2
+does when the gate carries a shadow.  Any other weight
 raises: the port has no library stand-in for a kernel.
 """
 
@@ -64,12 +71,20 @@ from llama_kotlin_tpu_torch.ops.cuda.qmm_w4_fx import qmm_w4_fx_matmul
 from llama_kotlin_tpu_torch.ops.cuda.qmm_w4_layer import fused_layer, layer_eligible
 from llama_kotlin_tpu_torch.ops.cuda.qmm_w4x import qmm_w4x_matmul
 from llama_kotlin_tpu_torch.ops.cuda.qmm_w8 import qmm_w8_matmul
-from llama_kotlin_tpu_torch.quant.fold import is_exact, is_q8_sb, is_w4, is_w4x, is_w8, is_w8x
+from llama_kotlin_tpu_torch.quant.fold import (has_shadow, is_exact, is_q8_sb, is_w4, is_w4x,
+                                               is_w8, is_w8x, q8_shadow)
 from llama_kotlin_tpu_torch.quant.qtensor import QTensor, dequantize
 
 
 DENSE_CPU_ROWS = 4096  # weight rows widened to f32 at a time by the CPU dense product
 ROW_BLOCK = 128  # the smallest output-row block of JAX's W4/W8 decode kernels' plans
+SHADOW_MAX_ROWS = 256  # rows above it keep kernel 4 on the W4 fold, shadow or not
+
+
+def w4_bmax() -> int:
+    """``LKTPU_W4_BMAX``: the rows above which a W4 fold with a Q8F shadow
+    switches to the shadow (JAX's ``_w4_bmax``, default 8)."""
+    return int(os.environ.get("LKTPU_W4_BMAX", "8"))
 
 
 def _rows(x: torch.Tensor) -> int:
@@ -81,6 +96,14 @@ def _decode(x: torch.Tensor, w: QTensor) -> bool:
     most 32 rows, and output rows that JAX's kernel plans (module
     docstring); else kernel 4."""
     return _rows(x) <= MAX_ROWS and w.shape[0] % ROW_BLOCK == 0
+
+
+def takes_shadow(x: torch.Tensor, w) -> bool:
+    """Whether x's rows run on the Q8F shadow of w: a shadow, more than
+    LKTPU_W4_BMAX rows and at most 256, and output rows kernel 6 blocks
+    (JAX's kernel 6 declines others; its W4 kernel too, so kernel 4)."""
+    return (has_shadow(w) and w4_bmax() < _rows(x) <= SHADOW_MAX_ROWS
+            and w.shape[0] % ROW_BLOCK == 0)
 
 
 def dense_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -102,6 +125,8 @@ def qmatmul(x: torch.Tensor, w: QTensor | torch.Tensor) -> torch.Tensor:
     if isinstance(w, torch.Tensor):
         return dense_matmul(x, w)
     if is_w4(w):
+        if takes_shadow(x, w):
+            return qmm_int8(x, q8_shadow(w))
         return _w4_decode(x, w) if _decode(x, w) else qmm(x, w)
     if is_w4x(w):
         return qmm_w4x_matmul(x, w) if _decode(x, w) else qmm(x, w)
@@ -138,6 +163,8 @@ def qmm_ffn(x: torch.Tensor, gu: QTensor, dn: QTensor, act: str = "silu",
     nibbles."""
     if os.environ.get("LKTPU_FFN_FUSED", "1") == "0":
         return None
+    if has_shadow(gu) and _rows(x) > w4_bmax():
+        return None
     if _rows(x) > MAX_ROWS or not ffn_eligible(gu, dn, act, up):
         return None
     return qmm_w4_ffn_matmul(x, gu, dn, act=act, up=up)
@@ -150,6 +177,8 @@ def qmm_layer(attn: torch.Tensor, h: torch.Tensor, wo, gu, dn, norm_w: torch.Ten
     per call; off by default, as in JAX) and the kernel takes the operands;
     else None, and the caller runs o, the norm and the FFN apart."""
     if os.environ.get("LKTPU_LAYER_FUSED", "0") != "1":
+        return None
+    if has_shadow(gu) and _rows(attn) > w4_bmax():
         return None
     if not layer_eligible(attn, h, wo, gu, dn, act):
         return None

@@ -39,10 +39,21 @@ kernels quantize the activations in two int8 planes (kernel 7 and kernel
 5's dual-plane branch); kernels 1 and 2 must never take them, so each
 layout has one predicate of its own (``is_w4``, ``is_w4x``, ``is_w8``,
 ``is_w8x``, ``is_q8f``) and the flavors never overlap.
+
+The Q8F shadow (``attach_q8``, JAX ``quant/fold.py:316-380``): a W4 fold
+of the ``w4`` mode may also carry the same weights as Q8F planes,
+``aux["q8_codes"]`` int8 [n, k_pad] and ``aux["q8_scale"]`` f32 [n,
+k_pad / 256] (k padded to 256, kernel 6's layout), about 8.2 more bits a
+weight.  ``ops/qmatmul.py`` sends rows above ``LKTPU_W4_BMAX`` and up to
+256 to kernel 6 on the shadow (``q8_shadow``); the fold's own planes serve
+the rest.  ``LKTPU_DUAL_FOLD=1`` attaches it at load and at a synthetic
+draw (W4 folds only: never W4X).
 """
 
 from __future__ import annotations
 
+import os
+from dataclasses import replace
 from typing import Optional
 
 import numpy as np
@@ -50,8 +61,9 @@ import torch
 import torch.nn.functional as F
 
 from llama_kotlin_tpu_torch.quant.formats import GGMLQuantType
-from llama_kotlin_tpu_torch.quant.qtensor import (QTensor, SPAN, effective_scales,
+from llama_kotlin_tpu_torch.quant.qtensor import (QTensor, SPAN, dequantize, effective_scales,
                                                   unpack_codes)
+from llama_kotlin_tpu_torch.quant.repack import float_to_q8flat
 
 GROUP = 32  # W4 group size (= Q4_K group)
 # k-alignment of the folds: the contraction dim pads up to a multiple of
@@ -253,3 +265,57 @@ def is_exact(w) -> bool:
     kernel 4's exact branches at every row count."""
     return (isinstance(w, QTensor) and w.aux is None and not w.hi_signed
             and w.bits in (2, 4, 8) and w.group_size in EXACT_GROUPS)
+
+
+SHADOW_ROW_CHUNK = 8192  # weight rows dequantized to f32 at a time by attach_q8
+
+
+def dual_fold_enabled() -> bool:
+    """``LKTPU_DUAL_FOLD=1``: W4 folds carry a Q8F shadow (JAX's switch,
+    read where the folds are made)."""
+    return os.environ.get("LKTPU_DUAL_FOLD") == "1"
+
+
+def attach_q8(w4: QTensor, wf: Optional[torch.Tensor] = None,
+              row_chunk: int = SHADOW_ROW_CHUNK) -> QTensor:
+    """The W4 fold `w4` with a Q8F shadow of the same weights in its aux
+    (``q8_codes``, ``q8_scale``): `wf` the f32 [n, k] source (the loader's
+    decode of the wire bytes), or by default the fold's own dequantization,
+    a chunk of `row_chunk` rows at a time on the fold's device (JAX's
+    ``attach_q8_device``, which bounds the lm_head's f32 transient)."""
+
+    if not is_w4(w4):
+        raise ValueError(f"attach_q8 takes a W4 fold, not layout {w4.flavor!r}")
+    n, k = w4.shape
+    codes, scales = [], []
+    for r0 in range(0, n, row_chunk):
+        r1 = min(r0 + row_chunk, n)
+        if wf is None:
+            rows = replace(w4.row_slice(r0, r1), aux=None)
+            part = dequantize(rows)
+        else:
+            part = wf[r0:r1, :k].to(torch.float32)
+        q8 = float_to_q8flat(part)
+        codes.append(q8.codes)
+        scales.append(q8.g_scale)
+    cat = lambda ts: ts[0] if len(ts) == 1 else torch.cat(ts)
+    return replace(w4, aux=dict(w4.aux, q8_codes=cat(codes).contiguous(),
+                                q8_scale=cat(scales).contiguous()))
+
+
+def attach_q8_device(w4: QTensor, row_chunk: int = SHADOW_ROW_CHUNK) -> QTensor:
+    """attach_q8 from the fold's own weights, on its device (synthetic
+    weights drawn on the card)."""
+    return attach_q8(w4, None, row_chunk)
+
+
+def has_shadow(w) -> bool:
+    """A W4 fold that carries a Q8F shadow."""
+    return is_w4(w) and "q8_codes" in w.aux
+
+
+def q8_shadow(w: QTensor) -> QTensor:
+    """The shadow of a W4 fold as a Q8F QTensor (views of its aux planes)."""
+    return QTensor(codes=w.aux["q8_codes"], g_scale=w.aux["q8_scale"], g_min=None,
+                   sb_scale=None, sb_min=None, qtype=GGMLQuantType.Q8_0, bits=8,
+                   group_size=SPAN, code_offset=0, shape=w.shape, aux={"flavor": "q8f"})

@@ -9,11 +9,14 @@ same codes and scales bit for bit.
 
 Ported formats: F32, F16, BF16 (float decode), the legacy Q4_0, Q4_1,
 Q5_0, Q5_1 and Q8_0, and the k-quants Q2_K, Q3_K, Q4_K, Q5_K, Q6_K and
-Q8_K (JAX ``quant/repack.py:88-249``).  The scale planes keep JAX's
-dtypes: uint8 scale/min codes for Q2_K, Q4_K and Q5_K, int8 for Q3_K and
-Q6_K, f32 for the legacy formats and Q8_K.  The IQ family (JAX
-``repack_iq``, ``:255``) raises NotImplementedError until its item of
-ROADMAP.md (section 1, item 6).
+Q8_K (JAX ``quant/repack.py:88-249``), and the nine IQ (codebook) formats
+(JAX ``repack_iq``, ``:255-271``; the splits are ``quant/iq.py``'s).  The
+scale planes keep JAX's dtypes: uint8 scale/min codes for Q2_K, Q4_K and
+Q5_K, int8 for Q3_K and Q6_K, f32 for the legacy formats and Q8_K; an IQ
+repack holds int8 codes, a uint8 (int8 for IQ4_XS, f32 for IQ4_NL) group
+plane at group 16 or 32 and an f32 superblock plane (none for IQ4_NL),
+no mins.  Other wire types (Q8_1, the integer types) raise
+NotImplementedError, as in JAX.
 """
 
 from __future__ import annotations
@@ -21,12 +24,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from llama_kotlin_tpu_torch.quant import iq
 from llama_kotlin_tpu_torch.quant.formats import QK_K, TYPE_TRAITS, GGMLQuantType
 from llama_kotlin_tpu_torch.quant.qtensor import SPAN, QTensor, dequantize
-
-NOT_PORTED = ("not ported yet (the IQ formats come with ROADMAP.md section 1, item 6, "
-              "and the port's copy of quant/iq.py)")
-
 
 def _wire_blocks(data: torch.Tensor, qtype: GGMLQuantType, n: int, k: int) -> torch.Tensor:
     """Flat uint8 wire bytes -> [n, k / block_size, type_size]."""
@@ -256,6 +256,19 @@ def repack_q8_k(data, n: int, k: int) -> QTensor:
     return _make(GGMLQuantType.Q8_K, codes, 8, QK_K, n, k, g_scale=d)
 
 
+def repack_iq(data, qtype: GGMLQuantType, n: int, k: int) -> QTensor:
+    """An IQ format -> int8 codes, the small-integer (IQ4_NL: f32) group
+    plane and the f32 superblock plane (``quant/iq.py``); exact in f32."""
+    _wire_blocks(data, qtype, n, k)  # the size check
+    codes, g, sb, gs = iq.iq_split(data, qtype)
+    return _make(qtype, codes.reshape(n, k), 8, gs, n, k, g_scale=g.reshape(n, k // gs),
+                 sb_scale=None if sb is None else sb.reshape(n, -1))
+
+
+def _iq_repacker(qtype: GGMLQuantType):
+    return lambda data, n, k: repack_iq(data, qtype, n, k)
+
+
 REPACKERS = {
     GGMLQuantType.Q4_0: repack_q4_0,
     GGMLQuantType.Q4_1: repack_q4_1,
@@ -268,13 +281,14 @@ REPACKERS = {
     GGMLQuantType.Q5_K: repack_q5_k,
     GGMLQuantType.Q6_K: repack_q6_k,
     GGMLQuantType.Q8_K: repack_q8_k,
+    **{qt: _iq_repacker(qt) for qt in iq.IQ_TYPES},
 }
 
 
 def repack(data: torch.Tensor, qtype: GGMLQuantType, n: int, k: int) -> QTensor:
     """Wire bytes of an [n, k] row-major tensor -> a QTensor on their device."""
     if qtype not in REPACKERS:
-        raise NotImplementedError(f"repack of {GGMLQuantType(qtype).name}: {NOT_PORTED}")
+        raise NotImplementedError(f"repack not implemented for {GGMLQuantType(qtype).name}")
     return REPACKERS[qtype](data, n, k)
 
 

@@ -21,8 +21,9 @@ import time
 
 import numpy as np
 
-# JAX's --mode names for synthetic weights -> the port's synthetic folds
-SYNTHETIC_MODES = {"w4a8": "w4", "exact": "w4x"}
+# JAX's --mode names for synthetic weights -> synthetic_params_device's modes
+# (Q4_K draws: the W4 fold, the precise W4X fold, Q8F, exact Q4_K repacks)
+SYNTHETIC_MODES = {"w4a8": "w4", "exact": "w4x", "int8": "int8", "dequant": "dequant"}
 
 
 def bench_combo(ctx, n_pp: int, n_tg: int, n_pl: int,
@@ -87,7 +88,8 @@ def main(argv=None):
                          "drawn on the device, no model file needed")
     ap.add_argument("--mode", default="w4a8", choices=sorted(SYNTHETIC_MODES),
                     help="serving mode for --synthetic weights (w4a8: the W4 fold; "
-                         "exact: the precise W4X fold)")
+                         "exact: the precise W4X fold; int8: Q8F; dequant: exact "
+                         "Q4_K repacks)")
     ap.add_argument("-npp", type=int, nargs="+", default=[128, 256])
     ap.add_argument("-ntg", type=int, nargs="+", default=[32])
     ap.add_argument("-npl", type=int, nargs="+", default=[1, 2, 4])

@@ -9,7 +9,8 @@ caches, prefill then token by token (tests/test_torch_moe.py::
 served_parity, the port on JAX's routing); the MLA cache's K shift against
 JAX's; and the stacked path's plain MLA route.
 
-In the exact mode the JAX contexts run on JAX's CPU routes: there JAX
+In the exact mode the JAX contexts run op by op (jax.disable_jit) on
+JAX's CPU routes: there JAX
 computes every projection as a bf16 dequantize-then-dot, the function of
 its kernel 4's exact branches, and its kernel 3 the masked softmax its XLA
 route computes, so interpret mode (4-5 times as long) would compute the
@@ -24,6 +25,7 @@ from __future__ import annotations
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -147,6 +149,10 @@ def test_config_matches_jax(lite):
 # moving 1.5% of the port's own embedding values by one bf16 step moved
 # its logits by 0.7-2.3e-2 in the exact mode and 1.8-8.2e-2 in w4 on these
 # files.  Routing parted from JAX's on at most 1 row of 20, a near-tie.
+# In the exact mode JAX runs op by op (jax.disable_jit): jitted, XLA's
+# excess precision put the bf16-cache case at 0.8-1.2e-2, at the top of its
+# bound, and a run of the whole suite in parallel workers crossed it; op by
+# op it measured 3.1-4.6e-3 (the same file, steps and threads).
 CASES = [
     ("lora", 4, None, False, 1.5e-2),
     ("lora", 4, "w4", "q8_0", 5e-2),
@@ -179,7 +185,8 @@ def test_contexts_match_jax(tmp_path, monkeypatch, variant, n_expert, mode, kv, 
     assert "layers" in pctx.params and "layers" in jctx.params  # unrolled
     assert pctx.cache.v.shape[-1] * (2 if kv == "q4_0" else 1) == cfg.v_head_dim == 32
     prompt = np.random.default_rng(7).integers(0, cfg.vocab_size, 12).astype(np.int32)
-    served_parity(jctx, pctx, prompt, N_STEPS, tol, min_decided=2 if tol < 2e-2 else 0)
+    with jax.disable_jit(mode is None):
+        served_parity(jctx, pctx, prompt, N_STEPS, tol, min_decided=2 if tol < 2e-2 else 0)
     assert routing.check() <= routing.rows // 10
     stacked = mode is None or n_expert > 16
     moe_layers = cfg.n_layer - 1
@@ -307,7 +314,8 @@ def test_server_serves_deepseek2(tmp_path):
     file (synthetic_gguf's DeepSeek-V2-Lite layout at CPU widths, with an
     SPM vocab): two concurrent greedy /completion requests over a socket at
     2 slots each answer 200 with their 8 tokens, and each text is the one
-    generate() gives for that prompt alone."""
+    generate()'s tokens give for that prompt alone, a token's decode at a
+    time as the engine appends them."""
     import json
     import threading
     import urllib.request
@@ -321,7 +329,7 @@ def test_server_serves_deepseek2(tmp_path):
     cfg, moe_shape = deepseek_v2_lite(n_layer=2)
     cfg = replace(cfg, n_embd=256, n_ff=512, vocab_size=512, n_expert=8, n_expert_used=2)
     path = tmp_path / "ds2.gguf"
-    synthetic_gguf(path, cfg, seed=5, moe=replace(moe_shape, expert_ff=256, kv_lora_rank=256),
+    synthetic_gguf(path, cfg, seed=12, moe=replace(moe_shape, expert_ff=256, kv_lora_rank=256),
                    extra_kvs=synthetic_spm_vocab(512))
     lcfg, params, f = load_gguf_model(path, fuse=True, device="cpu")
     tok = build_tokenizer(f.metadata)
@@ -331,7 +339,10 @@ def test_server_serves_deepseek2(tmp_path):
     for p in prompts:
         ctx = LlamaContext(lcfg, params, n_cells=256, device="cpu")
         ids = np.asarray(tok.encode(p, add_special=True), np.int32)
-        want.append(tok.decode(generate(ctx, ids, 8)))
+        # the engine appends each token's own decode (JAX's engine.py:606):
+        # a lone SPM piece drops its leading space, so the text is built so
+        want.append("".join(tok.decode([t], skip_special=False)
+                            for t in generate(ctx, ids, 8)))
     ctx = LlamaContext(lcfg, params, n_cells=256, device="cpu")
     state = server.serve(ctx, tok, model_name="tiny-ds2", port=0, n_slots=2, n_batch=64)
     threading.Thread(target=state.httpd.serve_forever, daemon=True).start()

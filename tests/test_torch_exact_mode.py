@@ -52,8 +52,8 @@ N_PROMPT, N_STEPS, N_CELLS = 12, 5, 256
 EXACT_TOL = 1e-2
 FAST_TOL = 4e-2
 FILES = {
-    "q4_k_m": dict(seed=31),
-    "every_format": dict(seed=32, layer_types=every_format_layer_types(2), embd_type=Q.Q5_K),
+    "q4_k_m": dict(seed=36),
+    "every_format": dict(seed=47, layer_types=every_format_layer_types(2), embd_type=Q.Q5_K),
     "q8_0": dict(seed=33, matrix_type=Q.Q8_0),
 }
 

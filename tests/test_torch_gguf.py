@@ -160,10 +160,15 @@ def test_wire_decode_equals_numpy_ref(qtype):
 
 
 def test_unported_formats_raise():
-    """Formats of a later slice (the IQ family) raise rather than load
-    wrong, naming their ROADMAP item."""
-    data = torch.zeros(row_byte_size(256, Q.IQ4_XS) * 2, dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        repack.repack(data, Q.IQ4_XS, 2, 256)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        repack.repack_q8flat(data, Q.IQ4_XS, 2, 256)
+    """A wire type neither package repacks (Q8_1, an activation format)
+    raises rather than loads wrong, in the repack and the Q8F conversion,
+    as JAX's repack does; the IQ family, the last to be ported, repacks
+    (tests/test_torch_iq.py holds it against JAX)."""
+    data = torch.zeros(row_byte_size(256, Q.Q8_1) * 2, dtype=torch.uint8)
+    for fn in (repack.repack, repack.repack_q8flat):
+        with pytest.raises(NotImplementedError, match="q8_1|Q8_1"):
+            fn(data, Q.Q8_1, 2, 256)
+    with pytest.raises(NotImplementedError):
+        jax_repack.repack(data.numpy(), JaxType.Q8_1, 2, 256)
+    zeros = torch.zeros(row_byte_size(256, Q.IQ4_XS) * 2, dtype=torch.uint8)
+    assert not repack.dequantize_wire(zeros, Q.IQ4_XS, (2, 256)).any()

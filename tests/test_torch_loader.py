@@ -35,7 +35,7 @@ MODES = ["w4", "int8"]
 @pytest.fixture(scope="module")
 def gguf_path(tmp_path_factory):
     path = tmp_path_factory.mktemp("gguf") / "tiny-q4km.gguf"
-    synthetic_gguf(path, CFG, seed=11)
+    synthetic_gguf(path, CFG, seed=12)
     return path
 
 

@@ -56,7 +56,7 @@ def gguf_models(tmp_path_factory):
     """mode -> (JAX cfg, JAX params, port cfg, port params) of one Q4_K_M-
     profile file (layer 1 with split q/k/v in the w4 mode)."""
     path = tmp_path_factory.mktemp("gguf") / "tiny-q4km.gguf"
-    synthetic_gguf(path, GGUF_CFG, seed=11)  # tests/test_torch_loader.py's file
+    synthetic_gguf(path, GGUF_CFG, seed=12)  # tests/test_torch_loader.py's file
     out = {}
     for mode in ("w4", "int8"):
         jcfg, jp, jf = jax_load(path, fast_mode=mode, fuse=True)

@@ -381,7 +381,7 @@ def test_w4x_path_matches_jax(w4x_models, prefer_unrolled, monkeypatch):
 @pytest.fixture(scope="module")
 def gguf_w4x(tmp_path_factory):
     path = tmp_path_factory.mktemp("gguf") / "tiny-q4km.gguf"
-    synthetic_gguf(path, GGUF_CFG, seed=11)  # tests/test_torch_loader.py's file
+    synthetic_gguf(path, GGUF_CFG, seed=12)  # tests/test_torch_loader.py's file
     jcfg, jp, jf = jax_load(path, fast_mode="w4x", fuse=True)
     cfg, pp, f = load_gguf_model(path, fast_mode="w4x", fuse=True, device="cpu")
     jf.close()
