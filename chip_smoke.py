@@ -201,11 +201,26 @@ decode; llama70b_phase); to 6 a 2-layer every-IQ file in the exact and
 w4 modes and llama3-70b at 2 layers against the CPU (iq_parity_phase,
 llama70b_parity_phase).
 
+The llama-shaped architectures (Qwen2-7B's 7 query heads a kv head, qkv
+biases, Qwen1.5-MoE-A2.7B's sigmoid-gated shared expert, ALiBi, LayerNorm,
+the parallel block) add to 3 kernels 3 and 9 at Qwen2-7B's 28/4 heads on
+the three caches (decode and 64 rows over 1001, 1024 and 4096 cells, blind
+rows exactly 0), kernel 1 at its widths (b = 1 and 8) and kernel 4's exact
+qkv, kernel 2 declining its FFN (qwen2_kernel_phase); to 5 Qwen2-7B at full
+width and all 28 layers and Qwen1.5-MoE-A2.7B at EARLIER_LAYERS, exact and
+w4, 3 requests each with every kernel's launches exact (route_counts),
+profiled (qwen2_phase, qwen2moe_phase; llama3-70b's serving phase went to
+EARLIER_LAYERS for them); to 6 both at 2 layers (Qwen2-7B exact and w4,
+the MoE in w4; qwen_parity_phase) and 16 other family members at 2 layers (baichuan-13B
+at 40) and a narrow width, exact, kernel 3 never launched where JAX's
+predicate declines its kernel (ALiBi, head dim 96; arch_sweep_phase).
+
 The parity phases' CPU references are computed by a child process of this
 script (--cpu-refs, started at once, CPU_REF_THREADS threads), which runs
 beside the card's phases; the parent reads each when its card run needs it.
 Another child (--write-files) writes the 4.9 GB llama3-8B Q4_K_M file, the
-every-IQ files, the DeepSeek-V2-Lite and gemma-2-9b files meanwhile.
+every-IQ files, the DeepSeek-V2-Lite, gemma-2-9b, Qwen2-7B and
+Qwen1.5-MoE-A2.7B files meanwhile.
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -2862,18 +2877,22 @@ MOE_PARITY_FILES = ("deepseek2-2layer.gguf", "mixtral-2layer.gguf")
 # in writing order: the CPU reference process's first files first (its
 # parity_phase needs none), then the parent's in the order its phases read
 # them (the IQ files' writers are defined with their phases, further down)
-WRITERS = {**{name: write_spec_file for name in PARITY_FILES},
+WRITERS = {**{name: lambda p: write_qwen_parity_file(p)
+              for name in ("qwen2-2layer.gguf", "qwen2moe-2layer.gguf")},
+           **{name: write_spec_file for name in PARITY_FILES},
            LLAMA_FILE: write_llama_file,
            **{name: write_spec_file for name in MOE_PARITY_FILES},
            "llama3-8b-q4_0.gguf": write_spec_file, "llama3-8b-every-format.gguf": write_spec_file,
            "llama3-8b-q8_0.gguf": write_spec_file, IQ_FILE: lambda p: write_iq_file(p),
            DS2_FILE: write_ds2_file, GEMMA2_FILE: write_gemma2_file,
            **{name: write_gemma_parity_file for name in gemma_parity_files()},
-           IQ_PARITY_FILE: lambda p: write_iq_parity_file(p)}
+           IQ_PARITY_FILE: lambda p: write_iq_parity_file(p),
+           "qwen2-7b-q4_k_m.gguf": lambda p: write_qwen2_file(p),
+           "qwen1.5-moe-a2.7b-q4_k_m.gguf": lambda p: write_qwen2moe_file(p)}
 # files both the parent and the CPU reference process read: each takes a
 # hard link, and the writer's directory keeps the file to the end
 SHARED_FILES = frozenset(PARITY_FILES + MOE_PARITY_FILES + tuple(gemma_parity_files())
-                         + (IQ_PARITY_FILE,))
+                         + (IQ_PARITY_FILE, "qwen2-2layer.gguf", "qwen2moe-2layer.gguf"))
 FILE_WAIT_S = 900  # how long the CPU reference process waits for a file
 
 
@@ -2983,7 +3002,8 @@ def cpu_refs_main(torch, ref_dir: str, files_dir: str = None) -> int:
     tmp = Path(ref_dir) / "files"
     tmp.mkdir()
     try:
-        for fn, args in ((parity_phase, ()), (gguf_parity_phase, (tmp,)),
+        for fn, args in ((qwen_parity_phase, (tmp,)), (arch_sweep_phase, (tmp,)),
+                         (parity_phase, ()), (gguf_parity_phase, (tmp,)),
                          (engine_parity_phase, ()), (moe_parity_phase, (tmp,)),
                          (gemma_parity_phase, (tmp,)), (iq_parity_phase, (tmp,)),
                          (llama70b_parity_phase, ())):
@@ -4253,34 +4273,6 @@ def moe_parity_phase(torch, tmpdir: Path) -> None:
         path.unlink()
 
 
-def gemma_route_counts(params, n_forward: int, n_decode: int, mode) -> dict:
-    """The launches serve() must count on a loaded gemma file: per forward,
-    kernel 3 once a layer on its D = 256 branch; per decode step in w4 each
-    W4 projection (the fused qkv or wq and wk, o, the fused gate|up, a Q4_K
-    down) on kernel 1 and each W8 one (a Q6_K attn_v or ffn_down, the tied
-    Q6_K head) on kernel 5, kernel 2 never (JAX's entry declines E = 3584);
-    per 64-token prefill every layer matrix on kernel 4 and the head's one
-    row on kernel 5; in the exact mode every matrix on kernel 4's exact
-    branch at every forward (tests/test_torch_gemma.py::
-    test_w4_decode_routes_as_jax holds these routes against JAX's)."""
-    from llama_kotlin_tpu_torch.quant.fold import is_w4, is_w8
-
-    n_layer = len(params["layers"])
-    mats = [w for lp in params["layers"] for w in lp.values() if hasattr(w, "codes")]
-    want = {"flash": n_forward * n_layer, "flash_d256": n_forward * n_layer}
-    n_prefill = n_forward - n_decode
-    if mode is None:
-        want["qmm"] = want["qmm_exact"] = n_forward * (len(mats) + 1)
-        return want
-    w4 = sum(1 for w in mats if is_w4(w))
-    w8 = sum(1 for w in mats if is_w8(w))
-    if w4 + w8 != len(mats) or not is_w8(params["tok_embd"]):
-        raise AssertionError("a gemma w4 file loads W4 and W8 folds only")
-    want.update(qmm_w4=n_decode * w4, qmm_w8=n_decode * (w8 + 1) + n_prefill,
-                qmm=n_prefill * len(mats))
-    return want
-
-
 def gemma2_phase(torch, tmpdir: Path) -> dict:
     """gemma-2-9b at its published widths and its first EARLIER_LAYERS
     layers (all 42 until llama3-70b's phase came; models/synthetic.py::
@@ -4294,7 +4286,7 @@ def gemma2_phase(torch, tmpdir: Path) -> dict:
     unrolled (the windows), kernel 3's D = 256 branch once a layer at every
     forward (one a layer at a decode step and a prefill), never the plain
     attention,
-    and every kernel's launches exactly gemma_route_counts'; then a
+    and every kernel's launches exactly route_counts'; then a
     profiled prefill and 4 profiled decode steps.  Returns {path: launch
     counts}."""
     from llama_kotlin_tpu_torch.models.loader import load_gguf_model
@@ -4329,8 +4321,10 @@ def gemma2_phase(torch, tmpdir: Path) -> dict:
         finally:
             for c in plain:
                 c.close()
-        # a prefill and 31 decode steps a request
-        want = gemma_route_counts(params, 3 * 32, 3 * 31, mode)
+        # a prefill and 31 decode steps a request; every kernel-3 launch on
+        # its D = 256 branch
+        want = route_counts(params, 3 * 32, 3 * 31, mode)
+        want["flash_d256"] = want["flash"]
         got = {k: counts[k] for k in want}
         log(json.dumps({"phase": f"{label}_routes", "launches": got, "expected": want}))
         if "layers" not in ctx.params or got != want:
@@ -4857,9 +4851,10 @@ def synthetic_modes_phase(torch) -> dict:
 
 
 def llama70b_phase(torch, results: dict) -> dict:
-    """The llama3-70b preset at full width and depth (E 8192, 80 layers,
-    64/8 heads, F 28672, vocab 128256), synthetic W4A8 weights drawn on the
-    card (seed 0; about 42 GB of compact W4 folds):
+    """The llama3-70b preset at full width (E 8192, 64/8 heads, F 28672,
+    vocab 128256) and its first EARLIER_LAYERS layers of 80 (all 80 until
+    the llama-shaped family's phases came; PERF.md keeps those numbers),
+    synthetic W4A8 weights drawn on the card (seed 0):
     - kernel 2's routes at F = 28672 for each row count of FFN_ROWS on layer
       0's FFN: the cooperative launch where coop_fits (1 row: h of 28672
       fits a block's shared memory; from 2 rows its tensor-core stage does
@@ -4875,7 +4870,7 @@ def llama70b_phase(torch, results: dict) -> dict:
     from llama_kotlin_tpu_torch.models.synthetic import preset_config, synthetic_params_device
     from llama_kotlin_tpu_torch.ops.cuda import flash, qmm, qmm_w4, qmm_w4_ffn
 
-    cfg = preset_config("llama3-70b")
+    cfg = preset_config("llama3-70b", n_layer=EARLIER_LAYERS)
     L, E, F = cfg.n_layer, cfg.n_embd, cfg.n_ff
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4974,6 +4969,474 @@ def llama70b_parity_phase(torch) -> None:
     torch.cuda.empty_cache()
 
 
+# -- the llama-shaped family: Qwen2-7B (7 query heads a kv head), Qwen1.5-
+# -- MoE-A2.7B (a sigmoid-gated shared expert) and the other architectures
+# -- JAX serves through its llama decoder
+
+QWEN2_HEADS = (28, 4)  # Qwen2-7B's query and kv heads: 7 a group (head dim 128)
+QWEN2_FILE = "qwen2-7b-q4_k_m.gguf"
+QWEN2MOE_FILE = "qwen1.5-moe-a2.7b-q4_k_m.gguf"
+QWEN_SEED = 23
+# Qwen2-7B's projections at full width, folded from Q4_K wire blocks as the
+# w4 mode loads them: K = 3584 pads to 4096 and folds compact (qkv, o,
+# gate|up, a Q4_K lm_head), K = 18944 pads to 19456 and folds legacy (down:
+# its 9728 code columns are no multiple of 1024, JAX's quant/fold.py:178-185)
+QWEN2_SHAPES = {"qkv": (4608, 3584), "o": (3584, 3584), "gate_up": (37888, 3584),
+                "down": (3584, 18944), "lm_head": (152064, 3584)}
+
+
+def qwen2_kernel_phase(torch, results: dict) -> None:
+    """The kernels at Qwen2-7B's shapes:
+    - kernel 3 at 28 heads on 4 kv heads (7 query heads a group: a token's
+      seven rows straddle the tile's 64-row edges, csrc/flash_mma.cuh's
+      tok0/ntok) on the bf16, int8 and packed int4 caches, layer 1 of a
+      [2, 4, 4097, 128] cache: decode and a 64-token chunk (the step's
+      tokens last, causal, row 5 blind: exactly 0) over 1024, 4096 and a
+      ragged 1001 visible cells;
+    - kernel 9 at 28/4 on the bf16 and int8 caches, the same steps on the
+      stacked path (the step's cells masked out, its rows merged fresh);
+    - kernel 1 on W4 folds of Q4_K wire blocks at the qkv, o, gate|up,
+      down and lm_head widths (QWEN2_SHAPES: compact, legacy at K = 18944)
+      at b = 1 and 8, and kernel 2's refusal of the FFN at E = 3584
+      (ops/qmatmul.py::qmm_ffn gives None, as JAX's megakernel declines E %
+      1024);
+    - kernel 4's exact branch on a Q4_K qkv repack at m = 1 and 64.
+    Each row against its plain version, timed beside its library call
+    (SDPA; torch.matmul on the dequantized weight) and its bound.  tol as
+    the kernels' other rows."""
+    import numpy as np
+
+    from llama_kotlin_tpu_torch.models.synthetic import wire_blocks
+    from llama_kotlin_tpu_torch.ops import qmatmul as qmatmul_mod
+    from llama_kotlin_tpu_torch.ops.cuda import flash, flash_stacked, qmm, qmm_w4
+    from llama_kotlin_tpu_torch.quant import fold, repack
+    from llama_kotlin_tpu_torch.quant.formats import GGMLQuantType as Q
+    from llama_kotlin_tpu_torch.runtime.kv_cache import (dequantize_cache_layer, quantize_rows,
+                                                         quantize_rows_q4)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(780)
+    flush = torch.zeros(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    report = functools.partial(report_row, results)
+    (H, KV), D, L, cells, li = QWEN2_HEADS, 128, 2, 4097, 1
+    scale = D ** -0.5
+    kb = torch.randn((L, KV, cells, D), generator=gen, device=dev).to(torch.bfloat16)
+    vb = torch.randn((L, KV, cells, D), generator=gen, device=dev).to(torch.bfloat16)
+    (k8, ks), (v8, vs) = quantize_rows(kb), quantize_rows(vb)
+    (k4, ks4), (v4, vs4) = quantize_rows_q4(kb), quantize_rows_q4(vb)
+    caches = {"bf16": (kb, vb, None, None, 8, 4 * D),
+              "int8": (k8, v8, ks, vs, 8, 2 * (D + 4)),
+              "int4": (k4, v4, ks4, vs4, 4, 2 * (D // 2 + 4))}
+    for n_vis in (1024, 4096, 1001):
+        for nt in (1, 64):
+            q = torch.randn((nt, H, D), generator=gen, device=dev).to(torch.bfloat16)
+            tpos = torch.arange(n_vis - nt, n_vis, device=dev)
+            cpos = torch.arange(n_vis, device=dev)
+            mask = (cpos[None, :] <= tpos[:, None]).to(torch.int8)
+            mask_cells = (cpos[None, :] < n_vis - nt).to(torch.int8).expand(nt, n_vis)
+            mask_cells = mask_cells.contiguous()
+            mask_new = (tpos[None, :] <= tpos[:, None]).to(torch.int8)
+            if nt > 1:
+                mask[5] = mask_cells[5] = mask_new[5] = 0  # a row that sees nothing
+            new_k = torch.randn((nt, KV, D), generator=gen, device=dev).to(torch.bfloat16)
+            new_v = torch.randn((nt, KV, D), generator=gen, device=dev).to(torch.bfloat16)
+            for kind, (k, v, ksc, vsc, bits, elem) in caches.items():
+                kw = dict(scale=scale, k_scale=ksc, v_scale=vsc)
+                kw3 = dict(kw, layer=li, kv_bits=bits)
+                args = (q, k, v, mask)
+                got = flash.flash_attention(*args, **kw3)
+                if nt > 1 and bool(got[5].any()):
+                    raise AssertionError(f"kernel 3 at 28/4 ({kind}): a blind row is not 0")
+                kf, vf = (k[li, :, :n_vis], v[li, :, :n_vis]) if ksc is None else (
+                    dequantize_cache_layer(c[li, :, :n_vis], sc[li, :, :n_vis], torch.bfloat16,
+                                           bits=bits) for c, sc in ((k, ksc), (v, vsc)))
+                vis = int(mask.any(dim=0).sum().item())
+                report("flash", f"qwen2 28/4 {kind} cache nt={nt} n_vis={n_vis}",
+                       err_of(got, flash.flash_attention_plain(*args, **kw3)), 1e-2,
+                       time_ms(torch, lambda: flash.flash_attention(*args, **kw3), flush),
+                       time_ms(torch, lambda: flash.flash_attention_plain(*args, **kw3),
+                               flush),
+                       2 * nt * H * D * 2 + KV * vis * elem + nt * n_vis,
+                       4 * D * int(mask.sum().item()) * H, "bf16",
+                       time_ms(torch, sdpa_call(torch, q, kf, vf, mask, scale), flush))
+                if kind == "int4":
+                    continue  # kernel 9 takes no packed cache, as in JAX
+                sargs = (q, k, v, li, new_k, new_v, mask_cells, mask_new)
+                got = flash_stacked.flash_attention_stacked(*sargs, **kw)
+                if nt > 1 and bool(got[5].any()):
+                    raise AssertionError(f"kernel 9 at 28/4 ({kind}): a blind row is not 0")
+                vis = int(mask_cells.any(dim=0).sum().item())
+                lib = sdpa_call(torch, q, torch.cat([kf, new_k.transpose(0, 1)], dim=1),
+                                torch.cat([vf, new_v.transpose(0, 1)], dim=1),
+                                torch.cat([mask_cells, mask_new], dim=1), scale)
+                report("flash_stacked", f"qwen2 28/4 {kind} cache nt={nt} n_vis={n_vis}",
+                       err_of(got, flash_stacked.flash_attention_stacked_plain(*sargs, **kw)),
+                       1e-2,
+                       time_ms(torch, lambda: flash_stacked.flash_attention_stacked(*sargs,
+                                                                                    **kw),
+                               flush),
+                       time_ms(torch, lambda: flash_stacked.flash_attention_stacked_plain(
+                           *sargs, **kw), flush),
+                       2 * nt * H * D * 2 + KV * vis * elem + 2 * nt * KV * D * 2
+                       + nt * (n_vis + nt),
+                       4 * D * int(mask_cells.sum().item() + mask_new.sum().item()) * H,
+                       "bf16", time_ms(torch, lib, flush))
+    del caches, kb, vb, k8, v8, ks, vs, k4, v4, ks4, vs4
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(78)
+
+    def q4_k(n, k):  # the exact repack of random Q4_K wire blocks, on the card
+        return repack.repack(torch.from_numpy(wire_blocks(rng, Q.Q4_K, n, k)).to(dev), Q.Q4_K,
+                             n, k)
+
+    w = {name: fold.fold_to_w4(q4_k(n, k)) for name, (n, k) in QWEN2_SHAPES.items()}
+    for name, wt in w.items():
+        n, k = wt.shape
+        for b in (1, 8):
+            x = torch.randn((b, k), generator=gen, device=dev) * 0.7
+            xp = torch.nn.functional.pad(x, (0, wt.k_pad - k))  # the plain version's K
+            got = qmm_w4.qmm_w4_matmul(x, wt)
+            shape = f"qwen2 {wt.flavor} {name} n={n} k={k} b={b}"
+            if qmm_w4.use_mma(b):
+                repeats(torch, "qmm_w4", shape, got, lambda: qmm_w4.qmm_w4_matmul(x, wt))
+            report("qmm_w4", shape, err_of(got, qmm_w4.qmm_w4_plain(xp, wt)), 1e-4,
+                   time_ms(torch, lambda: qmm_w4.qmm_w4_matmul(x, wt), flush),
+                   time_ms(torch, lambda: qmm_w4.qmm_w4_plain(xp, wt), flush),
+                   b * k * 4 + nbytes(wt, w4_planes(wt)) + b * n * 4, 2 * b * n * k, "int8",
+                   matmul_ms(torch, x, wt, flush))
+    x = torch.randn((1, 3584), generator=gen, device=dev) * 0.7
+    declined = qmatmul_mod.qmm_ffn(x, w["gate_up"], w["down"]) is None
+    log(json.dumps({"phase": "qwen2_ffn_route", "E": 3584, "F": 18944,
+                    "kernel_2_declines": declined}))
+    if not declined:
+        raise AssertionError("kernel 2 took Qwen2-7B's FFN, which JAX's megakernel declines")
+    del w
+    torch.cuda.empty_cache()
+
+    n, k = QWEN2_SHAPES["qkv"]
+    wt = q4_k(n, k)
+    assert fold.is_exact(wt)
+    for m in (1, 64):
+        xb = (torch.randn((m, k), generator=gen, device=dev) * 0.7).to(torch.bfloat16)
+        got = qmm.qmm(xb, wt)
+        shape = f"qwen2 exact Q4_K qkv n={n} k={k} m={m}"
+        repeats(torch, "qmm", shape, got, lambda: qmm.qmm(xb, wt))
+        report("qmm", shape, err_of(got, qmm.qmm_plain(xb, wt)), 1e-3,
+               time_ms(torch, lambda: qmm.qmm(xb, wt), flush),
+               time_ms(torch, lambda: qmm.qmm_plain(xb, wt), flush),
+               m * k * 2 + nbytes(wt, EXACT_PLANES) + m * n * 4, 2 * m * n * k, "bf16",
+               matmul_ms(torch, xb, wt, flush))
+    del wt, flush
+    torch.cuda.empty_cache()
+
+
+def write_qwen2_file(path: Path) -> dict:
+    """qwen2_phase's file: Qwen2-7B (qwen2_7b(), all 28 layers) from
+    QWEN_SEED in Q4_K_M's mix (F32 q/k/v biases) with an SPM vocab of its
+    152064 pieces."""
+    from llama_kotlin_tpu_torch.models.synthetic import qwen2_7b, synthetic_spm_vocab
+
+    cfg = qwen2_7b()
+    return _written(path, cfg, seed=QWEN_SEED, extra_kvs=synthetic_spm_vocab(cfg.vocab_size))
+
+
+def write_qwen2moe_file(path: Path) -> dict:
+    """qwen2moe_phase's file: Qwen1.5-MoE-A2.7B (qwen1_5_moe_a2_7b(), its
+    first EARLIER_LAYERS layers) from QWEN_SEED + 1 in Q4_K_M's mix by
+    tensor name (the 1408-wide expert downs on llama.cpp's Q5_0/Q8_0
+    fallback)."""
+    from llama_kotlin_tpu_torch.models.synthetic import qwen1_5_moe_a2_7b
+
+    cfg, moe_shape = qwen1_5_moe_a2_7b(n_layer=EARLIER_LAYERS)
+    return _written(path, cfg, seed=QWEN_SEED + 1, moe=moe_shape)
+
+
+def route_counts(params, n_forward: int, n_decode: int, mode, sweep: int = 0) -> dict:
+    """The launches serve() must count on a loaded file whose layers attend
+    on kernel 3 once each at every forward: per decode step in w4 each W4
+    projection on kernel 1 and each W8 one (a Q6_K attn_v or ffn_down, the
+    Q6_K head, tied or not) on kernel 5, kernel 2 never (JAX's entry
+    declines E = 3584 and gemma's widths); per 64-token prefill every layer
+    matrix on kernel 4 and the head's one row on kernel 5; in the exact mode
+    every matrix on kernel 4's exact branch at every forward.  A MoE file's
+    stacked exact experts take no kernel at a decode step (the gathered
+    route) and `sweep` kernel-4 exact launches at a prefill (every expert's
+    gate, up and down a MoE layer).  tests/test_torch_gemma.py and
+    tests/test_torch_qwen2.py hold these routes against JAX's at gemma-2-9b's
+    and Qwen2-7B's widths."""
+    from llama_kotlin_tpu_torch.quant.fold import is_w4, is_w8
+
+    n_layer = len(params["layers"])
+    mats = [w for lp in params["layers"] for w in lp.values()
+            if hasattr(w, "codes") and not w.is_stacked]
+    head = params.get("output") if params.get("output") is not None else params["tok_embd"]
+    want = {"flash": n_forward * n_layer}
+    n_prefill = n_forward - n_decode
+    if mode is None:
+        want["qmm"] = want["qmm_exact"] = n_forward * (len(mats) + 1) + n_prefill * sweep
+        return want
+    w4 = sum(1 for w in mats if is_w4(w))
+    w8 = sum(1 for w in mats if is_w8(w))
+    if w4 + w8 != len(mats) or not is_w8(head):
+        raise AssertionError("a Q4_K_M w4 file loads W4 and W8 folds only")
+    want.update(qmm_w4=n_decode * w4, qmm_w8=n_decode * (w8 + 1) + n_prefill,
+                qmm=n_prefill * (len(mats) + sweep))
+    return want
+
+
+def family_phase(torch, tmpdir: Path, name: str, fname: str) -> dict:
+    """A full-width llama-shaped file from the writer child, loaded in the
+    exact mode (the default) and in w4 (fuse=True); each serves 3 requests
+    (64-token prompt, 32 greedy tokens) through LlamaContext and
+    generate_loop by serve(), unrolled (Q4_K_M's Q6_K attn_v leaves some
+    layers' q|k|v split, so the layers' keys differ), kernel 3 once a layer
+    at every forward, kernel 2 and the plain attention never, every
+    kernel's launches exactly route_counts'; then a profiled prefill and 4
+    profiled decode steps (TTFT, ms/token, device busy, idle share,
+    launches a step).  Returns {path: launch counts}."""
+    from llama_kotlin_tpu_torch.models.loader import load_gguf_model
+    from llama_kotlin_tpu_torch.ops.cuda import (flash, flash_stacked, qmm, qmm_int8, qmm_w4,
+                                                 qmm_w4_ffn, qmm_w4x, qmm_w8)
+
+    path, written = child_file(tmpdir, fname)
+    log(json.dumps({"phase": f"{name}_file", **written, "type_mix": type_mix(path)}))
+    out = {}
+    for mode in (None, "w4"):
+        label = f"{name}_{mode or 'exact'}"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lcfg, params, f = load_gguf_model(path, fast_mode=mode, fuse=True)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        f.close()
+        w_bytes = streamed_bytes(params)
+        log(json.dumps({"phase": label, "n_layer": lcfg.n_layer, "load_s": load_s,
+                        "device_bytes": torch.cuda.memory_allocated(),
+                        "heads": [lcfg.n_head, lcfg.n_head_kv], "n_expert": lcfg.n_expert,
+                        "w_bytes_per_tok": w_bytes,
+                        "w_floor_ms_per_tok": w_bytes / HBM_BYTES_S * 1e3}))
+        if mode is None:  # every projection and the head on kernel 4's exact branch
+            mods = (qmm, exact_counter(), flash)
+            never = (qmm_w4, qmm_w4_ffn, qmm_w8, qmm_int8, qmm_w4x, flash_stacked)
+        else:  # W4 on kernel 1, W8 (Q6_K attn_v, ffn_down, the head) on 5
+            mods = (qmm_w4, qmm_w8, qmm, flash)
+            never = (qmm_w4_ffn, qmm_int8, qmm_w4x, flash_stacked)
+        plain = plain_attention_counters()
+        try:
+            counts, ctx = serve(torch, lcfg, params, mods, label, never=never + plain)
+        finally:
+            for c in plain:
+                c.close()
+        moe_layers = sum(1 for lp in params["layers"] if "ffn_gate_inp" in lp)
+        # a prefill and 31 decode steps a request
+        want = route_counts(params, 3 * 32, 3 * 31, mode, sweep=3 * lcfg.n_expert * moe_layers)
+        got = {k: counts[k] for k in want}
+        log(json.dumps({"phase": f"{label}_routes", "launches": got, "expected": want}))
+        if "layers" not in ctx.params or got != want:
+            raise AssertionError(f"{label}: launches {got}, expected {want}")
+        profile_decode(torch, ctx, lcfg, label, n_steps=4)
+        out[label] = counts
+        del ctx, params
+        torch.cuda.empty_cache()
+    path.unlink()
+    return out
+
+
+def qwen2_phase(torch, tmpdir: Path) -> dict:
+    """Qwen2-7B at its published widths and all 28 layers (qwen2_7b(): E
+    3584, 28 heads on 4 kv heads, F 18944, vocab 152064, qkv biases), random
+    wire blocks from QWEN_SEED in Q4_K_M's mix, by family_phase: kernel 3
+    at 7 query heads a group once a layer at every forward, kernel 2 never
+    (legacy folds at E = 3584, as JAX)."""
+    return family_phase(torch, tmpdir, "qwen2_7b", QWEN2_FILE)
+
+
+def qwen2moe_phase(torch, tmpdir: Path) -> dict:
+    """Qwen1.5-MoE-A2.7B at its published widths, its first EARLIER_LAYERS
+    layers of 24 (qwen1_5_moe_a2_7b(): E 2048, 16/16 heads with qkv biases,
+    60 routed experts of 1408, 4 used with raw weights, a sigmoid-gated
+    shared expert of 5632, vocab 151936), random wire blocks from
+    QWEN_SEED + 1 in Q4_K_M's mix by tensor name, by family_phase: the
+    experts one stacked exact repack in both modes (60 > 16, JAX's
+    policy), gathered at a decode step (no kernel) and swept through kernel
+    4's exact branch at a prefill."""
+    return family_phase(torch, tmpdir, "qwen1_5_moe", QWEN2MOE_FILE)
+
+
+# the 2-layer files of qwen_parity_cases: {name: (config, MoEShape or None)}
+def qwen_parity_files() -> dict:
+    from llama_kotlin_tpu_torch.models.synthetic import qwen1_5_moe_a2_7b, qwen2_7b
+
+    return {"qwen2-2layer.gguf": (qwen2_7b(n_layer=2), None),
+            "qwen2moe-2layer.gguf": qwen1_5_moe_a2_7b(n_layer=2)}
+
+
+def write_qwen_parity_file(path: Path) -> dict:
+    cfg, moe_shape = qwen_parity_files()[path.name]
+    return _written(path, cfg, seed=QWEN_SEED + 2, moe=moe_shape)
+
+
+# of max|logits|, card against CPU: twice the CPU's own 8-thread-against-1
+# spread on these files, rounded up (scripts/qwen_cpu_spread.py on the H100
+# machine's host, PERF.md: Qwen2-7B exact 7.6e-3, w4 2.06e-2; Qwen1.5-MoE w4
+# 1.17e-2).  The MoE file runs in w4 only: its experts are the same stacked
+# exact repacks in both modes, and its CPU reference is the script's
+# critical path
+QWEN_PARITY_TOL = {("qwen2", None): 2e-2, ("qwen2", "w4"): 5e-2, ("qwen2moe", "w4"): 3e-2}
+
+
+def qwen_parity_cases(tmpdir: Path) -> list:
+    """(label, build, prompt, tol, moe) of qwen_parity_phase on the 2-layer
+    Qwen2-7B and Qwen1.5-MoE-A2.7B files (full width; taken from the writer
+    child or written into tmpdir), each in the modes QWEN_PARITY_TOL names,
+    unrolled."""
+    import numpy as np
+
+    from llama_kotlin_tpu_torch.models.loader import load_gguf_model
+    from llama_kotlin_tpu_torch.runtime.context import LlamaContext
+
+    cases = []
+    for name, (cfg, moe_shape) in qwen_parity_files().items():
+        path = tmpdir / name
+        if not path.exists():
+            child_file(tmpdir, name)
+        prompt = np.random.default_rng(QWEN_SEED).integers(0, cfg.vocab_size, 64).astype(
+            np.int32)
+        label = name.split("-")[0]
+        for (arch, mode), tol in QWEN_PARITY_TOL.items():
+            if arch != label:
+                continue
+
+            def build(dev, mode=mode, path=path):
+                lcfg, params, f = load_gguf_model(path, fast_mode=mode, fuse=True, device=dev)
+                f.close()
+                return LlamaContext(lcfg, params, n_cells=1024, buckets=(8, 16, 32, 64),
+                                    device=dev)
+
+            cases.append((f"{label}_parity_{mode or 'exact'}", build, prompt, tol,
+                          moe_shape is not None))
+    return cases
+
+
+def qwen_parity_phase(torch, tmpdir: Path) -> None:
+    """Full width, 2 layers, card against CPU (a 64-token prefill and 4
+    greedy steps) on qwen_parity_cases: Qwen2-7B by card_vs_cpu, kernel 3
+    once a layer and step and kernel 2 never on the card; Qwen1.5-MoE by
+    moe_card_vs_cpu (the card on the CPU's routing)."""
+    from llama_kotlin_tpu_torch.ops.cuda import flash, qmm_w4_ffn
+
+    for label, build, prompt, tol, moe in qwen_parity_cases(tmpdir):
+        if moe:
+            moe_card_vs_cpu(torch, label, build, prompt, tol)
+            continue
+        cl = cpu_ref(label, lambda: greedy_logits(build, "cpu", prompt, 4))
+        if REFS["writer"]:
+            continue
+        flash.LAUNCHES = qmm_w4_ffn.LAUNCHES = 0
+        card_vs_cpu(torch, label, build, prompt, tol, cpu=(None, cl))
+        got = {"flash": flash.LAUNCHES, "qmm_w4_ffn": qmm_w4_ffn.LAUNCHES}
+        log(json.dumps({"phase": f"{label}_routes", "launches": got}))
+        if got != {"flash": 2 * 5, "qmm_w4_ffn": 0}:
+            raise AssertionError(f"{label}: launches {got}")
+    for p in tmpdir.glob("qwen2*-2layer.gguf"):
+        p.unlink()
+
+
+# the architecture sweep: every other llama-shaped family member at 2
+# layers and a narrow width (E 1024, 8 heads of 128 on 2 kv heads, F 2816,
+# vocab 8192; phi3 8 heads of 96 on 8), and baichuan at 40 layers (its
+# ALiBi rule is by depth: baichuan-13B); the arch's own keys as its
+# published configs set them (phi3's window under the prompt, so it bites;
+# stablelm's quarter rope; olmo's clamp_kqv 8; command-r's logit_scale
+# 0.0625)
+SWEEP_ARCHES = {
+    "qwen": {}, "stablelm": dict(rope_dim=32), "phi3": dict(n_embd=768, n_head_kv=8,
+                                                           swa_window=32),
+    "internlm2": {}, "minicpm": {}, "xverse": {}, "exaone": {}, "baichuan": {},
+    "baichuan-13b": dict(n_layer=40), "starcoder2": {}, "refact": {}, "plamo": {},
+    "orion": {}, "command-r": dict(logit_scale=0.0625), "olmo": dict(clamp_kqv=8.0),
+    "codeshell": {}}
+SWEEP_SEED = 29
+# of max|logits|, card against CPU in the exact mode: twice the largest
+# 8-thread-against-1 CPU spread over the sweep's 2-layer files (6.5e-3), and
+# over baichuan-13B's 40 layers (1.8e-2), rounded up (scripts/
+# qwen_cpu_spread.py on the H100 machine's host; PERF.md)
+SWEEP_TOL = {2: 1.5e-2, 40: 4e-2}
+
+
+def sweep_cases(tmpdir: Path) -> list:
+    """(label, arch config, build, prompt, tol) of arch_sweep_phase: each
+    SWEEP_ARCHES file (family_config's widths, Q4_K_M's mix, written into
+    tmpdir from SWEEP_SEED: the same bytes in every process), loaded in the
+    exact mode with fuse=True, its context's default path."""
+    import numpy as np
+
+    from llama_kotlin_tpu_torch.models.loader import load_gguf_model
+    from llama_kotlin_tpu_torch.models.synthetic import family_config, synthetic_gguf
+    from llama_kotlin_tpu_torch.runtime.context import LlamaContext
+
+    cases = []
+    for i, (label, keys) in enumerate(SWEEP_ARCHES.items()):
+        arch = label.removesuffix("-13b")
+        cfg = family_config(arch, **dict(dict(n_embd=1024, n_head=8, n_head_kv=2, n_ff=2816,
+                                              vocab_size=8192), **keys))
+        path = tmpdir / f"sweep-{label}.gguf"
+        if not path.exists():
+            synthetic_gguf(path, cfg, seed=SWEEP_SEED + i)
+
+        def build(dev, path=path):
+            lcfg, params, f = load_gguf_model(path, fuse=True, device=dev)
+            f.close()
+            return LlamaContext(lcfg, params, n_cells=1024, buckets=(8, 16, 32, 64),
+                                device=dev)
+
+        prompt = np.random.default_rng(SWEEP_SEED + i).integers(
+            0, cfg.vocab_size, 64).astype(np.int32)
+        cases.append((f"sweep_{label}", cfg, build, prompt, SWEEP_TOL[cfg.n_layer]))
+    return cases
+
+
+def arch_sweep_phase(torch, tmpdir: Path) -> dict:
+    """Each sweep_cases file, card against CPU by card_vs_cpu (a 64-token
+    prefill and 4 greedy steps, exact mode, its SWEEP_TOL).  On the card run
+    kernel 3 attends once a layer at every forward, or, where JAX's
+    predicate declines its flash kernel (ALiBi: refact, baichuan-13B; head
+    dim 96: phi3; ops/attention.py::flash_declines), never: the plain
+    route (cache_attention_reference) attends there instead.  Returns
+    {path: launch counts}."""
+    from llama_kotlin_tpu_torch.models import llama
+    from llama_kotlin_tpu_torch.ops import attention
+    from llama_kotlin_tpu_torch.ops.cuda import flash, flash_stacked, qmm
+
+    out = {}
+    for label, cfg, build, prompt, tol in sweep_cases(tmpdir):
+        cl = cpu_ref(label, lambda: greedy_logits(build, "cpu", prompt, 4))
+        if REFS["writer"]:
+            continue
+        plain = CallCounter(llama, "cache_attention_reference")
+        flash.LAUNCHES = flash_stacked.LAUNCHES = qmm.LAUNCHES = 0
+        try:
+            card_vs_cpu(torch, label, build, prompt, tol, cpu=(None, cl))
+        finally:
+            plain.close()
+        got = {"flash": flash.LAUNCHES, "flash_stacked": flash_stacked.LAUNCHES,
+               "qmm": qmm.LAUNCHES, "cache_attention_reference": plain.LAUNCHES}
+        declines = attention.flash_declines(cfg.head_dim, cfg.v_head_dim, cfg.max_alibi_bias)
+        attended = cfg.n_layer * 5
+        want = {"flash": 0 if declines else attended,
+                "cache_attention_reference": attended if declines else 0}
+        log(json.dumps({"phase": f"{label}_routes", "arch": cfg.arch, "declines": declines,
+                        "launches": got, "expected": want}))
+        if {k: got[k] for k in want} != want or got["flash_stacked"] or not got["qmm"]:
+            raise AssertionError(f"{label}: launches {got}, expected {want}")
+        out[label] = {k: v for k, v in got.items() if k != "cache_attention_reference"}
+    for p in tmpdir.glob("sweep-*.gguf"):
+        p.unlink()
+    return out
+
+
 def pick_row(rows: list, i):
     """A kernel's timed row by its index or its shape."""
     return rows[i] if isinstance(i, int) else next(r for r in rows if r["shape"] == i)
@@ -5038,6 +5501,7 @@ def main() -> int:
         timed(fx_layer_kernel_phase, torch, results)
         timed(exact_kernel_phase, torch, results)
         timed(iq_kernel_phase, torch, results)
+        timed(qwen2_kernel_phase, torch, results)
         by_path, cfg, params = timed(serving_phase, torch)
         # speculative decoding on the model's first EARLIER_LAYERS layers
         by_path.update(timed(speculative_phase, torch, replace(cfg, n_layer=EARLIER_LAYERS),
@@ -5064,6 +5528,10 @@ def main() -> int:
             by_path.update(timed(deepseek2_phase, torch, tmpdir))
             by_path.update(timed(gemma2_phase, torch, tmpdir))
             by_path.update(timed(llama70b_phase, torch, results))
+            by_path.update(timed(qwen2_phase, torch, tmpdir))
+            by_path.update(timed(qwen2moe_phase, torch, tmpdir))
+            timed(qwen_parity_phase, torch, tmpdir)
+            by_path.update(timed(arch_sweep_phase, torch, tmpdir))
             timed(parity_phase, torch)
             timed(gguf_parity_phase, torch, tmpdir)
             timed(engine_parity_phase, torch)
@@ -5091,7 +5559,13 @@ def main() -> int:
                    {"b32": "compact qkv n=6144 k=4096 b=32",
                     "lm_head_b32": "compact lm_head n=128256 k=4096 b=32",
                     "llama3_70b_qkv_b1": "70b compact qkv n=10240 k=8192 b=1",
-                    "llama3_70b_lm_head_b1": "70b compact lm_head n=128256 k=8192 b=1"}),
+                    "llama3_70b_lm_head_b1": "70b compact lm_head n=128256 k=8192 b=1",
+                    "qwen2_qkv_b1": "qwen2 compact qkv n=4608 k=3584 b=1",
+                    "qwen2_o_b1": "qwen2 compact o n=3584 k=3584 b=1",
+                    "qwen2_gate_up_b1": "qwen2 compact gate_up n=37888 k=3584 b=1",
+                    "qwen2_gate_up_b8": "qwen2 compact gate_up n=37888 k=3584 b=8",
+                    "qwen2_down_b1": "qwen2 legacy down n=3584 k=18944 b=1",
+                    "qwen2_lm_head_b1": "qwen2 compact lm_head n=152064 k=3584 b=1"}),
         "qmm_w4_ffn": ("csrc/qmm_w4_ffn.cu", "llama_kotlin_tpu/ops/pallas/qmm_w4_ffn.py:155",
                        0, {"b8": "compact E=4096 F=14336 b=8",
                            "b32": "compact E=4096 F=14336 b=32",
@@ -5115,7 +5589,13 @@ def main() -> int:
                    "ragged": "bf16 cache D=128 nt=64 n_vis=1001",
                    "serving_a": "bf16 cache serving mask a nt=64 n_vis=1024",
                    "serving_b": "bf16 cache serving mask b nt=8 n_vis=1024",
-                   "serving_c": "bf16 cache serving mask c nt=16 n_vis=1024"}),
+                   "serving_c": "bf16 cache serving mask c nt=16 n_vis=1024",
+                   "qwen2_decode": "qwen2 28/4 bf16 cache nt=1 n_vis=1024",
+                   "qwen2_prefill": "qwen2 28/4 bf16 cache nt=64 n_vis=1024",
+                   "qwen2_int8": "qwen2 28/4 int8 cache nt=1 n_vis=1024",
+                   "qwen2_int4": "qwen2 28/4 int4 cache nt=1 n_vis=1024",
+                   "qwen2_n4096": "qwen2 28/4 bf16 cache nt=1 n_vis=4096",
+                   "qwen2_ragged": "qwen2 28/4 bf16 cache nt=64 n_vis=1001"}),
         "qmm": ("csrc/qmm.cu", "llama_kotlin_tpu/ops/pallas/qmm.py:192", 1,
                 {"m512": 5, "w8": 8}),
         "qmm_w8": ("csrc/qmm_w8.cu", "llama_kotlin_tpu/ops/pallas/qmm_w8.py:144", 0,
@@ -5132,7 +5612,10 @@ def main() -> int:
                           "llama_kotlin_tpu/ops/pallas/flash_stacked.py:94", 0,
                           {"int8": 1, "prefill": "bf16 cache nt=64 n_vis=1024 layer=31",
                            "d64": "bf16 cache D=64 nt=64 n_vis=1024",
-                           "ragged": "bf16 cache D=128 nt=64 n_vis=1001"}),
+                           "ragged": "bf16 cache D=128 nt=64 n_vis=1001",
+                           "qwen2_decode": "qwen2 28/4 bf16 cache nt=1 n_vis=1024",
+                           "qwen2_prefill": "qwen2 28/4 bf16 cache nt=64 n_vis=1024",
+                           "qwen2_int8": "qwen2 28/4 int8 cache nt=1 n_vis=1024"}),
         "qmm_w4x": ("csrc/qmm_w4x.cu", "llama_kotlin_tpu/ops/pallas/qmm_w4.py:691", 0,
                     {"b32": 6}),
         "qmm_w8_precise": ("csrc/qmm_w8.cu", "llama_kotlin_tpu/ops/pallas/qmm_w8.py:144", 0,
@@ -5176,7 +5659,9 @@ def main() -> int:
             exact["launches"] = sum(exact["launches_by_path"].values())
             for branch, shape in (("b1", "exact Q4_K qkv n=6144 k=4096 m=1"),
                                   ("m512", "exact Q4_K qkv n=6144 k=4096 m=512"),
-                                  ("lm_head_b1", "exact Q6_K lm_head n=128256 k=4096 m=1")):
+                                  ("lm_head_b1", "exact Q6_K lm_head n=128256 k=4096 m=1"),
+                                  ("qwen2_qkv_m1", "qwen2 exact Q4_K qkv n=4608 k=3584 m=1"),
+                                  ("qwen2_qkv_m64", "qwen2 exact Q4_K qkv n=4608 k=3584 m=64")):
                 exact[branch] = {k: pick_row(rows, shape)[k] for k in timing + ("max_abs_err",)}
             # the IQ repacks on the same branch (iq_kernel_phase): qkv at one row
             exact["iq_qkv_b1"] = {

@@ -4,8 +4,12 @@
 dict with every array already ``np.asarray``'d.  A QTensor (W4 or W8 fold,
 plain or precise, Q8F, or an exact repack of the exact-dequant mode) arrives
 as any object (or dict) carrying the JAX field names;
-the port never imports the JAX class.  Both sides then compute on identical
-weights, which is what the parity tests need.
+the port never imports the JAX class.  Arrays become f32 tensors (norms,
+biases, the llama-shaped family's LayerNorm and q/k norm planes), but the
+routers the port's loader keeps dense bf16 (``ALWAYS_DENSE``: the MoE
+router, qwen2moe's shared-expert gate), which JAX keeps f32 and rounds to
+bf16 at its matmul.  Both sides then compute on identical weights, which is
+what the parity tests need.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import numpy as np
 import torch
 
 from llama_kotlin_tpu_torch.device import DeviceLike, resolve_device
+from llama_kotlin_tpu_torch.models.loader import ALWAYS_DENSE
 from llama_kotlin_tpu_torch.quant.fold import (FLAVORS, compact_from_jax_aux,
                                                compact_planes)
 from llama_kotlin_tpu_torch.quant.formats import GGMLQuantType
@@ -126,14 +131,16 @@ def qtensor_from_numpy(obj, device: DeviceLike = None) -> QTensor:
 
 def params_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
     """Nested dict/list of numpy arrays and QTensors -> the port's params:
-    QTensors become port QTensors, arrays become f32 torch tensors."""
+    QTensors become port QTensors, arrays become f32 torch tensors, a
+    dense router (a key of ALWAYS_DENSE) a bf16 one."""
     dev = resolve_device(device)
     if tree is None:
         return None
     if _is_qtensor(tree):
         return qtensor_from_numpy(tree, dev)
     if isinstance(tree, dict):
-        return {k: params_from_numpy(v, dev) for k, v in tree.items()}
+        return {k: _tensor(v, dev, torch.bfloat16) if k in ALWAYS_DENSE and not _is_qtensor(v)
+                else params_from_numpy(v, dev) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_numpy(v, dev) for v in tree)
     if isinstance(tree, (int, float, bool, str)):

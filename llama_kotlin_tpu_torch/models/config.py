@@ -1,12 +1,19 @@
 """Model hyper-parameters (port of ``llama_kotlin_tpu/models/config.py``):
 the ModelConfig fields the port's forward reads, with the same defaults,
 ``attn_scale`` (with deepseek2's YaRN mscale correction) and
-``rope_params``.  ``config_from_metadata`` maps the llama architecture,
-llama-architecture MoE files (Mixtral), gemma and gemma2 (gelu, the
-sqrt(n_embd) embedding scale, (1 + w) norms, a tied head, NEOX rope; gemma2
-also the logit softcaps and the sliding window on every other layer) and
-deepseek2 (MLA and scaled MoE); every other architecture raises
-(ROADMAP.md section 1, item 13)."""
+``rope_params``.  ``config_from_metadata`` maps the architectures
+``models/registry.py`` marks ported, by JAX's branches: the llama
+architecture and llama-architecture MoE files (Mixtral), gemma and gemma2
+(gelu, the sqrt(n_embd) embedding scale, (1 + w) norms, a tied head, NEOX
+rope; gemma2 also the logit softcaps and the sliding window on every other
+layer), deepseek2 (MLA and scaled MoE), and the llama-shaped family JAX
+serves through the same decoder: qwen2 and qwen2moe (qkv biases, raw top-k
+router weights), qwen, stablelm, phi3, internlm2, minicpm, xverse, exaone,
+baichuan (ALiBi at 40 layers and more), starcoder2, refact (ALiBi), plamo
+(shared-norm parallel residual), and the LayerNorm ones orion, command-r
+(parallel block, logit scale), olmo (non-parametric, clamp_kqv) and
+codeshell (non-gated gelu FFN).  Every other architecture raises (ROADMAP.md
+section 1, item 13, lists them)."""
 
 from __future__ import annotations
 
@@ -14,7 +21,8 @@ import math
 from dataclasses import dataclass
 
 from llama_kotlin_tpu_torch.models import registry
-from llama_kotlin_tpu_torch.ops.rope import ROPE_TYPE_NEOX, ROPE_TYPE_NORM, RopeParams
+from llama_kotlin_tpu_torch.ops.rope import (ROPE_TYPE_NEOX, ROPE_TYPE_NONE, ROPE_TYPE_NORM,
+                                             RopeParams)
 
 
 @dataclass(eq=False)
@@ -31,8 +39,11 @@ class ModelConfig:
     v_head_dim: int = 0  # 0 -> head_dim (deepseek2 MLA: k 192, v 128)
     n_ctx_train: int = 2048
     rms_eps: float = 1e-5
+    norm_eps: float = 1e-5  # LayerNorm's epsilon
+    use_rms_norm: bool = True  # False: LayerNorm (orion, command-r, olmo, codeshell)
     norm_weight_offset: float = 0.0
     act: str = "silu"
+    ffn_gated: bool = True  # False: up, act, down (codeshell)
     rope_type: int = ROPE_TYPE_NORM
     rope_freq_base: float = 10000.0
     rope_freq_scale: float = 1.0
@@ -50,9 +61,15 @@ class ModelConfig:
     final_logit_softcap: float = 0.0  # gemma2
     swa_window: int = 0  # sliding-window attention width (0 = off)
     swa_pattern: int = 1  # every Nth layer is full-attention (gemma2: 2)
-    moe_norm_topk: bool = True  # renormalize the top-k router weights (mixtral)
+    attn_qkv_bias: bool = False  # the file carries q/k/v biases (qwen2, qwen2moe, stablelm)
+    tie_word_embeddings: bool = False
+    parallel_residual: bool = False  # h + attn(x) + ffn(x), one shared norm (plamo, command-r)
+    clamp_kqv: float = 0.0  # olmo: q, k and v clipped to +-clamp_kqv (0 = off)
+    logit_scale: float = 1.0  # command-r's final logit multiplier
+    moe_norm_topk: bool = True  # renormalize the top-k router weights (mixtral; not qwen2moe)
     moe_expert_scale: float = 1.0  # deepseek2 expert_weights_scale
     rope_yarn_log_mul: float = 0.0  # deepseek2 yarn mscale correction
+    max_alibi_bias: float = 0.0  # ALiBi in place of rope (baichuan-13B, refact); 0 = off
 
     def __post_init__(self):
         if self.head_dim == 0:
@@ -113,13 +130,16 @@ ARCHES = tuple(a.name for a in registry.ARCHES if a.ported)
 
 def config_from_metadata(md: dict) -> ModelConfig:
     """ModelConfig from GGUF metadata KVs (port of the JAX package's
-    config_from_metadata for ``general.architecture`` "llama", dense or MoE,
-    "gemma", "gemma2" and "deepseek2", rope scaling included).  Other architectures raise
-    until ROADMAP.md section 1, item 13 ports them."""
+    config_from_metadata for the architectures in ARCHES, rope scaling
+    included).  Other architectures raise until ROADMAP.md section 1, item
+    13 ports them."""
     arch = md.get("general.architecture", "llama")
     if arch not in ARCHES:
-        raise NotImplementedError(f"architecture {arch!r} is not ported: the port loads "
-                                  f"{ARCHES} (ROADMAP.md section 1, item 13)")
+        raise NotImplementedError(
+            f"architecture {arch!r} is not ported: the port loads {', '.join(ARCHES)}; the "
+            "learned-position family (gpt2, starcoder, gptneox, falcon, mpt, phi2, bloom, jais, "
+            "nemotron, chatglm), dbrx, arctic, grok, openelm, bitnet, the encoders, t5 and "
+            "mamba come with ROADMAP.md section 1, item 13")
     n_embd = int(_get(md, arch, "embedding_length", 4096))
     n_head = _scalar(md, f"{arch}.attention.head_count", 32) or 1
     cfg = ModelConfig(
@@ -134,6 +154,7 @@ def config_from_metadata(md: dict) -> ModelConfig:
         v_head_dim=int(_get(md, arch, "attention.value_length", 0) or 0),
         n_ctx_train=int(_get(md, arch, "context_length", 2048)),
         rms_eps=float(_get(md, arch, "attention.layer_norm_rms_epsilon", 1e-5)),
+        norm_eps=float(_get(md, arch, "attention.layer_norm_epsilon", 1e-5)),
         rope_freq_base=float(_get(md, arch, "rope.freq_base", 10000.0)),
         rope_dim=int(_get(md, arch, "rope.dimension_count", 0) or 0),
         n_expert=int(_get(md, arch, "expert_count", 0) or 0),
@@ -161,18 +182,55 @@ def config_from_metadata(md: dict) -> ModelConfig:
         cfg.rope_yarn_ext_factor = 1.0
         cfg.rope_orig_ctx = int(
             _get(md, arch, "rope.scaling.original_context_length", cfg.n_ctx_train))
-    if arch in ("gemma", "gemma2"):
-        # JAX config.py:219-238: NEOX rope (JAX's rule, for the archs the
-        # port maps), gelu, the embedding scale, (1 + w) norms, a tied head
+    # JAX config.py:219-223: the NEOX archs among the ported ones (the
+    # others rotate adjacent pairs)
+    if arch in ("qwen2", "qwen2moe", "stablelm", "phi3", "gemma", "gemma2", "starcoder2",
+                "exaone", "qwen", "codeshell"):
         cfg.rope_type = ROPE_TYPE_NEOX
+    if arch in ("gemma", "gemma2"):
+        # JAX config.py:229-234: gelu, the embedding scale, (1 + w) norms,
+        # a tied head
         cfg.act = "gelu"
         cfg.embd_scale = float(n_embd) ** 0.5
         cfg.norm_weight_offset = 1.0
+        cfg.tie_word_embeddings = True
     if arch == "gemma2":
         cfg.attn_logit_softcap = float(_get(md, arch, "attn_logit_softcapping", 50.0))
         cfg.final_logit_softcap = float(_get(md, arch, "final_logit_softcapping", 30.0))
         cfg.swa_window = cfg.swa_window or 4096
         cfg.swa_pattern = 2
+    if arch in ("qwen2", "qwen2moe", "stablelm"):
+        cfg.attn_qkv_bias = True  # JAX config.py:239-240
+    if arch == "command-r":
+        # JAX config.py:262-268: LayerNorm without bias, the shared-norm
+        # parallel block, a tied head, scaled logits
+        cfg.use_rms_norm = False
+        cfg.parallel_residual = True
+        cfg.tie_word_embeddings = True
+        cfg.logit_scale = float(_get(md, arch, "logit_scale", 1.0) or 1.0)
+    if arch == "qwen2moe":
+        cfg.moe_norm_topk = False  # JAX config.py:269-270: raw top-k probabilities
+    if arch == "olmo":
+        # JAX config.py:311-314: non-parametric LayerNorm, q/k/v clipping
+        cfg.use_rms_norm = False
+        cfg.clamp_kqv = float(_get(md, arch, "attention.clamp_kqv", 0.0) or 0.0)
+    if arch == "orion":
+        cfg.use_rms_norm = False  # biased LayerNorm, llama-shaped otherwise
+    if arch == "plamo":
+        cfg.parallel_residual = True  # one attn_norm feeds attention and FFN
+    if arch == "baichuan" and cfg.n_layer >= 40:
+        # JAX config.py:326-329: baichuan-13B attends with ALiBi, no rope
+        cfg.rope_type = ROPE_TYPE_NONE
+        cfg.max_alibi_bias = 8.0
+    if arch == "codeshell":
+        # JAX config.py:342-345: LayerNorm, a non-gated gelu FFN
+        cfg.use_rms_norm = False
+        cfg.act = "gelu"
+        cfg.ffn_gated = False
+    if arch == "refact":
+        # JAX config.py:349-351: ALiBi with RMS norms, no rope
+        cfg.rope_type = ROPE_TYPE_NONE
+        cfg.max_alibi_bias = 8.0
     if arch == "deepseek2":
         # MLA and scaled MoE (JAX config.py:352-369): raw top-k router
         # weights times expert_weights_scale, the YaRN mscale correction,

@@ -32,6 +32,21 @@ head dim 256 kernel 3 takes its D = 256 branch; kernel 9 takes 64 and 128
 only (JAX's declines 256), so a stacked gemma attends by
 ``attend_stacked_plain``.
 
+The llama-shaped family (JAX ``:142-149``, ``:195-247``, ``:255-444``,
+``:700-707``): a norm that is RMSNorm or LayerNorm (biased, or
+non-parametric where the file has no weight: olmo; ``_norm``); q/k/v
+biases (one add over a fused q|k|v) and o, up and down biases;
+olmo's clamp of q, k and v; per-head q/k norms; the shared-norm parallel
+block (plamo, command-r: the FFN reads the layer's input, normed by its
+ffn_norm or by the attention's norm); a non-gated FFN (codeshell, or a file
+with no ffn_gate); qwen2moe's raw top-k weights and sigmoid-gated shared
+expert; command-r's logit scale.  Where JAX's flash
+kernel declines by its static predicate (``ops/attention.py::
+flash_declines``: ALiBi, or a head dim outside {64, 128, 192, 256}), the
+unrolled path attends by ``cache_attention_reference`` on every device,
+with ALiBi's bias there (refact, baichuan-13B); ALiBi keeps a model
+unrolled, as in JAX.
+
 - Unrolled (``params["layers"]``): every layer writes its K/V rows into the
   cache IN PLACE, then attends over it through kernel 3.
 - Stacked (``params["layers_stacked"]``, built once by ``stack_layers``;
@@ -64,10 +79,12 @@ import torch
 from llama_kotlin_tpu_torch.models.config import ModelConfig
 from llama_kotlin_tpu_torch.ops import moe
 from llama_kotlin_tpu_torch.ops.activations import ACTIVATIONS
-from llama_kotlin_tpu_torch.ops.attention import attention_reference, visibility_mask
+from llama_kotlin_tpu_torch.ops.attention import (alibi_slopes, attention_reference,
+                                                  cache_attention_reference, flash_declines,
+                                                  visibility_mask)
 from llama_kotlin_tpu_torch.ops.cuda.flash import HEAD_DIMS, flash_attention
 from llama_kotlin_tpu_torch.ops.cuda.flash_stacked import flash_attention_stacked
-from llama_kotlin_tpu_torch.ops.norms import rms_norm
+from llama_kotlin_tpu_torch.ops.norms import layer_norm, rms_norm
 from llama_kotlin_tpu_torch.ops.qmatmul import qmatmul, qmm_ffn, qmm_layer, take_rows
 from llama_kotlin_tpu_torch.ops.rope import rope_cos_sin, rotate
 from llama_kotlin_tpu_torch.quant.qtensor import QTensor
@@ -83,12 +100,14 @@ QT_TENSORS = ("codes", "g_scale", "g_min", "sb_scale", "sb_min")
 
 def can_stack(params: dict, cfg: ModelConfig) -> bool:
     """Layers can share one loop body when uniform in structure: at least
-    two layers with the same keys and no sliding window (the JAX package's
-    rule; the port's config has no ALiBi or per-layer shapes).
-    deepseek2's dense lead layer has other keys than its MoE layers, and
-    gemma2's windows alternate, so those models stay unrolled, as in JAX."""
+    two layers with the same keys, no sliding window and no ALiBi (the JAX
+    package's rule, ``llama_kotlin_tpu/models/llama.py:39-51``; the port's
+    config has no per-layer shapes).  deepseek2's dense lead layer has
+    other keys than its MoE layers, gemma2's windows alternate and ALiBi
+    attends by the plain route, so those models stay unrolled, as in JAX."""
     layers = params.get("layers")
-    if not layers or len(layers) < 2 or cfg.swa_window > 0:
+    if (not layers or len(layers) < 2 or cfg.swa_window > 0
+            or cfg.max_alibi_bias > 0):
         return False
     keys = set(layers[0])
     return all(set(lp) == keys for lp in layers)
@@ -158,6 +177,16 @@ def layer_views(params: dict) -> list[dict]:
     return params["layers"] if "layers" in params else params["layer_views"]
 
 
+def _norm(cfg: ModelConfig, lp: dict, key: str, x: torch.Tensor) -> torch.Tensor:
+    """The architecture's norm of x under lp[key] (JAX ``lnorm``,
+    ``llama_kotlin_tpu/models/llama.py:142-149``): RMSNorm, or LayerNorm
+    with the weight and bias lp holds (no weight: OLMo's non-parametric
+    one)."""
+    if cfg.use_rms_norm:
+        return rms_norm(x, lp[key], cfg.rms_eps, cfg.norm_weight_offset)
+    return layer_norm(x, lp.get(key), lp.get(key + "_b"), cfg.norm_eps)
+
+
 def _qkv(lp: dict, x: torch.Tensor, cfg: ModelConfig, cos: torch.Tensor, sin: torch.Tensor,
          rope):
     """The attention inputs of a layer: q [nt, H, Dk] bf16 and k [nt, KV,
@@ -195,39 +224,66 @@ def _qkv_mla(lp: dict, x: torch.Tensor, cfg: ModelConfig, cos: torch.Tensor,
 
 
 def _qkv_gqa(lp: dict, x: torch.Tensor, cfg: ModelConfig):
+    """q, k, v of a GQA layer (JAX ``qkv``, ``:195-247``): the projections
+    (fused or split), their biases (one add over a fused output), olmo's
+    clip, then the per-head q/k norms (stablelm's [head_dim] weights,
+    command-r's [n_head, head_dim] LayerNorm ones), before rope."""
     nt = x.shape[0]
     qd = cfg.n_head * cfg.head_dim
     kvd = cfg.n_head_kv * cfg.head_dim
     if "wqkv_fused" in lp:
         y = qmatmul(x, lp["wqkv_fused"])
+        if "bqkv_fused" in lp:
+            y = y + lp["bqkv_fused"]
         q, k, v = y[:, :qd], y[:, qd:qd + kvd], y[:, qd + kvd:]
     else:  # split projections (unfused load, or a layer whose layouts differ)
         q, k, v = (qmatmul(x, lp[name]) for name in ("wq", "wk", "wv"))
-    return (q.reshape(nt, cfg.n_head, cfg.head_dim),
-            k.reshape(nt, cfg.n_head_kv, cfg.head_dim),
-            v.reshape(nt, cfg.n_head_kv, cfg.head_dim))
+        if "bq" in lp:
+            q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    if cfg.clamp_kqv > 0.0:  # olmo
+        q, k, v = (t.clamp(-cfg.clamp_kqv, cfg.clamp_kqv) for t in (q, k, v))
+    q = q.reshape(nt, cfg.n_head, cfg.head_dim)
+    k = k.reshape(nt, cfg.n_head_kv, cfg.head_dim)
+    v = v.reshape(nt, cfg.n_head_kv, cfg.head_dim)
+    if "attn_q_norm" in lp:
+        q, k = _norm(cfg, lp, "attn_q_norm", q), _norm(cfg, lp, "attn_k_norm", k)
+    return q, k, v
 
 
 def _ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Gated FFN: the MoE block where the layer has a router; kernel 2 for
-    decode rows when it takes the layouts (the fused gate|up, or gate and
-    up apart: JAX's forward, ``llama_kotlin_tpu/models/llama.py:389-412``),
-    else gate|up (fused or separate) and down matmuls.  Plain gated FFN
-    only: the port loads no FFN biases or scales."""
+    """The FFN of a layer, [nt, d] f32, by JAX's branches
+    (``llama_kotlin_tpu/models/llama.py:386-444``): the MoE block where the
+    layer has a router; a gated FFN, kernel 2 for decode rows where it
+    takes the layouts and no up bias sits between the products (the fused
+    gate|up, or gate and up apart), else gate|up (fused or separate, up
+    plus its bias) and down; a non-gated one (codeshell, or a file without
+    ffn_gate: starcoder2), act(up + its bias) then down; then the down
+    bias."""
     if "ffn_gate_inp" in lp:
         return _moe_ffn(lp, x, cfg)
     act = ACTIVATIONS[cfg.act]
     fused = "ffn_gateup_fused" in lp
-    gate_w = lp["ffn_gateup_fused"] if fused else lp["ffn_gate"]
-    down = qmm_ffn(x, gate_w, lp["ffn_down"], act=cfg.act, up=None if fused else lp["ffn_up"])
-    if down is not None:
-        return down
-    if fused:
-        y = qmatmul(x, gate_w)
-        gate, up = y[:, :cfg.n_ff], y[:, cfg.n_ff:]
+    if cfg.ffn_gated and (fused or "ffn_gate" in lp):
+        gate_w = lp["ffn_gateup_fused"] if fused else lp["ffn_gate"]
+        down = None if "ffn_up_b" in lp else qmm_ffn(
+            x, gate_w, lp["ffn_down"], act=cfg.act, up=None if fused else lp["ffn_up"])
+        if down is None:
+            if fused:
+                y = qmatmul(x, gate_w)
+                gate, up = y[:, :cfg.n_ff], y[:, cfg.n_ff:]
+            else:
+                gate, up = qmatmul(x, gate_w), qmatmul(x, lp["ffn_up"])
+                if "ffn_up_b" in lp:
+                    up = up + lp["ffn_up_b"]
+            down = qmatmul((act(gate) * up).to(COMPUTE_DTYPE), lp["ffn_down"])
     else:
-        gate, up = qmatmul(x, gate_w), qmatmul(x, lp["ffn_up"])
-    return qmatmul((act(gate) * up).to(COMPUTE_DTYPE), lp["ffn_down"])
+        up = qmatmul(x, lp["ffn_up"])
+        if "ffn_up_b" in lp:
+            up = up + lp["ffn_up_b"]
+        down = qmatmul(act(up).to(COMPUTE_DTYPE), lp["ffn_down"])
+    if "ffn_down_b" in lp:
+        down = down + lp["ffn_down_b"]
+    return down
 
 
 def _moe_ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -270,24 +326,35 @@ def _moe_sweep(lp: dict, x: torch.Tensor, top_i: torch.Tensor, top_w: torch.Tens
 
 def _moe_shared(lp: dict, x: torch.Tensor, down: torch.Tensor, cfg: ModelConfig):
     """The shared experts, a gated FFN every token takes, added to the routed
-    output as deepseek2 does (JAX ``_moe_shared``, ``:369-383``)."""
+    output (JAX ``_moe_shared``, ``:369-384``): as deepseek2 does, or, with
+    qwen2moe's ``ffn_gate_inp_shexp`` ([1, d], or llama.cpp's [d]), scaled
+    by the sigmoid of its one-column product."""
     if "ffn_gate_shexp" not in lp:
         return down
     act = ACTIVATIONS[cfg.act]
     h = act(qmatmul(x, lp["ffn_gate_shexp"])) * qmatmul(x, lp["ffn_up_shexp"])
-    return down + qmatmul(h.to(COMPUTE_DTYPE), lp["ffn_down_shexp"])
+    sh = qmatmul(h.to(COMPUTE_DTYPE), lp["ffn_down_shexp"])
+    if "ffn_gate_inp_shexp" in lp:
+        gate = qmatmul(x, lp["ffn_gate_inp_shexp"].reshape(-1, x.shape[-1]))
+        sh = torch.sigmoid(gate) * sh
+    return down + sh
+
+
+# the tensors of a layer with a fused gate|up under which JAX's fused
+# layer-half hook declines (``llama_kotlin_tpu/models/llama.py:258-265``),
+# of those the port loads
+_LAYER_HALF_EXCLUDES = ("bo", "post_attn_norm", "ffn_down_b", "post_ffn_norm")
 
 
 def _fused_layer_half(lp: dict, h: torch.Tensor, attn: torch.Tensor, cfg: ModelConfig):
     """The JAX forward's fused layer-half hook (``llama_kotlin_tpu/models/
     llama.py:255-274``): o projection, residual, ffn_norm and gated FFN in
     one launch (ops/qmatmul.qmm_layer, kernel 10) where the layer has the
-    fused gate|up; None when it declines, and the caller takes the unfused
-    route.  The port's configs are always the pre-norm gated RMS one the
-    hook asks for; of the tensors it excludes, the port loads the MoE
-    router and gemma2's post norms (``:255-265``)."""
-    if "ffn_gateup_fused" not in lp or any(
-            key in lp for key in ("ffn_gate_inp", "post_attn_norm", "post_ffn_norm")):
+    fused gate|up and an ffn_norm, in a sequential gated RMS block; None
+    when it declines, and the caller takes the unfused route."""
+    if (cfg.parallel_residual or not cfg.use_rms_norm or not cfg.ffn_gated
+            or "ffn_gateup_fused" not in lp or "ffn_norm" not in lp
+            or any(key in lp for key in _LAYER_HALF_EXCLUDES)):
         return None
     return qmm_layer(attn, h, lp["wo"], lp["ffn_gateup_fused"], lp["ffn_down"], lp["ffn_norm"],
                      eps=cfg.rms_eps, act=cfg.act, offset=cfg.norm_weight_offset)
@@ -389,8 +456,15 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                     if cfg.swa_window > 0 else None)
     softmax_kw = dict(scale=cfg.attn_scale, logit_softcap=cfg.attn_logit_softcap)
     attn_kw = dict(softmax_kw, k_scale=cache.k_scale, v_scale=cache.v_scale)
+    # JAX's static refusal of its flash kernel: ALiBi or a head dim it does
+    # not take attend by the plain route on every device (never stacked:
+    # can_stack refuses ALiBi, and the stacked path has its own plain route)
+    plain_attn = flash_declines(cfg.head_dim, cfg.v_head_dim, cfg.max_alibi_bias)
+    if cfg.max_alibi_bias > 0:
+        attn_kw.update(alibi=alibi_slopes(cfg.n_head, cfg.max_alibi_bias, h.device),
+                       token_pos=token_pos, cell_pos=cell_pos)
     for li, lp in enumerate(layer_views(params)):
-        x = rms_norm(h, lp["attn_norm"], cfg.rms_eps, cfg.norm_weight_offset)
+        x = _norm(cfg, lp, "attn_norm", h)
         q, k, v = _qkv(lp, x, cfg, cos, sin, rope)
         rows = _cache_rows(cache, k, v)
         if stacked:
@@ -411,29 +485,41 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         else:
             _write_rows(cache, li, slots, rows)
             layer_mask = mask_swa if cfg.layer_swa_window(li) > 0 else mask
-            attn = flash_attention(q, cache.k, cache.v, layer_mask, layer=li,
-                                   kv_bits=cache.kv_bits, **attn_kw)
+            attend = cache_attention_reference if plain_attn else flash_attention
+            attn = attend(q, cache.k, cache.v, layer_mask, layer=li, kv_bits=cache.kv_bits,
+                          **attn_kw)
         attn = attn.to(COMPUTE_DTYPE).reshape(nt, -1)
         h3 = _fused_layer_half(lp, h, attn, cfg)
         if h3 is not None:
             h = h3
             continue
         attn_out = qmatmul(attn, lp["wo"])
+        if "bo" in lp:
+            attn_out = attn_out + lp["bo"]
         if "post_attn_norm" in lp:  # gemma2
             attn_out = rms_norm(attn_out, lp["post_attn_norm"], cfg.rms_eps,
                                 cfg.norm_weight_offset)
-        h = h + attn_out.to(h.dtype)
-        x = rms_norm(h, lp["ffn_norm"], cfg.rms_eps, cfg.norm_weight_offset)
+        if cfg.parallel_residual:
+            # JAX :292-295: the FFN reads the layer's input, normed by
+            # ffn_norm where the layer has one, else by the attention's own
+            # norm (plamo, command-r): x as computed above
+            if "ffn_norm" in lp:
+                x = _norm(cfg, lp, "ffn_norm", h)
+            h = h + attn_out.to(h.dtype)
+        else:
+            h = h + attn_out.to(h.dtype)
+            x = _norm(cfg, lp, "ffn_norm", h)
         down = _ffn(lp, x, cfg)
         if "post_ffn_norm" in lp:  # gemma2
             down = rms_norm(down, lp["post_ffn_norm"], cfg.rms_eps, cfg.norm_weight_offset)
         h = h + down.to(h.dtype)
-    h_out = rms_norm(h[out_ids.to(torch.long)], params["output_norm"], cfg.rms_eps,
-                     cfg.norm_weight_offset)
+    h_out = _norm(cfg, params, "output_norm", h[out_ids.to(torch.long)])
     out_w = params.get("output")
     if out_w is None:
         out_w = params["tok_embd"]  # tied embeddings
     logits = qmatmul(h_out, out_w).to(torch.float32)
+    if cfg.logit_scale != 1.0:  # command-r
+        logits = logits * cfg.logit_scale
     if cfg.final_logit_softcap > 0.0:  # gemma2
         logits = torch.tanh(logits / cfg.final_logit_softcap) * cfg.final_logit_softcap
     return logits, h_out.to(torch.float32)

@@ -1,6 +1,7 @@
 """GGUF -> device params (port of ``llama_kotlin_tpu/models/loader.py`` for
-the llama architecture, dense or MoE (Mixtral), gemma, gemma2 and
-deepseek2, in all four of its modes).
+the architectures ``models/registry.py`` marks ported: the llama
+architecture, dense or MoE (Mixtral), gemma, gemma2, deepseek2 and the
+llama-shaped family, in all four of its modes).
 
 ``load_gguf_model(path, fast_mode=None|"w4"|"w4x"|"int8", fuse=True)``
 memory-maps the file, moves each tensor's wire bytes to the device and
@@ -35,6 +36,13 @@ projections (``attn_q_a``/``attn_q_b`` or ``attn_q``, ``attn_kv_a_mqa``,
 ``attn_kv_b``, and their norms) and shared experts (``ffn_*_shexp``) load
 as any matrix.  gemma2's post-attention and post-FFN norms
 (``post_attention_norm``, ``post_ffw_norm``) stay f32 as the other norms.
+The llama-shaped family's tensors (JAX ``:30-52``, ``_ALWAYS_FLOAT``
+``:110-124``): q/k/v/o and FFN biases (``bq``, ``bk``, ``bv``, ``bo``,
+``ffn_{up,down}_b``), LayerNorm biases (``attn_norm_b``, ``ffn_norm_b``,
+``output_norm_b``) and per-head q/k norms stay f32; qwen2moe's shared-expert gate
+(``ffn_gate_inp_shexp``) is dense bf16 as the router is; a fused
+``attn_qkv`` weight or bias (qwen, phi3, codeshell) splits by rows into
+q, k and v at load, exactly (quantized rows are independent).
 A file with no ``output`` (gemma's tied head: llama.cpp gives the
 embedding the output's type, Q6_K in a Q4_K_M file) loads ``token_embd``
 once in the mode's layout, which serves both the embedding rows
@@ -44,7 +52,9 @@ once in the mode's layout, which serves both the embedding rows
 JAX's ``:140-144``) gives every W4 fold of the ``w4`` mode a Q8F shadow
 (``quant/fold.py::attach_q8``) from the f32 decode of its wire bytes, for
 the high-batch switch of ``ops/qmatmul.py``.  Still refused: tensor names
-the port's forward does not read (ROADMAP.md section 1, item 13).
+the port's forward does not read (position embeddings, bitnet's scales,
+SSM and encoder tensors: the architectures ROADMAP.md section 1, item 13
+lists).
 """
 
 from __future__ import annotations
@@ -70,15 +80,26 @@ ROW_CHUNK = 16384  # matrix rows converted per step
 # of the JAX tables)
 _LAYER_TENSORS = {
     "attn_norm.weight": "attn_norm",
+    "attn_norm.bias": "attn_norm_b",
     "attn_q.weight": "wq",
     "attn_k.weight": "wk",
     "attn_v.weight": "wv",
     "attn_output.weight": "wo",
+    "attn_q.bias": "bq",
+    "attn_k.bias": "bk",
+    "attn_v.bias": "bv",
+    "attn_output.bias": "bo",
+    "attn_q_norm.weight": "attn_q_norm",
+    "attn_k_norm.weight": "attn_k_norm",
     "ffn_norm.weight": "ffn_norm",
+    "ffn_norm.bias": "ffn_norm_b",
     "ffn_gate.weight": "ffn_gate",
     "ffn_up.weight": "ffn_up",
+    "ffn_up.bias": "ffn_up_b",
     "ffn_down.weight": "ffn_down",
+    "ffn_down.bias": "ffn_down_b",
     "ffn_gate_inp.weight": "ffn_gate_inp",
+    "ffn_gate_inp_shexp.weight": "ffn_gate_inp_shexp",
     "ffn_gate_exps.weight": "ffn_gate_exps",
     "ffn_up_exps.weight": "ffn_up_exps",
     "ffn_down_exps.weight": "ffn_down_exps",
@@ -97,12 +118,18 @@ _LAYER_TENSORS = {
 _GLOBAL_TENSORS = {
     "token_embd.weight": "tok_embd",
     "output_norm.weight": "output_norm",
+    "output_norm.bias": "output_norm_b",
     "output.weight": "output",
     "rope_freqs.weight": "rope_freqs",
 }
 _ALWAYS_FLOAT = {"attn_norm", "ffn_norm", "output_norm", "rope_freqs", "attn_q_a_norm",
-                 "attn_kv_a_norm", "post_attn_norm", "post_ffn_norm"}
-_ALWAYS_DENSE = {"ffn_gate_inp"}  # dense bf16 in every mode, whatever the file's type
+                 "attn_kv_a_norm", "post_attn_norm", "post_ffn_norm", "attn_norm_b",
+                 "ffn_norm_b", "output_norm_b", "attn_q_norm", "attn_k_norm", "bq", "bk", "bv",
+                 "bo", "ffn_up_b", "ffn_down_b"}
+# dense bf16 in every mode, whatever the file's type: the routers (JAX keeps
+# them f32 and casts them to bf16 at its matmul; the port casts once here)
+ALWAYS_DENSE = {"ffn_gate_inp", "ffn_gate_inp_shexp"}
+
 MAX_EXPERT_LIST = 16  # expert counts a fast mode loads as per-expert lists (JAX :196)
 
 
@@ -173,7 +200,7 @@ def _load_tensor(f: GGUFFile, name: str, key: str, fast_mode: Optional[str],
     data = f.tensor_data(name)
     if key in _ALWAYS_FLOAT:
         return dequantize_wire(data.to(dev), info.ggml_type, info.np_shape)
-    if key in _ALWAYS_DENSE:
+    if key in ALWAYS_DENSE:
         return dequantize_wire(data.to(dev), info.ggml_type,
                                info.np_shape).to(torch.bfloat16)
     if len(info.np_shape) == 3:
@@ -186,18 +213,23 @@ def _load_tensor(f: GGUFFile, name: str, key: str, fast_mode: Optional[str],
 
 def _load_fused_qkv(f: GGUFFile, name: str, cfg: ModelConfig, fast_mode: Optional[str],
                     dev: torch.device) -> dict:
-    """Split a fused attn_qkv tensor into wq/wk/wv: the rows are q|k|v and
-    quantized rows are independent, so a row split is exact."""
+    """Split a fused attn_qkv tensor into wq/wk/wv (a bias into bq/bk/bv,
+    f32), JAX ``:210-259``: the rows are q|k|v and quantized rows are
+    independent, so a row split is exact."""
     info = f.tensors[name]
-    n, k = info.np_shape
     qdim = cfg.n_head * cfg.head_dim
     kvdim = cfg.n_head_kv * cfg.head_dim
+    n = info.np_shape[0]
     if n != qdim + 2 * kvdim:
         raise ValueError(f"{name}: rows {n} != q+2kv {qdim + 2 * kvdim}")
+    bounds = ((0, qdim), (qdim, qdim + kvdim), (qdim + kvdim, n))
+    if name.endswith(".bias"):
+        b = dequantize_wire(f.tensor_data(name).to(dev), info.ggml_type, info.np_shape)
+        return {key: b[r0:r1] for key, (r0, r1) in zip(("bq", "bk", "bv"), bounds)}
+    k = info.np_shape[1]
     flat = f.tensor_data(name).reshape(n, row_byte_size(k, info.ggml_type))
-    bounds = {"wq": (0, qdim), "wk": (qdim, qdim + kvdim), "wv": (qdim + kvdim, n)}
     return {key: _load_matrix(flat[r0:r1], info.ggml_type, r1 - r0, k, fast_mode, dev)
-            for key, (r0, r1) in bounds.items()}
+            for key, (r0, r1) in zip(("wq", "wk", "wv"), bounds)}
 
 
 def fuse_layer_projections(cfg: ModelConfig, params: dict) -> int:
@@ -206,13 +238,19 @@ def fuse_layer_projections(cfg: ModelConfig, params: dict) -> int:
     launch instead of two or three): all QTensors (folds or exact repacks),
     or all dense matrices, as in JAX (``:268``).  A layer of mixed layouts
     keeps its projections split: concat_qtensors refuses them (a Q4_K_M
-    layer's Q4_K wq/wk and Q6_K wv, in every mode).  Returns the number of
-    layers with at least one fusion."""
+    layer's Q4_K wq/wk and Q6_K wv, in every mode).  As in JAX, gate|up
+    fuse only in a gated FFN without an up bias (it applies to the split
+    output).  A fused qkv's biases fuse too (bq|bk|bv ->
+    bqkv_fused): one add over the fused output in place of three, the same
+    function.  Returns the number of layers with at least one fusion."""
     n_fused = 0
     for lp in params["layers"]:
         did = False
+        gu_plain = cfg.ffn_gated and "ffn_up_b" not in lp
         for parts, fused in ((("wq", "wk", "wv"), "wqkv_fused"),
                              (("ffn_gate", "ffn_up"), "ffn_gateup_fused")):
+            if fused == "ffn_gateup_fused" and not gu_plain:
+                continue
             ws = [lp.get(p) for p in parts]
             if all(isinstance(w, torch.Tensor) for w in ws):
                 lp[fused] = torch.cat(ws, dim=0)
@@ -225,6 +263,8 @@ def fuse_layer_projections(cfg: ModelConfig, params: dict) -> int:
                     continue  # mixed layouts: keep the split projections
             for p in parts:
                 del lp[p]
+            if fused == "wqkv_fused" and "bq" in lp:
+                lp["bqkv_fused"] = torch.cat([lp.pop(b) for b in ("bq", "bk", "bv")])
             did = True
         n_fused += int(did)
     return n_fused
@@ -232,7 +272,7 @@ def fuse_layer_projections(cfg: ModelConfig, params: dict) -> int:
 
 def load_gguf_model(path: str | Path, *, fast_mode: Optional[str] = None,
                     fuse: bool = False, device: DeviceLike = None):
-    """Load a llama, gemma, gemma2 or deepseek2 GGUF file into (config, params, open GGUFFile) on
+    """Load a GGUF file of a ported architecture into (config, params, open GGUFFile) on
     `device` (None means cuda).  fast_mode is None (the exact-dequant mode,
     JAX's default), "w4", "w4x" or "int8"; fuse=True applies the
     single-device serving fold (fuse_layer_projections)."""
@@ -251,16 +291,16 @@ def load_gguf_model(path: str | Path, *, fast_mode: Optional[str] = None,
         parts = name.split(".", 2)
         if parts[0] == "blk" and len(parts) == 3:
             lp = params["layers"][int(parts[1])]
-            if parts[2] == "attn_qkv.weight":
+            if parts[2] in ("attn_qkv.weight", "attn_qkv.bias"):
                 lp.update(_load_fused_qkv(f, name, cfg, fast_mode, dev))
                 continue
             if parts[2] in _LAYER_TENSORS:
                 key = _LAYER_TENSORS[parts[2]]
                 lp[key] = _load_tensor(f, name, key, fast_mode, dev)
                 continue
-        raise NotImplementedError(f"tensor {name!r} is not read by the port's forward "
-                                  "(biases and other archs come with ROADMAP.md section 1, "
-                                  "item 13)")
+        raise NotImplementedError(f"tensor {name!r} is not read by the port's forward (the "
+                                  "architectures that carry it come with ROADMAP.md section "
+                                  "1, item 13)")
     params.setdefault("rope_freqs", None)  # no "output": tied, forward reads tok_embd
     if fuse:
         fuse_layer_projections(cfg, params)

@@ -1,6 +1,8 @@
 """Architecture registry (port of ``llama_kotlin_tpu/models/registry.py``):
 the JAX package's table of the reference's architectures, each with its
-status there and whether the port loads it.  ``models/config.py::
+status there and whether the port loads it: the llama family that JAX
+serves through ``models/llama.py`` (llama, gemma, gemma2, deepseek2 and the
+llama-shaped RMS and LayerNorm architectures).  ``models/config.py::
 config_from_metadata`` raises for every architecture this table does not
 mark ported (ROADMAP.md section 1, item 13).
 """
@@ -25,19 +27,19 @@ ARCHES = [
              "gelu, embd scale sqrt(E), (1+w) norms, tied head"),
     ArchInfo("gemma2", "supported", True,
              "logit softcaps, pre/post-ffn norms, alternating SWA"),
-    ArchInfo("qwen2", "supported", False,
+    ArchInfo("qwen2", "supported", True,
              "qkv bias, NEOX rope"),
-    ArchInfo("qwen2moe", "supported", False,
+    ArchInfo("qwen2moe", "supported", True,
              "shared expert + sigmoid gate, raw top-k probs"),
-    ArchInfo("stablelm", "supported", False,
+    ArchInfo("stablelm", "supported", True,
              "qkv bias, NEOX rope, partial rotary via rope_dim"),
-    ArchInfo("phi3", "supported", False,
-             "NEOX rope, SWA; fused qkv split at load planned"),
-    ArchInfo("internlm2", "supported", False,
+    ArchInfo("phi3", "supported", True,
+             "NEOX rope, SWA; fused qkv split at load"),
+    ArchInfo("internlm2", "supported", True,
              "llama-shaped"),
-    ArchInfo("minicpm", "supported", False,
+    ArchInfo("minicpm", "supported", True,
              "llama-shaped + scale factors"),
-    ArchInfo("command-r", "supported", False,
+    ArchInfo("command-r", "supported", True,
              "parallel block, per-head qk LayerNorm, logit scale"),
     ArchInfo("deepseek2", "supported", True,
              "MLA (q/kv LoRA latents, split k/v dims), yarn mscale, scaled MoE + shared expert"),
@@ -55,35 +57,35 @@ ARCHES = [
              "parallel residual w/ shared norm, partial rope, output bias"),
     ArchInfo("bloom", "supported", False,
              "embedding LayerNorm, ALiBi, per-head fused qkv"),
-    ArchInfo("starcoder2", "supported", False,
+    ArchInfo("starcoder2", "supported", True,
              "llama-shaped with biases"),
-    ArchInfo("olmo", "supported", False,
+    ArchInfo("olmo", "supported", True,
              "non-parametric LayerNorm, clamp_kqv"),
     ArchInfo("chatglm", "supported", False,
              "fused qkv+bias, packed swiglu, half-dim rope"),
     ArchInfo("nemotron", "supported", False,
              "LayerNorm1P (+1 folded at convert), relu^2 FFN, partial rope"),
-    ArchInfo("exaone", "supported", False,
+    ArchInfo("exaone", "supported", True,
              "llama-shaped, own metadata namespace"),
     ArchInfo("jais", "supported", False,
              "LayerNorm + ALiBi + biased gated swiglu"),
-    ArchInfo("xverse", "supported", False,
+    ArchInfo("xverse", "supported", True,
              "llama-shaped"),
-    ArchInfo("orion", "supported", False,
+    ArchInfo("orion", "supported", True,
              "biased LayerNorm, llama-shaped otherwise"),
-    ArchInfo("plamo", "supported", False,
+    ArchInfo("plamo", "supported", True,
              "shared-norm parallel residual"),
-    ArchInfo("baichuan", "supported", False,
+    ArchInfo("baichuan", "supported", True,
              "7B llama-shaped; 13B ALiBi (by layer count)"),
-    ArchInfo("qwen", "supported", False,
+    ArchInfo("qwen", "supported", True,
              "fused qkv+bias, NEOX rope, rms"),
-    ArchInfo("refact", "supported", False,
+    ArchInfo("refact", "supported", True,
              "RMS norms + ALiBi, no rope"),
     ArchInfo("dbrx", "supported", False,
              "biasless LayerNorm, clamped fused qkv, normalized-top-k MoE"),
     ArchInfo("arctic", "supported", False,
              "dense FFN + parallel MoE branch (ffn_norm_exps)"),
-    ArchInfo("codeshell", "supported", False,
+    ArchInfo("codeshell", "supported", True,
              "LayerNorm+bias, gelu FFN, NEOX partial rope"),
     ArchInfo("grok", "supported", False,
              "scaled embd/logits, 30-softcap attention, gelu MoE, pre-residual out-norms"),

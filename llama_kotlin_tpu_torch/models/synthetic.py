@@ -15,9 +15,13 @@ default; the Q5_K_M mix, single-type files and a mix of every format the
 loader takes) for the loader to read, and gemma and gemma2 files (a tied
 head, gemma2's post norms, window and softcap keys); with a ``MoEShape`` it
 writes a llama-architecture MoE file (Mixtral) or a deepseek2 file (MLA, a
-dense lead, routed and shared experts) with the metadata keys the loader
-reads (``deepseek_v2_lite``, ``mixtral_8x7b``, ``gemma2_9b``, ``gemma_7b``:
-their published shapes).
+dense lead, routed and shared experts) or a qwen2moe file (qkv biases, a
+sigmoid-gated shared expert) with the metadata keys the loader reads
+(``deepseek_v2_lite``, ``mixtral_8x7b``, ``qwen1_5_moe_a2_7b``,
+``gemma2_9b``, ``gemma_7b``, ``qwen2_7b``: their published shapes); and a
+file of any llama-shaped architecture the port serves, with the tensors
+its llama.cpp files carry (``FAMILY_TENSORS``; ``family_config`` gives the
+config its metadata maps to).
 """
 
 from __future__ import annotations
@@ -773,16 +777,71 @@ def synthetic_spm_vocab(vocab_size: int, chat_template: Optional[str] = LLAMA2_C
 
 
 GEMMA_ARCHES = ("gemma", "gemma2")  # tied heads and (1 + w) norms
+# the tensors a llama-shaped family file carries beside a llama layer's, as
+# llama.cpp's converters write them and JAX's loader reads them: q/k/v
+# biases ("qkv_bias"), a fused attn_qkv ("fused_qkv", with a fused bias
+# where the biases are), the o and FFN biases ("out_bias", "ffn_bias"),
+# LayerNorm biases on every norm ("norm_bias"), per-head q/k norms ("head":
+# [head_dim], stablelm; "heads": [n_head, head_dim], command-r), no
+# ffn_norm (a shared-norm parallel block), no norm weights at all (olmo's
+# non-parametric LayerNorm), no output (a tied head) and no ffn_gate (a
+# non-gated FFN; codeshell's config says so, starcoder2's file alone)
+FAMILY_TENSORS = {
+    "qwen2": dict(qkv_bias=True),
+    "qwen": dict(qkv_bias=True, fused_qkv=True),
+    "stablelm": dict(qkv_bias=True, qk_norm="head", norm_bias=True),
+    "phi3": dict(fused_qkv=True),
+    "minicpm": dict(tied=True),
+    "starcoder2": dict(qkv_bias=True, out_bias=True, ffn_bias=True, norm_bias=True,
+                       gated=False),
+    "plamo": dict(ffn_norm=False),
+    "orion": dict(norm_bias=True),
+    "command-r": dict(qk_norm="heads", ffn_norm=False),
+    "olmo": dict(norms=False),
+    "codeshell": dict(qkv_bias=True, fused_qkv=True, out_bias=True, ffn_bias=True,
+                      norm_bias=True),
+}
+# the dense architectures synthetic_gguf writes: llama and the llama-shaped
+# family (qwen2moe is a MoE file: moe=)
+DENSE_ARCHES = ("llama", "gemma", "gemma2", "qwen2", "qwen", "stablelm", "phi3", "internlm2",
+                "minicpm", "xverse", "exaone", "baichuan", "starcoder2", "refact", "plamo",
+                "orion", "command-r", "olmo", "codeshell")
+
+
+def family_config(arch: str, n_layer: int = 2, n_embd: int = 256, n_head: int = 4,
+                  n_head_kv: int = 2, n_ff: int = 512, vocab_size: int = 512,
+                  **keys) -> ModelConfig:
+    """The ModelConfig config_from_metadata gives a file of `arch` (one of
+    DENSE_ARCHES) at these widths, with the arch's own keys in `keys`
+    (named as file_metadata writes them: swa_window, clamp_kqv,
+    logit_scale, rope_dim, head_dim, rope_freq_base, rms_eps, norm_eps);
+    synthetic_gguf writes such a file.  baichuan attends with ALiBi from 40
+    layers (baichuan-13B), as config_from_metadata rules."""
+    from llama_kotlin_tpu_torch.models.config import config_from_metadata
+
+    base = ModelConfig(arch=arch, name=f"synthetic-{arch}", vocab_size=vocab_size,
+                       n_embd=n_embd, n_layer=n_layer, n_head=n_head, n_head_kv=n_head_kv,
+                       n_ff=n_ff, **{k: v for k, v in keys.items()
+                                     if k in ("head_dim", "rope_dim")})
+    # the norm the arch's config takes decides which epsilon key the file has
+    base.use_rms_norm = config_from_metadata({"general.architecture": arch}).use_rms_norm
+    for k, v in keys.items():
+        setattr(base, k, v)
+    return config_from_metadata(dict(file_metadata(base)))
 
 
 def file_metadata(cfg: ModelConfig, matrix_type: GGMLQuantType = GGMLQuantType.Q4_K) -> list:
-    """The (key, value) metadata of synthetic_gguf's llama, gemma or gemma2
-    file, under cfg.arch (the keys llama.cpp's converter writes); a gemma or
-    gemma2 file adds its head widths, gemma2 its sliding window and logit
-    softcaps."""
+    """The (key, value) metadata of synthetic_gguf's dense file, under
+    cfg.arch (the keys llama.cpp's converter writes): a gemma or gemma2
+    file, or any whose head width is not n_embd / n_head, adds its head
+    widths; a sliding window, gemma2's logit softcaps, olmo's clamp_kqv and
+    command-r's logit_scale where the config has them; the norm epsilon
+    under the key of the arch's norm."""
     a = cfg.arch
-    if a not in ("llama",) + GEMMA_ARCHES:
-        raise ValueError(f"synthetic_gguf writes llama, gemma and gemma2 files, not {a!r}")
+    if a not in DENSE_ARCHES:
+        raise ValueError(f"synthetic_gguf writes {DENSE_ARCHES} dense files, not {a!r}")
+    eps_key, eps = (("layer_norm_rms_epsilon", cfg.rms_eps) if cfg.use_rms_norm
+                    else ("layer_norm_epsilon", cfg.norm_eps))
     kv = [("general.architecture", a), ("general.name", cfg.name or "synthetic"),
           ("general.file_type", np.uint32(FILE_TYPES[matrix_type])),
           (f"{a}.vocab_size", np.uint32(cfg.vocab_size)),
@@ -794,14 +853,19 @@ def file_metadata(cfg: ModelConfig, matrix_type: GGMLQuantType = GGMLQuantType.Q
           (f"{a}.attention.head_count_kv", np.uint32(cfg.n_head_kv)),
           (f"{a}.rope.dimension_count", np.uint32(cfg.rope_dim)),
           (f"{a}.rope.freq_base", np.float32(cfg.rope_freq_base)),
-          (f"{a}.attention.layer_norm_rms_epsilon", np.float32(cfg.rms_eps))]
-    if a in GEMMA_ARCHES:
+          (f"{a}.attention.{eps_key}", np.float32(eps))]
+    if a in GEMMA_ARCHES or cfg.head_dim * cfg.n_head != cfg.n_embd:
         kv += [(f"{a}.attention.key_length", np.uint32(cfg.head_dim)),
                (f"{a}.attention.value_length", np.uint32(cfg.v_head_dim))]
+    if cfg.swa_window:
+        kv.append((f"{a}.attention.sliding_window", np.uint32(cfg.swa_window)))
     if a == "gemma2":
-        kv += [(f"{a}.attention.sliding_window", np.uint32(cfg.swa_window)),
-               (f"{a}.attn_logit_softcapping", np.float32(cfg.attn_logit_softcap)),
+        kv += [(f"{a}.attn_logit_softcapping", np.float32(cfg.attn_logit_softcap)),
                (f"{a}.final_logit_softcapping", np.float32(cfg.final_logit_softcap))]
+    if cfg.clamp_kqv:
+        kv.append((f"{a}.attention.clamp_kqv", np.float32(cfg.clamp_kqv)))
+    if cfg.logit_scale != 1.0:
+        kv.append((f"{a}.logit_scale", np.float32(cfg.logit_scale)))
     return kv
 
 
@@ -810,28 +874,32 @@ def synthetic_gguf(path, cfg: ModelConfig, seed: int = 0, layer_types: Optional[
                    output_type: GGMLQuantType = GGMLQuantType.Q6_K,
                    matrix_type: GGMLQuantType = GGMLQuantType.Q4_K,
                    extra_kvs: Optional[dict] = None, moe: Optional[MoEShape] = None) -> int:
-    """Write a GGUF of random wire blocks for `cfg` (a llama, gemma or gemma2
-    file, by cfg.arch; file_metadata gives its keys): every layer matrix
-    of `matrix_type` but those `layer_types` names (a dict a layer from
-    LAYER_MATRICES to types; default for Q4_K: the Q4_K_M profile,
+    """Write a GGUF of random wire blocks for `cfg` (a dense file of any of
+    DENSE_ARCHES, by cfg.arch; file_metadata gives its keys): every layer
+    matrix of `matrix_type` but those `layer_types` names (a dict a layer
+    from LAYER_MATRICES to types; default for Q4_K: the Q4_K_M profile,
     q4_k_m_layer_types; for Q5_K the Q5_K_M one; for other types none, the
     LLAMA_FTYPE_MOSTLY_* files; every_format_layer_types for a file that
     holds every format), `token_embd` (embd_type, default
     matrix_type) and `output` (output_type: Q6_K, as llama.cpp quantizes
-    it in these files; F16 or F32 make them dense); norms F32 near 1.  A
-    gemma or gemma2 file has no `output` (a tied head): its `token_embd`
-    defaults to output_type, as llama.cpp gives a tied embedding the
-    output's type, and its norms are drawn near 0 (the model scales by 1 +
-    w); gemma2's layers add `post_attention_norm` (after attn_output) and
-    `post_ffw_norm` (after ffn_down).  Each
-    tensor is drawn from one numpy Generator as the writer streams it, so a
-    full 8B file never sits whole in host memory.  extra_kvs (e.g.
-    synthetic_spm_vocab's tokenizer keys) are written after the model's
-    keys; the loader ignores them.  With `moe` the file is cfg.arch's MoE
-    layout (llama: Mixtral; deepseek2: MLA with dense lead and shared
-    experts), its layers' types moe_tensor_types(cfg, moe, matrix_type)
-    unless layer_types maps tensor names to types.  Returns the file's
-    size."""
+    it in these files; F16 or F32 make them dense); a k-quant on rows no
+    256 tiles takes llama.cpp's fallback (_fallback_type); norms F32 near
+    1.  A gemma or gemma2 file has no `output` (a tied head): its
+    `token_embd` defaults to output_type, as llama.cpp gives a tied
+    embedding the output's type, and its norms are drawn near 0 (the model
+    scales by 1 + w); gemma2's layers add `post_attention_norm` (after
+    attn_output) and `post_ffw_norm` (after ffn_down).  A llama-shaped
+    family file carries FAMILY_TENSORS' tensors (biases F32, normal with
+    std 0.1; a fused attn_qkv of attn_q's type), and a tied one (command-r,
+    minicpm) no `output`.  Each tensor is drawn from one numpy Generator as
+    the writer streams it, so a full 8B file never sits whole in host
+    memory.  extra_kvs (e.g. synthetic_spm_vocab's tokenizer keys) are
+    written after the model's keys; the loader ignores them.  With `moe`
+    the file is cfg.arch's MoE layout (llama: Mixtral; deepseek2: MLA with
+    dense lead and shared experts; qwen2moe: qkv biases and a
+    sigmoid-gated shared expert), its layers' types moe_tensor_types(cfg,
+    moe, matrix_type) unless layer_types maps tensor names to types.
+    Returns the file's size."""
     from llama_kotlin_tpu_torch.gguf.writer import GGUFWriter
 
     rng = np.random.default_rng(seed)
@@ -841,7 +909,10 @@ def synthetic_gguf(path, cfg: ModelConfig, seed: int = 0, layer_types: Optional[
     if layer_types is None:
         mix = DEFAULT_MIX.get(matrix_type)
         layer_types = mix(cfg.n_layer) if mix else [{}] * cfg.n_layer
-    tied = cfg.arch in GEMMA_ARCHES
+    fam = FAMILY_TENSORS.get(cfg.arch, {})
+    gemma = cfg.arch in GEMMA_ARCHES
+    tied = gemma or cfg.tie_word_embeddings or fam.get("tied", False)
+    gated = cfg.ffn_gated and fam.get("gated", True)
     if embd_type is None:
         embd_type = output_type if tied else matrix_type
     E, F, V = cfg.n_embd, cfg.n_ff, cfg.vocab_size
@@ -851,29 +922,60 @@ def synthetic_gguf(path, cfg: ModelConfig, seed: int = 0, layer_types: Optional[
         w.add_kv(key, value)
 
     def matrix(name, n, k, qtype):
+        qtype = _fallback_type(qtype, k)
         w.add_tensor_stream(name, (k, n), qtype, lambda: wire_blocks(rng, qtype, n, k))
 
-    centre = 0.0 if tied else 1.0  # gemma's norms scale by 1 + w
+    def vector(name, shape, centre, std):
+        w.add_tensor_stream(name, tuple(reversed(shape)), GGMLQuantType.F32,
+                            lambda: (centre + std * rng.standard_normal(shape)).astype("<f4"))
+
+    centre = 0.0 if gemma else 1.0  # gemma's norms scale by 1 + w
 
     def norm(name):
-        w.add_tensor_stream(name, (E,), GGMLQuantType.F32,
-                            lambda: (centre + 0.01 * rng.standard_normal(E)).astype("<f4"))
+        if fam.get("norms", True):
+            vector(name + ".weight", (E,), centre, 0.01)
+            if fam.get("norm_bias"):
+                vector(name + ".bias", (E,), 0.0, 0.1)
+
+    def bias(name, n):
+        vector(name + ".bias", (n,), 0.0, 0.1)
 
     matrix("token_embd.weight", V, E, embd_type)
     for i, types in enumerate(layer_types):
         b = f"blk.{i}."
-        norm(b + "attn_norm.weight")
+        norm(b + "attn_norm")
         shapes = {"attn_q": (qd, E), "attn_k": (kvd, E), "attn_v": (kvd, E),
                   "attn_output": (E, qd), "ffn_gate": (F, E), "ffn_up": (F, E),
                   "ffn_down": (E, F)}
         for name in LAYER_MATRICES:
+            qtype = types.get(name, matrix_type)
+            if name in ("attn_k", "attn_v") and fam.get("fused_qkv"):
+                continue
+            if name == "attn_q" and fam.get("fused_qkv"):
+                matrix(b + "attn_qkv.weight", qd + 2 * kvd, E, qtype)
+                if fam.get("qkv_bias"):
+                    bias(b + "attn_qkv", qd + 2 * kvd)
+                continue
             if name == "ffn_gate":
-                norm(b + "ffn_norm.weight")
-            matrix(b + name + ".weight", *shapes[name], types.get(name, matrix_type))
+                if fam.get("ffn_norm", True):
+                    norm(b + "ffn_norm")
+                if not gated:
+                    continue
+            matrix(b + name + ".weight", *shapes[name], qtype)
+            if fam.get("qkv_bias") and name in ("attn_q", "attn_k", "attn_v"):
+                bias(b + name, shapes[name][0])
+            if (fam.get("out_bias") and name == "attn_output"
+                    or fam.get("ffn_bias") and name in ("ffn_up", "ffn_down")):
+                bias(b + name, shapes[name][0])
+            if name == "attn_v" and fam.get("qk_norm"):
+                hd = cfg.head_dim
+                for qk, nh in (("attn_q_norm", cfg.n_head), ("attn_k_norm", cfg.n_head_kv)):
+                    vector(f"{b}{qk}.weight", (hd,) if fam["qk_norm"] == "head" else (nh, hd),
+                           1.0, 0.01)
             if cfg.arch == "gemma2" and name in ("attn_output", "ffn_down"):
-                norm(b + ("post_attention_norm.weight" if name == "attn_output"
-                          else "post_ffw_norm.weight"))
-    norm("output_norm.weight")
+                vector(b + ("post_attention_norm.weight" if name == "attn_output"
+                            else "post_ffw_norm.weight"), (E,), centre, 0.01)
+    norm("output_norm")
     if not tied:
         matrix("output.weight", V, E, output_type)
     w.write(path)
@@ -884,16 +986,17 @@ def synthetic_gguf(path, cfg: ModelConfig, seed: int = 0, layer_types: Optional[
 class MoEShape:
     """A MoE file's shapes beyond ModelConfig's (which gives n_expert,
     n_expert_used and the dense FFN width n_ff): the routed experts' width,
-    the shared experts (deepseek2: n_shared of expert_ff, written as one
-    FFN n_shared * expert_ff wide), the leading dense layers, and
-    deepseek2's q and kv LoRA ranks (q_lora_rank 0: one ``attn_q``, the
-    Lite model)."""
+    the shared experts (deepseek2 and qwen2moe: n_shared of expert_ff,
+    written as one FFN n_shared * expert_ff wide; qwen2moe's with its
+    sigmoid gate), the leading dense layers, and deepseek2's q and kv LoRA
+    ranks (q_lora_rank 0: one ``attn_q``, the Lite model)."""
 
     expert_ff: int
     n_shared: int = 0
     dense_lead: int = 0
     q_lora_rank: int = 0
     kv_lora_rank: int = 0
+    shared_gate: bool = False  # qwen2moe: the shared expert's sigmoid gate [1, n_embd]
 
 
 def deepseek_v2_lite(n_layer: int = 27) -> tuple:
@@ -925,6 +1028,34 @@ def mixtral_8x7b(n_layer: int = 32) -> tuple:
     return cfg, MoEShape(expert_ff=14336)
 
 
+def qwen1_5_moe_a2_7b(n_layer: int = 24) -> tuple:
+    """(ModelConfig, MoEShape) of Qwen1.5-MoE-A2.7B at its published shapes
+    (huggingface.co/Qwen/Qwen1.5-MoE-A2.7B, config.json): E 2048, 24
+    layers, 16 heads on 16 kv heads with qkv biases, 60 routed experts of
+    1408 (4 a token, raw softmax weights: norm_topk_prob false) and a
+    shared expert of 5632 (4 x 1408) under a sigmoid gate, vocab 151936,
+    rope base 1e6, rms_eps 1e-6; the fields config_from_metadata sets for
+    such a file.  n_layer cuts depth."""
+    cfg = ModelConfig(arch="qwen2moe", name="qwen1.5-moe-a2.7b", vocab_size=151936,
+                      n_embd=2048, n_layer=n_layer, n_head=16, n_head_kv=16, n_ff=5632,
+                      n_ctx_train=8192, rms_eps=1e-6, rope_type=ROPE_TYPE_NEOX,
+                      rope_freq_base=1e6, n_expert=60, n_expert_used=4,
+                      moe_norm_topk=False, attn_qkv_bias=True)
+    return cfg, MoEShape(expert_ff=1408, n_shared=4, shared_gate=True)
+
+
+def qwen2_7b(n_layer: int = 28) -> ModelConfig:
+    """Qwen2-7B at its published shapes (huggingface.co/Qwen/Qwen2-7B,
+    config.json): E 3584, 28 layers, 28 heads on 4 kv heads (7 a group) of
+    128 with qkv biases, F 18944, vocab 152064, rope base 1e6, rms_eps
+    1e-6, 131072 positions; the fields config_from_metadata sets for such a
+    file.  n_layer cuts depth."""
+    return ModelConfig(arch="qwen2", name="qwen2-7b", vocab_size=152064, n_embd=3584,
+                       n_layer=n_layer, n_head=28, n_head_kv=4, n_ff=18944,
+                       n_ctx_train=131072, rms_eps=1e-6, rope_type=ROPE_TYPE_NEOX,
+                       rope_freq_base=1e6, attn_qkv_bias=True)
+
+
 def gemma2_9b(n_layer: int = 42) -> ModelConfig:
     """gemma-2-9b at its published shapes (huggingface.co/google/gemma-2-9b,
     config.json): 42 layers, E 3584, 16 heads on 8 kv heads of 256
@@ -938,7 +1069,7 @@ def gemma2_9b(n_layer: int = 42) -> ModelConfig:
                        n_ctx_train=8192, rms_eps=1e-6, norm_weight_offset=1.0, act="gelu",
                        rope_type=ROPE_TYPE_NEOX, embd_scale=3584 ** 0.5,
                        attn_logit_softcap=50.0, final_logit_softcap=30.0, swa_window=4096,
-                       swa_pattern=2)
+                       swa_pattern=2, tie_word_embeddings=True)
 
 
 def gemma_7b(n_layer: int = 28) -> ModelConfig:
@@ -949,7 +1080,8 @@ def gemma_7b(n_layer: int = 28) -> ModelConfig:
     return ModelConfig(arch="gemma", name="gemma-7b", vocab_size=256000, n_embd=3072,
                        n_layer=n_layer, n_head=16, n_head_kv=16, n_ff=24576, head_dim=256,
                        n_ctx_train=8192, rms_eps=1e-6, norm_weight_offset=1.0, act="gelu",
-                       rope_type=ROPE_TYPE_NEOX, embd_scale=3072 ** 0.5)
+                       rope_type=ROPE_TYPE_NEOX, embd_scale=3072 ** 0.5,
+                       tie_word_embeddings=True)
 
 
 def _fallback_type(qtype: GGMLQuantType, k: int) -> GGMLQuantType:
@@ -962,10 +1094,12 @@ def _fallback_type(qtype: GGMLQuantType, k: int) -> GGMLQuantType:
 
 
 def moe_layer_tensors(cfg: ModelConfig, moe: MoEShape, i: int) -> list:
-    """Layer i of a MoE or deepseek2 file: (name suffix, numpy shape, role)
-    in the order synthetic_gguf writes them; role "norm" (F32), "router"
-    (F32, as llama.cpp's quantize leaves ffn_gate_inp), "attn_v" and
-    "ffn_down" (Q4_K_M's use_more_bits choice) or "matrix"."""
+    """Layer i of a MoE, deepseek2 or qwen2moe file: (name suffix, numpy
+    shape, role) in the order synthetic_gguf writes them; role "norm"
+    (F32), "bias" (F32: qwen2moe's q/k/v biases), "router" (F32, as
+    llama.cpp's quantize leaves ffn_gate_inp and qwen2moe's shared-expert
+    gate ffn_gate_inp_shexp), "attn_v" and "ffn_down" (Q4_K_M's
+    use_more_bits choice) or "matrix"."""
     E, H = cfg.n_embd, cfg.n_head
     out = [("attn_norm.weight", (E,), "norm")]
     if cfg.arch == "deepseek2":
@@ -984,6 +1118,9 @@ def moe_layer_tensors(cfg: ModelConfig, moe: MoEShape, i: int) -> list:
         qd, kvd = H * cfg.head_dim, cfg.n_head_kv * cfg.head_dim
         out += [("attn_q.weight", (qd, E), "matrix"), ("attn_k.weight", (kvd, E), "matrix"),
                 ("attn_v.weight", (kvd, E), "attn_v"), ("attn_output.weight", (E, qd), "matrix")]
+        if cfg.attn_qkv_bias:
+            out[-1:-1] = [("attn_q.bias", (qd,), "bias"), ("attn_k.bias", (kvd,), "bias"),
+                          ("attn_v.bias", (kvd,), "bias")]
     out.append(("ffn_norm.weight", (E,), "norm"))
     if i < moe.dense_lead:
         F = cfg.n_ff
@@ -996,6 +1133,8 @@ def moe_layer_tensors(cfg: ModelConfig, moe: MoEShape, i: int) -> list:
             ("ffn_down_exps.weight", (Ne, E, Fe), "ffn_down")]
     if moe.n_shared:
         Fs = moe.n_shared * Fe
+        if moe.shared_gate:
+            out.append(("ffn_gate_inp_shexp.weight", (1, E), "router"))
         out += [("ffn_gate_shexp.weight", (Fs, E), "matrix"),
                 ("ffn_up_shexp.weight", (Fs, E), "matrix"),
                 ("ffn_down_shexp.weight", (E, Fs), "ffn_down")]
@@ -1015,7 +1154,7 @@ def moe_tensor_types(cfg: ModelConfig, moe: MoEShape,
     out = {}
     for i in range(cfg.n_layer):
         for suffix, shape, role in moe_layer_tensors(cfg, moe, i):
-            if role in ("norm", "router"):
+            if role in ("norm", "bias", "router"):
                 t = GGMLQuantType.F32
             elif role == "attn_v" and cfg.n_expert == 8 and mix:
                 t = GGMLQuantType.Q8_0
@@ -1029,10 +1168,11 @@ def moe_tensor_types(cfg: ModelConfig, moe: MoEShape,
 
 def moe_metadata(cfg: ModelConfig, moe: MoEShape,
                  matrix_type: GGMLQuantType = GGMLQuantType.Q4_K) -> list:
-    """The (key, value) metadata of synthetic_gguf's MoE or deepseek2 file:
-    a llama file's keys under cfg.arch, the expert counts, and deepseek2's
-    head widths, LoRA ranks, dense lead, expert widths, expert weight scale
-    and YaRN keys (the keys llama.cpp's converter writes)."""
+    """The (key, value) metadata of synthetic_gguf's MoE, deepseek2 or
+    qwen2moe file: a llama file's keys under cfg.arch, the expert counts,
+    qwen2moe's expert widths, and deepseek2's head widths, LoRA ranks,
+    dense lead, expert widths, expert weight scale and YaRN keys (the keys
+    llama.cpp's converter writes)."""
     a = cfg.arch
     kv = [("general.architecture", a), ("general.name", cfg.name or "synthetic"),
           ("general.file_type", np.uint32(FILE_TYPES[matrix_type])),
@@ -1048,6 +1188,10 @@ def moe_metadata(cfg: ModelConfig, moe: MoEShape,
           (f"{a}.attention.layer_norm_rms_epsilon", np.float32(cfg.rms_eps)),
           (f"{a}.expert_count", np.uint32(cfg.n_expert)),
           (f"{a}.expert_used_count", np.uint32(cfg.n_expert_used))]
+    if a == "qwen2moe":
+        kv += [(f"{a}.expert_feed_forward_length", np.uint32(moe.expert_ff)),
+               (f"{a}.expert_shared_feed_forward_length",
+                np.uint32(moe.n_shared * moe.expert_ff))]
     if a != "deepseek2":
         return kv
     kv += [(f"{a}.attention.key_length", np.uint32(cfg.head_dim)),
@@ -1068,9 +1212,10 @@ def moe_metadata(cfg: ModelConfig, moe: MoEShape,
 
 def _synthetic_moe_gguf(path, cfg: ModelConfig, moe: MoEShape, rng, types: Optional[dict],
                         embd_type, output_type, matrix_type, extra_kvs) -> int:
-    """synthetic_gguf's MoE and deepseek2 files: wire_blocks' draws, tensor
-    by tensor in the writer's order (an expert stack as E * n rows of one
-    draw; a router F32, normal with std 0.02)."""
+    """synthetic_gguf's MoE, deepseek2 and qwen2moe files: wire_blocks'
+    draws, tensor by tensor in the writer's order (an expert stack as E * n
+    rows of one draw; a router F32, normal with std 0.02; a norm near 1, a
+    bias normal with std 0.1)."""
     from llama_kotlin_tpu_torch.gguf.writer import GGUFWriter
 
     E, V = cfg.n_embd, cfg.vocab_size
@@ -1080,20 +1225,22 @@ def _synthetic_moe_gguf(path, cfg: ModelConfig, moe: MoEShape, rng, types: Optio
     for key, value in (*moe_metadata(cfg, moe, matrix_type), *(extra_kvs or {}).items()):
         w.add_kv(key, value)
 
-    def tensor(name, shape, qtype):
+    def tensor(name, shape, qtype, role="matrix"):
         n, k = math.prod(shape[:-1]), shape[-1]
-        if qtype == GGMLQuantType.F32 and len(shape) == 1:  # a norm near 1
+        if role == "norm":
             draw = lambda: (1.0 + 0.01 * rng.standard_normal(k)).astype("<f4")
+        elif role == "bias":
+            draw = lambda: (0.1 * rng.standard_normal(k)).astype("<f4")
         else:
             draw = lambda: wire_blocks(rng, qtype, n, k)
         w.add_tensor_stream(name, tuple(reversed(shape)), qtype, draw)
 
     tensor("token_embd.weight", (V, E), embd_type)
     for i in range(cfg.n_layer):
-        for suffix, shape, _role in moe_layer_tensors(cfg, moe, i):
+        for suffix, shape, role in moe_layer_tensors(cfg, moe, i):
             name = f"blk.{i}.{suffix}"
-            tensor(name, shape, types[name])
-    tensor("output_norm.weight", (E,), GGMLQuantType.F32)
+            tensor(name, shape, types[name], role)
+    tensor("output_norm.weight", (E,), GGMLQuantType.F32, "norm")
     tensor("output.weight", (V, E), output_type)
     w.write(path)
     return os.path.getsize(path)

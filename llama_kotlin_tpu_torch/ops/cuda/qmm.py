@@ -142,7 +142,8 @@ def dequantize_bf16(w: QTensor, rows: slice = slice(None)) -> torch.Tensor:
     w = plane * sc - adj, each term only where the layout has it.  plane is
     the raw code, 8-bit codes read as int8 (``_codes_i8``).  On the folds
     (no offset, no superblock planes) this is w = plane * s - m."""
-    sub = w.rows(torch.arange(w.n, device=w.device)[rows])
+    lo, hi, _ = rows.indices(w.n)
+    sub = replace(w.row_slice(lo, hi), aux=None)
     codes = sub.codes.view(torch.int8) if sub.bits == 8 else sub.codes
     plane = unpack_codes(replace(sub, codes=codes)).to(torch.float32)
     expand = lambda t, r: t.to(torch.float32).repeat_interleave(r, dim=-1)
@@ -155,10 +156,13 @@ def dequantize_bf16(w: QTensor, rows: slice = slice(None)) -> torch.Tensor:
         if sub.sb_scale is not None and sub.sb_min is not None:
             mn = mn * expand(sub.sb_min, SPAN // sub.group_size)
         adj = mn if adj is None else adj + mn
-    wf = plane * sc.repeat_interleave(sub.group_size, dim=-1)
+    # per group, broadcast over its codes: the same f32 products and
+    # differences as the kernel's, without a full-size copy of each plane
+    r, G = sc.shape
+    wf = plane.reshape(r, G, sub.group_size) * sc[..., None]
     if adj is not None:
-        wf = wf - adj.repeat_interleave(sub.group_size, dim=-1)
-    return wf[:, :sub.k].to(torch.bfloat16)
+        wf = wf - adj[..., None]
+    return wf.reshape(r, -1)[:, :sub.k].to(torch.bfloat16)
 
 
 def qmm_plain(x: torch.Tensor, w: QTensor) -> torch.Tensor:

@@ -255,8 +255,9 @@ def dequantize(qt: QTensor, dtype=torch.float32) -> torch.Tensor:
         return dequantize(rows, dtype).reshape(lead, qt.n, qt.k)
     codes = unpack_codes(qt)
     s, m = effective_scales(qt)
-    g = qt.group_size
-    w = (codes - qt.code_offset).to(torch.float32) * s.repeat_interleave(g, dim=-1)
+    n, G = s.shape
+    # per group, broadcast over its codes (no full-size copy of each plane)
+    w = (codes - qt.code_offset).to(torch.float32).reshape(n, G, qt.group_size) * s[..., None]
     if m is not None:
-        w = w - m.repeat_interleave(g, dim=-1)
-    return w[:, :qt.k].to(dtype)
+        w = w - m[..., None]
+    return w.reshape(n, -1)[:, :qt.k].to(dtype)
