@@ -10,7 +10,7 @@ Phases (any failure exits non-zero and prints no result line):
   3. kernels — every kernel of the serving paths at the llama3-8B shapes
                they get there (kernels 3 and 9 also on an int8 cache),
                held against its plain PyTorch version on the same inputs,
-               timed with CUDA events (median of 20, L2 flushed before each
+               timed with CUDA events (median of 10, L2 flushed before each
                call), beside its bound on this card and one PyTorch library
                call where one computes the same function; and the
                load-time repack and the KV row quantizer on the card
@@ -215,12 +215,32 @@ the MoE in w4; qwen_parity_phase) and 16 other family members at 2 layers (baich
 at 40) and a narrow width, exact, kernel 3 never launched where JAX's
 predicate declines its kernel (ALiBi, head dim 96; arch_sweep_phase).
 
-The parity phases' CPU references are computed by a child process of this
-script (--cpu-refs, started at once, CPU_REF_THREADS threads), which runs
-beside the card's phases; the parent reads each when its card run needs it.
+The learned-position and LayerNorm-gelu family (gpt2, starcoder, gptneox,
+falcon, mpt, phi2, bloom, jais, nemotron, chatglm: learned positions, the
+embedding LayerNorm, falcon-40b's attn_norm_2, packed swiglu, relu^2, an
+output bias) adds to 3 kernel 3 at Falcon-7B's 71 query heads on one kv
+head (head dim 64) on the three caches, decode and 64 rows over 1001, 1024
+and 2048 cells, and at StarCoder-15.5B's 48 on one (head dim 128), kernel
+9 at both, kernel 4's exact, W8 and W4 branches at Falcon-7B's qkv, o and
+down (K = 4544 on the Q5_0 / Q8_0 fallback) at m = 1 and 64, kernel 5 at
+its up and lm_head and StarCoder's head, kernel 1 at StarCoder's widths
+(gpt_kernel_phase); to 5 Falcon-7B at full width and all 32 layers and
+StarCoder-15.5B at EARLIER_LAYERS, exact and w4, 3 requests each with
+every kernel's launches exact (route_counts: in w4 Falcon-7B's qkv, o and
+down take kernel 4 at decode, as JAX's _plan declines their rows;
+kernel 1 never), profiled (falcon_phase, starcoder_phase; Qwen2-7B's
+serving phase went to EARLIER_LAYERS for them); to 6 both at 2 layers
+(Falcon-7B exact and w4, StarCoder w4; gpt_parity_phase) and the ten archs
+and a falcon-40b-shaped member in the sweep, kernel 3 never launched where
+JAX's predicate declines (ALiBi: mpt, bloom, jais; phi2's head dim 80).
+
+The parity phases' CPU references are computed by child processes of this
+script (--cpu-refs, started at once, CPU_REF_GROUPS: each a share of the
+parity phases and of the host's threads), which run beside the card's
+phases; the parent reads each reference when its card run needs it.
 Another child (--write-files) writes the 4.9 GB llama3-8B Q4_K_M file, the
-every-IQ files, the DeepSeek-V2-Lite, gemma-2-9b, Qwen2-7B and
-Qwen1.5-MoE-A2.7B files meanwhile.
+every-IQ files, the DeepSeek-V2-Lite, gemma-2-9b, Qwen2-7B,
+Qwen1.5-MoE-A2.7B, Falcon-7B (4.6 GB) and StarCoder-15.5B files meanwhile.
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -229,6 +249,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import inspect
 import json
 import math
 import os
@@ -245,7 +266,7 @@ from pathlib import Path
 # the card's data-sheet peaks (H100 SXM, dense): bytes/s and ops/s
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"int8": 1979e12, "bf16": 989e12}
-REPS = 20
+REPS = 10  # timed calls a row (their median is the row's time)
 FLUSH_BYTES = 256 << 20  # > the 50 MB L2: decode streams cold weights
 SPIN_CYCLES = 10_000_000  # ~5 ms of device spin ahead of each timed call
 # depth of the paths earlier slices added (the quantized caches, the fused
@@ -253,8 +274,9 @@ SPIN_CYCLES = 10_000_000  # ~5 ms of device spin ahead of each timed call
 # the W4X model, tinyllama-1.1b and speculative decoding): cut to keep the
 # whole script well inside its time limit on a slow host (8 layers until
 # the tinyllama-1.1b phase and kernel 6's and the repaired attention's rows
-# came); the main path, the Q4_K_M file and DeepSeek-V2-Lite keep their
-# full depth
+# came); the main path, the Q4_K_M file and Falcon-7B keep their full
+# depth (DeepSeek-V2-Lite, gemma-2-9b, llama3-70b and Qwen2-7B went to it as
+# later slices came)
 EARLIER_LAYERS = 4
 # greedy tokens of each request of the 32-token prompts (serve_32)
 N_NEW_32 = 8
@@ -2715,14 +2737,23 @@ def shift_positions(ctx, n_past: int) -> int:
     return n_past - half // 2
 
 
-# The card-vs-CPU parity phases' CPU references run in a child process of
-# this script (``--cpu-refs DIR FILES_DIR``), started at the beginning with
-# CPU_REF_THREADS threads, so that they overlap the card's phases: the child
-# runs the same parity phases with REFS["writer"] set, computes each CPU
+# The card-vs-CPU parity phases' CPU references run in child processes of
+# this script (``--cpu-refs DIR FILES_DIR GROUP``), started at the
+# beginning, so that they overlap the card's phases: a child runs its
+# group's parity phases with REFS["writer"] set, computes each CPU
 # reference (cpu_ref) into DIR and skips the card runs; the parent reads
-# each reference there when its card run needs it, waiting for the child.
-CPU_REF_THREADS = 7
-REFS: dict = {"dir": None, "writer": False, "child": None, "log": None}
+# each reference there when its card run needs it, waiting for the
+# children.  CPU_REF_GROUPS: (intra-op threads, the parity phases whose
+# references the child computes, in the order the parent asks for them).
+# Two children at 4 and 3 threads computed the Qwen, Falcon/StarCoder and
+# sweep references in 128 s where one at 7 took 220 s (the H100 machine's
+# 8-core host; these references are many small ops that scale poorly with
+# threads), so the phases are split in two halves of about equal time
+CPU_REF_GROUPS = ((4, ("qwen_parity_phase", "parity_phase", "gguf_parity_phase")),
+                  (3, ("gpt_parity_phase", "arch_sweep_phase", "engine_parity_phase",
+                       "moe_parity_phase", "gemma_parity_phase", "iq_parity_phase",
+                       "llama70b_parity_phase")))
+REFS: dict = {"dir": None, "writer": False, "children": [], "logs": []}
 
 
 def cpu_ref(label: str, compute) -> list:
@@ -2745,12 +2776,15 @@ def cpu_ref(label: str, compute) -> list:
                         "seconds": time.perf_counter() - t0}))
         return rows
     t0 = time.perf_counter()
-    child = REFS["child"]
     while not path.exists():
-        if child.poll() is not None and not path.exists():
-            tail = Path(REFS["log"]).read_text()[-4000:]
-            raise AssertionError(f"the CPU reference process ended (rc {child.returncode}) "
-                                 f"without {label}:\n{tail}")
+        for child, log_path in zip(REFS["children"], REFS["logs"]):
+            if child.poll() not in (None, 0) or all(
+                    c.poll() is not None for c in REFS["children"]):
+                if path.exists():
+                    break
+                tail = Path(log_path).read_text()[-4000:]
+                raise AssertionError(f"a CPU reference process ended (rc {child.returncode}) "
+                                     f"without {label}:\n{tail}")
         time.sleep(0.2)
     log(json.dumps({"phase": "cpu_ref_wait", "label": label,
                     "seconds": time.perf_counter() - t0}))
@@ -2879,6 +2913,8 @@ MOE_PARITY_FILES = ("deepseek2-2layer.gguf", "mixtral-2layer.gguf")
 # them (the IQ files' writers are defined with their phases, further down)
 WRITERS = {**{name: lambda p: write_qwen_parity_file(p)
               for name in ("qwen2-2layer.gguf", "qwen2moe-2layer.gguf")},
+           **{name: lambda p: write_gpt_parity_file(p)
+              for name in ("falcon-2layer.gguf", "starcoder-2layer.gguf")},
            **{name: write_spec_file for name in PARITY_FILES},
            LLAMA_FILE: write_llama_file,
            **{name: write_spec_file for name in MOE_PARITY_FILES},
@@ -2888,11 +2924,14 @@ WRITERS = {**{name: lambda p: write_qwen_parity_file(p)
            **{name: write_gemma_parity_file for name in gemma_parity_files()},
            IQ_PARITY_FILE: lambda p: write_iq_parity_file(p),
            "qwen2-7b-q4_k_m.gguf": lambda p: write_qwen2_file(p),
-           "qwen1.5-moe-a2.7b-q4_k_m.gguf": lambda p: write_qwen2moe_file(p)}
+           "qwen1.5-moe-a2.7b-q4_k_m.gguf": lambda p: write_qwen2moe_file(p),
+           "falcon-7b-q4_k_m.gguf": lambda p: write_falcon_file(p),
+           "starcoder-15.5b-q4_k_m.gguf": lambda p: write_starcoder_file(p)}
 # files both the parent and the CPU reference process read: each takes a
 # hard link, and the writer's directory keeps the file to the end
 SHARED_FILES = frozenset(PARITY_FILES + MOE_PARITY_FILES + tuple(gemma_parity_files())
-                         + (IQ_PARITY_FILE, "qwen2-2layer.gguf", "qwen2moe-2layer.gguf"))
+                         + (IQ_PARITY_FILE, "qwen2-2layer.gguf", "qwen2moe-2layer.gguf",
+                            "falcon-2layer.gguf", "starcoder-2layer.gguf"))
 FILE_WAIT_S = 900  # how long the CPU reference process waits for a file
 
 
@@ -2959,57 +2998,62 @@ def child_file(tmpdir: Path, name: str) -> tuple:
 
 
 def start_cpu_refs(tmp: Path, files_dir: Path):
-    """Start the child that computes the CPU references into tmp/refs,
-    reading the shared files from the writer's files_dir."""
+    """Start the children that compute the CPU references into tmp/refs
+    (one a group of CPU_REF_GROUPS), reading the shared files from the
+    writer's files_dir."""
     ref_dir = tmp / "refs"
     ref_dir.mkdir()
-    REFS.update(dir=str(ref_dir), log=str(tmp / "cpu_refs.log"))
-    env = dict(os.environ, OMP_NUM_THREADS=str(CPU_REF_THREADS))
-    with open(REFS["log"], "w") as out:
-        REFS["child"] = subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), "--cpu-refs", str(ref_dir),
-             str(files_dir)], stdout=out, stderr=subprocess.STDOUT, env=env,
-            cwd=str(Path.cwd()))
+    REFS.update(dir=str(ref_dir), children=[], logs=[])
+    for i, (threads, _) in enumerate(CPU_REF_GROUPS):
+        REFS["logs"].append(str(tmp / f"cpu_refs_{i}.log"))
+        env = dict(os.environ, OMP_NUM_THREADS=str(threads))
+        with open(REFS["logs"][-1], "w") as out:
+            REFS["children"].append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--cpu-refs", str(ref_dir),
+                 str(files_dir), str(i)], stdout=out, stderr=subprocess.STDOUT, env=env,
+                cwd=str(Path.cwd())))
 
 
 def stop_cpu_refs(check: bool) -> None:
-    """Wait for the child (check: it must have ended well) or end it."""
-    child = REFS["child"]
-    if child is None:
-        return
-    if check:
+    """Wait for the children (check: each must have ended well) or end
+    them."""
+    for i, (child, log_path) in enumerate(zip(REFS["children"], REFS["logs"])):
+        if not check:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+            continue
         rc = child.wait(timeout=900)
-        text = Path(REFS["log"]).read_text()
-        log(json.dumps({"phase": "cpu_refs", "rc": rc,
-                        "refs": sorted(p.stem for p in Path(REFS["dir"]).glob("*.npy")),
+        text = Path(log_path).read_text()
+        log(json.dumps({"phase": "cpu_refs", "group": i, "rc": rc,
+                        "threads": CPU_REF_GROUPS[i][0],
                         "timings": [json.loads(ln) for ln in text.splitlines()
                                     if ln.startswith('{"phase": "cpu_refs_timing"')]}))
         if rc != 0:
-            raise AssertionError("the CPU reference process failed:\n" + text[-4000:])
-    elif child.poll() is None:
-        child.kill()
-        child.wait()
+            raise AssertionError("a CPU reference process failed:\n" + text[-4000:])
+    if check and REFS["dir"] is not None:
+        log(json.dumps({"phase": "cpu_refs", "refs": sorted(
+            p.stem for p in Path(REFS["dir"]).glob("*.npy"))}))
 
 
-def cpu_refs_main(torch, ref_dir: str, files_dir: str = None) -> int:
-    """The child: every parity phase's CPU references, into ref_dir, from
-    the files the parent's writer child writes into files_dir (the files
-    are written here when no files_dir is given)."""
+def cpu_refs_main(torch, ref_dir: str, files_dir: str = None, group: str = "0") -> int:
+    """A child: the CPU references of the parity phases of CPU_REF_GROUPS
+    [group], into ref_dir, from the files the parent's writer child writes
+    into files_dir (the files are written here when no files_dir is
+    given)."""
     REFS.update(dir=ref_dir, writer=True)
     if files_dir is not None:
         FILES.update(dir=files_dir, log=str(Path(files_dir) / "write_files.log"), child=None)
-    torch.set_num_threads(CPU_REF_THREADS)
-    tmp = Path(ref_dir) / "files"
+    threads, phases = CPU_REF_GROUPS[int(group)]
+    torch.set_num_threads(threads)
+    tmp = Path(ref_dir) / f"files_{group}"
     tmp.mkdir()
     try:
-        for fn, args in ((qwen_parity_phase, (tmp,)), (arch_sweep_phase, (tmp,)),
-                         (parity_phase, ()), (gguf_parity_phase, (tmp,)),
-                         (engine_parity_phase, ()), (moe_parity_phase, (tmp,)),
-                         (gemma_parity_phase, (tmp,)), (iq_parity_phase, (tmp,)),
-                         (llama70b_parity_phase, ())):
+        for name in phases:
+            fn = globals()[name]
             t0 = time.perf_counter()
-            fn(torch, *args)
-            log(json.dumps({"phase": "cpu_refs_timing", "function": fn.__name__,
+            fn(torch, *[tmp][:len(inspect.signature(fn).parameters) - 1])
+            log(json.dumps({"phase": "cpu_refs_timing", "function": name,
                             "seconds": time.perf_counter() - t0}))
     except Exception:
         traceback.print_exc()
@@ -4973,7 +5017,7 @@ def llama70b_parity_phase(torch) -> None:
 # -- MoE-A2.7B (a sigmoid-gated shared expert) and the other architectures
 # -- JAX serves through its llama decoder
 
-QWEN2_HEADS = (28, 4)  # Qwen2-7B's query and kv heads: 7 a group (head dim 128)
+QWEN2_HEADS = (28, 4, 128)  # Qwen2-7B's query heads, kv heads (7 a group), head dim
 QWEN2_FILE = "qwen2-7b-q4_k_m.gguf"
 QWEN2MOE_FILE = "qwen1.5-moe-a2.7b-q4_k_m.gguf"
 QWEN_SEED = 23
@@ -4983,6 +5027,86 @@ QWEN_SEED = 23
 # its 9728 code columns are no multiple of 1024, JAX's quant/fold.py:178-185)
 QWEN2_SHAPES = {"qkv": (4608, 3584), "o": (3584, 3584), "gate_up": (37888, 3584),
                 "down": (3584, 18944), "lm_head": (152064, 3584)}
+
+
+def head_group_flash_rows(torch, results: dict, gen, flush, tag: str, heads: tuple,
+                          cells: int, cases) -> None:
+    """Kernel 3 (and kernel 9 where a case asks) at `heads` = (H, KV, D)
+    on layer 1 of a [2, KV, cells, D] cache: for each (n_vis, nt, kinds,
+    stacked) of `cases`, nt query tokens (the step's tokens last, causal;
+    at nt > 1 row 5 blind: exactly 0) over n_vis visible cells on each cache
+    of `kinds` (bf16, int8, int4), and with stacked=True kernel 9 on the
+    bf16 and int8 caches (the step's cells masked out, its rows merged
+    fresh); each against its plain version, timed beside SDPA and its
+    bound (tol as the kernels' other rows)."""
+    from llama_kotlin_tpu_torch.ops.cuda import flash, flash_stacked
+    from llama_kotlin_tpu_torch.runtime.kv_cache import (dequantize_cache_layer, quantize_rows,
+                                                         quantize_rows_q4)
+
+    report = functools.partial(report_row, results)
+    dev = torch.device("cuda")
+    (H, KV, D), L, li = heads, 2, 1
+    scale = D ** -0.5
+    kb = torch.randn((L, KV, cells, D), generator=gen, device=dev).to(torch.bfloat16)
+    vb = torch.randn((L, KV, cells, D), generator=gen, device=dev).to(torch.bfloat16)
+    (k8, ks), (v8, vs) = quantize_rows(kb), quantize_rows(vb)
+    (k4, ks4), (v4, vs4) = quantize_rows_q4(kb), quantize_rows_q4(vb)
+    caches = {"bf16": (kb, vb, None, None, 8, 4 * D),
+              "int8": (k8, v8, ks, vs, 8, 2 * (D + 4)),
+              "int4": (k4, v4, ks4, vs4, 4, 2 * (D // 2 + 4))}
+    for n_vis, nt, kinds, stacked in cases:
+        q = torch.randn((nt, H, D), generator=gen, device=dev).to(torch.bfloat16)
+        tpos = torch.arange(n_vis - nt, n_vis, device=dev)
+        cpos = torch.arange(n_vis, device=dev)
+        mask = (cpos[None, :] <= tpos[:, None]).to(torch.int8)
+        mask_cells = (cpos[None, :] < n_vis - nt).to(torch.int8).expand(nt, n_vis).contiguous()
+        mask_new = (tpos[None, :] <= tpos[:, None]).to(torch.int8)
+        if nt > 1:
+            mask[5] = mask_cells[5] = mask_new[5] = 0  # a row that sees nothing
+        new_k = torch.randn((nt, KV, D), generator=gen, device=dev).to(torch.bfloat16)
+        new_v = torch.randn((nt, KV, D), generator=gen, device=dev).to(torch.bfloat16)
+        for kind in kinds:
+            k, v, ksc, vsc, bits, elem = caches[kind]
+            kw = dict(scale=scale, k_scale=ksc, v_scale=vsc)
+            kw3 = dict(kw, layer=li, kv_bits=bits)
+            args = (q, k, v, mask)
+            got = flash.flash_attention(*args, **kw3)
+            if nt > 1 and bool(got[5].any()):
+                raise AssertionError(f"kernel 3 at {tag} ({kind}): a blind row is not 0")
+            kf, vf = (k[li, :, :n_vis], v[li, :, :n_vis]) if ksc is None else (
+                dequantize_cache_layer(c[li, :, :n_vis], sc[li, :, :n_vis], torch.bfloat16,
+                                       bits=bits) for c, sc in ((k, ksc), (v, vsc)))
+            vis = int(mask.any(dim=0).sum().item())
+            report("flash", f"{tag} {kind} cache nt={nt} n_vis={n_vis}",
+                   err_of(got, flash.flash_attention_plain(*args, **kw3)), 1e-2,
+                   time_ms(torch, lambda: flash.flash_attention(*args, **kw3), flush),
+                   time_ms(torch, lambda: flash.flash_attention_plain(*args, **kw3), flush),
+                   2 * nt * H * D * 2 + KV * vis * elem + nt * n_vis,
+                   4 * D * int(mask.sum().item()) * H, "bf16",
+                   time_ms(torch, sdpa_call(torch, q, kf, vf, mask, scale), flush))
+            if not stacked or kind == "int4":
+                continue  # kernel 9 takes no packed cache, as in JAX
+            sargs = (q, k, v, li, new_k, new_v, mask_cells, mask_new)
+            got = flash_stacked.flash_attention_stacked(*sargs, **kw)
+            if nt > 1 and bool(got[5].any()):
+                raise AssertionError(f"kernel 9 at {tag} ({kind}): a blind row is not 0")
+            vis = int(mask_cells.any(dim=0).sum().item())
+            lib = sdpa_call(torch, q, torch.cat([kf, new_k.transpose(0, 1)], dim=1),
+                            torch.cat([vf, new_v.transpose(0, 1)], dim=1),
+                            torch.cat([mask_cells, mask_new], dim=1), scale)
+            report("flash_stacked", f"{tag} {kind} cache nt={nt} n_vis={n_vis}",
+                   err_of(got, flash_stacked.flash_attention_stacked_plain(*sargs, **kw)),
+                   1e-2,
+                   time_ms(torch, lambda: flash_stacked.flash_attention_stacked(*sargs, **kw),
+                           flush),
+                   time_ms(torch, lambda: flash_stacked.flash_attention_stacked_plain(
+                       *sargs, **kw), flush),
+                   2 * nt * H * D * 2 + KV * vis * elem + 2 * nt * KV * D * 2
+                   + nt * (n_vis + nt),
+                   4 * D * int(mask_cells.sum().item() + mask_new.sum().item()) * H,
+                   "bf16", time_ms(torch, lib, flush))
+    del caches, kb, vb, k8, v8, ks, vs, k4, v4, ks4, vs4
+    torch.cuda.empty_cache()
 
 
 def qwen2_kernel_phase(torch, results: dict) -> None:
@@ -5008,82 +5132,18 @@ def qwen2_kernel_phase(torch, results: dict) -> None:
 
     from llama_kotlin_tpu_torch.models.synthetic import wire_blocks
     from llama_kotlin_tpu_torch.ops import qmatmul as qmatmul_mod
-    from llama_kotlin_tpu_torch.ops.cuda import flash, flash_stacked, qmm, qmm_w4
+    from llama_kotlin_tpu_torch.ops.cuda import qmm, qmm_w4
     from llama_kotlin_tpu_torch.quant import fold, repack
     from llama_kotlin_tpu_torch.quant.formats import GGMLQuantType as Q
-    from llama_kotlin_tpu_torch.runtime.kv_cache import (dequantize_cache_layer, quantize_rows,
-                                                         quantize_rows_q4)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(780)
     flush = torch.zeros(FLUSH_BYTES, dtype=torch.uint8, device=dev)
     report = functools.partial(report_row, results)
-    (H, KV), D, L, cells, li = QWEN2_HEADS, 128, 2, 4097, 1
-    scale = D ** -0.5
-    kb = torch.randn((L, KV, cells, D), generator=gen, device=dev).to(torch.bfloat16)
-    vb = torch.randn((L, KV, cells, D), generator=gen, device=dev).to(torch.bfloat16)
-    (k8, ks), (v8, vs) = quantize_rows(kb), quantize_rows(vb)
-    (k4, ks4), (v4, vs4) = quantize_rows_q4(kb), quantize_rows_q4(vb)
-    caches = {"bf16": (kb, vb, None, None, 8, 4 * D),
-              "int8": (k8, v8, ks, vs, 8, 2 * (D + 4)),
-              "int4": (k4, v4, ks4, vs4, 4, 2 * (D // 2 + 4))}
-    for n_vis in (1024, 4096, 1001):
-        for nt in (1, 64):
-            q = torch.randn((nt, H, D), generator=gen, device=dev).to(torch.bfloat16)
-            tpos = torch.arange(n_vis - nt, n_vis, device=dev)
-            cpos = torch.arange(n_vis, device=dev)
-            mask = (cpos[None, :] <= tpos[:, None]).to(torch.int8)
-            mask_cells = (cpos[None, :] < n_vis - nt).to(torch.int8).expand(nt, n_vis)
-            mask_cells = mask_cells.contiguous()
-            mask_new = (tpos[None, :] <= tpos[:, None]).to(torch.int8)
-            if nt > 1:
-                mask[5] = mask_cells[5] = mask_new[5] = 0  # a row that sees nothing
-            new_k = torch.randn((nt, KV, D), generator=gen, device=dev).to(torch.bfloat16)
-            new_v = torch.randn((nt, KV, D), generator=gen, device=dev).to(torch.bfloat16)
-            for kind, (k, v, ksc, vsc, bits, elem) in caches.items():
-                kw = dict(scale=scale, k_scale=ksc, v_scale=vsc)
-                kw3 = dict(kw, layer=li, kv_bits=bits)
-                args = (q, k, v, mask)
-                got = flash.flash_attention(*args, **kw3)
-                if nt > 1 and bool(got[5].any()):
-                    raise AssertionError(f"kernel 3 at 28/4 ({kind}): a blind row is not 0")
-                kf, vf = (k[li, :, :n_vis], v[li, :, :n_vis]) if ksc is None else (
-                    dequantize_cache_layer(c[li, :, :n_vis], sc[li, :, :n_vis], torch.bfloat16,
-                                           bits=bits) for c, sc in ((k, ksc), (v, vsc)))
-                vis = int(mask.any(dim=0).sum().item())
-                report("flash", f"qwen2 28/4 {kind} cache nt={nt} n_vis={n_vis}",
-                       err_of(got, flash.flash_attention_plain(*args, **kw3)), 1e-2,
-                       time_ms(torch, lambda: flash.flash_attention(*args, **kw3), flush),
-                       time_ms(torch, lambda: flash.flash_attention_plain(*args, **kw3),
-                               flush),
-                       2 * nt * H * D * 2 + KV * vis * elem + nt * n_vis,
-                       4 * D * int(mask.sum().item()) * H, "bf16",
-                       time_ms(torch, sdpa_call(torch, q, kf, vf, mask, scale), flush))
-                if kind == "int4":
-                    continue  # kernel 9 takes no packed cache, as in JAX
-                sargs = (q, k, v, li, new_k, new_v, mask_cells, mask_new)
-                got = flash_stacked.flash_attention_stacked(*sargs, **kw)
-                if nt > 1 and bool(got[5].any()):
-                    raise AssertionError(f"kernel 9 at 28/4 ({kind}): a blind row is not 0")
-                vis = int(mask_cells.any(dim=0).sum().item())
-                lib = sdpa_call(torch, q, torch.cat([kf, new_k.transpose(0, 1)], dim=1),
-                                torch.cat([vf, new_v.transpose(0, 1)], dim=1),
-                                torch.cat([mask_cells, mask_new], dim=1), scale)
-                report("flash_stacked", f"qwen2 28/4 {kind} cache nt={nt} n_vis={n_vis}",
-                       err_of(got, flash_stacked.flash_attention_stacked_plain(*sargs, **kw)),
-                       1e-2,
-                       time_ms(torch, lambda: flash_stacked.flash_attention_stacked(*sargs,
-                                                                                    **kw),
-                               flush),
-                       time_ms(torch, lambda: flash_stacked.flash_attention_stacked_plain(
-                           *sargs, **kw), flush),
-                       2 * nt * H * D * 2 + KV * vis * elem + 2 * nt * KV * D * 2
-                       + nt * (n_vis + nt),
-                       4 * D * int(mask_cells.sum().item() + mask_new.sum().item()) * H,
-                       "bf16", time_ms(torch, lib, flush))
-    del caches, kb, vb, k8, v8, ks, vs, k4, v4, ks4, vs4
-    torch.cuda.empty_cache()
+    head_group_flash_rows(torch, results, gen, flush, "qwen2 28/4", QWEN2_HEADS, 4097,
+                          [(n_vis, nt, ("bf16", "int8", "int4"), True)
+                           for n_vis in (1024, 4096, 1001) for nt in (1, 64)])
 
     rng = np.random.default_rng(78)
 
@@ -5133,12 +5193,13 @@ def qwen2_kernel_phase(torch, results: dict) -> None:
 
 
 def write_qwen2_file(path: Path) -> dict:
-    """qwen2_phase's file: Qwen2-7B (qwen2_7b(), all 28 layers) from
-    QWEN_SEED in Q4_K_M's mix (F32 q/k/v biases) with an SPM vocab of its
-    152064 pieces."""
+    """qwen2_phase's file: Qwen2-7B (qwen2_7b(), its first EARLIER_LAYERS
+    layers since Falcon-7B's phase came; all 28 before) from QWEN_SEED in
+    Q4_K_M's mix (F32 q/k/v biases) with an SPM vocab of its 152064
+    pieces."""
     from llama_kotlin_tpu_torch.models.synthetic import qwen2_7b, synthetic_spm_vocab
 
-    cfg = qwen2_7b()
+    cfg = qwen2_7b(n_layer=EARLIER_LAYERS)
     return _written(path, cfg, seed=QWEN_SEED, extra_kvs=synthetic_spm_vocab(cfg.vocab_size))
 
 
@@ -5157,15 +5218,19 @@ def route_counts(params, n_forward: int, n_decode: int, mode, sweep: int = 0) ->
     """The launches serve() must count on a loaded file whose layers attend
     on kernel 3 once each at every forward: per decode step in w4 each W4
     projection on kernel 1 and each W8 one (a Q6_K attn_v or ffn_down, the
-    Q6_K head, tied or not) on kernel 5, kernel 2 never (JAX's entry
-    declines E = 3584 and gemma's widths); per 64-token prefill every layer
-    matrix on kernel 4 and the head's one row on kernel 5; in the exact mode
-    every matrix on kernel 4's exact branch at every forward.  A MoE file's
-    stacked exact experts take no kernel at a decode step (the gathered
-    route) and `sweep` kernel-4 exact launches at a prefill (every expert's
-    gate, up and down a MoE layer).  tests/test_torch_gemma.py and
-    tests/test_torch_qwen2.py hold these routes against JAX's at gemma-2-9b's
-    and Qwen2-7B's widths."""
+    Q6_K head, tied or not) on kernel 5, but a matrix whose output rows no
+    block of 128 divides on kernel 4 (JAX's _plan declines it: Falcon-7B's
+    fused qkv, o and down), kernel 2 never (JAX's entry declines E = 3584
+    and gemma's widths; the gpt2 family's FFNs are not gated); per 64-token
+    prefill every layer matrix on kernel 4 and the head's one row on kernel
+    5; in the exact mode every matrix on kernel 4's exact branch at every
+    forward.  A MoE file's stacked exact experts take no kernel at a decode
+    step (the gathered route) and `sweep` kernel-4 exact launches at a
+    prefill (every expert's gate, up and down a MoE layer).
+    tests/test_torch_gemma.py, tests/test_torch_qwen2.py and
+    tests/test_torch_falcon.py hold these routes against JAX's at
+    gemma-2-9b's, Qwen2-7B's and Falcon-7B's widths."""
+    from llama_kotlin_tpu_torch.ops.qmatmul import ROW_BLOCK
     from llama_kotlin_tpu_torch.quant.fold import is_w4, is_w8
 
     n_layer = len(params["layers"])
@@ -5177,25 +5242,28 @@ def route_counts(params, n_forward: int, n_decode: int, mode, sweep: int = 0) ->
     if mode is None:
         want["qmm"] = want["qmm_exact"] = n_forward * (len(mats) + 1) + n_prefill * sweep
         return want
-    w4 = sum(1 for w in mats if is_w4(w))
-    w8 = sum(1 for w in mats if is_w8(w))
-    if w4 + w8 != len(mats) or not is_w8(head):
-        raise AssertionError("a Q4_K_M w4 file loads W4 and W8 folds only")
+    planned = [w for w in mats if w.shape[0] % ROW_BLOCK == 0]
+    w4 = sum(1 for w in planned if is_w4(w))
+    w8 = sum(1 for w in planned if is_w8(w))
+    if (sum(1 for w in mats if is_w4(w) or is_w8(w)) != len(mats) or not is_w8(head)
+            or head.shape[0] % ROW_BLOCK):
+        raise AssertionError("a Q4_K_M w4 file loads W4 and W8 folds only, its head planned")
     want.update(qmm_w4=n_decode * w4, qmm_w8=n_decode * (w8 + 1) + n_prefill,
-                qmm=n_prefill * (len(mats) + sweep))
+                qmm=n_prefill * (len(mats) + sweep) + n_decode * (len(mats) - len(planned)))
     return want
 
 
 def family_phase(torch, tmpdir: Path, name: str, fname: str) -> dict:
-    """A full-width llama-shaped file from the writer child, loaded in the
-    exact mode (the default) and in w4 (fuse=True); each serves 3 requests
+    """A full-width family file from the writer child, loaded in the exact
+    mode (the default) and in w4 (fuse=True); each serves 3 requests
     (64-token prompt, 32 greedy tokens) through LlamaContext and
-    generate_loop by serve(), unrolled (Q4_K_M's Q6_K attn_v leaves some
-    layers' q|k|v split, so the layers' keys differ), kernel 3 once a layer
-    at every forward, kernel 2 and the plain attention never, every
-    kernel's launches exactly route_counts'; then a profiled prefill and 4
-    profiled decode steps (TTFT, ms/token, device busy, idle share,
-    launches a step).  Returns {path: launch counts}."""
+    generate_loop by serve(), unrolled (Q4_K_M's Q6_K attn_v or ffn_down
+    leaves the layers' layouts unequal), kernel 3 once a layer at every
+    forward, kernel 2 and the plain attention never, every kernel's
+    launches exactly route_counts' (a kernel it expects none of must not
+    launch); then a profiled prefill and 4 profiled decode steps (TTFT,
+    ms/token, device busy, idle share, launches a step).  Returns {path:
+    launch counts}."""
     from llama_kotlin_tpu_torch.models.loader import load_gguf_model
     from llama_kotlin_tpu_torch.ops.cuda import (flash, flash_stacked, qmm, qmm_int8, qmm_w4,
                                                  qmm_w4_ffn, qmm_w4x, qmm_w8)
@@ -5217,22 +5285,24 @@ def family_phase(torch, tmpdir: Path, name: str, fname: str) -> dict:
                         "heads": [lcfg.n_head, lcfg.n_head_kv], "n_expert": lcfg.n_expert,
                         "w_bytes_per_tok": w_bytes,
                         "w_floor_ms_per_tok": w_bytes / HBM_BYTES_S * 1e3}))
+        moe_layers = sum(1 for lp in params["layers"] if "ffn_gate_inp" in lp)
+        # a prefill and 31 decode steps a request
+        want = route_counts(params, 3 * 32, 3 * 31, mode, sweep=3 * lcfg.n_expert * moe_layers)
         if mode is None:  # every projection and the head on kernel 4's exact branch
             mods = (qmm, exact_counter(), flash)
             never = (qmm_w4, qmm_w4_ffn, qmm_w8, qmm_int8, qmm_w4x, flash_stacked)
-        else:  # W4 on kernel 1, W8 (Q6_K attn_v, ffn_down, the head) on 5
-            mods = (qmm_w4, qmm_w8, qmm, flash)
-            never = (qmm_w4_ffn, qmm_int8, qmm_w4x, flash_stacked)
+        else:  # W4 on kernel 1, W8 (Q6_K attn_v, ffn_down, the head) on 5, the rest on 4
+            routed = (qmm_w4, qmm_w8, qmm, flash)
+            mods = tuple(m for m in routed if want[mod_name(m)])
+            never = (qmm_w4_ffn, qmm_int8, qmm_w4x, flash_stacked) + tuple(
+                m for m in routed if m not in mods)
         plain = plain_attention_counters()
         try:
             counts, ctx = serve(torch, lcfg, params, mods, label, never=never + plain)
         finally:
             for c in plain:
                 c.close()
-        moe_layers = sum(1 for lp in params["layers"] if "ffn_gate_inp" in lp)
-        # a prefill and 31 decode steps a request
-        want = route_counts(params, 3 * 32, 3 * 31, mode, sweep=3 * lcfg.n_expert * moe_layers)
-        got = {k: counts[k] for k in want}
+        got = {k: counts.get(k, 0) for k in want}  # serve() held `never` at 0
         log(json.dumps({"phase": f"{label}_routes", "launches": got, "expected": want}))
         if "layers" not in ctx.params or got != want:
             raise AssertionError(f"{label}: launches {got}, expected {want}")
@@ -5245,7 +5315,8 @@ def family_phase(torch, tmpdir: Path, name: str, fname: str) -> dict:
 
 
 def qwen2_phase(torch, tmpdir: Path) -> dict:
-    """Qwen2-7B at its published widths and all 28 layers (qwen2_7b(): E
+    """Qwen2-7B at its published widths, its first EARLIER_LAYERS layers
+    of 28 (qwen2_7b(): E
     3584, 28 heads on 4 kv heads, F 18944, vocab 152064, qkv biases), random
     wire blocks from QWEN_SEED in Q4_K_M's mix, by family_phase: kernel 3
     at 7 query heads a group once a layer at every forward, kernel 2 never
@@ -5350,18 +5421,28 @@ def qwen_parity_phase(torch, tmpdir: Path) -> None:
 # ALiBi rule is by depth: baichuan-13B); the arch's own keys as its
 # published configs set them (phi3's window under the prompt, so it bites;
 # stablelm's quarter rope; olmo's clamp_kqv 8; command-r's logit_scale
-# 0.0625)
+# 0.0625); and the learned-position and LayerNorm-gelu family at the same
+# width with its published head grouping (gpt2, gptneox, mpt, bloom, jais
+# MHA; starcoder and falcon-7b one kv head, falcon at head dim 64;
+# falcon-40b two kv heads and attn_norm_2; phi2 16 heads of 80, 32 dims
+# rotated; gptneox's quarter rope, nemotron's and chatglm's half rope)
 SWEEP_ARCHES = {
     "qwen": {}, "stablelm": dict(rope_dim=32), "phi3": dict(n_embd=768, n_head_kv=8,
                                                            swa_window=32),
     "internlm2": {}, "minicpm": {}, "xverse": {}, "exaone": {}, "baichuan": {},
     "baichuan-13b": dict(n_layer=40), "starcoder2": {}, "refact": {}, "plamo": {},
     "orion": {}, "command-r": dict(logit_scale=0.0625), "olmo": dict(clamp_kqv=8.0),
-    "codeshell": {}}
+    "codeshell": {}, "gpt2": dict(n_head_kv=8), "starcoder": dict(n_head_kv=1),
+    "gptneox": dict(n_head_kv=8, rope_dim=32), "falcon": dict(n_head=16, n_head_kv=1),
+    "falcon-40b": dict(n_head=16, n_head_kv=2), "mpt": dict(n_head_kv=8),
+    "phi2": dict(n_embd=1280, n_head=16, n_head_kv=16, rope_dim=32),
+    "bloom": dict(n_head_kv=8), "jais": dict(n_head_kv=8), "nemotron": dict(rope_dim=64),
+    "chatglm": dict(rope_dim=64)}
 SWEEP_SEED = 29
 # of max|logits|, card against CPU in the exact mode: twice the largest
-# 8-thread-against-1 CPU spread over the sweep's 2-layer files (6.5e-3), and
-# over baichuan-13B's 40 layers (1.8e-2), rounded up (scripts/
+# 8-thread-against-1 CPU spread over the sweep's 2-layer files (6.5e-3; the
+# learned-position and LayerNorm-gelu members' at most 4.9e-3), and over
+# baichuan-13B's 40 layers (1.8e-2), rounded up (scripts/
 # qwen_cpu_spread.py on the H100 machine's host; PERF.md)
 SWEEP_TOL = {2: 1.5e-2, 40: 4e-2}
 
@@ -5379,7 +5460,7 @@ def sweep_cases(tmpdir: Path) -> list:
 
     cases = []
     for i, (label, keys) in enumerate(SWEEP_ARCHES.items()):
-        arch = label.removesuffix("-13b")
+        arch = label.removesuffix("-13b").removesuffix("-40b")
         cfg = family_config(arch, **dict(dict(n_embd=1024, n_head=8, n_head_kv=2, n_ff=2816,
                                               vocab_size=8192), **keys))
         path = tmpdir / f"sweep-{label}.gguf"
@@ -5402,8 +5483,9 @@ def arch_sweep_phase(torch, tmpdir: Path) -> dict:
     """Each sweep_cases file, card against CPU by card_vs_cpu (a 64-token
     prefill and 4 greedy steps, exact mode, its SWEEP_TOL).  On the card run
     kernel 3 attends once a layer at every forward, or, where JAX's
-    predicate declines its flash kernel (ALiBi: refact, baichuan-13B; head
-    dim 96: phi3; ops/attention.py::flash_declines), never: the plain
+    predicate declines its flash kernel (ALiBi: refact, baichuan-13B, mpt,
+    bloom, jais; head dims 96 and 80: phi3, phi2;
+    ops/attention.py::flash_declines), never: the plain
     route (cache_attention_reference) attends there instead.  Returns
     {path: launch counts}."""
     from llama_kotlin_tpu_torch.models import llama
@@ -5437,6 +5519,268 @@ def arch_sweep_phase(torch, tmpdir: Path) -> dict:
     return out
 
 
+# the learned-position and LayerNorm-gelu family (gpt2, starcoder, gptneox,
+# falcon, mpt, phi2, bloom, jais, nemotron, chatglm): Falcon-7B at full
+# width and depth, StarCoder-15.5B at full width
+GPT_SEED = 31
+FALCON_FILE = "falcon-7b-q4_k_m.gguf"
+STARCODER_FILE = "starcoder-15.5b-q4_k_m.gguf"
+FALCON_HEADS = (71, 1, 64)  # Falcon-7B's query heads, kv heads and head dim
+STARCODER_HEADS = (48, 1, 128)
+# Falcon-7B's matrices as its Q4_K_M file carries them: K = 4544 is no
+# multiple of 256, so every matrix that reads E takes llama.cpp's fallback
+# (Q4_K -> Q5_0, Q6_K -> Q8_0); the down projections (K = 18176) keep
+# Q4_K and Q6_K.  {name: (type, n, k)}
+FALCON_SHAPES = {"qkv": ("Q5_0", 4672, 4544), "o": ("Q5_0", 4544, 4544),
+                 "up": ("Q5_0", 18176, 4544), "down": ("Q4_K", 4544, 18176),
+                 "down_q6_K": ("Q6_K", 4544, 18176), "lm_head": ("Q8_0", 65024, 4544)}
+# StarCoder-15.5B's Q4_K matrices (compact W4 folds in w4) and its tied Q6_K
+# head (a W8 fold)
+STARCODER_SHAPES = {"qkv": (6400, 6144), "o": (6144, 6144), "up": (24576, 6144),
+                    "down": (6144, 24576)}
+
+
+def gpt_kernel_phase(torch, results: dict) -> None:
+    """The kernels at Falcon-7B's and StarCoder-15.5B's shapes:
+    - kernel 3 at Falcon-7B's 71 query heads on one kv head (head dim 64:
+      a decode token's 71 rows fill one 64-row block and 7 rows of a second,
+      csrc/flash_mma.cuh's tok0/ntok) on the three caches, decode and a
+      64-token chunk (row 5 blind) over 1001, 1024 and 2048 (its context)
+      cells, and at StarCoder's 48 on one (head dim 128) over 1024 cells on
+      the three caches and 4096 on bf16; kernel 9 at both on the bf16 and
+      int8 caches over 1024 cells;
+    - kernel 4 at Falcon-7B's qkv, o and down (FALCON_SHAPES), m = 1 and 64:
+      the exact branch on each repack (the exact mode's route), and the W8
+      (Q5_0, Q6_K) and W4 (Q4_K down) folds of the same blocks (the w4
+      mode's route: no block of 128 divides 4672 or 4544, so kernel 4 takes
+      them at decode too, JAX's _plan declining; ops/qmatmul.py::_decode
+      must say so); the exact Q8_0 lm_head at m = 1;
+    - kernel 5 at Falcon-7B's up (Q5_0, 18176 rows) and lm_head (Q8_0, 65024
+      rows) W8 folds, b = 1 and 8, and StarCoder's tied Q6_K head at b = 1;
+    - kernel 1 at StarCoder's compact Q4_K folds (STARCODER_SHAPES), b = 1
+      and 8 (above T1 repeated bit-equal).
+    Each row against its plain version, timed beside its library call
+    (SDPA; torch.matmul on the dequantized weight) and its bound."""
+    import numpy as np
+
+    from llama_kotlin_tpu_torch.models.synthetic import wire_blocks
+    from llama_kotlin_tpu_torch.ops import qmatmul as qmatmul_mod
+    from llama_kotlin_tpu_torch.ops.cuda import qmm, qmm_w4, qmm_w8
+    from llama_kotlin_tpu_torch.quant import fold, repack
+    from llama_kotlin_tpu_torch.quant.formats import GGMLQuantType as Q
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(910)
+    flush = torch.zeros(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    report = functools.partial(report_row, results)
+    every = ("bf16", "int8", "int4")
+    head_group_flash_rows(
+        torch, results, gen, flush, "falcon 71/1", FALCON_HEADS, 2049,
+        [(n_vis, nt, every, n_vis == 1024) for n_vis in (1024, 2048, 1001) for nt in (1, 64)])
+    head_group_flash_rows(
+        torch, results, gen, flush, "starcoder 48/1", STARCODER_HEADS, 4097,
+        [(1024, nt, every, True) for nt in (1, 64)]
+        + [(4096, nt, ("bf16",), False) for nt in (1, 64)])
+
+    rng = np.random.default_rng(91)
+
+    def exact(name, n, k):  # the exact repack of random wire blocks, on the card
+        qtype = Q[name]
+        return repack.repack(torch.from_numpy(wire_blocks(rng, qtype, n, k)).to(dev), qtype,
+                             n, k)
+
+    def k4_row(shape, xb, wt, planes):
+        m, k = xb.shape
+        n = wt.shape[0]
+        got = qmm.qmm(xb, wt)
+        repeats(torch, "qmm", shape, got, lambda: qmm.qmm(xb, wt))
+        report("qmm", shape, err_of(got, qmm.qmm_plain(xb, wt)), 1e-3,
+               time_ms(torch, lambda: qmm.qmm(xb, wt), flush),
+               time_ms(torch, lambda: qmm.qmm_plain(xb, wt), flush),
+               m * k * 2 + nbytes(wt, planes) + m * n * 4, 2 * m * n * k, "bf16",
+               matmul_ms(torch, xb, wt, flush))
+
+    for name in ("qkv", "o", "down", "down_q6_K"):
+        qname, n, k = FALCON_SHAPES[name]
+        wt = exact(qname, n, k)
+        folded = fold.fold_to_w4(wt) if qname == "Q4_K" else fold.fold_to_w8(wt)
+        assert fold.is_exact(wt) and folded.flavor in ("compact", "w8")
+        for m in (1, 64):
+            xb = (torch.randn((m, k), generator=gen, device=dev) * 0.7).to(torch.bfloat16)
+            k4_row(f"falcon exact {qname} {name} n={n} k={k} m={m}", xb, wt, EXACT_PLANES)
+            if m == 1 and qmatmul_mod._decode(xb, folded):
+                raise AssertionError(f"Falcon-7B's {name} ({n} rows) would take a decode "
+                                     "kernel, where JAX's _plan declines it")
+            k4_row(f"falcon {folded.flavor} {qname} {name} n={n} k={k} m={m}", xb, folded,
+                   w4_planes(folded))
+        del wt, folded
+    qname, n, k = FALCON_SHAPES["lm_head"]
+    wt = exact(qname, n, k)
+    xb = (torch.randn((1, k), generator=gen, device=dev) * 0.7).to(torch.bfloat16)
+    k4_row(f"falcon exact {qname} lm_head n={n} k={k} m=1", xb, wt, EXACT_PLANES)
+    torch.cuda.empty_cache()
+
+    def k5_rows(tag, name, wt, rows):
+        n, k = wt.shape
+        for b in rows:
+            x = torch.randn((b, k), generator=gen, device=dev) * 0.7
+            xp = torch.nn.functional.pad(x, (0, wt.k_pad - k))  # the plain version's K
+            if not qmatmul_mod._decode(x, wt):
+                raise AssertionError(f"{tag} {name} ({n} rows) did not plan on kernel 5")
+            got = qmm_w8.qmm_w8_matmul(x, wt)
+            shape = f"{tag} w8 {name} n={n} k={k} b={b} group={wt.group_size}"
+            if qmm_w8.use_mma(b):
+                repeats(torch, "qmm_w8", shape, got, lambda: qmm_w8.qmm_w8_matmul(x, wt))
+            report("qmm_w8", shape, err_of(got, qmm_w8.qmm_w8_plain(xp, wt)), 1e-4,
+                   time_ms(torch, lambda: qmm_w8.qmm_w8_matmul(x, wt), flush),
+                   time_ms(torch, lambda: qmm_w8.qmm_w8_plain(xp, wt), flush),
+                   b * k * 4 + nbytes(wt) + b * n * 4, 2 * b * n * k, "int8",
+                   matmul_ms(torch, x, wt, flush))
+
+    k5_rows("falcon", "lm_head", fold.fold_to_w8(wt), (1, 8))
+    del wt
+    qname, n, k = FALCON_SHAPES["up"]
+    k5_rows("falcon", "up", fold.fold_to_w8(exact(qname, n, k)), (1, 8))
+    E, V = 6144, 49152
+    k5_rows("starcoder", "lm_head", fold.fold_to_w8(exact("Q6_K", V, E)), (1,))
+    torch.cuda.empty_cache()
+
+    for name, (n, k) in STARCODER_SHAPES.items():
+        wt = fold.fold_to_w4(exact("Q4_K", n, k))
+        assert wt.flavor == "compact"
+        for b in (1, 8):
+            x = torch.randn((b, k), generator=gen, device=dev) * 0.7
+            xp = torch.nn.functional.pad(x, (0, wt.k_pad - k))
+            got = qmm_w4.qmm_w4_matmul(x, wt)
+            shape = f"starcoder {wt.flavor} {name} n={n} k={k} b={b}"
+            if qmm_w4.use_mma(b):
+                repeats(torch, "qmm_w4", shape, got, lambda: qmm_w4.qmm_w4_matmul(x, wt))
+            report("qmm_w4", shape, err_of(got, qmm_w4.qmm_w4_plain(xp, wt)), 1e-4,
+                   time_ms(torch, lambda: qmm_w4.qmm_w4_matmul(x, wt), flush),
+                   time_ms(torch, lambda: qmm_w4.qmm_w4_plain(xp, wt), flush),
+                   b * k * 4 + nbytes(wt, w4_planes(wt)) + b * n * 4, 2 * b * n * k, "int8",
+                   matmul_ms(torch, x, wt, flush))
+        del wt
+    del flush
+    torch.cuda.empty_cache()
+
+
+def write_falcon_file(path: Path) -> dict:
+    """falcon_phase's file: Falcon-7B (falcon_7b(), all 32 layers) from
+    GPT_SEED in Q4_K_M's mix (llama.cpp's Q5_0 / Q8_0 fallback at K =
+    4544; Q4_K and Q6_K downs, use_more_bits)."""
+    from llama_kotlin_tpu_torch.models.synthetic import falcon_7b
+
+    return _written(path, falcon_7b(), seed=GPT_SEED)
+
+
+def write_starcoder_file(path: Path) -> dict:
+    """starcoder_phase's file: StarCoder-15.5B (starcoder_15b(), its first
+    EARLIER_LAYERS layers) from GPT_SEED + 1 in Q4_K_M's mix, its 8192-row
+    position table F32, its tied head Q6_K."""
+    from llama_kotlin_tpu_torch.models.synthetic import starcoder_15b
+
+    return _written(path, starcoder_15b(n_layer=EARLIER_LAYERS), seed=GPT_SEED + 1)
+
+
+def falcon_phase(torch, tmpdir: Path) -> dict:
+    """Falcon-7B at its published widths and all 32 layers (falcon_7b():
+    E 4544, 71 heads on one kv head, F 18176, vocab 65024, the parallel
+    block), by family_phase: kernel 3 at 71 query heads a group once a
+    layer at every forward; in w4 kernel 4 takes the fused qkv, o and down
+    at decode (rows no 128 divides, as JAX's _plan declines), kernel 5 up
+    and the lm_head, kernel 1 and kernel 2 never."""
+    return family_phase(torch, tmpdir, "falcon_7b", FALCON_FILE)
+
+
+def starcoder_phase(torch, tmpdir: Path) -> dict:
+    """StarCoder-15.5B at its published widths, its first EARLIER_LAYERS
+    layers of 40 (starcoder_15b(): E 6144, 48 heads on one kv head, F
+    24576, vocab 49152, learned positions, biases, a tied Q6_K head), by
+    family_phase: kernel 3 at head dim 128, 48 rows a token; in w4 kernel
+    1 on the compact Q4_K folds, kernel 5 on the Q6_K downs and head."""
+    return family_phase(torch, tmpdir, "starcoder_15b", STARCODER_FILE)
+
+
+# the 2-layer files of gpt_parity_cases: {name: config}
+def gpt_parity_files() -> dict:
+    from llama_kotlin_tpu_torch.models.synthetic import falcon_7b, starcoder_15b
+
+    return {"falcon-2layer.gguf": falcon_7b(n_layer=2),
+            "starcoder-2layer.gguf": starcoder_15b(n_layer=2)}
+
+
+def write_gpt_parity_file(path: Path) -> dict:
+    return _written(path, gpt_parity_files()[path.name], seed=GPT_SEED + 2)
+
+
+# of max|logits|, card against CPU: twice the CPU's own 8-thread-against-1
+# spread on these files, rounded up (scripts/qwen_cpu_spread.py --only gpt
+# on the H100 machine's host, PERF.md: Falcon-7B exact 2.9e-3, w4 6.2e-3;
+# StarCoder w4 1.6e-2).  StarCoder in w4 only (its exact route is kernel
+# 4's exact branch at widths the sweep and the kernel rows hold), so that
+# the CPU reference process stays off the critical path
+GPT_PARITY_TOL = {("falcon", None): 6e-3, ("falcon", "w4"): 1.5e-2, ("starcoder", "w4"): 4e-2}
+
+
+def gpt_parity_cases(tmpdir: Path) -> list:
+    """(label, build, prompt, tol) of gpt_parity_phase on the 2-layer
+    Falcon-7B and StarCoder-15.5B files (full width; from the writer child
+    or written into tmpdir), each in the modes GPT_PARITY_TOL names,
+    unrolled."""
+    import numpy as np
+
+    from llama_kotlin_tpu_torch.models.loader import load_gguf_model
+    from llama_kotlin_tpu_torch.runtime.context import LlamaContext
+
+    cases = []
+    for name, cfg in gpt_parity_files().items():
+        path = tmpdir / name
+        if not path.exists():
+            child_file(tmpdir, name)
+        prompt = np.random.default_rng(GPT_SEED).integers(0, cfg.vocab_size, 64).astype(
+            np.int32)
+        label = name.split("-")[0]
+        for (arch, mode), tol in GPT_PARITY_TOL.items():
+            if arch != label:
+                continue
+
+            def build(dev, mode=mode, path=path):
+                lcfg, params, f = load_gguf_model(path, fast_mode=mode, fuse=True, device=dev)
+                f.close()
+                return LlamaContext(lcfg, params, n_cells=1024, buckets=(8, 16, 32, 64),
+                                    device=dev)
+
+            cases.append((f"{label}_parity_{mode or 'exact'}", build, prompt, tol))
+    return cases
+
+
+def gpt_parity_phase(torch, tmpdir: Path) -> None:
+    """Full width, 2 layers, card against CPU (a 64-token prefill and 4
+    greedy steps) on gpt_parity_cases by card_vs_cpu, kernel 3 once a layer
+    and step on the card (71 and 48 query heads on one kv head), kernel 1
+    and 2 never on Falcon-7B (no W4 matrix of it plans on kernel 1)."""
+    from llama_kotlin_tpu_torch.ops.cuda import flash, qmm_w4, qmm_w4_ffn
+
+    for label, build, prompt, tol in gpt_parity_cases(tmpdir):
+        cl = cpu_ref(label, lambda: greedy_logits(build, "cpu", prompt, 4))
+        if REFS["writer"]:
+            continue
+        flash.LAUNCHES = qmm_w4_ffn.LAUNCHES = qmm_w4.LAUNCHES = 0
+        card_vs_cpu(torch, label, build, prompt, tol, cpu=(None, cl))
+        got = {"flash": flash.LAUNCHES, "qmm_w4_ffn": qmm_w4_ffn.LAUNCHES,
+               "qmm_w4": qmm_w4.LAUNCHES}
+        want = {"flash": 2 * 5, "qmm_w4_ffn": 0}
+        if label.startswith("falcon"):
+            want["qmm_w4"] = 0
+        log(json.dumps({"phase": f"{label}_routes", "launches": got, "expected": want}))
+        if {k: got[k] for k in want} != want:
+            raise AssertionError(f"{label}: launches {got}, expected {want}")
+    for name in gpt_parity_files():
+        (tmpdir / name).unlink(missing_ok=True)
+
+
 def pick_row(rows: list, i):
     """A kernel's timed row by its index or its shape."""
     return rows[i] if isinstance(i, int) else next(r for r in rows if r["shape"] == i)
@@ -5458,7 +5802,7 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     if sys.argv[1:2] == ["--cpu-refs"]:
-        return cpu_refs_main(torch, *sys.argv[2:4])
+        return cpu_refs_main(torch, *sys.argv[2:5])
     if sys.argv[1:2] == ["--write-files"]:
         return write_files_main(sys.argv[2])
     from llama_kotlin_tpu_torch.ops.cuda import _build
@@ -5502,6 +5846,7 @@ def main() -> int:
         timed(exact_kernel_phase, torch, results)
         timed(iq_kernel_phase, torch, results)
         timed(qwen2_kernel_phase, torch, results)
+        timed(gpt_kernel_phase, torch, results)
         by_path, cfg, params = timed(serving_phase, torch)
         # speculative decoding on the model's first EARLIER_LAYERS layers
         by_path.update(timed(speculative_phase, torch, replace(cfg, n_layer=EARLIER_LAYERS),
@@ -5530,7 +5875,10 @@ def main() -> int:
             by_path.update(timed(llama70b_phase, torch, results))
             by_path.update(timed(qwen2_phase, torch, tmpdir))
             by_path.update(timed(qwen2moe_phase, torch, tmpdir))
+            by_path.update(timed(falcon_phase, torch, tmpdir))
+            by_path.update(timed(starcoder_phase, torch, tmpdir))
             timed(qwen_parity_phase, torch, tmpdir)
+            timed(gpt_parity_phase, torch, tmpdir)
             by_path.update(timed(arch_sweep_phase, torch, tmpdir))
             timed(parity_phase, torch)
             timed(gguf_parity_phase, torch, tmpdir)
@@ -5565,7 +5913,12 @@ def main() -> int:
                     "qwen2_gate_up_b1": "qwen2 compact gate_up n=37888 k=3584 b=1",
                     "qwen2_gate_up_b8": "qwen2 compact gate_up n=37888 k=3584 b=8",
                     "qwen2_down_b1": "qwen2 legacy down n=3584 k=18944 b=1",
-                    "qwen2_lm_head_b1": "qwen2 compact lm_head n=152064 k=3584 b=1"}),
+                    "qwen2_lm_head_b1": "qwen2 compact lm_head n=152064 k=3584 b=1",
+                    "starcoder_qkv_b1": "starcoder compact qkv n=6400 k=6144 b=1",
+                    "starcoder_qkv_b8": "starcoder compact qkv n=6400 k=6144 b=8",
+                    "starcoder_o_b1": "starcoder compact o n=6144 k=6144 b=1",
+                    "starcoder_up_b1": "starcoder compact up n=24576 k=6144 b=1",
+                    "starcoder_down_b1": "starcoder compact down n=6144 k=24576 b=1"}),
         "qmm_w4_ffn": ("csrc/qmm_w4_ffn.cu", "llama_kotlin_tpu/ops/pallas/qmm_w4_ffn.py:155",
                        0, {"b8": "compact E=4096 F=14336 b=8",
                            "b32": "compact E=4096 F=14336 b=32",
@@ -5595,11 +5948,28 @@ def main() -> int:
                    "qwen2_int8": "qwen2 28/4 int8 cache nt=1 n_vis=1024",
                    "qwen2_int4": "qwen2 28/4 int4 cache nt=1 n_vis=1024",
                    "qwen2_n4096": "qwen2 28/4 bf16 cache nt=1 n_vis=4096",
-                   "qwen2_ragged": "qwen2 28/4 bf16 cache nt=64 n_vis=1001"}),
+                   "qwen2_ragged": "qwen2 28/4 bf16 cache nt=64 n_vis=1001",
+                   "falcon_decode": "falcon 71/1 bf16 cache nt=1 n_vis=1024",
+                   "falcon_prefill": "falcon 71/1 bf16 cache nt=64 n_vis=1024",
+                   "falcon_int8": "falcon 71/1 int8 cache nt=1 n_vis=1024",
+                   "falcon_int4": "falcon 71/1 int4 cache nt=1 n_vis=1024",
+                   "falcon_n2048": "falcon 71/1 bf16 cache nt=1 n_vis=2048",
+                   "falcon_ragged": "falcon 71/1 bf16 cache nt=64 n_vis=1001",
+                   "starcoder_decode": "starcoder 48/1 bf16 cache nt=1 n_vis=1024",
+                   "starcoder_prefill": "starcoder 48/1 bf16 cache nt=64 n_vis=1024",
+                   "starcoder_int4": "starcoder 48/1 int4 cache nt=1 n_vis=1024",
+                   "starcoder_n4096": "starcoder 48/1 bf16 cache nt=1 n_vis=4096"}),
         "qmm": ("csrc/qmm.cu", "llama_kotlin_tpu/ops/pallas/qmm.py:192", 1,
-                {"m512": 5, "w8": 8}),
+                {"m512": 5, "w8": 8,
+                 "falcon_w8_qkv_m1": "falcon w8 Q5_0 qkv n=4672 k=4544 m=1",
+                 "falcon_w8_o_m1": "falcon w8 Q5_0 o n=4544 k=4544 m=1",
+                 "falcon_w4_down_m1": "falcon compact Q4_K down n=4544 k=18176 m=1",
+                 "falcon_w8_qkv_m64": "falcon w8 Q5_0 qkv n=4672 k=4544 m=64"}),
         "qmm_w8": ("csrc/qmm_w8.cu", "llama_kotlin_tpu/ops/pallas/qmm_w8.py:144", 0,
-                   {"b32": "lm_head n=128256 k=4096 b=32 group=16"}),
+                   {"b32": "lm_head n=128256 k=4096 b=32 group=16",
+                    "falcon_up_b1": "falcon w8 up n=18176 k=4544 b=1 group=32",
+                    "falcon_lm_head_b1": "falcon w8 lm_head n=65024 k=4544 b=1 group=32",
+                    "starcoder_lm_head_b1": "starcoder w8 lm_head n=49152 k=6144 b=1 group=16"}),
         "qmm_int8": ("csrc/qmm_int8.cu", "llama_kotlin_tpu/ops/pallas/qmm_int8.py:41",
                      "down n=4096 k=14336 b=64",
                      {"b1": "qkv n=6144 k=4096 b=1", "qkv_m64": "qkv n=6144 k=4096 b=64",
@@ -5615,7 +5985,9 @@ def main() -> int:
                            "ragged": "bf16 cache D=128 nt=64 n_vis=1001",
                            "qwen2_decode": "qwen2 28/4 bf16 cache nt=1 n_vis=1024",
                            "qwen2_prefill": "qwen2 28/4 bf16 cache nt=64 n_vis=1024",
-                           "qwen2_int8": "qwen2 28/4 int8 cache nt=1 n_vis=1024"}),
+                           "qwen2_int8": "qwen2 28/4 int8 cache nt=1 n_vis=1024",
+                           "falcon_decode": "falcon 71/1 bf16 cache nt=1 n_vis=1024",
+                           "starcoder_decode": "starcoder 48/1 bf16 cache nt=1 n_vis=1024"}),
         "qmm_w4x": ("csrc/qmm_w4x.cu", "llama_kotlin_tpu/ops/pallas/qmm_w4.py:691", 0,
                     {"b32": 6}),
         "qmm_w8_precise": ("csrc/qmm_w8.cu", "llama_kotlin_tpu/ops/pallas/qmm_w8.py:144", 0,
@@ -5661,7 +6033,13 @@ def main() -> int:
                                   ("m512", "exact Q4_K qkv n=6144 k=4096 m=512"),
                                   ("lm_head_b1", "exact Q6_K lm_head n=128256 k=4096 m=1"),
                                   ("qwen2_qkv_m1", "qwen2 exact Q4_K qkv n=4608 k=3584 m=1"),
-                                  ("qwen2_qkv_m64", "qwen2 exact Q4_K qkv n=4608 k=3584 m=64")):
+                                  ("qwen2_qkv_m64", "qwen2 exact Q4_K qkv n=4608 k=3584 m=64"),
+                                  ("falcon_qkv_m1", "falcon exact Q5_0 qkv n=4672 k=4544 m=1"),
+                                  ("falcon_qkv_m64", "falcon exact Q5_0 qkv n=4672 k=4544 m=64"),
+                                  ("falcon_down_m1",
+                                   "falcon exact Q4_K down n=4544 k=18176 m=1"),
+                                  ("falcon_lm_head_m1",
+                                   "falcon exact Q8_0 lm_head n=65024 k=4544 m=1")):
                 exact[branch] = {k: pick_row(rows, shape)[k] for k in timing + ("max_abs_err",)}
             # the IQ repacks on the same branch (iq_kernel_phase): qkv at one row
             exact["iq_qkv_b1"] = {

@@ -5,10 +5,12 @@ dict with every array already ``np.asarray``'d.  A QTensor (W4 or W8 fold,
 plain or precise, Q8F, or an exact repack of the exact-dequant mode) arrives
 as any object (or dict) carrying the JAX field names;
 the port never imports the JAX class.  Arrays become f32 tensors (norms,
-biases, the llama-shaped family's LayerNorm and q/k norm planes), but the
-routers the port's loader keeps dense bf16 (``ALWAYS_DENSE``: the MoE
-router, qwen2moe's shared-expert gate), which JAX keeps f32 and rounds to
-bf16 at its matmul.  Both sides then compute on identical weights, which is
+biases, the llama-shaped family's LayerNorm and q/k norm planes, falcon-40b's
+``attn_norm_2``, jais's gate bias, bloom's embedding norm, phi2's output
+bias), but the routers the port's loader keeps dense bf16 (``ALWAYS_DENSE``:
+the MoE router, qwen2moe's shared-expert gate), which JAX keeps f32 and
+rounds to bf16 at its matmul, and the position table (``pos_embd``: gpt2,
+starcoder), which both loaders keep bf16.  Both sides then compute on identical weights, which is
 what the parity tests need.
 """
 
@@ -129,17 +131,21 @@ def qtensor_from_numpy(obj, device: DeviceLike = None) -> QTensor:
                    hi_signed=True, aux=new_aux)
 
 
+# array keys that become bf16 tensors, as the port's loader keeps them
+BF16_KEYS = ALWAYS_DENSE | {"pos_embd"}
+
+
 def params_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
     """Nested dict/list of numpy arrays and QTensors -> the port's params:
     QTensors become port QTensors, arrays become f32 torch tensors, a
-    dense router (a key of ALWAYS_DENSE) a bf16 one."""
+    dense router or the position table (a key of BF16_KEYS) a bf16 one."""
     dev = resolve_device(device)
     if tree is None:
         return None
     if _is_qtensor(tree):
         return qtensor_from_numpy(tree, dev)
     if isinstance(tree, dict):
-        return {k: _tensor(v, dev, torch.bfloat16) if k in ALWAYS_DENSE and not _is_qtensor(v)
+        return {k: _tensor(v, dev, torch.bfloat16) if k in BF16_KEYS and not _is_qtensor(v)
                 else params_from_numpy(v, dev) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_numpy(v, dev) for v in tree)

@@ -6,14 +6,19 @@ the ModelConfig fields the port's forward reads, with the same defaults,
 architecture and llama-architecture MoE files (Mixtral), gemma and gemma2
 (gelu, the sqrt(n_embd) embedding scale, (1 + w) norms, a tied head, NEOX
 rope; gemma2 also the logit softcaps and the sliding window on every other
-layer), deepseek2 (MLA and scaled MoE), and the llama-shaped family JAX
+layer), deepseek2 (MLA and scaled MoE), the llama-shaped family JAX
 serves through the same decoder: qwen2 and qwen2moe (qkv biases, raw top-k
 router weights), qwen, stablelm, phi3, internlm2, minicpm, xverse, exaone,
 baichuan (ALiBi at 40 layers and more), starcoder2, refact (ALiBi), plamo
 (shared-norm parallel residual), and the LayerNorm ones orion, command-r
 (parallel block, logit scale), olmo (non-parametric, clamp_kqv) and
-codeshell (non-gated gelu FFN).  Every other architecture raises (ROADMAP.md
-section 1, item 13, lists them)."""
+codeshell (non-gated gelu FFN); and the learned-position and LayerNorm-gelu
+family: gpt2 and starcoder (learned positions, no rope), gptneox
+(use_parallel_residual), falcon and phi2 (the parallel block; phi2's qkv
+biases), mpt and bloom (ALiBi; bloom's embedding LayerNorm), jais (ALiBi,
+a biased gated silu FFN), nemotron (relu^2) and chatglm (packed swiglu).
+Every other architecture raises (ROADMAP.md section 1, item 13, lists
+them)."""
 
 from __future__ import annotations
 
@@ -40,10 +45,10 @@ class ModelConfig:
     n_ctx_train: int = 2048
     rms_eps: float = 1e-5
     norm_eps: float = 1e-5  # LayerNorm's epsilon
-    use_rms_norm: bool = True  # False: LayerNorm (orion, command-r, olmo, codeshell)
+    use_rms_norm: bool = True  # False: LayerNorm (orion, command-r, olmo, the gpt2 family...)
     norm_weight_offset: float = 0.0
     act: str = "silu"
-    ffn_gated: bool = True  # False: up, act, down (codeshell)
+    ffn_gated: bool = True  # False: up, act, down (codeshell, the gpt2 family)
     rope_type: int = ROPE_TYPE_NORM
     rope_freq_base: float = 10000.0
     rope_freq_scale: float = 1.0
@@ -63,13 +68,16 @@ class ModelConfig:
     swa_pattern: int = 1  # every Nth layer is full-attention (gemma2: 2)
     attn_qkv_bias: bool = False  # the file carries q/k/v biases (qwen2, qwen2moe, stablelm)
     tie_word_embeddings: bool = False
-    parallel_residual: bool = False  # h + attn(x) + ffn(x), one shared norm (plamo, command-r)
+    parallel_residual: bool = False  # h + attn(x) + ffn(x') (plamo, command-r, falcon...)
     clamp_kqv: float = 0.0  # olmo: q, k and v clipped to +-clamp_kqv (0 = off)
     logit_scale: float = 1.0  # command-r's final logit multiplier
     moe_norm_topk: bool = True  # renormalize the top-k router weights (mixtral; not qwen2moe)
     moe_expert_scale: float = 1.0  # deepseek2 expert_weights_scale
     rope_yarn_log_mul: float = 0.0  # deepseek2 yarn mscale correction
-    max_alibi_bias: float = 0.0  # ALiBi in place of rope (baichuan-13B, refact); 0 = off
+    max_alibi_bias: float = 0.0  # ALiBi in place of rope (baichuan-13B, refact, mpt...); 0 = off
+    learned_pos_embd: bool = False  # a position embedding table (gpt2, starcoder)
+    token_embd_norm: bool = False  # a LayerNorm right after the embedding (bloom)
+    swiglu_packed: bool = False  # chatglm: ffn_up packs [gate|up], silu-gated
 
     def __post_init__(self):
         if self.head_dim == 0:
@@ -136,10 +144,9 @@ def config_from_metadata(md: dict) -> ModelConfig:
     arch = md.get("general.architecture", "llama")
     if arch not in ARCHES:
         raise NotImplementedError(
-            f"architecture {arch!r} is not ported: the port loads {', '.join(ARCHES)}; the "
-            "learned-position family (gpt2, starcoder, gptneox, falcon, mpt, phi2, bloom, jais, "
-            "nemotron, chatglm), dbrx, arctic, grok, openelm, bitnet, the encoders, t5 and "
-            "mamba come with ROADMAP.md section 1, item 13")
+            f"architecture {arch!r} is not ported: the port loads {', '.join(ARCHES)}; dbrx, "
+            "arctic, grok, openelm, bitnet, the encoders, t5 and mamba come with ROADMAP.md "
+            "section 1, item 13")
     n_embd = int(_get(md, arch, "embedding_length", 4096))
     n_head = _scalar(md, f"{arch}.attention.head_count", 32) or 1
     cfg = ModelConfig(
@@ -183,9 +190,9 @@ def config_from_metadata(md: dict) -> ModelConfig:
         cfg.rope_orig_ctx = int(
             _get(md, arch, "rope.scaling.original_context_length", cfg.n_ctx_train))
     # JAX config.py:219-223: the NEOX archs among the ported ones (the
-    # others rotate adjacent pairs)
-    if arch in ("qwen2", "qwen2moe", "stablelm", "phi3", "gemma", "gemma2", "starcoder2",
-                "exaone", "qwen", "codeshell"):
+    # others rotate adjacent pairs, or take no rope below)
+    if arch in ("falcon", "gptneox", "qwen2", "qwen2moe", "phi2", "phi3", "stablelm", "gemma",
+                "gemma2", "starcoder2", "nemotron", "exaone", "qwen", "codeshell"):
         cfg.rope_type = ROPE_TYPE_NEOX
     if arch in ("gemma", "gemma2"):
         # JAX config.py:229-234: gelu, the embedding scale, (1 + w) norms,
@@ -199,8 +206,27 @@ def config_from_metadata(md: dict) -> ModelConfig:
         cfg.final_logit_softcap = float(_get(md, arch, "final_logit_softcapping", 30.0))
         cfg.swa_window = cfg.swa_window or 4096
         cfg.swa_pattern = 2
-    if arch in ("qwen2", "qwen2moe", "stablelm"):
+    if arch in ("qwen2", "qwen2moe", "stablelm", "phi2"):
         cfg.attn_qkv_bias = True  # JAX config.py:239-240
+    # JAX config.py:242-261: the LayerNorm-gelu family (non-gated FFNs), no
+    # rope where positions are learned or ALiBi biases the scores, the
+    # embedding norm, the parallel blocks
+    if arch in ("gpt2", "gptneox", "falcon", "mpt", "starcoder", "phi2", "bloom"):
+        cfg.use_rms_norm = False
+        cfg.act = "gelu"
+        cfg.ffn_gated = False
+    if arch in ("gpt2", "starcoder", "mpt", "bloom", "jais"):
+        cfg.rope_type = ROPE_TYPE_NONE
+    if arch in ("gpt2", "starcoder"):
+        cfg.learned_pos_embd = True
+    if arch in ("mpt", "bloom", "jais"):
+        cfg.max_alibi_bias = float(_get(md, arch, "attention.max_alibi_bias", 8.0) or 8.0)
+    if arch == "bloom":
+        cfg.token_embd_norm = True
+    if arch == "gptneox":
+        cfg.parallel_residual = bool(_get(md, arch, "use_parallel_residual", True))
+    if arch in ("falcon", "phi2"):
+        cfg.parallel_residual = True
     if arch == "command-r":
         # JAX config.py:262-268: LayerNorm without bias, the shared-norm
         # parallel block, a tied head, scaled logits
@@ -214,6 +240,15 @@ def config_from_metadata(md: dict) -> ModelConfig:
         # JAX config.py:311-314: non-parametric LayerNorm, q/k/v clipping
         cfg.use_rms_norm = False
         cfg.clamp_kqv = float(_get(md, arch, "attention.clamp_kqv", 0.0) or 0.0)
+    if arch == "chatglm":
+        # JAX config.py:315-317: ffn_up packs [gate|up], silu-gated
+        cfg.ffn_gated = False
+        cfg.swiglu_packed = True
+    if arch == "nemotron":
+        # JAX config.py:318-321: LayerNorm (the file stores 1 + w), relu^2
+        cfg.use_rms_norm = False
+        cfg.act = "relu2"
+        cfg.ffn_gated = False
     if arch == "orion":
         cfg.use_rms_norm = False  # biased LayerNorm, llama-shaped otherwise
     if arch == "plamo":
@@ -222,6 +257,8 @@ def config_from_metadata(md: dict) -> ModelConfig:
         # JAX config.py:326-329: baichuan-13B attends with ALiBi, no rope
         cfg.rope_type = ROPE_TYPE_NONE
         cfg.max_alibi_bias = 8.0
+    if arch == "jais":
+        cfg.use_rms_norm = False  # JAX config.py:330-334 (ALiBi above)
     if arch == "codeshell":
         # JAX config.py:342-345: LayerNorm, a non-gated gelu FFN
         cfg.use_rms_norm = False

@@ -47,6 +47,18 @@ unrolled path attends by ``cache_attention_reference`` on every device,
 with ALiBi's bias there (refact, baichuan-13B); ALiBi keeps a model
 unrolled, as in JAX.
 
+The learned-position and LayerNorm-gelu family (JAX ``:110-118``,
+``:150-157``, ``:292-295``, ``:403-438``, ``:702-703``): the position table's
+rows added to the embedding at max(pos, 0) (gpt2, starcoder; a position
+past the table takes its last row, as XLA's clamped gather does); bloom's
+LayerNorm of the embedding; attention normed by ``attn_norm_2`` where a
+layer has it (falcon-40b), ``attn_norm`` then feeding the parallel FFN;
+jais's gate bias on the split gated route (kernel 2 declines it, as JAX's
+megakernel); chatglm's packed ``[gate|up]`` up projection, silu(gate) *
+up; nemotron's relu^2; phi2's output bias, added to the logits before any
+logit scale.  mpt, bloom and jais attend with ALiBi by the plain route, as
+refact does; learned positions stack.
+
 - Unrolled (``params["layers"]``): every layer writes its K/V rows into the
   cache IN PLACE, then attends over it through kernel 3.
 - Stacked (``params["layers_stacked"]``, built once by ``stack_layers``;
@@ -254,18 +266,20 @@ def _ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The FFN of a layer, [nt, d] f32, by JAX's branches
     (``llama_kotlin_tpu/models/llama.py:386-444``): the MoE block where the
     layer has a router; a gated FFN, kernel 2 for decode rows where it
-    takes the layouts and no up bias sits between the products (the fused
-    gate|up, or gate and up apart), else gate|up (fused or separate, up
-    plus its bias) and down; a non-gated one (codeshell, or a file without
-    ffn_gate: starcoder2), act(up + its bias) then down; then the down
-    bias."""
+    takes the layouts and no gate or up bias sits between the products (the
+    fused gate|up, or gate and up apart), else gate|up (fused or separate,
+    each plus its bias: jais) and down; a non-gated one (codeshell, the
+    gpt2 family, or a file without ffn_gate: starcoder2), act(up + its
+    bias), or for chatglm's packed up silu(its first half) * its second,
+    then down; then the down bias."""
     if "ffn_gate_inp" in lp:
         return _moe_ffn(lp, x, cfg)
     act = ACTIVATIONS[cfg.act]
     fused = "ffn_gateup_fused" in lp
     if cfg.ffn_gated and (fused or "ffn_gate" in lp):
         gate_w = lp["ffn_gateup_fused"] if fused else lp["ffn_gate"]
-        down = None if "ffn_up_b" in lp else qmm_ffn(
+        biased = "ffn_gate_b" in lp or "ffn_up_b" in lp
+        down = None if biased else qmm_ffn(
             x, gate_w, lp["ffn_down"], act=cfg.act, up=None if fused else lp["ffn_up"])
         if down is None:
             if fused:
@@ -273,6 +287,8 @@ def _ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
                 gate, up = y[:, :cfg.n_ff], y[:, cfg.n_ff:]
             else:
                 gate, up = qmatmul(x, gate_w), qmatmul(x, lp["ffn_up"])
+                if "ffn_gate_b" in lp:
+                    gate = gate + lp["ffn_gate_b"]
                 if "ffn_up_b" in lp:
                     up = up + lp["ffn_up_b"]
             down = qmatmul((act(gate) * up).to(COMPUTE_DTYPE), lp["ffn_down"])
@@ -280,7 +296,12 @@ def _ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         up = qmatmul(x, lp["ffn_up"])
         if "ffn_up_b" in lp:
             up = up + lp["ffn_up_b"]
-        down = qmatmul(act(up).to(COMPUTE_DTYPE), lp["ffn_down"])
+        if cfg.swiglu_packed:  # chatglm: [gate|up] in one projection
+            gate, up = up.chunk(2, dim=-1)
+            ffn = ACTIVATIONS["silu"](gate) * up
+        else:
+            ffn = act(up)
+        down = qmatmul(ffn.to(COMPUTE_DTYPE), lp["ffn_down"])
     if "ffn_down_b" in lp:
         down = down + lp["ffn_down_b"]
     return down
@@ -442,6 +463,14 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     h = take_rows(params["tok_embd"], tokens, dtype=COMPUTE_DTYPE)
     if cfg.embd_scale != 1.0:
         h = (h.to(torch.float32) * cfg.embd_scale).to(COMPUTE_DTYPE)
+    if cfg.learned_pos_embd and params.get("pos_embd") is not None:
+        # gpt2, starcoder: padded rows carry pos -1 (row 0); a position past
+        # the table takes its last row, as JAX's clamped gather
+        pos_w = params["pos_embd"]
+        rows = token_pos.clamp(0, pos_w.shape[0] - 1)
+        h = h + take_rows(pos_w, rows, dtype=COMPUTE_DTYPE)
+    if cfg.token_embd_norm and params.get("tok_norm") is not None:  # bloom
+        h = layer_norm(h, params["tok_norm"], params.get("tok_norm_b"), cfg.norm_eps)
     mask = visibility_mask(token_pos, token_seq, cell_pos, cell_seq, causal=cfg.causal_attn)
     slots = slots.to(torch.long)
     stacked = "layers_stacked" in params
@@ -464,7 +493,8 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         attn_kw.update(alibi=alibi_slopes(cfg.n_head, cfg.max_alibi_bias, h.device),
                        token_pos=token_pos, cell_pos=cell_pos)
     for li, lp in enumerate(layer_views(params)):
-        x = _norm(cfg, lp, "attn_norm", h)
+        # JAX attn_in (:150-157): falcon-40b's ln_attn (attn_norm_2) wins
+        x = _norm(cfg, lp, "attn_norm_2" if "attn_norm_2" in lp else "attn_norm", h)
         q, k, v = _qkv(lp, x, cfg, cos, sin, rope)
         rows = _cache_rows(cache, k, v)
         if stacked:
@@ -501,10 +531,11 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                                 cfg.norm_weight_offset)
         if cfg.parallel_residual:
             # JAX :292-295: the FFN reads the layer's input, normed by
-            # ffn_norm where the layer has one, else by the attention's own
-            # norm (plamo, command-r): x as computed above
-            if "ffn_norm" in lp:
-                x = _norm(cfg, lp, "ffn_norm", h)
+            # ffn_norm where the layer has one (gptneox), else by attn_norm
+            # (plamo, command-r, falcon, phi2): x as computed above unless
+            # the attention took attn_norm_2 (falcon-40b)
+            if "ffn_norm" in lp or "attn_norm_2" in lp:
+                x = _norm(cfg, lp, "ffn_norm" if "ffn_norm" in lp else "attn_norm", h)
             h = h + attn_out.to(h.dtype)
         else:
             h = h + attn_out.to(h.dtype)
@@ -518,6 +549,8 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     if out_w is None:
         out_w = params["tok_embd"]  # tied embeddings
     logits = qmatmul(h_out, out_w).to(torch.float32)
+    if params.get("output_b") is not None:  # phi2
+        logits = logits + params["output_b"]
     if cfg.logit_scale != 1.0:  # command-r
         logits = logits * cfg.logit_scale
     if cfg.final_logit_softcap > 0.0:  # gemma2

@@ -42,8 +42,13 @@ The llama-shaped family's tensors (JAX ``:30-52``, ``_ALWAYS_FLOAT``
 ``output_norm_b``) and per-head q/k norms stay f32; qwen2moe's shared-expert gate
 (``ffn_gate_inp_shexp``) is dense bf16 as the router is; a fused
 ``attn_qkv`` weight or bias (qwen, phi3, codeshell) splits by rows into
-q, k and v at load, exactly (quantized rows are independent).
-A file with no ``output`` (gemma's tied head: llama.cpp gives the
+q, k and v at load, exactly (quantized rows are independent).  The
+learned-position family's (JAX ``:31-32``, ``:48``, ``:97-107``): falcon-40b's
+``attn_norm_2`` (and bias), jais's gate bias (``ffn_gate_b``), bloom's
+embedding LayerNorm (``tok_norm``, ``tok_norm_b``) and phi2's output bias
+(``output_b``) stay f32; gpt2's and starcoder's position table
+(``pos_embd``; llama.cpp leaves it unquantized) loads as token_embd does,
+a float one dense bf16.  A file with no ``output`` (gemma's tied head: llama.cpp gives the
 embedding the output's type, Q6_K in a Q4_K_M file) loads ``token_embd``
 once in the mode's layout, which serves both the embedding rows
 (``take_rows``) and the lm_head.  The nine IQ formats route as the other
@@ -52,9 +57,8 @@ once in the mode's layout, which serves both the embedding rows
 JAX's ``:140-144``) gives every W4 fold of the ``w4`` mode a Q8F shadow
 (``quant/fold.py::attach_q8``) from the f32 decode of its wire bytes, for
 the high-batch switch of ``ops/qmatmul.py``.  Still refused: tensor names
-the port's forward does not read (position embeddings, bitnet's scales,
-SSM and encoder tensors: the architectures ROADMAP.md section 1, item 13
-lists).
+the port's forward does not read (bitnet's scales, SSM and encoder
+tensors: the architectures ROADMAP.md section 1, item 13 lists).
 """
 
 from __future__ import annotations
@@ -76,11 +80,13 @@ from llama_kotlin_tpu_torch.quant.repack import dequantize_wire, repack, repack_
 FAST_MODES = (None, "w4", "w4x", "int8")
 ROW_CHUNK = 16384  # matrix rows converted per step
 
-# tensor-name suffix -> params key (the llama, MoE, gemma2 and deepseek2 rows
-# of the JAX tables)
+# tensor-name suffix -> params key (the rows of the JAX tables for the
+# architectures the port loads)
 _LAYER_TENSORS = {
     "attn_norm.weight": "attn_norm",
     "attn_norm.bias": "attn_norm_b",
+    "attn_norm_2.weight": "attn_norm_2",
+    "attn_norm_2.bias": "attn_norm_2_b",
     "attn_q.weight": "wq",
     "attn_k.weight": "wk",
     "attn_v.weight": "wv",
@@ -94,6 +100,7 @@ _LAYER_TENSORS = {
     "ffn_norm.weight": "ffn_norm",
     "ffn_norm.bias": "ffn_norm_b",
     "ffn_gate.weight": "ffn_gate",
+    "ffn_gate.bias": "ffn_gate_b",
     "ffn_up.weight": "ffn_up",
     "ffn_up.bias": "ffn_up_b",
     "ffn_down.weight": "ffn_down",
@@ -117,15 +124,20 @@ _LAYER_TENSORS = {
 }
 _GLOBAL_TENSORS = {
     "token_embd.weight": "tok_embd",
+    "token_embd_norm.weight": "tok_norm",
+    "token_embd_norm.bias": "tok_norm_b",
+    "position_embd.weight": "pos_embd",
     "output_norm.weight": "output_norm",
     "output_norm.bias": "output_norm_b",
     "output.weight": "output",
+    "output.bias": "output_b",
     "rope_freqs.weight": "rope_freqs",
 }
 _ALWAYS_FLOAT = {"attn_norm", "ffn_norm", "output_norm", "rope_freqs", "attn_q_a_norm",
                  "attn_kv_a_norm", "post_attn_norm", "post_ffn_norm", "attn_norm_b",
                  "ffn_norm_b", "output_norm_b", "attn_q_norm", "attn_k_norm", "bq", "bk", "bv",
-                 "bo", "ffn_up_b", "ffn_down_b"}
+                 "bo", "ffn_gate_b", "ffn_up_b", "ffn_down_b", "attn_norm_2", "attn_norm_2_b",
+                 "tok_norm", "tok_norm_b", "output_b"}
 # dense bf16 in every mode, whatever the file's type: the routers (JAX keeps
 # them f32 and casts them to bf16 at its matmul; the port casts once here)
 ALWAYS_DENSE = {"ffn_gate_inp", "ffn_gate_inp_shexp"}
@@ -238,15 +250,15 @@ def fuse_layer_projections(cfg: ModelConfig, params: dict) -> int:
     launch instead of two or three): all QTensors (folds or exact repacks),
     or all dense matrices, as in JAX (``:268``).  A layer of mixed layouts
     keeps its projections split: concat_qtensors refuses them (a Q4_K_M
-    layer's Q4_K wq/wk and Q6_K wv, in every mode).  As in JAX, gate|up
-    fuse only in a gated FFN without an up bias (it applies to the split
-    output).  A fused qkv's biases fuse too (bq|bk|bv ->
+    layer's Q4_K wq/wk and Q6_K wv, in every mode).  As in JAX (``:309-319``),
+    gate|up fuse only in a gated FFN without a gate or up bias (they apply
+    to the split outputs: jais).  A fused qkv's biases fuse too (bq|bk|bv ->
     bqkv_fused): one add over the fused output in place of three, the same
     function.  Returns the number of layers with at least one fusion."""
     n_fused = 0
     for lp in params["layers"]:
         did = False
-        gu_plain = cfg.ffn_gated and "ffn_up_b" not in lp
+        gu_plain = cfg.ffn_gated and "ffn_gate_b" not in lp and "ffn_up_b" not in lp
         for parts, fused in ((("wq", "wk", "wv"), "wqkv_fused"),
                              (("ffn_gate", "ffn_up"), "ffn_gateup_fused")):
             if fused == "ffn_gateup_fused" and not gu_plain:

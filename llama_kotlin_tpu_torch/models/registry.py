@@ -1,8 +1,10 @@
 """Architecture registry (port of ``llama_kotlin_tpu/models/registry.py``):
 the JAX package's table of the reference's architectures, each with its
 status there and whether the port loads it: the llama family that JAX
-serves through ``models/llama.py`` (llama, gemma, gemma2, deepseek2 and the
-llama-shaped RMS and LayerNorm architectures).  ``models/config.py::
+serves through ``models/llama.py`` (llama, gemma, gemma2, deepseek2, the
+llama-shaped RMS and LayerNorm architectures, and the learned-position and
+LayerNorm-gelu family: gpt2, starcoder, gptneox, falcon, mpt, phi2, bloom,
+jais, nemotron, chatglm).  ``models/config.py::
 config_from_metadata`` raises for every architecture this table does not
 mark ported (ROADMAP.md section 1, item 13).
 """
@@ -43,31 +45,31 @@ ARCHES = [
              "parallel block, per-head qk LayerNorm, logit scale"),
     ArchInfo("deepseek2", "supported", True,
              "MLA (q/kv LoRA latents, split k/v dims), yarn mscale, scaled MoE + shared expert"),
-    ArchInfo("falcon", "supported", False,
+    ArchInfo("falcon", "supported", True,
              "LayerNorm, dual norms (40B), parallel residual, GQA"),
-    ArchInfo("gpt2", "supported", False,
+    ArchInfo("gpt2", "supported", True,
              "LayerNorm, learned positions, fused qkv split at load"),
-    ArchInfo("gptneox", "supported", False,
+    ArchInfo("gptneox", "supported", True,
              "LayerNorm, parallel residual, partial rope"),
-    ArchInfo("mpt", "supported", False,
+    ArchInfo("mpt", "supported", True,
              "ALiBi attention, LayerNorm, fused qkv"),
-    ArchInfo("starcoder", "supported", False,
+    ArchInfo("starcoder", "supported", True,
              "MQA, LayerNorm, learned positions"),
-    ArchInfo("phi2", "supported", False,
+    ArchInfo("phi2", "supported", True,
              "parallel residual w/ shared norm, partial rope, output bias"),
-    ArchInfo("bloom", "supported", False,
+    ArchInfo("bloom", "supported", True,
              "embedding LayerNorm, ALiBi, per-head fused qkv"),
     ArchInfo("starcoder2", "supported", True,
              "llama-shaped with biases"),
     ArchInfo("olmo", "supported", True,
              "non-parametric LayerNorm, clamp_kqv"),
-    ArchInfo("chatglm", "supported", False,
+    ArchInfo("chatglm", "supported", True,
              "fused qkv+bias, packed swiglu, half-dim rope"),
-    ArchInfo("nemotron", "supported", False,
+    ArchInfo("nemotron", "supported", True,
              "LayerNorm1P (+1 folded at convert), relu^2 FFN, partial rope"),
     ArchInfo("exaone", "supported", True,
              "llama-shaped, own metadata namespace"),
-    ArchInfo("jais", "supported", False,
+    ArchInfo("jais", "supported", True,
              "LayerNorm + ALiBi + biased gated swiglu"),
     ArchInfo("xverse", "supported", True,
              "llama-shaped"),

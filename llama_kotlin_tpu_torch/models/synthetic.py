@@ -19,9 +19,10 @@ dense lead, routed and shared experts) or a qwen2moe file (qkv biases, a
 sigmoid-gated shared expert) with the metadata keys the loader reads
 (``deepseek_v2_lite``, ``mixtral_8x7b``, ``qwen1_5_moe_a2_7b``,
 ``gemma2_9b``, ``gemma_7b``, ``qwen2_7b``: their published shapes); and a
-file of any llama-shaped architecture the port serves, with the tensors
-its llama.cpp files carry (``FAMILY_TENSORS``; ``family_config`` gives the
-config its metadata maps to).
+file of any llama-shaped, learned-position or LayerNorm-gelu architecture
+the port serves, with the tensors its llama.cpp files carry
+(``FAMILY_TENSORS``; ``family_config`` gives the config its metadata maps
+to; ``falcon_7b`` and ``starcoder_15b`` their published shapes).
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ import torch
 
 from llama_kotlin_tpu_torch.device import DeviceLike, resolve_device
 from llama_kotlin_tpu_torch.models.config import ModelConfig
-from llama_kotlin_tpu_torch.ops.rope import ROPE_TYPE_NEOX
+from llama_kotlin_tpu_torch.ops.rope import ROPE_TYPE_NEOX, ROPE_TYPE_NONE
 from llama_kotlin_tpu_torch.quant.fold import (ALIGN_W4, GROUP, attach_q8_device,
                                                compact_planes, dual_fold_enabled, w4_from_parts)
 from llama_kotlin_tpu_torch.quant.formats import TYPE_TRAITS, GGMLQuantType
@@ -777,15 +778,22 @@ def synthetic_spm_vocab(vocab_size: int, chat_template: Optional[str] = LLAMA2_C
 
 
 GEMMA_ARCHES = ("gemma", "gemma2")  # tied heads and (1 + w) norms
-# the tensors a llama-shaped family file carries beside a llama layer's, as
-# llama.cpp's converters write them and JAX's loader reads them: q/k/v
-# biases ("qkv_bias"), a fused attn_qkv ("fused_qkv", with a fused bias
-# where the biases are), the o and FFN biases ("out_bias", "ffn_bias"),
-# LayerNorm biases on every norm ("norm_bias"), per-head q/k norms ("head":
-# [head_dim], stablelm; "heads": [n_head, head_dim], command-r), no
-# ffn_norm (a shared-norm parallel block), no norm weights at all (olmo's
-# non-parametric LayerNorm), no output (a tied head) and no ffn_gate (a
-# non-gated FFN; codeshell's config says so, starcoder2's file alone)
+# the tensors a family file carries beside a llama layer's, as llama.cpp's
+# converters write them and JAX's loader reads them: q/k/v biases
+# ("qkv_bias"), a fused attn_qkv ("fused_qkv", with a fused bias where the
+# biases are), the o and FFN biases ("out_bias"; "ffn_bias": up and down,
+# "gate_bias": jais's gate too), LayerNorm biases on every norm
+# ("norm_bias"), per-head q/k norms ("head": [head_dim], stablelm; "heads":
+# [n_head, head_dim], command-r), no ffn_norm (a shared-norm parallel
+# block), no norm weights at all (olmo's non-parametric LayerNorm), no
+# output (a tied head) and no ffn_gate (a non-gated FFN; codeshell's config
+# says so, starcoder2's file alone); the learned-position family's
+# position table ("pos_embd": gpt2, starcoder; context_length rows, F32, as
+# llama.cpp leaves it unquantized), the embedding LayerNorm ("tok_norm":
+# bloom), the output bias ("output_bias": phi2), chatglm's packed
+# [gate|up] ffn_up ("packed_up", 2 n_ff rows) and falcon's second norm
+# ("attn_norm_2": its new decoder architecture, in files with several kv
+# heads: falcon-40b and -180b; falcon-7b's one kv head has one norm)
 FAMILY_TENSORS = {
     "qwen2": dict(qkv_bias=True),
     "qwen": dict(qkv_bias=True, fused_qkv=True),
@@ -800,12 +808,33 @@ FAMILY_TENSORS = {
     "olmo": dict(norms=False),
     "codeshell": dict(qkv_bias=True, fused_qkv=True, out_bias=True, ffn_bias=True,
                       norm_bias=True),
+    "gpt2": dict(qkv_bias=True, fused_qkv=True, out_bias=True, ffn_bias=True, norm_bias=True,
+                 pos_embd=True),
+    "starcoder": dict(qkv_bias=True, fused_qkv=True, out_bias=True, ffn_bias=True,
+                      norm_bias=True, pos_embd=True, tied=True),
+    "gptneox": dict(qkv_bias=True, fused_qkv=True, out_bias=True, ffn_bias=True,
+                    norm_bias=True),
+    "falcon": dict(fused_qkv=True, norm_bias=True, ffn_norm=False, attn_norm_2=True),
+    "mpt": dict(fused_qkv=True, tied=True),
+    "phi2": dict(qkv_bias=True, out_bias=True, ffn_bias=True, norm_bias=True, ffn_norm=False,
+                 output_bias=True),
+    "bloom": dict(qkv_bias=True, fused_qkv=True, out_bias=True, ffn_bias=True, norm_bias=True,
+                  tok_norm=True, tied=True),
+    "jais": dict(qkv_bias=True, fused_qkv=True, out_bias=True, ffn_bias=True, gate_bias=True,
+                 norm_bias=True, tied=True),
+    "nemotron": dict(norm_bias=True),
+    "chatglm": dict(qkv_bias=True, fused_qkv=True, packed_up=True),
 }
-# the dense architectures synthetic_gguf writes: llama and the llama-shaped
-# family (qwen2moe is a MoE file: moe=)
+# the dense architectures synthetic_gguf writes: llama, gemma, the
+# llama-shaped family and the learned-position and LayerNorm-gelu family
+# (qwen2moe is a MoE file: moe=)
 DENSE_ARCHES = ("llama", "gemma", "gemma2", "qwen2", "qwen", "stablelm", "phi3", "internlm2",
                 "minicpm", "xverse", "exaone", "baichuan", "starcoder2", "refact", "plamo",
-                "orion", "command-r", "olmo", "codeshell")
+                "orion", "command-r", "olmo", "codeshell", "gpt2", "starcoder", "gptneox",
+                "falcon", "mpt", "phi2", "bloom", "jais", "nemotron", "chatglm")
+# archs whose files carry attention.max_alibi_bias (llama.cpp's mpt and jais
+# read it; bloom's default 8 stands)
+ALIBI_KEY_ARCHES = ("mpt", "jais")
 
 
 def family_config(arch: str, n_layer: int = 2, n_embd: int = 256, n_head: int = 4,
@@ -814,7 +843,9 @@ def family_config(arch: str, n_layer: int = 2, n_embd: int = 256, n_head: int = 
     """The ModelConfig config_from_metadata gives a file of `arch` (one of
     DENSE_ARCHES) at these widths, with the arch's own keys in `keys`
     (named as file_metadata writes them: swa_window, clamp_kqv,
-    logit_scale, rope_dim, head_dim, rope_freq_base, rms_eps, norm_eps);
+    logit_scale, rope_dim, head_dim, rope_freq_base, rms_eps, norm_eps,
+    n_ctx_train (a position table's rows), parallel_residual (gptneox),
+    max_alibi_bias (mpt, jais));
     synthetic_gguf writes such a file.  baichuan attends with ALiBi from 40
     layers (baichuan-13B), as config_from_metadata rules."""
     from llama_kotlin_tpu_torch.models.config import config_from_metadata
@@ -823,8 +854,12 @@ def family_config(arch: str, n_layer: int = 2, n_embd: int = 256, n_head: int = 
                        n_embd=n_embd, n_layer=n_layer, n_head=n_head, n_head_kv=n_head_kv,
                        n_ff=n_ff, **{k: v for k, v in keys.items()
                                      if k in ("head_dim", "rope_dim")})
-    # the norm the arch's config takes decides which epsilon key the file has
-    base.use_rms_norm = config_from_metadata({"general.architecture": arch}).use_rms_norm
+    # the arch's defaults decide which keys the file has: the norm's epsilon
+    # key, gptneox's use_parallel_residual, mpt's and jais's ALiBi bias
+    bare = config_from_metadata({"general.architecture": arch})
+    base.use_rms_norm = bare.use_rms_norm
+    base.parallel_residual = bare.parallel_residual
+    base.max_alibi_bias = bare.max_alibi_bias
     for k, v in keys.items():
         setattr(base, k, v)
     return config_from_metadata(dict(file_metadata(base)))
@@ -835,8 +870,9 @@ def file_metadata(cfg: ModelConfig, matrix_type: GGMLQuantType = GGMLQuantType.Q
     cfg.arch (the keys llama.cpp's converter writes): a gemma or gemma2
     file, or any whose head width is not n_embd / n_head, adds its head
     widths; a sliding window, gemma2's logit softcaps, olmo's clamp_kqv and
-    command-r's logit_scale where the config has them; the norm epsilon
-    under the key of the arch's norm."""
+    command-r's logit_scale where the config has them; gptneox's
+    use_parallel_residual and mpt's and jais's max_alibi_bias; the norm
+    epsilon under the key of the arch's norm."""
     a = cfg.arch
     if a not in DENSE_ARCHES:
         raise ValueError(f"synthetic_gguf writes {DENSE_ARCHES} dense files, not {a!r}")
@@ -866,6 +902,10 @@ def file_metadata(cfg: ModelConfig, matrix_type: GGMLQuantType = GGMLQuantType.Q
         kv.append((f"{a}.attention.clamp_kqv", np.float32(cfg.clamp_kqv)))
     if cfg.logit_scale != 1.0:
         kv.append((f"{a}.logit_scale", np.float32(cfg.logit_scale)))
+    if a == "gptneox":
+        kv.append((f"{a}.use_parallel_residual", bool(cfg.parallel_residual)))
+    if a in ALIBI_KEY_ARCHES:
+        kv.append((f"{a}.attention.max_alibi_bias", np.float32(cfg.max_alibi_bias)))
     return kv
 
 
@@ -888,11 +928,14 @@ def synthetic_gguf(path, cfg: ModelConfig, seed: int = 0, layer_types: Optional[
     `token_embd` defaults to output_type, as llama.cpp gives a tied
     embedding the output's type, and its norms are drawn near 0 (the model
     scales by 1 + w); gemma2's layers add `post_attention_norm` (after
-    attn_output) and `post_ffw_norm` (after ffn_down).  A llama-shaped
-    family file carries FAMILY_TENSORS' tensors (biases F32, normal with
-    std 0.1; a fused attn_qkv of attn_q's type), and a tied one (command-r,
-    minicpm) no `output`.  Each tensor is drawn from one numpy Generator as
-    the writer streams it, so a full 8B file never sits whole in host
+    attn_output) and `post_ffw_norm` (after ffn_down).  A family file
+    carries FAMILY_TENSORS' tensors (biases F32, normal with std 0.1; a
+    fused attn_qkv of attn_q's type; a position table F32, normal with std
+    0.02; chatglm's packed ffn_up of ffn_up's type; falcon's attn_norm_2
+    where it has several kv heads), and a tied one (command-r, minicpm,
+    starcoder, mpt, bloom, jais) no `output`.  Each tensor is drawn from
+    one numpy Generator as the writer streams it, so a full 8B file never
+    sits whole in host
     memory.  extra_kvs (e.g. synthetic_spm_vocab's tokenizer keys) are
     written after the model's keys; the loader ignores them.  With `moe`
     the file is cfg.arch's MoE layout (llama: Mixtral; deepseek2: MLA with
@@ -941,11 +984,19 @@ def synthetic_gguf(path, cfg: ModelConfig, seed: int = 0, layer_types: Optional[
         vector(name + ".bias", (n,), 0.0, 0.1)
 
     matrix("token_embd.weight", V, E, embd_type)
+    if fam.get("pos_embd"):
+        vector("position_embd.weight", (cfg.n_ctx_train, E), 0.0, 0.02)
+    if fam.get("tok_norm"):
+        norm("token_embd_norm")
+    norm_2 = fam.get("attn_norm_2") and cfg.n_head_kv > 1
+    up_rows = 2 * F if fam.get("packed_up") else F
     for i, types in enumerate(layer_types):
         b = f"blk.{i}."
         norm(b + "attn_norm")
+        if norm_2:
+            norm(b + "attn_norm_2")
         shapes = {"attn_q": (qd, E), "attn_k": (kvd, E), "attn_v": (kvd, E),
-                  "attn_output": (E, qd), "ffn_gate": (F, E), "ffn_up": (F, E),
+                  "attn_output": (E, qd), "ffn_gate": (F, E), "ffn_up": (up_rows, E),
                   "ffn_down": (E, F)}
         for name in LAYER_MATRICES:
             qtype = types.get(name, matrix_type)
@@ -965,7 +1016,8 @@ def synthetic_gguf(path, cfg: ModelConfig, seed: int = 0, layer_types: Optional[
             if fam.get("qkv_bias") and name in ("attn_q", "attn_k", "attn_v"):
                 bias(b + name, shapes[name][0])
             if (fam.get("out_bias") and name == "attn_output"
-                    or fam.get("ffn_bias") and name in ("ffn_up", "ffn_down")):
+                    or fam.get("ffn_bias") and name in ("ffn_up", "ffn_down")
+                    or fam.get("gate_bias") and name == "ffn_gate"):
                 bias(b + name, shapes[name][0])
             if name == "attn_v" and fam.get("qk_norm"):
                 hd = cfg.head_dim
@@ -978,6 +1030,8 @@ def synthetic_gguf(path, cfg: ModelConfig, seed: int = 0, layer_types: Optional[
     norm("output_norm")
     if not tied:
         matrix("output.weight", V, E, output_type)
+    if fam.get("output_bias"):
+        bias("output", V)
     w.write(path)
     return os.path.getsize(path)
 
@@ -1082,6 +1136,33 @@ def gemma_7b(n_layer: int = 28) -> ModelConfig:
                        n_ctx_train=8192, rms_eps=1e-6, norm_weight_offset=1.0, act="gelu",
                        rope_type=ROPE_TYPE_NEOX, embd_scale=3072 ** 0.5,
                        tie_word_embeddings=True)
+
+
+def falcon_7b(n_layer: int = 32) -> ModelConfig:
+    """Falcon-7B at its published shapes (huggingface.co/tiiuae/falcon-7b,
+    config.json): E 4544, 32 layers, 71 query heads of 64 on one kv head
+    (multi-query), F 18176 (4 E, gelu, no biases), vocab 65024, 2048
+    positions, parallel attention and FFN on one LayerNorm, NEOX rope base
+    10000; the fields config_from_metadata sets for such a file.  K = 4544
+    is no multiple of 256, so a Q4_K_M file takes llama.cpp's Q5_0 / Q8_0
+    fallback on every matrix that reads E.  n_layer cuts depth."""
+    return ModelConfig(arch="falcon", name="falcon-7b", vocab_size=65024, n_embd=4544,
+                       n_layer=n_layer, n_head=71, n_head_kv=1, n_ff=18176, n_ctx_train=2048,
+                       use_rms_norm=False, act="gelu", ffn_gated=False, rope_type=ROPE_TYPE_NEOX,
+                       parallel_residual=True)
+
+
+def starcoder_15b(n_layer: int = 40) -> ModelConfig:
+    """StarCoder-15.5B at its published shapes (huggingface.co/bigcode/
+    starcoder, config.json): E 6144, 40 layers, 48 query heads of 128 on one
+    kv head (multi-query), F 24576 (gelu), biases on every projection and
+    norm, vocab 49152, 8192 learned positions (no rope), a tied head; the
+    fields config_from_metadata sets for such a file.  n_layer cuts
+    depth."""
+    return ModelConfig(arch="starcoder", name="starcoder-15.5b", vocab_size=49152, n_embd=6144,
+                       n_layer=n_layer, n_head=48, n_head_kv=1, n_ff=24576, n_ctx_train=8192,
+                       use_rms_norm=False, act="gelu", ffn_gated=False,
+                       rope_type=ROPE_TYPE_NONE, learned_pos_embd=True)
 
 
 def _fallback_type(qtype: GGMLQuantType, k: int) -> GGMLQuantType:

@@ -1,5 +1,7 @@
 """FFN activations (port of ``llama_kotlin_tpu/ops/activations.py``):
-computed in f32, cast back to the input dtype."""
+computed in f32, cast back to the input dtype (relu and relu2 agree bit for
+bit with JAX's in-dtype ones: max is exact, and a bf16 square fits f32
+exactly, so its one rounding is the same)."""
 
 from __future__ import annotations
 
@@ -20,4 +22,14 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-ACTIVATIONS = {"silu": silu, "gelu": gelu}
+def relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp_min(x.to(torch.float32), 0.0).to(x.dtype)
+
+
+def relu2(x: torch.Tensor) -> torch.Tensor:
+    """relu(x)^2 (nemotron's FFN, JAX ``relu_squared``)."""
+    r = torch.clamp_min(x.to(torch.float32), 0.0)
+    return (r * r).to(x.dtype)
+
+
+ACTIVATIONS = {"silu": silu, "gelu": gelu, "relu": relu, "relu2": relu2}

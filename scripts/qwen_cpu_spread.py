@@ -1,11 +1,15 @@
 #!/usr/bin/env python3
-"""The CPU's own spread on chip_smoke.py's llama-shaped family checks: the
-2-layer Qwen2-7B and Qwen1.5-MoE-A2.7B files of ``qwen_parity_cases`` (in
-their modes) and the architecture sweep's files of ``sweep_cases`` (exact), the
-same seeds, prompts and contexts, served on the CPU at 8 intra-op threads
-and again at 1.
+"""The CPU's own spread on chip_smoke.py's family checks: the 2-layer
+Qwen2-7B and Qwen1.5-MoE-A2.7B files of ``qwen_parity_cases`` (in their
+modes), the 2-layer Falcon-7B and StarCoder-15.5B files of
+``gpt_parity_cases`` and the architecture sweep's files of ``sweep_cases``
+(exact), the same seeds, prompts and contexts, served on the CPU at 8
+intra-op threads and again at 1.
 
-    python3 scripts/qwen_cpu_spread.py [--tmp DIR] [--only qwen|sweep]
+    python3 scripts/qwen_cpu_spread.py [--tmp DIR] [--only qwen|gpt|sweep]
+
+``--only gpt`` runs the Falcon-7B and StarCoder files and the sweep's
+learned-position and LayerNorm-gelu members (GPT_SWEEP).
 
 The thread counts change only the f32 order of the CPU's sums, so the
 difference between the two runs, carried through the layers, is rounding
@@ -15,7 +19,8 @@ eight-thread run's greedy tokens, and on the MoE file its routing
 (scripts/moe_cpu_spread.py's replay).  Prints one JSON line per check:
 each step's max|logits difference| over max|logits|, the largest
 (``spread``) and the check's tolerance.  Runs on the CPU only; the Qwen
-files take about 2 GB under DIR, removed after use."""
+files take about 2 GB under DIR, the Falcon and StarCoder files about 2
+GB more, removed after use."""
 
 from __future__ import annotations
 
@@ -32,6 +37,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import chip_smoke  # noqa: E402
 from llama_kotlin_tpu_torch.ops import moe  # noqa: E402
+
+# the sweep's members of the learned-position and LayerNorm-gelu family
+GPT_SWEEP = ("gpt2", "starcoder", "gptneox", "falcon", "falcon-40b", "mpt", "phi2", "bloom",
+             "jais", "nemotron", "chatglm")
 
 
 def spread(label: str, build, prompt, tol: float, is_moe: bool) -> None:
@@ -66,15 +75,19 @@ def spread(label: str, build, prompt, tol: float, is_moe: bool) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tmp", default=None, help="directory for the files (default: a temp dir)")
-    ap.add_argument("--only", choices=("qwen", "sweep"), default=None)
+    ap.add_argument("--only", choices=("qwen", "gpt", "sweep"), default=None)
     args = ap.parse_args()
     with tempfile.TemporaryDirectory(dir=args.tmp) as tmp:
-        if args.only != "sweep":
+        if args.only in (None, "qwen"):
             for label, build, prompt, tol, is_moe in chip_smoke.qwen_parity_cases(Path(tmp)):
                 spread(label, build, prompt, tol, is_moe)
+        if args.only in (None, "gpt"):
+            for label, build, prompt, tol in chip_smoke.gpt_parity_cases(Path(tmp)):
+                spread(label, build, prompt, tol, False)
         if args.only != "qwen":
             for label, _cfg, build, prompt, tol in chip_smoke.sweep_cases(Path(tmp)):
-                spread(label, build, prompt, tol, False)
+                if args.only != "gpt" or label.removeprefix("sweep_") in GPT_SWEEP:
+                    spread(label, build, prompt, tol, False)
     return 0
 
 
