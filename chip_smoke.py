@@ -19,7 +19,7 @@ Phases (any failure exits non-zero and prints no result line):
                from a seed) serves 3 requests through LlamaContext: prefill
                64 tokens, then 32 greedy tokens; on the unrolled path with
                a bf16 cache, then stacked with a bf16 and a q8_0 cache and
-               unrolled with a q8_0 cache (these at the model's first 4
+               unrolled with a q8_0 cache (these at the model's first 2
                layers); every kernel of each path must launch (kernel 9
                once a layer and step, kernel 3 never, on the stacked path);
   5. gguf    — a full-width 32-layer llama3-8B GGUF file with the Q4_K_M
@@ -57,9 +57,9 @@ knobs(), which restores the environment), add to 3 kernel 8 on sym and
 legacy W4 folds at the four decode projections (b = 1, 9, 16 and 32,
 beside kernel 1 on the same inputs) and kernel 10 on compact, sym and legacy folds
 (b = 1 and 8, beside the unfused route it replaces); to 4 the W4A8 model
-(its first 4 layers) with LKTPU_LAYER_FUSED=1, stacked and unrolled
+(its first 2 layers) with LKTPU_LAYER_FUSED=1, stacked and unrolled
 (kernel 10: n_layer launches a decode step, none at the prefill); to 5 a
-full-width 4-layer Q4_0 file (sym folds, Q6_K output) by default, with
+full-width 2-layer Q4_0 file (sym folds, Q6_K output) by default, with
 LKTPU_W4_FX=1 and with both knobs; to 6 the fused W4A8 model and 2-layer
 Q4_0 and Q4_1 files under each knob against the CPU.
 
@@ -136,8 +136,8 @@ fold and Q8F of each new format against the CPU's; to 5 the 32-layer
 Q4_K_M file loaded with fast_mode=None serving 3 requests (kernel 4's exact
 branch on every projection at every step, kernel 3 attends, kernels 1, 2,
 5, 6 and 7 never; exact_serving_phase, which also runs tools/main.py
-without --fast-mode), a 4-layer file of every format in all four modes
-and a 4-layer Q8_0 file in the exact mode on the stacked path (kernel 9 and
+without --fast-mode), a 2-layer file of every format in all four modes
+and a 2-layer Q8_0 file in the exact mode on the stacked path (kernel 9 and
 kernel 4's exact branch; new_formats_phase); to 6 the 2-layer Q4_K_M file
 and a 2-layer every-format file in the exact mode against the CPU.
 
@@ -193,7 +193,7 @@ EARLIER_LAYERS layers (every shadowed projection on kernel 6 at 9-256
 rows, bit-equal W4 routes at 8 and 257, batched_bench rows at 1-32 slots
 and 64-300-token prompts with and without the shadow, exact launch
 counts; dual_fold_phase) and the synthetic int8, dequant, sym w4, dense
-and unfused draws (synthetic_modes_phase); to 5 a 4-layer llama3-8B file
+and unfused draws (synthetic_modes_phase); to 5 a 2-layer llama3-8B file
 of every IQ format in the four modes (iq_formats_phase) and llama3-70b
 at full width and all 80 layers in w4 (kernel 2's routes at F = 28672,
 kernels 1 and 2 timed at its widths, 3 requests, a profiled prefill and
@@ -234,13 +234,35 @@ serving phase went to EARLIER_LAYERS for them); to 6 both at 2 layers
 and a falcon-40b-shaped member in the sweep, kernel 3 never launched where
 JAX's predicate declines (ALiBi: mpt, bloom, jais; phi2's head dim 80).
 
+The large MoEs and the per-layer architectures (dbrx, arctic, grok,
+openelm, bitnet: DBRX's clamped fused qkv and 16 experts of which 4 route,
+grok's softcap 30 and gelu experts, arctic's MoE branch beside its dense
+FFN, bitnet's scales and sub-norms, OpenELM's per-layer head, kv-head and
+FFN counts) add to 3 kernel 3 at 48 query heads on 8 kv heads without and
+with softcap 30 on the three caches, decode and 64 rows over 1001, 1024
+and 4096 cells, and on OpenELM-3B's per-layer views (12/3 and 24/6 heads of
+a 6-kv-head cache), kernel 4's exact branch at DBRX's, Grok-1's and
+Arctic's expert widths, kernel 1 at DBRX's and OpenELM-3B's and kernel 2 at
+OpenELM-3B's FFNs (large_moe_kernel_phase); to 5 DBRX at full width
+(EARLIER_LAYERS layers) and OpenELM-3B at full width and all 36 layers,
+exact and w4, 3 requests each with every kernel's launches exact
+(route_counts, layer by layer: the MoE route by its rows, kernel 2 where
+it takes a layer), profiled, and DBRX's exact load on the engine at 4
+slots, whose decode steps sweep the experts (dbrx_phase, openelm_phase;
+Falcon-7B's serving phase went to EARLIER_LAYERS for them); to 6 DBRX at
+2 layers (exact and w4, on the CPU's routing) and a 2-layer OpenELM file
+of OpenELM-3B's first and last layers' shapes (large_moe_parity_phase),
+and grok, arctic (128 experts), bitnet (head dim 100), dbrx and openelm
+in the sweep, kernel 3 never where JAX declines it.
+
 The parity phases' CPU references are computed by child processes of this
 script (--cpu-refs, started at once, CPU_REF_GROUPS: each a share of the
 parity phases and of the host's threads), which run beside the card's
 phases; the parent reads each reference when its card run needs it.
 Another child (--write-files) writes the 4.9 GB llama3-8B Q4_K_M file, the
 every-IQ files, the DeepSeek-V2-Lite, gemma-2-9b, Qwen2-7B,
-Qwen1.5-MoE-A2.7B, Falcon-7B (4.6 GB) and StarCoder-15.5B files meanwhile.
+Qwen1.5-MoE-A2.7B, Falcon-7B, StarCoder-15.5B, DBRX (about 9 GB) and
+OpenELM-3B files meanwhile.
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -274,10 +296,12 @@ SPIN_CYCLES = 10_000_000  # ~5 ms of device spin ahead of each timed call
 # the W4X model, tinyllama-1.1b and speculative decoding): cut to keep the
 # whole script well inside its time limit on a slow host (8 layers until
 # the tinyllama-1.1b phase and kernel 6's and the repaired attention's rows
-# came); the main path, the Q4_K_M file and Falcon-7B keep their full
-# depth (DeepSeek-V2-Lite, gemma-2-9b, llama3-70b and Qwen2-7B went to it as
-# later slices came)
-EARLIER_LAYERS = 4
+# came, 4 until DBRX's and OpenELM-3B's phases came: the files the script
+# writes then passed the 45 GiB of disk writes the card's machine allows a
+# run); the main path, the Q4_K_M file and OpenELM-3B keep their full depth
+# (DeepSeek-V2-Lite, gemma-2-9b, llama3-70b, Qwen2-7B and Falcon-7B went to
+# it as later slices came)
+EARLIER_LAYERS = 2
 # greedy tokens of each request of the 32-token prompts (serve_32)
 N_NEW_32 = 8
 # kernel 6's timed row counts: both sides of its threshold T6, each m16
@@ -1524,9 +1548,9 @@ def exact_serving_phase(torch, path: Path) -> dict:
 
 
 def new_formats_phase(torch, tmpdir: Path) -> dict:
-    """A full-width 4-layer llama3-8B file of the every-format mix
+    """A full-width EARLIER_LAYERS-layer llama3-8B file of the every-format mix
     (every_format_layer_types: Q5_0, Q5_1, Q2_K, Q3_K, Q5_K, Q4_0, Q4_1,
-    Q8_0, Q6_K and Q4_K on its 28 matrices, none fused; Q5_K token_embd, Q6_K
+    Q8_0, Q6_K and Q4_K on its 7 matrices a layer, none fused; Q5_K token_embd, Q6_K
     output) loaded in all four modes, each serving 3 requests (64-token
     prefill, 8 greedy tokens) on the default context with its launch
     counts: the W8 folds of the new formats on kernel 5 (w4; its dual-plane
@@ -1534,7 +1558,7 @@ def new_formats_phase(torch, tmpdir: Path) -> dict:
     prefill rows on kernel 4; Q8F on kernel 6 (int8, whose uniform layers
     stack: kernel 9 attends); exact repacks on kernel 4's exact branch, 29
     launches a forward (exact).  The mixed modes stay unrolled (kernel 3).
-    Then a 4-layer all-Q8_0 file in the exact mode: its uniform layers
+    Then an EARLIER_LAYERS-layer all-Q8_0 file in the exact mode: its uniform layers
     stack, so kernel 9 attends and kernel 4's exact branch takes 17
     launches a forward.
     Returns {path: launch counts}."""
@@ -1597,6 +1621,23 @@ def streamed_bytes(params) -> int:
     return nbytes(out, w4_planes(out)) + sum(
         nbytes(v, w4_planes(v)) for lp in params["layers"] for v in lp.values()
         if hasattr(v, "codes"))
+
+
+def routed_bytes(cfg, params) -> tuple:
+    """(every weight byte, the bytes a one-token step must read):
+    streamed_bytes with each MoE layer's experts (a stacked repack, or a
+    list of per-expert folds, which streamed_bytes leaves out) counted
+    whole, and at the share a decode token routes to, n_expert_used of
+    n_expert."""
+    stacked = experts = 0
+    for lp in params["layers"]:
+        for key, v in lp.items():
+            if key.endswith("_exps"):
+                stacked += 0 if isinstance(v, list) else nbytes(v, w4_planes(v))
+                experts += sum(nbytes(w, w4_planes(w))
+                               for w in (v if isinstance(v, list) else [v]))
+    dense = streamed_bytes(params) - stacked
+    return dense + experts, dense + experts * cfg.n_expert_used // max(cfg.n_expert, 1)
 
 
 def mod_name(m) -> str:
@@ -2749,7 +2790,8 @@ def shift_positions(ctx, n_past: int) -> int:
 # sweep references in 128 s where one at 7 took 220 s (the H100 machine's
 # 8-core host; these references are many small ops that scale poorly with
 # threads), so the phases are split in two halves of about equal time
-CPU_REF_GROUPS = ((4, ("qwen_parity_phase", "parity_phase", "gguf_parity_phase")),
+CPU_REF_GROUPS = ((4, ("qwen_parity_phase", "parity_phase", "gguf_parity_phase",
+                        "large_moe_parity_phase")),
                   (3, ("gpt_parity_phase", "arch_sweep_phase", "engine_parity_phase",
                        "moe_parity_phase", "gemma_parity_phase", "iq_parity_phase",
                        "llama70b_parity_phase")))
@@ -2803,6 +2845,7 @@ FILES: dict = {"dir": None, "child": None, "log": None}
 LLAMA_FILE = "llama3-8b-q4_k_m.gguf"
 DS2_FILE = "deepseek-v2-lite-q4_k_m.gguf"
 GEMMA2_FILE = "gemma-2-9b-q4_k_m.gguf"
+DBRX_FILE = "dbrx-q4_k_m.gguf"
 GEMMA_SEED = 17
 IQ_FILE = "llama3-8b-every-iq.gguf"
 IQ_PARITY_FILE = "llama3-8b-2layer-every-iq.gguf"
@@ -2873,7 +2916,7 @@ def write_gemma_parity_file(path: Path) -> dict:
 def file_specs() -> dict:
     """{name: (config, synthetic_gguf's keywords)} of the smaller files the
     writer child writes: gguf_parity_phase's and moe_parity_phase's 2-layer
-    files (which the CPU reference process reads too) and the 4-layer files
+    files (which the CPU reference process reads too) and the EARLIER_LAYERS-layer files
     of new_formats_phase and q4_0_gguf_phase."""
     from llama_kotlin_tpu_torch.models.synthetic import (deepseek_v2_lite,
                                                          every_format_layer_types, mixtral_8x7b,
@@ -2918,6 +2961,7 @@ WRITERS = {**{name: lambda p: write_qwen_parity_file(p)
            **{name: write_spec_file for name in PARITY_FILES},
            LLAMA_FILE: write_llama_file,
            **{name: write_spec_file for name in MOE_PARITY_FILES},
+           "openelm-2layer.gguf": lambda p: write_openelm_parity_file(p),
            "llama3-8b-q4_0.gguf": write_spec_file, "llama3-8b-every-format.gguf": write_spec_file,
            "llama3-8b-q8_0.gguf": write_spec_file, IQ_FILE: lambda p: write_iq_file(p),
            DS2_FILE: write_ds2_file, GEMMA2_FILE: write_gemma2_file,
@@ -2926,12 +2970,15 @@ WRITERS = {**{name: lambda p: write_qwen_parity_file(p)
            "qwen2-7b-q4_k_m.gguf": lambda p: write_qwen2_file(p),
            "qwen1.5-moe-a2.7b-q4_k_m.gguf": lambda p: write_qwen2moe_file(p),
            "falcon-7b-q4_k_m.gguf": lambda p: write_falcon_file(p),
-           "starcoder-15.5b-q4_k_m.gguf": lambda p: write_starcoder_file(p)}
+           "starcoder-15.5b-q4_k_m.gguf": lambda p: write_starcoder_file(p),
+           DBRX_FILE: lambda p: write_dbrx_file(p),
+           "openelm-3b-q4_k_m.gguf": lambda p: write_openelm_file(p)}
 # files both the parent and the CPU reference process read: each takes a
 # hard link, and the writer's directory keeps the file to the end
 SHARED_FILES = frozenset(PARITY_FILES + MOE_PARITY_FILES + tuple(gemma_parity_files())
                          + (IQ_PARITY_FILE, "qwen2-2layer.gguf", "qwen2moe-2layer.gguf",
-                            "falcon-2layer.gguf", "starcoder-2layer.gguf"))
+                            "falcon-2layer.gguf", "starcoder-2layer.gguf", DBRX_FILE,
+                            "openelm-2layer.gguf"))
 FILE_WAIT_S = 900  # how long the CPU reference process waits for a file
 
 
@@ -4367,7 +4414,7 @@ def gemma2_phase(torch, tmpdir: Path) -> dict:
                 c.close()
         # a prefill and 31 decode steps a request; every kernel-3 launch on
         # its D = 256 branch
-        want = route_counts(params, 3 * 32, 3 * 31, mode)
+        want = route_counts(lcfg, params, 3 * 32, 3 * 31, mode)
         want["flash_d256"] = want["flash"]
         got = {k: counts[k] for k in want}
         log(json.dumps({"phase": f"{label}_routes", "launches": got, "expected": want}))
@@ -5030,15 +5077,19 @@ QWEN2_SHAPES = {"qkv": (4608, 3584), "o": (3584, 3584), "gate_up": (37888, 3584)
 
 
 def head_group_flash_rows(torch, results: dict, gen, flush, tag: str, heads: tuple,
-                          cells: int, cases) -> None:
+                          cells: int, cases, softcap: float = 0.0, view: int = 0) -> None:
     """Kernel 3 (and kernel 9 where a case asks) at `heads` = (H, KV, D)
     on layer 1 of a [2, KV, cells, D] cache: for each (n_vis, nt, kinds,
     stacked) of `cases`, nt query tokens (the step's tokens last, causal;
     at nt > 1 row 5 blind: exactly 0) over n_vis visible cells on each cache
     of `kinds` (bf16, int8, int4), and with stacked=True kernel 9 on the
     bf16 and int8 caches (the step's cells masked out, its rows merged
-    fresh); each against its plain version, timed beside SDPA and its
-    bound (tol as the kernels' other rows)."""
+    fresh); each against its plain version, timed beside SDPA (which takes
+    no softcap) and its bound (tol as the kernels' other rows).  softcap:
+    the attention's logit softcap (grok's 30).  view > 0: the cache holds
+    `view` kv heads a layer and kernel 3 attends over layer 1's 3-D view
+    of its first KV (openelm's per-layer view, models/llama.py::
+    _layer_cache; no kernel 9)."""
     from llama_kotlin_tpu_torch.ops.cuda import flash, flash_stacked
     from llama_kotlin_tpu_torch.runtime.kv_cache import (dequantize_cache_layer, quantize_rows,
                                                          quantize_rows_q4)
@@ -5047,8 +5098,8 @@ def head_group_flash_rows(torch, results: dict, gen, flush, tag: str, heads: tup
     dev = torch.device("cuda")
     (H, KV, D), L, li = heads, 2, 1
     scale = D ** -0.5
-    kb = torch.randn((L, KV, cells, D), generator=gen, device=dev).to(torch.bfloat16)
-    vb = torch.randn((L, KV, cells, D), generator=gen, device=dev).to(torch.bfloat16)
+    kb = torch.randn((L, view or KV, cells, D), generator=gen, device=dev).to(torch.bfloat16)
+    vb = torch.randn((L, view or KV, cells, D), generator=gen, device=dev).to(torch.bfloat16)
     (k8, ks), (v8, vs) = quantize_rows(kb), quantize_rows(vb)
     (k4, ks4), (v4, vs4) = quantize_rows_q4(kb), quantize_rows_q4(vb)
     caches = {"bf16": (kb, vb, None, None, 8, 4 * D),
@@ -5068,13 +5119,19 @@ def head_group_flash_rows(torch, results: dict, gen, flush, tag: str, heads: tup
         for kind in kinds:
             k, v, ksc, vsc, bits, elem = caches[kind]
             kw = dict(scale=scale, k_scale=ksc, v_scale=vsc)
-            kw3 = dict(kw, layer=li, kv_bits=bits)
+            kw3 = dict(kw, layer=li, kv_bits=bits, logit_softcap=softcap)
+            lay = lambda t: t[li]  # noqa: E731
+            if view:  # layer 1's first KV kv heads, a contiguous 3-D view
+                k, v = k[li, :KV], v[li, :KV]
+                ksc, vsc = (None, None) if ksc is None else (ksc[li, :KV], vsc[li, :KV])
+                kw3 = dict(kw3, layer=None, k_scale=ksc, v_scale=vsc)
+                lay = lambda t: t  # noqa: E731
             args = (q, k, v, mask)
             got = flash.flash_attention(*args, **kw3)
             if nt > 1 and bool(got[5].any()):
                 raise AssertionError(f"kernel 3 at {tag} ({kind}): a blind row is not 0")
-            kf, vf = (k[li, :, :n_vis], v[li, :, :n_vis]) if ksc is None else (
-                dequantize_cache_layer(c[li, :, :n_vis], sc[li, :, :n_vis], torch.bfloat16,
+            kf, vf = (lay(k)[:, :n_vis], lay(v)[:, :n_vis]) if ksc is None else (
+                dequantize_cache_layer(lay(c)[:, :n_vis], lay(sc)[:, :n_vis], torch.bfloat16,
                                        bits=bits) for c, sc in ((k, ksc), (v, vsc)))
             vis = int(mask.any(dim=0).sum().item())
             report("flash", f"{tag} {kind} cache nt={nt} n_vis={n_vis}",
@@ -5214,46 +5271,94 @@ def write_qwen2moe_file(path: Path) -> dict:
     return _written(path, cfg, seed=QWEN_SEED + 1, moe=moe_shape)
 
 
-def route_counts(params, n_forward: int, n_decode: int, mode, sweep: int = 0) -> dict:
+def route_counts(cfg, params, n_forward: int, n_decode: int, mode, decode_rows: int = 1,
+                 prefill_rows: int = 64) -> dict:
     """The launches serve() must count on a loaded file whose layers attend
-    on kernel 3 once each at every forward: per decode step in w4 each W4
-    projection on kernel 1 and each W8 one (a Q6_K attn_v or ffn_down, the
-    Q6_K head, tied or not) on kernel 5, but a matrix whose output rows no
-    block of 128 divides on kernel 4 (JAX's _plan declines it: Falcon-7B's
-    fused qkv, o and down), kernel 2 never (JAX's entry declines E = 3584
-    and gemma's widths; the gpt2 family's FFNs are not gated); per 64-token
-    prefill every layer matrix on kernel 4 and the head's one row on kernel
-    5; in the exact mode every matrix on kernel 4's exact branch at every
-    forward.  A MoE file's stacked exact experts take no kernel at a decode
-    step (the gathered route) and `sweep` kernel-4 exact launches at a
-    prefill (every expert's gate, up and down a MoE layer).
-    tests/test_torch_gemma.py, tests/test_torch_qwen2.py and
-    tests/test_torch_falcon.py hold these routes against JAX's at
-    gemma-2-9b's, Qwen2-7B's and Falcon-7B's widths."""
+    on kernel 3 once each at every forward (n_forward forwards, n_decode of
+    them decode steps of decode_rows rows, the rest prefills of
+    prefill_rows), layer by layer, each matrix by the rule ops/qmatmul.py
+    holds JAX's to:
+    - the exact mode: every matrix and the head on kernel 4's exact branch
+      at every forward ("qmm", "qmm_exact");
+    - w4: at a decode step each W4 projection on kernel 1 and each W8 one
+      (a Q6_K attn_v or ffn_down, the Q6_K head, tied or not) on kernel 5,
+      but a matrix whose output rows no block of 128 divides on kernel 4
+      (JAX's _plan declines it: Falcon-7B's fused qkv, o and down); a
+      gated FFN that kernel 2 takes (ops/cuda/qmm_w4_ffn.py::ffn_eligible,
+      held against JAX's entry by the CPU tests: the fused gate|up or gate
+      and up apart, no bias, scale or sub-norm between the products) one
+      kernel-2 launch in place of its matrices' (OpenELM-3B's all-legacy
+      layers; JAX's entry declines E = 3584, gemma's widths and mixed
+      flavors); at a prefill every layer matrix on kernel 4 and the head's
+      one row on kernel 5;
+    - experts: a list of per-expert folds (a fast mode, E <= 16: DBRX and
+      Mixtral in w4) runs every expert's gate, up and down through those
+      rules at every forward (the sweep); a stacked exact repack gathers
+      the routed experts (no kernel) where a forward's slots (rows times
+      experts a token) are at most 64 and fewer than the experts (JAX's
+      rule), else sweeps every expert through kernel 4's exact branch.
+    tests/test_torch_{gemma,qwen2,falcon,openelm_bitnet}.py hold these
+    routes against JAX's at gemma-2-9b's, Qwen2-7B's, Falcon-7B's and
+    OpenELM-3B's widths."""
+    from llama_kotlin_tpu_torch.models.llama import _FFN_BETWEEN
+    from llama_kotlin_tpu_torch.ops.cuda.qmm_w4 import MAX_ROWS
+    from llama_kotlin_tpu_torch.ops.cuda.qmm_w4_ffn import ffn_eligible
     from llama_kotlin_tpu_torch.ops.qmatmul import ROW_BLOCK
-    from llama_kotlin_tpu_torch.quant.fold import is_w4, is_w8
+    from llama_kotlin_tpu_torch.quant.fold import is_exact, is_w4, is_w8
 
-    n_layer = len(params["layers"])
-    mats = [w for lp in params["layers"] for w in lp.values()
-            if hasattr(w, "codes") and not w.is_stacked]
-    head = params.get("output") if params.get("output") is not None else params["tok_embd"]
-    want = {"flash": n_forward * n_layer}
     n_prefill = n_forward - n_decode
+    got = {"qmm_w4": 0, "qmm_w8": 0, "qmm": 0, "qmm_exact": 0, "qmm_w4_ffn": 0}
+    passes = ((decode_rows, n_decode), (prefill_rows, n_prefill))
+
+    def add(w, rows: int, times: int) -> None:
+        if is_exact(w):
+            got["qmm"] += times
+            got["qmm_exact"] += times
+        elif not (is_w4(w) or is_w8(w)):
+            raise AssertionError("a Q4_K_M file loads W4 and W8 folds or exact repacks only")
+        elif rows <= MAX_ROWS and w.shape[0] % ROW_BLOCK == 0:
+            got["qmm_w4" if is_w4(w) else "qmm_w8"] += times
+        else:
+            got["qmm"] += times
+
+    for lp in params["layers"]:
+        gu = lp.get("ffn_gateup_fused", lp.get("ffn_gate"))
+        up = None if "ffn_gateup_fused" in lp else lp.get("ffn_up")
+        k2 = (mode is not None and cfg.ffn_gated and gu is not None and decode_rows <= MAX_ROWS
+              and not any(key in lp for key in _FFN_BETWEEN)
+              and ffn_eligible(gu, lp["ffn_down"], cfg.act, up))
+        got["qmm_w4_ffn"] += n_decode * k2
+        for key, w in lp.items():
+            experts = w if isinstance(w, list) else [w] if getattr(w, "is_stacked", False) \
+                else None
+            if experts is None and not hasattr(w, "codes"):
+                continue  # norms, biases, the dense router
+            for rows, times in passes:
+                if experts is None:
+                    if not (k2 and rows == decode_rows and times == n_decode
+                            and key in ("ffn_gateup_fused", "ffn_gate", "ffn_up", "ffn_down")):
+                        add(w, rows, times)
+                elif isinstance(w, list):
+                    for e in experts:
+                        add(e, rows, times)
+                elif not (rows * cfg.n_expert_used <= 64
+                          and rows * cfg.n_expert_used < cfg.n_expert):
+                    got["qmm"] += times * cfg.n_expert
+                    got["qmm_exact"] += times * cfg.n_expert
+    head = params.get("output") if params.get("output") is not None else params["tok_embd"]
+    add(head, 1, n_forward)  # every forward's one output row
+    want = {"flash": n_forward * cfg.n_layer}
     if mode is None:
-        want["qmm"] = want["qmm_exact"] = n_forward * (len(mats) + 1) + n_prefill * sweep
-        return want
-    planned = [w for w in mats if w.shape[0] % ROW_BLOCK == 0]
-    w4 = sum(1 for w in planned if is_w4(w))
-    w8 = sum(1 for w in planned if is_w8(w))
-    if (sum(1 for w in mats if is_w4(w) or is_w8(w)) != len(mats) or not is_w8(head)
-            or head.shape[0] % ROW_BLOCK):
-        raise AssertionError("a Q4_K_M w4 file loads W4 and W8 folds only, its head planned")
-    want.update(qmm_w4=n_decode * w4, qmm_w8=n_decode * (w8 + 1) + n_prefill,
-                qmm=n_prefill * (len(mats) + sweep) + n_decode * (len(mats) - len(planned)))
+        if got["qmm_w4"] or got["qmm_w8"] or got["qmm"] != got["qmm_exact"]:
+            raise AssertionError("the exact mode loads exact repacks only")
+        return dict(want, qmm=got["qmm"], qmm_exact=got["qmm_exact"])
+    want.update({k: got[k] for k in ("qmm_w4", "qmm_w8", "qmm")})
+    if got["qmm_w4_ffn"]:
+        want["qmm_w4_ffn"] = got["qmm_w4_ffn"]
     return want
 
 
-def family_phase(torch, tmpdir: Path, name: str, fname: str) -> dict:
+def family_phase(torch, tmpdir: Path, name: str, fname: str, engine: bool = False) -> dict:
     """A full-width family file from the writer child, loaded in the exact
     mode (the default) and in w4 (fuse=True); each serves 3 requests
     (64-token prompt, 32 greedy tokens) through LlamaContext and
@@ -5262,11 +5367,15 @@ def family_phase(torch, tmpdir: Path, name: str, fname: str) -> dict:
     forward, kernel 2 and the plain attention never, every kernel's
     launches exactly route_counts' (a kernel it expects none of must not
     launch); then a profiled prefill and 4 profiled decode steps (TTFT,
-    ms/token, device busy, idle share, launches a step).  Returns {path:
-    launch counts}."""
+    ms/token, device busy, idle share, launches a step); with engine=True
+    the exact load also serves 4 concurrent requests on the engine
+    (moe_engine).  Each load logs its layers' routes: the layers whose q|k|v
+    and gate|up fuse and the fold flavor of each layer's down.  Returns
+    {path: launch counts}."""
     from llama_kotlin_tpu_torch.models.loader import load_gguf_model
     from llama_kotlin_tpu_torch.ops.cuda import (flash, flash_stacked, qmm, qmm_int8, qmm_w4,
                                                  qmm_w4_ffn, qmm_w4x, qmm_w8)
+    from llama_kotlin_tpu_torch.tokenizer import build_tokenizer
 
     path, written = child_file(tmpdir, fname)
     log(json.dumps({"phase": f"{name}_file", **written, "type_mix": type_mix(path)}))
@@ -5278,23 +5387,30 @@ def family_phase(torch, tmpdir: Path, name: str, fname: str) -> dict:
         lcfg, params, f = load_gguf_model(path, fast_mode=mode, fuse=True)
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
+        tok = build_tokenizer(f.metadata) if engine and mode is None else None
         f.close()
-        w_bytes = streamed_bytes(params)
+        w_all, w_bytes = routed_bytes(lcfg, params)
+        layers = params["layers"]
         log(json.dumps({"phase": label, "n_layer": lcfg.n_layer, "load_s": load_s,
                         "device_bytes": torch.cuda.memory_allocated(),
                         "heads": [lcfg.n_head, lcfg.n_head_kv], "n_expert": lcfg.n_expert,
-                        "w_bytes_per_tok": w_bytes,
-                        "w_floor_ms_per_tok": w_bytes / HBM_BYTES_S * 1e3}))
-        moe_layers = sum(1 for lp in params["layers"] if "ffn_gate_inp" in lp)
+                        "w_bytes_all": w_all, "w_bytes_per_tok": w_bytes,
+                        "w_floor_ms_per_tok": w_bytes / HBM_BYTES_S * 1e3,
+                        "qkv_fused_layers": [i for i, lp in enumerate(layers)
+                                             if "wqkv_fused" in lp],
+                        "gate_up_fused_layers": [i for i, lp in enumerate(layers)
+                                                 if "ffn_gateup_fused" in lp],
+                        "down_layouts": [getattr(lp["ffn_down"], "flavor", None) or "exact"
+                                         for lp in layers if "ffn_down" in lp]}))
         # a prefill and 31 decode steps a request
-        want = route_counts(params, 3 * 32, 3 * 31, mode, sweep=3 * lcfg.n_expert * moe_layers)
+        want = route_counts(lcfg, params, 3 * 32, 3 * 31, mode)
         if mode is None:  # every projection and the head on kernel 4's exact branch
             mods = (qmm, exact_counter(), flash)
             never = (qmm_w4, qmm_w4_ffn, qmm_w8, qmm_int8, qmm_w4x, flash_stacked)
-        else:  # W4 on kernel 1, W8 (Q6_K attn_v, ffn_down, the head) on 5, the rest on 4
-            routed = (qmm_w4, qmm_w8, qmm, flash)
-            mods = tuple(m for m in routed if want[mod_name(m)])
-            never = (qmm_w4_ffn, qmm_int8, qmm_w4x, flash_stacked) + tuple(
+        else:  # W4 on kernel 1 (or kernel 2's FFN), W8 (Q6_K attn_v, ffn_down, the head) on 5
+            routed = (qmm_w4, qmm_w4_ffn, qmm_w8, qmm, flash)
+            mods = tuple(m for m in routed if want.get(mod_name(m)))
+            never = (qmm_int8, qmm_w4x, flash_stacked) + tuple(
                 m for m in routed if m not in mods)
         plain = plain_attention_counters()
         try:
@@ -5308,10 +5424,69 @@ def family_phase(torch, tmpdir: Path, name: str, fname: str) -> dict:
             raise AssertionError(f"{label}: launches {got}, expected {want}")
         profile_decode(torch, ctx, lcfg, label, n_steps=4)
         out[label] = counts
-        del ctx, params
+        del ctx
+        torch.cuda.empty_cache()
+        if tok is not None:
+            out.update(moe_engine(torch, lcfg, params, tok, name))
+        del params
         torch.cuda.empty_cache()
     path.unlink()
     return out
+
+
+def moe_engine(torch, cfg, params, tok, name: str) -> dict:
+    """The engine (runtime/engine.py) serving 4 concurrent greedy requests
+    (64-token prompts, 32 tokens) at 4 slots on a loaded MoE file: tokens/s,
+    TTFT per request, decode and chunked steps, and the MoE route each
+    forward took by its rows (ops/moe.py's gathered FFN or the sweep,
+    models/llama.py::_moe_sweep).  A chunked decode step of the 4 slots
+    is 4 rows (generate_loop does not pad them), 16 routed slots: not fewer
+    than DBRX's 16 experts, so JAX's rule sweeps it where one slot's 4
+    gather: the sweep must be seen at decode rows (2 to 8).  Every request
+    ends at its 32 tokens."""
+    import numpy as np
+
+    from llama_kotlin_tpu_torch.models import llama
+    from llama_kotlin_tpu_torch.ops import moe
+    from llama_kotlin_tpu_torch.runtime.context import LlamaContext
+    from llama_kotlin_tpu_torch.runtime.engine import Engine, Request
+    from llama_kotlin_tpu_torch.sampling.samplers import SamplingParams
+
+    rows: dict = {}
+    real = {"sweep": llama._moe_sweep, "gathered": moe.moe_gathered_quant}
+
+    def sweep(lp, x, *a, **kw):
+        key = f"sweep_rows_{x.shape[0]}"
+        rows[key] = rows.get(key, 0) + 1
+        return real["sweep"](lp, x, *a, **kw)
+
+    def gathered(x, *a, **kw):
+        key = f"gathered_rows_{x.shape[0]}"
+        rows[key] = rows.get(key, 0) + 1
+        return real["gathered"](x, *a, **kw)
+
+    llama._moe_sweep, moe.moe_gathered_quant = sweep, gathered
+    try:
+        ctx = LlamaContext(cfg, params, n_cells=SERVE_CELLS, device="cuda")
+        reqs = [Request(prompt_tokens=np.random.default_rng(50 + i).integers(
+            259, cfg.vocab_size, 64).astype(np.int32), params=SamplingParams(temp=0.0),
+            n_predict=32) for i in range(4)]
+        eng = Engine(ctx, tok, n_slots=4, n_batch=256)
+        dt = _drive(eng, reqs)
+    finally:
+        llama._moe_sweep, moe.moe_gathered_quant = real["sweep"], real["gathered"]
+    n = sum(len(r.output_tokens) for r in reqs)
+    line = {"phase": f"{name}_engine", "slots": 4, "requests": len(reqs), "wall_s": dt,
+            "tokens": n, "tok_s": n / dt, "decode_steps": eng.metrics["n_decode_steps"],
+            "chunked_steps": eng.n_chunked, "moe_routes_by_rows": rows,
+            "ttft_ms": [(r.t_first_token - r.t_start) * 1e3 for r in reqs]}
+    log(json.dumps(line))
+    decode_sweeps = sum(c for k, c in rows.items()
+                        if k.startswith("sweep_") and 2 <= int(k.rsplit("_", 1)[1]) <= 8)
+    if n != 4 * 32 or not decode_sweeps:
+        raise AssertionError(f"{name}_engine: {line}")
+    del ctx
+    return {f"{name}_engine": {"moe_decode_sweeps": decode_sweeps}}
 
 
 def qwen2_phase(torch, tmpdir: Path) -> dict:
@@ -5437,35 +5612,57 @@ SWEEP_ARCHES = {
     "falcon-40b": dict(n_head=16, n_head_kv=2), "mpt": dict(n_head_kv=8),
     "phi2": dict(n_embd=1280, n_head=16, n_head_kv=16, rope_dim=32),
     "bloom": dict(n_head_kv=8), "jais": dict(n_head_kv=8), "nemotron": dict(rope_dim=64),
-    "chatglm": dict(rope_dim=64)}
+    "chatglm": dict(rope_dim=64),
+    "openelm": dict(head_dim=128, n_head_arr=(4, 8), n_head_kv_arr=(1, 2), n_ff_arr=(1024, 2816)),
+    "bitnet": dict(n_embd=800, n_head_kv=8)}
+# the large MoEs at the sweep's width: {label: (ModelConfig keys, MoEShape
+# keys)}: dbrx's 16 experts (4 a token, clip 8, LayerNorm), grok's 8 (2 a
+# token, softcap 30), arctic's 128 (2 a token) beside its dense FFN; the
+# experts 1024 wide (arctic's 512), so that the CPU references stay short
+SWEEP_MOE = {
+    "dbrx": (dict(n_expert=16, n_expert_used=4, clamp_kqv=8.0, use_rms_norm=False,
+                  rope_type=2), dict(expert_ff=1024)),
+    "grok": (dict(n_expert=8, n_expert_used=2, rope_type=2), dict(expert_ff=1024)),
+    "arctic": (dict(n_expert=128, n_expert_used=2), dict(expert_ff=512))}
 SWEEP_SEED = 29
 # of max|logits|, card against CPU in the exact mode: twice the largest
 # 8-thread-against-1 CPU spread over the sweep's 2-layer files (6.5e-3; the
 # learned-position and LayerNorm-gelu members' at most 4.9e-3), and over
 # baichuan-13B's 40 layers (1.8e-2), rounded up (scripts/
-# qwen_cpu_spread.py on the H100 machine's host; PERF.md)
+# qwen_cpu_spread.py on the H100 machine's host; PERF.md); the MoE members
+# moe_parity_phase's exact-mode bound, 3e-2
 SWEEP_TOL = {2: 1.5e-2, 40: 4e-2}
+SWEEP_MOE_TOL = 3e-2
 
 
 def sweep_cases(tmpdir: Path) -> list:
     """(label, arch config, build, prompt, tol) of arch_sweep_phase: each
-    SWEEP_ARCHES file (family_config's widths, Q4_K_M's mix, written into
-    tmpdir from SWEEP_SEED: the same bytes in every process), loaded in the
-    exact mode with fuse=True, its context's default path."""
+    SWEEP_ARCHES and SWEEP_MOE file (family_config's widths, or a MoE
+    file's at the same widths, Q4_K_M's mix, written into tmpdir from
+    SWEEP_SEED: the same bytes in every process), loaded in the exact mode
+    with fuse=True, its context's default path."""
     import numpy as np
 
+    from llama_kotlin_tpu_torch.models.config import ModelConfig
     from llama_kotlin_tpu_torch.models.loader import load_gguf_model
-    from llama_kotlin_tpu_torch.models.synthetic import family_config, synthetic_gguf
+    from llama_kotlin_tpu_torch.models.synthetic import MoEShape, family_config, synthetic_gguf
     from llama_kotlin_tpu_torch.runtime.context import LlamaContext
 
+    widths = dict(n_embd=1024, n_head=8, n_head_kv=2, n_ff=2816, vocab_size=8192)
     cases = []
-    for i, (label, keys) in enumerate(SWEEP_ARCHES.items()):
+    for i, label in enumerate(list(SWEEP_ARCHES) + list(SWEEP_MOE)):
         arch = label.removesuffix("-13b").removesuffix("-40b")
-        cfg = family_config(arch, **dict(dict(n_embd=1024, n_head=8, n_head_kv=2, n_ff=2816,
-                                              vocab_size=8192), **keys))
+        moe_shape = None
+        if label in SWEEP_MOE:
+            keys, shape_keys = SWEEP_MOE[label]
+            cfg = ModelConfig(arch=arch, name=f"sweep-{arch}", n_layer=2, n_ctx_train=4096,
+                              **widths, **keys)
+            moe_shape = MoEShape(**shape_keys)
+        else:
+            cfg = family_config(arch, **dict(widths, **SWEEP_ARCHES[label]))
         path = tmpdir / f"sweep-{label}.gguf"
         if not path.exists():
-            synthetic_gguf(path, cfg, seed=SWEEP_SEED + i)
+            synthetic_gguf(path, cfg, seed=SWEEP_SEED + i, moe=moe_shape)
 
         def build(dev, path=path):
             lcfg, params, f = load_gguf_model(path, fuse=True, device=dev)
@@ -5475,16 +5672,18 @@ def sweep_cases(tmpdir: Path) -> list:
 
         prompt = np.random.default_rng(SWEEP_SEED + i).integers(
             0, cfg.vocab_size, 64).astype(np.int32)
-        cases.append((f"sweep_{label}", cfg, build, prompt, SWEEP_TOL[cfg.n_layer]))
+        cases.append((f"sweep_{label}", cfg, build, prompt,
+                      SWEEP_MOE_TOL if moe_shape else SWEEP_TOL[cfg.n_layer]))
     return cases
 
 
 def arch_sweep_phase(torch, tmpdir: Path) -> dict:
     """Each sweep_cases file, card against CPU by card_vs_cpu (a 64-token
-    prefill and 4 greedy steps, exact mode, its SWEEP_TOL).  On the card run
+    prefill and 4 greedy steps, exact mode, its SWEEP_TOL; a MoE member by
+    moe_card_vs_cpu, on the CPU's routing).  On the card run
     kernel 3 attends once a layer at every forward, or, where JAX's
     predicate declines its flash kernel (ALiBi: refact, baichuan-13B, mpt,
-    bloom, jais; head dims 96 and 80: phi3, phi2;
+    bloom, jais; head dims 96, 80 and 100: phi3, phi2, bitnet;
     ops/attention.py::flash_declines), never: the plain
     route (cache_attention_reference) attends there instead.  Returns
     {path: launch counts}."""
@@ -5494,13 +5693,21 @@ def arch_sweep_phase(torch, tmpdir: Path) -> dict:
 
     out = {}
     for label, cfg, build, prompt, tol in sweep_cases(tmpdir):
-        cl = cpu_ref(label, lambda: greedy_logits(build, "cpu", prompt, 4))
-        if REFS["writer"]:
-            continue
+        if cfg.n_expert:
+            if REFS["writer"]:
+                moe_card_vs_cpu(torch, label, build, prompt, tol)
+                continue
+        else:
+            cl = cpu_ref(label, lambda: greedy_logits(build, "cpu", prompt, 4))
+            if REFS["writer"]:
+                continue
         plain = CallCounter(llama, "cache_attention_reference")
         flash.LAUNCHES = flash_stacked.LAUNCHES = qmm.LAUNCHES = 0
         try:
-            card_vs_cpu(torch, label, build, prompt, tol, cpu=(None, cl))
+            if cfg.n_expert:
+                moe_card_vs_cpu(torch, label, build, prompt, tol)
+            else:
+                card_vs_cpu(torch, label, build, prompt, tol, cpu=(None, cl))
         finally:
             plain.close()
         got = {"flash": flash.LAUNCHES, "flash_stacked": flash_stacked.LAUNCHES,
@@ -5667,12 +5874,13 @@ def gpt_kernel_phase(torch, results: dict) -> None:
 
 
 def write_falcon_file(path: Path) -> dict:
-    """falcon_phase's file: Falcon-7B (falcon_7b(), all 32 layers) from
-    GPT_SEED in Q4_K_M's mix (llama.cpp's Q5_0 / Q8_0 fallback at K =
-    4544; Q4_K and Q6_K downs, use_more_bits)."""
+    """falcon_phase's file: Falcon-7B (falcon_7b(), its first
+    EARLIER_LAYERS layers since DBRX's and OpenELM-3B's phases came; all 32
+    before) from GPT_SEED in Q4_K_M's mix (llama.cpp's Q5_0 / Q8_0 fallback
+    at K = 4544; Q4_K and Q6_K downs, use_more_bits)."""
     from llama_kotlin_tpu_torch.models.synthetic import falcon_7b
 
-    return _written(path, falcon_7b(), seed=GPT_SEED)
+    return _written(path, falcon_7b(n_layer=EARLIER_LAYERS), seed=GPT_SEED)
 
 
 def write_starcoder_file(path: Path) -> dict:
@@ -5685,9 +5893,9 @@ def write_starcoder_file(path: Path) -> dict:
 
 
 def falcon_phase(torch, tmpdir: Path) -> dict:
-    """Falcon-7B at its published widths and all 32 layers (falcon_7b():
-    E 4544, 71 heads on one kv head, F 18176, vocab 65024, the parallel
-    block), by family_phase: kernel 3 at 71 query heads a group once a
+    """Falcon-7B at its published widths, its first EARLIER_LAYERS layers
+    of 32 (falcon_7b(): E 4544, 71 heads on one kv head, F 18176, vocab
+    65024, the parallel block), by family_phase: kernel 3 at 71 query heads a group once a
     layer at every forward; in w4 kernel 4 takes the fused qkv, o and down
     at decode (rows no 128 divides, as JAX's _plan declines), kernel 5 up
     and the lm_head, kernel 1 and kernel 2 never."""
@@ -5781,6 +5989,264 @@ def gpt_parity_phase(torch, tmpdir: Path) -> None:
         (tmpdir / name).unlink(missing_ok=True)
 
 
+# the large MoEs and the per-layer architectures (dbrx, arctic, grok,
+# openelm, bitnet): DBRX at full width, OpenELM-3B at full width and depth
+LARGE_SEED = 37
+DBRX_LAYERS = 4  # DBRX's served depth; its card-vs-CPU check takes the first 2
+OPENELM_FILE = "openelm-3b-q4_k_m.gguf"
+DBRX_HEADS = (48, 8, 128)  # DBRX's (and Grok-1's) query heads, kv heads (6 a group), head dim
+# the routed experts' matrices [n, k] at their published widths: DBRX
+# (d_model 6144, ffn_hidden_size 10752), Grok-1 (6144, 32768), Arctic
+# (7168, 4864); gate and up share a shape
+EXPERT_SHAPES = {"dbrx gate": (10752, 6144), "dbrx down": (6144, 10752),
+                 "grok-1 gate": (32768, 6144), "grok-1 down": (6144, 32768),
+                 "arctic gate": (4864, 7168), "arctic down": (7168, 4864)}
+# DBRX's attention and experts as its w4 load folds them (Q4_K: K = 6144
+# compact, K = 10752 legacy), and OpenELM-3B's widest layer's q and o (K =
+# 3072 legacy) and the FFN of its layers 5 and 25, which kernel 2 takes (E
+# 3072, F 3072 and 9216, every fold legacy, gate and up apart)
+DBRX_W4_SHAPES = {"qkv": (8192, 6144), "o": (6144, 6144), "expert gate": (10752, 6144),
+                  "expert down": (6144, 10752)}
+OPENELM_W4_SHAPES = {"q": (3072, 3072), "o": (3072, 3072)}
+OPENELM_FFN_WIDTHS = (3072, 9216)
+
+
+def large_moe_kernel_phase(torch, results: dict) -> None:
+    """The kernels at DBRX's, Grok-1's, Arctic's and OpenELM-3B's shapes:
+    - kernel 3 at 48 query heads on 8 kv heads (6 a group: a token's rows
+      straddle the 64-row tile's edges), head dim 128, without and with
+      grok's softcap 30, on the three caches, decode and a 64-token chunk
+      (row 5 blind: exactly 0) over 1024, 4096 and a ragged 1001 visible
+      cells;
+    - kernel 3 on OpenELM-3B's per-layer views: 12 query heads on the
+      first 3 kv heads and 24 on all 6 of a cache sized at 6, a 3-D view of
+      the layer (models/llama.py::_layer_cache), decode and 64 rows over
+      1024 cells, the three caches;
+    - kernel 4's exact branch on Q4_K repacks of the routed experts' gate
+      (up is the same shape) and down at DBRX's widths (m = 1 and 64: a
+      decode step on the sweep and a prefill) and Grok-1's and Arctic's (m
+      = 64), repeated bit-equal;
+    - kernel 1 on the W4 folds of DBRX's qkv, o and experts (b = 1 and 4:
+      one slot, and four on the sweep) and OpenELM-3B's q and o (b = 1);
+      kernel 2 (gate and up apart, up=) at OpenELM-3B's layers 5 and 25 (b
+      = 1), beside the unfused route.
+    Each row against its plain version, timed beside its library call
+    (SDPA without the softcap; torch.matmul on the dequantized weight;
+    kernel 2: the unfused route) and its bound."""
+    import numpy as np
+
+    from llama_kotlin_tpu_torch.models.synthetic import wire_blocks
+    from llama_kotlin_tpu_torch.ops import qmatmul as qmatmul_mod
+    from llama_kotlin_tpu_torch.ops.cuda import qmm, qmm_w4, qmm_w4_ffn
+    from llama_kotlin_tpu_torch.quant import fold, repack
+    from llama_kotlin_tpu_torch.quant.formats import GGMLQuantType as Q
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1210)
+    flush = torch.zeros(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    report = functools.partial(report_row, results)
+    every = ("bf16", "int8", "int4")
+    cases = [(n_vis, nt, every, False) for n_vis in (1024, 4096, 1001) for nt in (1, 64)]
+    head_group_flash_rows(torch, results, gen, flush, "dbrx 48/8", DBRX_HEADS, 4097, cases)
+    head_group_flash_rows(torch, results, gen, flush, "grok 48/8 softcap 30", DBRX_HEADS, 4097,
+                          cases, softcap=30.0)
+    for heads in ((12, 3, 128), (24, 6, 128)):
+        head_group_flash_rows(torch, results, gen, flush,
+                              f"openelm {heads[0]}/{heads[1]} view of 6", heads, 1025,
+                              [(1024, nt, every, False) for nt in (1, 64)], view=6)
+
+    rng = np.random.default_rng(121)
+
+    def q4_k(n, k):  # the exact repack of random Q4_K wire blocks, on the card
+        return repack.repack(torch.from_numpy(wire_blocks(rng, Q.Q4_K, n, k)).to(dev), Q.Q4_K,
+                             n, k)
+
+    for name, (n, k) in EXPERT_SHAPES.items():
+        wt = q4_k(n, k)
+        for m in ((1, 64) if name.startswith("dbrx") else (64,)):
+            xb = (torch.randn((m, k), generator=gen, device=dev) * 0.7).to(torch.bfloat16)
+            got = qmm.qmm(xb, wt)
+            shape = f"exact Q4_K {name} n={n} k={k} m={m}"
+            repeats(torch, "qmm", shape, got, lambda: qmm.qmm(xb, wt))
+            report("qmm", shape, err_of(got, qmm.qmm_plain(xb, wt)), 1e-3,
+                   time_ms(torch, lambda: qmm.qmm(xb, wt), flush),
+                   time_ms(torch, lambda: qmm.qmm_plain(xb, wt), flush),
+                   m * k * 2 + nbytes(wt, EXACT_PLANES) + m * n * 4, 2 * m * n * k, "bf16",
+                   matmul_ms(torch, xb, wt, flush))
+        del wt
+        torch.cuda.empty_cache()
+
+    for tag, shapes, rows in (("dbrx", DBRX_W4_SHAPES, (1, 4)),
+                              ("openelm", OPENELM_W4_SHAPES, (1,))):
+        for name, (n, k) in shapes.items():
+            wt = fold.fold_to_w4(q4_k(n, k))
+            for b in rows:
+                x = torch.randn((b, k), generator=gen, device=dev) * 0.7
+                xp = torch.nn.functional.pad(x, (0, wt.k_pad - k))  # the plain version's K
+                if not qmatmul_mod._decode(x, wt):
+                    raise AssertionError(f"{tag} {name} ({n} rows) did not plan on kernel 1")
+                got = qmm_w4.qmm_w4_matmul(x, wt)
+                shape = f"{tag} {wt.flavor} {name} n={n} k={k} b={b}"
+                if qmm_w4.use_mma(b):
+                    repeats(torch, "qmm_w4", shape, got, lambda: qmm_w4.qmm_w4_matmul(x, wt))
+                report("qmm_w4", shape, err_of(got, qmm_w4.qmm_w4_plain(xp, wt)), 1e-4,
+                       time_ms(torch, lambda: qmm_w4.qmm_w4_matmul(x, wt), flush),
+                       time_ms(torch, lambda: qmm_w4.qmm_w4_plain(xp, wt), flush),
+                       b * k * 4 + nbytes(wt, w4_planes(wt)) + b * n * 4, 2 * b * n * k,
+                       "int8", matmul_ms(torch, x, wt, flush))
+            del wt
+    E = 3072
+    for F in OPENELM_FFN_WIDTHS:
+        gate, up, dn = (fold.fold_to_w4(q4_k(*shape)) for shape in ((F, E), (F, E), (E, F)))
+        if not qmm_w4_ffn.ffn_eligible(gate, dn, "silu", up):
+            raise AssertionError(f"kernel 2 declines OpenELM-3B's FFN at F = {F}")
+        x = torch.randn((1, E), generator=gen, device=dev) * 0.7
+        got = qmm_w4_ffn.qmm_w4_ffn_matmul(x, gate, dn, up=up)
+        ffn_row(torch, results, f"up= openelm {gate.flavor} E={E} F={F} b=1", got, x, gate, dn,
+                up, flush)
+        del gate, up, dn
+    del flush
+    torch.cuda.empty_cache()
+
+
+def write_dbrx_file(path: Path) -> dict:
+    """dbrx_phase's file, whose first 2 layers large_moe_parity_phase also
+    reads: DBRX (dbrx_base(), its first DBRX_LAYERS layers of 40) from
+    LARGE_SEED in Q4_K_M's mix by tensor name (a Q4_K fused qkv, Q4_K
+    experts with Q6_K downs on use_more_bits layers, a Q6_K head) with an
+    SPM vocab of its 100352 pieces (the engine run's tokenizer)."""
+    from llama_kotlin_tpu_torch.models.synthetic import dbrx_base, synthetic_spm_vocab
+
+    cfg, moe_shape = dbrx_base(n_layer=DBRX_LAYERS)
+    return _written(path, cfg, seed=LARGE_SEED, moe=moe_shape,
+                    extra_kvs=synthetic_spm_vocab(cfg.vocab_size))
+
+
+def write_openelm_file(path: Path) -> dict:
+    """openelm_phase's file: OpenELM-3B (openelm_3b(), all 36 layers) from
+    LARGE_SEED + 1 in Q4_K_M's mix, its head the tied Q6_K token_embd."""
+    from llama_kotlin_tpu_torch.models.synthetic import openelm_3b
+
+    return _written(path, openelm_3b(), seed=LARGE_SEED + 1)
+
+
+def dbrx_phase(torch, tmpdir: Path) -> dict:
+    """DBRX at its published widths, its first DBRX_LAYERS layers of 40
+    (dbrx_base(): d_model 6144, 48 heads on 8 kv heads, a fused q|k|v
+    clipped at 8, biasless LayerNorms, 16 experts of 10752, 4 a token,
+    vocab 100352), by family_phase: kernel 3 at 6 query heads a group once
+    a layer at every forward; in the exact mode the experts are one stacked
+    exact repack, gathered at a decode step (4 routed slots, fewer than 16:
+    no kernel) and swept through kernel 4's exact branch at a prefill; in
+    w4 (16 experts: a list of per-expert W4 folds) the sweep at every
+    forward, kernel 1 (Q4_K) and kernel 5 (Q6_K downs) at a decode step;
+    the exact load also serves 4 requests on the engine at 4 slots, whose
+    decode steps sweep (moe_engine)."""
+    return family_phase(torch, tmpdir, "dbrx", DBRX_FILE, engine=True)
+
+
+def openelm_phase(torch, tmpdir: Path) -> dict:
+    """OpenELM-3B at its published widths and all 36 layers (openelm_3b():
+    model_dim 3072, 12 to 24 query heads on 3 to 6 kv heads of 128, FFN
+    1536 to 12288, a tied Q6_K head), by family_phase: every layer attends
+    on kernel 3 over its view of its first kv heads; q|k|v fuse only on
+    the 24/6 layers and gate|up only on the widest FFN; in w4 kernel 1
+    takes the projections (legacy at K = 3072, compact o at 12 and 16
+    heads) and kernel 2 the FFNs of layers 5 and 25 (all legacy, F a
+    multiple of 1024), layer by layer as route_counts predicts."""
+    return family_phase(torch, tmpdir, "openelm_3b", OPENELM_FILE)
+
+
+# the files of large_moe_parity_cases: {name: (config, MoEShape or None)}:
+# DBRX's (its first 2 layers served: a file of its own would add 4.5 GB to
+# the script's writes), and a 2-layer file of OpenELM-3B's first and last
+# layers' shapes
+def large_moe_parity_files() -> dict:
+    from llama_kotlin_tpu_torch.models.synthetic import dbrx_base, openelm_3b
+
+    o = openelm_3b()
+    pick = lambda a: (a[0], a[-1])  # noqa: E731
+    return {DBRX_FILE: dbrx_base(n_layer=2),
+            "openelm-2layer.gguf": (replace(o, n_layer=2, n_head_arr=pick(o.n_head_arr),
+                                            n_head_kv_arr=pick(o.n_head_kv_arr),
+                                            n_ff_arr=pick(o.n_ff_arr)), None)}
+
+
+def write_openelm_parity_file(path: Path) -> dict:
+    cfg, moe_shape = large_moe_parity_files()[path.name]
+    return _written(path, cfg, seed=LARGE_SEED + 2, moe=moe_shape)
+
+
+# of max|logits|, card against CPU: DBRX by moe_parity_phase's bounds
+# (exact 3e-2: the W4A8 model's CPU thread spread with room; w4 5e-2, a w4
+# GGUF file's), OpenELM by Qwen2-7B's (QWEN_PARITY_TOL); each at least
+# twice the CPU's own 8-against-1-thread spread on these files
+# (scripts/qwen_cpu_spread.py --only large on the H100 machine's host,
+# PERF.md)
+LARGE_PARITY_TOL = {("dbrx", None): 3e-2, ("dbrx", "w4"): 5e-2, ("openelm", None): 2e-2,
+                    ("openelm", "w4"): 5e-2}
+
+
+def large_moe_parity_cases(tmpdir: Path) -> list:
+    """(label, build, prompt, tol, moe) of large_moe_parity_phase on DBRX's
+    first 2 layers and the 2-layer OpenELM file (full width; from the
+    writer child or written into tmpdir), in the exact mode and w4,
+    unrolled."""
+    import numpy as np
+
+    from llama_kotlin_tpu_torch.models.loader import load_gguf_model
+    from llama_kotlin_tpu_torch.runtime.context import LlamaContext
+
+    cases = []
+    for name, (cfg, moe_shape) in large_moe_parity_files().items():
+        path = tmpdir / name
+        if not path.exists():
+            child_file(tmpdir, name)
+        prompt = np.random.default_rng(LARGE_SEED).integers(0, cfg.vocab_size, 64).astype(
+            np.int32)
+        label = name.split("-")[0]
+        for (arch, mode), tol in LARGE_PARITY_TOL.items():
+            if arch != label:
+                continue
+
+            def build(dev, mode=mode, path=path, n_layer=cfg.n_layer):
+                lcfg, params, f = load_gguf_model(path, fast_mode=mode, fuse=True, device=dev)
+                f.close()
+                lcfg = replace(lcfg, n_layer=n_layer)  # the file's first n_layer layers
+                params["layers"] = params["layers"][:n_layer]
+                return LlamaContext(lcfg, params, n_cells=1024, buckets=(8, 16, 32, 64),
+                                    device=dev)
+
+            cases.append((f"{label}_parity_{mode or 'exact'}", build, prompt, tol,
+                          moe_shape is not None))
+    return cases
+
+
+def large_moe_parity_phase(torch, tmpdir: Path) -> None:
+    """Full width, 2 layers, card against CPU (a 64-token prefill and 4
+    greedy steps) on large_moe_parity_cases: DBRX by moe_card_vs_cpu (the
+    card on the CPU's routing: top 4 of 16 has more near-ties than top 2);
+    the OpenELM file by card_vs_cpu, kernel 3 once a layer and step on the
+    card, each layer over its own view."""
+    from llama_kotlin_tpu_torch.ops.cuda import flash
+
+    for label, build, prompt, tol, moe in large_moe_parity_cases(tmpdir):
+        if moe:
+            moe_card_vs_cpu(torch, label, build, prompt, tol)
+            continue
+        cl = cpu_ref(label, lambda: greedy_logits(build, "cpu", prompt, 4))
+        if REFS["writer"]:
+            continue
+        flash.LAUNCHES = 0
+        card_vs_cpu(torch, label, build, prompt, tol, cpu=(None, cl))
+        log(json.dumps({"phase": f"{label}_routes", "launches": {"flash": flash.LAUNCHES}}))
+        if flash.LAUNCHES != 2 * 5:
+            raise AssertionError(f"{label}: kernel 3 launched {flash.LAUNCHES} times")
+    for name in large_moe_parity_files():
+        (tmpdir / name).unlink(missing_ok=True)
+
+
 def pick_row(rows: list, i):
     """A kernel's timed row by its index or its shape."""
     return rows[i] if isinstance(i, int) else next(r for r in rows if r["shape"] == i)
@@ -5847,6 +6313,7 @@ def main() -> int:
         timed(iq_kernel_phase, torch, results)
         timed(qwen2_kernel_phase, torch, results)
         timed(gpt_kernel_phase, torch, results)
+        timed(large_moe_kernel_phase, torch, results)
         by_path, cfg, params = timed(serving_phase, torch)
         # speculative decoding on the model's first EARLIER_LAYERS layers
         by_path.update(timed(speculative_phase, torch, replace(cfg, n_layer=EARLIER_LAYERS),
@@ -5877,6 +6344,8 @@ def main() -> int:
             by_path.update(timed(qwen2moe_phase, torch, tmpdir))
             by_path.update(timed(falcon_phase, torch, tmpdir))
             by_path.update(timed(starcoder_phase, torch, tmpdir))
+            by_path.update(timed(dbrx_phase, torch, tmpdir))
+            by_path.update(timed(openelm_phase, torch, tmpdir))
             timed(qwen_parity_phase, torch, tmpdir)
             timed(gpt_parity_phase, torch, tmpdir)
             by_path.update(timed(arch_sweep_phase, torch, tmpdir))
@@ -5887,6 +6356,7 @@ def main() -> int:
             timed(gemma_parity_phase, torch, tmpdir)
             timed(iq_parity_phase, torch, tmpdir)
             timed(llama70b_parity_phase, torch)
+            timed(large_moe_parity_phase, torch, tmpdir)
             timed(stop_cpu_refs, True)
         finally:
             shutil.rmtree(tmpdir, ignore_errors=True)
@@ -5918,13 +6388,20 @@ def main() -> int:
                     "starcoder_qkv_b8": "starcoder compact qkv n=6400 k=6144 b=8",
                     "starcoder_o_b1": "starcoder compact o n=6144 k=6144 b=1",
                     "starcoder_up_b1": "starcoder compact up n=24576 k=6144 b=1",
-                    "starcoder_down_b1": "starcoder compact down n=6144 k=24576 b=1"}),
+                    "starcoder_down_b1": "starcoder compact down n=6144 k=24576 b=1",
+                    "dbrx_qkv_b1": "dbrx compact qkv n=8192 k=6144 b=1",
+                    "dbrx_expert_gate_b1": "dbrx compact expert gate n=10752 k=6144 b=1",
+                    "dbrx_expert_gate_b4": "dbrx compact expert gate n=10752 k=6144 b=4",
+                    "dbrx_expert_down_b1": "dbrx legacy expert down n=6144 k=10752 b=1",
+                    "openelm_q_b1": "openelm legacy q n=3072 k=3072 b=1"}),
         "qmm_w4_ffn": ("csrc/qmm_w4_ffn.cu", "llama_kotlin_tpu/ops/pallas/qmm_w4_ffn.py:155",
                        0, {"b8": "compact E=4096 F=14336 b=8",
                            "b32": "compact E=4096 F=14336 b=32",
                            "up_b1": "up= compact E=4096 F=14336 b=1",
                            "llama3_70b_b1": "70b compact E=8192 F=28672 b=1",
-                           "llama3_70b_b8": "70b compact E=8192 F=28672 b=8"}),
+                           "llama3_70b_b8": "70b compact E=8192 F=28672 b=8",
+                           "openelm_f3072_b1": "up= openelm legacy E=3072 F=3072 b=1",
+                           "openelm_f9216_b1": "up= openelm legacy E=3072 F=9216 b=1"}),
         "flash_mla": ("csrc/flash.cu", "llama_kotlin_tpu/ops/pallas/flash.py:160", 0,
                       {"prefill": "bf16 cache nt=64 n_vis=1024 layer=1",
                        "n4096": "bf16 cache nt=1 n_vis=4096 layer=1",
@@ -5958,7 +6435,15 @@ def main() -> int:
                    "starcoder_decode": "starcoder 48/1 bf16 cache nt=1 n_vis=1024",
                    "starcoder_prefill": "starcoder 48/1 bf16 cache nt=64 n_vis=1024",
                    "starcoder_int4": "starcoder 48/1 int4 cache nt=1 n_vis=1024",
-                   "starcoder_n4096": "starcoder 48/1 bf16 cache nt=1 n_vis=4096"}),
+                   "starcoder_n4096": "starcoder 48/1 bf16 cache nt=1 n_vis=4096",
+                   "dbrx_decode": "dbrx 48/8 bf16 cache nt=1 n_vis=1024",
+                   "dbrx_prefill": "dbrx 48/8 bf16 cache nt=64 n_vis=1024",
+                   "dbrx_int8": "dbrx 48/8 int8 cache nt=1 n_vis=1024",
+                   "dbrx_n4096": "dbrx 48/8 bf16 cache nt=1 n_vis=4096",
+                   "grok_softcap_decode": "grok 48/8 softcap 30 bf16 cache nt=1 n_vis=1024",
+                   "grok_softcap_prefill": "grok 48/8 softcap 30 bf16 cache nt=64 n_vis=1024",
+                   "openelm_view_decode": "openelm 12/3 view of 6 bf16 cache nt=1 n_vis=1024",
+                   "openelm_view_prefill": "openelm 12/3 view of 6 bf16 cache nt=64 n_vis=1024"}),
         "qmm": ("csrc/qmm.cu", "llama_kotlin_tpu/ops/pallas/qmm.py:192", 1,
                 {"m512": 5, "w8": 8,
                  "falcon_w8_qkv_m1": "falcon w8 Q5_0 qkv n=4672 k=4544 m=1",
@@ -6039,7 +6524,17 @@ def main() -> int:
                                   ("falcon_down_m1",
                                    "falcon exact Q4_K down n=4544 k=18176 m=1"),
                                   ("falcon_lm_head_m1",
-                                   "falcon exact Q8_0 lm_head n=65024 k=4544 m=1")):
+                                   "falcon exact Q8_0 lm_head n=65024 k=4544 m=1"),
+                                  ("dbrx_expert_gate_m1",
+                                   "exact Q4_K dbrx gate n=10752 k=6144 m=1"),
+                                  ("dbrx_expert_gate_m64",
+                                   "exact Q4_K dbrx gate n=10752 k=6144 m=64"),
+                                  ("dbrx_expert_down_m64",
+                                   "exact Q4_K dbrx down n=6144 k=10752 m=64"),
+                                  ("grok1_expert_gate_m64",
+                                   "exact Q4_K grok-1 gate n=32768 k=6144 m=64"),
+                                  ("arctic_expert_gate_m64",
+                                   "exact Q4_K arctic gate n=4864 k=7168 m=64")):
                 exact[branch] = {k: pick_row(rows, shape)[k] for k in timing + ("max_abs_err",)}
             # the IQ repacks on the same branch (iq_kernel_phase): qkv at one row
             exact["iq_qkv_b1"] = {

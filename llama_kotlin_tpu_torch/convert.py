@@ -7,11 +7,15 @@ as any object (or dict) carrying the JAX field names;
 the port never imports the JAX class.  Arrays become f32 tensors (norms,
 biases, the llama-shaped family's LayerNorm and q/k norm planes, falcon-40b's
 ``attn_norm_2``, jais's gate bias, bloom's embedding norm, phi2's output
-bias), but the routers the port's loader keeps dense bf16 (``ALWAYS_DENSE``:
+bias; dbrx's ``attn_out_norm``, grok's out-norms under their post-norm
+names, arctic's ``ffn_norm_exps``, bitnet's scales and sub-norms), but the
+routers the port's loader keeps dense bf16 (``ALWAYS_DENSE``:
 the MoE router, qwen2moe's shared-expert gate), which JAX keeps f32 and
 rounds to bf16 at its matmul, and the position table (``pos_embd``: gpt2,
-starcoder), which both loaders keep bf16.  Both sides then compute on identical weights, which is
-what the parity tests need.
+starcoder), which both loaders keep bf16.  Layers keep their own keys
+(openelm's split or fused projections, layer by layer, as JAX's fuse rule
+left them).  Both sides then compute on identical weights, which is what
+the parity tests need.
 """
 
 from __future__ import annotations

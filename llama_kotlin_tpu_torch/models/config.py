@@ -16,14 +16,21 @@ codeshell (non-gated gelu FFN); and the learned-position and LayerNorm-gelu
 family: gpt2 and starcoder (learned positions, no rope), gptneox
 (use_parallel_residual), falcon and phi2 (the parallel block; phi2's qkv
 biases), mpt and bloom (ALiBi; bloom's embedding LayerNorm), jais (ALiBi,
-a biased gated silu FFN), nemotron (relu^2) and chatglm (packed swiglu).
-Every other architecture raises (ROADMAP.md section 1, item 13, lists
-them)."""
+a biased gated silu FFN), nemotron (relu^2) and chatglm (packed swiglu);
+and the large MoEs and the per-layer architectures: dbrx (biasless
+LayerNorm, q/k/v clamping, NEOX rope), grok (the embedding and logit
+scales, the attention softcap 30, gelu experts, NEOX rope), arctic (its
+MoE fields only), openelm (NEOX rope, a tied head, per-layer head, kv-head
+and FFN counts: ``n_head_arr``, ``n_head_kv_arr``, ``n_ff_arr``, with the
+maximum in the scalar fields, read through ``layer_n_head``,
+``layer_n_head_kv`` and ``layer_n_ff``) and bitnet (NEOX rope).  Every
+other architecture raises (ROADMAP.md section 1, item 13, lists them)."""
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Optional
 
 from llama_kotlin_tpu_torch.models import registry
 from llama_kotlin_tpu_torch.ops.rope import (ROPE_TYPE_NEOX, ROPE_TYPE_NONE, ROPE_TYPE_NORM,
@@ -78,6 +85,11 @@ class ModelConfig:
     learned_pos_embd: bool = False  # a position embedding table (gpt2, starcoder)
     token_embd_norm: bool = False  # a LayerNorm right after the embedding (bloom)
     swiglu_packed: bool = False  # chatglm: ffn_up packs [gate|up], silu-gated
+    # openelm's per-layer counts (JAX config.py:75-80); None: uniform, the
+    # scalars.  The scalar fields then hold the maximum, which sizes the cache
+    n_head_arr: Optional[tuple[int, ...]] = None
+    n_head_kv_arr: Optional[tuple[int, ...]] = None
+    n_ff_arr: Optional[tuple[int, ...]] = None
 
     def __post_init__(self):
         if self.head_dim == 0:
@@ -94,6 +106,20 @@ class ModelConfig:
             mscale = 1.0 + self.rope_yarn_log_mul * math.log(1.0 / self.rope_freq_scale)
             return mscale * mscale / (self.head_dim ** 0.5)
         return 1.0 / (self.head_dim ** 0.5)
+
+    def layer_n_head(self, layer: int) -> int:
+        return self.n_head_arr[layer] if self.n_head_arr else self.n_head
+
+    def layer_n_head_kv(self, layer: int) -> int:
+        return self.n_head_kv_arr[layer] if self.n_head_kv_arr else self.n_head_kv
+
+    def layer_n_ff(self, layer: int) -> int:
+        return self.n_ff_arr[layer] if self.n_ff_arr else self.n_ff
+
+    @property
+    def per_layer_shapes(self) -> bool:
+        """Whether any layer's head, kv-head or FFN count is its own (openelm)."""
+        return bool(self.n_head_arr or self.n_head_kv_arr or self.n_ff_arr)
 
     def layer_swa_window(self, layer: int) -> int:
         """Layer `layer`'s sliding window (0: full attention)."""
@@ -122,14 +148,15 @@ def _get(md: dict, arch: str, key: str, default=None):
     return v.item() if hasattr(v, "item") else v
 
 
-def _scalar(md: dict, key: str, default: int) -> int:
-    v = md.get(key)
+def _scalar_or_arr(v, default: int) -> tuple[int, Optional[tuple[int, ...]]]:
+    """A head or FFN count that may be a per-layer array (openelm; JAX
+    ``config.py:148-157``): (the maximum, the array or None)."""
     if v is None:
-        return default
+        return default, None
     if isinstance(v, (list, tuple)) or getattr(v, "ndim", 0) == 1:
-        raise NotImplementedError(f"{key}: per-layer values (openelm) come with ROADMAP.md "
-                                  "section 1, item 13")
-    return int(v)
+        arr = tuple(int(x) for x in v)
+        return max(arr), arr
+    return int(v), None
 
 
 # the architectures config_from_metadata maps: models/registry.py's ported rows
@@ -144,19 +171,24 @@ def config_from_metadata(md: dict) -> ModelConfig:
     arch = md.get("general.architecture", "llama")
     if arch not in ARCHES:
         raise NotImplementedError(
-            f"architecture {arch!r} is not ported: the port loads {', '.join(ARCHES)}; dbrx, "
-            "arctic, grok, openelm, bitnet, the encoders, t5 and mamba come with ROADMAP.md "
-            "section 1, item 13")
+            f"architecture {arch!r} is not ported: the port loads {', '.join(ARCHES)}; the "
+            "encoders, t5, mamba and vision come with ROADMAP.md section 1, item 13")
     n_embd = int(_get(md, arch, "embedding_length", 4096))
-    n_head = _scalar(md, f"{arch}.attention.head_count", 32) or 1
+    n_head, n_head_arr = _scalar_or_arr(md.get(f"{arch}.attention.head_count"), 32)
+    n_head = n_head or 1
+    n_head_kv, n_head_kv_arr = _scalar_or_arr(md.get(f"{arch}.attention.head_count_kv"), n_head)
+    n_ff, n_ff_arr = _scalar_or_arr(md.get(f"{arch}.feed_forward_length"), 4 * n_embd)
     cfg = ModelConfig(
         arch=arch,
         name=str(md.get("general.name", "")),
         n_embd=n_embd,
         n_layer=int(_get(md, arch, "block_count", 32)),
         n_head=n_head,
-        n_head_kv=_scalar(md, f"{arch}.attention.head_count_kv", n_head) or n_head,
-        n_ff=_scalar(md, f"{arch}.feed_forward_length", 4 * n_embd),
+        n_head_kv=n_head_kv or n_head,
+        n_ff=n_ff,
+        n_head_arr=n_head_arr,
+        n_head_kv_arr=n_head_kv_arr,
+        n_ff_arr=n_ff_arr,
         head_dim=int(_get(md, arch, "attention.key_length", 0) or 0),
         v_head_dim=int(_get(md, arch, "attention.value_length", 0) or 0),
         n_ctx_train=int(_get(md, arch, "context_length", 2048)),
@@ -192,8 +224,11 @@ def config_from_metadata(md: dict) -> ModelConfig:
     # JAX config.py:219-223: the NEOX archs among the ported ones (the
     # others rotate adjacent pairs, or take no rope below)
     if arch in ("falcon", "gptneox", "qwen2", "qwen2moe", "phi2", "phi3", "stablelm", "gemma",
-                "gemma2", "starcoder2", "nemotron", "exaone", "qwen", "codeshell"):
+                "gemma2", "starcoder2", "nemotron", "exaone", "qwen", "codeshell", "dbrx",
+                "grok", "openelm", "bitnet"):
         cfg.rope_type = ROPE_TYPE_NEOX
+    if arch == "openelm":
+        cfg.tie_word_embeddings = True  # JAX config.py:224-228: the head is token_embd
     if arch in ("gemma", "gemma2"):
         # JAX config.py:229-234: gelu, the embedding scale, (1 + w) norms,
         # a tied head
@@ -259,11 +294,22 @@ def config_from_metadata(md: dict) -> ModelConfig:
         cfg.max_alibi_bias = 8.0
     if arch == "jais":
         cfg.use_rms_norm = False  # JAX config.py:330-334 (ALiBi above)
+    if arch == "grok":
+        # JAX config.py:335-341: scaled embedding and logits, the attention
+        # softcap 30 (on scores already scaled by 1/sqrt(head_dim)), gelu
+        cfg.embd_scale = 78.38367176906169
+        cfg.logit_scale = 0.5773502691896257
+        cfg.attn_logit_softcap = 30.0
+        cfg.act = "gelu"
     if arch == "codeshell":
         # JAX config.py:342-345: LayerNorm, a non-gated gelu FFN
         cfg.use_rms_norm = False
         cfg.act = "gelu"
         cfg.ffn_gated = False
+    if arch == "dbrx":
+        # JAX config.py:346-348: LayerNorm without biases, q/k/v clipping
+        cfg.use_rms_norm = False
+        cfg.clamp_kqv = float(_get(md, arch, "attention.clamp_kqv", 0.0) or 0.0)
     if arch == "refact":
         # JAX config.py:349-351: ALiBi with RMS norms, no rope
         cfg.rope_type = ROPE_TYPE_NONE

@@ -59,6 +59,23 @@ up; nemotron's relu^2; phi2's output bias, added to the logits before any
 logit scale.  mpt, bloom and jais attend with ALiBi by the plain route, as
 refact does; learned positions stack.
 
+The large MoEs and the per-layer architectures (JAX ``:39-50``,
+``:194-245``, ``:246-300``, ``:385-388``, ``:403-453``, ``:659-672``): dbrx's
+pre-FFN norm is its ``attn_out_norm`` (a biasless LayerNorm) and its q, k
+and v are clipped as olmo's; grok's experts are gelu, its out-norms serve
+as gemma2's post norms (the MoE output rounded to the residual's dtype
+first, as in JAX); arctic runs a MoE branch beside its dense FFN, normed by
+``ffn_norm_exps`` from the post-attention residual; bitnet multiplies each
+projection by its scale and norms the attention output before ``wo`` and
+the gated product before ``down`` (kernel 2 declines such a layer, as
+JAX's megakernel); openelm's layers take their own head, kv-head and FFN
+counts, so the model stays unrolled, a narrower layer's q, k and v stay
+split (and its gate and up where its FFN is narrower than the widest),
+and every layer writes and attends over its own first kv heads of a cache
+sized at the widest, a contiguous 3-D view kernel 3 takes (JAX's per-layer
+slice; the 4-D call with a layer index only where every layer holds the
+cache's kv heads).
+
 - Unrolled (``params["layers"]``): every layer writes its K/V rows into the
   cache IN PLACE, then attends over it through kernel 3.
 - Stacked (``params["layers_stacked"]``, built once by ``stack_layers``;
@@ -112,14 +129,15 @@ QT_TENSORS = ("codes", "g_scale", "g_min", "sb_scale", "sb_min")
 
 def can_stack(params: dict, cfg: ModelConfig) -> bool:
     """Layers can share one loop body when uniform in structure: at least
-    two layers with the same keys, no sliding window and no ALiBi (the JAX
-    package's rule, ``llama_kotlin_tpu/models/llama.py:39-51``; the port's
-    config has no per-layer shapes).  deepseek2's dense lead layer has
-    other keys than its MoE layers, gemma2's windows alternate and ALiBi
-    attends by the plain route, so those models stay unrolled, as in JAX."""
+    two layers with the same keys, no sliding window, no ALiBi and no
+    per-layer head or FFN counts (the JAX package's rule,
+    ``llama_kotlin_tpu/models/llama.py:39-51``).  deepseek2's dense lead
+    layer has other keys than its MoE layers, gemma2's windows alternate,
+    ALiBi attends by the plain route and openelm's layers differ in shape,
+    so those models stay unrolled, as in JAX."""
     layers = params.get("layers")
     if (not layers or len(layers) < 2 or cfg.swa_window > 0
-            or cfg.max_alibi_bias > 0):
+            or cfg.max_alibi_bias > 0 or cfg.per_layer_shapes):
         return False
     keys = set(layers[0])
     return all(set(lp) == keys for lp in layers)
@@ -200,13 +218,14 @@ def _norm(cfg: ModelConfig, lp: dict, key: str, x: torch.Tensor) -> torch.Tensor
 
 
 def _qkv(lp: dict, x: torch.Tensor, cfg: ModelConfig, cos: torch.Tensor, sin: torch.Tensor,
-         rope):
-    """The attention inputs of a layer: q [nt, H, Dk] bf16 and k [nt, KV,
-    Dk], v [nt, KV, Dv] f32, q and k roped."""
+         rope, li: int = -1):
+    """The attention inputs of layer li: q [nt, H, Dk] bf16 and k [nt, KV,
+    Dk], v [nt, KV, Dv] f32, q and k roped (H and KV the layer's own; li
+    -1, a stacked layer, the config's)."""
     if "wkv_a_mqa" in lp:
         q, k, v = _qkv_mla(lp, x, cfg, cos, sin, rope)
     else:
-        q, k, v = _qkv_gqa(lp, x, cfg)
+        q, k, v = _qkv_gqa(lp, x, cfg, li)
         q, k = rotate(q, cos, sin, rope), rotate(k, cos, sin, rope)
     return q.to(COMPUTE_DTYPE), k, v
 
@@ -235,14 +254,17 @@ def _qkv_mla(lp: dict, x: torch.Tensor, cfg: ModelConfig, cos: torch.Tensor,
     return q, k, kv[..., nope:]
 
 
-def _qkv_gqa(lp: dict, x: torch.Tensor, cfg: ModelConfig):
+def _qkv_gqa(lp: dict, x: torch.Tensor, cfg: ModelConfig, li: int = -1):
     """q, k, v of a GQA layer (JAX ``qkv``, ``:195-247``): the projections
-    (fused or split), their biases (one add over a fused output), olmo's
-    clip, then the per-head q/k norms (stablelm's [head_dim] weights,
-    command-r's [n_head, head_dim] LayerNorm ones), before rope."""
+    (fused or split), bitnet's per-projection scales, their biases (one add
+    over a fused output), olmo's and dbrx's clip, then the per-head q/k
+    norms (stablelm's and openelm's [head_dim] weights, command-r's
+    [n_head, head_dim] LayerNorm ones), before rope; at layer li's own head
+    counts (openelm)."""
     nt = x.shape[0]
-    qd = cfg.n_head * cfg.head_dim
-    kvd = cfg.n_head_kv * cfg.head_dim
+    n_h = cfg.layer_n_head(li) if li >= 0 else cfg.n_head
+    n_kv = cfg.layer_n_head_kv(li) if li >= 0 else cfg.n_head_kv
+    qd, kvd = n_h * cfg.head_dim, n_kv * cfg.head_dim
     if "wqkv_fused" in lp:
         y = qmatmul(x, lp["wqkv_fused"])
         if "bqkv_fused" in lp:
@@ -250,13 +272,15 @@ def _qkv_gqa(lp: dict, x: torch.Tensor, cfg: ModelConfig):
         q, k, v = y[:, :qd], y[:, qd:qd + kvd], y[:, qd + kvd:]
     else:  # split projections (unfused load, or a layer whose layouts differ)
         q, k, v = (qmatmul(x, lp[name]) for name in ("wq", "wk", "wv"))
-        if "bq" in lp:
-            q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
-    if cfg.clamp_kqv > 0.0:  # olmo
+    if "wq_scale" in lp:  # bitnet
+        q, k, v = q * lp["wq_scale"], k * lp["wk_scale"], v * lp["wv_scale"]
+    if "bq" in lp:
+        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    if cfg.clamp_kqv > 0.0:  # olmo, dbrx
         q, k, v = (t.clamp(-cfg.clamp_kqv, cfg.clamp_kqv) for t in (q, k, v))
-    q = q.reshape(nt, cfg.n_head, cfg.head_dim)
-    k = k.reshape(nt, cfg.n_head_kv, cfg.head_dim)
-    v = v.reshape(nt, cfg.n_head_kv, cfg.head_dim)
+    q = q.reshape(nt, n_h, cfg.head_dim)
+    k = k.reshape(nt, n_kv, cfg.head_dim)
+    v = v.reshape(nt, n_kv, cfg.head_dim)
     if "attn_q_norm" in lp:
         q, k = _norm(cfg, lp, "attn_q_norm", q), _norm(cfg, lp, "attn_k_norm", k)
     return q, k, v
@@ -272,14 +296,14 @@ def _ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     gpt2 family, or a file without ffn_gate: starcoder2), act(up + its
     bias), or for chatglm's packed up silu(its first half) * its second,
     then down; then the down bias."""
-    if "ffn_gate_inp" in lp:
+    if "ffn_gate_inp" in lp and "ffn_norm_exps" not in lp:
         return _moe_ffn(lp, x, cfg)
     act = ACTIVATIONS[cfg.act]
     fused = "ffn_gateup_fused" in lp
     if cfg.ffn_gated and (fused or "ffn_gate" in lp):
         gate_w = lp["ffn_gateup_fused"] if fused else lp["ffn_gate"]
-        biased = "ffn_gate_b" in lp or "ffn_up_b" in lp
-        down = None if biased else qmm_ffn(
+        plain = not any(k in lp for k in _FFN_BETWEEN)
+        down = None if not plain else qmm_ffn(
             x, gate_w, lp["ffn_down"], act=cfg.act, up=None if fused else lp["ffn_up"])
         if down is None:
             if fused:
@@ -287,11 +311,20 @@ def _ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
                 gate, up = y[:, :cfg.n_ff], y[:, cfg.n_ff:]
             else:
                 gate, up = qmatmul(x, gate_w), qmatmul(x, lp["ffn_up"])
+                if "ffn_gate_scale" in lp:  # bitnet
+                    gate = gate * lp["ffn_gate_scale"]
                 if "ffn_gate_b" in lp:
                     gate = gate + lp["ffn_gate_b"]
+                if "ffn_up_scale" in lp:
+                    up = up * lp["ffn_up_scale"]
                 if "ffn_up_b" in lp:
                     up = up + lp["ffn_up_b"]
-            down = qmatmul((act(gate) * up).to(COMPUTE_DTYPE), lp["ffn_down"])
+            ffn = act(gate) * up
+            if "ffn_sub_norm" in lp:  # bitnet: a norm before down
+                ffn = rms_norm(ffn, lp["ffn_sub_norm"], cfg.rms_eps)
+            down = qmatmul(ffn.to(COMPUTE_DTYPE), lp["ffn_down"])
+            if "ffn_down_scale" in lp:
+                down = down * lp["ffn_down_scale"]
     else:
         up = qmatmul(x, lp["ffn_up"])
         if "ffn_up_b" in lp:
@@ -305,6 +338,13 @@ def _ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if "ffn_down_b" in lp:
         down = down + lp["ffn_down_b"]
     return down
+
+
+# the tensors that sit between a gated FFN's products, under which kernel 2
+# declines as JAX's megakernel does (``llama_kotlin_tpu/models/llama.py:
+# 403-413``): jais's biases, bitnet's scales and sub-norm
+_FFN_BETWEEN = ("ffn_gate_b", "ffn_up_b", "ffn_gate_scale", "ffn_up_scale", "ffn_sub_norm",
+                "ffn_down_scale")
 
 
 def _moe_ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -362,9 +402,11 @@ def _moe_shared(lp: dict, x: torch.Tensor, down: torch.Tensor, cfg: ModelConfig)
 
 
 # the tensors of a layer with a fused gate|up under which JAX's fused
-# layer-half hook declines (``llama_kotlin_tpu/models/llama.py:258-265``),
-# of those the port loads
-_LAYER_HALF_EXCLUDES = ("bo", "post_attn_norm", "ffn_down_b", "post_ffn_norm")
+# layer-half hook declines (``llama_kotlin_tpu/models/llama.py:258-265``)
+_LAYER_HALF_EXCLUDES = ("attn_sub_norm", "wo_scale", "bo", "post_attn_norm", "ffn_gate_inp",
+                        "ffn_gate_b", "ffn_up_b", "ffn_gate_scale", "ffn_up_scale",
+                        "ffn_sub_norm", "ffn_down_b", "ffn_down_scale", "post_ffn_norm",
+                        "ffn_norm_exps")
 
 
 def _fused_layer_half(lp: dict, h: torch.Tensor, attn: torch.Tensor, cfg: ModelConfig):
@@ -395,13 +437,26 @@ def _cache_rows(cache: KVCache, k: torch.Tensor, v: torch.Tensor):
 
 
 def _write_rows(cache: KVCache, li: int, slots: torch.Tensor, rows) -> None:
-    """In-place cache write of _cache_rows into cells `slots` of layer li."""
+    """In-place cache write of _cache_rows into cells `slots` of layer li,
+    its first KV kv heads (the rows' own count: openelm's narrower layers
+    fill the front of a cache sized at the widest)."""
     kc, vc, ks, vs = rows
-    cache.k[li].index_copy_(1, slots, kc)
-    cache.v[li].index_copy_(1, slots, vc)
+    n_kv = kc.shape[0]
+    cache.k[li, :n_kv].index_copy_(1, slots, kc)
+    cache.v[li, :n_kv].index_copy_(1, slots, vc)
     if ks is not None:
-        cache.k_scale[li].index_copy_(1, slots, ks)
-        cache.v_scale[li].index_copy_(1, slots, vs)
+        cache.k_scale[li, :n_kv].index_copy_(1, slots, ks)
+        cache.v_scale[li, :n_kv].index_copy_(1, slots, vs)
+
+
+def _layer_cache(cache: KVCache, li: int, n_kv: int) -> dict:
+    """Layer li's first n_kv kv heads as a 3-D view ([n_kv, cells, D] K/V,
+    [n_kv, cells] scales): contiguous, starting on a row of the cache, so
+    16-byte aligned as kernel 3 requires (JAX's per-layer slice,
+    ``llama_kotlin_tpu/models/llama.py:503-511``)."""
+    return dict(k=cache.k[li, :n_kv], v=cache.v[li, :n_kv],
+                k_scale=None if cache.k_scale is None else cache.k_scale[li, :n_kv],
+                v_scale=None if cache.v_scale is None else cache.v_scale[li, :n_kv])
 
 
 def _stacked_masks(cfg: ModelConfig, mask_full: torch.Tensor, token_pos: torch.Tensor,
@@ -492,10 +547,14 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     if cfg.max_alibi_bias > 0:
         attn_kw.update(alibi=alibi_slopes(cfg.n_head, cfg.max_alibi_bias, h.device),
                        token_pos=token_pos, cell_pos=cell_pos)
+    # JAX's whole-cache rule (:659-663): every layer attends over the 4-D
+    # cache with its layer index where each holds the cache's kv heads, else
+    # (openelm) over its own 3-D view of its first kv heads
+    whole = all(cfg.layer_n_head_kv(i) == cache.k.shape[1] for i in range(cfg.n_layer))
     for li, lp in enumerate(layer_views(params)):
         # JAX attn_in (:150-157): falcon-40b's ln_attn (attn_norm_2) wins
         x = _norm(cfg, lp, "attn_norm_2" if "attn_norm_2" in lp else "attn_norm", h)
-        q, k, v = _qkv(lp, x, cfg, cos, sin, rope)
+        q, k, v = _qkv(lp, x, cfg, cos, sin, rope, -1 if stacked else li)
         rows = _cache_rows(cache, k, v)
         if stacked:
             if cache.quantized:
@@ -516,14 +575,23 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             _write_rows(cache, li, slots, rows)
             layer_mask = mask_swa if cfg.layer_swa_window(li) > 0 else mask
             attend = cache_attention_reference if plain_attn else flash_attention
-            attn = attend(q, cache.k, cache.v, layer_mask, layer=li, kv_bits=cache.kv_bits,
-                          **attn_kw)
+            if whole:
+                attn = attend(q, cache.k, cache.v, layer_mask, layer=li, kv_bits=cache.kv_bits,
+                              **attn_kw)
+            else:
+                view = _layer_cache(cache, li, k.shape[1])
+                attn = attend(q, view.pop("k"), view.pop("v"), layer_mask,
+                              kv_bits=cache.kv_bits, **dict(attn_kw, **view))
         attn = attn.to(COMPUTE_DTYPE).reshape(nt, -1)
         h3 = _fused_layer_half(lp, h, attn, cfg)
         if h3 is not None:
             h = h3
             continue
+        if "attn_sub_norm" in lp:  # bitnet: a norm before wo
+            attn = rms_norm(attn, lp["attn_sub_norm"], cfg.rms_eps)
         attn_out = qmatmul(attn, lp["wo"])
+        if "wo_scale" in lp:
+            attn_out = attn_out * lp["wo_scale"]
         if "bo" in lp:
             attn_out = attn_out + lp["bo"]
         if "post_attn_norm" in lp:  # gemma2
@@ -539,11 +607,21 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             h = h + attn_out.to(h.dtype)
         else:
             h = h + attn_out.to(h.dtype)
-            x = _norm(cfg, lp, "ffn_norm", h)
+            # dbrx names its pre-FFN norm attn_output_norm (JAX :296-302)
+            x = _norm(cfg, lp, "attn_out_norm" if "ffn_norm" not in lp
+                      and "attn_out_norm" in lp else "ffn_norm", h)
+        ffn_inp = h  # the post-attention residual, which arctic's MoE branch reads
         down = _ffn(lp, x, cfg)
-        if "post_ffn_norm" in lp:  # gemma2
+        if "ffn_gate_inp" in lp and "ffn_norm_exps" not in lp:
+            down = down.to(h.dtype)  # JAX rounds a MoE output to the residual's dtype (:388)
+        if "post_ffn_norm" in lp:  # gemma2, grok
             down = rms_norm(down, lp["post_ffn_norm"], cfg.rms_eps, cfg.norm_weight_offset)
         h = h + down.to(h.dtype)
+        if "ffn_norm_exps" in lp and "ffn_gate_inp" in lp:
+            # arctic: the MoE branch beside the dense FFN, normed from the
+            # post-attention residual (JAX :385-388, :449-453)
+            x_moe = rms_norm(ffn_inp, lp["ffn_norm_exps"], cfg.rms_eps)
+            h = h + _moe_ffn(lp, x_moe, cfg).to(h.dtype)
     h_out = _norm(cfg, params, "output_norm", h[out_ids.to(torch.long)])
     out_w = params.get("output")
     if out_w is None:

@@ -56,8 +56,14 @@ once in the mode's layout, which serves both the embedding rows
 5; ``w4x``: W8X; ``int8``: Q8F).  ``LKTPU_DUAL_FOLD=1`` (read at load, as
 JAX's ``:140-144``) gives every W4 fold of the ``w4`` mode a Q8F shadow
 (``quant/fold.py::attach_q8``) from the f32 decode of its wire bytes, for
-the high-batch switch of ``ops/qmatmul.py``.  Still refused: tensor names
-the port's forward does not read (bitnet's scales, SSM and encoder
+the high-batch switch of ``ops/qmatmul.py``.  The large MoEs' and the
+per-layer architectures' (JAX ``:56-60``, ``:77-91``, ``:109-124``,
+``:261-264``): ``attn_output_norm`` (dbrx's pre-FFN norm; with grok's
+``layer_output_norm`` read as the post norms ``post_attn_norm`` /
+``post_ffn_norm``, JAX's ``_ARCH_KEY_ALIASES``), arctic's ``ffn_norm_exps``,
+bitnet's seven ``.scale`` tensors and two sub-norms stay f32; a fused
+``attn_qkv`` splits at its layer's own q and kv widths (openelm).  Still
+refused: tensor names the port's forward does not read (SSM and encoder
 tensors: the architectures ROADMAP.md section 1, item 13 lists).
 """
 
@@ -121,6 +127,27 @@ _LAYER_TENSORS = {
     "attn_kv_a_norm.weight": "attn_kv_a_norm",
     "post_attention_norm.weight": "post_attn_norm",
     "post_ffw_norm.weight": "post_ffn_norm",
+    # dbrx's pre-FFN norm, grok's out-norms (read as post norms below);
+    # arctic's MoE-branch norm; bitnet's per-projection scales and sub-norms
+    "attn_output_norm.weight": "attn_out_norm",
+    "attn_output_norm.bias": "attn_out_norm_b",
+    "layer_output_norm.weight": "layer_out_norm",
+    "layer_output_norm.bias": "layer_out_norm_b",
+    "ffn_norm_exps.weight": "ffn_norm_exps",
+    "attn_sub_norm.weight": "attn_sub_norm",
+    "ffn_sub_norm.weight": "ffn_sub_norm",
+    "attn_q.scale": "wq_scale",
+    "attn_k.scale": "wk_scale",
+    "attn_v.scale": "wv_scale",
+    "attn_output.scale": "wo_scale",
+    "ffn_gate.scale": "ffn_gate_scale",
+    "ffn_up.scale": "ffn_up_scale",
+    "ffn_down.scale": "ffn_down_scale",
+}
+# per-architecture readings of shared names (JAX :261-264): grok's
+# out-norms are pre-residual norms like gemma2's post norms
+_ARCH_KEY_ALIASES = {
+    "grok": {"attn_out_norm": "post_attn_norm", "layer_out_norm": "post_ffn_norm"},
 }
 _GLOBAL_TENSORS = {
     "token_embd.weight": "tok_embd",
@@ -137,7 +164,10 @@ _ALWAYS_FLOAT = {"attn_norm", "ffn_norm", "output_norm", "rope_freqs", "attn_q_a
                  "attn_kv_a_norm", "post_attn_norm", "post_ffn_norm", "attn_norm_b",
                  "ffn_norm_b", "output_norm_b", "attn_q_norm", "attn_k_norm", "bq", "bk", "bv",
                  "bo", "ffn_gate_b", "ffn_up_b", "ffn_down_b", "attn_norm_2", "attn_norm_2_b",
-                 "tok_norm", "tok_norm_b", "output_b"}
+                 "tok_norm", "tok_norm_b", "output_b", "attn_out_norm", "attn_out_norm_b",
+                 "layer_out_norm", "layer_out_norm_b", "ffn_norm_exps", "attn_sub_norm",
+                 "ffn_sub_norm", "wq_scale", "wk_scale", "wv_scale", "wo_scale",
+                 "ffn_gate_scale", "ffn_up_scale", "ffn_down_scale"}
 # dense bf16 in every mode, whatever the file's type: the routers (JAX keeps
 # them f32 and casts them to bf16 at its matmul; the port casts once here)
 ALWAYS_DENSE = {"ffn_gate_inp", "ffn_gate_inp_shexp"}
@@ -227,10 +257,12 @@ def _load_fused_qkv(f: GGUFFile, name: str, cfg: ModelConfig, fast_mode: Optiona
                     dev: torch.device) -> dict:
     """Split a fused attn_qkv tensor into wq/wk/wv (a bias into bq/bk/bv,
     f32), JAX ``:210-259``: the rows are q|k|v and quantized rows are
-    independent, so a row split is exact."""
+    independent, so a row split is exact; the widths are the layer's own
+    (openelm's per-layer head counts)."""
     info = f.tensors[name]
-    qdim = cfg.n_head * cfg.head_dim
-    kvdim = cfg.n_head_kv * cfg.head_dim
+    li = int(name.split(".")[1])
+    qdim = cfg.layer_n_head(li) * cfg.head_dim
+    kvdim = cfg.layer_n_head_kv(li) * cfg.head_dim
     n = info.np_shape[0]
     if n != qdim + 2 * kvdim:
         raise ValueError(f"{name}: rows {n} != q+2kv {qdim + 2 * kvdim}")
@@ -250,18 +282,27 @@ def fuse_layer_projections(cfg: ModelConfig, params: dict) -> int:
     launch instead of two or three): all QTensors (folds or exact repacks),
     or all dense matrices, as in JAX (``:268``).  A layer of mixed layouts
     keeps its projections split: concat_qtensors refuses them (a Q4_K_M
-    layer's Q4_K wq/wk and Q6_K wv, in every mode).  As in JAX (``:309-319``),
-    gate|up fuse only in a gated FFN without a gate or up bias (they apply
-    to the split outputs: jais).  A fused qkv's biases fuse too (bq|bk|bv ->
+    layer's Q4_K wq/wk and Q6_K wv, in every mode).  As in JAX (``:296-320``),
+    q|k|v fuse only in a layer whose head counts are the config's (the
+    maximum: openelm's narrower layers keep them split), and gate|up only
+    in a gated FFN as wide as the config's n_ff without a gate or up bias,
+    bitnet's gate or up scale or its FFN sub-norm (they apply to the split
+    outputs: jais, bitnet).  A fused qkv's biases fuse too (bq|bk|bv ->
     bqkv_fused): one add over the fused output in place of three, the same
     function.  Returns the number of layers with at least one fusion."""
     n_fused = 0
-    for lp in params["layers"]:
+    for li, lp in enumerate(params["layers"]):
         did = False
-        gu_plain = cfg.ffn_gated and "ffn_gate_b" not in lp and "ffn_up_b" not in lp
+        uniform = (cfg.layer_n_head(li) == cfg.n_head
+                   and cfg.layer_n_head_kv(li) == cfg.n_head_kv)
+        gu_plain = (cfg.ffn_gated and cfg.layer_n_ff(li) == cfg.n_ff
+                    and not any(k in lp for k in ("ffn_gate_b", "ffn_up_b", "ffn_gate_scale",
+                                                  "ffn_up_scale", "ffn_sub_norm")))
         for parts, fused in ((("wq", "wk", "wv"), "wqkv_fused"),
                              (("ffn_gate", "ffn_up"), "ffn_gateup_fused")):
             if fused == "ffn_gateup_fused" and not gu_plain:
+                continue
+            if fused == "wqkv_fused" and not uniform:
                 continue
             ws = [lp.get(p) for p in parts]
             if all(isinstance(w, torch.Tensor) for w in ws):
@@ -308,6 +349,7 @@ def load_gguf_model(path: str | Path, *, fast_mode: Optional[str] = None,
                 continue
             if parts[2] in _LAYER_TENSORS:
                 key = _LAYER_TENSORS[parts[2]]
+                key = _ARCH_KEY_ALIASES.get(cfg.arch, {}).get(key, key)
                 lp[key] = _load_tensor(f, name, key, fast_mode, dev)
                 continue
         raise NotImplementedError(f"tensor {name!r} is not read by the port's forward (the "

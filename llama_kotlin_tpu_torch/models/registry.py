@@ -4,7 +4,8 @@ status there and whether the port loads it: the llama family that JAX
 serves through ``models/llama.py`` (llama, gemma, gemma2, deepseek2, the
 llama-shaped RMS and LayerNorm architectures, and the learned-position and
 LayerNorm-gelu family: gpt2, starcoder, gptneox, falcon, mpt, phi2, bloom,
-jais, nemotron, chatglm).  ``models/config.py::
+jais, nemotron, chatglm; the large MoEs dbrx, arctic and grok; the
+per-layer openelm and bitnet).  ``models/config.py::
 config_from_metadata`` raises for every architecture this table does not
 mark ported (ROADMAP.md section 1, item 13).
 """
@@ -83,17 +84,17 @@ ARCHES = [
              "fused qkv+bias, NEOX rope, rms"),
     ArchInfo("refact", "supported", True,
              "RMS norms + ALiBi, no rope"),
-    ArchInfo("dbrx", "supported", False,
+    ArchInfo("dbrx", "supported", True,
              "biasless LayerNorm, clamped fused qkv, normalized-top-k MoE"),
-    ArchInfo("arctic", "supported", False,
+    ArchInfo("arctic", "supported", True,
              "dense FFN + parallel MoE branch (ffn_norm_exps)"),
     ArchInfo("codeshell", "supported", True,
              "LayerNorm+bias, gelu FFN, NEOX partial rope"),
-    ArchInfo("grok", "supported", False,
+    ArchInfo("grok", "supported", True,
              "scaled embd/logits, 30-softcap attention, gelu MoE, pre-residual out-norms"),
     ArchInfo("bert", "supported", False,
              "encoder-only: bidirectional post-norm blocks, token types, WPM tokenizer"),
-    ArchInfo("openelm", "supported", False,
+    ArchInfo("openelm", "supported", True,
              "per-layer head/kv/ff arrays, fused qkv, per-head qk RMS norm, tied output"),
     ArchInfo("nomic-bert", "supported", False,
              "rope encoder, gated silu FFN"),
@@ -106,7 +107,7 @@ ARCHES = [
              "encoder-only t5 via the same loader/encode path"),
     ArchInfo("mamba", "supported", False,
              "selective SSM via lax.scan, recurrent-state MambaContext (models/mamba.py)"),
-    ArchInfo("bitnet", "supported", False,
+    ArchInfo("bitnet", "supported", True,
              "per-projection scalar scales, attn/ffn sub-norms, tied head"),
 ]
 

@@ -22,7 +22,12 @@ sigmoid-gated shared expert) with the metadata keys the loader reads
 file of any llama-shaped, learned-position or LayerNorm-gelu architecture
 the port serves, with the tensors its llama.cpp files carry
 (``FAMILY_TENSORS``; ``family_config`` gives the config its metadata maps
-to; ``falcon_7b`` and ``starcoder_15b`` their published shapes).
+to; ``falcon_7b`` and ``starcoder_15b`` their published shapes); openelm
+files with per-layer head, kv-head and FFN counts written as GGUF arrays
+(``openelm_3b``) and bitnet files with per-projection scales and
+sub-norms; and the large MoEs' files: dbrx (a fused clamped qkv, its
+pre-FFN ``attn_output_norm``), grok (its out-norms) and arctic (a dense
+FFN beside the experts, ``ffn_norm_exps``; ``dbrx_base``).
 """
 
 from __future__ import annotations
@@ -793,7 +798,9 @@ GEMMA_ARCHES = ("gemma", "gemma2")  # tied heads and (1 + w) norms
 # bloom), the output bias ("output_bias": phi2), chatglm's packed
 # [gate|up] ffn_up ("packed_up", 2 n_ff rows) and falcon's second norm
 # ("attn_norm_2": its new decoder architecture, in files with several kv
-# heads: falcon-40b and -180b; falcon-7b's one kv head has one norm)
+# heads: falcon-40b and -180b; falcon-7b's one kv head has one norm); and
+# bitnet's seven per-projection scales (F32 [1]) and two sub-norms
+# ("bitnet"); openelm's layers take their own widths (the config's arrays)
 FAMILY_TENSORS = {
     "qwen2": dict(qkv_bias=True),
     "qwen": dict(qkv_bias=True, fused_qkv=True),
@@ -824,6 +831,8 @@ FAMILY_TENSORS = {
                  norm_bias=True, tied=True),
     "nemotron": dict(norm_bias=True),
     "chatglm": dict(qkv_bias=True, fused_qkv=True, packed_up=True),
+    "openelm": dict(fused_qkv=True, qk_norm="head", tied=True),
+    "bitnet": dict(bitnet=True, tied=True),
 }
 # the dense architectures synthetic_gguf writes: llama, gemma, the
 # llama-shaped family and the learned-position and LayerNorm-gelu family
@@ -831,7 +840,8 @@ FAMILY_TENSORS = {
 DENSE_ARCHES = ("llama", "gemma", "gemma2", "qwen2", "qwen", "stablelm", "phi3", "internlm2",
                 "minicpm", "xverse", "exaone", "baichuan", "starcoder2", "refact", "plamo",
                 "orion", "command-r", "olmo", "codeshell", "gpt2", "starcoder", "gptneox",
-                "falcon", "mpt", "phi2", "bloom", "jais", "nemotron", "chatglm")
+                "falcon", "mpt", "phi2", "bloom", "jais", "nemotron", "chatglm", "openelm",
+                "bitnet")
 # archs whose files carry attention.max_alibi_bias (llama.cpp's mpt and jais
 # read it; bloom's default 8 stands)
 ALIBI_KEY_ARCHES = ("mpt", "jais")
@@ -845,11 +855,15 @@ def family_config(arch: str, n_layer: int = 2, n_embd: int = 256, n_head: int = 
     (named as file_metadata writes them: swa_window, clamp_kqv,
     logit_scale, rope_dim, head_dim, rope_freq_base, rms_eps, norm_eps,
     n_ctx_train (a position table's rows), parallel_residual (gptneox),
-    max_alibi_bias (mpt, jais));
-    synthetic_gguf writes such a file.  baichuan attends with ALiBi from 40
-    layers (baichuan-13B), as config_from_metadata rules."""
+    max_alibi_bias (mpt, jais), openelm's per-layer n_head_arr,
+    n_head_kv_arr and n_ff_arr, whose maxima replace n_head, n_head_kv and
+    n_ff); synthetic_gguf writes such a file.  baichuan attends with ALiBi
+    from 40 layers (baichuan-13B), as config_from_metadata rules."""
     from llama_kotlin_tpu_torch.models.config import config_from_metadata
 
+    n_head = max(keys.get("n_head_arr") or (n_head,))
+    n_head_kv = max(keys.get("n_head_kv_arr") or (n_head_kv,))
+    n_ff = max(keys.get("n_ff_arr") or (n_ff,))
     base = ModelConfig(arch=arch, name=f"synthetic-{arch}", vocab_size=vocab_size,
                        n_embd=n_embd, n_layer=n_layer, n_head=n_head, n_head_kv=n_head_kv,
                        n_ff=n_ff, **{k: v for k, v in keys.items()
@@ -865,6 +879,11 @@ def family_config(arch: str, n_layer: int = 2, n_embd: int = 256, n_head: int = 
     return config_from_metadata(dict(file_metadata(base)))
 
 
+def _count(arr: Optional[tuple], value: int):
+    """A head or FFN count as a GGUF value: its per-layer array, or the scalar."""
+    return np.asarray(arr, np.uint32) if arr else np.uint32(value)
+
+
 def file_metadata(cfg: ModelConfig, matrix_type: GGMLQuantType = GGMLQuantType.Q4_K) -> list:
     """The (key, value) metadata of synthetic_gguf's dense file, under
     cfg.arch (the keys llama.cpp's converter writes): a gemma or gemma2
@@ -872,7 +891,8 @@ def file_metadata(cfg: ModelConfig, matrix_type: GGMLQuantType = GGMLQuantType.Q
     widths; a sliding window, gemma2's logit softcaps, olmo's clamp_kqv and
     command-r's logit_scale where the config has them; gptneox's
     use_parallel_residual and mpt's and jais's max_alibi_bias; the norm
-    epsilon under the key of the arch's norm."""
+    epsilon under the key of the arch's norm; openelm's head widths and its
+    per-layer head, kv-head and FFN counts as arrays."""
     a = cfg.arch
     if a not in DENSE_ARCHES:
         raise ValueError(f"synthetic_gguf writes {DENSE_ARCHES} dense files, not {a!r}")
@@ -884,13 +904,13 @@ def file_metadata(cfg: ModelConfig, matrix_type: GGMLQuantType = GGMLQuantType.Q
           (f"{a}.context_length", np.uint32(cfg.n_ctx_train)),
           (f"{a}.embedding_length", np.uint32(cfg.n_embd)),
           (f"{a}.block_count", np.uint32(cfg.n_layer)),
-          (f"{a}.feed_forward_length", np.uint32(cfg.n_ff)),
-          (f"{a}.attention.head_count", np.uint32(cfg.n_head)),
-          (f"{a}.attention.head_count_kv", np.uint32(cfg.n_head_kv)),
+          (f"{a}.feed_forward_length", _count(cfg.n_ff_arr, cfg.n_ff)),
+          (f"{a}.attention.head_count", _count(cfg.n_head_arr, cfg.n_head)),
+          (f"{a}.attention.head_count_kv", _count(cfg.n_head_kv_arr, cfg.n_head_kv)),
           (f"{a}.rope.dimension_count", np.uint32(cfg.rope_dim)),
           (f"{a}.rope.freq_base", np.float32(cfg.rope_freq_base)),
           (f"{a}.attention.{eps_key}", np.float32(eps))]
-    if a in GEMMA_ARCHES or cfg.head_dim * cfg.n_head != cfg.n_embd:
+    if a in GEMMA_ARCHES or a == "openelm" or cfg.head_dim * cfg.n_head != cfg.n_embd:
         kv += [(f"{a}.attention.key_length", np.uint32(cfg.head_dim)),
                (f"{a}.attention.value_length", np.uint32(cfg.v_head_dim))]
     if cfg.swa_window:
@@ -932,8 +952,10 @@ def synthetic_gguf(path, cfg: ModelConfig, seed: int = 0, layer_types: Optional[
     carries FAMILY_TENSORS' tensors (biases F32, normal with std 0.1; a
     fused attn_qkv of attn_q's type; a position table F32, normal with std
     0.02; chatglm's packed ffn_up of ffn_up's type; falcon's attn_norm_2
-    where it has several kv heads), and a tied one (command-r, minicpm,
-    starcoder, mpt, bloom, jais) no `output`.  Each tensor is drawn from
+    where it has several kv heads; bitnet's scales F32 [1] near 1 and its
+    sub-norms), and a tied one (command-r, minicpm, starcoder, mpt, bloom,
+    jais, openelm, bitnet) no `output`; each layer at its own widths
+    (openelm's arrays).  Each tensor is drawn from
     one numpy Generator as the writer streams it, so a full 8B file never
     sits whole in host
     memory.  extra_kvs (e.g. synthetic_spm_vocab's tokenizer keys) are
@@ -958,8 +980,7 @@ def synthetic_gguf(path, cfg: ModelConfig, seed: int = 0, layer_types: Optional[
     gated = cfg.ffn_gated and fam.get("gated", True)
     if embd_type is None:
         embd_type = output_type if tied else matrix_type
-    E, F, V = cfg.n_embd, cfg.n_ff, cfg.vocab_size
-    qd, kvd = cfg.n_head * cfg.head_dim, cfg.n_head_kv * cfg.head_dim
+    E, V = cfg.n_embd, cfg.vocab_size
     w = GGUFWriter()
     for key, value in (*file_metadata(cfg, matrix_type), *(extra_kvs or {}).items()):
         w.add_kv(key, value)
@@ -983,15 +1004,23 @@ def synthetic_gguf(path, cfg: ModelConfig, seed: int = 0, layer_types: Optional[
     def bias(name, n):
         vector(name + ".bias", (n,), 0.0, 0.1)
 
+    def qk_norms(b, n_h, n_kv):
+        hd = cfg.head_dim
+        for qk, nh in (("attn_q_norm", n_h), ("attn_k_norm", n_kv)):
+            vector(f"{b}{qk}.weight", (hd,) if fam["qk_norm"] == "head" else (nh, hd), 1.0, 0.01)
+
     matrix("token_embd.weight", V, E, embd_type)
     if fam.get("pos_embd"):
         vector("position_embd.weight", (cfg.n_ctx_train, E), 0.0, 0.02)
     if fam.get("tok_norm"):
         norm("token_embd_norm")
     norm_2 = fam.get("attn_norm_2") and cfg.n_head_kv > 1
-    up_rows = 2 * F if fam.get("packed_up") else F
     for i, types in enumerate(layer_types):
         b = f"blk.{i}."
+        F = cfg.layer_n_ff(i)
+        n_h, n_kv = cfg.layer_n_head(i), cfg.layer_n_head_kv(i)
+        qd, kvd = n_h * cfg.head_dim, n_kv * cfg.head_dim
+        up_rows = 2 * F if fam.get("packed_up") else F
         norm(b + "attn_norm")
         if norm_2:
             norm(b + "attn_norm_2")
@@ -1006,6 +1035,8 @@ def synthetic_gguf(path, cfg: ModelConfig, seed: int = 0, layer_types: Optional[
                 matrix(b + "attn_qkv.weight", qd + 2 * kvd, E, qtype)
                 if fam.get("qkv_bias"):
                     bias(b + "attn_qkv", qd + 2 * kvd)
+                if fam.get("qk_norm"):
+                    qk_norms(b, n_h, n_kv)
                 continue
             if name == "ffn_gate":
                 if fam.get("ffn_norm", True):
@@ -1013,6 +1044,11 @@ def synthetic_gguf(path, cfg: ModelConfig, seed: int = 0, layer_types: Optional[
                 if not gated:
                     continue
             matrix(b + name + ".weight", *shapes[name], qtype)
+            if fam.get("bitnet"):
+                vector(b + name + ".scale", (1,), 1.0, 0.05)
+                if name in ("attn_output", "ffn_down"):  # the norm before it
+                    vector(b + ("attn_sub_norm" if name == "attn_output" else "ffn_sub_norm")
+                           + ".weight", (shapes[name][1],), 1.0, 0.01)
             if fam.get("qkv_bias") and name in ("attn_q", "attn_k", "attn_v"):
                 bias(b + name, shapes[name][0])
             if (fam.get("out_bias") and name == "attn_output"
@@ -1020,10 +1056,7 @@ def synthetic_gguf(path, cfg: ModelConfig, seed: int = 0, layer_types: Optional[
                     or fam.get("gate_bias") and name == "ffn_gate"):
                 bias(b + name, shapes[name][0])
             if name == "attn_v" and fam.get("qk_norm"):
-                hd = cfg.head_dim
-                for qk, nh in (("attn_q_norm", cfg.n_head), ("attn_k_norm", cfg.n_head_kv)):
-                    vector(f"{b}{qk}.weight", (hd,) if fam["qk_norm"] == "head" else (nh, hd),
-                           1.0, 0.01)
+                qk_norms(b, n_h, n_kv)
             if cfg.arch == "gemma2" and name in ("attn_output", "ffn_down"):
                 vector(b + ("post_attention_norm.weight" if name == "attn_output"
                             else "post_ffw_norm.weight"), (E,), centre, 0.01)
@@ -1096,6 +1129,61 @@ def qwen1_5_moe_a2_7b(n_layer: int = 24) -> tuple:
                       rope_freq_base=1e6, n_expert=60, n_expert_used=4,
                       moe_norm_topk=False, attn_qkv_bias=True)
     return cfg, MoEShape(expert_ff=1408, n_shared=4, shared_gate=True)
+
+
+def dbrx_base(n_layer: int = 40) -> tuple:
+    """(ModelConfig, MoEShape) of DBRX at its published shapes
+    (huggingface.co/databricks/dbrx-base, config.json): d_model 6144, 40
+    layers, 48 heads of 128 on 8 kv heads, a fused q|k|v clipped at 8
+    (clip_qkv), LayerNorm without biases, 16 experts of 10752 (4 a token,
+    their weights renormalized), rope base 500000, vocab 100352, 32768
+    positions; the fields config_from_metadata sets for such a file.
+    n_layer cuts depth."""
+    cfg = ModelConfig(arch="dbrx", name="dbrx-base", vocab_size=100352, n_embd=6144,
+                      n_layer=n_layer, n_head=48, n_head_kv=8, n_ff=10752, n_ctx_train=32768,
+                      use_rms_norm=False, rope_type=ROPE_TYPE_NEOX, rope_freq_base=500000.0,
+                      n_expert=16, n_expert_used=4, clamp_kqv=8.0)
+    return cfg, MoEShape(expert_ff=10752)
+
+
+def make_divisible(v: float, divisor: int) -> int:
+    """corenet's make_divisible, which OpenELM's configuration applies to
+    its per-layer widths: v rounded to the nearest multiple of divisor (at
+    least divisor), one more step where that lost more than a tenth."""
+    new_v = max(divisor, int(v + divisor / 2) // divisor * divisor)
+    return new_v + divisor if new_v < 0.9 * v else new_v
+
+
+def openelm_arrays(n_layer: int, model_dim: int, head_dim: int, n_groups: int,
+                   qkv_mult: tuple, ffn_mult: tuple, ffn_divisor: int) -> tuple:
+    """OpenELM's per-layer (query heads, kv heads, FFN widths) from its
+    configuration (apple/corenet, OpenELMConfig.__post_init__): the
+    multipliers spaced evenly over the layers and rounded to 2 places, each
+    width made divisible by head_dim * n_groups (query) or ffn_divisor
+    (FFN), kv heads a query head count over n_groups."""
+    qm = [round(float(v), 2) for v in np.linspace(*qkv_mult, num=n_layer)]
+    fm = [round(float(v), 2) for v in np.linspace(*ffn_mult, num=n_layer)]
+    heads = tuple(make_divisible(model_dim * m, head_dim * n_groups) // head_dim for m in qm)
+    return (heads, tuple(h // n_groups for h in heads),
+            tuple(make_divisible(model_dim * m, ffn_divisor) for m in fm))
+
+
+def openelm_3b(n_layer: int = 36) -> ModelConfig:
+    """OpenELM-3B at its published shapes (huggingface.co/apple/OpenELM-3B,
+    config.json): model_dim 3072, 36 layers, head dim 128, 4 query heads a
+    kv head, qkv_multipliers (0.5, 1.0) and ffn_multipliers (0.5, 4.0) with
+    ffn_dim_divisor 256 (openelm_arrays: 12 to 24 query heads, 3 to 6 kv
+    heads, FFN 1536 to 12288), a gated silu FFN, per-head q/k RMS norms,
+    the embedding as the head, vocab 32000, 2048 positions, rope base
+    10000, rms_eps 1e-6; the fields config_from_metadata sets for such a
+    file.  n_layer cuts depth (the first n_layer layers' shapes)."""
+    heads, kv, ff = (a[:n_layer] for a in openelm_arrays(36, 3072, 128, 4, (0.5, 1.0),
+                                                          (0.5, 4.0), 256))
+    return ModelConfig(arch="openelm", name="openelm-3b", vocab_size=32000, n_embd=3072,
+                       n_layer=n_layer, n_head=max(heads), n_head_kv=max(kv), n_ff=max(ff),
+                       head_dim=128, n_ctx_train=2048, rms_eps=1e-6, rope_type=ROPE_TYPE_NEOX,
+                       tie_word_embeddings=True, n_head_arr=heads, n_head_kv_arr=kv,
+                       n_ff_arr=ff)
 
 
 def qwen2_7b(n_layer: int = 28) -> ModelConfig:
@@ -1175,14 +1263,25 @@ def _fallback_type(qtype: GGMLQuantType, k: int) -> GGMLQuantType:
 
 
 def moe_layer_tensors(cfg: ModelConfig, moe: MoEShape, i: int) -> list:
-    """Layer i of a MoE, deepseek2 or qwen2moe file: (name suffix, numpy
-    shape, role) in the order synthetic_gguf writes them; role "norm"
-    (F32), "bias" (F32: qwen2moe's q/k/v biases), "router" (F32, as
-    llama.cpp's quantize leaves ffn_gate_inp and qwen2moe's shared-expert
-    gate ffn_gate_inp_shexp), "attn_v" and "ffn_down" (Q4_K_M's
-    use_more_bits choice) or "matrix"."""
+    """Layer i of a MoE, deepseek2, qwen2moe, dbrx, grok or arctic file:
+    (name suffix, numpy shape, role) in the order synthetic_gguf writes
+    them; role "norm" (F32), "bias" (F32: qwen2moe's q/k/v biases),
+    "router" (F32, as llama.cpp's quantize leaves ffn_gate_inp and
+    qwen2moe's shared-expert gate ffn_gate_inp_shexp), "attn_v" and
+    "ffn_down" (Q4_K_M's use_more_bits choice) or "matrix".  dbrx's layer
+    has a fused attn_qkv (of attn_q's type, as the dense family files) and
+    its pre-FFN norm attn_output_norm in place of ffn_norm; grok's has
+    attn_output_norm after the attention and layer_output_norm after the
+    experts; arctic's a dense FFN of n_ff (ffn_gate, ffn_up, ffn_down)
+    before ffn_norm_exps and the experts."""
     E, H = cfg.n_embd, cfg.n_head
     out = [("attn_norm.weight", (E,), "norm")]
+    if cfg.arch == "dbrx":
+        qd, kvd = H * cfg.head_dim, cfg.n_head_kv * cfg.head_dim
+        out += [("attn_qkv.weight", (qd + 2 * kvd, E), "matrix"),
+                ("attn_output.weight", (E, qd), "matrix"),
+                ("attn_output_norm.weight", (E,), "norm")]
+        return out + _expert_tensors(cfg, moe)
     if cfg.arch == "deepseek2":
         nope, rope = cfg.head_dim - cfg.rope_dim, cfg.rope_dim
         if moe.q_lora_rank:
@@ -1202,24 +1301,36 @@ def moe_layer_tensors(cfg: ModelConfig, moe: MoEShape, i: int) -> list:
         if cfg.attn_qkv_bias:
             out[-1:-1] = [("attn_q.bias", (qd,), "bias"), ("attn_k.bias", (kvd,), "bias"),
                           ("attn_v.bias", (kvd,), "bias")]
+    if cfg.arch == "grok":
+        out.append(("attn_output_norm.weight", (E,), "norm"))
     out.append(("ffn_norm.weight", (E,), "norm"))
+    F = cfg.n_ff
+    dense = [("ffn_gate.weight", (F, E), "matrix"), ("ffn_up.weight", (F, E), "matrix"),
+             ("ffn_down.weight", (E, F), "ffn_down")]
     if i < moe.dense_lead:
-        F = cfg.n_ff
-        return out + [("ffn_gate.weight", (F, E), "matrix"), ("ffn_up.weight", (F, E), "matrix"),
-                      ("ffn_down.weight", (E, F), "ffn_down")]
-    Ne, Fe = cfg.n_expert, moe.expert_ff
-    out += [("ffn_gate_inp.weight", (Ne, E), "router"),
-            ("ffn_gate_exps.weight", (Ne, Fe, E), "matrix"),
-            ("ffn_up_exps.weight", (Ne, Fe, E), "matrix"),
-            ("ffn_down_exps.weight", (Ne, E, Fe), "ffn_down")]
+        return out + dense
+    if cfg.arch == "arctic":
+        out += dense + [("ffn_norm_exps.weight", (E,), "norm")]
+    out += _expert_tensors(cfg, moe)
+    if cfg.arch == "grok":
+        out.append(("layer_output_norm.weight", (E,), "norm"))
     if moe.n_shared:
-        Fs = moe.n_shared * Fe
+        Fs = moe.n_shared * moe.expert_ff
         if moe.shared_gate:
             out.append(("ffn_gate_inp_shexp.weight", (1, E), "router"))
         out += [("ffn_gate_shexp.weight", (Fs, E), "matrix"),
                 ("ffn_up_shexp.weight", (Fs, E), "matrix"),
                 ("ffn_down_shexp.weight", (E, Fs), "ffn_down")]
     return out
+
+
+def _expert_tensors(cfg: ModelConfig, moe: MoEShape) -> list:
+    """The router and the routed experts' stacks of a MoE layer."""
+    E, Ne, Fe = cfg.n_embd, cfg.n_expert, moe.expert_ff
+    return [("ffn_gate_inp.weight", (Ne, E), "router"),
+            ("ffn_gate_exps.weight", (Ne, Fe, E), "matrix"),
+            ("ffn_up_exps.weight", (Ne, Fe, E), "matrix"),
+            ("ffn_down_exps.weight", (Ne, E, Fe), "ffn_down")]
 
 
 def moe_tensor_types(cfg: ModelConfig, moe: MoEShape,
@@ -1253,8 +1364,10 @@ def moe_metadata(cfg: ModelConfig, moe: MoEShape,
     qwen2moe file: a llama file's keys under cfg.arch, the expert counts,
     qwen2moe's expert widths, and deepseek2's head widths, LoRA ranks,
     dense lead, expert widths, expert weight scale and YaRN keys (the keys
-    llama.cpp's converter writes)."""
+    llama.cpp's converter writes); dbrx's LayerNorm epsilon and clamp_kqv."""
     a = cfg.arch
+    eps_key, eps = (("layer_norm_rms_epsilon", cfg.rms_eps) if cfg.use_rms_norm
+                    else ("layer_norm_epsilon", cfg.norm_eps))
     kv = [("general.architecture", a), ("general.name", cfg.name or "synthetic"),
           ("general.file_type", np.uint32(FILE_TYPES[matrix_type])),
           (f"{a}.vocab_size", np.uint32(cfg.vocab_size)),
@@ -1266,9 +1379,11 @@ def moe_metadata(cfg: ModelConfig, moe: MoEShape,
           (f"{a}.attention.head_count_kv", np.uint32(cfg.n_head_kv)),
           (f"{a}.rope.dimension_count", np.uint32(cfg.rope_dim)),
           (f"{a}.rope.freq_base", np.float32(cfg.rope_freq_base)),
-          (f"{a}.attention.layer_norm_rms_epsilon", np.float32(cfg.rms_eps)),
+          (f"{a}.attention.{eps_key}", np.float32(eps)),
           (f"{a}.expert_count", np.uint32(cfg.n_expert)),
           (f"{a}.expert_used_count", np.uint32(cfg.n_expert_used))]
+    if cfg.clamp_kqv:
+        kv.append((f"{a}.attention.clamp_kqv", np.float32(cfg.clamp_kqv)))
     if a == "qwen2moe":
         kv += [(f"{a}.expert_feed_forward_length", np.uint32(moe.expert_ff)),
                (f"{a}.expert_shared_feed_forward_length",
@@ -1293,10 +1408,10 @@ def moe_metadata(cfg: ModelConfig, moe: MoEShape,
 
 def _synthetic_moe_gguf(path, cfg: ModelConfig, moe: MoEShape, rng, types: Optional[dict],
                         embd_type, output_type, matrix_type, extra_kvs) -> int:
-    """synthetic_gguf's MoE, deepseek2 and qwen2moe files: wire_blocks'
-    draws, tensor by tensor in the writer's order (an expert stack as E * n
-    rows of one draw; a router F32, normal with std 0.02; a norm near 1, a
-    bias normal with std 0.1)."""
+    """synthetic_gguf's MoE, deepseek2, qwen2moe, dbrx, grok and arctic
+    files: wire_blocks' draws, tensor by tensor in the writer's order (an
+    expert stack as E * n rows of one draw; a router F32, normal with std
+    0.02; a norm near 1, a bias normal with std 0.1)."""
     from llama_kotlin_tpu_torch.gguf.writer import GGUFWriter
 
     E, V = cfg.n_embd, cfg.vocab_size

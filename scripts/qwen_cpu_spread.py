@@ -6,10 +6,13 @@ modes), the 2-layer Falcon-7B and StarCoder-15.5B files of
 (exact), the same seeds, prompts and contexts, served on the CPU at 8
 intra-op threads and again at 1.
 
-    python3 scripts/qwen_cpu_spread.py [--tmp DIR] [--only qwen|gpt|sweep]
+    python3 scripts/qwen_cpu_spread.py [--tmp DIR] [--only qwen|gpt|sweep|large]
 
 ``--only gpt`` runs the Falcon-7B and StarCoder files and the sweep's
-learned-position and LayerNorm-gelu members (GPT_SWEEP).
+learned-position and LayerNorm-gelu members (GPT_SWEEP); ``--only large``
+the 2-layer DBRX and OpenELM files of ``large_moe_parity_cases`` (in
+their modes) and the sweep's large-MoE and per-layer members
+(LARGE_SWEEP); the sweep's MoE members on a replayed routing.
 
 The thread counts change only the f32 order of the CPU's sums, so the
 difference between the two runs, carried through the layers, is rounding
@@ -41,6 +44,8 @@ from llama_kotlin_tpu_torch.ops import moe  # noqa: E402
 # the sweep's members of the learned-position and LayerNorm-gelu family
 GPT_SWEEP = ("gpt2", "starcoder", "gptneox", "falcon", "falcon-40b", "mpt", "phi2", "bloom",
              "jais", "nemotron", "chatglm")
+# the sweep's large MoEs and per-layer architectures
+LARGE_SWEEP = ("openelm", "bitnet", "dbrx", "grok", "arctic")
 
 
 def spread(label: str, build, prompt, tol: float, is_moe: bool) -> None:
@@ -75,7 +80,7 @@ def spread(label: str, build, prompt, tol: float, is_moe: bool) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tmp", default=None, help="directory for the files (default: a temp dir)")
-    ap.add_argument("--only", choices=("qwen", "gpt", "sweep"), default=None)
+    ap.add_argument("--only", choices=("qwen", "gpt", "sweep", "large"), default=None)
     args = ap.parse_args()
     with tempfile.TemporaryDirectory(dir=args.tmp) as tmp:
         if args.only in (None, "qwen"):
@@ -84,10 +89,15 @@ def main() -> int:
         if args.only in (None, "gpt"):
             for label, build, prompt, tol in chip_smoke.gpt_parity_cases(Path(tmp)):
                 spread(label, build, prompt, tol, False)
+        if args.only in (None, "large"):
+            for label, build, prompt, tol, is_moe in chip_smoke.large_moe_parity_cases(
+                    Path(tmp)):
+                spread(label, build, prompt, tol, is_moe)
         if args.only != "qwen":
-            for label, _cfg, build, prompt, tol in chip_smoke.sweep_cases(Path(tmp)):
-                if args.only != "gpt" or label.removeprefix("sweep_") in GPT_SWEEP:
-                    spread(label, build, prompt, tol, False)
+            members = {"gpt": GPT_SWEEP, "large": LARGE_SWEEP}.get(args.only)
+            for label, cfg, build, prompt, tol in chip_smoke.sweep_cases(Path(tmp)):
+                if members is None or label.removeprefix("sweep_") in members:
+                    spread(label, build, prompt, tol, cfg.n_expert > 0)
     return 0
 
 

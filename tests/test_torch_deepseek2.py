@@ -118,8 +118,7 @@ def test_config_matches_jax(lite):
     keys; synthetic_gguf's DeepSeek-V2-Lite at 2 layers) gives JAX's
     config field for field, attn_scale's YaRN mscale squared and the rope
     parameters included; the registry marks deepseek2 and llama ported, and
-    an architecture it does not (the MoE ones still to come, dbrx and
-    arctic) raises."""
+    an architecture it does not (mamba and t5, still to come) raises."""
     md, _ = _md_ws(0, lite, 4)
     md["general.architecture"] = "deepseek2"
     lite_cfg, lite_moe = deepseek_v2_lite(n_layer=2)
@@ -130,9 +129,9 @@ def test_config_matches_jax(lite):
         assert ours.rope_params() == RopeParams(**vars(ref.rope_params()))
     assert ours.head_dim == 192 and ours.v_head_dim == 128 and ours.rope_dim == 64
     assert registry.is_ported("deepseek2") and registry.is_ported("llama")
-    assert registry.support_status("deepseek2") == "supported" and not registry.is_ported("dbrx")
+    assert registry.support_status("deepseek2") == "supported" and not registry.is_ported("mamba")
     with pytest.raises(NotImplementedError, match="item 13"):
-        config_from_metadata({"general.architecture": "arctic"})
+        config_from_metadata({"general.architecture": "t5"})
 
 
 # (q LoRA or Lite, experts, mode, cache, tol): every value of each axis, and

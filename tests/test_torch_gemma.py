@@ -104,7 +104,7 @@ def test_config_matches_jax(build):
     for arch in ("gemma", "gemma2", "deepseek2", "llama"):
         assert registry.is_ported(arch)
     with pytest.raises(NotImplementedError, match="item 13"):
-        config_from_metadata({"general.architecture": "dbrx"})
+        config_from_metadata({"general.architecture": "mamba"})
 
 
 # tiny gemma2 and gemma at head dim 256: E 256 (Q4_K's 256-element rows), 2
